@@ -1,0 +1,144 @@
+"""The CUDA kernels on the card, against their plain PyTorch versions.
+
+Marked ``cuda``: every test skips without a CUDA device (decided in
+the fixture, never at import).  The file imports no JAX and defines
+its own fixtures, so on a machine with a card and no JAX it runs as
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+
+Tolerance: none for the kernels — they are built with -fmad=false and
+perform the plain versions' float operations in the same order, so
+t, tri, u, v and the any-hit bit are bitwise equal.  Leaf sizes 4 and
+14 exercise the kernel's scalar leaf loads (block % 4 != 0 for 14),
+28 the float4 path of the headline frame.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vulkan_pathtracer_tpu_torch.models import gltf
+from vulkan_pathtracer_tpu_torch.models.camera import Camera
+from vulkan_pathtracer_tpu_torch.models.device_scene import build_device_scene
+from vulkan_pathtracer_tpu_torch.ops import kernels
+from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
+from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T
+from vulkan_pathtracer_tpu_torch.render.pipeline import RenderPipeline
+from vulkan_pathtracer_tpu_torch.utils import RenderConfig
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def scene_paths(tmp_path_factory):
+    from assets.procedural import make_columns, make_cornell
+
+    root = tmp_path_factory.mktemp("cuda_scenes")
+    paths = {"columns": str(root / "columns.glb"),
+             "cornell": str(root / "cornell.glb")}
+    make_columns(paths["columns"], grid=4, segments=3, n_materials=4)
+    make_cornell(paths["cornell"])
+    return paths
+
+
+def _rays(n, seed, device):
+    rng = np.random.default_rng(seed)
+    origins = rng.uniform(-10, 10, size=(n, 3)).astype(np.float32)
+    targets = rng.uniform(-2, 2, size=(n, 3)).astype(np.float32)
+    d = targets - origins
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    active = torch.from_numpy(rng.random(n) < 0.8).to(device)
+    return (torch.from_numpy(origins).to(device),
+            torch.from_numpy(d.astype(np.float32)).to(device), active)
+
+
+@pytest.mark.parametrize("leaf", [4, 14, 28])
+def test_kernels_match_plain(cuda, scene_paths, leaf):
+    scene = build_device_scene(gltf.load(scene_paths["columns"]),
+                               max_leaf_size=leaf, device=cuda)
+    o, d, active = _rays(8192, seed=leaf, device=cuda)
+    t_lane = st.lane_limits(o.shape[0], active, cuda)
+    args = (scene.quad_box, scene.quad_link, scene.leaves, o, d, t_lane)
+    got = kernels.quad_closest_hit(*args)
+    ref = st.quad_closest_hit_plain(*args)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    hits = ref.t < MISS_T
+    assert 500 < int(hits.sum()) < 8192
+    occ = kernels.quad_any_hit(*args)
+    assert torch.equal(occ, st.quad_any_hit_plain(*args))
+    assert torch.equal(occ, hits)
+    assert not occ[~active].any()
+
+
+def test_kernel_skips_empty_slots(cuda):
+    """Empty slots whose boxes every ray hits: the kernel must not read
+    them as leaf 0 (which holds a nearer triangle)."""
+    def tri(z):
+        return [-1.0, -1.0, z, 0.0, 4.0, 0.0, 4.0, 0.0, 0.0]
+
+    leaves = torch.zeros((2, 4, 9))
+    leaves[0, 0] = torch.tensor(tri(2.0))
+    leaves[1, 0] = torch.tensor(tri(5.0))
+    box = torch.zeros((1, 4, 6))
+    box[0, 0] = torch.tensor([-1.0, -1.0, 5.0, 3.0, 3.0, 5.0])
+    box[0, 1:] = torch.tensor([-1e3, -1e3, -1e3, 1e3, 1e3, 1e3])
+    link = torch.tensor([[-2, st.EMPTY, st.EMPTY, st.EMPTY]],
+                        dtype=torch.int32)
+    n = 256
+    o = torch.zeros((n, 3))
+    o[:, :2] = torch.linspace(-0.5, 0.5, n)[:, None]
+    d = torch.tensor([[0.0, 0.0, 1.0]]).expand(n, 3).contiguous()
+    tabs = [x.to(cuda) for x in (box, link, leaves, o, d)]
+    t_lane = st.lane_limits(n, None, cuda)
+    t, tri_id, _, _ = kernels.quad_closest_hit(*tabs, t_lane)
+    assert torch.allclose(t.cpu(), torch.full((n,), 5.0))
+    assert (tri_id == 4).all()
+    assert kernels.quad_any_hit(*tabs, t_lane).all()
+
+
+def test_wrappers_count_launches_and_check_devices(cuda, scene_paths):
+    scene = build_device_scene(gltf.load(scene_paths["columns"]),
+                               max_leaf_size=28, device=cuda)
+    o, d, active = _rays(1024, seed=3, device=cuda)
+    before = dict(st.LAUNCHES)
+    st.quad_closest_hit(scene, o, d, active)
+    st.quad_any_hit(scene, o, d, active)
+    assert st.LAUNCHES["quad_closest_hit"] == before["quad_closest_hit"] + 1
+    assert st.LAUNCHES["quad_any_hit"] == before["quad_any_hit"] + 1
+    t_lane = st.lane_limits(1024, active, cuda)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        kernels.quad_closest_hit(scene.quad_box, scene.quad_link,
+                                 scene.leaves, o.cpu(), d, t_lane)
+    with pytest.raises(ValueError, match="expected shape"):
+        kernels.quad_any_hit(scene.quad_box, scene.quad_link, scene.leaves,
+                             o, d[:10], t_lane)
+
+
+@pytest.mark.parametrize("bounces", [2, 3])
+def test_render_cuda_matches_cpu(cuda, scene_paths, bounces):
+    """A whole frame on the card (kernels) vs on the CPU (plain
+    versions): equal ray counts; radiance allclose 1e-5, since PyTorch's
+    CUDA and CPU elementwise ops need not round alike (a CUDA division
+    by a Python scalar is a reciprocal multiply)."""
+    config = RenderConfig(num_samples=1, num_bounces=bounces,
+                          resolution_x=96, resolution_y=72)
+    cam = Camera(aspect_ratio=config.aspect_ratio,
+                 position=np.asarray([0.0, 1.0, 0.9], np.float32))
+    cam.set_orientation(yaw=180.0, pitch=0.0)
+    images, rays = [], []
+    for device in (cuda, torch.device("cpu")):
+        scene = build_device_scene(gltf.load(scene_paths["cornell"]),
+                                   max_leaf_size=14, device=device)
+        image, traced = RenderPipeline(scene, config).render_numpy(cam, 5)
+        images.append(image)
+        rays.append(traced)
+    assert rays[0] == rays[1]
+    np.testing.assert_allclose(images[0], images[1], rtol=1e-5, atol=1e-5)

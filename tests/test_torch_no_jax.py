@@ -1,0 +1,122 @@
+"""The port runs without JAX and never falls back silently.
+
+- Every module of ``vulkan_pathtracer_tpu_torch`` imports, and the CLI
+  renders a 64x64 box on ``--device cpu``, in a subprocess where
+  ``import jax`` fails (``sys.modules["jax"] = None``).
+- Without CUDA, the default ``--device cuda`` exits non-zero with a
+  clear message instead of switching to the CPU.
+- The traversal wrappers raise for a device that is neither CPU nor
+  CUDA; the CLI refuses flags that are not yet ported.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import vulkan_pathtracer_tpu_torch
+from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(vulkan_pathtracer_tpu_torch.__file__)
+BLOCK_JAX = "import sys; sys.modules['jax'] = None; "
+
+
+def _run(code, *args):
+    return subprocess.run([sys.executable, "-c", BLOCK_JAX + code, *args],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_source_never_imports_jax():
+    pattern = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
+    for dirpath, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as f:
+                    assert not pattern.search(f.read()), name
+
+
+def test_cli_renders_without_jax(box_glb, tmp_path):
+    out = tmp_path / "box.png"
+    code = ("import importlib, pkgutil, runpy; "
+            "import vulkan_pathtracer_tpu_torch as p; "
+            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "p.__path__, p.__name__ + '.') if not m.name.endswith('__main__')]; "
+            "sys.argv = ['vkpt'] + sys.argv[1:]; "
+            "runpy.run_module('vulkan_pathtracer_tpu_torch', "
+            "run_name='__main__')")
+    proc = _run(code, "-s", box_glb, "-x", "64", "-y", "64", "-o", str(out),
+                "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    from vulkan_pathtracer_tpu.utils.png import read_png
+
+    image = read_png(str(out))
+    assert image.shape == (64, 64, 3) and 0 < image.mean() < 255
+
+
+def test_cuda_device_without_cuda_fails(box_glb, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    proc = _run("import runpy; sys.argv = ['vkpt'] + sys.argv[1:]; "
+                "runpy.run_module('vulkan_pathtracer_tpu_torch', "
+                "run_name='__main__')",
+                "-s", box_glb, "-x", "64", "-y", "64",
+                "-o", str(tmp_path / "x.png"))
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert not (tmp_path / "x.png").exists()
+
+
+@pytest.mark.parametrize("flag", [["-v"], ["--progressive"],
+                                  ["--devices", "2"], ["--traversal",
+                                                       "brute"],
+                                  ["--russian-roulette"]])
+def test_unported_flags_refused(flag, capsys):
+    from vulkan_pathtracer_tpu_torch.app.main import parse_args
+
+    with pytest.raises(SystemExit) as exc:
+        parse_args(["-s", "scene.glb", *flag])
+    assert exc.value.code != 0
+    assert "not yet ported in vulkan_pathtracer_tpu_torch" in \
+        capsys.readouterr().err
+
+
+@pytest.mark.parametrize("fn", [st.quad_closest_hit, st.quad_any_hit])
+def test_wrapper_raises_for_meta_tensor(fn):
+    class Tables:
+        quad_box = torch.zeros((1, 4, 6), device="meta")
+        quad_link = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+        leaves = torch.zeros((1, 4, 9), device="meta")
+
+    o = torch.zeros((8, 3), device="meta")
+    with pytest.raises(ValueError, match="no traversal for device type"):
+        fn(Tables, o, o)
+    assert st.LAUNCHES == {"quad_closest_hit": 0, "quad_any_hit": 0}
+
+
+def test_cpu_wrapper_runs_the_plain_version():
+    """On CPU tensors the wrapper returns the plain version's result and
+    launches nothing."""
+    box = torch.zeros((1, 4, 6))
+    box[0, 0] = torch.tensor([-1.0, -1.0, 1.0, 1.0, 1.0, 1.0])
+    link = torch.tensor([[-1, st.EMPTY, st.EMPTY, st.EMPTY]],
+                        dtype=torch.int32)
+    leaves = torch.zeros((1, 4, 9))
+    leaves[0, 0] = torch.tensor([-1.0, -1.0, 1.0, 0.0, 2.0, 0.0,
+                                 2.0, 0.0, 0.0])
+
+    class Tables:
+        quad_box, quad_link = box, link
+
+    Tables.leaves = leaves
+    o = torch.zeros((4, 3))
+    d = torch.tensor([[0.0, 0.0, 1.0]]).expand(4, 3).contiguous()
+    hit = st.quad_closest_hit(Tables, o, d)
+    assert np.allclose(hit.t.numpy(), 1.0) and (hit.tri == 0).all()
+    assert st.quad_any_hit(Tables, o, d).all()
+    assert st.LAUNCHES == {"quad_closest_hit": 0, "quad_any_hit": 0}

@@ -1,0 +1,383 @@
+"""Flattened device scene: world-space tensors for the port.
+
+Port of the FLAT path of ``vulkan_pathtracer_tpu/models/device_scene.py``
+(``build_device_scene`` and ``bvh_with_leaf_blocks``): instance
+transforms are baked at load time into one world-space triangle soup,
+a binned-SAH BVH is built over it (``native/sah.cpp`` through the JAX
+package's JAX-free host modules ``ops/bvh.py`` and ``ops/native.py``),
+its leaves are rewritten to fixed-size blocks, and the tables the
+renderer reads are uploaded to one ``torch.device``:
+
+- triangle SoA ``tri_v0/e1/e2/gn`` (T, 3) and ``tri_material`` (T,),
+  padded to a multiple of 128 with degenerate triangles;
+- ``tri_attr`` (T, 34) f32: the three vertex normals, tangents and
+  uvs, the geometric normal and the material/primitive/local ids
+  (bit-cast int32), exactly the JAX package's packed shading row;
+- ``mat_packed`` (M, 8): factors and texture table per material, as
+  int64 holding the uint32 words;
+- the texel pool (P, 4) uint8 with offset/width/height tables;
+- the quad traversal tables ``quad_box`` / ``quad_link`` and the leaf
+  table ``leaves`` (ops/stack_traverse.py describes the layout);
+- the root bounds, ``emissive_free``, ``bvh_depth``.
+
+``scene_from_jax_arrays`` builds the same scene from the arrays of a
+JAX ``DeviceScene``, so a test can trace one scene in both packages.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from vulkan_pathtracer_tpu_torch.models.gltf import (
+    INVALID_TEXTURE_INDEX,
+    MATERIAL_DTYPE,
+    Scene,
+)
+from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
+    EMPTY,
+    build_quad_tables,
+)
+
+PAD = 128
+
+
+def native_library_loaded() -> bool:
+    """Whether the native host library (SAH BVH build, triangle bake) is loaded.
+    Without it ops/bvh.py builds a different tree (NumPy LBVH)."""
+    from vulkan_pathtracer_tpu.ops.native import get_lib
+
+    return get_lib() is not None
+
+
+@dataclass
+class DeviceScene:
+    tri_v0: torch.Tensor        # (T, 3) f32
+    tri_e1: torch.Tensor        # (T, 3) f32  v1 - v0
+    tri_e2: torch.Tensor        # (T, 3) f32  v2 - v0
+    tri_gn: torch.Tensor        # (T, 3) f32  baked geometric normal
+    tri_material: torch.Tensor  # (T,) int32
+    tri_attr: torch.Tensor      # (T, 34) f32 packed shading row
+    mat_packed: torch.Tensor    # (M, 8) int64 (uint32 words)
+    tex_texels: torch.Tensor    # (P, 4) uint8, texture 0 = 1x1 white
+    tex_offset: torch.Tensor    # (NT,) int32
+    tex_width: torch.Tensor     # (NT,) int32
+    tex_height: torch.Tensor    # (NT,) int32
+    quad_box: torch.Tensor      # (N4, 4, 6) f32
+    quad_link: torch.Tensor     # (N4, 4) int32
+    leaves: torch.Tensor        # (n_leaves, block, 9) f32
+    root_lo: torch.Tensor       # (3,) f32 root AABB
+    root_hi: torch.Tensor       # (3,) f32
+    num_triangles: int = 0      # un-padded triangle count
+    max_leaf_size: int = 4      # leaf block size
+    bvh_depth: int = 0          # binary tree depth (root = 1)
+    has_textures: bool = False  # texel pool beyond the dummy
+    # Every material's emissive factor is zero, so last-bounce radiance
+    # is only the sky/miss decision and the renderer may use any hit.
+    emissive_free: bool = False
+
+    @property
+    def device(self) -> torch.device:
+        return self.tri_attr.device
+
+
+def _pad_rows(arr: np.ndarray, multiple: int, fill=0.0) -> np.ndarray:
+    n = arr.shape[0]
+    target = ((n + multiple - 1) // multiple) * multiple
+    if target == n:
+        return arr
+    pad_shape = (target - n,) + arr.shape[1:]
+    return np.concatenate([arr, np.full(pad_shape, fill, dtype=arr.dtype)])
+
+
+def _bake_instance(scene: Scene, inst, acc: dict, vert_base: int) -> int:
+    """Append one instance's triangles/vertices in world space
+    (device_scene._bake_instance, native fast path + NumPy fallback)."""
+    from vulkan_pathtracer_tpu.ops.native import (
+        bake_triangles_native,
+        transform_dirs_native,
+    )
+
+    M = inst.transform.astype(np.float64)
+    A = M[:3, :3]
+    t = M[:3, 3]
+    N = np.linalg.inv(A)  # triangle.glsl:79 row-vector normal matrix
+    mesh = scene.meshes[inst.mesh_index]
+    for prim_global in range(mesh.start, mesh.end):
+        prim = scene.primitives[prim_global]
+        nrm_w = transform_dirs_native(prim.normals, N)
+        if nrm_w is None:
+            nrm_w = (prim.normals.astype(np.float64) @ N.T).astype(np.float32)
+        tan_w = prim.tangents.copy()
+        tan_xyz = transform_dirs_native(prim.tangents[:, :3], N)
+        if tan_xyz is None:
+            tan_xyz = (prim.tangents[:, :3].astype(np.float64)
+                       @ N.T).astype(np.float32)
+        tan_w[:, :3] = tan_xyz
+
+        idx = prim.indices.reshape(-1, 3).astype(np.int64)
+        baked = bake_triangles_native(prim.positions, idx, A, t, N)
+        if baked is not None:
+            v0, e1, e2, gn = baked
+        else:
+            pos_w = (prim.positions.astype(np.float64) @ A.T
+                     + t).astype(np.float32)
+            v0 = pos_w[idx[:, 0]]
+            e1 = pos_w[idx[:, 1]] - v0
+            e2 = pos_w[idx[:, 2]] - v0
+            obj = prim.positions.astype(np.float64)
+            e1o = obj[idx[:, 1]] - obj[idx[:, 0]]
+            e2o = obj[idx[:, 2]] - obj[idx[:, 0]]
+            gn = np.cross(e1o, e2o) @ N.T
+            norm = np.linalg.norm(gn, axis=1, keepdims=True)
+            gn = (gn / np.maximum(norm, 1e-30)).astype(np.float32)
+
+        tcount = idx.shape[0]
+        acc["tri_v0"].append(v0)
+        acc["tri_e1"].append(e1)
+        acc["tri_e2"].append(e2)
+        acc["tri_gn"].append(gn)
+        acc["tri_index"].append((idx + vert_base).astype(np.int32))
+        acc["tri_material"].append(
+            np.full(tcount, prim.material_index, dtype=np.int32))
+        acc["tri_primitive"].append(
+            np.full(tcount, prim_global, dtype=np.int32))
+        acc["tri_local"].append(np.arange(tcount, dtype=np.int32))
+        acc["vert_normal"].append(nrm_w)
+        acc["vert_tangent"].append(tan_w)
+        acc["vert_uv"].append(prim.uvs)
+        vert_base += prim.positions.shape[0]
+    return vert_base
+
+
+def bvh_with_leaf_blocks(tri_v0, tri_e1, tri_e2, max_leaf_size: int):
+    """Build the BVH and rewrite its leaves to fixed-size blocks.
+    Returns (bvh, slot_map): slot_map (T',) maps leaf-block triangle
+    slots to original triangle indices, -1 for padding."""
+    from vulkan_pathtracer_tpu.ops.bvh import (
+        build_bvh_host,
+        pad_leaves_to_blocks,
+    )
+
+    bvh = build_bvh_host(tri_v0, tri_e1, tri_e2, max_leaf_size=max_leaf_size)
+    gmap = pad_leaves_to_blocks(bvh, block=max_leaf_size)
+    slot_map = np.where(gmap >= 0, bvh.tri_order[np.maximum(gmap, 0)], -1)
+    return bvh, slot_map
+
+
+def _apply_slot_map(arr: np.ndarray, slot_map: np.ndarray) -> np.ndarray:
+    out = arr[np.maximum(slot_map, 0)]
+    out[slot_map < 0] = 0
+    return out
+
+
+def _empty_tree(block: int):
+    """Traversal tables of a scene without triangles: one row of empty
+    slots, so every ray misses."""
+    return (np.zeros((1, 4, 6), np.float32),
+            np.full((1, 4), EMPTY, np.int32),
+            np.zeros((1, block, 9), np.float32),
+            np.zeros(3, np.float32), np.zeros(3, np.float32))
+
+
+def _to_device(host: dict, meta: dict, device) -> DeviceScene:
+    dev = torch.device(device)
+    tensors = {k: torch.from_numpy(np.array(v, order="C")).to(dev)
+               for k, v in host.items()}
+    return DeviceScene(**tensors, **meta)
+
+
+def build_device_scene(scene: Scene, max_leaf_size: int = 4,
+                       device="cuda") -> DeviceScene:
+    """Bake a host Scene into device tensors with a BVH of
+    ``max_leaf_size``-triangle leaf blocks."""
+    acc = {k: [] for k in (
+        "tri_v0", "tri_e1", "tri_e2", "tri_gn", "tri_index", "tri_material",
+        "tri_primitive", "tri_local", "vert_normal", "vert_tangent",
+        "vert_uv",
+    )}
+    vert_base = 0
+    for inst in scene.instances:
+        vert_base = _bake_instance(scene, inst, acc, vert_base)
+
+    def cat(key, dtype, cols):
+        if acc[key]:
+            arr = np.concatenate(acc[key]).astype(dtype)
+            return arr.reshape(-1, cols) if cols > 1 else arr
+        return np.zeros((0, cols) if cols > 1 else (0,), dtype=dtype)
+
+    tri_v0 = cat("tri_v0", np.float32, 3)
+    tri_e1 = cat("tri_e1", np.float32, 3)
+    tri_e2 = cat("tri_e2", np.float32, 3)
+    tri_gn = cat("tri_gn", np.float32, 3)
+    tri_index = cat("tri_index", np.int32, 3)
+    tri_material = cat("tri_material", np.int32, 1)
+    tri_primitive = cat("tri_primitive", np.int32, 1)
+    tri_local = cat("tri_local", np.int32, 1)
+    vert_normal = cat("vert_normal", np.float32, 3)
+    vert_tangent = cat("vert_tangent", np.float32, 4)
+    vert_uv = cat("vert_uv", np.float32, 2)
+    num_triangles = tri_v0.shape[0]
+
+    bvh = None
+    if num_triangles > 0:
+        bvh, slot_map = bvh_with_leaf_blocks(tri_v0, tri_e1, tri_e2,
+                                             max_leaf_size)
+        tri_v0, tri_e1, tri_e2, tri_gn, tri_index, tri_material, \
+            tri_primitive, tri_local = (
+                _apply_slot_map(a, slot_map) for a in (
+                    tri_v0, tri_e1, tri_e2, tri_gn, tri_index, tri_material,
+                    tri_primitive, tri_local))
+    tri_v0, tri_e1, tri_e2, tri_gn, tri_index, tri_material, tri_primitive, \
+        tri_local = (_pad_rows(a, PAD) for a in (
+            tri_v0, tri_e1, tri_e2, tri_gn, tri_index, tri_material,
+            tri_primitive, tri_local))
+    if vert_normal.shape[0] == 0:
+        vert_normal = np.zeros((1, 3), np.float32)
+        vert_tangent = np.zeros((1, 4), np.float32)
+        vert_uv = np.zeros((1, 2), np.float32)
+
+    mats = scene.materials
+    if len(mats) == 0:
+        mats = np.zeros(1, dtype=MATERIAL_DTYPE)
+        mats["albedo_factor"] = 0x00FFFFFF
+        mats["metal_roughness_factor"] = 0x00FFFF00
+        for f in ("albedo_texture_index", "metal_roughness_texture_index",
+                  "emissive_texture_index", "normal_texture_index"):
+            mats[f] = INVALID_TEXTURE_INDEX
+
+    def remap(field):
+        raw = mats[field].astype(np.int64)
+        return np.where(raw == INVALID_TEXTURE_INDEX, 0, raw + 1)
+
+    has_nrm = (mats["normal_texture_index"].astype(np.int64)
+               != INVALID_TEXTURE_INDEX)
+    mat_packed = np.stack([
+        mats["albedo_factor"].astype(np.int64),
+        mats["metal_roughness_factor"].astype(np.int64),
+        mats["emissive_factor"].astype(np.int64),
+        remap("albedo_texture_index"),
+        remap("metal_roughness_texture_index"),
+        remap("emissive_texture_index"),
+        remap("normal_texture_index"),
+        has_nrm.astype(np.int64),
+    ], axis=1)
+
+    texels = [np.full((1, 4), 255, dtype=np.uint8)]
+    offsets, widths, heights = [0], [1], [1]
+    cursor = 1
+    for tex in scene.textures:
+        flat = tex.data.reshape(-1, 4)
+        texels.append(flat)
+        offsets.append(cursor)
+        widths.append(tex.width)
+        heights.append(tex.height)
+        cursor += flat.shape[0]
+
+    i0, i1, i2 = tri_index[:, 0], tri_index[:, 1], tri_index[:, 2]
+    tri_attr = np.concatenate([
+        vert_normal[i0], vert_normal[i1], vert_normal[i2],      # 0:9
+        vert_tangent[i0], vert_tangent[i1], vert_tangent[i2],   # 9:21
+        vert_uv[i0], vert_uv[i1], vert_uv[i2],                  # 21:27
+        tri_gn,                                                 # 27:30
+        np.ascontiguousarray(tri_material).view(np.float32)[:, None],
+        np.ascontiguousarray(tri_primitive).view(np.float32)[:, None],
+        np.ascontiguousarray(tri_local).view(np.float32)[:, None],
+        np.zeros((tri_gn.shape[0], 1), np.float32),             # pad: 34
+    ], axis=1).astype(np.float32)
+
+    if bvh is not None:
+        from vulkan_pathtracer_tpu.ops.bvh import tree_depth
+
+        quad_box, quad_link = build_quad_tables(bvh, max_leaf_size)
+        n_blocks = int(bvh.leaf_first.max()) // max_leaf_size + 1
+        flat = np.concatenate([tri_v0, tri_e1, tri_e2], axis=1)[
+            : n_blocks * max_leaf_size]
+        leaves = flat.reshape(n_blocks, max_leaf_size, 9)
+        root_lo = np.asarray(bvh.bmin[0], np.float32)
+        root_hi = np.asarray(bvh.bmax[0], np.float32)
+        depth = tree_depth(bvh)
+    else:
+        quad_box, quad_link, leaves, root_lo, root_hi = _empty_tree(
+            max_leaf_size)
+        depth = 0
+
+    host = dict(
+        tri_v0=tri_v0, tri_e1=tri_e1, tri_e2=tri_e2, tri_gn=tri_gn,
+        tri_material=tri_material, tri_attr=tri_attr, mat_packed=mat_packed,
+        tex_texels=np.concatenate(texels),
+        tex_offset=np.asarray(offsets, np.int32),
+        tex_width=np.asarray(widths, np.int32),
+        tex_height=np.asarray(heights, np.int32),
+        quad_box=quad_box, quad_link=quad_link, leaves=leaves,
+        root_lo=root_lo, root_hi=root_hi,
+    )
+    meta = dict(
+        num_triangles=num_triangles, max_leaf_size=max_leaf_size,
+        bvh_depth=depth, has_textures=len(scene.textures) > 0,
+        # Emissive rgb is the low 3 bytes of the packed factor; a zero
+        # factor zeroes the texture product too.
+        emissive_free=bool(
+            ((mats["emissive_factor"].astype(np.int64) & 0x00FFFFFF) == 0)
+            .all()),
+    )
+    return _to_device(host, meta, device)
+
+
+def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
+    """The port's scene from a JAX ``DeviceScene``'s arrays as NumPy
+    (its ``_ARRAY_FIELDS``; absent fields None) and its static fields
+    ``num_triangles``, ``max_leaf_size``, ``bvh_depth``,
+    ``emissive_free`` (``has_textures`` is optional).
+
+    Converts the JAX quad rows (N4, 32) — boxes, then enc links as f32
+    values, NaN boxes in empty slots — into quad_box / quad_link with
+    the EMPTY sentinel, and the leaf table (n_leaves, block*9) into
+    (n_leaves, block, 9)."""
+    block = int(meta["max_leaf_size"])
+    rows = arrays.get("bvh_quad")
+    packed = arrays.get("bvh_packed")
+    if rows is not None:
+        n4 = rows.shape[0]
+        quad_box = rows[:, :24].reshape(n4, 4, 6).astype(np.float32)
+        enc = rows[:, 24:28]
+        empty = np.isnan(quad_box[:, :, 0])
+        quad_link = np.where(empty, EMPTY, enc.astype(np.int64)).astype(
+            np.int32)
+        quad_box = np.where(empty[:, :, None], np.float32(0.0), quad_box)
+    elif packed is not None:
+        # Root is a leaf (no internal rows): one row, leaf in slot 0.
+        quad_box = np.zeros((1, 4, 6), np.float32)
+        quad_link = np.full((1, 4), EMPTY, np.int32)
+        quad_box[0, 0] = packed[0, 0:6]
+        leaf_first = int(np.ascontiguousarray(packed[0, 7:8]).view(
+            np.int32)[0])
+        quad_link[0, 0] = -(leaf_first // block + 1)
+    if packed is None:
+        quad_box, quad_link, leaves, root_lo, root_hi = _empty_tree(block)
+    else:
+        blocks = arrays["tri_blocks"]
+        leaves = blocks.reshape(blocks.shape[0], block, 9)
+        root_lo = packed[0, 0:3].astype(np.float32)
+        root_hi = packed[0, 3:6].astype(np.float32)
+    host = dict(
+        tri_v0=arrays["tri_v0"], tri_e1=arrays["tri_e1"],
+        tri_e2=arrays["tri_e2"], tri_gn=arrays["tri_gn"],
+        tri_material=arrays["tri_material"].astype(np.int32),
+        tri_attr=arrays["tri_attr"],
+        mat_packed=arrays["mat_packed"].astype(np.int64),
+        tex_texels=arrays["tex_texels"], tex_offset=arrays["tex_offset"],
+        tex_width=arrays["tex_width"], tex_height=arrays["tex_height"],
+        quad_box=quad_box, quad_link=quad_link, leaves=leaves,
+        root_lo=root_lo, root_hi=root_hi,
+    )
+    out_meta = dict(
+        num_triangles=int(meta["num_triangles"]), max_leaf_size=block,
+        bvh_depth=int(meta["bvh_depth"]),
+        has_textures=bool(meta.get("has_textures",
+                                   arrays["tex_offset"].shape[0] > 1)),
+        emissive_free=bool(meta["emissive_free"]),
+    )
+    return _to_device(host, out_meta, device)

@@ -1,0 +1,165 @@
+"""Build and bind the hand-written CUDA kernels (csrc/*.cu).
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes``.  The build
+happens at first use, into ``build/torch_kernels/<hash>/`` at the root
+of the checkout (``build/`` is git-ignored), keyed by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is.  A failed build, a failed load or a non-zero
+``cudaGetLastError()`` from a launcher raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+BUILD_DIR = os.path.join(_ROOT, "build", "torch_kernels")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_LIB = None
+BUILD_INFO = {}  # seconds, ptxas log, library path of the loaded build
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
+                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from csrc/ at first use")
+
+
+def build() -> str:
+    """Compile csrc/ into the hashed build directory (unless already
+    built) and return the library path."""
+    sources = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + f.read())
+    out_dir = os.path.join(BUILD_DIR, digest.hexdigest()[:16])
+    lib_path = os.path.join(out_dir, "libvkpt_torch_kernels.so")
+    if os.path.exists(lib_path):
+        BUILD_INFO.update(seconds=0.0, log="(cached build)", path=lib_path)
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cu = [s for s in sources if s.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib_path)
+    BUILD_INFO.update(seconds=seconds, log=proc.stdout + proc.stderr,
+                      path=lib_path)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built at first call)."""
+    global _LIB
+    if _LIB is None:
+        handle = ctypes.CDLL(build())
+        p = ctypes.c_void_p
+        handle.vkpt_quad_closest_hit.restype = ctypes.c_int
+        handle.vkpt_quad_closest_hit.argtypes = [
+            p, p, p, ctypes.c_int, p, p, p, ctypes.c_int64, p, p, p, p, p]
+        handle.vkpt_quad_any_hit.restype = ctypes.c_int
+        handle.vkpt_quad_any_hit.argtypes = [
+            p, p, p, ctypes.c_int, p, p, p, ctypes.c_int64, p, p]
+        _LIB = handle
+    return _LIB
+
+
+def _check(name: str, x: torch.Tensor, dtype, shape,
+           align: int = 16) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {x.dtype}")
+    if tuple(x.shape[1:]) != tuple(shape[1:]) or (
+            shape[0] is not None and x.shape[0] != shape[0]):
+        raise ValueError(f"{name}: expected shape {shape}, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous() or x.data_ptr() % align:
+        raise ValueError(f"{name}: must be contiguous and {align}-byte "
+                         f"aligned")
+
+
+def _check_tables(box, link, leaves):
+    _check("quad_box", box, torch.float32, (None, 4, 6))
+    _check("quad_link", link, torch.int32, (box.shape[0], 4))
+    if leaves.dim() != 3:
+        raise ValueError("leaves: expected (n_leaves, block, 9)")
+    _check("leaves", leaves, torch.float32, (None, leaves.shape[1], 9))
+
+
+def _check_rays(origin, direction, t_lane, device):
+    n = origin.shape[0]
+    for name, x, shape in (("origin", origin, (n, 3)),
+                           ("direction", direction, (n, 3)),
+                           ("t_lane", t_lane, (n,))):
+        _check(name, x, torch.float32, shape, align=4)
+        if x.device != device:
+            raise ValueError(f"{name} lies on {x.device}, tables on {device}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def quad_closest_hit(box, link, leaves, origin, direction, t_lane):
+    """Launch the closest-hit kernel; returns (t, tri, u, v)."""
+    _check_tables(box, link, leaves)
+    _check_rays(origin, direction, t_lane, box.device)
+    n = origin.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=origin.device)
+    tri = torch.empty(n, dtype=torch.int32, device=origin.device)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    rc = lib().vkpt_quad_closest_hit(
+        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
+        origin.data_ptr(), direction.data_ptr(), t_lane.data_ptr(), n,
+        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+        _stream(origin.device))
+    if rc != 0:
+        raise RuntimeError(f"quad_closest_hit launch failed: CUDA error {rc}")
+    return t, tri, u, v
+
+
+def quad_any_hit(box, link, leaves, origin, direction, t_lane):
+    """Launch the any-hit kernel; returns an (N,) bool tensor."""
+    _check_tables(box, link, leaves)
+    _check_rays(origin, direction, t_lane, box.device)
+    n = origin.shape[0]
+    hit = torch.empty(n, dtype=torch.uint8, device=origin.device)
+    rc = lib().vkpt_quad_any_hit(
+        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
+        origin.data_ptr(), direction.data_ptr(), t_lane.data_ptr(), n,
+        hit.data_ptr(), _stream(origin.device))
+    if rc != 0:
+        raise RuntimeError(f"quad_any_hit launch failed: CUDA error {rc}")
+    return hit.bool()

@@ -1,0 +1,210 @@
+"""The wavefront bounce loop — port of render/wavefront.py.
+
+One sample = up to ``num_bounces`` segments per ray.  Each bounce:
+
+    closest hit (quad-BVH kernel)
+      -> sky / emissive accumulation
+      -> attribute + material fetch
+      -> BRDF sampling
+      -> next-ray state update (masked)
+
+Dead lanes are masked, and their RNG state is left untouched, so the
+per-lane random stream stays bit-exact with the reference's early
+breaks (ray_gen.rgen:44-102).  On an emissive-free scene the last
+bounce only decides sky or not, so it runs the ANY-HIT kernel
+(``_anyhit_enabled``).  With ``sort_secondary`` the bounce rays are
+sorted by the 6d endpoint Morton key before traversal and the results
+scattered back; per-ray results do not depend on the order.
+
+Deviation kept from the JAX package: the pdf divide is clamped with
+``max(density, 1e-30)``; lanes where that matters are already dead.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vulkan_pathtracer_tpu_torch.ops import rng, stack_traverse
+from vulkan_pathtracer_tpu_torch.ops.brdf import (
+    ShadingInfo,
+    brdf,
+    get_brdf_density,
+    sample_brdf,
+)
+from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T, Hit
+from vulkan_pathtracer_tpu_torch.ops.sort import state_sort_order
+from vulkan_pathtracer_tpu_torch.ops.vecmath import dot, mix
+from vulkan_pathtracer_tpu_torch.render.shading import (
+    get_emissive_lean,
+    get_material_data,
+    get_triangle_data,
+)
+
+SKY_WHITE = (1.0, 1.0, 1.0)
+SKY_BLUE = (0.5, 0.7, 1.0)
+EMISSIVE_SCALE = 10.0       # ray_gen.rgen:75
+ORIGIN_OFFSET = 1e-5        # ray_gen.rgen:86
+ROUGHNESS_FLOOR = 0.006     # ray_gen.rgen:84
+F0_DIELECTRIC = 0.02        # ray_gen.rgen:82
+SORT_L = 0.5                # 6d key: endpoint at 0.5 * scene diagonal
+
+
+def _closest_hit(scene, origin, direction, active) -> Hit:
+    return stack_traverse.quad_closest_hit(
+        scene, origin.contiguous(), direction.contiguous(), active)
+
+
+def _any_hit(scene, origin, direction, active) -> torch.Tensor:
+    """(N,) bool, True exactly where _closest_hit reports t < MISS_T;
+    inactive lanes False."""
+    return stack_traverse.quad_any_hit(
+        scene, origin.contiguous(), direction.contiguous(), active)
+
+
+def _anyhit_enabled(scene) -> bool:
+    """The last bounce may use any hit iff the scene is emissive-free
+    (hit lanes would add emissive x atten == 0)."""
+    return bool(scene.emissive_free)
+
+
+def _bounce_sort_key(scene, origin, direction, alive) -> torch.Tensor:
+    """6d endpoint-pair Morton key (5 bits per axis of origin and of
+    origin + L*direction, L = 0.5 * scene diagonal); dead lanes get
+    0xFFFFFFFF and sort last.  int64 holding uint32 values."""
+    lo = scene.root_lo
+    ext = torch.clamp(scene.root_hi - lo, min=1e-9)
+    length = SORT_L * torch.sqrt(dot(ext, ext))
+    qo = torch.clamp((origin - lo) / ext * 31.0, 0.0, 31.0).to(torch.int64)
+    qe = torch.clamp((origin + length * direction - lo) / ext * 31.0,
+                     0.0, 31.0).to(torch.int64)
+    key = torch.zeros(origin.shape[0], dtype=torch.int64,
+                      device=origin.device)
+    for b in range(4, -1, -1):
+        for comp in (qo[:, 0], qo[:, 1], qo[:, 2],
+                     qe[:, 0], qe[:, 1], qe[:, 2]):
+            key = (key << 1) | ((comp >> b) & 1)
+    return torch.where(alive, key, torch.full_like(key, 0xFFFFFFFF))
+
+
+def _sorted_order(scene, origin, direction, active):
+    key = _bounce_sort_key(
+        scene, origin, direction,
+        torch.ones(origin.shape[0], dtype=torch.bool, device=origin.device)
+        if active is None else active)
+    _, order = state_sort_order(key, 1)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    return order, inv
+
+
+def _closest_hit_sorted(scene, origin, direction, active) -> Hit:
+    """Closest hit with rays sorted by the bounce key, results
+    scattered back to lane order (identical per-ray results)."""
+    order, inv = _sorted_order(scene, origin, direction, active)
+    act_s = None if active is None else active[order]
+    hit = _closest_hit(scene, origin[order], direction[order], act_s)
+    return Hit(t=hit.t[inv], tri=hit.tri[inv], u=hit.u[inv], v=hit.v[inv])
+
+
+def _any_hit_sorted(scene, origin, direction, active) -> torch.Tensor:
+    """Sorted-dispatch any hit (sorted rays resolve together)."""
+    order, inv = _sorted_order(scene, origin, direction, active)
+    act_s = None if active is None else active[order]
+    return _any_hit(scene, origin[order], direction[order], act_s)[inv]
+
+
+def sky_color(direction: torch.Tensor) -> torch.Tensor:
+    """ray_gen.rgen:65-70."""
+    t = 0.5 * (direction[:, 1] + 1.0)
+    white = torch.tensor(SKY_WHITE, dtype=torch.float32,
+                         device=direction.device)
+    blue = torch.tensor(SKY_BLUE, dtype=torch.float32,
+                        device=direction.device)
+    return mix(white[None, :], blue[None, :], t[:, None])
+
+
+def extend_paths(scene, hit, origin, direction, atten, seed_x, seed_y,
+                 did_hit, tri_data, mat):
+    """Shade the hit lanes and draw the next segment (ray_gen.rgen:80-101).
+    Returns (origin, direction, atten, seed_x, seed_y, alive)."""
+    out_dir = -direction
+    albedo = mat.albedo[:, :3]
+    metallic = mat.metallic[:, None]
+    shading = ShadingInfo(
+        normal=mat.normal,
+        out_dir=out_dir,
+        lambert_out=dot(mat.normal, out_dir),
+        fresnel_0=mix(F0_DIELECTRIC, albedo, metallic),
+        diffuse_albedo=albedo - metallic * albedo,
+        roughness=torch.clamp(mat.roughness, min=ROUGHNESS_FLOOR),
+    )
+    # Draw exactly where the reference draws (hit and not last bounce).
+    nsx, nsy, rx, ry = rng.pcg2d(seed_x, seed_y)
+    seed_x = torch.where(did_hit, nsx, seed_x)
+    seed_y = torch.where(did_hit, nsy, seed_y)
+
+    new_origin = (origin + hit.t[:, None] * direction
+                  + tri_data.geometry_normal * ORIGIN_OFFSET)
+    new_direction = sample_brdf(shading, rx, ry)
+    density = get_brdf_density(shading, new_direction)
+    lambert_in = dot(shading.normal, new_direction)
+    killed = lambert_in <= 0.0
+    weight = (brdf(shading, new_direction) * lambert_in[:, None]
+              / torch.clamp(density, min=1e-30)[:, None])
+    survive = did_hit & ~killed
+    hit_col = did_hit[:, None]
+    atten = torch.where(survive[:, None], atten * weight, atten)
+    origin = torch.where(hit_col, new_origin, origin)
+    direction = torch.where(hit_col, new_direction, direction)
+    return origin, direction, atten, seed_x, seed_y, survive
+
+
+def trace_sample(scene, origin, direction, seed_x, seed_y, *,
+                 num_bounces: int, sort_secondary: bool = False):
+    """Trace one sample for all rays.  Returns (color (N, 3),
+    new_seed_x, new_seed_y, rays_traced) with rays_traced an int64
+    0-d tensor (the live lanes summed over bounces)."""
+    n = origin.shape[0]
+    dev = origin.device
+    color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    atten = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    for j in range(num_bounces):
+        rays_traced = rays_traced + alive.sum()
+        last = j == num_bounces - 1
+        sorted_pass = sort_secondary and j > 0
+        if last and _anyhit_enabled(scene):
+            # Emissive-free last bounce: only the sky/miss decision
+            # feeds radiance, and no RNG draws happen.
+            hit_mask = (_any_hit_sorted if sorted_pass else _any_hit)(
+                scene, origin, direction, alive)
+            missed = alive & ~hit_mask
+            color = color + torch.where(missed[:, None],
+                                        atten * sky_color(direction), zero)
+            alive = torch.zeros_like(alive)
+            continue
+        hit = (_closest_hit_sorted if sorted_pass else _closest_hit)(
+            scene, origin, direction, alive)
+        missed = alive & (hit.t >= MISS_T)
+        did_hit = alive & ~missed
+        color = color + torch.where(missed[:, None],
+                                    atten * sky_color(direction), zero)
+
+        tri_data = mat = None
+        emissive = get_emissive_lean(scene, hit) if last else None
+        if emissive is None:
+            tri_data = get_triangle_data(scene, hit)
+            mat = get_material_data(scene, tri_data)
+            emissive = mat.emissive
+        color = color + torch.where(did_hit[:, None],
+                                    emissive * EMISSIVE_SCALE * atten, zero)
+        if last:
+            alive = torch.zeros_like(alive)
+            continue
+        origin, direction, atten, seed_x, seed_y, alive = extend_paths(
+            scene, hit, origin, direction, atten, seed_x, seed_y, did_hit,
+            tri_data, mat)
+    return color, seed_x, seed_y, rays_traced
