@@ -3,25 +3,42 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero before the
-result line):
+Phases (each prints one line or more; any failure exits non-zero
+before the result line):
 
 1. device — CUDA present, compute capability 9.0, the card's name and
    power limit from nvidia-smi, the native SAH library loaded;
 2. build — the kernels of vulkan_pathtracer_tpu_torch/csrc built with
-   nvcc for sm_90a (seconds, ptxas register/spill report);
-3. kernels — each hand-written kernel against its plain PyTorch
-   version on the card: the columns scene (56k triangles, leaf 28)
-   with a frame's primary and bounce rays, the 246,444-triangle atrium
-   with 65,536 primary and 65,536 bounce rays, and both kernels timed
-   at the headline frame's shapes (2,073,600 primaries; the sorted
-   last-bounce launch);
-4. main path — the headline frame (atrium, 1920x1080, 1 spp, 2 bounces,
-   leaf 28) through the same loader and pipeline as
+   nvcc for sm_90a, one nvcc per source in parallel (seconds, ptxas
+   register/spill report);
+3. flat kernels — each quad kernel against its plain PyTorch version on
+   the card: the columns scene (56k triangles, leaf 28) with a frame's
+   primary and bounce rays, the 246,444-triangle atrium with 65,536
+   primary and 65,536 bounce rays, and both kernels timed at the
+   headline frame's shapes (2,073,600 primaries; the sorted last-bounce
+   launch); the flat variant of the pair kernels on the columns rays,
+   bitwise;
+4. flat main path — the headline frame (atrium, 1920x1080, 1 spp, 2
+   bounces, leaf 28) through the same loader and pipeline as
    ``python -m vulkan_pathtracer_tpu_torch``: 1 warm-up + 4 timed frames
-   on bench.py's interior orbit, both kernel launch counters checked;
-   then a 320x180 frame through the kernels and through the plain
-   versions, compared.
+   on bench.py's interior orbit, the launch counters zeroed just before
+   the 4 frames and read just after (quad 4 each, pair 0); then a
+   320x180 frame through the kernels and through the plain versions,
+   compared;
+5. instanced kernels — the pair kernels against their plain versions,
+   bitwise: the columns scene as 197 instances of 33 meshes (leaf 14)
+   with a frame's primary and bounce rays, the instanced atrium (32
+   instances, leaf 14) with 65,536 primary and 65,536 live bounce rays;
+   both kernels timed at the instanced 1080p frame's shapes;
+6. instanced main path — the atrium through ``load_pipeline(...,
+   instanced=True)`` (``--instanced``): 1 warm-up + 4 timed frames, the
+   counters read around them (pair 4 each, quad 0); a 320x180
+   instanced frame through the kernels and the plain versions.
+
+Each kernel's ``bound_ms`` is the larger of its operations over the
+card's f32 peak and its bytes over the HBM rate, counted from this
+run's inputs: node and leaf visits from the plain version (the same
+algorithm) times the per-visit operations of the kernel source.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -35,16 +52,32 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-CLOSEST_SRC = "vulkan_pathtracer_tpu/ops/pallas_pair.py:886"
-ANYHIT_SRC = "vulkan_pathtracer_tpu/ops/pallas_pair.py:1207"
-CU_SRC = "vulkan_pathtracer_tpu_torch/csrc/stack_traverse.cu"
+PALLAS = "vulkan_pathtracer_tpu/ops/pallas_pair.py"
+CSRC = "vulkan_pathtracer_tpu_torch/csrc"
+KERNELS = {  # name -> (CUDA source, the Pallas kernel body it replaces)
+    "quad_closest_hit": (f"{CSRC}/stack_traverse.cu", f"{PALLAS}:886"),
+    "quad_any_hit": (f"{CSRC}/stack_traverse.cu", f"{PALLAS}:1207"),
+    "pair_closest_hit": (f"{CSRC}/pair_traverse.cu", f"{PALLAS}:598"),
+    "pair_any_hit": (f"{CSRC}/pair_traverse.cu", f"{PALLAS}:1507"),
+}
 # The headline frame and the comparison sizes.
 DEVICE = "cuda:0"
 WIDTH, HEIGHT = 1920, 1080
 ATRIUM_DETAIL, ATRIUM_TRIS = 4.1, 246444
 N_SUB = 65536            # atrium rays per kernel-vs-plain check
 COLS_W, COLS_H = 640, 360
+COLS_INSTANCES = 197     # columns 14x24: 196 columns + the floor
 SMALL_W, SMALL_H = 320, 180
+# Bounds: H100 SXM f32 peak outside the tensor cores and HBM rate
+# (NVIDIA data sheet).  Operations per step, read off csrc/: a slab test
+# is 12 mul/sub + 12 min/max + 1 compare (traverse.cuh slab()); a quad
+# row adds 4 EMPTY tests and a 4-key insertion sort (6 compares), a
+# pair row 3 selects; Möller–Trumbore is 54 per triangle (55 with
+# det_sign); the object-space transform of an instanced leaf visit 33;
+# the ray set-up (3 safe reciprocals, 3 products) 18.
+PEAK_F32, HBM_BPS = 67e12, 3.35e12
+ROW_OPS = {4: 4 * 25 + 4 + 6, 2: 2 * 25 + 3}
+MT_OPS, XFORM_OPS, RAY_OPS = 54, 33, 18
 
 
 def fail(msg: str) -> None:
@@ -71,6 +104,7 @@ def main() -> int:
         fail("vulkan_pathtracer_tpu_torch is not beside chip_smoke.py")
     sys.path.insert(0, ROOT)
     os.makedirs(WORK, exist_ok=True)
+    t_start = time.perf_counter()
 
     from vulkan_pathtracer_tpu_torch.models.device_scene import (
         native_library_loaded,
@@ -102,19 +136,23 @@ def main() -> int:
     kernels.lib()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in kernels.BUILD_INFO["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling" in ln]
     phase("build", seconds=f"{build_s:.2f}", nvcc_seconds=(
         f"{kernels.BUILD_INFO['seconds']:.2f}"), lib=kernels.BUILD_INFO["path"])
     for ln in ptxas:
         print(f"[build] ptxas: {ln}")
 
-    # -- 3. kernels vs plain versions ----------------------------------------
+    # -- 3. flat kernels vs plain versions -----------------------------------
     from assets.procedural import make_atrium, make_columns
+    from vulkan_pathtracer_tpu_torch.app.camera_path import orbit_path
     from vulkan_pathtracer_tpu_torch.app.main import load_pipeline
     from vulkan_pathtracer_tpu_torch.models import gltf
-    from vulkan_pathtracer_tpu_torch.models.camera import Camera, orbit_path
+    from vulkan_pathtracer_tpu_torch.models.camera import Camera
     from vulkan_pathtracer_tpu_torch.models.device_scene import (
         build_device_scene,
+    )
+    from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
+        build_instanced_scene,
     )
     from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
     from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T
@@ -143,17 +181,16 @@ def main() -> int:
         sync()
         return start.elapsed_time(end) / reps, out
 
-    def closest_pair(scene, o, d, active):
-        t_lane = st.lane_limits(o.shape[0], active, o.device)
-        args = (scene.quad_box, scene.quad_link, scene.leaves, o, d, t_lane)
-        k = kernels.quad_closest_hit(*args)
+    def quad_args(scene, o, d, active):
+        return (scene.quad_box, scene.quad_link, scene.leaves, o, d,
+                st.lane_limits(o.shape[0], active, o.device))
+
+    def compare_closest(label, scene, o, d, active=None):
+        args = quad_args(scene, o, d, active)
+        kt, ktri, ku, kv = kernels.quad_closest_hit(*args)
         sync()
         p = st.quad_closest_hit_plain(*args)
         sync()
-        return k, p
-
-    def compare_closest(label, scene, o, d, active=None):
-        (kt, ktri, ku, kv), p = closest_pair(scene, o, d, active)
         kh, ph = kt < MISS_T, p.t < MISS_T
         check(torch.equal(kh, ph), f"{label}: closest hit masks differ")
         both = kh & ph
@@ -163,17 +200,15 @@ def main() -> int:
         max_ulp = int(ulp.max().item()) if both.any() else 0
         check(max_ulp <= 1, f"{label}: t differs by {max_ulp} ulp")
         check(tri_agree >= 0.999, f"{label}: tri agreement {tri_agree}")
-        err = (kt - p.t)[both].abs().max().item() if both.any() else 0.0
         phase("kernels", check=label, rays=o.shape[0],
               hits=int(both.sum().item()), t_max_ulp=max_ulp,
               t_bit_equal=bool(torch.equal(kt, p.t)),
               tri_agreement=f"{tri_agree:.6f}",
               uv_max_abs=f"{max((ku - p.u).abs().max().item(), (kv - p.v).abs().max().item()):.3g}")
-        return kt, err
+        return kt
 
     def compare_any(label, scene, o, d, kt_closest, active=None):
-        t_lane = st.lane_limits(o.shape[0], active, o.device)
-        args = (scene.quad_box, scene.quad_link, scene.leaves, o, d, t_lane)
+        args = quad_args(scene, o, d, active)
         k = kernels.quad_any_hit(*args)
         sync()
         p = st.quad_any_hit_plain(*args)
@@ -184,7 +219,30 @@ def main() -> int:
         check(torch.equal(k, p), f"{label}: any-hit kernel != plain version")
         phase("kernels", check=label + "/any", rays=o.shape[0],
               occluded=int(k.sum().item()), equal_to_closest=True)
-        return (k != p).float().max().item()
+
+    def compare_pair(label, scene, o, d, active=None):
+        """Both pair kernels against their plain versions: hit masks
+        equal, t, tri, u, v and the any-hit bit bitwise equal."""
+        args = st.pair_args(scene, o, d, active)
+        k = kernels.pair_closest_hit(*args)
+        sync()
+        p = st.pair_closest_hit_plain(*args)
+        sync()
+        check(torch.equal(k[0] < MISS_T, p.t < MISS_T),
+              f"{label}: pair closest hit masks differ")
+        for f, a, b in zip("t tri u v".split(), k, p):
+            check(torch.equal(a, b), f"{label}: pair closest {f} differs "
+                  f"on {int((a != b).sum())} rays")
+        ka = kernels.pair_any_hit(*args)
+        sync()
+        pa = st.pair_any_hit_plain(*args)
+        sync()
+        check(torch.equal(ka, pa), f"{label}: pair any hit != plain version")
+        check(torch.equal(ka, p.t < MISS_T),
+              f"{label}: pair any hit != closest.t < MISS_T")
+        phase("kernels", check=label + "/pair", rays=o.shape[0],
+              instanced=scene.instanced, hits=int((p.t < MISS_T).sum()),
+              bit_equal=True, any_equal_to_closest=True)
 
     def bounce_rays(scene, cam, frame, width, height):
         """Primary rays of a frame and the sorted bounce-1 rays that the
@@ -192,7 +250,7 @@ def main() -> int:
         pos, hor, ver, fwd = pl.camera_tensors(cam, dev)
         o, d, sx, sy, _ = pl.primary_rays(pos, hor, ver, fwd, frame, width,
                                           height)
-        hit = st.quad_closest_hit(scene, o, d)
+        hit = wf._closest_hit(scene, o, d, None)
         did_hit = hit.t < MISS_T
         tri_data = get_triangle_data(scene, hit)
         mat = get_material_data(scene, tri_data)
@@ -213,24 +271,157 @@ def main() -> int:
                    center=(0.0, 1.2, 0.0)).apply(cam, t)
         return cam
 
+    def scene_camera(scene):
+        lo, hi = scene.root_lo.cpu().numpy(), scene.root_hi.cpu().numpy()
+        extent = float((hi - lo).max())
+        cam = Camera(aspect_ratio=16 / 9)
+        orbit_path(radius=0.75 * extent, height=0.35 * extent, duration=4.0,
+                   center=tuple((lo + hi) * 0.5)).apply(cam, 0.0)
+        return cam
+
+    def bound(tables, n_rays, out_bytes, stats, width, block, instanced):
+        """(bound_ms, bound_by) of one traversal launch."""
+        ops = (n_rays * RAY_OPS + stats["node_visits"] * ROW_OPS[width]
+               + stats["leaf_visits"] * block * (MT_OPS + instanced))
+        if instanced:
+            ops += stats["leaf_visits"] * XFORM_OPS
+        nbytes = (sum(t.numel() * t.element_size() for t in tables)
+                  + n_rays * (12 + 12 + 4 + out_bytes))
+        ops_ms, bytes_ms = 1e3 * ops / PEAK_F32, 1e3 * nbytes / HBM_BPS
+        phase("bound", ops=ops, bytes=nbytes, ops_ms=f"{ops_ms:.4f}",
+              bytes_ms=f"{bytes_ms:.4f}", **stats)
+        return (max(ops_ms, bytes_ms),
+                "operations" if ops_ms >= bytes_ms else "bytes")
+
+    results = {}
+
+    def time_kernel(key, launch, plain, tables, n_rays, out_bytes, scene,
+                    compare):
+        """Kernel ms (mean of 5), plain ms (1 run), the comparison's
+        max_abs_err, and the bound from a second plain run that counts
+        visits, at the main path's shapes."""
+        k_ms, k_out = cuda_ms(launch, 5)
+        p_ms, p_out = cuda_ms(plain, 1, False)
+        err = compare(k_out, p_out)
+        stats = {}
+        plain(stats)
+        sync()
+        b_ms, b_by = bound(tables, n_rays, out_bytes, stats,
+                           4 if key.startswith("quad") else 2,
+                           scene.max_leaf_size, int(scene.instanced))
+        results[key] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err,
+                            bound_ms=b_ms, bound_by=b_by)
+        phase("timing", kernel=key, rays=n_rays, kernel_ms=f"{k_ms:.3f}",
+              plain_ms=f"{p_ms:.1f}", bound_ms=f"{b_ms:.4f}",
+              bound_by=b_by, max_abs_err=err, card=repr(card))
+
+    def closest_err(k, p):
+        kt, pt = k[0], p.t
+        check(torch.equal(kt < MISS_T, pt < MISS_T),
+              "full-frame primaries: hit masks differ")
+        both = (kt < MISS_T) & (pt < MISS_T)
+        return (kt - pt)[both].abs().max().item()
+
+    def any_err(k, p):
+        check(torch.equal(k, p), "bounce-1 any hit: kernel != plain")
+        return (k != p).float().max().item()
+
+    def main_path(pipe, label, expect):
+        """1 warm-up + 4 timed frames on the interior orbit, the launch
+        counters zeroed just before the 4 frames and read just after."""
+        path = orbit_path(radius=4.5, height=2.2, duration=4.0,
+                          center=(0.0, 1.2, 0.0))
+        cam = Camera(aspect_ratio=config.aspect_ratio)
+        path.apply(cam, 0.0)
+        image, rays = pipe.render(cam, 0, present_order=False)   # warm-up
+        sync()
+        frames = 4
+        for key in st.LAUNCHES:
+            st.LAUNCHES[key] = 0
+        total_rays = 0
+        t0 = time.perf_counter()
+        for f in range(frames):
+            path.apply(cam, 4.0 * f / frames)
+            image, rays = pipe.render(cam, f + 1, present_order=False)
+            total_rays += int(rays)   # syncs: rays is a device scalar
+        sync()
+        elapsed = time.perf_counter() - t0
+        launches = dict(st.LAUNCHES)
+        check(launches == expect, f"{label}: launch counts {launches}, "
+              f"expected {expect}")
+        check(bool(torch.isfinite(image).all()),
+              f"{label}: non-finite radiance")
+        check(tuple(image.shape) == (HEIGHT, WIDTH, 3), f"image {image.shape}")
+        n_pix = WIDTH * HEIGHT
+        check(n_pix < int(rays) <= 2 * n_pix, f"rays per frame {int(rays)}")
+        phase("main", path=label, frames=frames,
+              ms_per_frame=f"{1000.0 * elapsed / frames:.2f}",
+              mrays_per_s=f"{total_rays / elapsed / 1e6:.3f}",
+              rays=total_rays, launches=launches,
+              mean=f"{image.mean().item():.5f}", card=repr(card))
+        write_png(os.path.join(WORK, f"{label}.png"),
+                  pipe.to_present(image.cpu().numpy()))
+        return launches
+
+    def small_frame(scene, label):
+        """A 320x180 frame through the kernels and through the plain
+        versions, compared."""
+        small = pl.RenderPipeline(scene, RenderConfig(
+            num_samples=1, num_bounces=2, resolution_x=SMALL_W,
+            resolution_y=SMALL_H))
+        cam = orbit_camera(16 / 9, 1.0)
+        img_k, rays_k = small.render(cam, 7)
+        sync()
+        names = ("quad_closest_hit", "quad_any_hit", "pair_closest_hit",
+                 "pair_any_hit")
+        kernel_fns = {n: getattr(st, n) for n in names}
+
+        def plain_of(n):
+            def run(scene_, o_, d_, active=None):
+                if n.startswith("pair"):
+                    args = st.pair_args(scene_, o_, d_, active)
+                else:
+                    args = quad_args(scene_, o_, d_, active)
+                return getattr(st, n + "_plain")(*args)
+            return run
+
+        for n in names:
+            setattr(st, n, plain_of(n))
+        try:
+            img_p, rays_p = small.render(cam, 7)
+            sync()
+        finally:
+            for n, fn in kernel_fns.items():
+                setattr(st, n, fn)
+        check(int(rays_k) == int(rays_p),
+              f"{label} small frame: rays {int(rays_k)} (kernels) vs "
+              f"{int(rays_p)} (plain)")
+        diff = (img_k - img_p).abs().max().item()
+        check(torch.allclose(img_k, img_p, rtol=1e-5, atol=1e-5),
+              f"{label} small frame: image differs by {diff}")
+        phase("main", check=f"{label} {SMALL_W}x{SMALL_H} kernels vs plain",
+              rays=int(rays_k), max_abs_diff=diff)
+
     # Columns (bench.py's 56k sidecar) at leaf 28: all rays of a
-    # COLS_W x COLS_H frame, primaries and their bounce rays.
+    # COLS_W x COLS_H frame, primaries and their bounce rays; the flat
+    # pair tables on the same rays.
+    t0 = time.perf_counter()
     cols_path = os.path.join(WORK, "columns_14_24.glb")
     if not os.path.exists(cols_path):
         make_columns(cols_path, grid=14, segments=24, n_materials=32)
-    cols = build_device_scene(gltf.load(cols_path), max_leaf_size=28,
-                              device=dev)
-    lo, hi = cols.root_lo.cpu().numpy(), cols.root_hi.cpu().numpy()
-    extent = float((hi - lo).max())
-    ccam = Camera(aspect_ratio=16 / 9)
-    orbit_path(radius=0.75 * extent, height=0.35 * extent, duration=4.0,
-               center=tuple((lo + hi) * 0.5)).apply(ccam, 0.0)
-    o, d, o1, d1, a1, _ = bounce_rays(cols, ccam, 0, COLS_W, COLS_H)
-    kt, _ = compare_closest("columns/primary", cols, o, d)
+    cols_host = gltf.load(cols_path)
+    cols = build_device_scene(cols_host, max_leaf_size=28, device=dev)
+    o, d, o1, d1, a1, _ = bounce_rays(cols, scene_camera(cols), 0, COLS_W,
+                                      COLS_H)
+    kt = compare_closest("columns/primary", cols, o, d)
     compare_any("columns/primary", cols, o, d, kt)
-    kt, _ = compare_closest("columns/bounce", cols, o1, d1, a1)
+    compare_pair("columns/primary", cols, o, d)
+    kt = compare_closest("columns/bounce", cols, o1, d1, a1)
     compare_any("columns/bounce", cols, o1, d1, kt, a1)
+    compare_pair("columns/bounce", cols, o1, d1, a1)
     del cols
+    phase("phase", name="columns flat",
+          seconds=f"{time.perf_counter() - t0:.1f}")
 
     # The headline atrium: 65,536 primaries and 65,536 live bounce rays.
     t0 = time.perf_counter()
@@ -255,116 +446,122 @@ def main() -> int:
     o, d, o1, d1, a1, live1 = bounce_rays(scene, cam0, 0, WIDTH, HEIGHT)
     n_prim = o.shape[0]
     sel = subset(n_prim, N_SUB, 1)
-    kt, _ = compare_closest("atrium/primary", scene, o[sel], d[sel])
+    kt = compare_closest("atrium/primary", scene, o[sel], d[sel])
     compare_any("atrium/primary", scene, o[sel], d[sel], kt)
     live_idx = torch.nonzero(a1).squeeze(1)
     sel = live_idx[subset(live_idx.shape[0], N_SUB, 2)]
-    kt, _ = compare_closest("atrium/bounce", scene, o1[sel], d1[sel])
+    kt = compare_closest("atrium/bounce", scene, o1[sel], d1[sel])
     compare_any("atrium/bounce", scene, o1[sel], d1[sel], kt)
 
     # Timing at the main path's shapes: closest hit on the 2,073,600
     # tile-ordered primaries; any hit on the sorted bounce-1 launch
     # (2,073,600 lanes, live1 active).  Kernel vs plain, same inputs.
-    t_lane = st.lane_limits(n_prim, None, dev)
-    targs = (scene.quad_box, scene.quad_link, scene.leaves, o, d, t_lane)
-    k_ms, (kt, _, _, _) = cuda_ms(lambda: kernels.quad_closest_hit(*targs), 5)
-    p_ms, p = cuda_ms(lambda: st.quad_closest_hit_plain(*targs), 1, False)
-    both = (kt < MISS_T) & (p.t < MISS_T)
-    check(torch.equal(kt < MISS_T, p.t < MISS_T),
-          "full-frame primaries: hit masks differ")
-    closest_err = (kt - p.t)[both].abs().max().item()
-    phase("timing", kernel="quad_closest_hit", rays=n_prim,
-          kernel_ms=f"{k_ms:.3f}", plain_ms=f"{p_ms:.1f}",
-          max_abs_err=closest_err, card=repr(card))
-    a_lane = st.lane_limits(n_prim, a1, dev)
-    aargs = (scene.quad_box, scene.quad_link, scene.leaves, o1, d1, a_lane)
-    ka_ms, ka = cuda_ms(lambda: kernels.quad_any_hit(*aargs), 5)
-    pa_ms, pa = cuda_ms(lambda: st.quad_any_hit_plain(*aargs), 1, False)
-    check(torch.equal(ka, pa), "bounce-1 any hit: kernel != plain")
-    any_err = (ka != pa).float().max().item()
-    phase("timing", kernel="quad_any_hit", rays=n_prim, live=live1,
-          kernel_ms=f"{ka_ms:.3f}", plain_ms=f"{pa_ms:.1f}",
-          max_abs_err=any_err, card=repr(card))
-    del p, pa, o, d, o1, d1, a1
+    targs = quad_args(scene, o, d, None)
+    tables = (scene.quad_box, scene.quad_link, scene.leaves)
+    time_kernel("quad_closest_hit", lambda: kernels.quad_closest_hit(*targs),
+                lambda s=None: st.quad_closest_hit_plain(*targs, stats=s),
+                tables, n_prim, 16, scene, closest_err)
+    aargs = quad_args(scene, o1, d1, a1)
+    time_kernel("quad_any_hit", lambda: kernels.quad_any_hit(*aargs),
+                lambda s=None: st.quad_any_hit_plain(*aargs, stats=s),
+                tables, n_prim, 1, scene, any_err)
+    phase("timing", kernel="quad_any_hit", live=live1)
+    del o, d, o1, d1, a1, targs, aargs
+    phase("phase", name="atrium flat kernels",
+          seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 4. main path --------------------------------------------------------
-    path = orbit_path(radius=4.5, height=2.2, duration=4.0,
-                      center=(0.0, 1.2, 0.0))
-    cam = Camera(aspect_ratio=config.aspect_ratio)
-    path.apply(cam, 0.0)
-    image, rays = pipe.render(cam, 0, present_order=False)   # warm-up
-    sync()
-    n_pix = WIDTH * HEIGHT
-    check(int(rays) == n_pix + live1,
-          f"warm-up frame traced {int(rays)} rays, expected {n_pix} + "
-          f"{live1}")
-    frames = 4
-    for key in st.LAUNCHES:
-        st.LAUNCHES[key] = 0
-    total_rays = 0
+    # -- 4. flat main path ---------------------------------------------------
     t0 = time.perf_counter()
-    for f in range(frames):
-        path.apply(cam, 4.0 * f / frames)
-        image, rays = pipe.render(cam, f + 1, present_order=False)
-        total_rays += int(rays)   # syncs: rays is a device scalar
-    sync()
-    elapsed = time.perf_counter() - t0
-    launches = dict(st.LAUNCHES)
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the path never launched: {launches}")
-    check(bool(torch.isfinite(image).all()), "non-finite radiance")
-    check(tuple(image.shape) == (HEIGHT, WIDTH, 3), f"image {image.shape}")
-    check(n_pix < int(rays) <= 2 * n_pix, f"rays per frame {int(rays)}")
-    ms_frame = 1000.0 * elapsed / frames
-    mrays = total_rays / elapsed / 1e6
-    phase("main", frames=frames, ms_per_frame=f"{ms_frame:.2f}",
-          mrays_per_s=f"{mrays:.3f}", rays=total_rays, launches=launches,
-          mean=f"{image.mean().item():.5f}", card=repr(card))
-    write_png(os.path.join(WORK, "headline.png"),
-              pipe.to_present(image.cpu().numpy()))
+    n_pix = WIDTH * HEIGHT
+    _, rays = pipe.render(cam0, 0, present_order=False)
+    check(int(rays) == n_pix + live1,
+          f"frame 0 traced {int(rays)} rays, expected {n_pix} + {live1}")
+    flat_launches = main_path(pipe, "headline", {
+        "quad_closest_hit": 4, "quad_any_hit": 4, "pair_closest_hit": 0,
+        "pair_any_hit": 0})
+    small_frame(scene, "flat")
+    del pipe, scene
+    torch.cuda.empty_cache()
+    phase("phase", name="flat main path",
+          seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # A small frame through the kernels and through the plain versions.
-    small = pl.RenderPipeline(scene, RenderConfig(
-        num_samples=1, num_bounces=2, resolution_x=SMALL_W,
-        resolution_y=SMALL_H))
-    cam = orbit_camera(16 / 9, 1.0)
-    img_k, rays_k = small.render(cam, 7)
-    sync()
+    # -- 5. instanced kernels vs plain versions ------------------------------
+    # Columns as 197 instances of 33 meshes at leaf 14.
+    t0 = time.perf_counter()
+    icols = build_instanced_scene(cols_host, max_leaf_size=14, device=dev)
+    phase("scene", name="columns instanced",
+          instances=icols.inst_inv.shape[0], triangles=icols.num_triangles,
+          pair_rows=icols.pair_box.shape[0], mb_bits=icols.mb_bits,
+          depth=icols.bvh_depth)
+    check(icols.inst_inv.shape[0] == COLS_INSTANCES,
+          f"columns 14x24 is not {COLS_INSTANCES} instances")
+    o, d, o1, d1, a1, _ = bounce_rays(icols, scene_camera(icols), 0, COLS_W,
+                                      COLS_H)
+    compare_pair("columns-inst/primary", icols, o, d)
+    compare_pair("columns-inst/bounce", icols, o1, d1, a1)
+    del icols, o, d, o1, d1, a1
 
-    def plain_closest(scene_, o_, d_, active=None):
-        return st.quad_closest_hit_plain(
-            scene_.quad_box, scene_.quad_link, scene_.leaves, o_, d_,
-            st.lane_limits(o_.shape[0], active, o_.device))
+    t1 = time.perf_counter()
+    ipipe = load_pipeline(atrium_path, config, dev, instanced=True)
+    iscene = ipipe.scene
+    phase("scene", name="atrium instanced",
+          instances=iscene.inst_inv.shape[0],
+          triangles=iscene.num_triangles, leaf=iscene.max_leaf_size,
+          pair_rows=iscene.pair_box.shape[0],
+          leaves=iscene.leaves.shape[0], depth=iscene.bvh_depth,
+          mb_bits=iscene.mb_bits, emissive_free=iscene.emissive_free,
+          sort_secondary=ipipe._sort_secondary,
+          seconds=f"{time.perf_counter() - t1:.1f}")
+    check(iscene.instanced and iscene.max_leaf_size == 14,
+          "instanced atrium must be a two-level bake at leaf 14")
+    check(iscene.emissive_free and ipipe._sort_secondary,
+          "instanced atrium must take the sorted any-hit last bounce")
+    o, d, o1, d1, a1, ilive1 = bounce_rays(iscene, cam0, 0, WIDTH, HEIGHT)
+    sel = subset(n_prim, N_SUB, 3)
+    compare_pair("atrium-inst/primary", iscene, o[sel], d[sel])
+    live_idx = torch.nonzero(a1).squeeze(1)
+    sel = live_idx[subset(live_idx.shape[0], N_SUB, 4)]
+    compare_pair("atrium-inst/bounce", iscene, o1[sel], d1[sel])
 
-    def plain_any(scene_, o_, d_, active=None):
-        return st.quad_any_hit_plain(
-            scene_.quad_box, scene_.quad_link, scene_.leaves, o_, d_,
-            st.lane_limits(o_.shape[0], active, o_.device))
+    itables = (iscene.pair_box, iscene.pair_link, iscene.leaves,
+               iscene.inst_inv)
+    pargs = st.pair_args(iscene, o, d, None)
+    time_kernel("pair_closest_hit", lambda: kernels.pair_closest_hit(*pargs),
+                lambda s=None: st.pair_closest_hit_plain(*pargs, stats=s),
+                itables, n_prim, 16, iscene, closest_err)
+    paargs = st.pair_args(iscene, o1, d1, a1)
+    time_kernel("pair_any_hit", lambda: kernels.pair_any_hit(*paargs),
+                lambda s=None: st.pair_any_hit_plain(*paargs, stats=s),
+                itables, n_prim, 1, iscene, any_err)
+    phase("timing", kernel="pair_any_hit", live=ilive1)
+    del o, d, o1, d1, a1, pargs, paargs
+    phase("phase", name="instanced kernels",
+          seconds=f"{time.perf_counter() - t0:.1f}")
 
-    kernel_fns = (st.quad_closest_hit, st.quad_any_hit)
-    st.quad_closest_hit, st.quad_any_hit = plain_closest, plain_any
-    img_p, rays_p = small.render(cam, 7)
-    sync()
-    st.quad_closest_hit, st.quad_any_hit = kernel_fns
-    check(int(rays_k) == int(rays_p),
-          f"small frame: rays {int(rays_k)} (kernels) vs {int(rays_p)} "
-          f"(plain)")
-    diff = (img_k - img_p).abs().max().item()
-    check(torch.allclose(img_k, img_p, rtol=1e-5, atol=1e-5),
-          f"small frame: image differs by {diff}")
-    phase("main", check=f"{SMALL_W}x{SMALL_H} kernels vs plain",
-          rays=int(rays_k),
-          max_abs_diff=diff)
+    # -- 6. instanced main path ----------------------------------------------
+    t0 = time.perf_counter()
+    _, rays = ipipe.render(cam0, 0, present_order=False)
+    check(int(rays) == n_pix + ilive1,
+          f"instanced frame 0 traced {int(rays)} rays, expected {n_pix} + "
+          f"{ilive1}")
+    inst_launches = main_path(ipipe, "instanced", {
+        "quad_closest_hit": 0, "quad_any_hit": 0, "pair_closest_hit": 4,
+        "pair_any_hit": 4})
+    small_frame(iscene, "instanced")
+    phase("phase", name="instanced main path",
+          seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 5. result -------------------------------------------------------------
+    # -- 7. result -------------------------------------------------------------
+    launches = {k: (flat_launches if k.startswith("quad") else
+                    inst_launches)[k] for k in KERNELS}
+    phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
-        {"name": "quad_closest_hit", "route": "cuda", "source": CU_SRC,
-         "replaces": CLOSEST_SRC, "launches": launches["quad_closest_hit"],
-         "max_abs_err": closest_err, "ms": k_ms, "plain_ms": p_ms},
-        {"name": "quad_any_hit", "route": "cuda", "source": CU_SRC,
-         "replaces": ANYHIT_SRC, "launches": launches["quad_any_hit"],
-         "max_abs_err": any_err, "ms": ka_ms, "plain_ms": pa_ms},
-    ]}))
+        {"name": key, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[key], "max_abs_err": results[key]["max_abs_err"],
+         "ms": results[key]["ms"], "plain_ms": results[key]["plain_ms"],
+         "bound_ms": results[key]["bound_ms"],
+         "bound_by": results[key]["bound_by"], "library_ms": None}
+        for key, (src, rep) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

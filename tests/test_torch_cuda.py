@@ -20,6 +20,9 @@ import torch
 from vulkan_pathtracer_tpu_torch.models import gltf
 from vulkan_pathtracer_tpu_torch.models.camera import Camera
 from vulkan_pathtracer_tpu_torch.models.device_scene import build_device_scene
+from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
+    build_instanced_scene,
+)
 from vulkan_pathtracer_tpu_torch.ops import kernels
 from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T
@@ -76,6 +79,33 @@ def test_kernels_match_plain(cuda, scene_paths, leaf):
     assert torch.equal(occ, st.quad_any_hit_plain(*args))
     assert torch.equal(occ, hits)
     assert not occ[~active].any()
+
+
+@pytest.mark.parametrize("leaf", [4, 14, 28])
+@pytest.mark.parametrize("instanced", [False, True])
+def test_pair_kernels_match_plain(cuda, scene_paths, leaf, instanced):
+    """The pair kernels, flat and two-level, bitwise equal to their
+    plain versions; any hit equal to the closest-hit mask."""
+    host = gltf.load(scene_paths["columns"])
+    scene = (build_instanced_scene(host, max_leaf_size=leaf, device=cuda)
+             if instanced else
+             build_device_scene(host, max_leaf_size=leaf, device=cuda))
+    o, d, active = _rays(8192, seed=leaf + 7, device=cuda)
+    args = st.pair_args(scene, o, d, active)
+    got = kernels.pair_closest_hit(*args)
+    ref = st.pair_closest_hit_plain(*args)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    hits = ref.t < MISS_T
+    assert 500 < int(hits.sum()) < 8192
+    occ = kernels.pair_any_hit(*args)
+    assert torch.equal(occ, st.pair_any_hit_plain(*args))
+    assert torch.equal(occ, hits)
+    before = dict(st.LAUNCHES)
+    st.pair_closest_hit(scene, o, d, active)
+    st.pair_any_hit(scene, o, d, active)
+    assert st.LAUNCHES["pair_closest_hit"] == before["pair_closest_hit"] + 1
+    assert st.LAUNCHES["pair_any_hit"] == before["pair_any_hit"] + 1
 
 
 def test_kernel_skips_empty_slots(cuda):

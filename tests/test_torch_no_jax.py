@@ -3,6 +3,10 @@
 - Every module of ``vulkan_pathtracer_tpu_torch`` imports, and the CLI
   renders a 64x64 box on ``--device cpu``, in a subprocess where
   ``import jax`` fails (``sys.modules["jax"] = None``).
+- No module of the port and not ``chip_smoke.py`` imports the JAX
+  package (``vulkan_pathtracer_tpu``): a source scan, and a subprocess
+  with both ``jax`` and ``vulkan_pathtracer_tpu`` blocked that imports
+  every module and renders ``--instanced`` on ``--device cpu``.
 - Without CUDA, the default ``--device cuda`` exits non-zero with a
   clear message instead of switching to the CPU.
 - The traversal wrappers raise for a device that is neither CPU nor
@@ -24,10 +28,18 @@ from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(vulkan_pathtracer_tpu_torch.__file__)
 BLOCK_JAX = "import sys; sys.modules['jax'] = None; "
+BLOCK_JAX_PACKAGE = BLOCK_JAX + "sys.modules['vulkan_pathtracer_tpu'] = None; "
+IMPORT_ALL_AND_RUN_CLI = (
+    "import importlib, pkgutil, runpy; "
+    "import vulkan_pathtracer_tpu_torch as p; "
+    "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+    "p.__path__, p.__name__ + '.') if not m.name.endswith('__main__')]; "
+    "sys.argv = ['vkpt'] + sys.argv[1:]; "
+    "runpy.run_module('vulkan_pathtracer_tpu_torch', run_name='__main__')")
 
 
-def _run(code, *args):
-    return subprocess.run([sys.executable, "-c", BLOCK_JAX + code, *args],
+def _run(code, *args, block=BLOCK_JAX):
+    return subprocess.run([sys.executable, "-c", block + code, *args],
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=300)
 
@@ -41,17 +53,38 @@ def test_source_never_imports_jax():
                     assert not pattern.search(f.read()), name
 
 
+def test_source_never_imports_jax_package():
+    """No import statement of the port or of chip_smoke.py reaches the
+    JAX package (``vulkan_pathtracer_tpu_torch`` is the port itself)."""
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|vulkan_pathtracer_tpu)\b", re.M)
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    assert len(paths) > 20
+    for path in paths:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path
+
+
+def test_cli_renders_instanced_without_jax_package(columns_glb, tmp_path):
+    out = tmp_path / "columns.png"
+    proc = _run(IMPORT_ALL_AND_RUN_CLI, "-s", columns_glb, "-x", "48", "-y",
+                "32", "-o", str(out), "--instanced", "--device", "cpu",
+                block=BLOCK_JAX_PACKAGE)
+    assert proc.returncode == 0, proc.stderr
+    assert "two-level BVH: " in proc.stderr and "17 instances" in proc.stderr
+    from vulkan_pathtracer_tpu_torch.utils import read_png
+
+    image = read_png(str(out))
+    assert image.shape == (32, 48, 3) and 0 < image.mean() < 255
+
+
 def test_cli_renders_without_jax(box_glb, tmp_path):
     out = tmp_path / "box.png"
-    code = ("import importlib, pkgutil, runpy; "
-            "import vulkan_pathtracer_tpu_torch as p; "
-            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
-            "p.__path__, p.__name__ + '.') if not m.name.endswith('__main__')]; "
-            "sys.argv = ['vkpt'] + sys.argv[1:]; "
-            "runpy.run_module('vulkan_pathtracer_tpu_torch', "
-            "run_name='__main__')")
-    proc = _run(code, "-s", box_glb, "-x", "64", "-y", "64", "-o", str(out),
-                "--device", "cpu")
+    proc = _run(IMPORT_ALL_AND_RUN_CLI, "-s", box_glb, "-x", "64", "-y",
+                "64", "-o", str(out), "--device", "cpu")
     assert proc.returncode == 0, proc.stderr
     from vulkan_pathtracer_tpu.utils.png import read_png
 
@@ -86,17 +119,21 @@ def test_unported_flags_refused(flag, capsys):
         capsys.readouterr().err
 
 
-@pytest.mark.parametrize("fn", [st.quad_closest_hit, st.quad_any_hit])
+@pytest.mark.parametrize("fn", [st.quad_closest_hit, st.quad_any_hit,
+                                st.pair_closest_hit, st.pair_any_hit])
 def test_wrapper_raises_for_meta_tensor(fn):
     class Tables:
         quad_box = torch.zeros((1, 4, 6), device="meta")
         quad_link = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+        pair_box = torch.zeros((1, 2, 6), device="meta")
+        pair_link = torch.zeros((1, 2), dtype=torch.int32, device="meta")
         leaves = torch.zeros((1, 4, 9), device="meta")
+        instanced = False
 
     o = torch.zeros((8, 3), device="meta")
     with pytest.raises(ValueError, match="no traversal for device type"):
         fn(Tables, o, o)
-    assert st.LAUNCHES == {"quad_closest_hit": 0, "quad_any_hit": 0}
+    assert set(st.LAUNCHES.values()) == {0}
 
 
 def test_cpu_wrapper_runs_the_plain_version():
@@ -119,4 +156,4 @@ def test_cpu_wrapper_runs_the_plain_version():
     hit = st.quad_closest_hit(Tables, o, d)
     assert np.allclose(hit.t.numpy(), 1.0) and (hit.tri == 0).all()
     assert st.quad_any_hit(Tables, o, d).all()
-    assert st.LAUNCHES == {"quad_closest_hit": 0, "quad_any_hit": 0}
+    assert set(st.LAUNCHES.values()) == {0}

@@ -2,9 +2,10 @@
 
 parse CLI -> load scene -> bake device tensors + BVH -> render pipeline
 -> frame loop -> PNG.  The flag surface is the reference's
-(``-s -c -b -x -y -d``) plus ``-o``/``--frames`` and ``--device``
-(default ``cuda``).  Every other flag of the JAX package's CLI is
-recognised but refused when set: it is not yet ported.
+(``-s -c -b -x -y -d``) plus ``-o``/``--frames``, ``--instanced`` (the
+two-level BVH: per-mesh BLAS + TLAS, models/instanced_scene.py) and
+``--device`` (default ``cuda``).  Every other flag of the JAX package's
+CLI is recognised but refused when set: it is not yet ported.
 
 Run:  python -m vulkan_pathtracer_tpu_torch -s scene.glb [flags]
 """
@@ -19,6 +20,9 @@ import torch
 from vulkan_pathtracer_tpu_torch.models import gltf
 from vulkan_pathtracer_tpu_torch.models.camera import Camera
 from vulkan_pathtracer_tpu_torch.models.device_scene import build_device_scene
+from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
+    build_instanced_scene,
+)
 from vulkan_pathtracer_tpu_torch.render.pipeline import RenderPipeline
 from vulkan_pathtracer_tpu_torch.utils import (
     RenderConfig,
@@ -30,7 +34,9 @@ from vulkan_pathtracer_tpu_torch.utils import (
 
 PORTED_FLAGS = ("scene_path", "num_samples", "num_bounces", "resolution_x",
                 "resolution_y", "render_resolution_divider", "output",
-                "frames", "device")
+                "frames", "instanced", "device")
+# Leaf size of the two-level bake (app/main.py:75-77 of the JAX package).
+INSTANCED_LEAF = 14
 
 
 def parse_args(argv=None):
@@ -76,18 +82,25 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def load_pipeline(scene_path: str, config: RenderConfig,
-                  device) -> RenderPipeline:
-    """Load a glTF scene, bake it with the size-keyed leaf policy
-    (utils/config.default_max_leaf) and build the render pipeline."""
+def load_pipeline(scene_path: str, config: RenderConfig, device,
+                  instanced: bool = False) -> RenderPipeline:
+    """Load a glTF scene, bake it — flat with the size-keyed leaf policy
+    (utils/config.default_max_leaf), or two-level at leaf 14 — and build
+    the render pipeline."""
     scene = gltf.load(scene_path)
     print(f"scene: {len(scene.instances)} instances, "
           f"{len(scene.primitives)} primitives, {scene.triangle_count} "
           f"triangles, {len(scene.materials)} materials, "
           f"{len(scene.textures)} textures", file=sys.stderr)
-    dev = build_device_scene(
-        scene, max_leaf_size=default_max_leaf(scene.triangle_count),
-        device=device)
+    if instanced:
+        dev = build_instanced_scene(scene, max_leaf_size=INSTANCED_LEAF,
+                                    device=device)
+        print(f"two-level BVH: {dev.num_triangles} shared triangles, "
+              f"{dev.inst_inv.shape[0]} instances", file=sys.stderr)
+    else:
+        dev = build_device_scene(
+            scene, max_leaf_size=default_max_leaf(scene.triangle_count),
+            device=device)
     return RenderPipeline(dev, config)
 
 
@@ -107,7 +120,8 @@ def main(argv=None) -> int:
         sys.stderr.write(f"error: {exc}\n")
         return 1
     print(f"loading scene: {args.scene_path}", file=sys.stderr)
-    pipeline = load_pipeline(args.scene_path, config, device)
+    pipeline = load_pipeline(args.scene_path, config, device,
+                             instanced=args.instanced)
     camera = Camera(aspect_ratio=config.aspect_ratio)
     image = None
     rays_total = 0

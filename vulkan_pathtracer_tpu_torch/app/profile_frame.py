@@ -1,0 +1,150 @@
+"""Where a frame's device time goes: per-step CUDA-event times of the
+headline frame, flat or two-level.
+
+    python -m vulkan_pathtracer_tpu_torch.app.profile_frame [--instanced]
+        [-s scene.glb] [--frames 5]
+
+Renders the atrium (``assets/procedural.make_atrium(detail=4.1)``,
+generated into ``build/profile_frame/`` when ``-s`` is not given) at
+1920x1080, 1 spp, 2 bounces on bench.py's interior orbit: one warm-up
+frame, then ``--frames`` frames with every wavefront step wrapped in a
+pair of CUDA events, then 3 frames under ``torch.profiler``.  Prints
+one JSON line: the card, ms/frame (median, host clock around frames
+that end in a synchronize), per-step device ms per frame (median;
+``*_sorted`` steps include their nested ``_sorted_order`` and kernel
+step), and the profiled kernel time per frame against the unprofiled
+and the profiled wall time (the device busy share).  Needs a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+
+from vulkan_pathtracer_tpu_torch.app.camera_path import orbit_path
+from vulkan_pathtracer_tpu_torch.app.main import load_pipeline
+from vulkan_pathtracer_tpu_torch.models.camera import Camera
+from vulkan_pathtracer_tpu_torch.render import wavefront
+from vulkan_pathtracer_tpu_torch.utils import RenderConfig
+
+STEPS = ("_closest_hit", "_any_hit", "_closest_hit_sorted", "_any_hit_sorted",
+         "_sorted_order", "get_triangle_data", "get_material_data",
+         "extend_paths")
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def _timed(name, fn, log):
+    def run(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        log.append((name, start, end))
+        return out
+    return run
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="profile_frame")
+    ap.add_argument("-s", "--scene-path", default="")
+    ap.add_argument("--instanced", action="store_true")
+    ap.add_argument("--frames", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.stderr.write("profile_frame: needs a CUDA device\n")
+        return 1
+    path = args.scene_path
+    if not path:
+        sys.path.insert(0, ROOT)
+        from assets.procedural import make_atrium
+
+        work = os.path.join(ROOT, "build", "profile_frame")
+        os.makedirs(work, exist_ok=True)
+        path = os.path.join(work, "atrium_4.1.glb")
+        if not os.path.exists(path):
+            make_atrium(path, detail=4.1)
+    dev = torch.device("cuda")
+    config = RenderConfig(num_samples=1, num_bounces=2)
+    pipe = load_pipeline(path, config, dev, instanced=args.instanced)
+    orbit = orbit_path(radius=4.5, height=2.2, duration=4.0,
+                       center=(0.0, 1.2, 0.0))
+    cam = Camera(aspect_ratio=config.aspect_ratio)
+
+    def frame(f):
+        orbit.apply(cam, 4.0 * f / args.frames)
+        image, rays = pipe.render(cam, f, present_order=False)
+        return int(rays)   # syncs: rays is a device scalar
+
+    frame(0)   # warm-up
+    log = []
+    originals = {n: getattr(wavefront, n) for n in STEPS}
+    for n, fn in originals.items():
+        setattr(wavefront, n, _timed(n, fn, log))
+    walls, steps = [], {n: [] for n in STEPS}
+    try:
+        for f in range(args.frames):
+            log.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rays = frame(f + 1)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            per = {n: 0.0 for n in STEPS}
+            for n, start, end in log:
+                per[n] += start.elapsed_time(end)
+            for n in STEPS:
+                steps[n].append(per[n])
+    finally:
+        for n, fn in originals.items():
+            setattr(wavefront, n, fn)
+
+    prof_frames = 3
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in range(prof_frames):
+            frame(f + 1)
+        torch.cuda.synchronize()
+        prof_wall = 1e3 * (time.perf_counter() - t0) / prof_frames
+    device_us = sum(e.device_time_total for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    device_ms = device_us / 1e3 / prof_frames
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({
+        "card": card, "instanced": args.instanced,
+        "triangles": pipe.scene.num_triangles, "rays_per_frame": rays,
+        "frames": args.frames,
+        "ms_per_frame_median": statistics.median(walls),
+        "ms_per_frame": walls,
+        "step_ms_per_frame_median": {n: statistics.median(v)
+                                     for n, v in steps.items() if any(v)},
+        "profiled_device_ms_per_frame": device_ms or None,
+        "profiled_wall_ms_per_frame": prof_wall,
+        # Kernel time against the unprofiled wall (the profiler slows
+        # the host's launches) and against the profiled wall.
+        "device_busy_share": (device_ms / statistics.median(walls)
+                              if device_ms else None),
+        "device_busy_share_profiled": (device_ms / prof_wall
+                                       if device_ms else None),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

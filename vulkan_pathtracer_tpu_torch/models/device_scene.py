@@ -1,12 +1,11 @@
-"""Flattened device scene: world-space tensors for the port.
+"""Device scene: the tensors the renderer reads, on one ``torch.device``.
 
 Port of the FLAT path of ``vulkan_pathtracer_tpu/models/device_scene.py``
 (``build_device_scene`` and ``bvh_with_leaf_blocks``): instance
 transforms are baked at load time into one world-space triangle soup,
-a binned-SAH BVH is built over it (``native/sah.cpp`` through the JAX
-package's JAX-free host modules ``ops/bvh.py`` and ``ops/native.py``),
-its leaves are rewritten to fixed-size blocks, and the tables the
-renderer reads are uploaded to one ``torch.device``:
+a binned-SAH BVH is built over it (``native/sah.cpp`` through the
+port's ``ops/bvh.py`` and ``ops/native.py``), its leaves are rewritten
+to fixed-size blocks, and the tables the renderer reads are uploaded:
 
 - triangle SoA ``tri_v0/e1/e2/gn`` (T, 3) and ``tri_material`` (T,),
   padded to a multiple of 128 with degenerate triangles;
@@ -16,17 +15,26 @@ renderer reads are uploaded to one ``torch.device``:
 - ``mat_packed`` (M, 8): factors and texture table per material, as
   int64 holding the uint32 words;
 - the texel pool (P, 4) uint8 with offset/width/height tables;
-- the quad traversal tables ``quad_box`` / ``quad_link`` and the leaf
-  table ``leaves`` (ops/stack_traverse.py describes the layout);
+- the traversal tables ``quad_box`` / ``quad_link`` (what flat scenes
+  dispatch to), ``pair_box`` / ``pair_link`` (the BVH2 table, which the
+  tests and chip_smoke.py use to check the flat variant of the pair
+  kernels) and the leaf table ``leaves`` (ops/stack_traverse.py
+  describes the layouts);
 - the root bounds, ``emissive_free``, ``bvh_depth``.
 
+Two-level scenes (``instanced``; models/instanced_scene.py) share this
+class: object-space triangles, pair tables only, and the instance
+tables ``inst_inv`` / ``inst_nrm``.
+
 ``scene_from_jax_arrays`` builds the same scene from the arrays of a
-JAX ``DeviceScene``, so a test can trace one scene in both packages.
+JAX ``DeviceScene``, flat or instanced, so a test can trace one scene
+in both packages.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,8 +44,19 @@ from vulkan_pathtracer_tpu_torch.models.gltf import (
     MATERIAL_DTYPE,
     Scene,
 )
+from vulkan_pathtracer_tpu_torch.ops.bvh import (
+    build_bvh_host,
+    pad_leaves_to_blocks,
+    tree_depth,
+)
+from vulkan_pathtracer_tpu_torch.ops.native import (
+    bake_triangles_native,
+    get_lib,
+    transform_dirs_native,
+)
 from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
     EMPTY,
+    build_pair_tables,
     build_quad_tables,
 )
 
@@ -47,8 +66,6 @@ PAD = 128
 def native_library_loaded() -> bool:
     """Whether the native host library (SAH BVH build, triangle bake) is loaded.
     Without it ops/bvh.py builds a different tree (NumPy LBVH)."""
-    from vulkan_pathtracer_tpu.ops.native import get_lib
-
     return get_lib() is not None
 
 
@@ -65,11 +82,19 @@ class DeviceScene:
     tex_offset: torch.Tensor    # (NT,) int32
     tex_width: torch.Tensor     # (NT,) int32
     tex_height: torch.Tensor    # (NT,) int32
-    quad_box: torch.Tensor      # (N4, 4, 6) f32
-    quad_link: torch.Tensor     # (N4, 4) int32
     leaves: torch.Tensor        # (n_leaves, block, 9) f32
-    root_lo: torch.Tensor       # (3,) f32 root AABB
+    root_lo: torch.Tensor       # (3,) f32 root AABB (world)
     root_hi: torch.Tensor       # (3,) f32
+    quad_box: Optional[torch.Tensor] = None   # (N4, 4, 6) f32, flat only
+    quad_link: Optional[torch.Tensor] = None  # (N4, 4) int32
+    pair_box: Optional[torch.Tensor] = None   # (Ni, 2, 6) f32
+    pair_link: Optional[torch.Tensor] = None  # (Ni, 2) int32
+    # Two-level scenes (models/instanced_scene.py): leaf values pack
+    # inst << mb_bits | mesh block, triangles are object space.
+    inst_inv: Optional[torch.Tensor] = None   # (I, 16) invA | inv t | det sign
+    inst_nrm: Optional[torch.Tensor] = None   # (I, 9) normal matrix inv(A)
+    # Static maps of update_instance_transforms (InstanceMaps).
+    inst_maps: Optional[object] = None
     num_triangles: int = 0      # un-padded triangle count
     max_leaf_size: int = 4      # leaf block size
     bvh_depth: int = 0          # binary tree depth (root = 1)
@@ -77,6 +102,8 @@ class DeviceScene:
     # Every material's emissive factor is zero, so last-bounce radiance
     # is only the sky/miss decision and the renderer may use any hit.
     emissive_free: bool = False
+    instanced: bool = False
+    mb_bits: int = 0            # leaf-value mesh-block field width
 
     @property
     def device(self) -> torch.device:
@@ -95,11 +122,6 @@ def _pad_rows(arr: np.ndarray, multiple: int, fill=0.0) -> np.ndarray:
 def _bake_instance(scene: Scene, inst, acc: dict, vert_base: int) -> int:
     """Append one instance's triangles/vertices in world space
     (device_scene._bake_instance, native fast path + NumPy fallback)."""
-    from vulkan_pathtracer_tpu.ops.native import (
-        bake_triangles_native,
-        transform_dirs_native,
-    )
-
     M = inst.transform.astype(np.float64)
     A = M[:3, :3]
     t = M[:3, 3]
@@ -156,18 +178,13 @@ def bvh_with_leaf_blocks(tri_v0, tri_e1, tri_e2, max_leaf_size: int):
     """Build the BVH and rewrite its leaves to fixed-size blocks.
     Returns (bvh, slot_map): slot_map (T',) maps leaf-block triangle
     slots to original triangle indices, -1 for padding."""
-    from vulkan_pathtracer_tpu.ops.bvh import (
-        build_bvh_host,
-        pad_leaves_to_blocks,
-    )
-
     bvh = build_bvh_host(tri_v0, tri_e1, tri_e2, max_leaf_size=max_leaf_size)
     gmap = pad_leaves_to_blocks(bvh, block=max_leaf_size)
     slot_map = np.where(gmap >= 0, bvh.tri_order[np.maximum(gmap, 0)], -1)
     return bvh, slot_map
 
 
-def _apply_slot_map(arr: np.ndarray, slot_map: np.ndarray) -> np.ndarray:
+def apply_slot_map(arr: np.ndarray, slot_map: np.ndarray) -> np.ndarray:
     out = arr[np.maximum(slot_map, 0)]
     out[slot_map < 0] = 0
     return out
@@ -183,10 +200,85 @@ def _empty_tree(block: int):
 
 
 def _to_device(host: dict, meta: dict, device) -> DeviceScene:
+    """Upload the host arrays (None stays None) and build the scene."""
     dev = torch.device(device)
-    tensors = {k: torch.from_numpy(np.array(v, order="C")).to(dev)
+    tensors = {k: None if v is None else
+               torch.from_numpy(np.array(v, order="C")).to(dev)
                for k, v in host.items()}
     return DeviceScene(**tensors, **meta)
+
+
+def pack_materials(scene: Scene) -> dict:
+    """Material rows and the texel pool (device_scene.py's packed
+    material path): ``mat_packed``, ``tex_*`` and the host flags
+    ``has_textures`` / ``emissive_free``."""
+    mats = scene.materials
+    if len(mats) == 0:
+        mats = np.zeros(1, dtype=MATERIAL_DTYPE)
+        mats["albedo_factor"] = 0x00FFFFFF
+        mats["metal_roughness_factor"] = 0x00FFFF00
+        for f in ("albedo_texture_index", "metal_roughness_texture_index",
+                  "emissive_texture_index", "normal_texture_index"):
+            mats[f] = INVALID_TEXTURE_INDEX
+
+    def remap(field):
+        raw = mats[field].astype(np.int64)
+        return np.where(raw == INVALID_TEXTURE_INDEX, 0, raw + 1)
+
+    has_nrm = (mats["normal_texture_index"].astype(np.int64)
+               != INVALID_TEXTURE_INDEX)
+    mat_packed = np.stack([
+        mats["albedo_factor"].astype(np.int64),
+        mats["metal_roughness_factor"].astype(np.int64),
+        mats["emissive_factor"].astype(np.int64),
+        remap("albedo_texture_index"),
+        remap("metal_roughness_texture_index"),
+        remap("emissive_texture_index"),
+        remap("normal_texture_index"),
+        has_nrm.astype(np.int64),
+    ], axis=1)
+
+    texels = [np.full((1, 4), 255, dtype=np.uint8)]
+    offsets, widths, heights = [0], [1], [1]
+    cursor = 1
+    for tex in scene.textures:
+        flat = tex.data.reshape(-1, 4)
+        texels.append(flat)
+        offsets.append(cursor)
+        widths.append(tex.width)
+        heights.append(tex.height)
+        cursor += flat.shape[0]
+    return dict(
+        mat_packed=mat_packed, tex_texels=np.concatenate(texels),
+        tex_offset=np.asarray(offsets, np.int32),
+        tex_width=np.asarray(widths, np.int32),
+        tex_height=np.asarray(heights, np.int32),
+        has_textures=len(scene.textures) > 0,
+        # Emissive rgb is the low 3 bytes of the packed factor; a zero
+        # factor zeroes the texture product too.
+        emissive_free=bool(
+            ((mats["emissive_factor"].astype(np.int64) & 0x00FFFFFF) == 0)
+            .all()),
+    )
+
+
+def attr_rows(tri: dict, vert_normal, vert_tangent, vert_uv) -> np.ndarray:
+    """(T, 34) packed shading rows: the three vertex normals, tangents
+    and uvs, the geometric normal and the material/primitive/local ids
+    (bit-cast int32)."""
+    idx = tri["tri_index"]
+    i0, i1, i2 = idx[:, 0], idx[:, 1], idx[:, 2]
+    gn = tri["tri_gn"]
+    return np.concatenate([
+        vert_normal[i0], vert_normal[i1], vert_normal[i2],      # 0:9
+        vert_tangent[i0], vert_tangent[i1], vert_tangent[i2],   # 9:21
+        vert_uv[i0], vert_uv[i1], vert_uv[i2],                  # 21:27
+        gn,                                                     # 27:30
+        np.ascontiguousarray(tri["tri_material"]).view(np.float32)[:, None],
+        np.ascontiguousarray(tri["tri_primitive"]).view(np.float32)[:, None],
+        np.ascontiguousarray(tri["tri_local"]).view(np.float32)[:, None],
+        np.zeros((gn.shape[0], 1), np.float32),                 # pad: 34
+    ], axis=1).astype(np.float32)
 
 
 def build_device_scene(scene: Scene, max_leaf_size: int = 4,
@@ -227,7 +319,7 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
                                              max_leaf_size)
         tri_v0, tri_e1, tri_e2, tri_gn, tri_index, tri_material, \
             tri_primitive, tri_local = (
-                _apply_slot_map(a, slot_map) for a in (
+                apply_slot_map(a, slot_map) for a in (
                     tri_v0, tri_e1, tri_e2, tri_gn, tri_index, tri_material,
                     tri_primitive, tri_local))
     tri_v0, tri_e1, tri_e2, tri_gn, tri_index, tri_material, tri_primitive, \
@@ -239,59 +331,16 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
         vert_tangent = np.zeros((1, 4), np.float32)
         vert_uv = np.zeros((1, 2), np.float32)
 
-    mats = scene.materials
-    if len(mats) == 0:
-        mats = np.zeros(1, dtype=MATERIAL_DTYPE)
-        mats["albedo_factor"] = 0x00FFFFFF
-        mats["metal_roughness_factor"] = 0x00FFFF00
-        for f in ("albedo_texture_index", "metal_roughness_texture_index",
-                  "emissive_texture_index", "normal_texture_index"):
-            mats[f] = INVALID_TEXTURE_INDEX
+    mat = pack_materials(scene)
+    tri_attr = attr_rows(dict(
+        tri_index=tri_index, tri_gn=tri_gn, tri_material=tri_material,
+        tri_primitive=tri_primitive, tri_local=tri_local),
+        vert_normal, vert_tangent, vert_uv)
 
-    def remap(field):
-        raw = mats[field].astype(np.int64)
-        return np.where(raw == INVALID_TEXTURE_INDEX, 0, raw + 1)
-
-    has_nrm = (mats["normal_texture_index"].astype(np.int64)
-               != INVALID_TEXTURE_INDEX)
-    mat_packed = np.stack([
-        mats["albedo_factor"].astype(np.int64),
-        mats["metal_roughness_factor"].astype(np.int64),
-        mats["emissive_factor"].astype(np.int64),
-        remap("albedo_texture_index"),
-        remap("metal_roughness_texture_index"),
-        remap("emissive_texture_index"),
-        remap("normal_texture_index"),
-        has_nrm.astype(np.int64),
-    ], axis=1)
-
-    texels = [np.full((1, 4), 255, dtype=np.uint8)]
-    offsets, widths, heights = [0], [1], [1]
-    cursor = 1
-    for tex in scene.textures:
-        flat = tex.data.reshape(-1, 4)
-        texels.append(flat)
-        offsets.append(cursor)
-        widths.append(tex.width)
-        heights.append(tex.height)
-        cursor += flat.shape[0]
-
-    i0, i1, i2 = tri_index[:, 0], tri_index[:, 1], tri_index[:, 2]
-    tri_attr = np.concatenate([
-        vert_normal[i0], vert_normal[i1], vert_normal[i2],      # 0:9
-        vert_tangent[i0], vert_tangent[i1], vert_tangent[i2],   # 9:21
-        vert_uv[i0], vert_uv[i1], vert_uv[i2],                  # 21:27
-        tri_gn,                                                 # 27:30
-        np.ascontiguousarray(tri_material).view(np.float32)[:, None],
-        np.ascontiguousarray(tri_primitive).view(np.float32)[:, None],
-        np.ascontiguousarray(tri_local).view(np.float32)[:, None],
-        np.zeros((tri_gn.shape[0], 1), np.float32),             # pad: 34
-    ], axis=1).astype(np.float32)
-
+    pair_box = pair_link = None
     if bvh is not None:
-        from vulkan_pathtracer_tpu.ops.bvh import tree_depth
-
         quad_box, quad_link = build_quad_tables(bvh, max_leaf_size)
+        pair_box, pair_link = build_pair_tables(bvh, max_leaf_size)
         n_blocks = int(bvh.leaf_first.max()) // max_leaf_size + 1
         flat = np.concatenate([tri_v0, tri_e1, tri_e2], axis=1)[
             : n_blocks * max_leaf_size]
@@ -304,24 +353,19 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
             max_leaf_size)
         depth = 0
 
+    has_textures = mat.pop("has_textures")
+    emissive_free = mat.pop("emissive_free")
     host = dict(
         tri_v0=tri_v0, tri_e1=tri_e1, tri_e2=tri_e2, tri_gn=tri_gn,
-        tri_material=tri_material, tri_attr=tri_attr, mat_packed=mat_packed,
-        tex_texels=np.concatenate(texels),
-        tex_offset=np.asarray(offsets, np.int32),
-        tex_width=np.asarray(widths, np.int32),
-        tex_height=np.asarray(heights, np.int32),
-        quad_box=quad_box, quad_link=quad_link, leaves=leaves,
-        root_lo=root_lo, root_hi=root_hi,
+        tri_material=tri_material, tri_attr=tri_attr, **mat,
+        quad_box=quad_box, quad_link=quad_link, pair_box=pair_box,
+        pair_link=pair_link, leaves=leaves, root_lo=root_lo,
+        root_hi=root_hi,
     )
     meta = dict(
         num_triangles=num_triangles, max_leaf_size=max_leaf_size,
-        bvh_depth=depth, has_textures=len(scene.textures) > 0,
-        # Emissive rgb is the low 3 bytes of the packed factor; a zero
-        # factor zeroes the texture product too.
-        emissive_free=bool(
-            ((mats["emissive_factor"].astype(np.int64) & 0x00FFFFFF) == 0)
-            .all()),
+        bvh_depth=depth, has_textures=has_textures,
+        emissive_free=emissive_free,
     )
     return _to_device(host, meta, device)
 
@@ -330,31 +374,22 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
     """The port's scene from a JAX ``DeviceScene``'s arrays as NumPy
     (its ``_ARRAY_FIELDS``; absent fields None) and its static fields
     ``num_triangles``, ``max_leaf_size``, ``bvh_depth``,
-    ``emissive_free`` (``has_textures`` is optional).
+    ``emissive_free`` (``has_textures``, ``instanced`` and ``mb_bits``
+    are optional).
 
     Converts the JAX quad rows (N4, 32) — boxes, then enc links as f32
     values, NaN boxes in empty slots — into quad_box / quad_link with
-    the EMPTY sentinel, and the leaf table (n_leaves, block*9) into
-    (n_leaves, block, 9)."""
+    the EMPTY sentinel, the pair rows (Ni, 16) into pair_box / pair_link
+    (int32 links, leaf values verbatim), and the leaf table
+    (n_leaves, block*9) into (n_leaves, block, 9).  An instanced scene
+    brings its pair rows, ``inst_inv``, ``inst_nrm`` and ``mb_bits``; it
+    has no quad rows.  Trees whose root is a leaf have no JAX rows; the
+    port's tables for them are built as build_quad_tables and
+    build_pair_tables build them."""
     block = int(meta["max_leaf_size"])
-    rows = arrays.get("bvh_quad")
+    instanced = bool(meta.get("instanced", False))
     packed = arrays.get("bvh_packed")
-    if rows is not None:
-        n4 = rows.shape[0]
-        quad_box = rows[:, :24].reshape(n4, 4, 6).astype(np.float32)
-        enc = rows[:, 24:28]
-        empty = np.isnan(quad_box[:, :, 0])
-        quad_link = np.where(empty, EMPTY, enc.astype(np.int64)).astype(
-            np.int32)
-        quad_box = np.where(empty[:, :, None], np.float32(0.0), quad_box)
-    elif packed is not None:
-        # Root is a leaf (no internal rows): one row, leaf in slot 0.
-        quad_box = np.zeros((1, 4, 6), np.float32)
-        quad_link = np.full((1, 4), EMPTY, np.int32)
-        quad_box[0, 0] = packed[0, 0:6]
-        leaf_first = int(np.ascontiguousarray(packed[0, 7:8]).view(
-            np.int32)[0])
-        quad_link[0, 0] = -(leaf_first // block + 1)
+    quad_box = quad_link = pair_box = pair_link = None
     if packed is None:
         quad_box, quad_link, leaves, root_lo, root_hi = _empty_tree(block)
     else:
@@ -362,6 +397,34 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
         leaves = blocks.reshape(blocks.shape[0], block, 9)
         root_lo = packed[0, 0:3].astype(np.float32)
         root_hi = packed[0, 3:6].astype(np.float32)
+        leaf_first = int(np.ascontiguousarray(packed[0, 7:8]).view(
+            np.int32)[0])
+        # Root is a leaf when its packed leaf field is >= 0; its value
+        # is a block-aligned slot (flat) or a packed leaf value.
+        root_leaf = leaf_first if instanced else leaf_first // block
+        rows = arrays.get("bvh_quad")
+        if rows is not None:
+            n4 = rows.shape[0]
+            quad_box = rows[:, :24].reshape(n4, 4, 6).astype(np.float32)
+            enc = rows[:, 24:28]
+            empty = np.isnan(quad_box[:, :, 0])
+            quad_link = np.where(empty, EMPTY, enc.astype(np.int64)).astype(
+                np.int32)
+            quad_box = np.where(empty[:, :, None], np.float32(0.0),
+                                quad_box)
+        elif not instanced and leaf_first >= 0:
+            quad_box = np.zeros((1, 4, 6), np.float32)
+            quad_link = np.full((1, 4), EMPTY, np.int32)
+            quad_box[0, 0] = packed[0, 0:6]
+            quad_link[0, 0] = -(root_leaf + 1)
+        pairs = arrays.get("bvh_pair")
+        if pairs is not None:
+            pair_box = pairs[:, :12].reshape(-1, 2, 6).astype(np.float32)
+            pair_link = pairs[:, 12:14].astype(np.int64).astype(np.int32)
+        elif leaf_first >= 0:
+            pair_box = np.broadcast_to(packed[0, 0:6], (1, 2, 6)).astype(
+                np.float32)
+            pair_link = np.full((1, 2), -(root_leaf + 1), np.int32)
     host = dict(
         tri_v0=arrays["tri_v0"], tri_e1=arrays["tri_e1"],
         tri_e2=arrays["tri_e2"], tri_gn=arrays["tri_gn"],
@@ -370,8 +433,11 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
         mat_packed=arrays["mat_packed"].astype(np.int64),
         tex_texels=arrays["tex_texels"], tex_offset=arrays["tex_offset"],
         tex_width=arrays["tex_width"], tex_height=arrays["tex_height"],
-        quad_box=quad_box, quad_link=quad_link, leaves=leaves,
-        root_lo=root_lo, root_hi=root_hi,
+        quad_box=quad_box, quad_link=quad_link, pair_box=pair_box,
+        pair_link=pair_link, leaves=leaves, root_lo=root_lo,
+        root_hi=root_hi,
+        inst_inv=arrays.get("inst_inv") if instanced else None,
+        inst_nrm=arrays.get("inst_nrm") if instanced else None,
     )
     out_meta = dict(
         num_triangles=int(meta["num_triangles"]), max_leaf_size=block,
@@ -379,5 +445,7 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
         has_textures=bool(meta.get("has_textures",
                                    arrays["tex_offset"].shape[0] > 1)),
         emissive_free=bool(meta["emissive_free"]),
+        instanced=instanced,
+        mb_bits=int(meta.get("mb_bits", 0)) if instanced else 0,
     )
     return _to_device(host, out_meta, device)

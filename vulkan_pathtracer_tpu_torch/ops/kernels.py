@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared
+The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc``
+per ``.cu`` file, all started together, and linked into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build
 happens at first use, into ``build/torch_kernels/<hash>/`` at the root
 of the checkout (``build/`` is git-ignored), keyed by a hash of the
@@ -26,10 +27,9 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 BUILD_DIR = os.path.join(_ROOT, "build", "torch_kernels")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v"]
 
 _LIB = None
 BUILD_INFO = {}  # seconds, ptxas log, library path of the loaded build
@@ -63,17 +63,32 @@ def build() -> str:
         BUILD_INFO.update(seconds=0.0, log="(cached build)", path=lib_path)
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cu = [s for s in sources if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    jobs = []
+    for src in (s for s in sources if s.endswith(".cu")):
+        obj = os.path.join(out_dir, os.path.basename(src) + f".{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    outs = [proc.communicate()[0] for _, _, proc in jobs]   # wait for all
+    for (cmd, _, proc), out in zip(jobs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    log = "".join(outs)
+    tmp = f"{lib_path}.{tag}"
+    cmd = [nvcc, *GENCODE, "-shared", "-o", tmp, *(j[1] for j in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib_path)
-    BUILD_INFO.update(seconds=seconds, log=proc.stdout + proc.stderr,
+    for _, obj, _ in jobs:
+        os.remove(obj)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log,
                       path=lib_path)
     return lib_path
 
@@ -90,6 +105,14 @@ def lib() -> ctypes.CDLL:
         handle.vkpt_quad_any_hit.restype = ctypes.c_int
         handle.vkpt_quad_any_hit.argtypes = [
             p, p, p, ctypes.c_int, p, p, p, ctypes.c_int64, p, p]
+        handle.vkpt_pair_closest_hit.restype = ctypes.c_int
+        handle.vkpt_pair_closest_hit.argtypes = [
+            p, p, p, ctypes.c_int, p, ctypes.c_int, p, p, p, ctypes.c_int64,
+            p, p, p, p, p]
+        handle.vkpt_pair_any_hit.restype = ctypes.c_int
+        handle.vkpt_pair_any_hit.argtypes = [
+            p, p, p, ctypes.c_int, p, ctypes.c_int, p, p, p, ctypes.c_int64,
+            p, p]
         _LIB = handle
     return _LIB
 
@@ -109,12 +132,27 @@ def _check(name: str, x: torch.Tensor, dtype, shape,
                          f"aligned")
 
 
-def _check_tables(box, link, leaves):
-    _check("quad_box", box, torch.float32, (None, 4, 6))
-    _check("quad_link", link, torch.int32, (box.shape[0], 4))
+def _check_tables(box, link, leaves, width: int = 4):
+    kind = "quad" if width == 4 else "pair"
+    _check(f"{kind}_box", box, torch.float32, (None, width, 6))
+    _check(f"{kind}_link", link, torch.int32, (box.shape[0], width),
+           align=4 * width)
     if leaves.dim() != 3:
         raise ValueError("leaves: expected (n_leaves, block, 9)")
     _check("leaves", leaves, torch.float32, (None, leaves.shape[1], 9))
+
+
+def _check_inst(inst_inv, mb_bits: int, device):
+    """The instance table of a two-level scene, or None (flat)."""
+    if inst_inv is None:
+        return None
+    _check("inst_inv", inst_inv, torch.float32, (None, 16))
+    if inst_inv.device != device:
+        raise ValueError(f"inst_inv lies on {inst_inv.device}, tables on "
+                         f"{device}")
+    if not 0 < mb_bits < 31:
+        raise ValueError(f"mb_bits {mb_bits} out of range")
+    return inst_inv.data_ptr()
 
 
 def _check_rays(origin, direction, t_lane, device):
@@ -162,4 +200,44 @@ def quad_any_hit(box, link, leaves, origin, direction, t_lane):
         hit.data_ptr(), _stream(origin.device))
     if rc != 0:
         raise RuntimeError(f"quad_any_hit launch failed: CUDA error {rc}")
+    return hit.bool()
+
+
+def pair_closest_hit(box, link, leaves, origin, direction, t_lane,
+                     inst_inv=None, mb_bits: int = 0):
+    """Launch the pair closest-hit kernel (instanced when ``inst_inv`` is
+    given); returns (t, tri, u, v)."""
+    _check_tables(box, link, leaves, width=2)
+    _check_rays(origin, direction, t_lane, box.device)
+    inst = _check_inst(inst_inv, mb_bits, box.device)
+    n = origin.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=origin.device)
+    tri = torch.empty(n, dtype=torch.int32, device=origin.device)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    rc = lib().vkpt_pair_closest_hit(
+        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
+        inst, mb_bits, origin.data_ptr(), direction.data_ptr(),
+        t_lane.data_ptr(), n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+        v.data_ptr(), _stream(origin.device))
+    if rc != 0:
+        raise RuntimeError(f"pair_closest_hit launch failed: CUDA error {rc}")
+    return t, tri, u, v
+
+
+def pair_any_hit(box, link, leaves, origin, direction, t_lane,
+                 inst_inv=None, mb_bits: int = 0):
+    """Launch the pair any-hit kernel (instanced when ``inst_inv`` is
+    given); returns an (N,) bool tensor."""
+    _check_tables(box, link, leaves, width=2)
+    _check_rays(origin, direction, t_lane, box.device)
+    inst = _check_inst(inst_inv, mb_bits, box.device)
+    n = origin.shape[0]
+    hit = torch.empty(n, dtype=torch.uint8, device=origin.device)
+    rc = lib().vkpt_pair_any_hit(
+        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
+        inst, mb_bits, origin.data_ptr(), direction.data_ptr(),
+        t_lane.data_ptr(), n, hit.data_ptr(), _stream(origin.device))
+    if rc != 0:
+        raise RuntimeError(f"pair_any_hit launch failed: CUDA error {rc}")
     return hit.bool()

@@ -1,10 +1,15 @@
-"""Quad-BVH stack traversal: closest hit and any hit.
+"""Stack traversal of the pair (BVH2) and quad (BVH4) tables: closest
+hit and any hit.
 
-Counterpart of ``vulkan_pathtracer_tpu/ops/pallas_pair.py``: its quad
-row construction (``_nary_collapse``, ``_build_nary_rows``,
-``_assert_depth``, ``STACK_CAP``) and its two width-4 stack kernels
-(``_make_nary_kernel`` via ``pallas_quad_closest_hit``, and
-``_make_nary_anyhit_kernel`` via ``pallas_quad_any_hit``).
+Counterpart of ``vulkan_pathtracer_tpu/ops/pallas_pair.py``: its row
+construction (``build_pair_rows``, ``build_pair_rows_preorder``,
+``pair_static_maps_preorder``, ``_nary_collapse``, ``_build_nary_rows``,
+``_assert_depth``, ``STACK_CAP``) and four of its stack kernels: the
+width-4 ``_make_nary_kernel`` / ``_make_nary_anyhit_kernel``
+(``pallas_quad_closest_hit`` / ``pallas_quad_any_hit``), and the BVH2
+``_make_pair_kernel`` / ``_make_pair_anyhit_kernel``
+(``pallas_pair_closest_hit`` / ``pallas_pair_any_hit``), which carry the
+instanced leaf decode of two-level scenes.
 
 Tables (port-native layout, converted from the JAX layout only at the
 boundary, see models/device_scene.scene_from_jax_arrays):
@@ -15,18 +20,35 @@ boundary, see models/device_scene.scene_from_jax_arrays):
   mark empty slots with NaN boxes and enc -1 ("leaf 0"), which relies
   on NaN propagating through min/max; CUDA's fminf/fmaxf drop NaN, so
   the port tests emptiness explicitly instead.
-- ``leaves (n_leaves, block, 9) f32``: v0, e1, e2 of each triangle;
-  triangle id = leaf * block + k.
+- ``pair_box (Ni, 2, 6) f32`` / ``pair_link (Ni, 2) int32``: the two
+  children of each internal node, rows in preorder rank (root = row 0).
+  A link >= 0 is a child row, -(leaf_value+1) a leaf.  ``leaf_value``
+  is a leaf block for flat scenes and the packed ``inst << mb_bits |
+  mesh_block`` of two-level scenes (models/instanced_scene.py), copied
+  verbatim; a pair row has no empty slot.
+- ``leaves (n_blocks, block, 9) f32``: v0, e1, e2 of each triangle,
+  indexed by the leaf block (``leaf_value & (2^mb_bits - 1)`` when
+  instanced); the returned triangle id is ``leaf_value * block + k``.
+- ``inst_inv (I, 16) f32`` (instanced only): the world-to-object
+  matrix row-major (0:9), its translation (9:12) and the sign of the
+  object-to-world determinant (12).
 
-Traversal semantics (shared by the CUDA kernels in
-``csrc/stack_traverse.cu`` and the plain PyTorch versions here, which
-perform the same float operations in the same order):
+Traversal semantics (shared by the CUDA kernels in ``csrc/`` and the
+plain PyTorch versions here, which perform the same float operations in
+the same order):
 
-- one ray at a time with its own stack of 3 * STACK_CAP entries; the
-  four child boxes of a row are slab-tested (pallas_pair.py:1042-1060),
-  hit leaf slots run Möller–Trumbore in slot order
-  (pallas_pair.py:970-992), hit internal slots are visited near-first
-  by entry distance (stable on ties) and the rest pushed far-to-near;
+- one ray at a time with its own stack of (width-1) * STACK_CAP
+  entries; the child boxes of a row are slab-tested
+  (pallas_pair.py:644-651, :1042-1060); hit internal children are
+  visited near-first by entry distance (stable on ties) and the rest
+  pushed far-to-near;
+- hit leaf children run Möller–Trumbore: in slot order in a quad row
+  (pallas_pair.py:970-992), nearer-first in a pair row
+  (pallas_pair.py:805-831);
+- instanced leaves transform the ray into object space first, with
+  the 13 ``inst_inv`` floats in the JAX order of operations
+  (pallas_pair.py:661-673), and cull by ``det * det_sign > 0``
+  (:697-700), the world-winding rule under mirroring transforms;
 - a popped node whose stored entry distance exceeds the current
   min(t_best, t_lane) is skipped: its children's boxes lie inside its
   box, so none of them could pass the slab test (exact);
@@ -43,17 +65,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vulkan_pathtracer_tpu_torch.ops.bvh import tree_depth
 from vulkan_pathtracer_tpu_torch.ops.intersect import Hit, MISS_T, TMAX, TMIN
 
-STACK_CAP = 96   # >= binary tree depth; build_quad_tables asserts it
-STACK_SIZE = 3 * STACK_CAP  # per-ray entries: <= 3 pushes per quad level
+STACK_CAP = 96   # >= binary tree depth; the table builders assert it
 EMPTY = -(2 ** 31)
 BIG = float(np.float32(3e38))
 INV_EPS = 1e-20
 
 # Kernel launches per wrapper (CUDA path only).  chip_smoke.py zeroes
 # these before the main path and reads them after it.
-LAUNCHES = {"quad_closest_hit": 0, "quad_any_hit": 0}
+LAUNCHES = {"quad_closest_hit": 0, "quad_any_hit": 0,
+            "pair_closest_hit": 0, "pair_any_hit": 0}
 
 
 def _assert_depth(depth: int, what: str) -> None:
@@ -107,8 +130,6 @@ def build_quad_tables(bvh, block: int):
 
     Empty slots hold a zero box and the EMPTY link.  A tree whose root
     is a leaf becomes one row holding that leaf in slot 0."""
-    from vulkan_pathtracer_tpu.ops.bvh import tree_depth
-
     _assert_depth(tree_depth(bvh), "build_quad_tables")
     if bvh.left_child[0] < 0:
         box = np.zeros((1, 4, 6), np.float32)
@@ -132,6 +153,71 @@ def build_quad_tables(bvh, block: int):
     return box, link
 
 
+def _pair_tables(bmin, bmax, left, right, leaf_value):
+    """(pair_box, pair_link, src) over a binary tree in preorder whose
+    internal nodes have leaf_value < 0 (``left``/``right`` indexed by
+    node, read at internal nodes only).  Rows follow preorder rank among
+    internal nodes (pallas_pair.build_pair_rows); src (Ni, 2) int64 holds
+    each row's two child node ids.  A tree whose root is a leaf becomes
+    one row holding that leaf in both slots (JAX has no pair rows for
+    it): the second visit can neither change a closest hit nor an
+    occlusion bit."""
+    leaf_value = np.asarray(leaf_value, np.int64)
+    internal = leaf_value < 0
+    if not internal[0]:
+        src = np.zeros((1, 2), np.int64)
+    else:
+        idx = np.nonzero(internal)[0]
+        src = np.stack([np.asarray(left)[idx], np.asarray(right)[idx]],
+                       axis=1).astype(np.int64)
+    row_of = np.cumsum(internal) - 1
+    box = np.concatenate([bmin[src], bmax[src]], axis=2).astype(np.float32)
+    link = np.where(internal[src], row_of[src], -(leaf_value[src] + 1))
+    return box, link.astype(np.int32), src
+
+
+def build_pair_tables(bvh, block: int):
+    """(pair_box, pair_link) of a binary host BVH in build order, whose
+    leaves are block-aligned: the flat bake's pair table
+    (pallas_pair.build_pair_rows, device_scene.py:698)."""
+    _assert_depth(tree_depth(bvh), "build_pair_tables")
+    leaf_value = np.where(bvh.leaf_first >= 0, bvh.leaf_first // block, -1)
+    box, link, _ = _pair_tables(bvh.bmin, bvh.bmax, bvh.left_child,
+                                bvh.right_child, leaf_value)
+    return box, link
+
+
+def _preorder_depth(internal, left, right) -> int:
+    """Max depth (root = 1) of a preorder tree given its internal
+    nodes' child indices (pallas_pair._preorder_depth)."""
+    depth = np.zeros(internal.shape[0], np.int32)
+    depth[0] = 1
+    idx = np.nonzero(internal)[0]
+    for i, l, r in zip(idx, left, right):
+        depth[l] = depth[r] = depth[i] + 1
+    return int(depth.max()) if depth.size else 0
+
+
+def build_pair_tables_preorder(bmin, bmax, skip_local, leaf_value):
+    """(pair_box, pair_link, src) from ONE preorder + skip linearization
+    (pallas_pair.build_pair_rows_preorder and
+    pair_static_maps_preorder): left(n) = n + 1, right(n) =
+    skip(n + 1); leaf_value >= 0 marks a leaf and is stored verbatim.
+    ``src`` is the static map that regenerates the boxes after the node
+    boxes move (models/instanced_scene.update_instance_transforms)."""
+    leaf_value = np.asarray(leaf_value, np.int64)
+    internal = leaf_value < 0
+    idx = np.nonzero(internal)[0]
+    n = leaf_value.shape[0]
+    left = np.zeros(n, np.int64)
+    right = np.zeros(n, np.int64)
+    left[idx] = idx + 1
+    right[idx] = np.asarray(skip_local)[idx + 1]
+    _assert_depth(_preorder_depth(internal, left[idx], right[idx]),
+                  "build_pair_tables_preorder")
+    return _pair_tables(bmin, bmax, left, right, leaf_value)
+
+
 # -- plain PyTorch versions -------------------------------------------------
 
 def _safe_inv(d: torch.Tensor) -> torch.Tensor:
@@ -141,9 +227,10 @@ def _safe_inv(d: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.where(torch.abs(d) < INV_EPS, sub, d)
 
 
-def _leaf_mt(tri9, o, d):
+def _leaf_mt(tri9, o, d, det_sign=None):
     """Möller–Trumbore of rays (M, 1, 3) against leaf triangles
-    (M, block, 9), term for term as the kernel's leaf loop.
+    (M, block, 9), term for term as the kernel's leaf loop; with
+    ``det_sign`` (M, 1) the front test is det * det_sign > 0.
     Returns (front & barycentric window, t, u, v), each (M, block)."""
     v0x, v0y, v0z = tri9[..., 0], tri9[..., 1], tri9[..., 2]
     e1x, e1y, e1z = tri9[..., 3], tri9[..., 4], tri9[..., 5]
@@ -154,7 +241,7 @@ def _leaf_mt(tri9, o, d):
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
     det = e1x * px + e1y * py + e1z * pz
-    front = det > 0.0
+    front = det > 0.0 if det_sign is None else det * det_sign > 0.0
     inv_det = 1.0 / torch.where(front, det, torch.ones_like(det))
     tx = ox - v0x
     ty = oy - v0y
@@ -169,13 +256,37 @@ def _leaf_mt(tri9, o, d):
     return ok, t, u, v
 
 
-def _traverse_plain(quad_box, quad_link, leaves, origin, direction,
-                    t_lane, any_hit: bool, leaf_visits=None):
-    """Per-ray stack traversal with tensor ops: every live ray advances
-    one node per iteration.  Returns (t, tri, u, v) for closest hit or
-    a bool tensor for any hit."""
+def _object_rays(inst_inv, mb_bits: int, leaf, o, d):
+    """Instanced leaf decode (pallas_pair.py:661-673): block row of the
+    packed leaf value, the ray in the instance's object space (same
+    operation order as the kernel) and det_sign.  o, d: (M, 3)."""
+    row = leaf & ((1 << mb_bits) - 1)
+    m = inst_inv[leaf >> mb_bits]
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    mo = torch.stack([m[:, 0] * ox + m[:, 1] * oy + m[:, 2] * oz + m[:, 9],
+                      m[:, 3] * ox + m[:, 4] * oy + m[:, 5] * oz + m[:, 10],
+                      m[:, 6] * ox + m[:, 7] * oy + m[:, 8] * oz + m[:, 11]],
+                     dim=1)
+    md = torch.stack([m[:, 0] * dx + m[:, 1] * dy + m[:, 2] * dz,
+                      m[:, 3] * dx + m[:, 4] * dy + m[:, 5] * dz,
+                      m[:, 6] * dx + m[:, 7] * dy + m[:, 8] * dz], dim=1)
+    return row, mo, md, m[:, 12]
+
+
+def _traverse_plain(box, link, leaves, origin, direction, t_lane,
+                    any_hit: bool, near_leaves: bool, inst_inv=None,
+                    mb_bits: int = 0, leaf_visits=None, stats=None):
+    """Per-ray stack traversal with tensor ops over a width-W table
+    (W = box.shape[1]): every live ray advances one node per iteration.
+    ``near_leaves`` orders a row's leaf children by entry distance (the
+    pair kernels) instead of by slot (the quad kernels).  ``stats``, a
+    dict, accumulates node visits (row loads) and leaf-block visits.
+    Returns (t, tri, u, v) for closest hit or a bool tensor for any
+    hit."""
     dev = origin.device
     n = origin.shape[0]
+    width = box.shape[1]
     block = leaves.shape[1]
     inv = _safe_inv(direction)
     oxi = origin * inv
@@ -186,12 +297,16 @@ def _traverse_plain(quad_box, quad_link, leaves, origin, direction,
     v_best = torch.zeros(n, dtype=torch.float32, device=dev)
     resolved = torch.zeros(n, dtype=torch.bool, device=dev)
 
-    stack = torch.zeros((n, STACK_SIZE), dtype=torch.int64, device=dev)
-    stack_tn = torch.zeros((n, STACK_SIZE), dtype=torch.float32, device=dev)
+    stack_size = (width - 1) * STACK_CAP
+    stack = torch.zeros((n, stack_size), dtype=torch.int64, device=dev)
+    stack_tn = torch.zeros((n, stack_size), dtype=torch.float32, device=dev)
     sp = torch.zeros(n, dtype=torch.int64, device=dev)
     cur = torch.where(t_lane >= 0, 0, -1).to(torch.int64)
     cur_tn = torch.full((n,), float("-inf"), dtype=torch.float32, device=dev)
     big = torch.full((), BIG, dtype=torch.float32, device=dev)
+    if stats is not None:
+        stats.setdefault("node_visits", 0)
+        stats.setdefault("leaf_visits", 0)
 
     while True:
         idx = torch.nonzero(cur >= 0).squeeze(1)
@@ -201,9 +316,11 @@ def _traverse_plain(quad_box, quad_link, leaves, origin, direction,
         tl = t_lane[idx]
         t_lim = tl if any_hit else torch.minimum(t_best[idx], tl)
         visit = cur_tn[idx] <= t_lim
+        if stats is not None:
+            stats["node_visits"] += int(visit.sum())
 
-        b = quad_box[c]
-        lk = quad_link[c]
+        b = box[c]
+        lk = link[c]
         inv_i = inv[idx][:, None, :]
         oxi_i = oxi[idx][:, None, :]
         t0 = b[..., 0:3] * inv_i - oxi_i
@@ -216,21 +333,38 @@ def _traverse_plain(quad_box, quad_link, leaves, origin, direction,
                            torch.minimum(mx[..., 2], t_lim[:, None]))
         slot_hit = (tn <= tf) & (lk != EMPTY) & visit[:, None]
 
+        if near_leaves:
+            _, leaf_order = torch.sort(torch.where(slot_hit, tn, big), dim=1,
+                                       stable=True)
+        else:
+            leaf_order = torch.arange(width, device=dev).expand(
+                idx.shape[0], width)
+        lk_o = torch.gather(lk, 1, leaf_order)
+        hit_o = torch.gather(slot_hit, 1, leaf_order)
         done = torch.zeros(idx.shape[0], dtype=torch.bool, device=dev)
-        for s in range(4):
-            m = slot_hit[:, s] & (lk[:, s] < 0)
+        for s in range(width):
+            m = hit_o[:, s] & (lk_o[:, s] < 0)
             if any_hit:
                 m = m & ~done
             j = torch.nonzero(m).squeeze(1)
             if j.numel() == 0:
                 continue
             rays = idx[j]
-            leaf = (-lk[j, s] - 1).to(torch.int64)
+            leaf = (-lk_o[j, s] - 1).to(torch.int64)
+            if stats is not None:
+                stats["leaf_visits"] += j.numel()
+            o_r, d_r = origin[rays], direction[rays]
+            det_sign = None
+            row = leaf
+            if inst_inv is not None:
+                row, o_r, d_r, det_sign = _object_rays(inst_inv, mb_bits,
+                                                       leaf, o_r, d_r)
+                det_sign = det_sign[:, None]
             if leaf_visits is not None:
                 leaf_visits.index_add_(
-                    0, leaf, torch.ones_like(leaf, dtype=leaf_visits.dtype))
-            ok, t, u, v = _leaf_mt(leaves[leaf], origin[rays][:, None, :],
-                                   direction[rays][:, None, :])
+                    0, row, torch.ones_like(row, dtype=leaf_visits.dtype))
+            ok, t, u, v = _leaf_mt(leaves[row], o_r[:, None, :],
+                                   d_r[:, None, :], det_sign)
             tl_r = t_lane[rays]
             lim = tl_r if any_hit else torch.minimum(t_best[rays], tl_r)
             acc = ok & (t < lim[:, None])
@@ -253,7 +387,7 @@ def _traverse_plain(quad_box, quad_link, leaves, origin, direction,
         child = torch.gather(lk, 1, order).to(torch.int64)
         live = skeys < BIG
         sp_i = sp[idx]
-        for s in (3, 2, 1):
+        for s in range(width - 1, 0, -1):
             w = torch.nonzero(live[:, s]).squeeze(1)
             stack[idx[w], sp_i[w]] = child[w, s]
             stack_tn[idx[w], sp_i[w]] = skeys[w, s]
@@ -278,18 +412,40 @@ def _traverse_plain(quad_box, quad_link, leaves, origin, direction,
 
 
 def quad_closest_hit_plain(quad_box, quad_link, leaves, origin, direction,
-                           t_lane, leaf_visits=None) -> Hit:
-    """Plain version of the closest-hit kernel (any device)."""
+                           t_lane, leaf_visits=None, stats=None) -> Hit:
+    """Plain version of the quad closest-hit kernel (any device)."""
     t, tri, u, v = _traverse_plain(quad_box, quad_link, leaves, origin,
-                                   direction, t_lane, False, leaf_visits)
+                                   direction, t_lane, False, False,
+                                   leaf_visits=leaf_visits, stats=stats)
     return Hit(t=t, tri=tri, u=u, v=v)
 
 
 def quad_any_hit_plain(quad_box, quad_link, leaves, origin, direction,
-                       t_lane, leaf_visits=None) -> torch.Tensor:
-    """Plain version of the any-hit kernel (any device): (N,) bool."""
+                       t_lane, leaf_visits=None, stats=None) -> torch.Tensor:
+    """Plain version of the quad any-hit kernel (any device): (N,) bool."""
     return _traverse_plain(quad_box, quad_link, leaves, origin, direction,
-                           t_lane, True, leaf_visits)
+                           t_lane, True, False, leaf_visits=leaf_visits,
+                           stats=stats)
+
+
+def pair_closest_hit_plain(pair_box, pair_link, leaves, origin, direction,
+                           t_lane, inst_inv=None, mb_bits: int = 0,
+                           leaf_visits=None, stats=None) -> Hit:
+    """Plain version of the pair closest-hit kernel (any device);
+    ``inst_inv`` set = the instanced leaf decode."""
+    t, tri, u, v = _traverse_plain(pair_box, pair_link, leaves, origin,
+                                   direction, t_lane, False, True, inst_inv,
+                                   mb_bits, leaf_visits, stats)
+    return Hit(t=t, tri=tri, u=u, v=v)
+
+
+def pair_any_hit_plain(pair_box, pair_link, leaves, origin, direction,
+                       t_lane, inst_inv=None, mb_bits: int = 0,
+                       leaf_visits=None, stats=None) -> torch.Tensor:
+    """Plain version of the pair any-hit kernel (any device): (N,) bool."""
+    return _traverse_plain(pair_box, pair_link, leaves, origin, direction,
+                           t_lane, True, True, inst_inv, mb_bits,
+                           leaf_visits, stats)
 
 
 # -- wrappers ---------------------------------------------------------------
@@ -303,40 +459,72 @@ def lane_limits(n: int, active, device) -> torch.Tensor:
     return t_lane
 
 
+def _dispatch(name: str, origin, plain, launch):
+    """CPU tensors run ``plain()``; CUDA tensors run ``launch()`` and
+    count the launch; any other device raises."""
+    kind = origin.device.type
+    if kind == "cpu":
+        return plain()
+    if kind == "cuda":
+        out = launch()
+        LAUNCHES[name] += 1
+        return out
+    raise ValueError(f"{name}: no traversal for device type {kind!r} (cpu "
+                     f"runs the plain version, cuda the kernel)")
+
+
+def pair_args(scene, origin, direction, active):
+    """The pair kernels' arguments: tables, rays, t_lane and the
+    instance table (None for a flat scene) with its mb_bits."""
+    t_lane = lane_limits(origin.shape[0], active, origin.device)
+    inst_inv, mb_bits = ((scene.inst_inv, scene.mb_bits) if scene.instanced
+                         else (None, 0))
+    return (scene.pair_box, scene.pair_link, scene.leaves, origin,
+            direction, t_lane, inst_inv, mb_bits)
+
+
 def quad_closest_hit(scene, origin, direction, active=None) -> Hit:
     """Closest hit over the scene's quad tables (pallas_quad_closest_hit).
     Inactive lanes return t = MISS_T, tri = -1, u = v = 0."""
-    t_lane = lane_limits(origin.shape[0], active, origin.device)
-    kind = origin.device.type
-    if kind == "cpu":
-        return quad_closest_hit_plain(scene.quad_box, scene.quad_link,
-                                      scene.leaves, origin, direction, t_lane)
-    if kind == "cuda":
-        from vulkan_pathtracer_tpu_torch.ops import kernels
+    from vulkan_pathtracer_tpu_torch.ops import kernels
 
-        t, tri, u, v = kernels.quad_closest_hit(
-            scene.quad_box, scene.quad_link, scene.leaves, origin, direction,
-            t_lane)
-        LAUNCHES["quad_closest_hit"] += 1
-        return Hit(t=t, tri=tri, u=u, v=v)
-    raise ValueError(f"quad_closest_hit: no traversal for device type "
-                     f"{kind!r} (cpu runs the plain version, cuda the kernel)")
+    args = (scene.quad_box, scene.quad_link, scene.leaves, origin,
+            direction, lane_limits(origin.shape[0], active, origin.device))
+    return _dispatch("quad_closest_hit", origin,
+                     lambda: quad_closest_hit_plain(*args),
+                     lambda: Hit(*kernels.quad_closest_hit(*args)))
 
 
 def quad_any_hit(scene, origin, direction, active=None) -> torch.Tensor:
     """Occlusion (N,) bool: True exactly where quad_closest_hit reports
     t < MISS_T (pallas_quad_any_hit).  Inactive lanes return False."""
-    t_lane = lane_limits(origin.shape[0], active, origin.device)
-    kind = origin.device.type
-    if kind == "cpu":
-        return quad_any_hit_plain(scene.quad_box, scene.quad_link,
-                                  scene.leaves, origin, direction, t_lane)
-    if kind == "cuda":
-        from vulkan_pathtracer_tpu_torch.ops import kernels
+    from vulkan_pathtracer_tpu_torch.ops import kernels
 
-        hit = kernels.quad_any_hit(scene.quad_box, scene.quad_link,
-                                   scene.leaves, origin, direction, t_lane)
-        LAUNCHES["quad_any_hit"] += 1
-        return hit
-    raise ValueError(f"quad_any_hit: no traversal for device type "
-                     f"{kind!r} (cpu runs the plain version, cuda the kernel)")
+    args = (scene.quad_box, scene.quad_link, scene.leaves, origin,
+            direction, lane_limits(origin.shape[0], active, origin.device))
+    return _dispatch("quad_any_hit", origin,
+                     lambda: quad_any_hit_plain(*args),
+                     lambda: kernels.quad_any_hit(*args))
+
+
+def pair_closest_hit(scene, origin, direction, active=None) -> Hit:
+    """Closest hit over the scene's pair tables (pallas_pair_closest_hit),
+    flat or instanced.  Inactive lanes return t = MISS_T, tri = -1,
+    u = v = 0."""
+    from vulkan_pathtracer_tpu_torch.ops import kernels
+
+    args = pair_args(scene, origin, direction, active)
+    return _dispatch("pair_closest_hit", origin,
+                     lambda: pair_closest_hit_plain(*args),
+                     lambda: Hit(*kernels.pair_closest_hit(*args)))
+
+
+def pair_any_hit(scene, origin, direction, active=None) -> torch.Tensor:
+    """Occlusion (N,) bool: True exactly where pair_closest_hit reports
+    t < MISS_T (pallas_pair_any_hit).  Inactive lanes return False."""
+    from vulkan_pathtracer_tpu_torch.ops import kernels
+
+    args = pair_args(scene, origin, direction, active)
+    return _dispatch("pair_any_hit", origin,
+                     lambda: pair_any_hit_plain(*args),
+                     lambda: kernels.pair_any_hit(*args))

@@ -1,15 +1,19 @@
 """Hit-point attribute fetch + material evaluation.
 
-Port of the flat, packed-row path of
+Port of the packed-row path of
 ``vulkan_pathtracer_tpu/render/shading.py``:
 
 - ``get_triangle_data`` == triangle.glsl:46-112: one (34,) row gather
   per hit (``scene.tri_attr``), barycentric interpolation, normalize.
+  Two-level scenes (shading.py:58-99) decode the hit id first
+  (``tri = (inst << mb_bits | mesh block) * block + k``), read the
+  shared object-space row and transform the interpolated normal and
+  tangent and the geometric normal by the instance normal matrix.
 - ``get_material_data`` == material.glsl:31-68: one (8,) material-row
   gather, RGBA8 factor unpack, factor x texture, TBN normal mapping
   (not re-normalized, as in the reference).
 - ``get_emissive_lean``: last-bounce fetch of the emissive factor only,
-  for textureless scenes (same values as the full fetch).
+  for flat textureless scenes (same values as the full fetch).
 """
 
 from __future__ import annotations
@@ -41,6 +45,16 @@ class MaterialData(NamedTuple):
     metallic: torch.Tensor   # (N,)
 
 
+def _normal_xform(nrm, v: torch.Tensor) -> torch.Tensor:
+    """N v per lane for (N, 9) row-major normal matrices ``nrm``; v
+    itself when ``nrm`` is None (flat scenes)."""
+    if nrm is None:
+        return v
+    return torch.stack(
+        [nrm[:, 3 * j] * v[:, 0] + nrm[:, 3 * j + 1] * v[:, 1]
+         + nrm[:, 3 * j + 2] * v[:, 2] for j in range(3)], dim=-1)
+
+
 def get_triangle_data(scene, hit) -> TriangleData:
     """Gather + interpolate hit attributes.  Lanes with tri < 0 give
     finite garbage; callers mask on the hit flag."""
@@ -49,19 +63,30 @@ def get_triangle_data(scene, hit) -> TriangleData:
     w2 = hit.v[:, None]
     w0 = 1.0 - hit.u - hit.v
     w0 = w0[:, None]
-    row = scene.tri_attr[tri]
-    normal = normalize(row[:, 0:3] * w0 + row[:, 3:6] * w1
-                       + row[:, 6:9] * w2)
+    nrm = None
+    if scene.instanced:
+        block = scene.max_leaf_size
+        vblock = tri // block
+        mesh_tri = ((vblock & ((1 << scene.mb_bits) - 1)) * block
+                    + (tri - vblock * block))
+        row = scene.tri_attr[mesh_tri]
+        nrm = scene.inst_nrm[vblock >> scene.mb_bits]
+        geometry_normal = normalize(_normal_xform(nrm, row[:, 27:30]))
+    else:
+        row = scene.tri_attr[tri]
+        geometry_normal = row[:, 27:30]
+    normal = normalize(_normal_xform(nrm, row[:, 0:3] * w0 + row[:, 3:6] * w1
+                                     + row[:, 6:9] * w2))
     tangent4 = row[:, 9:13] * w0 + row[:, 13:17] * w1 + row[:, 17:21] * w2
-    tangent = torch.cat([normalize(tangent4[:, :3]), tangent4[:, 3:4]],
-                        dim=-1)
+    tangent = torch.cat([normalize(_normal_xform(nrm, tangent4[:, :3])),
+                         tangent4[:, 3:4]], dim=-1)
     uv = row[:, 21:23] * w0 + row[:, 23:25] * w1 + row[:, 25:27] * w2
     ids = row[:, 30:33].contiguous().view(torch.int32)
     return TriangleData(
         uv=uv,
         normal=normal,
         tangent=tangent,
-        geometry_normal=row[:, 27:30],
+        geometry_normal=geometry_normal,
         material_index=ids[:, 0],
         primitive_index=ids[:, 1],
         triangle_index=ids[:, 2],
@@ -111,9 +136,9 @@ def get_material_data(scene, tri_data: TriangleData) -> MaterialData:
 
 
 def get_emissive_lean(scene, hit):
-    """Emissive factor only (textureless scenes); None when textured —
-    callers then take the full fetch."""
-    if bool(scene.has_textures):
+    """Emissive factor only (flat textureless scenes); None when
+    textured or instanced — callers then take the full fetch."""
+    if scene.instanced or bool(scene.has_textures):
         return None
     tri = torch.clamp(hit.tri, min=0).long()
     m = scene.tri_material[tri].long()

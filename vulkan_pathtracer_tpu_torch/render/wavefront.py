@@ -2,7 +2,7 @@
 
 One sample = up to ``num_bounces`` segments per ray.  Each bounce:
 
-    closest hit (quad-BVH kernel)
+    closest hit (quad-BVH kernel; pair-BVH kernel on two-level scenes)
       -> sky / emissive accumulation
       -> attribute + material fetch
       -> BRDF sampling
@@ -50,15 +50,21 @@ SORT_L = 0.5                # 6d key: endpoint at 0.5 * scene diagonal
 
 
 def _closest_hit(scene, origin, direction, active) -> Hit:
-    return stack_traverse.quad_closest_hit(
-        scene, origin.contiguous(), direction.contiguous(), active)
+    """Flat scenes take the quad kernel; two-level scenes the pair
+    kernel, which carries the instanced leaf decode (the JAX package's
+    render/wavefront.py:159-194)."""
+    fn = (stack_traverse.pair_closest_hit if scene.instanced
+          else stack_traverse.quad_closest_hit)
+    return fn(scene, origin.contiguous(), direction.contiguous(), active)
 
 
 def _any_hit(scene, origin, direction, active) -> torch.Tensor:
     """(N,) bool, True exactly where _closest_hit reports t < MISS_T;
-    inactive lanes False."""
-    return stack_traverse.quad_any_hit(
-        scene, origin.contiguous(), direction.contiguous(), active)
+    inactive lanes False.  Quad kernel for flat scenes, pair kernel for
+    two-level ones (JAX render/wavefront.py:533, :580-586)."""
+    fn = (stack_traverse.pair_any_hit if scene.instanced
+          else stack_traverse.quad_any_hit)
+    return fn(scene, origin.contiguous(), direction.contiguous(), active)
 
 
 def _anyhit_enabled(scene) -> bool:
@@ -70,7 +76,9 @@ def _anyhit_enabled(scene) -> bool:
 def _bounce_sort_key(scene, origin, direction, alive) -> torch.Tensor:
     """6d endpoint-pair Morton key (5 bits per axis of origin and of
     origin + L*direction, L = 0.5 * scene diagonal); dead lanes get
-    0xFFFFFFFF and sort last.  int64 holding uint32 values."""
+    0xFFFFFFFF and sort last.  int64 holding uint32 values.  The box is
+    the root's world box (the TLAS root on two-level scenes,
+    ``bvh_packed[0]`` in JAX)."""
     lo = scene.root_lo
     ext = torch.clamp(scene.root_hi - lo, min=1e-9)
     length = SORT_L * torch.sqrt(dot(ext, ext))
