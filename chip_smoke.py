@@ -33,12 +33,33 @@ before the result line):
 6. instanced main path — the atrium through ``load_pipeline(...,
    instanced=True)`` (``--instanced``): 1 warm-up + 4 timed frames, the
    counters read around them (pair 4 each, quad 0); a 320x180
-   instanced frame through the kernels and the plain versions.
+   instanced frame through the kernels and the plain versions;
+7. skip and wide kernels — each against its plain version on the card,
+   t, tri, u, v bitwise: the columns scene flat (leaf 28, both kernels)
+   and instanced (leaf 14, the skip kernel) with a frame's primary and
+   bounce rays; the atrium flat (``load_pipeline`` with ``--traversal
+   pallas8``, which bakes the wide tiles too) and instanced with 65,536
+   primary and 65,536 live bounce rays; the skip kernel timed on the
+   2,073,600 primaries flat and instanced, the wide kernel flat;
+8. ``--traversal`` main paths — flat ``pallas_packet``, flat
+   ``pallas8`` and instanced ``pallas_packet`` at 1080p: 1 warm-up + 4
+   timed frames each, the counters read around them (the path's kernel
+   8 = bounce 0 and bounce 1 per frame, every other kernel 0); the rays
+   of the 4 frames equal to the headline's on the same scene (flat or
+   instanced) but for at most the primaries whose closest hit differs
+   between the two tiers (a tie of equal t broken by another traversal
+   order; counted on the same 4 cameras); a 320x180 frame of each
+   through the kernel and through its plain version, image difference
+   0.0; a 320x180 ``--traversal bvh`` frame (the per-ray walk in plain
+   PyTorch) against the skip kernel's: allclose 1e-5 but on the pixels
+   whose paths met a differing hit.
 
 Each kernel's ``bound_ms`` is the larger of its operations over the
 card's f32 peak and its bytes over the HBM rate, counted from this
 run's inputs: node and leaf visits from the plain version (the same
-algorithm) times the per-visit operations of the kernel source.
+algorithm) times the per-visit operations of the kernel source.  The
+skip kernel's entry carries its instanced timing under ``*_instanced``
+keys.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -53,17 +74,25 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 PALLAS = "vulkan_pathtracer_tpu/ops/pallas_pair.py"
+PACKET = "vulkan_pathtracer_tpu/ops/pallas_traverse.py"
 CSRC = "vulkan_pathtracer_tpu_torch/csrc"
-KERNELS = {  # name -> (CUDA source, the Pallas kernel body it replaces)
+KERNELS = {  # name -> (CUDA source, the Pallas kernel bodies it replaces)
     "quad_closest_hit": (f"{CSRC}/stack_traverse.cu", f"{PALLAS}:886"),
     "quad_any_hit": (f"{CSRC}/stack_traverse.cu", f"{PALLAS}:1207"),
     "pair_closest_hit": (f"{CSRC}/pair_traverse.cu", f"{PALLAS}:598"),
     "pair_any_hit": (f"{CSRC}/pair_traverse.cu", f"{PALLAS}:1507"),
+    # kernels 5 (packet), 6 (pipe), 7 (group MT, two bodies), 9 (dense)
+    "skip_closest_hit": (f"{CSRC}/skip_traverse.cu", ", ".join(
+        f"{PACKET}:{line}" for line in (87, 606, 820, 1029, 1588))),
+    "wide_closest_hit": (f"{CSRC}/skip_traverse.cu", f"{PACKET}:1294"),
 }
 # The headline frame and the comparison sizes.
 DEVICE = "cuda:0"
 WIDTH, HEIGHT = 1920, 1080
 ATRIUM_DETAIL, ATRIUM_TRIS = 4.1, 246444
+STACK_KERNELS = ("quad_closest_hit", "quad_any_hit", "pair_closest_hit",
+                 "pair_any_hit")
+SKIP_KERNELS = ("skip_closest_hit", "wide_closest_hit")
 N_SUB = 65536            # atrium rays per kernel-vs-plain check
 COLS_W, COLS_H = 640, 360
 COLS_INSTANCES = 197     # columns 14x24: 196 columns + the floor
@@ -72,11 +101,13 @@ SMALL_W, SMALL_H = 320, 180
 # (NVIDIA data sheet).  Operations per step, read off csrc/: a slab test
 # is 12 mul/sub + 12 min/max + 1 compare (traverse.cuh slab()); a quad
 # row adds 4 EMPTY tests and a 4-key insertion sort (6 compares), a
-# pair row 3 selects; Möller–Trumbore is 54 per triangle (55 with
-# det_sign); the object-space transform of an instanced leaf visit 33;
-# the ray set-up (3 safe reciprocals, 3 products) 18.
+# pair row 3 selects, a skip record its leaf test, a wide tile 8 slabs
+# and 2 leafword tests per slot; Möller–Trumbore is 54 per triangle (55
+# with det_sign); the object-space transform of an instanced leaf visit
+# 33; the ray set-up (3 safe reciprocals, 3 products) 18.
 PEAK_F32, HBM_BPS = 67e12, 3.35e12
-ROW_OPS = {4: 4 * 25 + 4 + 6, 2: 2 * 25 + 3}
+VISIT_OPS = {"quad": 4 * 25 + 4 + 6, "pair": 2 * 25 + 3, "skip": 25 + 1,
+             "wide": 8 * (25 + 2)}
 MT_OPS, XFORM_OPS, RAY_OPS = 54, 33, 18
 
 
@@ -154,6 +185,7 @@ def main() -> int:
     from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
         build_instanced_scene,
     )
+    from vulkan_pathtracer_tpu_torch.ops import skip_traverse as sk
     from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
     from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T
     from vulkan_pathtracer_tpu_torch.render import pipeline as pl
@@ -261,6 +293,53 @@ def main() -> int:
         return (o, d, o1[order].contiguous(), d1[order].contiguous(),
                 alive[order], int(alive.sum().item()))
 
+    def tier_differences(scene, cam, frame, width, height, tier_a, tier_b):
+        """Where two closest-hit tiers part on a frame: (primaries whose
+        t, tri, u or v differ, live bounce-1 rays whose hit/miss differs,
+        the bounce-1 rays launched from tier_a's hits).  A path's rays and
+        radiance can differ only there: different traversal orders may
+        break a tie of equal t differently, and the slab forms round
+        differently at box faces.  Launches here are outside the counted
+        main paths."""
+        pos, hor, ver, fwd = pl.camera_tensors(cam, dev)
+        o, d, sx, sy, _ = pl.primary_rays(pos, hor, ver, fwd, frame, width,
+                                          height)
+        a = wf._closest_hit(scene, o, d, None, tier_a)
+        b = wf._closest_hit(scene, o, d, None, tier_b)
+        same = (a.t == b.t) & (a.tri == b.tri) & (a.u == b.u) & (a.v == b.v)
+        tri_data = get_triangle_data(scene, a)
+        mat = get_material_data(scene, tri_data)
+        o1, d1, _, _, _, alive = wf.extend_paths(
+            scene, a, o, d, torch.ones_like(o), sx, sy, a.t < MISS_T,
+            tri_data, mat)
+        h1 = (wf._any_hit(scene, o1, d1, alive, tier_a)
+              != wf._any_hit(scene, o1, d1, alive, tier_b))
+        return int((~same).sum()), int(h1.sum())
+
+    def frames_ray_bound(scene, tier):
+        """How far ``tier`` may move the ray count of main_path's 4 timed
+        frames from the auto tier's: the primaries whose hit differs,
+        summed over the 4 cameras (a bounce-1 ray is launched from its
+        primary's hit and its RNG state alone)."""
+        path = orbit_path(radius=4.5, height=2.2, duration=4.0,
+                          center=(0.0, 1.2, 0.0))
+        cam = Camera(aspect_ratio=config.aspect_ratio)
+        total = 0
+        for f in range(4):
+            path.apply(cam, float(f))
+            total += tier_differences(scene, cam, f + 1, WIDTH, HEIGHT,
+                                      "auto", tier)[0]
+        return total
+
+    def check_rays(label, rays4, ref_rays, scene, tier):
+        """The 4 frames' rays against the auto tier's count on the same
+        scene, exact up to the primaries whose hit differs."""
+        slack = frames_ray_bound(scene, tier)
+        check(abs(rays4 - ref_rays) <= slack, f"{label}: {rays4} rays in 4 "
+              f"frames, auto {ref_rays}, {slack} primaries hit otherwise")
+        phase("main", check=f"{label} rays vs auto", rays=rays4,
+              auto_rays=ref_rays, primaries_hit_otherwise=slack)
+
     def subset(n_total, k, seed):
         g = torch.Generator(device="cpu").manual_seed(seed)
         return torch.sort(torch.randperm(n_total, generator=g)[:k])[0].to(dev)
@@ -279,9 +358,9 @@ def main() -> int:
                    center=tuple((lo + hi) * 0.5)).apply(cam, 0.0)
         return cam
 
-    def bound(tables, n_rays, out_bytes, stats, width, block, instanced):
+    def bound(tables, n_rays, out_bytes, stats, visit_ops, block, instanced):
         """(bound_ms, bound_by) of one traversal launch."""
-        ops = (n_rays * RAY_OPS + stats["node_visits"] * ROW_OPS[width]
+        ops = (n_rays * RAY_OPS + stats["node_visits"] * visit_ops
                + stats["leaf_visits"] * block * (MT_OPS + instanced))
         if instanced:
             ops += stats["leaf_visits"] * XFORM_OPS
@@ -296,24 +375,26 @@ def main() -> int:
     results = {}
 
     def time_kernel(key, launch, plain, tables, n_rays, out_bytes, scene,
-                    compare):
-        """Kernel ms (mean of 5), plain ms (1 run), the comparison's
-        max_abs_err, and the bound from a second plain run that counts
-        visits, at the main path's shapes."""
+                    compare, tag=""):
+        """Kernel ms (mean of 5), plain ms (1 run, which also counts the
+        node and leaf visits of the bound), the comparison's max_abs_err
+        and the bound, at the main path's shapes.  ``tag`` suffixes the
+        result keys (a second shape of the same kernel)."""
         k_ms, k_out = cuda_ms(launch, 5)
-        p_ms, p_out = cuda_ms(plain, 1, False)
-        err = compare(k_out, p_out)
         stats = {}
-        plain(stats)
-        sync()
+        p_ms, p_out = cuda_ms(lambda: plain(stats), 1, False)
+        err = compare(k_out, p_out)
         b_ms, b_by = bound(tables, n_rays, out_bytes, stats,
-                           4 if key.startswith("quad") else 2,
+                           VISIT_OPS[key.split("_")[0]],
                            scene.max_leaf_size, int(scene.instanced))
-        results[key] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err,
-                            bound_ms=b_ms, bound_by=b_by)
-        phase("timing", kernel=key, rays=n_rays, kernel_ms=f"{k_ms:.3f}",
-              plain_ms=f"{p_ms:.1f}", bound_ms=f"{b_ms:.4f}",
-              bound_by=b_by, max_abs_err=err, card=repr(card))
+        results.setdefault(key, {}).update({
+            f"ms{tag}": k_ms, f"plain_ms{tag}": p_ms,
+            f"max_abs_err{tag}": err, f"bound_ms{tag}": b_ms,
+            f"bound_by{tag}": b_by})
+        phase("timing", kernel=key + tag, rays=n_rays,
+              kernel_ms=f"{k_ms:.3f}", plain_ms=f"{p_ms:.1f}",
+              bound_ms=f"{b_ms:.4f}", bound_by=b_by, max_abs_err=err,
+              card=repr(card))
 
     def closest_err(k, p):
         kt, pt = k[0], p.t
@@ -326,9 +407,14 @@ def main() -> int:
         check(torch.equal(k, p), "bounce-1 any hit: kernel != plain")
         return (k != p).float().max().item()
 
+    def only(**counts):
+        """The launch counters expected of a path: ``counts``, 0 else."""
+        return {k: counts.get(k, 0) for k in st.LAUNCHES}
+
     def main_path(pipe, label, expect):
         """1 warm-up + 4 timed frames on the interior orbit, the launch
-        counters zeroed just before the 4 frames and read just after."""
+        counters zeroed just before the 4 frames and read just after.
+        Returns (launches, rays of the 4 frames)."""
         path = orbit_path(radius=4.5, height=2.2, duration=4.0,
                           center=(0.0, 1.2, 0.0))
         cam = Camera(aspect_ratio=config.aspect_ratio)
@@ -361,46 +447,76 @@ def main() -> int:
               mean=f"{image.mean().item():.5f}", card=repr(card))
         write_png(os.path.join(WORK, f"{label}.png"),
                   pipe.to_present(image.cpu().numpy()))
-        return launches
+        return launches, total_rays
 
-    def small_frame(scene, label):
+    def plain_wrapper(name):
+        """A wrapper with the signature of st.<name> / sk.<name> that
+        runs the plain version on the card."""
+        args_of = {"quad": quad_args, "pair": st.pair_args,
+                   "skip": sk.skip_args, "wide": sk.wide_args}[
+                       name.split("_")[0]]
+        plain = getattr(sk if name in SKIP_KERNELS else st, name + "_plain")
+
+        def run(scene_, o_, d_, active=None):
+            return plain(*args_of(scene_, o_, d_, active))
+        return run
+
+    def small_frame(scene, label, traversal="auto", exact=False):
         """A 320x180 frame through the kernels and through the plain
-        versions, compared."""
+        versions, compared (``exact``: image difference 0.0).  Returns
+        the kernels' image."""
         small = pl.RenderPipeline(scene, RenderConfig(
             num_samples=1, num_bounces=2, resolution_x=SMALL_W,
-            resolution_y=SMALL_H))
+            resolution_y=SMALL_H, traversal=traversal))
         cam = orbit_camera(16 / 9, 1.0)
         img_k, rays_k = small.render(cam, 7)
         sync()
-        names = ("quad_closest_hit", "quad_any_hit", "pair_closest_hit",
-                 "pair_any_hit")
-        kernel_fns = {n: getattr(st, n) for n in names}
-
-        def plain_of(n):
-            def run(scene_, o_, d_, active=None):
-                if n.startswith("pair"):
-                    args = st.pair_args(scene_, o_, d_, active)
-                else:
-                    args = quad_args(scene_, o_, d_, active)
-                return getattr(st, n + "_plain")(*args)
-            return run
-
-        for n in names:
-            setattr(st, n, plain_of(n))
+        kernel_fns = {(mod, n): getattr(mod, n) for mod, names in (
+            (st, STACK_KERNELS), (sk, SKIP_KERNELS)) for n in names}
+        for (mod, n) in kernel_fns:
+            setattr(mod, n, plain_wrapper(n))
         try:
             img_p, rays_p = small.render(cam, 7)
             sync()
         finally:
-            for n, fn in kernel_fns.items():
-                setattr(st, n, fn)
+            for (mod, n), fn in kernel_fns.items():
+                setattr(mod, n, fn)
         check(int(rays_k) == int(rays_p),
               f"{label} small frame: rays {int(rays_k)} (kernels) vs "
               f"{int(rays_p)} (plain)")
         diff = (img_k - img_p).abs().max().item()
+        if exact:
+            check(diff == 0.0, f"{label} small frame: image differs by "
+                  f"{diff}")
         check(torch.allclose(img_k, img_p, rtol=1e-5, atol=1e-5),
               f"{label} small frame: image differs by {diff}")
         phase("main", check=f"{label} {SMALL_W}x{SMALL_H} kernels vs plain",
               rays=int(rays_k), max_abs_diff=diff)
+        return img_k, int(rays_k)
+
+    def compare_bitwise(label, launch, plain, args):
+        """A closest-hit kernel against its plain version: hit masks
+        equal, t, tri, u, v bitwise equal."""
+        k = launch(*args)
+        sync()
+        p = plain(*args)
+        sync()
+        check(torch.equal(k[0] < MISS_T, p.t < MISS_T),
+              f"{label}: hit masks differ")
+        for f, a, b in zip("t tri u v".split(), k, p):
+            check(torch.equal(a, b), f"{label}: {f} differs on "
+                  f"{int((a != b).sum())} rays")
+        phase("kernels", check=label, rays=args[2].shape[0],
+              hits=int((p.t < MISS_T).sum()), bit_equal=True)
+
+    def compare_skip(label, scene, o, d, active=None):
+        compare_bitwise(label + "/skip", kernels.skip_closest_hit,
+                        sk.skip_closest_hit_plain,
+                        sk.skip_args(scene, o, d, active))
+        if scene.wide_nodes is not None:
+            compare_bitwise(label + "/wide", kernels.wide_closest_hit,
+                            sk.wide_closest_hit_plain,
+                            sk.wide_args(scene, o, d, active))
 
     # Columns (bench.py's 56k sidecar) at leaf 28: all rays of a
     # COLS_W x COLS_H frame, primaries and their bounce rays; the flat
@@ -476,9 +592,8 @@ def main() -> int:
     _, rays = pipe.render(cam0, 0, present_order=False)
     check(int(rays) == n_pix + live1,
           f"frame 0 traced {int(rays)} rays, expected {n_pix} + {live1}")
-    flat_launches = main_path(pipe, "headline", {
-        "quad_closest_hit": 4, "quad_any_hit": 4, "pair_closest_hit": 0,
-        "pair_any_hit": 0})
+    flat_launches, flat_rays = main_path(pipe, "headline", only(
+        quad_closest_hit=4, quad_any_hit=4))
     small_frame(scene, "flat")
     del pipe, scene
     torch.cuda.empty_cache()
@@ -544,23 +659,144 @@ def main() -> int:
     check(int(rays) == n_pix + ilive1,
           f"instanced frame 0 traced {int(rays)} rays, expected {n_pix} + "
           f"{ilive1}")
-    inst_launches = main_path(ipipe, "instanced", {
-        "quad_closest_hit": 0, "quad_any_hit": 0, "pair_closest_hit": 4,
-        "pair_any_hit": 4})
+    inst_launches, inst_rays = main_path(ipipe, "instanced", only(
+        pair_closest_hit=4, pair_any_hit=4))
     small_frame(iscene, "instanced")
     phase("phase", name="instanced main path",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 7. result -------------------------------------------------------------
-    launches = {k: (flat_launches if k.startswith("quad") else
-                    inst_launches)[k] for k in KERNELS}
+    # -- 7. skip and wide kernels vs plain versions --------------------------
+    # Columns flat at leaf 28 (both kernels) and instanced at leaf 14
+    # (the skip kernel): all rays of a COLS_W x COLS_H frame.
+    t0 = time.perf_counter()
+    cols = build_device_scene(cols_host, max_leaf_size=28, device=dev,
+                              wide=True)
+    o, d, o1, d1, a1, _ = bounce_rays(cols, scene_camera(cols), 0, COLS_W,
+                                      COLS_H)
+    compare_skip("columns/primary", cols, o, d)
+    compare_skip("columns/bounce", cols, o1, d1, a1)
+    icols = build_instanced_scene(cols_host, max_leaf_size=14, device=dev)
+    o, d, o1, d1, a1, _ = bounce_rays(icols, scene_camera(icols), 0, COLS_W,
+                                      COLS_H)
+    compare_skip("columns-inst/primary", icols, o, d)
+    compare_skip("columns-inst/bounce", icols, o1, d1, a1)
+    del cols, icols
+
+    # The flat atrium as --traversal pallas8 bakes it (skip records and
+    # wide tiles): 65,536 primaries and 65,536 live bounce rays, then
+    # both kernels timed on the 2,073,600 primaries.
+    t1 = time.perf_counter()
+    wconfig = RenderConfig(num_samples=1, num_bounces=2, resolution_x=WIDTH,
+                           resolution_y=HEIGHT, traversal="pallas8")
+    wpipe = load_pipeline(atrium_path, wconfig, dev)
+    wscene = wpipe.scene
+    phase("scene", name="atrium flat, wide tiles",
+          skip_records=wscene.skip_nodes.shape[0],
+          wide_tiles=wscene.wide_nodes.shape[0],
+          wide_bake_seconds=f"{wscene.wide_seconds:.2f}",
+          seconds=f"{time.perf_counter() - t1:.1f}")
+    check(wscene.num_triangles == ATRIUM_TRIS and wscene.max_leaf_size == 28,
+          "the pallas8 bake is not the headline atrium at leaf 28")
+    o, d, o1, d1, a1, _ = bounce_rays(wscene, cam0, 0, WIDTH, HEIGHT)
+    sel = subset(n_prim, N_SUB, 5)
+    compare_skip("atrium/primary", wscene, o[sel], d[sel])
+    live_idx = torch.nonzero(a1).squeeze(1)
+    sel = live_idx[subset(live_idx.shape[0], N_SUB, 6)]
+    compare_skip("atrium/bounce", wscene, o1[sel], d1[sel])
+    sargs = sk.skip_args(wscene, o, d, None)
+    time_kernel("skip_closest_hit",
+                lambda: kernels.skip_closest_hit(*sargs),
+                lambda s=None: sk.skip_closest_hit_plain(*sargs, stats=s),
+                (wscene.skip_nodes, wscene.leaves), n_prim, 16, wscene,
+                closest_err)
+    wargs = sk.wide_args(wscene, o, d, None)
+    time_kernel("wide_closest_hit",
+                lambda: kernels.wide_closest_hit(*wargs),
+                lambda s=None: sk.wide_closest_hit_plain(*wargs, stats=s),
+                (wscene.wide_nodes, wscene.leaves), n_prim, 16, wscene,
+                closest_err)
+    del o, d, o1, d1, a1, sargs, wargs
+
+    # The instanced atrium (phase 5's bake): the skip kernel with the
+    # instanced leaf decode.
+    o, d, o1, d1, a1, _ = bounce_rays(iscene, cam0, 0, WIDTH, HEIGHT)
+    sel = subset(n_prim, N_SUB, 7)
+    compare_skip("atrium-inst/primary", iscene, o[sel], d[sel])
+    live_idx = torch.nonzero(a1).squeeze(1)
+    sel = live_idx[subset(live_idx.shape[0], N_SUB, 8)]
+    compare_skip("atrium-inst/bounce", iscene, o1[sel], d1[sel])
+    iargs = sk.skip_args(iscene, o, d, None)
+    time_kernel("skip_closest_hit",
+                lambda: kernels.skip_closest_hit(*iargs),
+                lambda s=None: sk.skip_closest_hit_plain(*iargs, stats=s),
+                (iscene.skip_nodes, iscene.leaves, iscene.inst_inv), n_prim,
+                16, iscene, closest_err, tag="_instanced")
+    del o, d, o1, d1, a1, iargs
+    phase("phase", name="skip and wide kernels",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # -- 8. --traversal main paths --------------------------------------------
+    # Each 1080p path launches its one kernel twice a frame (bounce 0,
+    # and bounce 1 as a sorted closest hit) and traces the headline's
+    # rays.
+    t0 = time.perf_counter()
+    pconfig = RenderConfig(num_samples=1, num_bounces=2, resolution_x=WIDTH,
+                           resolution_y=HEIGHT, traversal="pallas_packet")
+    ppipe = pl.RenderPipeline(wscene, pconfig)
+    packet_launches, rays4 = main_path(ppipe, "packet", only(
+        skip_closest_hit=8))
+    check_rays("packet", rays4, flat_rays, wscene, "pallas_packet")
+    img_skip, rays_skip = small_frame(wscene, "packet", "pallas_packet",
+                                      exact=True)
+    # --traversal bvh (the per-ray walk, plain PyTorch) against the skip
+    # kernel: equal but where the two tiers' hits part (tier_differences).
+    bvh_small = pl.RenderPipeline(wscene, RenderConfig(
+        num_samples=1, num_bounces=2, resolution_x=SMALL_W,
+        resolution_y=SMALL_H, traversal="bvh"))
+    small_cam = orbit_camera(16 / 9, 1.0)
+    img_bvh, rays_bvh = bvh_small.render(small_cam, 7)
+    d0, d1 = tier_differences(wscene, small_cam, 7, SMALL_W, SMALL_H, "bvh",
+                              "pallas_packet")
+    diff = (img_bvh - img_skip).abs()
+    off = int((diff > 1e-5 + 1e-5 * img_skip.abs()).any(dim=-1).sum())
+    check(abs(int(rays_bvh) - rays_skip) <= d0 and off <= d0 + d1,
+          f"bvh frame vs skip kernel frame: rays {int(rays_bvh)} vs "
+          f"{rays_skip}, {off} pixels off 1e-5, hits differ on {d0} "
+          f"primaries and {d1} bounce rays")
+    phase("main", check=f"bvh {SMALL_W}x{SMALL_H} vs pallas_packet",
+          rays=int(rays_bvh), max_abs_diff=diff.max().item(),
+          pixels_off=off, primaries_hit_otherwise=d0,
+          bounce_rays_hit_otherwise=d1)
+
+    wide_launches, rays4 = main_path(wpipe, "wide", only(
+        wide_closest_hit=8))
+    check_rays("wide", rays4, flat_rays, wscene, "pallas8")
+    small_frame(wscene, "wide", "pallas8", exact=True)
+    del wpipe, ppipe, bvh_small, wscene
+    torch.cuda.empty_cache()
+
+    ipacket = pl.RenderPipeline(iscene, pconfig)
+    ipacket_launches, rays4 = main_path(ipacket, "instanced-packet", only(
+        skip_closest_hit=8))
+    check_rays("instanced-packet", rays4, inst_rays, iscene,
+               "pallas_packet")
+    small_frame(iscene, "instanced-packet", "pallas_packet", exact=True)
+    phase("phase", name="traversal main paths",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # -- 9. result -------------------------------------------------------------
+    launches = {**{k: flat_launches[k] for k in ("quad_closest_hit",
+                                                  "quad_any_hit")},
+                **{k: inst_launches[k] for k in ("pair_closest_hit",
+                                                  "pair_any_hit")},
+                "skip_closest_hit": packet_launches["skip_closest_hit"],
+                "wide_closest_hit": wide_launches["wide_closest_hit"]}
+    results["skip_closest_hit"]["launches_instanced"] = \
+        ipacket_launches["skip_closest_hit"]
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {"name": key, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[key], "max_abs_err": results[key]["max_abs_err"],
-         "ms": results[key]["ms"], "plain_ms": results[key]["plain_ms"],
-         "bound_ms": results[key]["bound_ms"],
-         "bound_by": results[key]["bound_by"], "library_ms": None}
+         "launches": launches[key], "library_ms": None, **results[key]}
         for key, (src, rep) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ Tolerance: none for the kernels — they are built with -fmad=false and
 perform the plain versions' float operations in the same order, so
 t, tri, u, v and the any-hit bit are bitwise equal.  Leaf sizes 4 and
 14 exercise the kernel's scalar leaf loads (block % 4 != 0 for 14),
-28 the float4 path of the headline frame.
+28 the float4 path of the headline frame.  The skip kernel (flat and
+instanced) and the wide kernel are held to their plain versions the
+same way.
 """
 
 import numpy as np
@@ -24,6 +26,7 @@ from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
     build_instanced_scene,
 )
 from vulkan_pathtracer_tpu_torch.ops import kernels
+from vulkan_pathtracer_tpu_torch.ops import skip_traverse as sk
 from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T
 from vulkan_pathtracer_tpu_torch.render.pipeline import RenderPipeline
@@ -108,6 +111,46 @@ def test_pair_kernels_match_plain(cuda, scene_paths, leaf, instanced):
     assert st.LAUNCHES["pair_any_hit"] == before["pair_any_hit"] + 1
 
 
+@pytest.mark.parametrize("leaf", [4, 14, 28])
+@pytest.mark.parametrize("instanced", [False, True])
+def test_skip_kernel_matches_plain(cuda, scene_paths, leaf, instanced):
+    """The skip kernel, flat and two-level, bitwise equal to its plain
+    version, and one launch counted per wrapper call."""
+    host = gltf.load(scene_paths["columns"])
+    scene = (build_instanced_scene(host, max_leaf_size=leaf, device=cuda)
+             if instanced else
+             build_device_scene(host, max_leaf_size=leaf, device=cuda))
+    o, d, active = _rays(8192, seed=leaf + 11, device=cuda)
+    args = sk.skip_args(scene, o, d, active)
+    got = kernels.skip_closest_hit(*args)
+    ref = sk.skip_closest_hit_plain(*args)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert 500 < int((ref.t < MISS_T).sum()) < 8192
+    before = st.LAUNCHES["skip_closest_hit"]
+    sk.skip_closest_hit(scene, o, d, active)
+    assert st.LAUNCHES["skip_closest_hit"] == before + 1
+
+
+@pytest.mark.parametrize("leaf", [4, 14, 28])
+def test_wide_kernel_matches_plain(cuda, scene_paths, leaf):
+    scene = build_device_scene(gltf.load(scene_paths["columns"]),
+                               max_leaf_size=leaf, device=cuda, wide=True)
+    o, d, active = _rays(8192, seed=leaf + 13, device=cuda)
+    args = sk.wide_args(scene, o, d, active)
+    got = kernels.wide_closest_hit(*args)
+    ref = sk.wide_closest_hit_plain(*args)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert 500 < int((ref.t < MISS_T).sum()) < 8192
+    before = st.LAUNCHES["wide_closest_hit"]
+    sk.wide_closest_hit(scene, o, d, active)
+    assert st.LAUNCHES["wide_closest_hit"] == before + 1
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        kernels.wide_closest_hit(scene.wide_nodes, scene.leaves, o.cpu(), d,
+                                 args[4])
+
+
 def test_kernel_skips_empty_slots(cuda):
     """Empty slots whose boxes every ray hits: the kernel must not read
     them as leaf 0 (which holds a nearer triangle)."""
@@ -154,19 +197,32 @@ def test_wrappers_count_launches_and_check_devices(cuda, scene_paths):
 
 @pytest.mark.parametrize("bounces", [2, 3])
 def test_render_cuda_matches_cpu(cuda, scene_paths, bounces):
+    _render_both(cuda, scene_paths, bounces, "auto")
+
+
+@pytest.mark.parametrize("traversal", ["pallas_packet", "pallas8", "bvh"])
+def test_traversal_render_cuda_matches_cpu(cuda, scene_paths, traversal):
+    """The --traversal tiers on the card (skip / wide kernel, the per-ray
+    walk in plain PyTorch) against the same tier on the CPU."""
+    _render_both(cuda, scene_paths, 2, traversal)
+
+
+def _render_both(cuda, scene_paths, bounces, traversal):
     """A whole frame on the card (kernels) vs on the CPU (plain
     versions): equal ray counts; radiance allclose 1e-5, since PyTorch's
     CUDA and CPU elementwise ops need not round alike (a CUDA division
     by a Python scalar is a reciprocal multiply)."""
     config = RenderConfig(num_samples=1, num_bounces=bounces,
-                          resolution_x=96, resolution_y=72)
+                          resolution_x=96, resolution_y=72,
+                          traversal=traversal)
     cam = Camera(aspect_ratio=config.aspect_ratio,
                  position=np.asarray([0.0, 1.0, 0.9], np.float32))
     cam.set_orientation(yaw=180.0, pitch=0.0)
     images, rays = [], []
     for device in (cuda, torch.device("cpu")):
         scene = build_device_scene(gltf.load(scene_paths["cornell"]),
-                                   max_leaf_size=14, device=device)
+                                   max_leaf_size=14, device=device,
+                                   wide=traversal == "pallas8")
         image, traced = RenderPipeline(scene, config).render_numpy(cam, 5)
         images.append(image)
         rays.append(traced)

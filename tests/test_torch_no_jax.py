@@ -4,9 +4,10 @@
   renders a 64x64 box on ``--device cpu``, in a subprocess where
   ``import jax`` fails (``sys.modules["jax"] = None``).
 - No module of the port and not ``chip_smoke.py`` imports the JAX
-  package (``vulkan_pathtracer_tpu``): a source scan, and a subprocess
-  with both ``jax`` and ``vulkan_pathtracer_tpu`` blocked that imports
-  every module and renders ``--instanced`` on ``--device cpu``.
+  package (``vulkan_pathtracer_tpu``): a source scan, and subprocesses
+  with both ``jax`` and ``vulkan_pathtracer_tpu`` blocked that import
+  every module and render ``--instanced``, ``--traversal
+  pallas_packet`` and ``--traversal pallas8`` on ``--device cpu``.
 - Without CUDA, the default ``--device cuda`` exits non-zero with a
   clear message instead of switching to the CPU.
 - The traversal wrappers raise for a device that is neither CPU nor
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 import vulkan_pathtracer_tpu_torch
+from vulkan_pathtracer_tpu_torch.ops import skip_traverse as sk
 from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -81,6 +83,21 @@ def test_cli_renders_instanced_without_jax_package(columns_glb, tmp_path):
     assert image.shape == (32, 48, 3) and 0 < image.mean() < 255
 
 
+@pytest.mark.parametrize("traversal", ["pallas_packet", "pallas8"])
+def test_cli_renders_traversal_without_jax_package(columns_glb, tmp_path,
+                                                   traversal):
+    out = tmp_path / "columns.png"
+    proc = _run(IMPORT_ALL_AND_RUN_CLI, "-s", columns_glb, "-x", "48", "-y",
+                "32", "-o", str(out), "--traversal", traversal, "--device",
+                "cpu", block=BLOCK_JAX_PACKAGE)
+    assert proc.returncode == 0, proc.stderr
+    assert ("8-wide tiles: " in proc.stderr) == (traversal == "pallas8")
+    from vulkan_pathtracer_tpu_torch.utils import read_png
+
+    image = read_png(str(out))
+    assert image.shape == (32, 48, 3) and 0 < image.mean() < 255
+
+
 def test_cli_renders_without_jax(box_glb, tmp_path):
     out = tmp_path / "box.png"
     proc = _run(IMPORT_ALL_AND_RUN_CLI, "-s", box_glb, "-x", "64", "-y",
@@ -106,8 +123,8 @@ def test_cuda_device_without_cuda_fails(box_glb, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["-v"], ["--progressive"],
-                                  ["--devices", "2"], ["--traversal",
-                                                       "brute"],
+                                  ["--devices", "2"], ["--camera-path",
+                                                       "path.json"],
                                   ["--russian-roulette"]])
 def test_unported_flags_refused(flag, capsys):
     from vulkan_pathtracer_tpu_torch.app.main import parse_args
@@ -120,13 +137,16 @@ def test_unported_flags_refused(flag, capsys):
 
 
 @pytest.mark.parametrize("fn", [st.quad_closest_hit, st.quad_any_hit,
-                                st.pair_closest_hit, st.pair_any_hit])
+                                st.pair_closest_hit, st.pair_any_hit,
+                                sk.skip_closest_hit, sk.wide_closest_hit])
 def test_wrapper_raises_for_meta_tensor(fn):
     class Tables:
         quad_box = torch.zeros((1, 4, 6), device="meta")
         quad_link = torch.zeros((1, 4), dtype=torch.int32, device="meta")
         pair_box = torch.zeros((1, 2, 6), device="meta")
         pair_link = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+        skip_nodes = torch.zeros((8, 8), device="meta")
+        wide_nodes = torch.zeros((8, 8, 8), device="meta")
         leaves = torch.zeros((1, 4, 9), device="meta")
         instanced = False
 

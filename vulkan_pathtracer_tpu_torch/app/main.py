@@ -3,9 +3,11 @@
 parse CLI -> load scene -> bake device tensors + BVH -> render pipeline
 -> frame loop -> PNG.  The flag surface is the reference's
 (``-s -c -b -x -y -d``) plus ``-o``/``--frames``, ``--instanced`` (the
-two-level BVH: per-mesh BLAS + TLAS, models/instanced_scene.py) and
-``--device`` (default ``cuda``).  Every other flag of the JAX package's
-CLI is recognised but refused when set: it is not yet ported.
+two-level BVH: per-mesh BLAS + TLAS, models/instanced_scene.py),
+``--traversal`` (the closest-hit tier, render/wavefront.py: ``brute``
+bakes no BVH, ``pallas8`` bakes the 8-wide tiles too) and ``--device``
+(default ``cuda``).  Every other flag of the JAX package's CLI is
+recognised but refused when set: it is not yet ported.
 
 Run:  python -m vulkan_pathtracer_tpu_torch -s scene.glb [flags]
 """
@@ -34,7 +36,7 @@ from vulkan_pathtracer_tpu_torch.utils import (
 
 PORTED_FLAGS = ("scene_path", "num_samples", "num_bounces", "resolution_x",
                 "resolution_y", "render_resolution_divider", "output",
-                "frames", "instanced", "device")
+                "frames", "instanced", "traversal", "device")
 # Leaf size of the two-level bake (app/main.py:75-77 of the JAX package).
 INSTANCED_LEAF = 14
 
@@ -65,6 +67,7 @@ def parse_args(argv=None):
         resolution_x=args.resolution_x,
         resolution_y=args.resolution_y,
         render_resolution_divider=args.render_resolution_divider,
+        traversal=args.traversal,
     )
     return config, args
 
@@ -86,7 +89,9 @@ def load_pipeline(scene_path: str, config: RenderConfig, device,
                   instanced: bool = False) -> RenderPipeline:
     """Load a glTF scene, bake it — flat with the size-keyed leaf policy
     (utils/config.default_max_leaf), or two-level at leaf 14 — and build
-    the render pipeline."""
+    the render pipeline.  ``config.traversal`` picks what the flat bake
+    holds, as the JAX app does (app/main.py:86-90): no BVH for
+    ``brute``, the 8-wide tiles too for ``pallas8``."""
     scene = gltf.load(scene_path)
     print(f"scene: {len(scene.instances)} instances, "
           f"{len(scene.primitives)} primitives, {scene.triangle_count} "
@@ -100,7 +105,11 @@ def load_pipeline(scene_path: str, config: RenderConfig, device,
     else:
         dev = build_device_scene(
             scene, max_leaf_size=default_max_leaf(scene.triangle_count),
-            device=device)
+            device=device, build_bvh=config.traversal != "brute",
+            wide=config.traversal == "pallas8")
+        if dev.wide_nodes is not None:
+            print(f"8-wide tiles: {dev.wide_nodes.shape[0] // 8} per octant, "
+                  f"baked in {dev.wide_seconds:.2f} s", file=sys.stderr)
     return RenderPipeline(dev, config)
 
 

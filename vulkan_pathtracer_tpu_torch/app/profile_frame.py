@@ -2,13 +2,15 @@
 headline frame, flat or two-level.
 
     python -m vulkan_pathtracer_tpu_torch.app.profile_frame [--instanced]
+        [--traversal auto|pallas|pallas_packet|pallas8|bvh|brute]
         [-s scene.glb] [--frames 5]
 
 Renders the atrium (``assets/procedural.make_atrium(detail=4.1)``,
 generated into ``build/profile_frame/`` when ``-s`` is not given) at
 1920x1080, 1 spp, 2 bounces on bench.py's interior orbit: one warm-up
 frame, then ``--frames`` frames with every wavefront step wrapped in a
-pair of CUDA events, then 3 frames under ``torch.profiler``.  Prints
+pair of CUDA events, then 3 frames under ``torch.profiler``, through
+the closest-hit tier of ``--traversal`` (render/wavefront.py).  Prints
 one JSON line: the card, ms/frame (median, host clock around frames
 that end in a synchronize), per-step device ms per frame (median;
 ``*_sorted`` steps include their nested ``_sorted_order`` and kernel
@@ -34,6 +36,7 @@ from vulkan_pathtracer_tpu_torch.app.camera_path import orbit_path
 from vulkan_pathtracer_tpu_torch.app.main import load_pipeline
 from vulkan_pathtracer_tpu_torch.models.camera import Camera
 from vulkan_pathtracer_tpu_torch.render import wavefront
+from vulkan_pathtracer_tpu_torch.render.pipeline import TRAVERSALS
 from vulkan_pathtracer_tpu_torch.utils import RenderConfig
 
 STEPS = ("_closest_hit", "_any_hit", "_closest_hit_sorted", "_any_hit_sorted",
@@ -59,6 +62,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="profile_frame")
     ap.add_argument("-s", "--scene-path", default="")
     ap.add_argument("--instanced", action="store_true")
+    ap.add_argument("--traversal", choices=TRAVERSALS, default="auto")
     ap.add_argument("--frames", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -75,7 +79,8 @@ def main(argv=None) -> int:
         if not os.path.exists(path):
             make_atrium(path, detail=4.1)
     dev = torch.device("cuda")
-    config = RenderConfig(num_samples=1, num_bounces=2)
+    config = RenderConfig(num_samples=1, num_bounces=2,
+                          traversal=args.traversal)
     pipe = load_pipeline(path, config, dev, instanced=args.instanced)
     orbit = orbit_path(radius=4.5, height=2.2, duration=4.0,
                        center=(0.0, 1.2, 0.0))
@@ -128,6 +133,7 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip().splitlines()[0]
     print(json.dumps({
         "card": card, "instanced": args.instanced,
+        "traversal": args.traversal,
         "triangles": pipe.scene.num_triangles, "rays_per_frame": rays,
         "frames": args.frames,
         "ms_per_frame_median": statistics.median(walls),

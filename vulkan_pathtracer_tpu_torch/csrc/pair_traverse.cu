@@ -38,41 +38,6 @@ namespace {
 
 constexpr int kStackSize = 96;  // STACK_CAP: one push per tree level
 
-// One leaf child: the flat block, or (INST) the instanced decode —
-// block row, object-space ray (pallas_pair.py:661-673, same order of
-// operations) and det_sign.
-template <bool ANY, bool INST>
-__device__ __forceinline__ void visit_leaf(const Ray& r,
-                                           const float* __restrict__ leaves,
-                                           int block,
-                                           const float* __restrict__ inst_inv,
-                                           int mb_bits, int leaf, Best& b) {
-  if (!INST) {
-    leaf_block<ANY, false>(r, leaves, leaf, leaf, block, 1.0f, b);
-    return;
-  }
-  const int inst = leaf >> mb_bits;
-  const int row = leaf & ((1 << mb_bits) - 1);
-  const float4* mp = reinterpret_cast<const float4*>(inst_inv) + inst * 4;
-  float m[16];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float4 f = __ldg(mp + q);
-    m[4 * q + 0] = f.x;
-    m[4 * q + 1] = f.y;
-    m[4 * q + 2] = f.z;
-    m[4 * q + 3] = f.w;
-  }
-  Ray o = r;
-  o.ox = m[0] * r.ox + m[1] * r.oy + m[2] * r.oz + m[9];
-  o.oy = m[3] * r.ox + m[4] * r.oy + m[5] * r.oz + m[10];
-  o.oz = m[6] * r.ox + m[7] * r.oy + m[8] * r.oz + m[11];
-  o.dx = m[0] * r.dx + m[1] * r.dy + m[2] * r.dz;
-  o.dy = m[3] * r.dx + m[4] * r.dy + m[5] * r.dz;
-  o.dz = m[6] * r.dx + m[7] * r.dy + m[8] * r.dz;
-  leaf_block<ANY, true>(o, leaves, row, leaf, block, m[12], b);
-}
-
 template <bool ANY, bool INST>
 __device__ void pair_traverse(const float* __restrict__ box,
                               const int* __restrict__ link,

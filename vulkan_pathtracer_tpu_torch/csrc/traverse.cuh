@@ -1,9 +1,11 @@
-// Shared pieces of the stack-traversal kernels (stack_traverse.cu,
-// pair_traverse.cu): constants, the ray record, Möller–Trumbore and
-// the leaf-block loop.  The plain PyTorch versions in
-// ops/stack_traverse.py perform the same float operations in the same
-// order; the sources are built with -fmad=false so no product is
-// contracted into an FMA, which keeps t, u and v bitwise equal to them.
+// Shared pieces of the traversal kernels (stack_traverse.cu,
+// pair_traverse.cu, skip_traverse.cu): constants, the ray record,
+// Möller–Trumbore, the leaf-block loop, the instanced leaf decode and
+// the slab test.  The plain PyTorch versions in ops/stack_traverse.py,
+// ops/traverse.py and ops/skip_traverse.py perform the same float
+// operations in the same order; the sources are built with -fmad=false
+// so no product is contracted into an FMA, which keeps t, u and v
+// bitwise equal to them.
 
 #pragma once
 
@@ -127,6 +129,41 @@ __device__ __forceinline__ void leaf_block(const Ray& r,
       }
     }
   }
+}
+
+// One leaf child: the flat block, or (INST) the instanced decode —
+// block row, object-space ray (pallas_pair.py:661-673 and
+// pallas_traverse.py:219-227, the same order of operations) and det_sign.
+template <bool ANY, bool INST>
+__device__ __forceinline__ void visit_leaf(const Ray& r,
+                                           const float* __restrict__ leaves,
+                                           int block,
+                                           const float* __restrict__ inst_inv,
+                                           int mb_bits, int leaf, Best& b) {
+  if (!INST) {
+    leaf_block<ANY, false>(r, leaves, leaf, leaf, block, 1.0f, b);
+    return;
+  }
+  const int inst = leaf >> mb_bits;
+  const int row = leaf & ((1 << mb_bits) - 1);
+  const float4* mp = reinterpret_cast<const float4*>(inst_inv) + inst * 4;
+  float m[16];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 f = __ldg(mp + q);
+    m[4 * q + 0] = f.x;
+    m[4 * q + 1] = f.y;
+    m[4 * q + 2] = f.z;
+    m[4 * q + 3] = f.w;
+  }
+  Ray o = r;
+  o.ox = m[0] * r.ox + m[1] * r.oy + m[2] * r.oz + m[9];
+  o.oy = m[3] * r.ox + m[4] * r.oy + m[5] * r.oz + m[10];
+  o.oz = m[6] * r.ox + m[7] * r.oy + m[8] * r.oz + m[11];
+  o.dx = m[0] * r.dx + m[1] * r.dy + m[2] * r.dz;
+  o.dy = m[3] * r.dx + m[4] * r.dy + m[5] * r.dz;
+  o.dz = m[6] * r.dx + m[7] * r.dy + m[8] * r.dz;
+  leaf_block<ANY, true>(o, leaves, row, leaf, block, m[12], b);
 }
 
 // Slab test of one child box (lo.xyz, hi.xyz) against t_lim

@@ -20,7 +20,16 @@ to fixed-size blocks, and the tables the renderer reads are uploaded:
   tests and chip_smoke.py use to check the flat variant of the pair
   kernels) and the leaf table ``leaves`` (ops/stack_traverse.py
   describes the layouts);
+- the skip-pointer node record ``skip_nodes`` (8 direction-octant
+  preorders of the same tree, ``--traversal pallas_packet`` and
+  ``bvh``) and, when asked for (``wide=True``, ``--traversal
+  pallas8``), the 8-wide slot tiles ``wide_nodes`` (layouts in
+  csrc/skip_traverse.cu and ops/bvh_wide.py);
 - the root bounds, ``emissive_free``, ``bvh_depth``.
+
+``build_bvh=False`` (``--traversal brute``) bakes the triangles only:
+no traversal table, ``has_bvh`` False, as for a scene without
+triangles; such scenes take brute force.
 
 Two-level scenes (``instanced``; models/instanced_scene.py) share this
 class: object-space triangles, pair tables only, and the instance
@@ -33,6 +42,7 @@ in both packages.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -46,9 +56,11 @@ from vulkan_pathtracer_tpu_torch.models.gltf import (
 )
 from vulkan_pathtracer_tpu_torch.ops.bvh import (
     build_bvh_host,
+    octant_orders,
     pad_leaves_to_blocks,
     tree_depth,
 )
+from vulkan_pathtracer_tpu_torch.ops.bvh_wide import build_wide_bvh
 from vulkan_pathtracer_tpu_torch.ops.native import (
     bake_triangles_native,
     get_lib,
@@ -95,6 +107,10 @@ class DeviceScene:
     inst_nrm: Optional[torch.Tensor] = None   # (I, 9) normal matrix inv(A)
     # Static maps of update_instance_transforms (InstanceMaps).
     inst_maps: Optional[object] = None
+    # 8 octant preorders of the binary tree, each Nn records of
+    # bmin | bmax | skip | leaf (skip and leaf int32 bits).
+    skip_nodes: Optional[torch.Tensor] = None  # (8*Nn, 8) f32
+    wide_nodes: Optional[torch.Tensor] = None  # (8*Nw, 8, 8) f32 tiles
     num_triangles: int = 0      # un-padded triangle count
     max_leaf_size: int = 4      # leaf block size
     bvh_depth: int = 0          # binary tree depth (root = 1)
@@ -104,10 +120,15 @@ class DeviceScene:
     emissive_free: bool = False
     instanced: bool = False
     mb_bits: int = 0            # leaf-value mesh-block field width
+    wide_seconds: float = 0.0   # host seconds of the wide-tile bake
 
     @property
     def device(self) -> torch.device:
         return self.tri_attr.device
+
+    @property
+    def has_bvh(self) -> bool:
+        return self.skip_nodes is not None
 
 
 def _pad_rows(arr: np.ndarray, multiple: int, fill=0.0) -> np.ndarray:
@@ -199,6 +220,26 @@ def _empty_tree(block: int):
             np.zeros(3, np.float32), np.zeros(3, np.float32))
 
 
+def skip_records(bmin, bmax, skip_local, leaf) -> np.ndarray:
+    """(M, 8) f32 node records bmin | bmax | skip | leaf, the last two
+    int32 bit patterns: the JAX package's ``bvh_packed``
+    (device_scene.py:639-646)."""
+    tail = np.stack([np.asarray(skip_local, np.int32).view(np.float32),
+                     np.asarray(leaf, np.int32).view(np.float32)], axis=1)
+    return np.concatenate([bmin, bmax, tail], axis=1).astype(np.float32)
+
+
+def flat_skip_nodes(bvh) -> np.ndarray:
+    """The 8 octant preorders of a flat tree as one (8*Nn, 8) record
+    table (device_scene.py:602-646); skips are local to their octant
+    block, leaves hold the block-aligned first triangle or -1."""
+    skip8, lf8, _, perm8 = octant_orders(bvh)
+    perm = perm8.reshape(-1)
+    return skip_records(bvh.bmin[perm], bvh.bmax[perm], skip8.reshape(-1),
+                        lf8.reshape(-1))
+
+
+
 def _to_device(host: dict, meta: dict, device) -> DeviceScene:
     """Upload the host arrays (None stays None) and build the scene."""
     dev = torch.device(device)
@@ -282,9 +323,12 @@ def attr_rows(tri: dict, vert_normal, vert_tangent, vert_uv) -> np.ndarray:
 
 
 def build_device_scene(scene: Scene, max_leaf_size: int = 4,
-                       device="cuda") -> DeviceScene:
+                       device="cuda", build_bvh: bool = True,
+                       wide: bool = False) -> DeviceScene:
     """Bake a host Scene into device tensors with a BVH of
-    ``max_leaf_size``-triangle leaf blocks."""
+    ``max_leaf_size``-triangle leaf blocks (none with ``build_bvh=False``;
+    the 8-wide tiles too with ``wide=True``).  The wide bake is a
+    Python loop; its seconds are in ``scene.wide_seconds``."""
     acc = {k: [] for k in (
         "tri_v0", "tri_e1", "tri_e2", "tri_gn", "tri_index", "tri_material",
         "tri_primitive", "tri_local", "vert_normal", "vert_tangent",
@@ -314,7 +358,7 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
     num_triangles = tri_v0.shape[0]
 
     bvh = None
-    if num_triangles > 0:
+    if num_triangles > 0 and build_bvh:
         bvh, slot_map = bvh_with_leaf_blocks(tri_v0, tri_e1, tri_e2,
                                              max_leaf_size)
         tri_v0, tri_e1, tri_e2, tri_gn, tri_index, tri_material, \
@@ -337,10 +381,16 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
         tri_primitive=tri_primitive, tri_local=tri_local),
         vert_normal, vert_tangent, vert_uv)
 
-    pair_box = pair_link = None
+    pair_box = pair_link = skip_nodes = wide_nodes = None
+    wide_seconds = 0.0
     if bvh is not None:
         quad_box, quad_link = build_quad_tables(bvh, max_leaf_size)
         pair_box, pair_link = build_pair_tables(bvh, max_leaf_size)
+        skip_nodes = flat_skip_nodes(bvh)
+        if wide:
+            t0 = time.perf_counter()
+            wide_nodes = build_wide_bvh(bvh, max_leaf_size).nodes
+            wide_seconds = time.perf_counter() - t0
         n_blocks = int(bvh.leaf_first.max()) // max_leaf_size + 1
         flat = np.concatenate([tri_v0, tri_e1, tri_e2], axis=1)[
             : n_blocks * max_leaf_size]
@@ -348,9 +398,15 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
         root_lo = np.asarray(bvh.bmin[0], np.float32)
         root_hi = np.asarray(bvh.bmax[0], np.float32)
         depth = tree_depth(bvh)
-    else:
-        quad_box, quad_link, leaves, root_lo, root_hi = _empty_tree(
-            max_leaf_size)
+    else:   # no BVH (--traversal brute, or no triangles): brute force
+        quad_box = quad_link = None
+        leaves = np.zeros((1, max_leaf_size, 9), np.float32)
+        root_lo = root_hi = np.zeros(3, np.float32)
+        if num_triangles:   # the root box bounds the soup
+            n = num_triangles
+            corners = np.concatenate([tri_v0[:n], tri_v0[:n] + tri_e1[:n],
+                                      tri_v0[:n] + tri_e2[:n]])
+            root_lo, root_hi = corners.min(axis=0), corners.max(axis=0)
         depth = 0
 
     has_textures = mat.pop("has_textures")
@@ -360,12 +416,12 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
         tri_material=tri_material, tri_attr=tri_attr, **mat,
         quad_box=quad_box, quad_link=quad_link, pair_box=pair_box,
         pair_link=pair_link, leaves=leaves, root_lo=root_lo,
-        root_hi=root_hi,
+        root_hi=root_hi, skip_nodes=skip_nodes, wide_nodes=wide_nodes,
     )
     meta = dict(
         num_triangles=num_triangles, max_leaf_size=max_leaf_size,
         bvh_depth=depth, has_textures=has_textures,
-        emissive_free=emissive_free,
+        emissive_free=emissive_free, wide_seconds=wide_seconds,
     )
     return _to_device(host, meta, device)
 
@@ -385,10 +441,15 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
     brings its pair rows, ``inst_inv``, ``inst_nrm`` and ``mb_bits``; it
     has no quad rows.  Trees whose root is a leaf have no JAX rows; the
     port's tables for them are built as build_quad_tables and
-    build_pair_tables build them."""
+    build_pair_tables build them.  ``bvh_packed`` is the skip record
+    as it is, ``bvh_wide_nodes`` the wide tiles (8 octant orders: a JAX
+    bake with ``octant_order=False`` is refused)."""
     block = int(meta["max_leaf_size"])
     instanced = bool(meta.get("instanced", False))
     packed = arrays.get("bvh_packed")
+    if int(meta.get("bvh_orders", 8)) != 8:
+        raise ValueError("scene_from_jax_arrays: the port reads 8 octant "
+                         "orders (octant_order=True)")
     quad_box = quad_link = pair_box = pair_link = None
     if packed is None:
         quad_box, quad_link, leaves, root_lo, root_hi = _empty_tree(block)
@@ -435,7 +496,8 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
         tex_width=arrays["tex_width"], tex_height=arrays["tex_height"],
         quad_box=quad_box, quad_link=quad_link, pair_box=pair_box,
         pair_link=pair_link, leaves=leaves, root_lo=root_lo,
-        root_hi=root_hi,
+        root_hi=root_hi, skip_nodes=packed,
+        wide_nodes=arrays.get("bvh_wide_nodes"),
         inst_inv=arrays.get("inst_inv") if instanced else None,
         inst_nrm=arrays.get("inst_nrm") if instanced else None,
     )

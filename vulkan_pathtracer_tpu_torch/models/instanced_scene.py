@@ -10,21 +10,22 @@ RaytracingPass.zig:224-352).  The bake:
   flat bake's machinery), triangles and vertex attributes stored ONCE
   regardless of instance count;
 - a top tree (TLAS) over conservative instance world boxes;
-- the two levels SPLICED into one preorder: each TLAS instance leaf is
-  replaced by a copy of its mesh's BLAS nodes with world-space
+- the two levels SPLICED into one preorder per direction octant (the
+  8 octant orders of every BLAS and of the TLAS): each TLAS instance
+  leaf is replaced by a copy of its mesh's BLAS nodes with world-space
   conservative boxes (the object box's corners transformed).  Only
   nodes are per instance;
 - leaf values pack (instance, global mesh leaf block) into one integer
   ``inst << mb_bits | block`` (< 2^24, LEAF_PACK_BITS); traversal
   transforms the ray into object space at each leaf visit
-  (ops/stack_traverse.py) and culls by the world winding;
-- the pair table (``pair_box`` / ``pair_link``) of that preorder.
-
-The JAX bake splices one preorder per direction octant for its
-skip-pointer and dense tiers and builds its pair table from octant 0;
-the pair kernels descend near-first by each ray's own entry distance,
-so the port splices octant 0 only.  The dense rows, ``tri_coefs`` and
-``inst_feat`` serve tiers that are not ported.
+  (ops/stack_traverse.py, ops/skip_traverse.py) and culls by the world
+  winding;
+- the skip record ``skip_nodes`` of the 8 spliced preorders (the JAX
+  ``bvh_packed``, ``--traversal pallas_packet`` and ``bvh``) and the
+  pair table (``pair_box`` / ``pair_link``) of the octant-0 preorder
+  (the pair kernels descend near-first by each ray's own entry
+  distance, so one order serves every ray).  The dense rows,
+  ``tri_coefs`` and ``inst_feat`` serve tiers that are not ported.
 
 Shading parity: attribute rows are object space; the hit decode
 (render/shading.py) transforms interpolated normals/tangents and the
@@ -48,6 +49,7 @@ from vulkan_pathtracer_tpu_torch.models.device_scene import (
     attr_rows,
     bvh_with_leaf_blocks,
     pack_materials,
+    skip_records,
 )
 from vulkan_pathtracer_tpu_torch.models.gltf import Scene
 from vulkan_pathtracer_tpu_torch.ops.bvh import (
@@ -65,16 +67,17 @@ LEAF_PACK_BITS = 24  # packed (inst, block) stays below 2^24
 @dataclass
 class InstanceMaps:
     """Static maps of ``update_instance_transforms`` (topology fixed,
-    boxes move), over the spliced preorder's Nn nodes."""
+    boxes move), over the 8 spliced preorders' 8 * Nn records (octant
+    o's node p is record o * Nn + p; the pair table reads octant 0)."""
     pair_src: torch.Tensor     # (Ni, 2) int64 node ids of each row's children
-    node_inst: torch.Tensor    # (Nn,) int64 instance of the node, -1 = TLAS
-    node_obj_lo: torch.Tensor  # (Nn, 3) f32 object box of instance nodes
-    node_obj_hi: torch.Tensor  # (Nn, 3) f32
+    node_inst: torch.Tensor    # (8*Nn,) int64 instance of the node, -1 = TLAS
+    node_obj_lo: torch.Tensor  # (8*Nn, 3) f32 object box of instance nodes
+    node_obj_hi: torch.Tensor  # (8*Nn, 3) f32
     inst_root_obj: torch.Tensor  # (I, 6) f32 mesh root object box
     top_left: torch.Tensor     # (Ntop,) int64 TLAS children (build order)
     top_right: torch.Tensor    # (Ntop,) int64
     top_leaf_inst: torch.Tensor  # (Ntop,) int64 instance of a TLAS leaf | -1
-    top_node: torch.Tensor     # (Ntop,) int64 spliced position of TLAS nodes
+    top_node: torch.Tensor     # (8, Ntop) int64 record of each TLAS node
     top_depth: int
 
 
@@ -128,6 +131,63 @@ def _mesh_blas(scene: Scene, m: int, block: int, vert_base: int):
     return tri, bvh, verts, vert_base
 
 
+def _splice(o, top, top_orders, meshes, inst_mesh, mb_base, mb_bits, block,
+            A, t):
+    """Octant o's spliced preorder (instanced_scene.py:198-276 of the
+    JAX package): boxes, local skips, packed leaf values (-1 inside),
+    the instance and object box of each node, and the position of
+    each TLAS node (by build id)."""
+    top_skip8, top_lf8, _, top_perm8 = top_orders
+    top_skip, top_lf, top_perm = top_skip8[o], top_lf8[o], top_perm8[o]
+    n_top = top.node_count
+    sizes = np.ones(n_top, np.int64)
+    for i in range(n_top):
+        if top_lf[i] >= 0:
+            inst = int(top.tri_order[top_lf[i]])
+            sizes[i] = meshes[inst_mesh[inst]]["n_nodes"]
+    pos = np.zeros(n_top + 1, np.int64)
+    np.cumsum(sizes, out=pos[1:])
+    total = int(pos[n_top])
+    out = dict(bmin=np.empty((total, 3), np.float32),
+               bmax=np.empty((total, 3), np.float32),
+               skip=np.empty(total, np.int64),
+               leaf=np.full(total, -1, np.int64),
+               inst=np.full(total, -1, np.int64),
+               obj_lo=np.zeros((total, 3), np.float32),
+               obj_hi=np.zeros((total, 3), np.float32),
+               top_node=np.zeros(n_top, np.int64))
+    for i in range(n_top):
+        p = pos[i]
+        esc = pos[top_skip[i]]
+        bld = top_perm[i]
+        out["top_node"][bld] = p
+        if top_lf[i] < 0:
+            out["bmin"][p] = top.bmin[bld]
+            out["bmax"][p] = top.bmax[bld]
+            out["skip"][p] = esc
+            continue
+        inst = int(top.tri_order[top_lf[i]])
+        mi = inst_mesh[inst]
+        md = meshes[mi]
+        nn = md["n_nodes"]
+        perm = md["perm8"][o]
+        obmin = md["bvh"].bmin[perm]
+        obmax = md["bvh"].bmax[perm]
+        sl = slice(p, p + nn)
+        out["bmin"][sl], out["bmax"][sl] = _transform_aabb(
+            obmin, obmax, A[inst], t[inst])
+        skips = md["skip8"][o].astype(np.int64)
+        out["skip"][sl] = np.where(skips >= nn, esc, skips + p)
+        lf = md["lf8"][o]
+        out["leaf"][sl] = np.where(
+            lf >= 0, (np.int64(inst) << mb_bits)
+            | (lf.astype(np.int64) // block + mb_base[mi]), -1)
+        out["inst"][sl] = inst
+        out["obj_lo"][sl] = obmin
+        out["obj_hi"][sl] = obmax
+    return out
+
+
 def build_instanced_scene(scene: Scene, max_leaf_size: int = 14,
                           device="cuda") -> DeviceScene:
     """Bake a host Scene into a two-level DeviceScene (geometry once,
@@ -150,8 +210,8 @@ def build_instanced_scene(scene: Scene, max_leaf_size: int = 14,
         for k in verts:
             verts[k] += mverts[k]
         skip8, lf8, _, perm8 = octant_orders(bvh)
-        meshes.append(dict(bvh=bvh, skip=skip8[0], lf=lf8[0],
-                           perm=perm8[0], n_nodes=bvh.node_count))
+        meshes.append(dict(bvh=bvh, skip8=skip8, lf8=lf8, perm8=perm8,
+                           n_nodes=bvh.node_count))
         mb_base.append(mb_base[-1] + tri["tri_v0"].shape[0] // block)
     total_blocks = mb_base[-1]
     mb_bits = max(int(np.ceil(np.log2(max(total_blocks, 2)))), 1)
@@ -183,56 +243,24 @@ def build_instanced_scene(scene: Scene, max_leaf_size: int = 14,
     top = build_bvh_host(root_bmin, root_bmax - root_bmin,
                          np.zeros_like(root_bmin), max_leaf_size=1,
                          use_native=False)
-    top_skip8, top_lf8, _, top_perm8 = octant_orders(top)
-    top_skip, top_lf, top_perm = top_skip8[0], top_lf8[0], top_perm8[0]
-    n_top = top.node_count
+    top_orders = octant_orders(top)
 
-    # ---- splice the instance subtrees into the top preorder (octant 0) ----
-    sizes = np.ones(n_top, np.int64)
-    for i in range(n_top):
-        if top_lf[i] >= 0:
-            inst = int(top.tri_order[top_lf[i]])
-            sizes[i] = meshes[inst_mesh[inst]]["n_nodes"]
-    pos = np.zeros(n_top + 1, np.int64)
-    np.cumsum(sizes, out=pos[1:])
-    total = int(pos[n_top])
-    bmin_s = np.empty((total, 3), np.float32)
-    bmax_s = np.empty((total, 3), np.float32)
-    skip_s = np.empty(total, np.int64)
-    leaf_s = np.full(total, -1, np.int64)
-    node_inst = np.full(total, -1, np.int64)
-    obj_lo = np.zeros((total, 3), np.float32)
-    obj_hi = np.zeros((total, 3), np.float32)
-    top_node = np.zeros(n_top, np.int64)
-    for i in range(n_top):
-        p = pos[i]
-        esc = pos[top_skip[i]]
-        bld = top_perm[i]
-        top_node[bld] = p
-        if top_lf[i] < 0:
-            bmin_s[p] = top.bmin[bld]
-            bmax_s[p] = top.bmax[bld]
-            skip_s[p] = esc
-            continue
-        inst = int(top.tri_order[top_lf[i]])
-        mi = inst_mesh[inst]
-        md = meshes[mi]
-        nn = md["n_nodes"]
-        obmin = md["bvh"].bmin[md["perm"]]
-        obmax = md["bvh"].bmax[md["perm"]]
-        bmin_s[p:p + nn], bmax_s[p:p + nn] = _transform_aabb(
-            obmin, obmax, A[inst], t[inst])
-        skips = md["skip"].astype(np.int64)
-        skip_s[p:p + nn] = np.where(skips >= nn, esc, skips + p)
-        lf = md["lf"]
-        leaf_s[p:p + nn] = np.where(
-            lf >= 0, (np.int64(inst) << mb_bits)
-            | (lf.astype(np.int64) // block + mb_base[mi]), -1)
-        node_inst[p:p + nn] = inst
-        obj_lo[p:p + nn] = obmin
-        obj_hi[p:p + nn] = obmax
+    # ---- splice the instance subtrees into each octant's top preorder -----
+    octs = [_splice(o, top, top_orders, meshes, inst_mesh, mb_base, mb_bits,
+                    block, A, t) for o in range(8)]
+    nn = octs[0]["bmin"].shape[0]
+    cat = {k: np.concatenate([oc[k] for oc in octs])
+           for k in ("bmin", "bmax", "skip", "leaf", "inst", "obj_lo",
+                     "obj_hi")}
+    skip_nodes = skip_records(cat["bmin"], cat["bmax"], cat["skip"],
+                              cat["leaf"])
+    # top_node: spliced position of each TLAS node (build id) in the
+    # stacked 8 * Nn record table.
+    top_node = np.stack([oc["top_node"] + o * nn
+                         for o, oc in enumerate(octs)])
+    o0 = octs[0]
     pair_box, pair_link, pair_src = build_pair_tables_preorder(
-        bmin_s, bmax_s, skip_s, leaf_s)
+        o0["bmin"], o0["bmax"], o0["skip"], o0["leaf"])
 
     # ---- triangles, shading rows, instance tables --------------------------
     tri = {k: np.concatenate([p[k] for p in tri_parts])
@@ -262,9 +290,9 @@ def build_instanced_scene(scene: Scene, max_leaf_size: int = 14,
     host = dict(
         tri_v0=tri["tri_v0"], tri_e1=tri["tri_e1"], tri_e2=tri["tri_e2"],
         tri_gn=tri["tri_gn"], tri_material=tri["tri_material"],
-        tri_attr=tri_attr, **mat, leaves=leaves, root_lo=bmin_s[0],
-        root_hi=bmax_s[0], pair_box=pair_box, pair_link=pair_link,
-        inst_inv=inst_inv, inst_nrm=inst_nrm,
+        tri_attr=tri_attr, **mat, leaves=leaves, root_lo=o0["bmin"][0],
+        root_hi=o0["bmax"][0], pair_box=pair_box, pair_link=pair_link,
+        inst_inv=inst_inv, inst_nrm=inst_nrm, skip_nodes=skip_nodes,
     )
     meta = dict(
         num_triangles=num_triangles, max_leaf_size=block,
@@ -282,8 +310,8 @@ def build_instanced_scene(scene: Scene, max_leaf_size: int = 14,
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev.device)
 
     dev.inst_maps = InstanceMaps(
-        pair_src=up(pair_src), node_inst=up(node_inst),
-        node_obj_lo=up(obj_lo), node_obj_hi=up(obj_hi),
+        pair_src=up(pair_src), node_inst=up(cat["inst"]),
+        node_obj_lo=up(cat["obj_lo"]), node_obj_hi=up(cat["obj_hi"]),
         inst_root_obj=up(inst_root_obj),
         top_left=up(top.left_child.astype(np.int64)),
         top_right=up(top.right_child.astype(np.int64)),
@@ -305,9 +333,11 @@ def _transform_boxes(lo, hi, A, t):
 def update_instance_transforms(scene: DeviceScene, transforms) -> DeviceScene:
     """A copy of an instanced scene with new (I, 4, 4) instance
     transforms, all on the scene's device: the instance tables, the
-    instance nodes' world boxes (shared mesh object boxes transformed),
-    the TLAS boxes by a bottom-up sweep over the top tree, and the pair
-    table regenerated through its static map.  No triangle is touched."""
+    instance nodes' world boxes in all 8 octant preorders (shared mesh
+    object boxes transformed), the TLAS boxes by a bottom-up sweep over
+    the top tree, the skip record (boxes new, skips and leaves kept) and
+    the pair table regenerated through its static map.  No triangle is
+    touched."""
     maps = scene.inst_maps
     dev = scene.device
     M = torch.as_tensor(transforms, dtype=torch.float64, device=dev)
@@ -341,13 +371,15 @@ def update_instance_transforms(scene: DeviceScene, transforms) -> DeviceScene:
                             torch.minimum(tb_lo[lc], tb_lo[rc]))
         tb_hi = torch.where(leaf[:, None], tb_hi,
                             torch.maximum(tb_hi[lc], tb_hi[rc]))
-    # TLAS internal nodes into their spliced positions (a TLAS leaf's
-    # position is its instance subtree's root, set above).
-    inner = maps.top_node[~leaf]
-    lo[inner] = tb_lo[~leaf]
-    hi[inner] = tb_hi[~leaf]
-    src = maps.pair_src
+    # TLAS internal nodes into their spliced positions in every octant
+    # (a TLAS leaf's position is its instance subtree's root, set above).
+    inner = maps.top_node[:, ~leaf].reshape(-1)
+    lo[inner] = tb_lo[~leaf].repeat(8, 1)
+    hi[inner] = tb_hi[~leaf].repeat(8, 1)
+    src = maps.pair_src   # octant 0: records 0 .. Nn-1
     pair_box = torch.cat([lo[src], hi[src]], dim=2)
+    skip_nodes = torch.cat([lo, hi, scene.skip_nodes[:, 6:8]], dim=1)
     return dataclasses.replace(
         scene, inst_inv=inst_inv, inst_nrm=Ainv.reshape(n_inst, 9).float(),
-        pair_box=pair_box, root_lo=lo[0].clone(), root_hi=hi[0].clone())
+        pair_box=pair_box, skip_nodes=skip_nodes, root_lo=lo[0].clone(),
+        root_hi=hi[0].clone())

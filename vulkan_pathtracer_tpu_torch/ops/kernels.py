@@ -113,6 +113,14 @@ def lib() -> ctypes.CDLL:
         handle.vkpt_pair_any_hit.argtypes = [
             p, p, p, ctypes.c_int, p, ctypes.c_int, p, p, p, ctypes.c_int64,
             p, p]
+        handle.vkpt_skip_closest_hit.restype = ctypes.c_int
+        handle.vkpt_skip_closest_hit.argtypes = [
+            p, ctypes.c_int, p, ctypes.c_int, p, ctypes.c_int, p, p, p,
+            ctypes.c_int64, p, p, p, p, p]
+        handle.vkpt_wide_closest_hit.restype = ctypes.c_int
+        handle.vkpt_wide_closest_hit.argtypes = [
+            p, ctypes.c_int, p, ctypes.c_int, p, p, p, ctypes.c_int64, p, p,
+            p, p, p]
         _LIB = handle
     return _LIB
 
@@ -137,9 +145,15 @@ def _check_tables(box, link, leaves, width: int = 4):
     _check(f"{kind}_box", box, torch.float32, (None, width, 6))
     _check(f"{kind}_link", link, torch.int32, (box.shape[0], width),
            align=4 * width)
+    _check_leaves(leaves, box.device)
+
+
+def _check_leaves(leaves, device):
     if leaves.dim() != 3:
         raise ValueError("leaves: expected (n_leaves, block, 9)")
     _check("leaves", leaves, torch.float32, (None, leaves.shape[1], 9))
+    if leaves.device != device:
+        raise ValueError(f"leaves lie on {leaves.device}, tables on {device}")
 
 
 def _check_inst(inst_inv, mb_bits: int, device):
@@ -241,3 +255,52 @@ def pair_any_hit(box, link, leaves, origin, direction, t_lane,
     if rc != 0:
         raise RuntimeError(f"pair_any_hit launch failed: CUDA error {rc}")
     return hit.bool()
+
+
+def _hit_outputs(n: int, device):
+    t = torch.empty(n, dtype=torch.float32, device=device)
+    tri = torch.empty(n, dtype=torch.int32, device=device)
+    return t, tri, torch.empty_like(t), torch.empty_like(t)
+
+
+def skip_closest_hit(nodes, leaves, origin, direction, t_lane,
+                     inst_inv=None, mb_bits: int = 0):
+    """Launch the skip-record closest-hit kernel over the 8 octant
+    preorders (instanced when ``inst_inv`` is given); returns
+    (t, tri, u, v)."""
+    if nodes.shape[0] % 8:
+        raise ValueError("skip_nodes: expected 8 octant blocks of records")
+    _check("skip_nodes", nodes, torch.float32, (None, 8))
+    _check_leaves(leaves, nodes.device)
+    _check_rays(origin, direction, t_lane, nodes.device)
+    inst = _check_inst(inst_inv, mb_bits, nodes.device)
+    n = origin.shape[0]
+    t, tri, u, v = _hit_outputs(n, origin.device)
+    rc = lib().vkpt_skip_closest_hit(
+        nodes.data_ptr(), nodes.shape[0] // 8, leaves.data_ptr(),
+        leaves.shape[1], inst, mb_bits, origin.data_ptr(),
+        direction.data_ptr(), t_lane.data_ptr(), n, t.data_ptr(),
+        tri.data_ptr(), u.data_ptr(), v.data_ptr(), _stream(origin.device))
+    if rc != 0:
+        raise RuntimeError(f"skip_closest_hit launch failed: CUDA error {rc}")
+    return t, tri, u, v
+
+
+def wide_closest_hit(tiles, leaves, origin, direction, t_lane):
+    """Launch the 8-wide tile closest-hit kernel; returns
+    (t, tri, u, v)."""
+    if tiles.shape[0] % 8:
+        raise ValueError("wide_nodes: expected 8 octant blocks of tiles")
+    _check("wide_nodes", tiles, torch.float32, (None, 8, 8))
+    _check_leaves(leaves, tiles.device)
+    _check_rays(origin, direction, t_lane, tiles.device)
+    n = origin.shape[0]
+    t, tri, u, v = _hit_outputs(n, origin.device)
+    rc = lib().vkpt_wide_closest_hit(
+        tiles.data_ptr(), tiles.shape[0] // 8, leaves.data_ptr(),
+        leaves.shape[1], origin.data_ptr(), direction.data_ptr(),
+        t_lane.data_ptr(), n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+        v.data_ptr(), _stream(origin.device))
+    if rc != 0:
+        raise RuntimeError(f"wide_closest_hit launch failed: CUDA error {rc}")
+    return t, tri, u, v

@@ -73,10 +73,12 @@ EMPTY = -(2 ** 31)
 BIG = float(np.float32(3e38))
 INV_EPS = 1e-20
 
-# Kernel launches per wrapper (CUDA path only).  chip_smoke.py zeroes
-# these before the main path and reads them after it.
+# Kernel launches per wrapper (CUDA path only), this module's and
+# ops/skip_traverse.py's.  chip_smoke.py zeroes these before the main
+# path and reads them after it.
 LAUNCHES = {"quad_closest_hit": 0, "quad_any_hit": 0,
-            "pair_closest_hit": 0, "pair_any_hit": 0}
+            "pair_closest_hit": 0, "pair_any_hit": 0,
+            "skip_closest_hit": 0, "wide_closest_hit": 0}
 
 
 def _assert_depth(depth: int, what: str) -> None:

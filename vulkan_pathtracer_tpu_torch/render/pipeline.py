@@ -30,6 +30,7 @@ from vulkan_pathtracer_tpu_torch.utils import RenderConfig
 TILE_H = 32
 TILE_W = 64
 SORT_MIN_TRIANGLES = 16384  # bounce sorting pays off only on large scenes
+TRAVERSALS = ("auto", "pallas", "pallas_packet", "pallas8", "bvh", "brute")
 
 
 def _scalar(x: float, device) -> torch.Tensor:
@@ -154,7 +155,7 @@ def render_rows(scene, position, horizontal, vertical, forward, frame: int,
                 *, num_samples: int, num_bounces: int, width: int,
                 height: int, y_offset: int = 0, rows: int = None,
                 sort_secondary: bool = False, present_order: bool = True,
-                tiles=None):
+                tiles=None, traversal: str = "auto"):
     """Render image rows [y_offset, y_offset + rows).  Returns
     (image (rows, W, 3) f32, rays traced as an int64 0-d tensor).  With
     ``present_order=False`` radiance stays in tile (dispatch) order."""
@@ -171,7 +172,8 @@ def render_rows(scene, position, horizontal, vertical, forward, frame: int,
     for _ in range(num_samples):
         color, seed_x, seed_y, traced = trace_sample(
             scene, origin, direction, seed_x, seed_y,
-            num_bounces=num_bounces, sort_secondary=sort_secondary)
+            num_bounces=num_bounces, sort_secondary=sort_secondary,
+            traversal=traversal)
         acc = acc + color
         rays = rays + traced
     if tile_inv is not None and present_order:
@@ -183,13 +185,14 @@ def render_rows(scene, position, horizontal, vertical, forward, frame: int,
 def render_frame(scene, position, horizontal, vertical, forward, frame: int,
                  *, num_samples: int, num_bounces: int, width: int,
                  height: int, sort_secondary: bool = False,
-                 present_order: bool = True, tiles=None):
+                 present_order: bool = True, tiles=None,
+                 traversal: str = "auto"):
     """One full frame: (H, W, 3) f32 linear radiance + rays traced."""
     return render_rows(
         scene, position, horizontal, vertical, forward, frame,
         num_samples=num_samples, num_bounces=num_bounces, width=width,
         height=height, sort_secondary=sort_secondary,
-        present_order=present_order, tiles=tiles)
+        present_order=present_order, tiles=tiles, traversal=traversal)
 
 
 class RenderPipeline:
@@ -197,7 +200,6 @@ class RenderPipeline:
 
     def __init__(self, scene, config: RenderConfig):
         unported = {
-            "traversal": config.traversal != "auto",
             "russian_roulette": config.russian_roulette,
             "seed_secondary": config.seed_secondary,
             "progressive": config.progressive,
@@ -208,6 +210,16 @@ class RenderPipeline:
             raise NotImplementedError(
                 f"{', '.join(names)}: not yet ported in "
                 f"vulkan_pathtracer_tpu_torch")
+        traversal = config.traversal
+        if traversal not in TRAVERSALS:
+            raise ValueError(f"unknown traversal {traversal!r}")
+        if not scene.has_bvh and traversal not in ("auto", "brute"):
+            raise ValueError(f"traversal {traversal!r} needs a BVH; the "
+                             f"scene was baked without one")
+        if (traversal == "pallas8" and not scene.instanced
+                and scene.wide_nodes is None):
+            raise ValueError("traversal 'pallas8' needs the wide tiles: "
+                             "bake with build_device_scene(..., wide=True)")
         self.scene = scene
         self.config = config
         self.width = config.render_width
@@ -232,7 +244,8 @@ class RenderPipeline:
             num_bounces=self.config.num_bounces,
             width=self.width, height=self.height,
             sort_secondary=self._sort_secondary,
-            present_order=present_order, tiles=self._tiles)
+            present_order=present_order, tiles=self._tiles,
+            traversal=self.config.traversal)
 
     def to_present(self, image: np.ndarray) -> np.ndarray:
         """Host-side tile-order -> scanline conversion (identity when the

@@ -2,7 +2,7 @@
 
 One sample = up to ``num_bounces`` segments per ray.  Each bounce:
 
-    closest hit (quad-BVH kernel; pair-BVH kernel on two-level scenes)
+    closest hit (the traversal tier below)
       -> sky / emissive accumulation
       -> attribute + material fetch
       -> BRDF sampling
@@ -11,10 +11,29 @@ One sample = up to ``num_bounces`` segments per ray.  Each bounce:
 Dead lanes are masked, and their RNG state is left untouched, so the
 per-lane random stream stays bit-exact with the reference's early
 breaks (ray_gen.rgen:44-102).  On an emissive-free scene the last
-bounce only decides sky or not, so it runs the ANY-HIT kernel
-(``_anyhit_enabled``).  With ``sort_secondary`` the bounce rays are
-sorted by the 6d endpoint Morton key before traversal and the results
-scattered back; per-ray results do not depend on the order.
+bounce only decides sky or not, so it runs an ANY-HIT kernel where the
+tier has one, else closest hit and ``t < MISS_T`` (``_anyhit_enabled``).
+
+The closest-hit tier of ``--traversal`` (the JAX package's
+render/wavefront.py:157-434 and :499-592, without its VMEM gates and
+``VKPT_*`` knobs):
+
+=================  ====================  ===========================
+``--traversal``    flat scene            two-level scene
+=================  ====================  ===========================
+auto, pallas       quad kernels          pair kernels
+pallas_packet      skip kernel           skip kernel, instanced leaf
+pallas8            wide kernel           ``bvh``
+bvh                per-ray skip walk     per-ray skip walk, instanced
+brute              brute force           ``bvh``
+=================  ====================  ===========================
+
+Only auto and pallas have any-hit kernels.  A flat scene baked without
+a BVH (``--traversal brute``) takes brute force under auto too.
+
+With ``sort_secondary`` the bounce rays are sorted by the 6d endpoint
+Morton key before traversal and the results scattered back; per-ray
+results do not depend on the order.
 
 Deviation kept from the JAX package: the pdf divide is clamped with
 ``max(density, 1e-30)``; lanes where that matters are already dead.
@@ -24,7 +43,13 @@ from __future__ import annotations
 
 import torch
 
-from vulkan_pathtracer_tpu_torch.ops import rng, stack_traverse
+from vulkan_pathtracer_tpu_torch.ops import (
+    intersect,
+    rng,
+    skip_traverse,
+    stack_traverse,
+    traverse,
+)
 from vulkan_pathtracer_tpu_torch.ops.brdf import (
     ShadingInfo,
     brdf,
@@ -49,22 +74,43 @@ F0_DIELECTRIC = 0.02        # ray_gen.rgen:82
 SORT_L = 0.5                # 6d key: endpoint at 0.5 * scene diagonal
 
 
-def _closest_hit(scene, origin, direction, active) -> Hit:
-    """Flat scenes take the quad kernel; two-level scenes the pair
-    kernel, which carries the instanced leaf decode (the JAX package's
-    render/wavefront.py:159-194)."""
-    fn = (stack_traverse.pair_closest_hit if scene.instanced
-          else stack_traverse.quad_closest_hit)
+def _closest_tier(scene, traversal: str):
+    """The closest-hit function of ``traversal`` on this scene (the
+    table in the module docstring)."""
+    if not scene.has_bvh:
+        return intersect.brute_force_closest_hit
+    if traversal in ("auto", "pallas"):
+        return (stack_traverse.pair_closest_hit if scene.instanced
+                else stack_traverse.quad_closest_hit)
+    if traversal == "pallas_packet":
+        return skip_traverse.skip_closest_hit
+    if traversal == "pallas8" and not scene.instanced:
+        return skip_traverse.wide_closest_hit
+    if traversal == "brute" and not scene.instanced:
+        return intersect.brute_force_closest_hit
+    return traverse.bvh_closest_hit
+
+
+def _closest_hit(scene, origin, direction, active,
+                 traversal: str = "auto") -> Hit:
+    """Closest hit through the tier of ``traversal``."""
+    fn = _closest_tier(scene, traversal)
     return fn(scene, origin.contiguous(), direction.contiguous(), active)
 
 
-def _any_hit(scene, origin, direction, active) -> torch.Tensor:
+def _any_hit(scene, origin, direction, active,
+             traversal: str = "auto") -> torch.Tensor:
     """(N,) bool, True exactly where _closest_hit reports t < MISS_T;
-    inactive lanes False.  Quad kernel for flat scenes, pair kernel for
-    two-level ones (JAX render/wavefront.py:533, :580-586)."""
-    fn = (stack_traverse.pair_any_hit if scene.instanced
-          else stack_traverse.quad_any_hit)
-    return fn(scene, origin.contiguous(), direction.contiguous(), active)
+    inactive lanes False.  auto and pallas take the any-hit kernels
+    (quad for flat scenes, pair for two-level ones: JAX
+    render/wavefront.py:533, :580-586); every other tier tests its
+    closest hit (:587-592)."""
+    if traversal in ("auto", "pallas") and scene.has_bvh:
+        fn = (stack_traverse.pair_any_hit if scene.instanced
+              else stack_traverse.quad_any_hit)
+        return fn(scene, origin.contiguous(), direction.contiguous(), active)
+    hit = _closest_hit(scene, origin, direction, active, traversal)
+    return hit.t < MISS_T
 
 
 def _anyhit_enabled(scene) -> bool:
@@ -78,7 +124,11 @@ def _bounce_sort_key(scene, origin, direction, alive) -> torch.Tensor:
     origin + L*direction, L = 0.5 * scene diagonal); dead lanes get
     0xFFFFFFFF and sort last.  int64 holding uint32 values.  The box is
     the root's world box (the TLAS root on two-level scenes,
-    ``bvh_packed[0]`` in JAX)."""
+    ``bvh_packed[0]`` in JAX); a scene without a BVH is keyed by the
+    direction octant alone, as in JAX."""
+    if not scene.has_bvh:
+        key = traverse.octant_of(direction)
+        return torch.where(alive, key, torch.full_like(key, 0xFFFFFFFF))
     lo = scene.root_lo
     ext = torch.clamp(scene.root_hi - lo, min=1e-9)
     length = SORT_L * torch.sqrt(dot(ext, ext))
@@ -105,20 +155,24 @@ def _sorted_order(scene, origin, direction, active):
     return order, inv
 
 
-def _closest_hit_sorted(scene, origin, direction, active) -> Hit:
+def _closest_hit_sorted(scene, origin, direction, active,
+                        traversal: str = "auto") -> Hit:
     """Closest hit with rays sorted by the bounce key, results
     scattered back to lane order (identical per-ray results)."""
     order, inv = _sorted_order(scene, origin, direction, active)
     act_s = None if active is None else active[order]
-    hit = _closest_hit(scene, origin[order], direction[order], act_s)
+    hit = _closest_hit(scene, origin[order], direction[order], act_s,
+                       traversal)
     return Hit(t=hit.t[inv], tri=hit.tri[inv], u=hit.u[inv], v=hit.v[inv])
 
 
-def _any_hit_sorted(scene, origin, direction, active) -> torch.Tensor:
+def _any_hit_sorted(scene, origin, direction, active,
+                    traversal: str = "auto") -> torch.Tensor:
     """Sorted-dispatch any hit (sorted rays resolve together)."""
     order, inv = _sorted_order(scene, origin, direction, active)
     act_s = None if active is None else active[order]
-    return _any_hit(scene, origin[order], direction[order], act_s)[inv]
+    return _any_hit(scene, origin[order], direction[order], act_s,
+                    traversal)[inv]
 
 
 def sky_color(direction: torch.Tensor) -> torch.Tensor:
@@ -168,7 +222,8 @@ def extend_paths(scene, hit, origin, direction, atten, seed_x, seed_y,
 
 
 def trace_sample(scene, origin, direction, seed_x, seed_y, *,
-                 num_bounces: int, sort_secondary: bool = False):
+                 num_bounces: int, sort_secondary: bool = False,
+                 traversal: str = "auto"):
     """Trace one sample for all rays.  Returns (color (N, 3),
     new_seed_x, new_seed_y, rays_traced) with rays_traced an int64
     0-d tensor (the live lanes summed over bounces)."""
@@ -188,14 +243,14 @@ def trace_sample(scene, origin, direction, seed_x, seed_y, *,
             # Emissive-free last bounce: only the sky/miss decision
             # feeds radiance, and no RNG draws happen.
             hit_mask = (_any_hit_sorted if sorted_pass else _any_hit)(
-                scene, origin, direction, alive)
+                scene, origin, direction, alive, traversal)
             missed = alive & ~hit_mask
             color = color + torch.where(missed[:, None],
                                         atten * sky_color(direction), zero)
             alive = torch.zeros_like(alive)
             continue
         hit = (_closest_hit_sorted if sorted_pass else _closest_hit)(
-            scene, origin, direction, alive)
+            scene, origin, direction, alive, traversal)
         missed = alive & (hit.t >= MISS_T)
         did_hit = alive & ~missed
         color = color + torch.where(missed[:, None],
