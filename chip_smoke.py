@@ -52,7 +52,31 @@ before the result line):
    through the kernel and through its plain version, image difference
    0.0; a 320x180 ``--traversal bvh`` frame (the per-ray walk in plain
    PyTorch) against the skip kernel's: allclose 1e-5 but on the pixels
-   whose paths met a differing hit.
+   whose paths met a differing hit;
+9. tier kernels — the oct kernel, both frontier kernels (width 16; 32
+   on the columns) and every kernel built with coefficient leaves
+   (quad, pair flat and two-level, frontier) against their plain
+   versions, t, tri, u, v and the any-hit bit bitwise: the columns
+   scene (frontier exact at leaf 14; oct and the coefficient modes at
+   leaf 28; the two-level pair with coefficient leaves at leaf 14) with
+   a frame's primary and bounce rays, the atrium with 65,536 primary
+   and 65,536 live bounce rays; each timed at the headline's shapes
+   (2,073,600 primaries; the sorted bounce-1 launch for any hits);
+10. tier main paths — 1080p, 1 warm-up + 4 timed frames each, the
+   counters read around the 4 frames: (a) flat ``oct`` at leaf 28 (oct
+   4, quad any hit 4), (b) flat frontier with coefficient leaves at
+   leaf 28 (frontier 4 + 4, coefficient kernels), (c) flat frontier with
+   exact leaves at leaf 14 (frontier 4 + 4; the default tier of the same
+   bake is its ray reference), (d) the flat default tier with
+   coefficient leaves at leaf 28 (quad 4 + 4), (e) ``--instanced`` with
+   coefficient leaves at leaf 14 (pair 4 + 4); exact tiers' rays equal
+   their reference's up to the primaries whose hit differs, coefficient
+   tiers' within 0.2% of the exact tier's (tests/test_mxu_mt.py's
+   budget); a 320x180 frame of each through the kernels and through the
+   plain versions, image difference 0.0; 320x180 3-bounce frames with
+   ``kernel_secondary`` oct and frontier (the middle bounces); and one
+   ``python -m vulkan_pathtracer_tpu_torch`` run with the ``VKPT_*``
+   variables set.
 
 Each kernel's ``bound_ms`` is the larger of its operations over the
 card's f32 peak and its bytes over the HBM rate, counted from this
@@ -75,6 +99,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 PALLAS = "vulkan_pathtracer_tpu/ops/pallas_pair.py"
 PACKET = "vulkan_pathtracer_tpu/ops/pallas_traverse.py"
+FRONTIER = "vulkan_pathtracer_tpu/ops/pallas_frontier.py"
+MXU = "vulkan_pathtracer_tpu/ops/mxu_mt.py"
 CSRC = "vulkan_pathtracer_tpu_torch/csrc"
 KERNELS = {  # name -> (CUDA source, the Pallas kernel bodies it replaces)
     "quad_closest_hit": (f"{CSRC}/stack_traverse.cu", f"{PALLAS}:886"),
@@ -85,6 +111,25 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel bodies it replaces)
     "skip_closest_hit": (f"{CSRC}/skip_traverse.cu", ", ".join(
         f"{PACKET}:{line}" for line in (87, 606, 820, 1029, 1588))),
     "wide_closest_hit": (f"{CSRC}/skip_traverse.cu", f"{PACKET}:1294"),
+    "oct_closest_hit": (f"{CSRC}/stack_traverse.cu", f"{PALLAS}:886"),
+    "frontier_closest_hit": (f"{CSRC}/frontier_traverse.cu",
+                             f"{FRONTIER}:284"),
+    "frontier_any_hit": (f"{CSRC}/frontier_traverse.cu", f"{FRONTIER}:642"),
+    # The kernels built with coefficient leaves: their node walk's body
+    # and mt_coef_visit (closest hit) / mt_coef_visit_anyhit (any hit),
+    # which the Pallas bodies inline under VKPT_MT=mxu.
+    "quad_closest_hit_coef": (f"{CSRC}/stack_traverse.cu",
+                              f"{PALLAS}:886, {MXU}:254"),
+    "quad_any_hit_coef": (f"{CSRC}/stack_traverse.cu",
+                          f"{PALLAS}:1207, {MXU}:302"),
+    "pair_closest_hit_coef": (f"{CSRC}/pair_traverse.cu",
+                              f"{PALLAS}:598, {MXU}:254"),
+    "pair_any_hit_coef": (f"{CSRC}/pair_traverse.cu",
+                          f"{PALLAS}:1507, {MXU}:302"),
+    "frontier_closest_hit_coef": (f"{CSRC}/frontier_traverse.cu",
+                                  f"{FRONTIER}:284, {MXU}:254"),
+    "frontier_any_hit_coef": (f"{CSRC}/frontier_traverse.cu",
+                              f"{FRONTIER}:642, {MXU}:302"),
 }
 # The headline frame and the comparison sizes.
 DEVICE = "cuda:0"
@@ -102,13 +147,22 @@ SMALL_W, SMALL_H = 320, 180
 # is 12 mul/sub + 12 min/max + 1 compare (traverse.cuh slab()); a quad
 # row adds 4 EMPTY tests and a 4-key insertion sort (6 compares), a
 # pair row 3 selects, a skip record its leaf test, a wide tile 8 slabs
-# and 2 leafword tests per slot; Möller–Trumbore is 54 per triangle (55
-# with det_sign); the object-space transform of an instanced leaf visit
-# 33; the ray set-up (3 safe reciprocals, 3 products) 18.
+# and 2 leafword tests per slot, an oct row 8 slabs, 8 EMPTY tests and
+# an 8-key insertion sort (28 compares), a frontier row W slabs, W EMPTY
+# tests and the Batcher network (63 comparators at W = 16, 191 at 32);
+# Möller–Trumbore is 54 per triangle (55 with det_sign); the
+# object-space transform of an instanced leaf visit 33; the ray set-up
+# (3 safe reciprocals, 3 products) 18.  Coefficient leaves
+# (traverse.cuh coef_block): 4 dot products of 10 (76) and the
+# det-scaled test (10) per triangle, 4 det_sign products more on a
+# two-level scene; per visit the features (9) and, two-level, their
+# transform A @ f (10 dot products of 10, 190).
 PEAK_F32, HBM_BPS = 67e12, 3.35e12
 VISIT_OPS = {"quad": 4 * 25 + 4 + 6, "pair": 2 * 25 + 3, "skip": 25 + 1,
-             "wide": 8 * (25 + 2)}
+             "wide": 8 * (25 + 2), "oct": 8 * 25 + 8 + 28,
+             "frontier": 16 * 25 + 16 + 63, "frontier32": 32 * 25 + 32 + 191}
 MT_OPS, XFORM_OPS, RAY_OPS = 54, 33, 18
+COEF_OPS, COEF_SIGN_OPS, FEAT_OPS, FEAT_XFORM_OPS = 86, 4, 9, 190
 
 
 def fail(msg: str) -> None:
@@ -185,6 +239,7 @@ def main() -> int:
     from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
         build_instanced_scene,
     )
+    from vulkan_pathtracer_tpu_torch.ops import frontier as fr
     from vulkan_pathtracer_tpu_torch.ops import skip_traverse as sk
     from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
     from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T
@@ -213,8 +268,10 @@ def main() -> int:
         sync()
         return start.elapsed_time(end) / reps, out
 
-    def quad_args(scene, o, d, active):
-        return (scene.quad_box, scene.quad_link, scene.leaves, o, d,
+    quad_args = st.quad_args
+
+    def oct_args(scene, o, d, active, coef=False):
+        return (scene.oct_box, scene.oct_link, scene.leaves, o, d,
                 st.lane_limits(o.shape[0], active, o.device))
 
     def compare_closest(label, scene, o, d, active=None):
@@ -358,12 +415,18 @@ def main() -> int:
                    center=tuple((lo + hi) * 0.5)).apply(cam, 0.0)
         return cam
 
-    def bound(tables, n_rays, out_bytes, stats, visit_ops, block, instanced):
+    def bound(tables, n_rays, out_bytes, stats, visit_ops, block, instanced,
+              coef=False):
         """(bound_ms, bound_by) of one traversal launch."""
-        ops = (n_rays * RAY_OPS + stats["node_visits"] * visit_ops
-               + stats["leaf_visits"] * block * (MT_OPS + instanced))
-        if instanced:
-            ops += stats["leaf_visits"] * XFORM_OPS
+        ops = n_rays * RAY_OPS + stats["node_visits"] * visit_ops
+        if coef:
+            ops += stats["leaf_visits"] * (
+                block * (COEF_OPS + COEF_SIGN_OPS * instanced) + FEAT_OPS
+                + FEAT_XFORM_OPS * instanced)
+        else:
+            ops += stats["leaf_visits"] * block * (MT_OPS + instanced)
+            if instanced:
+                ops += stats["leaf_visits"] * XFORM_OPS
         nbytes = (sum(t.numel() * t.element_size() for t in tables)
                   + n_rays * (12 + 12 + 4 + out_bytes))
         ops_ms, bytes_ms = 1e3 * ops / PEAK_F32, 1e3 * nbytes / HBM_BPS
@@ -386,7 +449,8 @@ def main() -> int:
         err = compare(k_out, p_out)
         b_ms, b_by = bound(tables, n_rays, out_bytes, stats,
                            VISIT_OPS[key.split("_")[0]],
-                           scene.max_leaf_size, int(scene.instanced))
+                           scene.max_leaf_size, int(scene.instanced),
+                           coef=key.endswith("_coef"))
         results.setdefault(key, {}).update({
             f"ms{tag}": k_ms, f"plain_ms{tag}": p_ms,
             f"max_abs_err{tag}": err, f"bound_ms{tag}": b_ms,
@@ -449,32 +513,43 @@ def main() -> int:
                   pipe.to_present(image.cpu().numpy()))
         return launches, total_rays
 
-    def plain_wrapper(name):
-        """A wrapper with the signature of st.<name> / sk.<name> that
-        runs the plain version on the card."""
-        args_of = {"quad": quad_args, "pair": st.pair_args,
-                   "skip": sk.skip_args, "wide": sk.wide_args}[
-                       name.split("_")[0]]
-        plain = getattr(sk if name in SKIP_KERNELS else st, name + "_plain")
+    WRAPPERS = ((st, STACK_KERNELS + ("oct_closest_hit",)),
+                (sk, SKIP_KERNELS),
+                (fr, ("frontier_closest_hit", "frontier_any_hit")))
 
-        def run(scene_, o_, d_, active=None):
-            return plain(*args_of(scene_, o_, d_, active))
+    def plain_wrapper(mod, name):
+        """A wrapper with the signature of <mod>.<name> that runs the
+        plain version on the card."""
+        args_of = {"quad": quad_args, "pair": st.pair_args,
+                   "skip": lambda *a: sk.skip_args(*a[:4]),
+                   "wide": lambda *a: sk.wide_args(*a[:4]),
+                   "oct": oct_args, "frontier": fr.frontier_args}[
+                       name.split("_")[0]]
+        plain = getattr(mod, name + "_plain")
+
+        def run(scene_, o_, d_, active=None, coef=False):
+            return plain(*args_of(scene_, o_, d_, active, coef))
         return run
 
-    def small_frame(scene, label, traversal="auto", exact=False):
+    def small_frame(scene, label, traversal="auto", exact=False, bounces=2,
+                    **tiers):
         """A 320x180 frame through the kernels and through the plain
-        versions, compared (``exact``: image difference 0.0).  Returns
-        the kernels' image."""
+        versions, compared (``exact``: image difference 0.0); ``tiers``
+        are RenderConfig's tier fields.  Returns the kernels' image, its
+        rays and the kernel launches of its render."""
         small = pl.RenderPipeline(scene, RenderConfig(
-            num_samples=1, num_bounces=2, resolution_x=SMALL_W,
-            resolution_y=SMALL_H, traversal=traversal))
+            num_samples=1, num_bounces=bounces, resolution_x=SMALL_W,
+            resolution_y=SMALL_H, traversal=traversal, **tiers))
         cam = orbit_camera(16 / 9, 1.0)
+        before = dict(st.LAUNCHES)
         img_k, rays_k = small.render(cam, 7)
         sync()
-        kernel_fns = {(mod, n): getattr(mod, n) for mod, names in (
-            (st, STACK_KERNELS), (sk, SKIP_KERNELS)) for n in names}
+        launched = {k: v - before[k] for k, v in st.LAUNCHES.items()
+                    if v != before[k]}
+        kernel_fns = {(mod, n): getattr(mod, n) for mod, names in WRAPPERS
+                      for n in names}
         for (mod, n) in kernel_fns:
-            setattr(mod, n, plain_wrapper(n))
+            setattr(mod, n, plain_wrapper(mod, n))
         try:
             img_p, rays_p = small.render(cam, 7)
             sync()
@@ -491,8 +566,9 @@ def main() -> int:
         check(torch.allclose(img_k, img_p, rtol=1e-5, atol=1e-5),
               f"{label} small frame: image differs by {diff}")
         phase("main", check=f"{label} {SMALL_W}x{SMALL_H} kernels vs plain",
-              rays=int(rays_k), max_abs_diff=diff)
-        return img_k, int(rays_k)
+              rays=int(rays_k), max_abs_diff=diff, bounces=bounces,
+              launches=launched)
+        return img_k, int(rays_k), launched
 
     def compare_bitwise(label, launch, plain, args):
         """A closest-hit kernel against its plain version: hit masks
@@ -506,8 +582,9 @@ def main() -> int:
         for f, a, b in zip("t tri u v".split(), k, p):
             check(torch.equal(a, b), f"{label}: {f} differs on "
                   f"{int((a != b).sum())} rays")
-        phase("kernels", check=label, rays=args[2].shape[0],
+        phase("kernels", check=label, rays=args[3].shape[0],
               hits=int((p.t < MISS_T).sum()), bit_equal=True)
+        return p
 
     def compare_skip(label, scene, o, d, active=None):
         compare_bitwise(label + "/skip", kernels.skip_closest_hit,
@@ -746,8 +823,8 @@ def main() -> int:
     packet_launches, rays4 = main_path(ppipe, "packet", only(
         skip_closest_hit=8))
     check_rays("packet", rays4, flat_rays, wscene, "pallas_packet")
-    img_skip, rays_skip = small_frame(wscene, "packet", "pallas_packet",
-                                      exact=True)
+    img_skip, rays_skip, _ = small_frame(wscene, "packet", "pallas_packet",
+                                         exact=True)
     # --traversal bvh (the per-ray walk, plain PyTorch) against the skip
     # kernel: equal but where the two tiers' hits part (tier_differences).
     bvh_small = pl.RenderPipeline(wscene, RenderConfig(
@@ -784,13 +861,290 @@ def main() -> int:
     phase("phase", name="traversal main paths",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 9. result -------------------------------------------------------------
+    # -- 9. tier kernels vs plain versions ----------------------------------
+    # Each chosen kernel against its plain version, bitwise; with exact
+    # leaves the any-hit bit equals the closest-hit mask (coefficient
+    # leaves compare det-scaled in the any hit: the agreement is
+    # printed).
+    t0 = time.perf_counter()
+    from vulkan_pathtracer_tpu_torch.utils.config import Tiers
+
+    FAMILIES = {
+        "quad": (quad_args, kernels.quad_closest_hit,
+                 st.quad_closest_hit_plain, kernels.quad_any_hit,
+                 st.quad_any_hit_plain),
+        "pair": (st.pair_args, kernels.pair_closest_hit,
+                 st.pair_closest_hit_plain, kernels.pair_any_hit,
+                 st.pair_any_hit_plain),
+        "frontier": (fr.frontier_args, kernels.frontier_closest_hit,
+                     fr.frontier_closest_hit_plain, kernels.frontier_any_hit,
+                     fr.frontier_any_hit_plain)}
+
+    def compare_tier(label, scene, o, d, active=None, families=(),
+                     coef=False, oct_=False):
+        if oct_:
+            compare_bitwise(label + "/oct", kernels.oct_closest_hit,
+                            st.oct_closest_hit_plain,
+                            oct_args(scene, o, d, active))
+        for fam in families:
+            args_fn, ck, cp, ak, ap = FAMILIES[fam]
+            args = args_fn(scene, o, d, active, coef)
+            tag = f"{label}/{fam}" + ("_coef" if coef else "")
+            p = compare_bitwise(tag, ck, cp, args)
+            ka = ak(*args)
+            sync()
+            pa = ap(*args)
+            sync()
+            check(torch.equal(ka, pa), f"{tag}: any hit != plain version")
+            agree = (ka == (p.t < MISS_T)).float().mean().item()
+            check(agree == 1.0 or (coef and agree >= 0.998),
+                  f"{tag}: any hit agrees with closest.t < MISS_T on "
+                  f"{agree:.6f} of rays")
+            phase("kernels", check=tag + "/any", rays=o.shape[0],
+                  occluded=int(ka.sum().item()), bit_equal=True,
+                  any_vs_closest=f"{agree:.6f}")
+
+    def both_ray_sets(label, scene, cam, w, h, **kw):
+        o, d, o1, d1, a1, live = bounce_rays(scene, cam, 0, w, h)
+        compare_tier(f"{label}/primary", scene, o, d, None, **kw)
+        compare_tier(f"{label}/bounce", scene, o1, d1, a1, **kw)
+        return o, d, o1, d1, a1, live
+
+    # Columns: frontier exact at leaf 14 (width 16 and 32), oct and the
+    # coefficient modes at leaf 28, the two-level pair with coefficient
+    # leaves at leaf 14.
+    cols14 = build_device_scene(cols_host, max_leaf_size=14, device=dev)
+    both_ray_sets("columns14", cols14, scene_camera(cols14), COLS_W, COLS_H,
+                  families=("frontier",))
+    cols32 = build_device_scene(cols_host, max_leaf_size=14, device=dev,
+                                frontier_width=32)
+    check(cols32.frontier_box.shape[1] == 32, "frontier width 32 not baked")
+    both_ray_sets("columns14-w32", cols32, scene_camera(cols32), COLS_W,
+                  COLS_H, families=("frontier",))
+    cols28 = build_device_scene(cols_host, max_leaf_size=28, device=dev,
+                                mt="mxu")
+    both_ray_sets("columns28", cols28, scene_camera(cols28), COLS_W, COLS_H,
+                  families=("quad", "pair", "frontier"), coef=True,
+                  oct_=True)
+    icols = build_instanced_scene(cols_host, max_leaf_size=14, device=dev,
+                                  mt="mxu")
+    both_ray_sets("columns-inst", icols, scene_camera(icols), COLS_W, COLS_H,
+                  families=("pair",), coef=True)
+    del cols14, cols32, cols28, icols
+    phase("phase", name="columns tier kernels",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # The atrium bakes of the five tier paths, through load_pipeline with
+    # the tier fields a user sets (the CLI reads them from VKPT_*).
+    t1 = time.perf_counter()
+    frame_kw = dict(num_samples=1, num_bounces=2, resolution_x=WIDTH,
+                    resolution_y=HEIGHT)
+    tiers = {
+        "a": dict(kernel_primary="oct"),
+        "b": dict(kernel_primary="frontier", anyhit_kernel="frontier",
+                  mt="mxu"),
+        "c": dict(kernel_primary="frontier", anyhit_kernel="frontier",
+                  max_leaf=14),
+        "d": dict(mt="mxu"),
+        "e": dict(mt="mxu")}
+    apipe = load_pipeline(atrium_path, RenderConfig(**frame_kw, **tiers["a"]),
+                          dev)
+    bpipe = load_pipeline(atrium_path, RenderConfig(**frame_kw, **tiers["b"]),
+                          dev)
+    dpipe = pl.RenderPipeline(bpipe.scene,
+                              RenderConfig(**frame_kw, **tiers["d"]))
+    cpipe = load_pipeline(atrium_path, RenderConfig(**frame_kw, **tiers["c"]),
+                          dev)
+    cref = pl.RenderPipeline(cpipe.scene, RenderConfig(**frame_kw,
+                                                       max_leaf=14))
+    epipe = load_pipeline(atrium_path, RenderConfig(**frame_kw, **tiers["e"]),
+                          dev, instanced=True)
+    for lbl, p_ in (("a", apipe), ("b", bpipe), ("c", cpipe), ("e", epipe)):
+        sc = p_.scene
+        phase("scene", name=f"atrium path ({lbl})", leaf=sc.max_leaf_size,
+              instanced=sc.instanced,
+              oct_rows=None if sc.oct_box is None else sc.oct_box.shape[0],
+              frontier_rows=(None if sc.frontier_box is None
+                             else sc.frontier_box.shape[0]),
+              coef_rows=(None if sc.tri_coefs is None
+                         else sc.tri_coefs.shape[0]))
+    check(apipe.scene.max_leaf_size == 28 and bpipe.scene.max_leaf_size == 28
+          and cpipe.scene.max_leaf_size == 14
+          and epipe.scene.max_leaf_size == 14, "tier bakes: wrong leaf sizes")
+    check(bpipe.scene.tri_coefs is not None and
+          epipe.scene.inst_feat is not None, "mxu bakes lack coefficients")
+    phase("phase", name="tier bakes", seconds=f"{time.perf_counter() - t1:.1f}")
+
+    def atrium_checks(label, scene, seed, **kw):
+        o, d, o1, d1, a1, live = bounce_rays(scene, cam0, 0, WIDTH, HEIGHT)
+        sel = subset(n_prim, N_SUB, seed)
+        compare_tier(f"{label}/primary", scene, o[sel], d[sel], **kw)
+        live_idx = torch.nonzero(a1).squeeze(1)
+        sel = live_idx[subset(live_idx.shape[0], N_SUB, seed + 1)]
+        compare_tier(f"{label}/bounce", scene, o1[sel], d1[sel], **kw)
+        return o, d, o1, d1, a1, live
+
+    def time_family(key, scene, rays, any_rays, coef):
+        """Closest hit on the primaries and any hit on the sorted
+        bounce-1 launch of ``key``'s family, kernel vs plain."""
+        fam = key.split("_")[0]
+        args_fn, ck, cp, ak, ap = FAMILIES[fam]
+        table = {"quad": (scene.quad_box, scene.quad_link),
+                 "pair": (scene.pair_box, scene.pair_link),
+                 "frontier": (scene.frontier_box, scene.frontier_link)}[fam]
+        tables = (*table, st.leaf_table(scene, coef)) + (
+            (scene.inst_inv, scene.inst_feat) if scene.instanced else ())
+        suffix = "_coef" if coef else ""
+        cargs = args_fn(scene, *rays, None, coef)
+        time_kernel(f"{fam}_closest_hit{suffix}", lambda: ck(*cargs),
+                    lambda s=None: cp(*cargs, stats=s), tables, n_prim, 16,
+                    scene, closest_err)
+        aargs = args_fn(scene, *any_rays, coef)
+        time_kernel(f"{fam}_any_hit{suffix}", lambda: ak(*aargs),
+                    lambda s=None: ap(*aargs, stats=s), tables, n_prim, 1,
+                    scene, any_err)
+
+    t1 = time.perf_counter()
+    o, d, o1, d1, a1, _ = atrium_checks("atrium-a", apipe.scene, 11,
+                                        oct_=True)
+    targs = oct_args(apipe.scene, o, d, None)
+    time_kernel("oct_closest_hit", lambda: kernels.oct_closest_hit(*targs),
+                lambda s=None: st.oct_closest_hit_plain(*targs, stats=s),
+                (apipe.scene.oct_box, apipe.scene.oct_link,
+                 apipe.scene.leaves), n_prim, 16, apipe.scene, closest_err)
+    o, d, o1, d1, a1, _ = atrium_checks(
+        "atrium-b", bpipe.scene, 13, families=("quad", "pair", "frontier"),
+        coef=True)
+    time_family("quad", bpipe.scene, (o, d), (o1, d1, a1), True)
+    time_family("frontier", bpipe.scene, (o, d), (o1, d1, a1), True)
+    o, d, o1, d1, a1, _ = atrium_checks("atrium-c", cpipe.scene, 15,
+                                        families=("frontier",))
+    time_family("frontier", cpipe.scene, (o, d), (o1, d1, a1), False)
+    o, d, o1, d1, a1, _ = atrium_checks("atrium-e", epipe.scene, 17,
+                                        families=("pair",), coef=True)
+    time_family("pair", epipe.scene, (o, d), (o1, d1, a1), True)
+    del o, d, o1, d1, a1, targs
+    torch.cuda.empty_cache()
+    phase("phase", name="atrium tier kernels",
+          seconds=f"{time.perf_counter() - t1:.1f}")
+    phase("phase", name="tier kernels",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # -- 10. tier main paths -------------------------------------------------
+    t0 = time.perf_counter()
+
+    def coef_differences(scene, tier):
+        """Primaries of main_path's 4 cameras whose hit or triangle
+        differs between the default exact tier and ``tier``."""
+        path = orbit_path(radius=4.5, height=2.2, duration=4.0,
+                          center=(0.0, 1.2, 0.0))
+        cam = Camera(aspect_ratio=config.aspect_ratio)
+        total = 0
+        for f in range(4):
+            path.apply(cam, float(f))
+            pos, hor, ver, fwd = pl.camera_tensors(cam, dev)
+            o, d, _, _, _ = pl.primary_rays(pos, hor, ver, fwd, f + 1, WIDTH,
+                                            HEIGHT)
+            a = wf._closest_hit(scene, o, d, None)
+            b = wf._closest_hit(scene, o, d, None, tier)
+            total += int(((a.t < MISS_T) != (b.t < MISS_T))
+                         .logical_or(a.tri != b.tri).sum())
+        return total
+
+    def coef_rays(label, rays4, ref_rays, scene, tier):
+        differ = coef_differences(scene, tier)
+        budget = 0.002 * 4 * n_pix
+        check(differ <= budget and abs(rays4 - ref_rays) <= 0.002 * ref_rays,
+              f"{label}: {differ} of {4 * n_pix} primaries hit otherwise than "
+              f"the exact tier; rays {rays4} vs {ref_rays}")
+        phase("main", check=f"{label} rays vs exact tier", rays=rays4,
+              exact_rays=ref_rays, primaries_hit_otherwise=differ,
+              share=f"{differ / (4 * n_pix):.6f}")
+
+    def tier_of(key):
+        return Tiers(**{k: v for k, v in tiers[key].items()
+                        if k != "max_leaf"})
+
+    tier_launches = {}
+    tier_launches["a"], rays4 = main_path(apipe, "tier-a-oct", only(
+        oct_closest_hit=4, quad_any_hit=4))
+    check_rays("tier-a-oct", rays4, flat_rays, apipe.scene, tier_of("a"))
+    small_frame(apipe.scene, "tier-a-oct", exact=True, **tiers["a"])
+    _, _, mid = small_frame(apipe.scene, "secondary-oct", exact=True,
+                            bounces=3, kernel_secondary="oct")
+    check(mid.get("oct_closest_hit") == 1, f"3-bounce oct frame: {mid}")
+
+    tier_launches["b"], rays4 = main_path(bpipe, "tier-b-frontier-coef", only(
+        frontier_closest_hit_coef=4, frontier_any_hit_coef=4))
+    coef_rays("tier-b-frontier-coef", rays4, flat_rays, bpipe.scene,
+              tier_of("b"))
+    small_frame(bpipe.scene, "tier-b-frontier-coef", exact=True,
+                **tiers["b"])
+
+    cref_launches, cref_rays = main_path(cref, "tier-c-reference", only(
+        pair_closest_hit=4, quad_any_hit=4))
+    tier_launches["c"], rays4 = main_path(cpipe, "tier-c-frontier", only(
+        frontier_closest_hit=4, frontier_any_hit=4))
+    check_rays("tier-c-frontier", rays4, cref_rays, cpipe.scene,
+               tier_of("c"))
+    small_frame(cpipe.scene, "tier-c-frontier", exact=True, **tiers["c"])
+    _, _, mid = small_frame(cpipe.scene, "secondary-frontier", exact=True,
+                            bounces=3, kernel_secondary="frontier")
+    check(mid.get("frontier_closest_hit") == 1,
+          f"3-bounce frontier frame: {mid}")
+
+    tier_launches["d"], rays4 = main_path(dpipe, "tier-d-quad-coef", only(
+        quad_closest_hit_coef=4, quad_any_hit_coef=4))
+    coef_rays("tier-d-quad-coef", rays4, flat_rays, bpipe.scene,
+              tier_of("d"))
+    small_frame(bpipe.scene, "tier-d-quad-coef", exact=True, **tiers["d"])
+
+    tier_launches["e"], rays4 = main_path(epipe, "tier-e-instanced-coef", only(
+        pair_closest_hit_coef=4, pair_any_hit_coef=4))
+    coef_rays("tier-e-instanced-coef", rays4, inst_rays, epipe.scene,
+              tier_of("e"))
+    small_frame(epipe.scene, "tier-e-instanced-coef", exact=True,
+                **tiers["e"])
+    del apipe, bpipe, cpipe, dpipe, epipe, cref
+    torch.cuda.empty_cache()
+
+    # The tiers from the environment: one CLI run with the JAX
+    # package's variables, on the card.
+    out_png = os.path.join(WORK, "cli_tiers.png")
+    env = {**os.environ, "VKPT_KERNEL_PRIMARY": "frontier",
+           "VKPT_KERNEL_SECONDARY": "frontier",
+           "VKPT_ANYHIT_KERNEL": "frontier", "VKPT_MT": "mxu",
+           "VKPT_LEAF": "28"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "vulkan_pathtracer_tpu_torch", "-s", cols_path,
+         "-x", str(SMALL_W), "-y", str(SMALL_H), "-b", "3", "-o", out_png],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    want = ("kernel tiers: primary=frontier secondary=frontier "
+            "anyhit=frontier mt=mxu leaf=28")
+    check(proc.returncode == 0 and want in proc.stderr
+          and os.path.exists(out_png),
+          f"CLI with VKPT_* variables: rc {proc.returncode}\n{proc.stderr}")
+    phase("main", check="CLI with VKPT_* tier variables", rc=proc.returncode,
+          tiers=repr(want), timing=repr(proc.stderr.strip().splitlines()[-1]))
+    phase("phase", name="tier main paths",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # -- 11. result ------------------------------------------------------------
     launches = {**{k: flat_launches[k] for k in ("quad_closest_hit",
                                                   "quad_any_hit")},
                 **{k: inst_launches[k] for k in ("pair_closest_hit",
                                                   "pair_any_hit")},
                 "skip_closest_hit": packet_launches["skip_closest_hit"],
-                "wide_closest_hit": wide_launches["wide_closest_hit"]}
+                "wide_closest_hit": wide_launches["wide_closest_hit"],
+                "oct_closest_hit": tier_launches["a"]["oct_closest_hit"],
+                **{k: tier_launches["c"][k] for k in (
+                    "frontier_closest_hit", "frontier_any_hit")},
+                **{k: tier_launches["b"][k] for k in (
+                    "frontier_closest_hit_coef", "frontier_any_hit_coef")},
+                **{k: tier_launches["d"][k] for k in (
+                    "quad_closest_hit_coef", "quad_any_hit_coef")},
+                **{k: tier_launches["e"][k] for k in (
+                    "pair_closest_hit_coef", "pair_any_hit_coef")}}
     results["skip_closest_hit"]["launches_instanced"] = \
         ipacket_launches["skip_closest_hit"]
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")

@@ -12,7 +12,9 @@ t, tri, u, v and the any-hit bit are bitwise equal.  Leaf sizes 4 and
 14 exercise the kernel's scalar leaf loads (block % 4 != 0 for 14),
 28 the float4 path of the headline frame.  The skip kernel (flat and
 instanced) and the wide kernel are held to their plain versions the
-same way.
+same way, as are the oct kernel, the frontier kernels (width 16 and
+32) and every kernel built with coefficient leaves (``mt="mxu"``: quad,
+pair flat and two-level, with a mirrored instance, and frontier).
 """
 
 import numpy as np
@@ -25,6 +27,7 @@ from vulkan_pathtracer_tpu_torch.models.device_scene import build_device_scene
 from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
     build_instanced_scene,
 )
+from vulkan_pathtracer_tpu_torch.ops import frontier as fr
 from vulkan_pathtracer_tpu_torch.ops import kernels
 from vulkan_pathtracer_tpu_torch.ops import skip_traverse as sk
 from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
@@ -151,6 +154,96 @@ def test_wide_kernel_matches_plain(cuda, scene_paths, leaf):
                                  args[4])
 
 
+def _assert_equal(got, ref):
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("leaf", [4, 14, 28])
+def test_oct_kernel_matches_plain(cuda, scene_paths, leaf):
+    scene = build_device_scene(gltf.load(scene_paths["columns"]),
+                               max_leaf_size=leaf, device=cuda)
+    o, d, active = _rays(8192, seed=leaf + 17, device=cuda)
+    args = (scene.oct_box, scene.oct_link, scene.leaves, o, d,
+            st.lane_limits(o.shape[0], active, cuda))
+    ref = st.oct_closest_hit_plain(*args)
+    _assert_equal(kernels.oct_closest_hit(*args), ref)
+    assert 500 < int((ref.t < MISS_T).sum()) < 8192
+    before = st.LAUNCHES["oct_closest_hit"]
+    st.oct_closest_hit(scene, o, d, active)
+    assert st.LAUNCHES["oct_closest_hit"] == before + 1
+
+
+@pytest.mark.parametrize("width,leaf,mt", [(16, 4, "exact"),
+                                           (16, 14, "exact"),
+                                           (32, 14, "exact"),
+                                           (16, 28, "mxu"), (32, 14, "mxu")])
+def test_frontier_kernels_match_plain(cuda, scene_paths, width, leaf, mt):
+    """Both frontier kernels bitwise equal to their plain versions; the
+    any-hit bit equal to the closest-hit mask with exact leaves."""
+    scene = build_device_scene(gltf.load(scene_paths["columns"]),
+                               max_leaf_size=leaf, device=cuda, mt=mt,
+                               frontier_width=width)
+    coef = mt == "mxu"
+    o, d, active = _rays(8192, seed=leaf + width, device=cuda)
+    args = fr.frontier_args(scene, o, d, active, coef)
+    ref = fr.frontier_closest_hit_plain(*args)
+    _assert_equal(kernels.frontier_closest_hit(*args), ref)
+    assert 500 < int((ref.t < MISS_T).sum()) < 8192
+    occ = kernels.frontier_any_hit(*args)
+    assert torch.equal(occ, fr.frontier_any_hit_plain(*args))
+    if not coef:
+        assert torch.equal(occ, ref.t < MISS_T)
+    name = "frontier_any_hit" + ("_coef" if coef else "")
+    before = st.LAUNCHES[name]
+    fr.frontier_any_hit(scene, o, d, active, coef=coef)
+    assert st.LAUNCHES[name] == before + 1
+
+
+@pytest.mark.parametrize("leaf", [4, 14, 28])
+def test_quad_coef_kernels_match_plain(cuda, scene_paths, leaf):
+    scene = build_device_scene(gltf.load(scene_paths["columns"]),
+                               max_leaf_size=leaf, device=cuda, mt="mxu")
+    o, d, active = _rays(8192, seed=leaf + 19, device=cuda)
+    args = st.quad_args(scene, o, d, active, coef=True)
+    ref = st.quad_closest_hit_plain(*args)
+    _assert_equal(kernels.quad_closest_hit(*args), ref)
+    assert 500 < int((ref.t < MISS_T).sum()) < 8192
+    assert torch.equal(kernels.quad_any_hit(*args),
+                       st.quad_any_hit_plain(*args))
+    before = st.LAUNCHES["quad_closest_hit_coef"]
+    st.quad_closest_hit(scene, o, d, active, coef=True)
+    assert st.LAUNCHES["quad_closest_hit_coef"] == before + 1
+
+
+@pytest.mark.parametrize("instanced", [False, True])
+def test_pair_coef_kernels_match_plain(cuda, scene_paths, instanced):
+    """Coefficient leaves of the pair kernels, flat and two-level (with
+    the first instance mirrored, so its det_sign is -1)."""
+    from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
+        update_instance_transforms,
+    )
+
+    host = gltf.load(scene_paths["columns"])
+    if instanced:
+        scene = build_instanced_scene(host, max_leaf_size=14, device=cuda,
+                                      mt="mxu")
+        xf = np.stack([inst.transform for inst in host.instances])
+        xf[0, :3, 0] *= -1.0
+        scene = update_instance_transforms(scene, xf)
+        assert float(scene.inst_inv[0, 12]) == -1.0
+    else:
+        scene = build_device_scene(host, max_leaf_size=14, device=cuda,
+                                   mt="mxu")
+    o, d, active = _rays(8192, seed=23, device=cuda)
+    args = st.pair_args(scene, o, d, active, coef=True)
+    ref = st.pair_closest_hit_plain(*args)
+    _assert_equal(kernels.pair_closest_hit(*args), ref)
+    assert 500 < int((ref.t < MISS_T).sum()) < 8192
+    assert torch.equal(kernels.pair_any_hit(*args),
+                       st.pair_any_hit_plain(*args))
+
+
 def test_kernel_skips_empty_slots(cuda):
     """Empty slots whose boxes every ray hits: the kernel must not read
     them as leaf 0 (which holds a nearer triangle)."""
@@ -207,14 +300,25 @@ def test_traversal_render_cuda_matches_cpu(cuda, scene_paths, traversal):
     _render_both(cuda, scene_paths, 2, traversal)
 
 
-def _render_both(cuda, scene_paths, bounces, traversal):
+@pytest.mark.parametrize("tiers", [
+    dict(kernel_primary="oct", kernel_secondary="oct"),
+    dict(kernel_primary="frontier", kernel_secondary="frontier",
+         anyhit_kernel="frontier"),
+    dict(kernel_primary="frontier", kernel_secondary="quad", mt="mxu"),
+    dict(mt="mxu")])
+def test_tier_render_cuda_matches_cpu(cuda, scene_paths, tiers):
+    """The kernel tiers on the card against the same tiers on the CPU."""
+    _render_both(cuda, scene_paths, 3, "auto", **tiers)
+
+
+def _render_both(cuda, scene_paths, bounces, traversal, **tiers):
     """A whole frame on the card (kernels) vs on the CPU (plain
     versions): equal ray counts; radiance allclose 1e-5, since PyTorch's
     CUDA and CPU elementwise ops need not round alike (a CUDA division
     by a Python scalar is a reciprocal multiply)."""
     config = RenderConfig(num_samples=1, num_bounces=bounces,
                           resolution_x=96, resolution_y=72,
-                          traversal=traversal)
+                          traversal=traversal, **tiers)
     cam = Camera(aspect_ratio=config.aspect_ratio,
                  position=np.asarray([0.0, 1.0, 0.9], np.float32))
     cam.set_orientation(yaw=180.0, pitch=0.0)
@@ -222,7 +326,8 @@ def _render_both(cuda, scene_paths, bounces, traversal):
     for device in (cuda, torch.device("cpu")):
         scene = build_device_scene(gltf.load(scene_paths["cornell"]),
                                    max_leaf_size=14, device=device,
-                                   wide=traversal == "pallas8")
+                                   wide=traversal == "pallas8",
+                                   mt=config.mt)
         image, traced = RenderPipeline(scene, config).render_numpy(cam, 5)
         images.append(image)
         rays.append(traced)

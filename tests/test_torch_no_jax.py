@@ -7,7 +7,9 @@
   package (``vulkan_pathtracer_tpu``): a source scan, and subprocesses
   with both ``jax`` and ``vulkan_pathtracer_tpu`` blocked that import
   every module and render ``--instanced``, ``--traversal
-  pallas_packet`` and ``--traversal pallas8`` on ``--device cpu``.
+  pallas_packet``, ``--traversal pallas8`` and a kernel-tier frame
+  (the frontier kernels with coefficient leaves, chosen by the
+  ``VKPT_*`` variables) on ``--device cpu``.
 - Without CUDA, the default ``--device cuda`` exits non-zero with a
   clear message instead of switching to the CPU.
 - The traversal wrappers raise for a device that is neither CPU nor
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 import vulkan_pathtracer_tpu_torch
+from vulkan_pathtracer_tpu_torch.ops import frontier as fr
 from vulkan_pathtracer_tpu_torch.ops import skip_traverse as sk
 from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 
@@ -40,10 +43,11 @@ IMPORT_ALL_AND_RUN_CLI = (
     "runpy.run_module('vulkan_pathtracer_tpu_torch', run_name='__main__')")
 
 
-def _run(code, *args, block=BLOCK_JAX):
+def _run(code, *args, block=BLOCK_JAX, env=None):
     return subprocess.run([sys.executable, "-c", block + code, *args],
                           cwd=ROOT, capture_output=True, text=True,
-                          timeout=300)
+                          timeout=300,
+                          env=None if env is None else {**os.environ, **env})
 
 
 def test_source_never_imports_jax():
@@ -98,6 +102,26 @@ def test_cli_renders_traversal_without_jax_package(columns_glb, tmp_path,
     assert image.shape == (32, 48, 3) and 0 < image.mean() < 255
 
 
+def test_cli_renders_tier_frame_without_jax_package(columns_glb, tmp_path):
+    """The frontier kernels with coefficient leaves at leaf 28, chosen by
+    the JAX package's variables, in a process without JAX."""
+    out = tmp_path / "columns.png"
+    env = {"VKPT_KERNEL_PRIMARY": "frontier",
+           "VKPT_KERNEL_SECONDARY": "frontier",
+           "VKPT_ANYHIT_KERNEL": "frontier", "VKPT_MT": "mxu",
+           "VKPT_LEAF": "28"}
+    proc = _run(IMPORT_ALL_AND_RUN_CLI, "-s", columns_glb, "-x", "48", "-y",
+                "32", "-b", "3", "-o", str(out), "--device", "cpu",
+                block=BLOCK_JAX_PACKAGE, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert ("kernel tiers: primary=frontier secondary=frontier "
+            "anyhit=frontier mt=mxu leaf=28") in proc.stderr
+    from vulkan_pathtracer_tpu_torch.utils import read_png
+
+    image = read_png(str(out))
+    assert image.shape == (32, 48, 3) and 0 < image.mean() < 255
+
+
 def test_cli_renders_without_jax(box_glb, tmp_path):
     out = tmp_path / "box.png"
     proc = _run(IMPORT_ALL_AND_RUN_CLI, "-s", box_glb, "-x", "64", "-y",
@@ -138,11 +162,18 @@ def test_unported_flags_refused(flag, capsys):
 
 @pytest.mark.parametrize("fn", [st.quad_closest_hit, st.quad_any_hit,
                                 st.pair_closest_hit, st.pair_any_hit,
-                                sk.skip_closest_hit, sk.wide_closest_hit])
+                                sk.skip_closest_hit, sk.wide_closest_hit,
+                                st.oct_closest_hit, fr.frontier_closest_hit,
+                                fr.frontier_any_hit])
 def test_wrapper_raises_for_meta_tensor(fn):
     class Tables:
         quad_box = torch.zeros((1, 4, 6), device="meta")
         quad_link = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+        oct_box = torch.zeros((1, 8, 6), device="meta")
+        oct_link = torch.zeros((1, 8), dtype=torch.int32, device="meta")
+        frontier_box = torch.zeros((1, 16, 6), device="meta")
+        frontier_link = torch.zeros((1, 16), dtype=torch.int32,
+                                    device="meta")
         pair_box = torch.zeros((1, 2, 6), device="meta")
         pair_link = torch.zeros((1, 2), dtype=torch.int32, device="meta")
         skip_nodes = torch.zeros((8, 8), device="meta")

@@ -9,11 +9,22 @@ bakes no BVH, ``pallas8`` bakes the 8-wide tiles too) and ``--device``
 (default ``cuda``).  Every other flag of the JAX package's CLI is
 recognised but refused when set: it is not yet ported.
 
+The kernel tiers are chosen, as in the JAX package, by environment
+variables, read here once into RenderConfig's tier fields
+(``tier_fields_from_env``): ``VKPT_KERNEL_PRIMARY`` /
+``VKPT_KERNEL_SECONDARY`` (quad | pair | oct | frontier | packet and
+JAX's ``*_hbm`` / ``vgate`` names), ``VKPT_ANYHIT_KERNEL=frontier``,
+``VKPT_MT=mxu`` (coefficient leaves), ``VKPT_LEAF`` (the leaf size) and
+``VKPT_FRONTIER_WIDTH`` (16 | 32).  ``VKPT_FRONTIER_LEAF`` (cond | drain)
+names a TPU staging only and changes nothing here.  No module below
+``app/`` reads the environment.
+
 Run:  python -m vulkan_pathtracer_tpu_torch -s scene.glb [flags]
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -33,12 +44,51 @@ from vulkan_pathtracer_tpu_torch.utils import (
     upsample_nearest,
     write_png,
 )
+from vulkan_pathtracer_tpu_torch.utils.config import (
+    FRONTIER_WIDTH,
+    FRONTIER_WIDTHS,
+    MT_MODES,
+)
 
 PORTED_FLAGS = ("scene_path", "num_samples", "num_bounces", "resolution_x",
                 "resolution_y", "render_resolution_divider", "output",
                 "frames", "instanced", "traversal", "device")
 # Leaf size of the two-level bake (app/main.py:75-77 of the JAX package).
 INSTANCED_LEAF = 14
+
+
+def tier_fields_from_env(environ=None) -> dict:
+    """RenderConfig's tier fields from the JAX package's ``VKPT_*``
+    variables (unset -> None, JAX's default).  Raises ValueError on a
+    value the port refuses: an unknown ``VKPT_MT`` or frontier width,
+    and ``VKPT_MXU_PRECISION=default`` (mxu_mt.py:58-80, the one-pass
+    bf16 product of the coefficient leaves), which is not yet ported."""
+    env = os.environ if environ is None else environ
+
+    def get(name):
+        value = env.get(name, "").strip()
+        return value or None
+
+    mt = (get("VKPT_MT") or "exact").lower()
+    if mt not in MT_MODES:
+        raise ValueError(f"VKPT_MT={mt!r}: exact | mxu")
+    precision = (get("VKPT_MXU_PRECISION") or "highest").lower()
+    if precision == "default":
+        raise ValueError("VKPT_MXU_PRECISION=default (one bf16 pass for "
+                         "the coefficient leaves): not yet ported in "
+                         "vulkan_pathtracer_tpu_torch; the port computes "
+                         "them in f32 (highest)")
+    if precision not in ("high", "highest"):
+        raise ValueError(f"VKPT_MXU_PRECISION={precision!r}: highest")
+    width = int(get("VKPT_FRONTIER_WIDTH") or FRONTIER_WIDTH)
+    if width not in FRONTIER_WIDTHS:
+        raise ValueError(f"VKPT_FRONTIER_WIDTH={width}: 16 | 32")
+    leaf = get("VKPT_LEAF")
+    return dict(kernel_primary=get("VKPT_KERNEL_PRIMARY"),
+                kernel_secondary=get("VKPT_KERNEL_SECONDARY"),
+                anyhit_kernel=get("VKPT_ANYHIT_KERNEL"), mt=mt,
+                max_leaf=None if leaf is None else int(leaf),
+                frontier_width=width)
 
 
 def parse_args(argv=None):
@@ -61,6 +111,12 @@ def parse_args(argv=None):
     if not args.scene_path:
         sys.stderr.write("Missing path to scene from arguments\n")
         raise SystemExit(1)
+    try:
+        tiers = tier_fields_from_env()
+        RenderConfig(**tiers).tiers.validate()
+    except ValueError as exc:
+        sys.stderr.write(f"error: {exc}\n")
+        raise SystemExit(2)
     config = RenderConfig(
         num_samples=args.num_samples,
         num_bounces=args.num_bounces,
@@ -68,6 +124,7 @@ def parse_args(argv=None):
         resolution_y=args.resolution_y,
         render_resolution_divider=args.render_resolution_divider,
         traversal=args.traversal,
+        **tiers,
     )
     return config, args
 
@@ -88,25 +145,31 @@ def resolve_device(name: str) -> torch.device:
 def load_pipeline(scene_path: str, config: RenderConfig, device,
                   instanced: bool = False) -> RenderPipeline:
     """Load a glTF scene, bake it — flat with the size-keyed leaf policy
-    (utils/config.default_max_leaf), or two-level at leaf 14 — and build
-    the render pipeline.  ``config.traversal`` picks what the flat bake
-    holds, as the JAX app does (app/main.py:86-90): no BVH for
-    ``brute``, the 8-wide tiles too for ``pallas8``."""
+    (utils/config.default_max_leaf), or two-level at leaf 14, unless
+    ``config.max_leaf`` says otherwise (VKPT_LEAF, JAX app/main.py:76,
+    :88) — and build the render pipeline.  ``config.traversal`` picks
+    what the flat bake holds, as the JAX app does (app/main.py:86-90):
+    no BVH for ``brute``, the 8-wide tiles too for ``pallas8``;
+    ``config.mt == "mxu"`` adds the coefficient leaves and
+    ``config.frontier_width`` sets the frontier tables' width."""
     scene = gltf.load(scene_path)
     print(f"scene: {len(scene.instances)} instances, "
           f"{len(scene.primitives)} primitives, {scene.triangle_count} "
           f"triangles, {len(scene.materials)} materials, "
           f"{len(scene.textures)} textures", file=sys.stderr)
     if instanced:
-        dev = build_instanced_scene(scene, max_leaf_size=INSTANCED_LEAF,
-                                    device=device)
+        dev = build_instanced_scene(
+            scene, max_leaf_size=config.max_leaf or INSTANCED_LEAF,
+            device=device, mt=config.mt)
         print(f"two-level BVH: {dev.num_triangles} shared triangles, "
               f"{dev.inst_inv.shape[0]} instances", file=sys.stderr)
     else:
         dev = build_device_scene(
-            scene, max_leaf_size=default_max_leaf(scene.triangle_count),
+            scene, max_leaf_size=(config.max_leaf
+                                  or default_max_leaf(scene.triangle_count)),
             device=device, build_bvh=config.traversal != "brute",
-            wide=config.traversal == "pallas8")
+            wide=config.traversal == "pallas8", mt=config.mt,
+            frontier_width=config.frontier_width)
         if dev.wide_nodes is not None:
             print(f"8-wide tiles: {dev.wide_nodes.shape[0] // 8} per octant, "
                   f"baked in {dev.wide_seconds:.2f} s", file=sys.stderr)
@@ -131,6 +194,13 @@ def main(argv=None) -> int:
     print(f"loading scene: {args.scene_path}", file=sys.stderr)
     pipeline = load_pipeline(args.scene_path, config, device,
                              instanced=args.instanced)
+    if config.mt != "exact" or any((
+            config.kernel_primary, config.kernel_secondary,
+            config.anyhit_kernel, config.max_leaf)):
+        print(f"kernel tiers: primary={config.kernel_primary or 'default'} "
+              f"secondary={config.kernel_secondary or 'default'} "
+              f"anyhit={config.anyhit_kernel or 'default'} mt={config.mt} "
+              f"leaf={pipeline.scene.max_leaf_size}", file=sys.stderr)
     camera = Camera(aspect_ratio=config.aspect_ratio)
     image = None
     rays_total = 0

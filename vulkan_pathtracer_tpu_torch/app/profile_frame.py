@@ -1,6 +1,7 @@
 """Where a frame's device time goes: per-step CUDA-event times of the
 headline frame, flat or two-level.
 
+    [VKPT_KERNEL_PRIMARY=... VKPT_MT=mxu ...] \
     python -m vulkan_pathtracer_tpu_torch.app.profile_frame [--instanced]
         [--traversal auto|pallas|pallas_packet|pallas8|bvh|brute]
         [-s scene.glb] [--frames 5]
@@ -10,7 +11,9 @@ generated into ``build/profile_frame/`` when ``-s`` is not given) at
 1920x1080, 1 spp, 2 bounces on bench.py's interior orbit: one warm-up
 frame, then ``--frames`` frames with every wavefront step wrapped in a
 pair of CUDA events, then 3 frames under ``torch.profiler``, through
-the closest-hit tier of ``--traversal`` (render/wavefront.py).  Prints
+the closest-hit tier of ``--traversal`` and the kernel tiers of the
+``VKPT_*`` variables, read as the CLI reads them (app/main.py
+``tier_fields_from_env``; render/wavefront.py).  Prints
 one JSON line: the card, ms/frame (median, host clock around frames
 that end in a synchronize), per-step device ms per frame (median;
 ``*_sorted`` steps include their nested ``_sorted_order`` and kernel
@@ -33,7 +36,10 @@ import torch
 from torch.autograd import DeviceType
 
 from vulkan_pathtracer_tpu_torch.app.camera_path import orbit_path
-from vulkan_pathtracer_tpu_torch.app.main import load_pipeline
+from vulkan_pathtracer_tpu_torch.app.main import (
+    load_pipeline,
+    tier_fields_from_env,
+)
 from vulkan_pathtracer_tpu_torch.models.camera import Camera
 from vulkan_pathtracer_tpu_torch.render import wavefront
 from vulkan_pathtracer_tpu_torch.render.pipeline import TRAVERSALS
@@ -79,8 +85,9 @@ def main(argv=None) -> int:
         if not os.path.exists(path):
             make_atrium(path, detail=4.1)
     dev = torch.device("cuda")
+    tiers = tier_fields_from_env()
     config = RenderConfig(num_samples=1, num_bounces=2,
-                          traversal=args.traversal)
+                          traversal=args.traversal, **tiers)
     pipe = load_pipeline(path, config, dev, instanced=args.instanced)
     orbit = orbit_path(radius=4.5, height=2.2, duration=4.0,
                        center=(0.0, 1.2, 0.0))
@@ -133,7 +140,8 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip().splitlines()[0]
     print(json.dumps({
         "card": card, "instanced": args.instanced,
-        "traversal": args.traversal,
+        "traversal": args.traversal, "tiers": tiers,
+        "leaf": pipe.scene.max_leaf_size,
         "triangles": pipe.scene.num_triangles, "rays_per_frame": rays,
         "frames": args.frames,
         "ms_per_frame_median": statistics.median(walls),

@@ -6,7 +6,10 @@
 //     _make_pair_kernel, launched by _pair_traverse via
 //     pallas_pair_closest_hit;
 //   - any hit: pallas_pair.py _make_pair_anyhit_kernel, launched by
-//     _pair_anyhit via pallas_pair_any_hit.
+//     _pair_anyhit via pallas_pair_any_hit;
+//   - under VKPT_MT=mxu their inlined coefficient leaf test, flat and
+//     two-level (mxu_mt.mt_coef_visit / mt_coef_visit_anyhit with the
+//     instance feature transform; traverse.cuh coef_leaf).
 // The plain PyTorch versions in ops/stack_traverse.py
 // (pair_closest_hit_plain, pair_any_hit_plain) perform the same float
 // operations in the same order (traverse.cuh: -fmad=false).
@@ -38,11 +41,12 @@ namespace {
 
 constexpr int kStackSize = 96;  // STACK_CAP: one push per tree level
 
-template <bool ANY, bool INST>
+template <bool ANY, bool INST, bool COEF>
 __device__ void pair_traverse(const float* __restrict__ box,
                               const int* __restrict__ link,
                               const float* __restrict__ leaves, int block,
                               const float* __restrict__ inst_inv,
+                              const float* __restrict__ inst_feat,
                               int mb_bits, const Ray& r, Best& b) {
   int stack[kStackSize];
   float stack_tn[kStackSize];
@@ -78,13 +82,13 @@ __device__ void pair_traverse(const float* __restrict__ box,
       const int far = 1 - near;
       // Leaf children nearer-first.
       if (hit[near] && lk[near] < 0) {
-        visit_leaf<ANY, INST>(r, leaves, block, inst_inv, mb_bits,
-                              -lk[near] - 1, b);
+        visit_leaf<ANY, INST, COEF>(r, leaves, block, inst_inv, mb_bits,
+                                    -lk[near] - 1, b, inst_feat);
         if (ANY && b.any) return;
       }
       if (hit[far] && lk[far] < 0) {
-        visit_leaf<ANY, INST>(r, leaves, block, inst_inv, mb_bits,
-                              -lk[far] - 1, b);
+        visit_leaf<ANY, INST, COEF>(r, leaves, block, inst_inv, mb_bits,
+                                    -lk[far] - 1, b, inst_feat);
         if (ANY && b.any) return;
       }
       // Internal children: descend the nearer, push the farther.
@@ -113,12 +117,13 @@ __device__ void pair_traverse(const float* __restrict__ box,
   }
 }
 
-template <bool INST>
+template <bool INST, bool COEF>
 __global__ void __launch_bounds__(kThreads)
 pair_closest_hit_kernel(const float* __restrict__ box,
                         const int* __restrict__ link,
                         const float* __restrict__ leaves, int block,
-                        const float* __restrict__ inst_inv, int mb_bits,
+                        const float* __restrict__ inst_inv,
+                        const float* __restrict__ inst_feat, int mb_bits,
                         const float* __restrict__ origin,
                         const float* __restrict__ direction,
                         const float* __restrict__ t_lane, int64_t n,
@@ -129,20 +134,21 @@ pair_closest_hit_kernel(const float* __restrict__ box,
   const Ray r = load_ray(origin, direction, t_lane, i);
   Best b{kMissT, 0.0f, 0.0f, -1, false};
   if (r.tl >= 0.0f)
-    pair_traverse<false, INST>(box, link, leaves, block, inst_inv, mb_bits,
-                               r, b);
+    pair_traverse<false, INST, COEF>(box, link, leaves, block, inst_inv,
+                                     inst_feat, mb_bits, r, b);
   t_out[i] = b.t;
   tri_out[i] = b.tri;
   u_out[i] = b.u;
   v_out[i] = b.v;
 }
 
-template <bool INST>
+template <bool INST, bool COEF>
 __global__ void __launch_bounds__(kThreads)
 pair_any_hit_kernel(const float* __restrict__ box,
                     const int* __restrict__ link,
                     const float* __restrict__ leaves, int block,
-                    const float* __restrict__ inst_inv, int mb_bits,
+                    const float* __restrict__ inst_inv,
+                    const float* __restrict__ inst_feat, int mb_bits,
                     const float* __restrict__ origin,
                     const float* __restrict__ direction,
                     const float* __restrict__ t_lane, int64_t n,
@@ -152,8 +158,8 @@ pair_any_hit_kernel(const float* __restrict__ box,
   const Ray r = load_ray(origin, direction, t_lane, i);
   Best b{kMissT, 0.0f, 0.0f, -1, false};
   if (r.tl >= 0.0f)
-    pair_traverse<true, INST>(box, link, leaves, block, inst_inv, mb_bits,
-                              r, b);
+    pair_traverse<true, INST, COEF>(box, link, leaves, block, inst_inv,
+                                    inst_feat, mb_bits, r, b);
   hit_out[i] = b.any ? 1 : 0;
 }
 
@@ -161,10 +167,12 @@ pair_any_hit_kernel(const float* __restrict__ box,
 
 // C launchers: pointers, sizes and the stream in; cudaGetLastError()
 // out (0 = the launch was accepted).  inst_inv == nullptr selects the
-// flat variant.
+// flat variant; coef != 0 the coefficient leaves (`leaves` is then the
+// (n_leaves, block, 40) table, and a two-level scene passes inst_feat).
 extern "C" int vkpt_pair_closest_hit(const float* box, const int* link,
-                                     const float* leaves, int block,
-                                     const float* inst_inv, int mb_bits,
+                                     const float* leaves, int block, int coef,
+                                     const float* inst_inv,
+                                     const float* inst_feat, int mb_bits,
                                      const float* origin,
                                      const float* direction,
                                      const float* t_lane, int64_t n,
@@ -173,35 +181,46 @@ extern "C" int vkpt_pair_closest_hit(const float* box, const int* link,
   if (n > 0) {
     const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
     const cudaStream_t s = (cudaStream_t)stream;
-    if (inst_inv != nullptr)
-      pair_closest_hit_kernel<true><<<grid, kThreads, 0, s>>>(
-          box, link, leaves, block, inst_inv, mb_bits, origin, direction,
-          t_lane, n, t_out, tri_out, u_out, v_out);
+#define VKPT_PAIR_CH(INST, COEF)                                          \
+  pair_closest_hit_kernel<INST, COEF><<<grid, kThreads, 0, s>>>(          \
+      box, link, leaves, block, inst_inv, inst_feat, mb_bits, origin,     \
+      direction, t_lane, n, t_out, tri_out, u_out, v_out)
+    if (inst_inv != nullptr && coef)
+      VKPT_PAIR_CH(true, true);
+    else if (inst_inv != nullptr)
+      VKPT_PAIR_CH(true, false);
+    else if (coef)
+      VKPT_PAIR_CH(false, true);
     else
-      pair_closest_hit_kernel<false><<<grid, kThreads, 0, s>>>(
-          box, link, leaves, block, inst_inv, mb_bits, origin, direction,
-          t_lane, n, t_out, tri_out, u_out, v_out);
+      VKPT_PAIR_CH(false, false);
+#undef VKPT_PAIR_CH
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int vkpt_pair_any_hit(const float* box, const int* link,
-                                 const float* leaves, int block,
-                                 const float* inst_inv, int mb_bits,
+                                 const float* leaves, int block, int coef,
+                                 const float* inst_inv,
+                                 const float* inst_feat, int mb_bits,
                                  const float* origin, const float* direction,
                                  const float* t_lane, int64_t n,
                                  uint8_t* hit_out, void* stream) {
   if (n > 0) {
     const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
     const cudaStream_t s = (cudaStream_t)stream;
-    if (inst_inv != nullptr)
-      pair_any_hit_kernel<true><<<grid, kThreads, 0, s>>>(
-          box, link, leaves, block, inst_inv, mb_bits, origin, direction,
-          t_lane, n, hit_out);
+#define VKPT_PAIR_AH(INST, COEF)                                         \
+  pair_any_hit_kernel<INST, COEF><<<grid, kThreads, 0, s>>>(             \
+      box, link, leaves, block, inst_inv, inst_feat, mb_bits, origin,    \
+      direction, t_lane, n, hit_out)
+    if (inst_inv != nullptr && coef)
+      VKPT_PAIR_AH(true, true);
+    else if (inst_inv != nullptr)
+      VKPT_PAIR_AH(true, false);
+    else if (coef)
+      VKPT_PAIR_AH(false, true);
     else
-      pair_any_hit_kernel<false><<<grid, kThreads, 0, s>>>(
-          box, link, leaves, block, inst_inv, mb_bits, origin, direction,
-          t_lane, n, hit_out);
+      VKPT_PAIR_AH(false, false);
+#undef VKPT_PAIR_AH
   }
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,12 @@
 // Shared pieces of the traversal kernels (stack_traverse.cu,
-// pair_traverse.cu, skip_traverse.cu): constants, the ray record,
-// Möller–Trumbore, the leaf-block loop, the instanced leaf decode and
-// the slab test.  The plain PyTorch versions in ops/stack_traverse.py,
-// ops/traverse.py and ops/skip_traverse.py perform the same float
-// operations in the same order; the sources are built with -fmad=false
-// so no product is contracted into an FMA, which keeps t, u and v
-// bitwise equal to them.
+// pair_traverse.cu, skip_traverse.cu, frontier_traverse.cu): constants,
+// the ray record, Möller–Trumbore, the leaf-block loop, the coefficient
+// leaf test, the instanced leaf decode and the slab test.  The plain
+// PyTorch versions in ops/stack_traverse.py, ops/frontier.py,
+// ops/mxu_mt.py, ops/traverse.py and ops/skip_traverse.py perform the
+// same float operations in the same order; the sources are built with
+// -fmad=false so no product is contracted into an FMA, which keeps t, u
+// and v bitwise equal to them.
 
 #pragma once
 
@@ -20,6 +21,7 @@ constexpr float kTmin = 0.001f;
 constexpr float kMissT = 1e32f;
 constexpr float kInvEps = 1e-20f;
 constexpr int kThreads = 128;
+constexpr int kEmpty = -2147483647 - 1;  // INT32_MIN: an empty n-ary slot
 
 __device__ __forceinline__ float safe_inv(float d) {
   float s = d >= 0.0f ? kInvEps : -kInvEps;
@@ -131,15 +133,153 @@ __device__ __forceinline__ void leaf_block(const Ray& r,
   }
 }
 
+// -- Coefficient leaves (VKPT_MT=mxu; ops/mxu_mt.py) ---------------------
+//
+// Replaces mxu_mt.mt_coef_visit and mt_coef_visit_anyhit
+// (vulkan_pathtracer_tpu/ops/mxu_mt.py:254, :302), which the Pallas quad,
+// pair and frontier kernels inline: Möller–Trumbore as 4 * block dot
+// products of a triangle's coefficients (det, u', v', t'; 40 floats,
+// 160 B) with the ray features [d, m, o, 1], m = o x d.  The sums run in
+// f32 on CUDA cores in one order (feature 0 to 9, each product rounded;
+// -fmad=false), as the plain versions in ops/mxu_mt.py do.  Bound: the
+// 160 B per triangle (4.4x the exact leaf's 36 B) and 76 operations per
+// triangle for the sums; the design loads each triangle's row as ten
+// float4 and divides only for a candidate's t.
+
+__device__ __forceinline__ void ray_features(const Ray& r, float* f) {
+  f[0] = r.dx;
+  f[1] = r.dy;
+  f[2] = r.dz;
+  f[3] = r.oy * r.dz - r.oz * r.dy;
+  f[4] = r.oz * r.dx - r.ox * r.dz;
+  f[5] = r.ox * r.dy - r.oy * r.dx;
+  f[6] = r.ox;
+  f[7] = r.oy;
+  f[8] = r.oz;
+  f[9] = 1.0f;
+}
+
+__device__ __forceinline__ float dot10(const float* c, const float* f) {
+  float acc = c[0] * f[0];
+#pragma unroll
+  for (int j = 1; j < 10; ++j) acc = acc + c[j] * f[j];
+  return acc;
+}
+
+// Leaf block `row` of the coefficient table against features f.
+// Closest hit: the candidate with the smallest t inside (TMIN, lim),
+// lim = min(t_best, t_lane) at the visit's start, the first triangle on
+// a tie (mxu_mt.py:285-291); it replaces the best hit, which it beats by
+// construction (pallas_frontier.py:358).  Any hit: det-scaled, no
+// division (mxu_mt.py:318-322).  SIGNED scales all four sums by det_sign.
+template <bool ANY, bool SIGNED>
+__device__ __forceinline__ void coef_block(const float* f,
+                                           const float* __restrict__ coefs,
+                                           int row, int leaf, int block,
+                                           float det_sign, float tl, Best& b) {
+  const float4* p =
+      reinterpret_cast<const float4*>(coefs) + (size_t)row * block * 10;
+  const float lim = ANY ? tl : fminf(b.t, tl);
+  float ct = kBig, cu = 0.0f, cv = 0.0f;
+  int ck = -1;
+  for (int k = 0; k < block; ++k) {
+    float c[40];
+#pragma unroll
+    for (int q = 0; q < 10; ++q) {
+      const float4 x = __ldg(p + k * 10 + q);
+      c[4 * q + 0] = x.x;
+      c[4 * q + 1] = x.y;
+      c[4 * q + 2] = x.z;
+      c[4 * q + 3] = x.w;
+    }
+    float det = dot10(c, f);
+    float up = dot10(c + 10, f);
+    float vp = dot10(c + 20, f);
+    float tp = dot10(c + 30, f);
+    if (SIGNED) {
+      det = det * det_sign;
+      up = up * det_sign;
+      vp = vp * det_sign;
+      tp = tp * det_sign;
+    }
+    if (ANY) {
+      if (det > 0.0f && up >= 0.0f && vp >= 0.0f && up + vp <= det &&
+          tp > kTmin * det && tp < tl * det) {
+        b.any = true;
+        return;
+      }
+    } else {
+      const bool front = det > 0.0f;
+      const float inv = 1.0f / (front ? det : 1.0f);
+      const float t = tp * inv;
+      if (front && up >= 0.0f && vp >= 0.0f && up + vp <= det && t > kTmin &&
+          t < lim && t < ct) {
+        ct = t;
+        ck = k;
+        cu = up * inv;
+        cv = vp * inv;
+      }
+    }
+  }
+  if (!ANY && ck >= 0) {
+    b.t = ct;
+    b.u = cu;
+    b.v = cv;
+    b.tri = leaf * block + ck;
+  }
+}
+
+// One coefficient leaf child: flat, or (INST) the two-level decode —
+// the instance's (10, 16) feature transform A applied to the world
+// features (feats_obj = A @ pad16(feats), pallas_pair.py:736-747), then
+// det_sign (inst_inv[12]) scaling, so mirrored instances cull as the
+// exact kernels do.
+template <bool ANY, bool INST>
+__device__ __forceinline__ void coef_leaf(const Ray& r,
+                                          const float* __restrict__ coefs,
+                                          int block,
+                                          const float* __restrict__ inst_inv,
+                                          const float* __restrict__ inst_feat,
+                                          int mb_bits, int leaf, Best& b) {
+  float f[10];
+  ray_features(r, f);
+  if (!INST) {
+    coef_block<ANY, false>(f, coefs, leaf, leaf, block, 1.0f, r.tl, b);
+    return;
+  }
+  const int inst = leaf >> mb_bits;
+  const int row = leaf & ((1 << mb_bits) - 1);
+  const float* A = inst_feat + (size_t)inst * 160;
+  float fo[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    float a[10];
+#pragma unroll
+    for (int j = 0; j < 10; ++j) a[j] = __ldg(A + 16 * i + j);
+    fo[i] = dot10(a, f);
+  }
+  const float det_sign = __ldg(inst_inv + (size_t)inst * 16 + 12);
+  coef_block<ANY, true>(fo, coefs, row, leaf, block, det_sign, r.tl, b);
+}
+
 // One leaf child: the flat block, or (INST) the instanced decode —
 // block row, object-space ray (pallas_pair.py:661-673 and
 // pallas_traverse.py:219-227, the same order of operations) and det_sign.
-template <bool ANY, bool INST>
+// COEF: the coefficient leaf test instead (coef_leaf; `leaves` is then
+// the (n_leaves, block, 40) coefficient table).
+template <bool ANY, bool INST, bool COEF = false>
 __device__ __forceinline__ void visit_leaf(const Ray& r,
                                            const float* __restrict__ leaves,
                                            int block,
                                            const float* __restrict__ inst_inv,
-                                           int mb_bits, int leaf, Best& b) {
+                                           int mb_bits, int leaf, Best& b,
+                                           const float* __restrict__ inst_feat =
+                                               nullptr) {
+  if (COEF) {
+    coef_leaf<ANY, INST>(r, leaves, block, inst_inv, inst_feat, mb_bits, leaf,
+                         b);
+    return;
+  }
   if (!INST) {
     leaf_block<ANY, false>(r, leaves, leaf, leaf, block, 1.0f, b);
     return;

@@ -15,11 +15,15 @@ to fixed-size blocks, and the tables the renderer reads are uploaded:
 - ``mat_packed`` (M, 8): factors and texture table per material, as
   int64 holding the uint32 words;
 - the texel pool (P, 4) uint8 with offset/width/height tables;
-- the traversal tables ``quad_box`` / ``quad_link`` (what flat scenes
-  dispatch to), ``pair_box`` / ``pair_link`` (the BVH2 table, which the
-  tests and chip_smoke.py use to check the flat variant of the pair
-  kernels) and the leaf table ``leaves`` (ops/stack_traverse.py
-  describes the layouts);
+- the traversal tables ``quad_box`` / ``quad_link`` and ``pair_box`` /
+  ``pair_link`` (the default tiers of flat scenes: the BVH2 table for
+  primaries at leaf <= 14, the quad table otherwise), the opt-in
+  ``oct_box`` / ``oct_link`` (8-wide) and ``frontier_box`` /
+  ``frontier_link`` (16- or 32-wide, guard-dilated; ops/frontier.py),
+  the leaf table ``leaves`` (ops/stack_traverse.py describes the
+  layouts) and, baked under ``mt="mxu"`` only, the coefficient table
+  ``tri_coefs`` (ops/mxu_mt.py), as the JAX bake does
+  (device_scene.py:667-678, :705-727);
 - the skip-pointer node record ``skip_nodes`` (8 direction-octant
   preorders of the same tree, ``--traversal pallas_packet`` and
   ``bvh``) and, when asked for (``wide=True``, ``--traversal
@@ -33,7 +37,8 @@ triangles; such scenes take brute force.
 
 Two-level scenes (``instanced``; models/instanced_scene.py) share this
 class: object-space triangles, pair tables only, and the instance
-tables ``inst_inv`` / ``inst_nrm``.
+tables ``inst_inv`` / ``inst_nrm`` (and ``inst_feat`` under
+``mt="mxu"``).
 
 ``scene_from_jax_arrays`` builds the same scene from the arrays of a
 JAX ``DeviceScene``, flat or instanced, so a test can trace one scene
@@ -61,6 +66,14 @@ from vulkan_pathtracer_tpu_torch.ops.bvh import (
     tree_depth,
 )
 from vulkan_pathtracer_tpu_torch.ops.bvh_wide import build_wide_bvh
+from vulkan_pathtracer_tpu_torch.ops.frontier import (
+    build_frontier_tables,
+    tables_from_jax,
+)
+from vulkan_pathtracer_tpu_torch.ops.mxu_mt import (
+    build_mt_coef_rows,
+    coef_rows_from_jax,
+)
 from vulkan_pathtracer_tpu_torch.ops.native import (
     bake_triangles_native,
     get_lib,
@@ -68,9 +81,12 @@ from vulkan_pathtracer_tpu_torch.ops.native import (
 )
 from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
     EMPTY,
+    build_oct_tables,
     build_pair_tables,
     build_quad_tables,
+    nary_tables_from_jax,
 )
+from vulkan_pathtracer_tpu_torch.utils.config import FRONTIER_WIDTH
 
 PAD = 128
 
@@ -101,6 +117,14 @@ class DeviceScene:
     quad_link: Optional[torch.Tensor] = None  # (N4, 4) int32
     pair_box: Optional[torch.Tensor] = None   # (Ni, 2, 6) f32
     pair_link: Optional[torch.Tensor] = None  # (Ni, 2) int32
+    oct_box: Optional[torch.Tensor] = None    # (N8, 8, 6) f32, flat only
+    oct_link: Optional[torch.Tensor] = None   # (N8, 8) int32
+    frontier_box: Optional[torch.Tensor] = None   # (Nw, W, 6) f32, flat
+    frontier_link: Optional[torch.Tensor] = None  # (Nw, W) int32
+    # Coefficient leaves (mt="mxu"): (n_leaves, block, 40) f32; two-level
+    # scenes add the (I, 10, 16) feature transforms.
+    tri_coefs: Optional[torch.Tensor] = None
+    inst_feat: Optional[torch.Tensor] = None
     # Two-level scenes (models/instanced_scene.py): leaf values pack
     # inst << mb_bits | mesh block, triangles are object space.
     inst_inv: Optional[torch.Tensor] = None   # (I, 16) invA | inv t | det sign
@@ -324,11 +348,14 @@ def attr_rows(tri: dict, vert_normal, vert_tangent, vert_uv) -> np.ndarray:
 
 def build_device_scene(scene: Scene, max_leaf_size: int = 4,
                        device="cuda", build_bvh: bool = True,
-                       wide: bool = False) -> DeviceScene:
+                       wide: bool = False, mt: str = "exact",
+                       frontier_width: int = FRONTIER_WIDTH) -> DeviceScene:
     """Bake a host Scene into device tensors with a BVH of
     ``max_leaf_size``-triangle leaf blocks (none with ``build_bvh=False``;
-    the 8-wide tiles too with ``wide=True``).  The wide bake is a
-    Python loop; its seconds are in ``scene.wide_seconds``."""
+    the 8-wide tiles too with ``wide=True``; the coefficient table too
+    with ``mt="mxu"``; the frontier tables at ``frontier_width``).  The
+    wide bake is a Python loop; its seconds are in
+    ``scene.wide_seconds``."""
     acc = {k: [] for k in (
         "tri_v0", "tri_e1", "tri_e2", "tri_gn", "tri_index", "tri_material",
         "tri_primitive", "tri_local", "vert_normal", "vert_tangent",
@@ -381,11 +408,15 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
         tri_primitive=tri_primitive, tri_local=tri_local),
         vert_normal, vert_tangent, vert_uv)
 
-    pair_box = pair_link = skip_nodes = wide_nodes = None
+    pair_box = pair_link = skip_nodes = wide_nodes = tri_coefs = None
+    oct_box = oct_link = frontier_box = frontier_link = None
     wide_seconds = 0.0
     if bvh is not None:
         quad_box, quad_link = build_quad_tables(bvh, max_leaf_size)
         pair_box, pair_link = build_pair_tables(bvh, max_leaf_size)
+        oct_box, oct_link = build_oct_tables(bvh, max_leaf_size)
+        frontier_box, frontier_link = build_frontier_tables(
+            bvh, max_leaf_size, frontier_width)
         skip_nodes = flat_skip_nodes(bvh)
         if wide:
             t0 = time.perf_counter()
@@ -395,6 +426,8 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
         flat = np.concatenate([tri_v0, tri_e1, tri_e2], axis=1)[
             : n_blocks * max_leaf_size]
         leaves = flat.reshape(n_blocks, max_leaf_size, 9)
+        if mt == "mxu":
+            tri_coefs = build_mt_coef_rows(leaves)
         root_lo = np.asarray(bvh.bmin[0], np.float32)
         root_hi = np.asarray(bvh.bmax[0], np.float32)
         depth = tree_depth(bvh)
@@ -415,7 +448,9 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
         tri_v0=tri_v0, tri_e1=tri_e1, tri_e2=tri_e2, tri_gn=tri_gn,
         tri_material=tri_material, tri_attr=tri_attr, **mat,
         quad_box=quad_box, quad_link=quad_link, pair_box=pair_box,
-        pair_link=pair_link, leaves=leaves, root_lo=root_lo,
+        pair_link=pair_link, oct_box=oct_box, oct_link=oct_link,
+        frontier_box=frontier_box, frontier_link=frontier_link,
+        tri_coefs=tri_coefs, leaves=leaves, root_lo=root_lo,
         root_hi=root_hi, skip_nodes=skip_nodes, wide_nodes=wide_nodes,
     )
     meta = dict(
@@ -433,13 +468,17 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
     ``emissive_free`` (``has_textures``, ``instanced`` and ``mb_bits``
     are optional).
 
-    Converts the JAX quad rows (N4, 32) — boxes, then enc links as f32
-    values, NaN boxes in empty slots — into quad_box / quad_link with
-    the EMPTY sentinel, the pair rows (Ni, 16) into pair_box / pair_link
-    (int32 links, leaf values verbatim), and the leaf table
-    (n_leaves, block*9) into (n_leaves, block, 9).  An instanced scene
-    brings its pair rows, ``inst_inv``, ``inst_nrm`` and ``mb_bits``; it
-    has no quad rows.  Trees whose root is a leaf have no JAX rows; the
+    Converts the JAX quad rows (N4, 32) and oct rows (N8, 64) — boxes,
+    then enc links as f32 values, NaN boxes in empty slots — into
+    quad_box / quad_link and oct_box / oct_link with the EMPTY sentinel,
+    the frontier tiles into frontier_box / frontier_link (width from
+    ``bvh_frontier_src``), the pair rows (Ni, 16) into pair_box /
+    pair_link (int32 links, leaf values verbatim), the leaf table
+    (n_leaves, block*9) into (n_leaves, block, 9) and the coefficient
+    rows (n_leaves, 10, 4*block) into (n_leaves, block, 40).  An
+    instanced scene brings its pair rows, ``inst_inv``, ``inst_nrm``,
+    ``inst_feat`` and ``mb_bits``; it has no quad, oct or frontier
+    rows.  Trees whose root is a leaf have no JAX rows; the
     port's tables for them are built as build_quad_tables and
     build_pair_tables build them.  ``bvh_packed`` is the skip record
     as it is, ``bvh_wide_nodes`` the wide tiles (8 octant orders: a JAX
@@ -465,14 +504,7 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
         root_leaf = leaf_first if instanced else leaf_first // block
         rows = arrays.get("bvh_quad")
         if rows is not None:
-            n4 = rows.shape[0]
-            quad_box = rows[:, :24].reshape(n4, 4, 6).astype(np.float32)
-            enc = rows[:, 24:28]
-            empty = np.isnan(quad_box[:, :, 0])
-            quad_link = np.where(empty, EMPTY, enc.astype(np.int64)).astype(
-                np.int32)
-            quad_box = np.where(empty[:, :, None], np.float32(0.0),
-                                quad_box)
+            quad_box, quad_link = nary_tables_from_jax(rows, 4)
         elif not instanced and leaf_first >= 0:
             quad_box = np.zeros((1, 4, 6), np.float32)
             quad_link = np.full((1, 4), EMPTY, np.int32)
@@ -486,6 +518,14 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
             pair_box = np.broadcast_to(packed[0, 0:6], (1, 2, 6)).astype(
                 np.float32)
             pair_link = np.full((1, 2), -(root_leaf + 1), np.int32)
+    oct_box = oct_link = frontier_box = frontier_link = tri_coefs = None
+    if arrays.get("bvh_oct") is not None:
+        oct_box, oct_link = nary_tables_from_jax(arrays["bvh_oct"], 8)
+    if arrays.get("bvh_frontier") is not None:
+        frontier_box, frontier_link = tables_from_jax(
+            arrays["bvh_frontier"], arrays["bvh_frontier_src"].shape[1])
+    if arrays.get("tri_coefs") is not None:
+        tri_coefs = coef_rows_from_jax(arrays["tri_coefs"], block)
     host = dict(
         tri_v0=arrays["tri_v0"], tri_e1=arrays["tri_e1"],
         tri_e2=arrays["tri_e2"], tri_gn=arrays["tri_gn"],
@@ -495,11 +535,14 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
         tex_texels=arrays["tex_texels"], tex_offset=arrays["tex_offset"],
         tex_width=arrays["tex_width"], tex_height=arrays["tex_height"],
         quad_box=quad_box, quad_link=quad_link, pair_box=pair_box,
-        pair_link=pair_link, leaves=leaves, root_lo=root_lo,
+        pair_link=pair_link, oct_box=oct_box, oct_link=oct_link,
+        frontier_box=frontier_box, frontier_link=frontier_link,
+        tri_coefs=tri_coefs, leaves=leaves, root_lo=root_lo,
         root_hi=root_hi, skip_nodes=packed,
         wide_nodes=arrays.get("bvh_wide_nodes"),
         inst_inv=arrays.get("inst_inv") if instanced else None,
         inst_nrm=arrays.get("inst_nrm") if instanced else None,
+        inst_feat=arrays.get("inst_feat") if instanced else None,
     )
     out_meta = dict(
         num_triangles=int(meta["num_triangles"]), max_leaf_size=block,

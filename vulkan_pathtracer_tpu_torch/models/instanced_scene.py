@@ -24,8 +24,12 @@ RaytracingPass.zig:224-352).  The bake:
   ``bvh_packed``, ``--traversal pallas_packet`` and ``bvh``) and the
   pair table (``pair_box`` / ``pair_link``) of the octant-0 preorder
   (the pair kernels descend near-first by each ray's own entry
-  distance, so one order serves every ray).  The dense rows,
-  ``tri_coefs`` and ``inst_feat`` serve tiers that are not ported.
+  distance, so one order serves every ray);
+- under ``mt="mxu"`` the coefficient leaves of the pair kernels
+  (instanced_scene.py:434-440 of the JAX package): the per-mesh
+  object-space ``tri_coefs`` and the per-instance feature transforms
+  ``inst_feat`` (ops/mxu_mt.py), which update_instance_transforms
+  regenerates.  The dense rows serve a tier that is not ported.
 
 Shading parity: attribute rows are object space; the hit decode
 (render/shading.py) transforms interpolated normals/tangents and the
@@ -56,6 +60,10 @@ from vulkan_pathtracer_tpu_torch.ops.bvh import (
     build_bvh_host,
     octant_orders,
     tree_depth,
+)
+from vulkan_pathtracer_tpu_torch.ops.mxu_mt import (
+    build_mt_coef_rows,
+    instance_feature_maps,
 )
 from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
     build_pair_tables_preorder,
@@ -189,9 +197,10 @@ def _splice(o, top, top_orders, meshes, inst_mesh, mb_base, mb_bits, block,
 
 
 def build_instanced_scene(scene: Scene, max_leaf_size: int = 14,
-                          device="cuda") -> DeviceScene:
+                          device="cuda", mt: str = "exact") -> DeviceScene:
     """Bake a host Scene into a two-level DeviceScene (geometry once,
-    per-instance node copies; see the module docstring)."""
+    per-instance node copies; see the module docstring); ``mt="mxu"``
+    adds the coefficient leaves."""
     block = max_leaf_size
     n_inst = len(scene.instances)
     if n_inst == 0:
@@ -293,6 +302,9 @@ def build_instanced_scene(scene: Scene, max_leaf_size: int = 14,
         tri_attr=tri_attr, **mat, leaves=leaves, root_lo=o0["bmin"][0],
         root_hi=o0["bmax"][0], pair_box=pair_box, pair_link=pair_link,
         inst_inv=inst_inv, inst_nrm=inst_nrm, skip_nodes=skip_nodes,
+        tri_coefs=build_mt_coef_rows(leaves) if mt == "mxu" else None,
+        inst_feat=(instance_feature_maps(torch.from_numpy(inst_inv)).numpy()
+                   if mt == "mxu" else None),
     )
     meta = dict(
         num_triangles=num_triangles, max_leaf_size=block,
@@ -336,8 +348,9 @@ def update_instance_transforms(scene: DeviceScene, transforms) -> DeviceScene:
     instance nodes' world boxes in all 8 octant preorders (shared mesh
     object boxes transformed), the TLAS boxes by a bottom-up sweep over
     the top tree, the skip record (boxes new, skips and leaves kept) and
-    the pair table regenerated through its static map.  No triangle is
-    touched."""
+    the pair table regenerated through its static map, and the feature
+    transforms of coefficient leaves (``inst_feat``) when the scene has
+    them.  No triangle is touched."""
     maps = scene.inst_maps
     dev = scene.device
     M = torch.as_tensor(transforms, dtype=torch.float64, device=dev)
@@ -379,7 +392,10 @@ def update_instance_transforms(scene: DeviceScene, transforms) -> DeviceScene:
     src = maps.pair_src   # octant 0: records 0 .. Nn-1
     pair_box = torch.cat([lo[src], hi[src]], dim=2)
     skip_nodes = torch.cat([lo, hi, scene.skip_nodes[:, 6:8]], dim=1)
+    inst_feat = (None if scene.inst_feat is None
+                 else instance_feature_maps(inst_inv))
     return dataclasses.replace(
         scene, inst_inv=inst_inv, inst_nrm=Ainv.reshape(n_inst, 9).float(),
+        inst_feat=inst_feat,
         pair_box=pair_box, skip_nodes=skip_nodes, root_lo=lo[0].clone(),
         root_hi=hi[0].clone())

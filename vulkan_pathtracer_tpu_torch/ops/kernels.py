@@ -41,8 +41,12 @@ def _sources():
 
 
 def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+    """nvcc of the CUDA toolkit PyTorch finds (its CUDA_HOME), else on
+    PATH, else under /usr/local/cuda."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    for cand in (CUDA_HOME and os.path.join(CUDA_HOME, "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
@@ -99,20 +103,28 @@ def lib() -> ctypes.CDLL:
     if _LIB is None:
         handle = ctypes.CDLL(build())
         p = ctypes.c_void_p
+        i, i64 = ctypes.c_int, ctypes.c_int64
         handle.vkpt_quad_closest_hit.restype = ctypes.c_int
         handle.vkpt_quad_closest_hit.argtypes = [
-            p, p, p, ctypes.c_int, p, p, p, ctypes.c_int64, p, p, p, p, p]
+            p, p, p, i, i, p, p, p, i64, p, p, p, p, p]
+        handle.vkpt_oct_closest_hit.restype = ctypes.c_int
+        handle.vkpt_oct_closest_hit.argtypes = [
+            p, p, p, i, p, p, p, i64, p, p, p, p, p]
         handle.vkpt_quad_any_hit.restype = ctypes.c_int
         handle.vkpt_quad_any_hit.argtypes = [
-            p, p, p, ctypes.c_int, p, p, p, ctypes.c_int64, p, p]
+            p, p, p, i, i, p, p, p, i64, p, p]
         handle.vkpt_pair_closest_hit.restype = ctypes.c_int
         handle.vkpt_pair_closest_hit.argtypes = [
-            p, p, p, ctypes.c_int, p, ctypes.c_int, p, p, p, ctypes.c_int64,
-            p, p, p, p, p]
+            p, p, p, i, i, p, p, i, p, p, p, i64, p, p, p, p, p]
         handle.vkpt_pair_any_hit.restype = ctypes.c_int
         handle.vkpt_pair_any_hit.argtypes = [
-            p, p, p, ctypes.c_int, p, ctypes.c_int, p, p, p, ctypes.c_int64,
-            p, p]
+            p, p, p, i, i, p, p, i, p, p, p, i64, p, p]
+        handle.vkpt_frontier_closest_hit.restype = ctypes.c_int
+        handle.vkpt_frontier_closest_hit.argtypes = [
+            p, p, i, p, i, i, p, p, p, i64, p, p, p, p, p]
+        handle.vkpt_frontier_any_hit.restype = ctypes.c_int
+        handle.vkpt_frontier_any_hit.argtypes = [
+            p, p, i, p, i, i, p, p, p, i64, p, p]
         handle.vkpt_skip_closest_hit.restype = ctypes.c_int
         handle.vkpt_skip_closest_hit.argtypes = [
             p, ctypes.c_int, p, ctypes.c_int, p, ctypes.c_int, p, p, p,
@@ -140,20 +152,50 @@ def _check(name: str, x: torch.Tensor, dtype, shape,
                          f"aligned")
 
 
-def _check_tables(box, link, leaves, width: int = 4):
-    kind = "quad" if width == 4 else "pair"
+TABLE_NAMES = {2: "pair", 4: "quad", 8: "oct", 16: "frontier",
+               32: "frontier"}
+
+
+def _check_tables(box, link, leaves, width: int = 4, coef_ok: bool = True):
+    """Node tables of ``width`` slots and the leaf table; returns 1 when
+    the leaf table is a coefficient table (40 columns), else 0."""
+    kind = TABLE_NAMES[width]
     _check(f"{kind}_box", box, torch.float32, (None, width, 6))
     _check(f"{kind}_link", link, torch.int32, (box.shape[0], width),
-           align=4 * width)
-    _check_leaves(leaves, box.device)
+           align=min(16, 4 * width))
+    coef = _check_leaves(leaves, box.device)
+    if coef and not coef_ok:
+        raise ValueError(f"{kind} kernel: exact leaves only (n_leaves, "
+                         f"block, 9)")
+    return coef
 
 
-def _check_leaves(leaves, device):
-    if leaves.dim() != 3:
-        raise ValueError("leaves: expected (n_leaves, block, 9)")
-    _check("leaves", leaves, torch.float32, (None, leaves.shape[1], 9))
+def _check_leaves(leaves, device) -> int:
+    """Exact leaf blocks (n_leaves, block, 9) -> 0, coefficient rows
+    (n_leaves, block, 40) -> 1 (ops/mxu_mt.py)."""
+    if leaves.dim() != 3 or leaves.shape[2] not in (9, 40):
+        raise ValueError("leaves: expected (n_leaves, block, 9) or "
+                         "coefficients (n_leaves, block, 40)")
+    _check("leaves", leaves, torch.float32,
+           (None, leaves.shape[1], leaves.shape[2]))
     if leaves.device != device:
         raise ValueError(f"leaves lie on {leaves.device}, tables on {device}")
+    return int(leaves.shape[2] == 40)
+
+
+def _check_feat(inst_feat, inst, coef: int, device):
+    """The (I, 10, 16) feature transforms a two-level scene's coefficient
+    leaves need, or None."""
+    if not (coef and inst is not None):
+        return None
+    if inst_feat is None:
+        raise ValueError("coefficient leaves of a two-level scene need "
+                         "inst_feat (I, 10, 16)")
+    _check("inst_feat", inst_feat, torch.float32, (None, 10, 16))
+    if inst_feat.device != device:
+        raise ValueError(f"inst_feat lies on {inst_feat.device}, tables on "
+                         f"{device}")
+    return inst_feat.data_ptr()
 
 
 def _check_inst(inst_inv, mb_bits: int, device):
@@ -183,84 +225,134 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def quad_closest_hit(box, link, leaves, origin, direction, t_lane):
-    """Launch the closest-hit kernel; returns (t, tri, u, v)."""
-    _check_tables(box, link, leaves)
-    _check_rays(origin, direction, t_lane, box.device)
-    n = origin.shape[0]
-    t = torch.empty(n, dtype=torch.float32, device=origin.device)
-    tri = torch.empty(n, dtype=torch.int32, device=origin.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    rc = lib().vkpt_quad_closest_hit(
-        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
-        origin.data_ptr(), direction.data_ptr(), t_lane.data_ptr(), n,
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-        _stream(origin.device))
-    if rc != 0:
-        raise RuntimeError(f"quad_closest_hit launch failed: CUDA error {rc}")
-    return t, tri, u, v
-
-
-def quad_any_hit(box, link, leaves, origin, direction, t_lane):
-    """Launch the any-hit kernel; returns an (N,) bool tensor."""
-    _check_tables(box, link, leaves)
-    _check_rays(origin, direction, t_lane, box.device)
-    n = origin.shape[0]
-    hit = torch.empty(n, dtype=torch.uint8, device=origin.device)
-    rc = lib().vkpt_quad_any_hit(
-        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
-        origin.data_ptr(), direction.data_ptr(), t_lane.data_ptr(), n,
-        hit.data_ptr(), _stream(origin.device))
-    if rc != 0:
-        raise RuntimeError(f"quad_any_hit launch failed: CUDA error {rc}")
-    return hit.bool()
-
-
-def pair_closest_hit(box, link, leaves, origin, direction, t_lane,
-                     inst_inv=None, mb_bits: int = 0):
-    """Launch the pair closest-hit kernel (instanced when ``inst_inv`` is
-    given); returns (t, tri, u, v)."""
-    _check_tables(box, link, leaves, width=2)
-    _check_rays(origin, direction, t_lane, box.device)
-    inst = _check_inst(inst_inv, mb_bits, box.device)
-    n = origin.shape[0]
-    t = torch.empty(n, dtype=torch.float32, device=origin.device)
-    tri = torch.empty(n, dtype=torch.int32, device=origin.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    rc = lib().vkpt_pair_closest_hit(
-        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
-        inst, mb_bits, origin.data_ptr(), direction.data_ptr(),
-        t_lane.data_ptr(), n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-        v.data_ptr(), _stream(origin.device))
-    if rc != 0:
-        raise RuntimeError(f"pair_closest_hit launch failed: CUDA error {rc}")
-    return t, tri, u, v
-
-
-def pair_any_hit(box, link, leaves, origin, direction, t_lane,
-                 inst_inv=None, mb_bits: int = 0):
-    """Launch the pair any-hit kernel (instanced when ``inst_inv`` is
-    given); returns an (N,) bool tensor."""
-    _check_tables(box, link, leaves, width=2)
-    _check_rays(origin, direction, t_lane, box.device)
-    inst = _check_inst(inst_inv, mb_bits, box.device)
-    n = origin.shape[0]
-    hit = torch.empty(n, dtype=torch.uint8, device=origin.device)
-    rc = lib().vkpt_pair_any_hit(
-        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
-        inst, mb_bits, origin.data_ptr(), direction.data_ptr(),
-        t_lane.data_ptr(), n, hit.data_ptr(), _stream(origin.device))
-    if rc != 0:
-        raise RuntimeError(f"pair_any_hit launch failed: CUDA error {rc}")
-    return hit.bool()
-
-
 def _hit_outputs(n: int, device):
     t = torch.empty(n, dtype=torch.float32, device=device)
     tri = torch.empty(n, dtype=torch.int32, device=device)
     return t, tri, torch.empty_like(t), torch.empty_like(t)
+
+
+def _ptrs(*tensors):
+    return [x.data_ptr() for x in tensors]
+
+
+def _raise_on(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def quad_closest_hit(box, link, leaves, origin, direction, t_lane):
+    """Launch the quad closest-hit kernel (coefficient leaves when
+    ``leaves`` has 40 columns); returns (t, tri, u, v)."""
+    coef = _check_tables(box, link, leaves)
+    _check_rays(origin, direction, t_lane, box.device)
+    n = origin.shape[0]
+    out = _hit_outputs(n, origin.device)
+    _raise_on("quad_closest_hit", lib().vkpt_quad_closest_hit(
+        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
+        coef, *_ptrs(origin, direction, t_lane), n, *_ptrs(*out),
+        _stream(origin.device)))
+    return out
+
+
+def oct_closest_hit(box, link, leaves, origin, direction, t_lane):
+    """Launch the oct closest-hit kernel (exact leaves); returns
+    (t, tri, u, v)."""
+    _check_tables(box, link, leaves, width=8, coef_ok=False)
+    _check_rays(origin, direction, t_lane, box.device)
+    n = origin.shape[0]
+    out = _hit_outputs(n, origin.device)
+    _raise_on("oct_closest_hit", lib().vkpt_oct_closest_hit(
+        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
+        *_ptrs(origin, direction, t_lane), n, *_ptrs(*out),
+        _stream(origin.device)))
+    return out
+
+
+def quad_any_hit(box, link, leaves, origin, direction, t_lane):
+    """Launch the quad any-hit kernel (coefficient leaves when ``leaves``
+    has 40 columns); returns an (N,) bool tensor."""
+    coef = _check_tables(box, link, leaves)
+    _check_rays(origin, direction, t_lane, box.device)
+    n = origin.shape[0]
+    hit = torch.empty(n, dtype=torch.uint8, device=origin.device)
+    _raise_on("quad_any_hit", lib().vkpt_quad_any_hit(
+        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
+        coef, *_ptrs(origin, direction, t_lane), n, hit.data_ptr(),
+        _stream(origin.device)))
+    return hit.bool()
+
+
+def pair_closest_hit(box, link, leaves, origin, direction, t_lane,
+                     inst_inv=None, mb_bits: int = 0, inst_feat=None):
+    """Launch the pair closest-hit kernel (instanced when ``inst_inv`` is
+    given; coefficient leaves when ``leaves`` has 40 columns, with
+    ``inst_feat`` on a two-level scene); returns (t, tri, u, v)."""
+    coef = _check_tables(box, link, leaves, width=2)
+    _check_rays(origin, direction, t_lane, box.device)
+    inst = _check_inst(inst_inv, mb_bits, box.device)
+    feat = _check_feat(inst_feat, inst, coef, box.device)
+    n = origin.shape[0]
+    out = _hit_outputs(n, origin.device)
+    _raise_on("pair_closest_hit", lib().vkpt_pair_closest_hit(
+        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
+        coef, inst, feat, mb_bits, *_ptrs(origin, direction, t_lane), n,
+        *_ptrs(*out), _stream(origin.device)))
+    return out
+
+
+def pair_any_hit(box, link, leaves, origin, direction, t_lane,
+                 inst_inv=None, mb_bits: int = 0, inst_feat=None):
+    """Launch the pair any-hit kernel (instanced / coefficient leaves as
+    for pair_closest_hit); returns an (N,) bool tensor."""
+    coef = _check_tables(box, link, leaves, width=2)
+    _check_rays(origin, direction, t_lane, box.device)
+    inst = _check_inst(inst_inv, mb_bits, box.device)
+    feat = _check_feat(inst_feat, inst, coef, box.device)
+    n = origin.shape[0]
+    hit = torch.empty(n, dtype=torch.uint8, device=origin.device)
+    _raise_on("pair_any_hit", lib().vkpt_pair_any_hit(
+        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
+        coef, inst, feat, mb_bits, *_ptrs(origin, direction, t_lane), n,
+        hit.data_ptr(), _stream(origin.device)))
+    return hit.bool()
+
+
+def _frontier_width(box) -> int:
+    width = box.shape[1] if box.dim() == 3 else 0
+    if width not in (16, 32):
+        raise ValueError(f"frontier_box: expected (Nw, 16 or 32, 6), got "
+                         f"{tuple(box.shape)}")
+    return width
+
+
+def frontier_closest_hit(box, link, leaves, origin, direction, t_lane):
+    """Launch the frontier closest-hit kernel (width 16 or 32 from the
+    table; coefficient leaves when ``leaves`` has 40 columns); returns
+    (t, tri, u, v)."""
+    width = _frontier_width(box)
+    coef = _check_tables(box, link, leaves, width=width)
+    _check_rays(origin, direction, t_lane, box.device)
+    n = origin.shape[0]
+    out = _hit_outputs(n, origin.device)
+    _raise_on("frontier_closest_hit", lib().vkpt_frontier_closest_hit(
+        box.data_ptr(), link.data_ptr(), width, leaves.data_ptr(),
+        leaves.shape[1], coef, *_ptrs(origin, direction, t_lane), n,
+        *_ptrs(*out), _stream(origin.device)))
+    return out
+
+
+def frontier_any_hit(box, link, leaves, origin, direction, t_lane):
+    """Launch the frontier any-hit kernel; returns an (N,) bool tensor."""
+    width = _frontier_width(box)
+    coef = _check_tables(box, link, leaves, width=width)
+    _check_rays(origin, direction, t_lane, box.device)
+    n = origin.shape[0]
+    hit = torch.empty(n, dtype=torch.uint8, device=origin.device)
+    _raise_on("frontier_any_hit", lib().vkpt_frontier_any_hit(
+        box.data_ptr(), link.data_ptr(), width, leaves.data_ptr(),
+        leaves.shape[1], coef, *_ptrs(origin, direction, t_lane), n,
+        hit.data_ptr(), _stream(origin.device)))
+    return hit.bool()
 
 
 def skip_closest_hit(nodes, leaves, origin, direction, t_lane,
@@ -271,7 +363,8 @@ def skip_closest_hit(nodes, leaves, origin, direction, t_lane,
     if nodes.shape[0] % 8:
         raise ValueError("skip_nodes: expected 8 octant blocks of records")
     _check("skip_nodes", nodes, torch.float32, (None, 8))
-    _check_leaves(leaves, nodes.device)
+    if _check_leaves(leaves, nodes.device):
+        raise ValueError("skip kernel: exact leaves only (n_leaves, block, 9)")
     _check_rays(origin, direction, t_lane, nodes.device)
     inst = _check_inst(inst_inv, mb_bits, nodes.device)
     n = origin.shape[0]
@@ -292,7 +385,8 @@ def wide_closest_hit(tiles, leaves, origin, direction, t_lane):
     if tiles.shape[0] % 8:
         raise ValueError("wide_nodes: expected 8 octant blocks of tiles")
     _check("wide_nodes", tiles, torch.float32, (None, 8, 8))
-    _check_leaves(leaves, tiles.device)
+    if _check_leaves(leaves, tiles.device):
+        raise ValueError("wide kernel: exact leaves only (n_leaves, block, 9)")
     _check_rays(origin, direction, t_lane, tiles.device)
     n = origin.shape[0]
     t, tri, u, v = _hit_outputs(n, origin.device)

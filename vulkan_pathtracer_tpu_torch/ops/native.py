@@ -45,8 +45,6 @@ def get_lib() -> Optional[ctypes.CDLL]:
         return _LIB
     _TRIED = True
     if not os.path.exists(_SO_PATH):
-        if os.environ.get("VKPT_NO_NATIVE"):
-            return None
         try:
             subprocess.run(
                 ["make", "-C", _NATIVE_DIR],

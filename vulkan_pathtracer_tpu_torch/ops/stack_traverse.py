@@ -1,15 +1,18 @@
-"""Stack traversal of the pair (BVH2) and quad (BVH4) tables: closest
-hit and any hit.
+"""Stack traversal of the pair (BVH2), quad (BVH4) and oct (BVH8)
+tables: closest hit and any hit.
 
 Counterpart of ``vulkan_pathtracer_tpu/ops/pallas_pair.py``: its row
 construction (``build_pair_rows``, ``build_pair_rows_preorder``,
-``pair_static_maps_preorder``, ``_nary_collapse``, ``_build_nary_rows``,
-``_assert_depth``, ``STACK_CAP``) and four of its stack kernels: the
-width-4 ``_make_nary_kernel`` / ``_make_nary_anyhit_kernel``
-(``pallas_quad_closest_hit`` / ``pallas_quad_any_hit``), and the BVH2
-``_make_pair_kernel`` / ``_make_pair_anyhit_kernel``
+``pair_static_maps_preorder``, ``_nary_collapse``, ``_build_nary_rows``
+for ``build_quad_rows`` and ``build_oct_rows``, ``_assert_depth``,
+``STACK_CAP``) and five of its stack kernels: ``_make_nary_kernel`` at
+width 4 and 8 (``pallas_quad_closest_hit``, ``pallas_oct_closest_hit``),
+the width-4 ``_make_nary_anyhit_kernel`` (``pallas_quad_any_hit``), and
+the BVH2 ``_make_pair_kernel`` / ``_make_pair_anyhit_kernel``
 (``pallas_pair_closest_hit`` / ``pallas_pair_any_hit``), which carry the
-instanced leaf decode of two-level scenes.
+instanced leaf decode of two-level scenes.  The quad and pair kernels
+also take the coefficient leaf test of ``VKPT_MT=mxu`` (ops/mxu_mt.py);
+the oct kernel runs exact leaves only, as JAX's oct launcher does.
 
 Tables (port-native layout, converted from the JAX layout only at the
 boundary, see models/device_scene.scene_from_jax_arrays):
@@ -20,6 +23,9 @@ boundary, see models/device_scene.scene_from_jax_arrays):
   mark empty slots with NaN boxes and enc -1 ("leaf 0"), which relies
   on NaN propagating through min/max; CUDA's fminf/fmaxf drop NaN, so
   the port tests emptiness explicitly instead.
+- ``oct_box (N8, 8, 6)`` / ``oct_link (N8, 8)``: the same for the
+  8-wide collapse (three binary levels per row); the frontier tables
+  of ops/frontier.py are the 16- and 32-wide ones.
 - ``pair_box (Ni, 2, 6) f32`` / ``pair_link (Ni, 2) int32``: the two
   children of each internal node, rows in preorder rank (root = row 0).
   A link >= 0 is a child row, -(leaf_value+1) a leaf.  ``leaf_value``
@@ -29,6 +35,9 @@ boundary, see models/device_scene.scene_from_jax_arrays):
 - ``leaves (n_blocks, block, 9) f32``: v0, e1, e2 of each triangle,
   indexed by the leaf block (``leaf_value & (2^mb_bits - 1)`` when
   instanced); the returned triangle id is ``leaf_value * block + k``.
+  A ``(n_blocks, block, 40)`` table in its place is the coefficient
+  table ``tri_coefs`` (ops/mxu_mt.py), and selects the coefficient
+  leaf test; two-level scenes then also pass ``inst_feat``.
 - ``inst_inv (I, 16) f32`` (instanced only): the world-to-object
   matrix row-major (0:9), its translation (9:12) and the sign of the
   object-to-world determinant (12).
@@ -37,14 +46,18 @@ Traversal semantics (shared by the CUDA kernels in ``csrc/`` and the
 plain PyTorch versions here, which perform the same float operations in
 the same order):
 
-- one ray at a time with its own stack of (width-1) * STACK_CAP
-  entries; the child boxes of a row are slab-tested
+- one ray at a time with its own stack of STACK_SLOTS[width] entries
+  (width - 1 per collapsed level; the bakes refuse deeper trees); the
+  child boxes of a row are slab-tested
   (pallas_pair.py:644-651, :1042-1060); hit internal children are
   visited near-first by entry distance (stable on ties) and the rest
   pushed far-to-near;
-- hit leaf children run Möller–Trumbore: in slot order in a quad row
-  (pallas_pair.py:970-992), nearer-first in a pair row
+- hit leaf children run Möller–Trumbore: in slot order in an n-ary
+  row (pallas_pair.py:970-992), nearer-first in a pair row
   (pallas_pair.py:805-831);
+- hit internal children of an n-ary row are ordered by a stable sort
+  of their entry distances, or by a given comparator network (the
+  frontier kernels' Batcher network, ops/frontier.py);
 - instanced leaves transform the ray into object space first, with
   the 13 ``inst_inv`` floats in the JAX order of operations
   (pallas_pair.py:661-673), and cull by ``det * det_sign > 0``
@@ -65,20 +78,34 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vulkan_pathtracer_tpu_torch.ops import mxu_mt
 from vulkan_pathtracer_tpu_torch.ops.bvh import tree_depth
 from vulkan_pathtracer_tpu_torch.ops.intersect import Hit, MISS_T, TMAX, TMIN
 
 STACK_CAP = 96   # >= binary tree depth; the table builders assert it
+# Per-ray stack entries of the kernels by table width: one push per
+# level for a pair row, else width - 1 per collapsed level, with the
+# collapsed depth <= ceil((STACK_CAP - 1) / log2(width)) for any tree of
+# depth <= STACK_CAP (the quad kernel keeps 3 * STACK_CAP).  Mirrored in
+# csrc/stack_traverse.cu and csrc/frontier_traverse.cu.
+STACK_SLOTS = {2: STACK_CAP, 4: 3 * STACK_CAP, 8: 7 * 32, 16: 15 * 24,
+               32: 31 * 19}
 EMPTY = -(2 ** 31)
 BIG = float(np.float32(3e38))
 INV_EPS = 1e-20
 
-# Kernel launches per wrapper (CUDA path only), this module's and
-# ops/skip_traverse.py's.  chip_smoke.py zeroes these before the main
-# path and reads them after it.
+# Kernel launches per wrapper (CUDA path only), this module's,
+# ops/skip_traverse.py's and ops/frontier.py's; a ``_coef`` key counts
+# the kernel built with coefficient leaves.  chip_smoke.py zeroes these
+# before a main path and reads them after it.
 LAUNCHES = {"quad_closest_hit": 0, "quad_any_hit": 0,
             "pair_closest_hit": 0, "pair_any_hit": 0,
-            "skip_closest_hit": 0, "wide_closest_hit": 0}
+            "skip_closest_hit": 0, "wide_closest_hit": 0,
+            "oct_closest_hit": 0, "frontier_closest_hit": 0,
+            "frontier_any_hit": 0, "quad_closest_hit_coef": 0,
+            "quad_any_hit_coef": 0, "pair_closest_hit_coef": 0,
+            "pair_any_hit_coef": 0, "frontier_closest_hit_coef": 0,
+            "frontier_any_hit_coef": 0}
 
 
 def _assert_depth(depth: int, what: str) -> None:
@@ -126,32 +153,74 @@ def _nary_collapse(bvh, width: int):
     return super_row, children
 
 
-def build_quad_tables(bvh, block: int):
-    """(quad_box (N4, 4, 6) f32, quad_link (N4, 4) int32) for a binary
-    host BVH whose leaves are block-aligned (ops/bvh.pad_leaves_to_blocks).
+def build_nary_tables(bvh, block: int, width: int, box_of=None):
+    """(box (Nw, width, 6) f32, link (Nw, width) int32) of the width-ary
+    collapse of a binary host BVH whose leaves are block-aligned
+    (ops/bvh.pad_leaves_to_blocks): pallas_pair._build_nary_rows in the
+    port's layout.  ``box_of(lo, hi)`` may replace each child box (the
+    frontier bake's guard dilation).
 
     Empty slots hold a zero box and the EMPTY link.  A tree whose root
-    is a leaf becomes one row holding that leaf in slot 0."""
-    _assert_depth(tree_depth(bvh), "build_quad_tables")
+    is a leaf becomes one row holding that leaf in slot 0.  Raises
+    ValueError when a kernel's per-ray stack (STACK_SLOTS[width]) could
+    overflow on the collapsed tree."""
+    what = f"build_nary_tables(width={width})"
+    _assert_depth(tree_depth(bvh), what)
+    if box_of is None:
+        def box_of(lo, hi):
+            return lo, hi
     if bvh.left_child[0] < 0:
-        box = np.zeros((1, 4, 6), np.float32)
-        link = np.full((1, 4), EMPTY, np.int32)
-        box[0, 0, 0:3] = bvh.bmin[0]
-        box[0, 0, 3:6] = bvh.bmax[0]
+        box = np.zeros((1, width, 6), np.float32)
+        link = np.full((1, width), EMPTY, np.int32)
+        box[0, 0, 0:3], box[0, 0, 3:6] = box_of(bvh.bmin[0], bvh.bmax[0])
         link[0, 0] = -(int(bvh.leaf_first[0]) // block + 1)
         return box, link
-    super_row, children = _nary_collapse(bvh, 4)
-    box = np.zeros((len(children), 4, 6), np.float32)
-    link = np.full((len(children), 4), EMPTY, np.int32)
+    super_row, children = _nary_collapse(bvh, width)
+    box = np.zeros((len(children), width, 6), np.float32)
+    link = np.full((len(children), width), EMPTY, np.int32)
+    depth = np.zeros(len(children), np.int64)
+    depth[0] = 1
     for node, kids in children:
         r = super_row[node]
         for s, (kind, cid) in enumerate(kids):
-            box[r, s, 0:3] = bvh.bmin[cid]
-            box[r, s, 3:6] = bvh.bmax[cid]
+            box[r, s, 0:3], box[r, s, 3:6] = box_of(bvh.bmin[cid],
+                                                    bvh.bmax[cid])
             if kind == "super":
                 link[r, s] = super_row[cid]
+                depth[super_row[cid]] = depth[r] + 1
             else:
                 link[r, s] = -(int(bvh.leaf_first[cid]) // block + 1)
+    need = (width - 1) * (int(depth.max()) - 1)
+    if need > STACK_SLOTS[width]:
+        raise ValueError(
+            f"{what}: collapsed depth {int(depth.max())} needs {need} "
+            f"stack entries, more than the kernels' {STACK_SLOTS[width]}")
+    return box, link
+
+
+def build_quad_tables(bvh, block: int):
+    """(quad_box (N4, 4, 6) f32, quad_link (N4, 4) int32): the 4-wide
+    collapse (pallas_pair.build_quad_rows)."""
+    return build_nary_tables(bvh, block, 4)
+
+
+def build_oct_tables(bvh, block: int):
+    """(oct_box (N8, 8, 6) f32, oct_link (N8, 8) int32): the 8-wide
+    collapse (pallas_pair.build_oct_rows; oct_static_maps serves the
+    JAX package's refit, which the port does not have)."""
+    return build_nary_tables(bvh, block, 8)
+
+
+def nary_tables_from_jax(rows: np.ndarray, width: int):
+    """A JAX n-ary row table (Nw, 8 * width) — boxes, then the enc links
+    as f32 values, NaN boxes in empty slots — as (box, link) with the
+    EMPTY sentinel and zero boxes in empty slots."""
+    n = rows.shape[0]
+    box = rows[:, :6 * width].reshape(n, width, 6).astype(np.float32)
+    enc = rows[:, 6 * width:7 * width]
+    empty = np.isnan(box[:, :, 0])
+    link = np.where(empty, EMPTY, enc.astype(np.int64)).astype(np.int32)
+    box = np.where(empty[:, :, None], np.float32(0.0), box)
     return box, link
 
 
@@ -276,20 +345,56 @@ def _object_rays(inst_inv, mb_bits: int, leaf, o, d):
     return row, mo, md, m[:, 12]
 
 
+def _sort_children(keys, lk, sortnet):
+    """(sorted keys, children) of a row's internal slots: a stable sort,
+    or the comparator network ``sortnet`` swapping on ``<=`` as the
+    frontier kernels do (pallas_frontier.py:503-518)."""
+    if sortnet is None:
+        skeys, order = torch.sort(keys, dim=1, stable=True)
+        return skeys, torch.gather(lk, 1, order)
+    ks = list(keys.unbind(1))
+    cs = list(lk.unbind(1))
+    for a, b in sortnet:
+        lt = ks[a] <= ks[b]
+        ks[a], ks[b] = (torch.where(lt, ks[a], ks[b]),
+                        torch.where(lt, ks[b], ks[a]))
+        cs[a], cs[b] = (torch.where(lt, cs[a], cs[b]),
+                        torch.where(lt, cs[b], cs[a]))
+    return torch.stack(ks, dim=1), torch.stack(cs, dim=1)
+
+
+def _coef_rays(inst_inv, inst_feat, mb_bits: int, leaf, o, d):
+    """(block row, features (M, 10), det_sign (M,) or None) of a
+    coefficient leaf visit: the world features, or on a two-level scene
+    the instance's feature transform of them (csrc/traverse.cuh
+    coef_leaf)."""
+    feats = mxu_mt.ray_features(o, d)
+    if inst_inv is None:
+        return leaf, feats, None
+    inst = leaf >> mb_bits
+    feats = mxu_mt.object_features(inst_feat[inst], feats)
+    return leaf & ((1 << mb_bits) - 1), feats, inst_inv[inst, 12]
+
+
 def _traverse_plain(box, link, leaves, origin, direction, t_lane,
                     any_hit: bool, near_leaves: bool, inst_inv=None,
-                    mb_bits: int = 0, leaf_visits=None, stats=None):
+                    mb_bits: int = 0, leaf_visits=None, stats=None,
+                    inst_feat=None, sortnet=None):
     """Per-ray stack traversal with tensor ops over a width-W table
     (W = box.shape[1]): every live ray advances one node per iteration.
     ``near_leaves`` orders a row's leaf children by entry distance (the
-    pair kernels) instead of by slot (the quad kernels).  ``stats``, a
-    dict, accumulates node visits (row loads) and leaf-block visits.
-    Returns (t, tri, u, v) for closest hit or a bool tensor for any
-    hit."""
+    pair kernels) instead of by slot (the n-ary kernels); ``sortnet``
+    orders internal children by that comparator network instead of a
+    stable sort.  ``leaves`` with 40 columns is a coefficient table
+    (the coefficient leaf test; ``inst_feat`` on two-level scenes).
+    ``stats``, a dict, accumulates node visits (row loads) and
+    leaf-block visits.  Returns (t, tri, u, v) for closest hit or a bool
+    tensor for any hit."""
     dev = origin.device
     n = origin.shape[0]
     width = box.shape[1]
     block = leaves.shape[1]
+    coef = leaves.shape[2] == mxu_mt.COLS
     inv = _safe_inv(direction)
     oxi = origin * inv
 
@@ -299,7 +404,7 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
     v_best = torch.zeros(n, dtype=torch.float32, device=dev)
     resolved = torch.zeros(n, dtype=torch.bool, device=dev)
 
-    stack_size = (width - 1) * STACK_CAP
+    stack_size = STACK_SLOTS[width]
     stack = torch.zeros((n, stack_size), dtype=torch.int64, device=dev)
     stack_tn = torch.zeros((n, stack_size), dtype=torch.float32, device=dev)
     sp = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -356,18 +461,30 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
             if stats is not None:
                 stats["leaf_visits"] += j.numel()
             o_r, d_r = origin[rays], direction[rays]
-            det_sign = None
-            row = leaf
-            if inst_inv is not None:
-                row, o_r, d_r, det_sign = _object_rays(inst_inv, mb_bits,
-                                                       leaf, o_r, d_r)
-                det_sign = det_sign[:, None]
+            tl_r = t_lane[rays]
+            if coef:
+                row, feats, det_sign = _coef_rays(inst_inv, inst_feat,
+                                                  mb_bits, leaf, o_r, d_r)
+            else:
+                det_sign = None
+                row = leaf
+                if inst_inv is not None:
+                    row, o_r, d_r, det_sign = _object_rays(
+                        inst_inv, mb_bits, leaf, o_r, d_r)
+                    det_sign = det_sign[:, None]
             if leaf_visits is not None:
                 leaf_visits.index_add_(
                     0, row, torch.ones_like(row, dtype=leaf_visits.dtype))
-            ok, t, u, v = _leaf_mt(leaves[row], o_r[:, None, :],
-                                   d_r[:, None, :], det_sign)
-            tl_r = t_lane[rays]
+            if coef and any_hit:
+                done[j] = mxu_mt.coef_leaf_any(leaves[row], feats, tl_r,
+                                               det_sign)
+                continue
+            if coef:
+                ok, t, u, v = mxu_mt.coef_leaf_mt(leaves[row], feats,
+                                                  det_sign)
+            else:
+                ok, t, u, v = _leaf_mt(leaves[row], o_r[:, None, :],
+                                       d_r[:, None, :], det_sign)
             lim = tl_r if any_hit else torch.minimum(t_best[rays], tl_r)
             acc = ok & (t < lim[:, None])
             found = acc.any(dim=1)
@@ -385,8 +502,8 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
             tri_best[rs] = (leaf[sel] * block + ks).to(torch.int32)
 
         keys = torch.where(slot_hit & (lk >= 0), tn, big)
-        skeys, order = torch.sort(keys, dim=1, stable=True)
-        child = torch.gather(lk, 1, order).to(torch.int64)
+        skeys, child = _sort_children(keys, lk, sortnet)
+        child = child.to(torch.int64)
         live = skeys < BIG
         sp_i = sp[idx]
         for s in range(width - 1, 0, -1):
@@ -415,7 +532,8 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
 
 def quad_closest_hit_plain(quad_box, quad_link, leaves, origin, direction,
                            t_lane, leaf_visits=None, stats=None) -> Hit:
-    """Plain version of the quad closest-hit kernel (any device)."""
+    """Plain version of the quad closest-hit kernel (any device); a
+    coefficient table in ``leaves`` selects its coefficient leaves."""
     t, tri, u, v = _traverse_plain(quad_box, quad_link, leaves, origin,
                                    direction, t_lane, False, False,
                                    leaf_visits=leaf_visits, stats=stats)
@@ -430,24 +548,37 @@ def quad_any_hit_plain(quad_box, quad_link, leaves, origin, direction,
                            stats=stats)
 
 
+def oct_closest_hit_plain(oct_box, oct_link, leaves, origin, direction,
+                          t_lane, leaf_visits=None, stats=None) -> Hit:
+    """Plain version of the oct closest-hit kernel (any device): the
+    quad walk over the 8-wide table, exact leaves."""
+    t, tri, u, v = _traverse_plain(oct_box, oct_link, leaves, origin,
+                                   direction, t_lane, False, False,
+                                   leaf_visits=leaf_visits, stats=stats)
+    return Hit(t=t, tri=tri, u=u, v=v)
+
+
 def pair_closest_hit_plain(pair_box, pair_link, leaves, origin, direction,
                            t_lane, inst_inv=None, mb_bits: int = 0,
-                           leaf_visits=None, stats=None) -> Hit:
+                           inst_feat=None, leaf_visits=None,
+                           stats=None) -> Hit:
     """Plain version of the pair closest-hit kernel (any device);
-    ``inst_inv`` set = the instanced leaf decode."""
+    ``inst_inv`` set = the instanced leaf decode (with ``inst_feat``
+    under coefficient leaves)."""
     t, tri, u, v = _traverse_plain(pair_box, pair_link, leaves, origin,
                                    direction, t_lane, False, True, inst_inv,
-                                   mb_bits, leaf_visits, stats)
+                                   mb_bits, leaf_visits, stats, inst_feat)
     return Hit(t=t, tri=tri, u=u, v=v)
 
 
 def pair_any_hit_plain(pair_box, pair_link, leaves, origin, direction,
                        t_lane, inst_inv=None, mb_bits: int = 0,
-                       leaf_visits=None, stats=None) -> torch.Tensor:
+                       inst_feat=None, leaf_visits=None,
+                       stats=None) -> torch.Tensor:
     """Plain version of the pair any-hit kernel (any device): (N,) bool."""
     return _traverse_plain(pair_box, pair_link, leaves, origin, direction,
                            t_lane, True, True, inst_inv, mb_bits,
-                           leaf_visits, stats)
+                           leaf_visits, stats, inst_feat)
 
 
 # -- wrappers ---------------------------------------------------------------
@@ -475,58 +606,105 @@ def _dispatch(name: str, origin, plain, launch):
                      f"runs the plain version, cuda the kernel)")
 
 
-def pair_args(scene, origin, direction, active):
-    """The pair kernels' arguments: tables, rays, t_lane and the
-    instance table (None for a flat scene) with its mb_bits."""
+def leaf_table(scene, coef: bool):
+    """The scene's leaf table: exact blocks, or (``coef``) the
+    coefficient table, which a scene has only when baked under
+    ``mt="mxu"``."""
+    if not coef:
+        return scene.leaves
+    if scene.tri_coefs is None:
+        raise ValueError("coefficient leaves need tri_coefs: bake with "
+                         "mt='mxu'")
+    return scene.tri_coefs
+
+
+def _launch_name(name: str, coef: bool) -> str:
+    return name + "_coef" if coef else name
+
+
+def quad_args(scene, origin, direction, active, coef: bool = False):
+    """The quad kernels' arguments: tables, rays and t_lane."""
+    return (scene.quad_box, scene.quad_link, leaf_table(scene, coef),
+            origin, direction,
+            lane_limits(origin.shape[0], active, origin.device))
+
+
+def pair_args(scene, origin, direction, active, coef: bool = False):
+    """The pair kernels' arguments: tables, rays, t_lane, the instance
+    table (None for a flat scene) with its mb_bits, and the instance
+    feature transforms (two-level scenes with coefficient leaves)."""
     t_lane = lane_limits(origin.shape[0], active, origin.device)
     inst_inv, mb_bits = ((scene.inst_inv, scene.mb_bits) if scene.instanced
                          else (None, 0))
-    return (scene.pair_box, scene.pair_link, scene.leaves, origin,
-            direction, t_lane, inst_inv, mb_bits)
+    inst_feat = None
+    if coef and scene.instanced:
+        if scene.inst_feat is None:
+            raise ValueError("coefficient leaves of a two-level scene need "
+                             "inst_feat: bake with mt='mxu'")
+        inst_feat = scene.inst_feat
+    return (scene.pair_box, scene.pair_link, leaf_table(scene, coef), origin,
+            direction, t_lane, inst_inv, mb_bits, inst_feat)
 
 
-def quad_closest_hit(scene, origin, direction, active=None) -> Hit:
-    """Closest hit over the scene's quad tables (pallas_quad_closest_hit).
-    Inactive lanes return t = MISS_T, tri = -1, u = v = 0."""
+def quad_closest_hit(scene, origin, direction, active=None,
+                     coef: bool = False) -> Hit:
+    """Closest hit over the scene's quad tables (pallas_quad_closest_hit;
+    ``coef``: the coefficient leaves of VKPT_MT=mxu).  Inactive lanes
+    return t = MISS_T, tri = -1, u = v = 0."""
     from vulkan_pathtracer_tpu_torch.ops import kernels
 
-    args = (scene.quad_box, scene.quad_link, scene.leaves, origin,
-            direction, lane_limits(origin.shape[0], active, origin.device))
-    return _dispatch("quad_closest_hit", origin,
+    args = quad_args(scene, origin, direction, active, coef)
+    return _dispatch(_launch_name("quad_closest_hit", coef), origin,
                      lambda: quad_closest_hit_plain(*args),
                      lambda: Hit(*kernels.quad_closest_hit(*args)))
 
 
-def quad_any_hit(scene, origin, direction, active=None) -> torch.Tensor:
-    """Occlusion (N,) bool: True exactly where quad_closest_hit reports
-    t < MISS_T (pallas_quad_any_hit).  Inactive lanes return False."""
+def quad_any_hit(scene, origin, direction, active=None,
+                 coef: bool = False) -> torch.Tensor:
+    """Occlusion (N,) bool: True where quad_closest_hit reports t <
+    MISS_T (pallas_quad_any_hit; exactly so with exact leaves).
+    Inactive lanes return False."""
     from vulkan_pathtracer_tpu_torch.ops import kernels
 
-    args = (scene.quad_box, scene.quad_link, scene.leaves, origin,
-            direction, lane_limits(origin.shape[0], active, origin.device))
-    return _dispatch("quad_any_hit", origin,
+    args = quad_args(scene, origin, direction, active, coef)
+    return _dispatch(_launch_name("quad_any_hit", coef), origin,
                      lambda: quad_any_hit_plain(*args),
                      lambda: kernels.quad_any_hit(*args))
 
 
-def pair_closest_hit(scene, origin, direction, active=None) -> Hit:
+def oct_closest_hit(scene, origin, direction, active=None) -> Hit:
+    """Closest hit over the scene's oct tables (pallas_oct_closest_hit),
+    exact leaves.  Inactive lanes return t = MISS_T, tri = -1."""
+    from vulkan_pathtracer_tpu_torch.ops import kernels
+
+    args = (scene.oct_box, scene.oct_link, scene.leaves, origin, direction,
+            lane_limits(origin.shape[0], active, origin.device))
+    return _dispatch("oct_closest_hit", origin,
+                     lambda: oct_closest_hit_plain(*args),
+                     lambda: Hit(*kernels.oct_closest_hit(*args)))
+
+
+def pair_closest_hit(scene, origin, direction, active=None,
+                     coef: bool = False) -> Hit:
     """Closest hit over the scene's pair tables (pallas_pair_closest_hit),
     flat or instanced.  Inactive lanes return t = MISS_T, tri = -1,
     u = v = 0."""
     from vulkan_pathtracer_tpu_torch.ops import kernels
 
-    args = pair_args(scene, origin, direction, active)
-    return _dispatch("pair_closest_hit", origin,
+    args = pair_args(scene, origin, direction, active, coef)
+    return _dispatch(_launch_name("pair_closest_hit", coef), origin,
                      lambda: pair_closest_hit_plain(*args),
                      lambda: Hit(*kernels.pair_closest_hit(*args)))
 
 
-def pair_any_hit(scene, origin, direction, active=None) -> torch.Tensor:
-    """Occlusion (N,) bool: True exactly where pair_closest_hit reports
-    t < MISS_T (pallas_pair_any_hit).  Inactive lanes return False."""
+def pair_any_hit(scene, origin, direction, active=None,
+                 coef: bool = False) -> torch.Tensor:
+    """Occlusion (N,) bool: True where pair_closest_hit reports t <
+    MISS_T (pallas_pair_any_hit; exactly so with exact leaves).
+    Inactive lanes return False."""
     from vulkan_pathtracer_tpu_torch.ops import kernels
 
-    args = pair_args(scene, origin, direction, active)
-    return _dispatch("pair_any_hit", origin,
+    args = pair_args(scene, origin, direction, active, coef)
+    return _dispatch(_launch_name("pair_any_hit", coef), origin,
                      lambda: pair_any_hit_plain(*args),
                      lambda: kernels.pair_any_hit(*args))

@@ -26,6 +26,7 @@ from vulkan_pathtracer_tpu_torch.ops import rng
 from vulkan_pathtracer_tpu_torch.ops.vecmath import normalize
 from vulkan_pathtracer_tpu_torch.render.wavefront import trace_sample
 from vulkan_pathtracer_tpu_torch.utils import RenderConfig
+from vulkan_pathtracer_tpu_torch.utils.config import Tiers
 
 TILE_H = 32
 TILE_W = 64
@@ -155,8 +156,9 @@ def render_rows(scene, position, horizontal, vertical, forward, frame: int,
                 *, num_samples: int, num_bounces: int, width: int,
                 height: int, y_offset: int = 0, rows: int = None,
                 sort_secondary: bool = False, present_order: bool = True,
-                tiles=None, traversal: str = "auto"):
-    """Render image rows [y_offset, y_offset + rows).  Returns
+                tiles=None, tiers="auto"):
+    """Render image rows [y_offset, y_offset + rows) through ``tiers``
+    (a utils.config.Tiers or a ``--traversal`` name).  Returns
     (image (rows, W, 3) f32, rays traced as an int64 0-d tensor).  With
     ``present_order=False`` radiance stays in tile (dispatch) order."""
     dev = position.device
@@ -173,7 +175,7 @@ def render_rows(scene, position, horizontal, vertical, forward, frame: int,
         color, seed_x, seed_y, traced = trace_sample(
             scene, origin, direction, seed_x, seed_y,
             num_bounces=num_bounces, sort_secondary=sort_secondary,
-            traversal=traversal)
+            tiers=tiers)
         acc = acc + color
         rays = rays + traced
     if tile_inv is not None and present_order:
@@ -186,13 +188,13 @@ def render_frame(scene, position, horizontal, vertical, forward, frame: int,
                  *, num_samples: int, num_bounces: int, width: int,
                  height: int, sort_secondary: bool = False,
                  present_order: bool = True, tiles=None,
-                 traversal: str = "auto"):
+                 tiers="auto"):
     """One full frame: (H, W, 3) f32 linear radiance + rays traced."""
     return render_rows(
         scene, position, horizontal, vertical, forward, frame,
         num_samples=num_samples, num_bounces=num_bounces, width=width,
         height=height, sort_secondary=sort_secondary,
-        present_order=present_order, tiles=tiles, traversal=traversal)
+        present_order=present_order, tiles=tiles, tiers=tiers)
 
 
 class RenderPipeline:
@@ -220,8 +222,11 @@ class RenderPipeline:
                 and scene.wide_nodes is None):
             raise ValueError("traversal 'pallas8' needs the wide tiles: "
                              "bake with build_device_scene(..., wide=True)")
+        tiers = Tiers.of(config)
+        tiers.validate()
         self.scene = scene
         self.config = config
+        self.tiers = tiers
         self.width = config.render_width
         self.height = config.render_height
         self._sort_secondary = (config.sort_secondary and
@@ -245,7 +250,7 @@ class RenderPipeline:
             width=self.width, height=self.height,
             sort_secondary=self._sort_secondary,
             present_order=present_order, tiles=self._tiles,
-            traversal=self.config.traversal)
+            tiers=self.tiers)
 
     def to_present(self, image: np.ndarray) -> np.ndarray:
         """Host-side tile-order -> scanline conversion (identity when the

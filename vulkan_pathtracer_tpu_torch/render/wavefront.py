@@ -15,21 +15,35 @@ bounce only decides sky or not, so it runs an ANY-HIT kernel where the
 tier has one, else closest hit and ``t < MISS_T`` (``_anyhit_enabled``).
 
 The closest-hit tier of ``--traversal`` (the JAX package's
-render/wavefront.py:157-434 and :499-592, without its VMEM gates and
-``VKPT_*`` knobs):
+render/wavefront.py:157-434 and :499-592, without its VMEM gates):
 
-=================  ====================  ===========================
-``--traversal``    flat scene            two-level scene
-=================  ====================  ===========================
-auto, pallas       quad kernels          pair kernels
-pallas_packet      skip kernel           skip kernel, instanced leaf
-pallas8            wide kernel           ``bvh``
-bvh                per-ray skip walk     per-ray skip walk, instanced
-brute              brute force           ``bvh``
-=================  ====================  ===========================
+=================  =======================  ===========================
+``--traversal``    flat scene               two-level scene
+=================  =======================  ===========================
+auto, pallas       the kernel tiers below   pair kernels
+pallas_packet      skip kernel              skip kernel, instanced leaf
+pallas8            wide kernel              ``bvh``
+bvh                per-ray skip walk        per-ray skip walk, instanced
+brute              brute force              ``bvh``
+=================  =======================  ===========================
 
-Only auto and pallas have any-hit kernels.  A flat scene baked without
-a BVH (``--traversal brute``) takes brute force under auto too.
+Under auto and pallas a flat scene takes the kernel of the config's
+tier fields (utils/config.Tiers; the JAX package's
+``VKPT_KERNEL_{PRIMARY,SECONDARY}``, ``VKPT_ANYHIT_KERNEL``,
+``VKPT_MT``): bounce 0 is the primary phase, later bounces the
+secondary one.  Unset, the primary kernel is pair at leaf <= 14 and
+quad above (JAX wavefront.py:300-303), the secondary one quad.  A
+named kernel runs first where the scene has its tables, then JAX's
+fall-through order: primary pair, quad, oct; secondary quad, oct, pair
+(``frontier`` only when named; ``packet`` is the skip kernel).  The
+last bounce of an emissive-free scene runs an any-hit kernel: frontier
+when ``anyhit_kernel`` names it, else quad.  ``mt="mxu"`` gives the
+quad, pair and frontier kernels coefficient leaves when the scene
+baked them (the oct kernel stays exact, as in JAX).  Two-level scenes
+ignore the kernel names and take the pair kernels (with coefficient
+leaves under mxu), as the JAX package does.  Only auto and pallas have
+any-hit kernels.  A flat scene baked without a BVH (``--traversal
+brute``) takes brute force under auto too.
 
 With ``sort_secondary`` the bounce rays are sorted by the 6d endpoint
 Morton key before traversal and the results scattered back; per-ray
@@ -41,9 +55,12 @@ Deviation kept from the JAX package: the pdf divide is clamped with
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from vulkan_pathtracer_tpu_torch.ops import (
+    frontier,
     intersect,
     rng,
     skip_traverse,
@@ -64,6 +81,7 @@ from vulkan_pathtracer_tpu_torch.render.shading import (
     get_material_data,
     get_triangle_data,
 )
+from vulkan_pathtracer_tpu_torch.utils.config import KERNEL_ALIASES, Tiers
 
 SKY_WHITE = (1.0, 1.0, 1.0)
 SKY_BLUE = (0.5, 0.7, 1.0)
@@ -74,14 +92,65 @@ F0_DIELECTRIC = 0.02        # ray_gen.rgen:82
 SORT_L = 0.5                # 6d key: endpoint at 0.5 * scene diagonal
 
 
-def _closest_tier(scene, traversal: str):
-    """The closest-hit function of ``traversal`` on this scene (the
-    table in the module docstring)."""
+def as_tiers(tiers) -> Tiers:
+    """A Tiers, or a ``--traversal`` name with the default tiers."""
+    return Tiers(traversal=tiers) if isinstance(tiers, str) else tiers
+
+
+def coef_leaves(scene, tiers: Tiers) -> bool:
+    """Whether the kernels take coefficient leaves: ``mt="mxu"`` and the
+    scene baked them (JAX pallas_pair._mxu_active)."""
+    if tiers.mt != "mxu" or scene.tri_coefs is None:
+        return False
+    return not scene.instanced or scene.inst_feat is not None
+
+
+def _leaf_mode(fn, coef: bool):
+    """``fn`` with coefficient leaves when ``coef`` (the wrappers take
+    ``coef=True``), else ``fn`` itself."""
+    return functools.partial(fn, coef=True) if coef else fn
+
+
+def _stack_kernel(scene, tiers: Tiers, phase: str):
+    """The closest-hit kernel of a flat scene under auto / pallas (the
+    module docstring; JAX wavefront.py:284-395)."""
+    if phase == "secondary":
+        kern = tiers.kernel_secondary or "quad"
+        order = ["quad", "oct", "pair"]
+    else:
+        kern = tiers.kernel_primary or (
+            "pair" if scene.max_leaf_size <= 14 else "quad")
+        order = ["pair", "quad", "oct"]
+    kern = KERNEL_ALIASES[kern]
+    if kern == "packet":
+        return skip_traverse.skip_closest_hit
+    coef = coef_leaves(scene, tiers)
+    tables = {"quad": (scene.quad_box, _leaf_mode(
+                  stack_traverse.quad_closest_hit, coef)),
+              "pair": (scene.pair_box, _leaf_mode(
+                  stack_traverse.pair_closest_hit, coef)),
+              "oct": (scene.oct_box, stack_traverse.oct_closest_hit),
+              "frontier": (scene.frontier_box, _leaf_mode(
+                  frontier.frontier_closest_hit, coef))}
+    for k in [kern] + [k for k in order if k != kern]:
+        table, fn = tables[k]
+        if table is not None:
+            return fn
+    return traverse.bvh_closest_hit
+
+
+def _closest_tier(scene, tiers, phase: str = "primary"):
+    """The closest-hit function of ``tiers`` on this scene for a bounce
+    of ``phase`` (the table in the module docstring)."""
+    tiers = as_tiers(tiers)
+    traversal = tiers.traversal
     if not scene.has_bvh:
         return intersect.brute_force_closest_hit
     if traversal in ("auto", "pallas"):
-        return (stack_traverse.pair_closest_hit if scene.instanced
-                else stack_traverse.quad_closest_hit)
+        if scene.instanced:
+            return _leaf_mode(stack_traverse.pair_closest_hit,
+                              coef_leaves(scene, tiers))
+        return _stack_kernel(scene, tiers, phase)
     if traversal == "pallas_packet":
         return skip_traverse.skip_closest_hit
     if traversal == "pallas8" and not scene.instanced:
@@ -91,25 +160,37 @@ def _closest_tier(scene, traversal: str):
     return traverse.bvh_closest_hit
 
 
-def _closest_hit(scene, origin, direction, active,
-                 traversal: str = "auto") -> Hit:
-    """Closest hit through the tier of ``traversal``."""
-    fn = _closest_tier(scene, traversal)
+def _any_tier(scene, tiers):
+    """The any-hit kernel of ``tiers`` on this scene, or None where the
+    tier has none (JAX wavefront.py:499-592)."""
+    tiers = as_tiers(tiers)
+    if tiers.traversal not in ("auto", "pallas") or not scene.has_bvh:
+        return None
+    coef = coef_leaves(scene, tiers)
+    if scene.instanced:
+        return _leaf_mode(stack_traverse.pair_any_hit, coef)
+    if tiers.anyhit_kernel == "frontier" and scene.frontier_box is not None:
+        return _leaf_mode(frontier.frontier_any_hit, coef)
+    return _leaf_mode(stack_traverse.quad_any_hit, coef)
+
+
+def _closest_hit(scene, origin, direction, active, tiers="auto",
+                 phase: str = "primary") -> Hit:
+    """Closest hit through the tier of ``tiers`` (a Tiers or a
+    ``--traversal`` name) for a bounce of ``phase``."""
+    fn = _closest_tier(scene, tiers, phase)
     return fn(scene, origin.contiguous(), direction.contiguous(), active)
 
 
-def _any_hit(scene, origin, direction, active,
-             traversal: str = "auto") -> torch.Tensor:
-    """(N,) bool, True exactly where _closest_hit reports t < MISS_T;
-    inactive lanes False.  auto and pallas take the any-hit kernels
-    (quad for flat scenes, pair for two-level ones: JAX
-    render/wavefront.py:533, :580-586); every other tier tests its
-    closest hit (:587-592)."""
-    if traversal in ("auto", "pallas") and scene.has_bvh:
-        fn = (stack_traverse.pair_any_hit if scene.instanced
-              else stack_traverse.quad_any_hit)
+def _any_hit(scene, origin, direction, active, tiers="auto") -> torch.Tensor:
+    """(N,) bool, True where _closest_hit reports t < MISS_T (exactly so
+    with exact leaves); inactive lanes False.  auto and pallas take the
+    any-hit kernels (_any_tier); every other tier tests its secondary
+    closest hit (JAX wavefront.py:587-592)."""
+    fn = _any_tier(scene, tiers)
+    if fn is not None:
         return fn(scene, origin.contiguous(), direction.contiguous(), active)
-    hit = _closest_hit(scene, origin, direction, active, traversal)
+    hit = _closest_hit(scene, origin, direction, active, tiers, "secondary")
     return hit.t < MISS_T
 
 
@@ -155,24 +236,24 @@ def _sorted_order(scene, origin, direction, active):
     return order, inv
 
 
-def _closest_hit_sorted(scene, origin, direction, active,
-                        traversal: str = "auto") -> Hit:
+def _closest_hit_sorted(scene, origin, direction, active, tiers="auto",
+                        phase: str = "secondary") -> Hit:
     """Closest hit with rays sorted by the bounce key, results
     scattered back to lane order (identical per-ray results)."""
     order, inv = _sorted_order(scene, origin, direction, active)
     act_s = None if active is None else active[order]
     hit = _closest_hit(scene, origin[order], direction[order], act_s,
-                       traversal)
+                       tiers, phase)
     return Hit(t=hit.t[inv], tri=hit.tri[inv], u=hit.u[inv], v=hit.v[inv])
 
 
 def _any_hit_sorted(scene, origin, direction, active,
-                    traversal: str = "auto") -> torch.Tensor:
+                    tiers="auto") -> torch.Tensor:
     """Sorted-dispatch any hit (sorted rays resolve together)."""
     order, inv = _sorted_order(scene, origin, direction, active)
     act_s = None if active is None else active[order]
     return _any_hit(scene, origin[order], direction[order], act_s,
-                    traversal)[inv]
+                    tiers)[inv]
 
 
 def sky_color(direction: torch.Tensor) -> torch.Tensor:
@@ -223,10 +304,11 @@ def extend_paths(scene, hit, origin, direction, atten, seed_x, seed_y,
 
 def trace_sample(scene, origin, direction, seed_x, seed_y, *,
                  num_bounces: int, sort_secondary: bool = False,
-                 traversal: str = "auto"):
-    """Trace one sample for all rays.  Returns (color (N, 3),
-    new_seed_x, new_seed_y, rays_traced) with rays_traced an int64
-    0-d tensor (the live lanes summed over bounces)."""
+                 tiers="auto"):
+    """Trace one sample for all rays through ``tiers`` (a Tiers or a
+    ``--traversal`` name).  Returns (color (N, 3), new_seed_x,
+    new_seed_y, rays_traced) with rays_traced an int64 0-d tensor (the
+    live lanes summed over bounces)."""
     n = origin.shape[0]
     dev = origin.device
     color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -243,14 +325,15 @@ def trace_sample(scene, origin, direction, seed_x, seed_y, *,
             # Emissive-free last bounce: only the sky/miss decision
             # feeds radiance, and no RNG draws happen.
             hit_mask = (_any_hit_sorted if sorted_pass else _any_hit)(
-                scene, origin, direction, alive, traversal)
+                scene, origin, direction, alive, tiers)
             missed = alive & ~hit_mask
             color = color + torch.where(missed[:, None],
                                         atten * sky_color(direction), zero)
             alive = torch.zeros_like(alive)
             continue
         hit = (_closest_hit_sorted if sorted_pass else _closest_hit)(
-            scene, origin, direction, alive, traversal)
+            scene, origin, direction, alive, tiers,
+            "primary" if j == 0 else "secondary")
         missed = alive & (hit.t >= MISS_T)
         did_hit = alive & ~missed
         color = color + torch.where(missed[:, None],

@@ -13,7 +13,54 @@ exactly) are grouped at the bottom.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
+from typing import Optional
+
+FRONTIER_WIDTH = 16   # pallas_frontier.py:93, the default collapse width
+# Kernel names of VKPT_KERNEL_{PRIMARY,SECONDARY}.  The JAX package's
+# *_hbm and vgate variants differ only in TPU placement (leaf table
+# streamed from HBM) or gating (vreg-granular leaf MT, exact), so they
+# name the same kernel here; ``packet`` is the skip kernel.
+KERNEL_ALIASES = {"quad": "quad", "pair": "pair", "oct": "oct",
+                  "frontier": "frontier", "packet": "packet",
+                  "quad_hbm": "quad", "oct_hbm": "oct",
+                  "frontier_hbm": "frontier", "vgate": "quad",
+                  "vgate_hbm": "quad"}
+ANYHIT_KERNELS = ("frontier",)   # None: quad (pair on two-level scenes)
+MT_MODES = ("exact", "mxu")
+FRONTIER_WIDTHS = (16, 32)
+
+
+@dataclass(frozen=True)
+class Tiers:
+    """The kernel choice of one frame (RenderConfig.tiers)."""
+    traversal: str = "auto"
+    kernel_primary: Optional[str] = None
+    kernel_secondary: Optional[str] = None
+    anyhit_kernel: Optional[str] = None
+    mt: str = "exact"
+
+    @classmethod
+    def of(cls, config) -> "Tiers":
+        """The tier fields of a render configuration; one without them
+        (the JAX package's RenderConfig) has the defaults."""
+        return cls(**{f: getattr(config, f, getattr(cls, f))
+                      for f in ("traversal", "kernel_primary",
+                                "kernel_secondary", "anyhit_kernel", "mt")})
+
+    def validate(self) -> None:
+        """Raise ValueError on a name the dispatch does not know."""
+        for what, name in (("kernel_primary", self.kernel_primary),
+                           ("kernel_secondary", self.kernel_secondary)):
+            if name is not None and name not in KERNEL_ALIASES:
+                raise ValueError(f"{what}: unknown kernel {name!r} "
+                                 f"({' | '.join(KERNEL_ALIASES)})")
+        if (self.anyhit_kernel is not None
+                and self.anyhit_kernel not in ANYHIT_KERNELS):
+            raise ValueError(f"anyhit_kernel: unknown kernel "
+                             f"{self.anyhit_kernel!r} (frontier, or unset)")
+        if self.mt not in MT_MODES:
+            raise ValueError(f"mt: {self.mt!r} is not exact | mxu")
 
 
 @dataclass(frozen=True)
@@ -44,6 +91,24 @@ class RenderConfig:
     seed_secondary: bool = False
     ray_chunk: int = 1 << 19        # rays per dispatch chunk (0 = off)
     dtype: str = "float32"
+
+    # ---- kernel tiers of --traversal auto|pallas (render/wavefront.py) ---
+    # The JAX package reads these from its VKPT_* variables deep in the
+    # dispatch; the port's CLI reads those variables once
+    # (app/main.tier_fields_from_env) and everything else takes the
+    # fields.  None = JAX's default: primary pair at leaf <= 14, quad
+    # above; secondary quad; last bounce quad any hit.
+    kernel_primary: Optional[str] = None    # VKPT_KERNEL_PRIMARY
+    kernel_secondary: Optional[str] = None  # VKPT_KERNEL_SECONDARY
+    anyhit_kernel: Optional[str] = None     # VKPT_ANYHIT_KERNEL (frontier)
+    mt: str = "exact"                       # VKPT_MT: exact | mxu
+    max_leaf: Optional[int] = None          # VKPT_LEAF (None: size policy)
+    frontier_width: int = FRONTIER_WIDTH    # VKPT_FRONTIER_WIDTH: 16 | 32
+
+    @property
+    def tiers(self) -> "Tiers":
+        """The closest-hit / any-hit choice the wavefront dispatches on."""
+        return Tiers.of(self)
 
     @property
     def render_width(self) -> int:
