@@ -41,6 +41,11 @@ from vulkan_pathtracer_tpu_torch.models.device_scene import build_device_scene
 from vulkan_pathtracer_tpu_torch.ops import frontier as fr
 from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 
+from tests.native_guard import native_libraries  # noqa: F401
+
+# Both packages bake with the native SAH (tests/native_guard.py).
+pytestmark = pytest.mark.usefixtures("native_libraries")
+
 LEAF = 4   # interpret mode unrolls the leaf loop: small blocks compile fast
 
 

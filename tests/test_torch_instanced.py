@@ -60,6 +60,11 @@ from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 from vulkan_pathtracer_tpu_torch.ops.intersect import brute_force_closest_hit
 from vulkan_pathtracer_tpu_torch.render import wavefront
 
+from tests.native_guard import native_libraries  # noqa: F401
+
+# Both packages bake with the native SAH (tests/native_guard.py).
+pytestmark = pytest.mark.usefixtures("native_libraries")
+
 LEAF = 8
 
 

@@ -56,6 +56,11 @@ from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
 from vulkan_pathtracer_tpu_torch.ops import mxu_mt
 from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 
+from tests.native_guard import native_libraries  # noqa: F401
+
+# Both packages bake with the native SAH (tests/native_guard.py).
+pytestmark = pytest.mark.usefixtures("native_libraries")
+
 BUDGET = 0.002   # tests/test_mxu_mt.py:100-117
 
 

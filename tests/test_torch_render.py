@@ -35,6 +35,11 @@ from vulkan_pathtracer_tpu_torch.models.device_scene import build_device_scene
 from vulkan_pathtracer_tpu_torch.render import wavefront
 from vulkan_pathtracer_tpu_torch.render.pipeline import RenderPipeline
 
+from tests.native_guard import native_libraries  # noqa: F401
+
+# Both packages bake with the native SAH (tests/native_guard.py).
+pytestmark = pytest.mark.usefixtures("native_libraries")
+
 
 @pytest.fixture(scope="module")
 def atrium_glb(tmp_path_factory):

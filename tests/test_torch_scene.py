@@ -24,6 +24,11 @@ from vulkan_pathtracer_tpu_torch.models.device_scene import (
 )
 from vulkan_pathtracer_tpu_torch.ops.stack_traverse import EMPTY
 
+from tests.native_guard import native_libraries  # noqa: F401
+
+# Both packages bake with the native SAH (tests/native_guard.py).
+pytestmark = pytest.mark.usefixtures("native_libraries")
+
 FIXTURES = {"box": "box_glb", "cornell": "cornell_glb",
             "sphere": "sphere_glb", "columns": "columns_glb"}
 TENSOR_FIELDS = ("tri_v0", "tri_e1", "tri_e2", "tri_gn", "tri_material",

@@ -53,6 +53,11 @@ from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 from vulkan_pathtracer_tpu_torch.render import wavefront
 from vulkan_pathtracer_tpu_torch.utils import RenderConfig
 
+from tests.native_guard import native_libraries  # noqa: F401
+
+# Both packages bake with the native SAH (tests/native_guard.py).
+pytestmark = pytest.mark.usefixtures("native_libraries")
+
 ENV = {"kernel_primary": "VKPT_KERNEL_PRIMARY",
        "kernel_secondary": "VKPT_KERNEL_SECONDARY",
        "anyhit_kernel": "VKPT_ANYHIT_KERNEL", "mt": "VKPT_MT"}

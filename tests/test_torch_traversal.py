@@ -67,6 +67,11 @@ from vulkan_pathtracer_tpu_torch.ops import skip_traverse as sk
 from vulkan_pathtracer_tpu_torch.ops.traverse import bvh_closest_hit
 from vulkan_pathtracer_tpu_torch.render.pipeline import TRAVERSALS
 
+from tests.native_guard import native_libraries  # noqa: F401
+
+# Both packages bake with the native SAH (tests/native_guard.py).
+pytestmark = pytest.mark.usefixtures("native_libraries")
+
 
 @pytest.fixture(scope="module")
 def flat(columns_glb):

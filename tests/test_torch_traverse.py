@@ -36,6 +36,11 @@ from vulkan_pathtracer_tpu_torch.models.device_scene import (
 from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 from vulkan_pathtracer_tpu_torch.ops.intersect import brute_force_closest_hit
 
+from tests.native_guard import native_libraries  # noqa: F401
+
+# Both packages bake with the native SAH (tests/native_guard.py).
+pytestmark = pytest.mark.usefixtures("native_libraries")
+
 
 @pytest.fixture(scope="module")
 def scenes28(request):

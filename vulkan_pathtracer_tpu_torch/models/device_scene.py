@@ -92,8 +92,9 @@ PAD = 128
 
 
 def native_library_loaded() -> bool:
-    """Whether the native host library (SAH BVH build, triangle bake) is loaded.
-    Without it ops/bvh.py builds a different tree (NumPy LBVH)."""
+    """Whether the native host library (SAH BVH build, triangle bake) is
+    loaded; it is built at first call, and a failed build or load
+    raises with its message."""
     return get_lib() is not None
 
 
@@ -166,7 +167,7 @@ def _pad_rows(arr: np.ndarray, multiple: int, fill=0.0) -> np.ndarray:
 
 def _bake_instance(scene: Scene, inst, acc: dict, vert_base: int) -> int:
     """Append one instance's triangles/vertices in world space
-    (device_scene._bake_instance, native fast path + NumPy fallback)."""
+    (device_scene._bake_instance, through the native library)."""
     M = inst.transform.astype(np.float64)
     A = M[:3, :3]
     t = M[:3, 3]
@@ -175,31 +176,11 @@ def _bake_instance(scene: Scene, inst, acc: dict, vert_base: int) -> int:
     for prim_global in range(mesh.start, mesh.end):
         prim = scene.primitives[prim_global]
         nrm_w = transform_dirs_native(prim.normals, N)
-        if nrm_w is None:
-            nrm_w = (prim.normals.astype(np.float64) @ N.T).astype(np.float32)
         tan_w = prim.tangents.copy()
-        tan_xyz = transform_dirs_native(prim.tangents[:, :3], N)
-        if tan_xyz is None:
-            tan_xyz = (prim.tangents[:, :3].astype(np.float64)
-                       @ N.T).astype(np.float32)
-        tan_w[:, :3] = tan_xyz
+        tan_w[:, :3] = transform_dirs_native(prim.tangents[:, :3], N)
 
         idx = prim.indices.reshape(-1, 3).astype(np.int64)
-        baked = bake_triangles_native(prim.positions, idx, A, t, N)
-        if baked is not None:
-            v0, e1, e2, gn = baked
-        else:
-            pos_w = (prim.positions.astype(np.float64) @ A.T
-                     + t).astype(np.float32)
-            v0 = pos_w[idx[:, 0]]
-            e1 = pos_w[idx[:, 1]] - v0
-            e2 = pos_w[idx[:, 2]] - v0
-            obj = prim.positions.astype(np.float64)
-            e1o = obj[idx[:, 1]] - obj[idx[:, 0]]
-            e2o = obj[idx[:, 2]] - obj[idx[:, 0]]
-            gn = np.cross(e1o, e2o) @ N.T
-            norm = np.linalg.norm(gn, axis=1, keepdims=True)
-            gn = (gn / np.maximum(norm, 1e-30)).astype(np.float32)
+        v0, e1, e2, gn = bake_triangles_native(prim.positions, idx, A, t, N)
 
         tcount = idx.shape[0]
         acc["tri_v0"].append(v0)

@@ -78,26 +78,20 @@ def _morton_codes(centroids: np.ndarray) -> np.ndarray:
 def build_bvh_host(tri_v0: np.ndarray, tri_e1: np.ndarray, tri_e2: np.ndarray,
                    max_leaf_size: int = 4, use_native: bool = True,
                    builder: str = "sah") -> HostBVH:
-    """builder: "sah" (binned SAH, native only — better trees) or
-    "lbvh" (Morton). Falls back sah -> native lbvh -> NumPy lbvh."""
+    """use_native: the native library's builder, "sah" (binned SAH —
+    better trees) or "lbvh" (Morton); it raises where the library cannot
+    be built or loaded.  use_native=False: the NumPy LBVH below."""
     if use_native and tri_v0.shape[0] > 0:
         from vulkan_pathtracer_tpu_torch.ops.native import lbvh_build_native
 
-        result = None
-        if builder == "sah":
-            result = lbvh_build_native(tri_v0, tri_e1, tri_e2,
-                                       max_leaf_size, builder="sah")
-        if result is None:
-            result = lbvh_build_native(tri_v0, tri_e1, tri_e2,
-                                       max_leaf_size)
-        if result is not None:
-            (bmin, bmax, skip, leaf_first, leaf_count, left, right,
-             tri_order) = result
-            return HostBVH(
-                bmin=bmin, bmax=bmax, skip=skip, leaf_first=leaf_first,
-                leaf_count=leaf_count, tri_order=tri_order,
-                left_child=left, right_child=right,
-            )
+        (bmin, bmax, skip, leaf_first, leaf_count, left, right,
+         tri_order) = lbvh_build_native(tri_v0, tri_e1, tri_e2,
+                                        max_leaf_size, builder=builder)
+        return HostBVH(
+            bmin=bmin, bmax=bmax, skip=skip, leaf_first=leaf_first,
+            leaf_count=leaf_count, tri_order=tri_order,
+            left_child=left, right_child=right,
+        )
     t = tri_v0.shape[0]
     v0 = tri_v0.astype(np.float64)
     v1 = v0 + tri_e1
