@@ -16,8 +16,12 @@ before the result line):
    primary and bounce rays, the 246,444-triangle atrium with 65,536
    primary and 65,536 bounce rays, and both kernels timed at the
    headline frame's shapes (2,073,600 primaries; the sorted last-bounce
-   launch); the flat variant of the pair kernels on the columns rays,
-   bitwise;
+   launch), t, tri, u, v and the any-hit bit bitwise; the statistics
+   build of both quad kernels at the same shapes, the simple design
+   and the tuned one (SIMT efficiency of node steps and leaf entries, node-step
+   rounds per warp against steps per ray, stack depth), its outputs
+   bitwise the plain versions'; the flat variant of the pair kernels on
+   the columns rays, bitwise;
 4. flat main path — the headline frame (atrium, 1920x1080, 1 spp, 2
    bounces, leaf 28) through the same loader and pipeline as
    ``python -m vulkan_pathtracer_tpu_torch``: 1 warm-up + 4 timed frames
@@ -162,6 +166,11 @@ VISIT_OPS = {"quad": 4 * 25 + 4 + 6, "pair": 2 * 25 + 3, "skip": 25 + 1,
              "wide": 8 * (25 + 2), "oct": 8 * 25 + 8 + 28,
              "frontier": 16 * 25 + 16 + 63, "frontier32": 32 * 25 + 32 + 191}
 MT_OPS, XFORM_OPS, RAY_OPS = 54, 33, 18
+# The early-exit triangle test (traverse.cuh mt, EARLY; the quad and
+# oct closest hits) stops after 15 operations at a back face, 27 at u
+# and 45 at v; the plain version counts each kind.
+MT_EXIT_OPS = (15, 27, 45)
+EARLY_EXIT = ("quad_closest_hit", "oct_closest_hit")
 COEF_OPS, COEF_SIGN_OPS, FEAT_OPS, FEAT_XFORM_OPS = 86, 4, 9, 190
 
 
@@ -276,25 +285,18 @@ def main() -> int:
 
     def compare_closest(label, scene, o, d, active=None):
         args = quad_args(scene, o, d, active)
-        kt, ktri, ku, kv = kernels.quad_closest_hit(*args)
+        k = kernels.quad_closest_hit(*args)
         sync()
         p = st.quad_closest_hit_plain(*args)
         sync()
-        kh, ph = kt < MISS_T, p.t < MISS_T
-        check(torch.equal(kh, ph), f"{label}: closest hit masks differ")
-        both = kh & ph
-        ulp = (kt.view(torch.int32) - p.t.view(torch.int32)).abs()[both]
-        tri_agree = (ktri == p.tri)[both].float().mean().item() \
-            if both.any() else 1.0
-        max_ulp = int(ulp.max().item()) if both.any() else 0
-        check(max_ulp <= 1, f"{label}: t differs by {max_ulp} ulp")
-        check(tri_agree >= 0.999, f"{label}: tri agreement {tri_agree}")
+        check(torch.equal(k[0] < MISS_T, p.t < MISS_T),
+              f"{label}: closest hit masks differ")
+        for f, a, b in zip("t tri u v".split(), k, p):
+            check(torch.equal(a, b), f"{label}: quad closest {f} differs "
+                  f"on {int((a != b).sum())} rays")
         phase("kernels", check=label, rays=o.shape[0],
-              hits=int(both.sum().item()), t_max_ulp=max_ulp,
-              t_bit_equal=bool(torch.equal(kt, p.t)),
-              tri_agreement=f"{tri_agree:.6f}",
-              uv_max_abs=f"{max((ku - p.u).abs().max().item(), (kv - p.v).abs().max().item()):.3g}")
-        return kt
+              hits=int((p.t < MISS_T).sum().item()), bit_equal=True)
+        return k[0]
 
     def compare_any(label, scene, o, d, kt_closest, active=None):
         args = quad_args(scene, o, d, active)
@@ -416,8 +418,9 @@ def main() -> int:
         return cam
 
     def bound(tables, n_rays, out_bytes, stats, visit_ops, block, instanced,
-              coef=False):
-        """(bound_ms, bound_by) of one traversal launch."""
+              coef=False, early=False):
+        """(bound_ms, bound_by) of one traversal launch; ``early``: the
+        kernel's triangle test stops at its first failed condition."""
         ops = n_rays * RAY_OPS + stats["node_visits"] * visit_ops
         if coef:
             ops += stats["leaf_visits"] * (
@@ -425,6 +428,10 @@ def main() -> int:
                 + FEAT_XFORM_OPS * instanced)
         else:
             ops += stats["leaf_visits"] * block * (MT_OPS + instanced)
+            if early:
+                ops -= sum(stats[k] * (MT_OPS - e)
+                           for k, e in zip(("tri_back", "tri_u", "tri_v"),
+                                           MT_EXIT_OPS))
             if instanced:
                 ops += stats["leaf_visits"] * XFORM_OPS
         nbytes = (sum(t.numel() * t.element_size() for t in tables)
@@ -450,7 +457,8 @@ def main() -> int:
         b_ms, b_by = bound(tables, n_rays, out_bytes, stats,
                            VISIT_OPS[key.split("_")[0]],
                            scene.max_leaf_size, int(scene.instanced),
-                           coef=key.endswith("_coef"))
+                           coef=key.endswith("_coef"),
+                           early=key in EARLY_EXIT)
         results.setdefault(key, {}).update({
             f"ms{tag}": k_ms, f"plain_ms{tag}": p_ms,
             f"max_abs_err{tag}": err, f"bound_ms{tag}": b_ms,
@@ -659,7 +667,26 @@ def main() -> int:
                 lambda s=None: st.quad_any_hit_plain(*aargs, stats=s),
                 tables, n_prim, 1, scene, any_err)
     phase("timing", kernel="quad_any_hit", live=live1)
-    del o, d, o1, d1, a1, targs, aargs
+
+    # The statistics build of both quad kernels at the same shapes: the
+    # simple design and the tuned one (outside the counted main paths).
+    ref_c = st.quad_closest_hit_plain(*targs)
+    ref_a = st.quad_any_hit_plain(*aargs)
+    for design in kernels.STACK_DESIGNS:
+        for key, args, ref in (("quad_closest_hit", targs, ref_c),
+                               ("quad_any_hit", aargs, ref_a)):
+            out, counters = kernels.quad_stats(design, key == "quad_any_hit",
+                                               *args)
+            sync()
+            same = (torch.equal(out, ref) if key == "quad_any_hit" else
+                    all(torch.equal(a, b) for a, b in zip(out, ref)))
+            check(same, f"{key} statistics build ({design}) != plain version")
+            summary = kernels.summarize_stack_stats(counters)
+            results[key].setdefault("stats", {})[design] = summary
+            phase("stats", kernel=key, design=design, **{
+                k: f"{v:.4f}" if isinstance(v, float) else v
+                for k, v in summary.items()})
+    del o, d, o1, d1, a1, targs, aargs, ref_c, ref_a
     phase("phase", name="atrium flat kernels",
           seconds=f"{time.perf_counter() - t0:.1f}")
 

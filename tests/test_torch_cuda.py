@@ -15,6 +15,10 @@ instanced) and the wide kernel are held to their plain versions the
 same way, as are the oct kernel, the frontier kernels (width 16 and
 32) and every kernel built with coefficient leaves (``mt="mxu"``: quad,
 pair flat and two-level, with a mirrored instance, and frontier).
+The persistent quad and oct kernels are also launched on ray counts
+that are no multiple of 32, with inactive lanes, twice in a row (a
+fresh batch counter per launch), and the quad kernels' statistics
+build is held to the plain versions with its counters checked.
 """
 
 import numpy as np
@@ -242,6 +246,56 @@ def test_pair_coef_kernels_match_plain(cuda, scene_paths, instanced):
     assert 500 < int((ref.t < MISS_T).sum()) < 8192
     assert torch.equal(kernels.pair_any_hit(*args),
                        st.pair_any_hit_plain(*args))
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000, 4099])
+def test_quad_kernels_ragged_inactive_and_relaunched(cuda, scene_paths, n):
+    """The persistent quad kernels on a ray count that is no multiple of
+    32, with a third of the lanes inactive, launched twice: each launch
+    takes a fresh zeroed batch counter, so the second traces every ray
+    again (a counter left at n would return the outputs unwritten)."""
+    scene = build_device_scene(gltf.load(scene_paths["columns"]),
+                               max_leaf_size=28, device=cuda)
+    o, d, active = _rays(n, seed=n, device=cuda)
+    active[::3] = False
+    t_lane = st.lane_limits(n, active, cuda)
+    args = (scene.quad_box, scene.quad_link, scene.leaves, o, d, t_lane)
+    oargs = (scene.oct_box, scene.oct_link, scene.leaves, o, d, t_lane)
+    ref = st.quad_closest_hit_plain(*args)
+    ref_any = st.quad_any_hit_plain(*args)
+    ref_oct = st.oct_closest_hit_plain(*oargs)
+    for _ in range(2):
+        _assert_equal(kernels.quad_closest_hit(*args), ref)
+        _assert_equal(kernels.oct_closest_hit(*oargs), ref_oct)
+        occ = kernels.quad_any_hit(*args)
+        assert torch.equal(occ, ref_any)
+        assert torch.equal(occ, ref.t < MISS_T)
+    assert not occ[~active].any()
+    assert (ref.t[~active] == MISS_T).all()
+
+
+@pytest.mark.parametrize("design", list(kernels.STACK_DESIGNS))
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_quad_statistics_build(cuda, scene_paths, design, any_hit):
+    """The statistics build: the plain versions' outputs, one traced ray
+    per active lane, a histogram of every ray's deepest stack."""
+    scene = build_device_scene(gltf.load(scene_paths["columns"]),
+                               max_leaf_size=28, device=cuda)
+    o, d, active = _rays(3000, seed=8, device=cuda)
+    t_lane = st.lane_limits(3000, active, cuda)
+    args = (scene.quad_box, scene.quad_link, scene.leaves, o, d, t_lane)
+    out, counters = kernels.quad_stats(design, any_hit, *args)
+    if any_hit:
+        assert torch.equal(out, st.quad_any_hit_plain(*args))
+    else:
+        _assert_equal(out, st.quad_closest_hit_plain(*args))
+    c = dict(zip(kernels.STACK_STATS, counters))
+    hist = counters[len(kernels.STACK_STATS):]
+    assert c["rays"] == int(active.sum()) == sum(hist)
+    assert 0 < c["deepest"] <= st.STACK_SLOTS[4]
+    summary = kernels.summarize_stack_stats(counters)
+    assert 0.0 < summary["simt_node"] <= 1.0
+    assert 0.0 < summary["simt_leaf"] <= 1.0
 
 
 def test_kernel_skips_empty_slots(cuda):

@@ -11,7 +11,10 @@ operations in the same order.  Held here to the JAX package:
   t allclose 1e-5, tri agreement > 0.999, u allclose 1e-4 / 1e-5;
 - any hit vs the Pallas any-hit kernel in interpret mode
   (``pallas_quad_any_hit(interpret=True, packet=512,
-  hbm_leaves=True)``, as test_leaf28.py:94-99 runs it): exactly;
+  hbm_leaves=True)``, as test_leaf28.py:94-99 runs it): exactly, on
+  the columns and on a small atrium (primary and bounce rays), though
+  the port's any hit visits hit children in slot order and JAX's
+  near-first;
 - an active mask, a root-leaf tree, and a hand-made tree whose empty
   slots have boxes every ray would hit: EMPTY must keep the ray out
   (the JAX rows' empty enc -1 means "leaf 0").
@@ -88,6 +91,53 @@ def test_anyhit_matches_pallas_interpret(scenes28):
     assert np.array_equal(got.numpy(), np.asarray(ref))
     closest = st.quad_closest_hit(td, torch.from_numpy(o),
                                   torch.from_numpy(d))
+    assert np.array_equal(got.numpy(), closest.t.numpy() < MISS_T)
+
+
+@pytest.fixture(scope="module")
+def atrium28(tmp_path_factory):
+    from assets.procedural import make_atrium
+
+    path = str(tmp_path_factory.mktemp("atrium") / "atrium.glb")
+    make_atrium(path, detail=0.1)
+    jd = jax_build(jgltf.load(path), build_bvh=True, max_leaf_size=28)
+    return jd, scene_from_jax_arrays(*jax_scene_arrays(jd), "cpu")
+
+
+def _atrium_rays(td, kind, n=768, seed=21):
+    """Rays inside the atrium (bench.py's interior orbit region):
+    ``primary`` from one eye point, ``bounce`` from the primaries' hit
+    points in random directions of the upper hemisphere."""
+    rng = np.random.default_rng(seed)
+    eye = np.array([3.0, 2.2, 1.5], np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.broadcast_to(eye, (n, 3)).copy()
+    if kind == "bounce":
+        hit = st.quad_closest_hit(td, torch.from_numpy(o),
+                                  torch.from_numpy(d))
+        t = np.minimum(hit.t.numpy(), 50.0)[:, None]
+        o = (o + d * (t * 0.999)).astype(np.float32)
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+        d[:, 1] = np.abs(d[:, 1])
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["primary", "bounce"])
+def test_anyhit_slot_order_matches_pallas_atrium(atrium28, kind):
+    # The quad any hit walks hit children in slot order (the kernel's
+    # order since the Hopper redesign); its bit is JAX's near-first one.
+    jd, td = atrium28
+    o, d = _atrium_rays(td, kind)
+    ref = np.asarray(pp.pallas_quad_any_hit(
+        jd, jnp.asarray(o), jnp.asarray(d), interpret=True, packet=512,
+        hbm_leaves=True))
+    got = st.quad_any_hit(td, torch.from_numpy(o), torch.from_numpy(d))
+    closest = st.quad_closest_hit_plain(*st.quad_args(
+        td, torch.from_numpy(o), torch.from_numpy(d), None))
+    assert 0 < ref.sum() < len(ref)
+    assert np.array_equal(got.numpy(), ref)
     assert np.array_equal(got.numpy(), closest.t.numpy() < MISS_T)
 
 

@@ -14,193 +14,84 @@
 // The plain PyTorch versions in ops/stack_traverse.py perform the same
 // float operations in the same order (traverse.cuh: -fmad=false).
 //
-// What bounds it on this card: dependent loads (a 16 W B box row plus a
-// 4 W B link row per node, 1,008 B per 28-triangle leaf block, 4,480 B
-// as coefficients) and divergence between the rays of a warp.  The
-// atrium's node and leaf tables together are about 10 MB (21 MB with
-// coefficients), well inside the 50 MB L2, so the loads are L2
-// latency, not HBM bandwidth.
+// What bounded the first, simple design of these kernels on this card
+// (SimpleDesign in stack_walk.cuh; chip_smoke.py runs it and the tuned
+// one through the statistics build) was not the stack, which stays
+// shallow (4 entries on average, deepest 10 on the primaries and 15 on
+// bounce 1 of 288), nor HBM (the atrium's tables, about 10 MB, sit in
+// the 50 MB L2), but idle lanes.  On the
+// incoherent bounce-1 rays of the any hit only 23% of a warp's lanes
+// were active when it tested leaves (62% in node steps), because each
+// lane tested its node's leaf children at once, while the others
+// waited, and a warp ran 1.6x the node steps of its average ray.
 //
-// What the design does about it: one ray per thread (Hopper has a
-// program counter per thread, so no packet-shared stack as on the
-// TPU), near-first descent by the ray's own entry distance (a stable
-// insertion sort of the W keys), culling of popped nodes whose entry
-// lies beyond the current hit, read-only __ldg vector loads of node
-// rows and leaf blocks, and rays that the caller sorts (2D tiles for
-// primaries, the 6d Morton key for bounce rays) so that the threads of
-// a warp walk similar paths.  The width-8 collapse folds three binary
-// levels per row: fewer, larger rows.
+// What the design does about it (stack_walk.cuh; each choice measured
+// by app/stack_lab.py at the headline's shapes, PERF.md section 6):
+//   - postponed leaves (Aila and Laine, "Understanding the Efficiency
+//     of Ray Traversal on GPUs", HPG 2009, while-while): lanes step
+//     through nodes until every unfinished lane holds the leaf children
+//     of its last node, then the warp tests leaves together; each ray's
+//     own sequence of node and leaf visits is unchanged (closest hit:
+//     visit order, ties and results as before);
+//   - persistent warps: a grid that fills the SMs once, each warp taking
+//     32-ray batches from a counter that the wrapper zeroes (closest
+//     hit), so a warp's tail does not hold a block's slot;
+//   - the any hit refills: a lane whose ray is done stores it and takes
+//     the next ray from the counter before the warp's next node phase,
+//     so no lane idles behind the warp's longest ray (on tile-ordered
+//     primaries that breaks the warps' coherence, so the closest hit
+//     keeps its batches);
+//   - the any hit walks hit children in slot order with a stack of node
+//     ids alone: its bit does not depend on the order, and with the
+//     fixed limit t_lane no popped node is ever culled;
+//   - the closest hits' triangle test returns at the first failed test
+//     (back face, u, v) before the division (traverse.cuh mt, EARLY);
+//   - register caps through __launch_bounds__: 85 per thread for the
+//     closest hit, 64 for the any hit (more warps in flight to hide
+//     the L1/L2 latency of the leaf loads).
+// Kept from the simple design: one ray per thread (Hopper has a program
+// counter per thread, so no packet-shared stack as on the TPU), read-only
+// __ldg vector loads of node rows and leaf blocks, rays that the caller sorts
+// (2D tiles for primaries, the 6d Morton key for bounce rays).  Measured
+// and not taken: a shared-memory window of the stack, refilling the
+// closest hit (even from warp-owned chunks of consecutive rays), and
+// prefetching the next four triangles (register spills).  The
+// coefficient builds take the same walk without the register caps.
+// The oct kernel (width 8: three binary levels per row) keeps the
+// simple design with the early-exit test: postponing its leaves or
+// making its warps persistent made it slower (5.5-6.2 ms against 3.7 ms
+// on the headline primaries).
 
-#include "traverse.cuh"
+#include "stack_walk.cuh"
 
 namespace {
 
-template <int W, bool ANY, bool COEF>
-__device__ void traverse(const float* __restrict__ box,
-                         const int* __restrict__ link,
-                         const float* __restrict__ leaves, int block,
-                         const Ray& r, Best& b) {
-  // Per-ray stack entries: at most W - 1 pushes per collapsed level
-  // (ops/stack_traverse.STACK_SLOTS; the bakes refuse deeper trees).
-  constexpr int kStack = W == 4 ? 288 : 224;
-  int stack[kStack];
-  float stack_tn[kStack];
-  int sp = 0;
-  int cur = 0;
-  float cur_tn = -INFINITY;
-  while (cur >= 0) {
-    const float t_lim = ANY ? r.tl : fminf(b.t, r.tl);
-    int next = -1;
-    float next_tn = 0.0f;
-    if (cur_tn <= t_lim) {
-      const float4* brow =
-          reinterpret_cast<const float4*>(box) + (size_t)cur * (W * 6 / 4);
-      float bx[W * 6];
-#pragma unroll
-      for (int q = 0; q < W * 6 / 4; ++q) {
-        const float4 f = __ldg(brow + q);
-        bx[4 * q + 0] = f.x;
-        bx[4 * q + 1] = f.y;
-        bx[4 * q + 2] = f.z;
-        bx[4 * q + 3] = f.w;
-      }
-      const int4* lrow =
-          reinterpret_cast<const int4*>(link) + (size_t)cur * (W / 4);
-      int lk[W];
-#pragma unroll
-      for (int q = 0; q < W / 4; ++q) {
-        const int4 l4 = __ldg(lrow + q);
-        lk[4 * q + 0] = l4.x;
-        lk[4 * q + 1] = l4.y;
-        lk[4 * q + 2] = l4.z;
-        lk[4 * q + 3] = l4.w;
-      }
-      float tn[W];
-      bool hit[W];
-#pragma unroll
-      for (int s = 0; s < W; ++s) {
-        hit[s] = slab(r, bx + 6 * s, t_lim, tn[s]) && (lk[s] != kEmpty);
-      }
-      // Leaf slots first, in slot order.
-#pragma unroll
-      for (int s = 0; s < W; ++s) {
-        if (hit[s] && lk[s] < 0) {
-          const int leaf = -lk[s] - 1;
-          visit_leaf<ANY, false, COEF>(r, leaves, block, nullptr, 0, leaf, b);
-          if (ANY && b.any) return;
-        }
-      }
-      // Internal slots: stable sort by entry distance, push far-to-near.
-      float key[W];
-      int ch[W];
-#pragma unroll
-      for (int s = 0; s < W; ++s) {
-        key[s] = (hit[s] && lk[s] >= 0) ? tn[s] : kBig;
-        ch[s] = lk[s];
-      }
-#pragma unroll
-      for (int i = 1; i < W; ++i) {
-#pragma unroll
-        for (int j = i; j > 0; --j) {
-          if (key[j] < key[j - 1]) {
-            const float tk = key[j];
-            key[j] = key[j - 1];
-            key[j - 1] = tk;
-            const int tc = ch[j];
-            ch[j] = ch[j - 1];
-            ch[j - 1] = tc;
-          }
-        }
-      }
-#pragma unroll
-      for (int s = W - 1; s >= 1; --s) {
-        if (key[s] < kBig) {
-          stack[sp] = ch[s];
-          stack_tn[sp] = key[s];
-          ++sp;
-        }
-      }
-      if (key[0] < kBig) {
-        next = ch[0];
-        next_tn = key[0];
-      }
-    }
-    if (next < 0 && sp > 0) {
-      --sp;
-      next = stack[sp];
-      next_tn = stack_tn[sp];
-    }
-    cur = next;
-    cur_tn = next_tn;
-  }
-}
-
-template <int W, bool COEF>
-__global__ void __launch_bounds__(kThreads)
-nary_closest_hit_kernel(const float* __restrict__ box,
-                        const int* __restrict__ link,
-                        const float* __restrict__ leaves, int block,
-                        const float* __restrict__ origin,
-                        const float* __restrict__ direction,
-                        const float* __restrict__ t_lane, int64_t n,
-                        float* __restrict__ t_out, int* __restrict__ tri_out,
-                        float* __restrict__ u_out, float* __restrict__ v_out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(origin, direction, t_lane, i);
-  Best b{kMissT, 0.0f, 0.0f, -1, false};
-  if (r.tl >= 0.0f) traverse<W, false, COEF>(box, link, leaves, block, r, b);
-  t_out[i] = b.t;
-  tri_out[i] = b.tri;
-  u_out[i] = b.u;
-  v_out[i] = b.v;
-}
-
-template <bool COEF>
-__global__ void __launch_bounds__(kThreads)
-quad_any_hit_kernel(const float* __restrict__ box,
-                    const int* __restrict__ link,
-                    const float* __restrict__ leaves, int block,
-                    const float* __restrict__ origin,
-                    const float* __restrict__ direction,
-                    const float* __restrict__ t_lane, int64_t n,
-                    uint8_t* __restrict__ hit_out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(origin, direction, t_lane, i);
-  Best b{kMissT, 0.0f, 0.0f, -1, false};
-  if (r.tl >= 0.0f) traverse<4, true, COEF>(box, link, leaves, block, r, b);
-  hit_out[i] = b.any ? 1 : 0;
-}
-
-unsigned grid_of(int64_t n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
+// Design<sort (any hit), postpone, shared window, persistent, min blocks
+// per SM, refill, early-exit triangle test>.
+using QuadClosestDesign = Design<true, true, 0, true, 6, false, true>;
+using QuadAnyDesign = Design<false, true, 0, true, 8, true, false>;
+using OctDesign = Design<true, false, 0, false, 1, false, true>;
+using CoefClosestDesign = Design<true, true, 0, true, 1>;
+using CoefAnyDesign = Design<false, true, 0, true, 1, true>;
 
 }  // namespace
 
 // C launchers: pointers, sizes and the stream in; cudaGetLastError()
 // out (0 = the launch was accepted).  coef != 0: `leaves` is the
-// (n_leaves, block, 40) coefficient table.
+// (n_leaves, block, 40) coefficient table.  `batches`: one zeroed
+// unsigned counter for the persistent warps.
 extern "C" int vkpt_quad_closest_hit(const float* box, const int* link,
                                      const float* leaves, int block, int coef,
                                      const float* origin,
                                      const float* direction,
                                      const float* t_lane, int64_t n,
                                      float* t_out, int* tri_out, float* u_out,
-                                     float* v_out, void* stream) {
-  if (n > 0) {
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (coef)
-      nary_closest_hit_kernel<4, true><<<grid_of(n), kThreads, 0, s>>>(
-          box, link, leaves, block, origin, direction, t_lane, n, t_out,
-          tri_out, u_out, v_out);
-    else
-      nary_closest_hit_kernel<4, false><<<grid_of(n), kThreads, 0, s>>>(
-          box, link, leaves, block, origin, direction, t_lane, n, t_out,
-          tri_out, u_out, v_out);
-  }
-  return (int)cudaGetLastError();
+                                     float* v_out, unsigned* batches,
+                                     void* stream) {
+  return (coef ? launch<4, false, true, CoefClosestDesign>
+               : launch<4, false, false, QuadClosestDesign>)(
+      box, link, leaves, block, origin, direction, t_lane, n, t_out, tri_out,
+      u_out, v_out, nullptr, batches, nullptr, stream);
 }
 
 extern "C" int vkpt_oct_closest_hit(const float* box, const int* link,
@@ -209,29 +100,50 @@ extern "C" int vkpt_oct_closest_hit(const float* box, const int* link,
                                     const float* direction,
                                     const float* t_lane, int64_t n,
                                     float* t_out, int* tri_out, float* u_out,
-                                    float* v_out, void* stream) {
-  if (n > 0) {
-    nary_closest_hit_kernel<8, false>
-        <<<grid_of(n), kThreads, 0, (cudaStream_t)stream>>>(
-            box, link, leaves, block, origin, direction, t_lane, n, t_out,
-            tri_out, u_out, v_out);
-  }
-  return (int)cudaGetLastError();
+                                    float* v_out, unsigned* batches,
+                                    void* stream) {
+  return launch<8, false, false, OctDesign>(
+      box, link, leaves, block, origin, direction, t_lane, n, t_out, tri_out,
+      u_out, v_out, nullptr, batches, nullptr, stream);
 }
 
 extern "C" int vkpt_quad_any_hit(const float* box, const int* link,
                                  const float* leaves, int block, int coef,
                                  const float* origin, const float* direction,
                                  const float* t_lane, int64_t n,
-                                 uint8_t* hit_out, void* stream) {
-  if (n > 0) {
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (coef)
-      quad_any_hit_kernel<true><<<grid_of(n), kThreads, 0, s>>>(
-          box, link, leaves, block, origin, direction, t_lane, n, hit_out);
-    else
-      quad_any_hit_kernel<false><<<grid_of(n), kThreads, 0, s>>>(
-          box, link, leaves, block, origin, direction, t_lane, n, hit_out);
-  }
-  return (int)cudaGetLastError();
+                                 uint8_t* hit_out, unsigned* batches,
+                                 void* stream) {
+  return (coef ? launch<4, true, true, CoefAnyDesign>
+               : launch<4, true, false, QuadAnyDesign>)(
+      box, link, leaves, block, origin, direction, t_lane, n, nullptr,
+      nullptr, nullptr, nullptr, hit_out, batches, nullptr, stream);
 }
+
+// The statistics build of the quad kernels (exact leaves): design 0 is
+// the simple design, 1 the tuned one; `st` holds kStCount zeroed
+// counters.  The hit outputs are those of the production kernels.
+extern "C" int vkpt_quad_stats(int design, int any, const float* box,
+                               const int* link, const float* leaves,
+                               int block, const float* origin,
+                               const float* direction, const float* t_lane,
+                               int64_t n, float* t_out, int* tri_out,
+                               float* u_out, float* v_out, uint8_t* hit_out,
+                               unsigned* batches, unsigned long long* st,
+                               void* stream) {
+  using Fn = int (*)(const float*, const int*, const float*, int,
+                     const float*, const float*, const float*, int64_t,
+                     float*, int*, float*, float*, uint8_t*, unsigned*,
+                     unsigned long long*, void*);
+  const Fn table[2][2] = {
+      {launch<4, false, false, SimpleDesign, true>,
+       launch<4, true, false, SimpleDesign, true>},
+      {launch<4, false, false, QuadClosestDesign, true>,
+       launch<4, true, false, QuadAnyDesign, true>}};
+  if (design < 0 || design > 1) return (int)cudaErrorInvalidValue;
+  return table[design][any ? 1 : 0](box, link, leaves, block, origin,
+                                    direction, t_lane, n, t_out, tri_out,
+                                    u_out, v_out, hit_out, batches, st,
+                                    stream);
+}
+
+extern "C" int vkpt_quad_stats_count() { return kStCount; }

@@ -39,7 +39,11 @@ struct Ray {
 // triangle passes the accept window below `lim`.  SIGNED (instanced
 // leaves, pallas_pair.py:697-700): the front test is det * det_sign > 0,
 // world winding under a mirroring instance transform.
-template <bool SIGNED>
+// EARLY returns at the first failed test (back face, then u, then v),
+// before the division and the later products; t, u, v are then
+// undefined.  The outcome is the same: u > 1 fails u + v <= 1 whenever
+// v >= 0 (rounding is monotonic).
+template <bool SIGNED, bool EARLY = false>
 __device__ __forceinline__ bool mt(const Ray& r, const float* tri, float lim,
                                    float det_sign, float& t, float& u,
                                    float& v) {
@@ -51,15 +55,18 @@ __device__ __forceinline__ bool mt(const Ray& r, const float* tri, float lim,
   const float pz = r.dx * e2y - r.dy * e2x;
   const float det = e1x * px + e1y * py + e1z * pz;
   const bool front = SIGNED ? det * det_sign > 0.0f : det > 0.0f;
+  if (EARLY && !front) return false;
   const float inv_det = 1.0f / (front ? det : 1.0f);
   const float tx = r.ox - v0x;
   const float ty = r.oy - v0y;
   const float tz = r.oz - v0z;
   u = (tx * px + ty * py + tz * pz) * inv_det;
+  if (EARLY && !(u >= 0.0f && u <= 1.0f)) return false;
   const float qx = ty * e1z - tz * e1y;
   const float qy = tz * e1x - tx * e1z;
   const float qz = tx * e1y - ty * e1x;
   v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  if (EARLY && !(v >= 0.0f && u + v <= 1.0f)) return false;
   t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
   // The Pallas kernels also test t >= tnear, with tnear = TMIN here:
   // implied by t > TMIN.
@@ -78,7 +85,9 @@ struct Best {
 // id leaf * block + k (leaf = row for flat tables, the packed
 // instance | block value for instanced ones).  The limit tightens as
 // hits are accepted (strict <: the first of equal-t triangles wins).
-template <bool ANY, bool SIGNED>
+// PREFETCH loads the next group of four triangles before testing this
+// one.
+template <bool ANY, bool SIGNED, bool EARLY = false, bool PREFETCH = false>
 __device__ __forceinline__ void leaf_block(const Ray& r,
                                            const float* __restrict__ leaves,
                                            int row, int leaf, int block,
@@ -88,20 +97,29 @@ __device__ __forceinline__ void leaf_block(const Ray& r,
   if ((block & 3) == 0) {
     // Four triangles are 36 floats = nine float4 loads.
     const float4* p = reinterpret_cast<const float4*>(base);
+    float4 ahead[9];
+    if (PREFETCH) {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) ahead[q] = __ldg(p + q);
+    }
     for (int g = 0; g < block / 4; ++g) {
       float w[36];
 #pragma unroll
       for (int q = 0; q < 9; ++q) {
-        const float4 f = __ldg(p + g * 9 + q);
+        const float4 f = PREFETCH ? ahead[q] : __ldg(p + g * 9 + q);
         w[4 * q + 0] = f.x;
         w[4 * q + 1] = f.y;
         w[4 * q + 2] = f.z;
         w[4 * q + 3] = f.w;
       }
+      if (PREFETCH && g + 1 < block / 4) {
+#pragma unroll
+        for (int q = 0; q < 9; ++q) ahead[q] = __ldg(p + (g + 1) * 9 + q);
+      }
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const float lim = ANY ? r.tl : fminf(b.t, r.tl);
-        if (mt<SIGNED>(r, w + 9 * k, lim, det_sign, t, u, v)) {
+        if (mt<SIGNED, EARLY>(r, w + 9 * k, lim, det_sign, t, u, v)) {
           if (ANY) {
             b.any = true;
             return;
@@ -119,7 +137,7 @@ __device__ __forceinline__ void leaf_block(const Ray& r,
 #pragma unroll
       for (int q = 0; q < 9; ++q) w[q] = __ldg(base + 9 * k + q);
       const float lim = ANY ? r.tl : fminf(b.t, r.tl);
-      if (mt<SIGNED>(r, w, lim, det_sign, t, u, v)) {
+      if (mt<SIGNED, EARLY>(r, w, lim, det_sign, t, u, v)) {
         if (ANY) {
           b.any = true;
           return;
@@ -267,7 +285,8 @@ __device__ __forceinline__ void coef_leaf(const Ray& r,
 // pallas_traverse.py:219-227, the same order of operations) and det_sign.
 // COEF: the coefficient leaf test instead (coef_leaf; `leaves` is then
 // the (n_leaves, block, 40) coefficient table).
-template <bool ANY, bool INST, bool COEF = false>
+template <bool ANY, bool INST, bool COEF = false, bool EARLY = false,
+          bool PREFETCH = false>
 __device__ __forceinline__ void visit_leaf(const Ray& r,
                                            const float* __restrict__ leaves,
                                            int block,
@@ -281,7 +300,8 @@ __device__ __forceinline__ void visit_leaf(const Ray& r,
     return;
   }
   if (!INST) {
-    leaf_block<ANY, false>(r, leaves, leaf, leaf, block, 1.0f, b);
+    leaf_block<ANY, false, EARLY, PREFETCH>(r, leaves, leaf, leaf, block,
+                                            1.0f, b);
     return;
   }
   const int inst = leaf >> mb_bits;
@@ -303,7 +323,8 @@ __device__ __forceinline__ void visit_leaf(const Ray& r,
   o.dx = m[0] * r.dx + m[1] * r.dy + m[2] * r.dz;
   o.dy = m[3] * r.dx + m[4] * r.dy + m[5] * r.dz;
   o.dz = m[6] * r.dx + m[7] * r.dy + m[8] * r.dz;
-  leaf_block<ANY, true>(o, leaves, row, leaf, block, m[12], b);
+  leaf_block<ANY, true, EARLY, PREFETCH>(o, leaves, row, leaf, block, m[12],
+                                         b);
 }
 
 // Slab test of one child box (lo.xyz, hi.xyz) against t_lim

@@ -53,25 +53,29 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
-def build() -> str:
-    """Compile csrc/ into the hashed build directory (unless already
-    built) and return the library path."""
-    sources = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources:
+def build(units=None, name: str = "libvkpt_torch_kernels",
+          info: dict = BUILD_INFO) -> str:
+    """Compile the translation units ``units`` (default: csrc/*.cu)
+    into the hashed build directory (unless already built) and return
+    the library path.  The hash covers every source under csrc/, so a
+    unit that includes another is rebuilt when either changes."""
+    units = units or [s for s in _sources() if s.endswith(".cu")]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + [name]).encode())
+    for path in sorted(glob.glob(os.path.join(_CSRC, "**", "*.cu*"),
+                                 recursive=True)):
         with open(path, "rb") as f:
-            digest.update(os.path.basename(path).encode() + f.read())
+            digest.update(os.path.relpath(path, _CSRC).encode() + f.read())
     out_dir = os.path.join(BUILD_DIR, digest.hexdigest()[:16])
-    lib_path = os.path.join(out_dir, "libvkpt_torch_kernels.so")
+    lib_path = os.path.join(out_dir, f"{name}.so")
     if os.path.exists(lib_path):
-        BUILD_INFO.update(seconds=0.0, log="(cached build)", path=lib_path)
+        info.update(seconds=0.0, log="(cached build)", path=lib_path)
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []
-    for src in (s for s in sources if s.endswith(".cu")):
+    for src in units:
         obj = os.path.join(out_dir, os.path.basename(src) + f".{tag}.o")
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
         jobs.append((cmd, obj, subprocess.Popen(
@@ -92,8 +96,7 @@ def build() -> str:
     os.replace(tmp, lib_path)
     for _, obj, _ in jobs:
         os.remove(obj)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log,
-                      path=lib_path)
+    info.update(seconds=time.perf_counter() - t0, log=log, path=lib_path)
     return lib_path
 
 
@@ -106,13 +109,18 @@ def lib() -> ctypes.CDLL:
         i, i64 = ctypes.c_int, ctypes.c_int64
         handle.vkpt_quad_closest_hit.restype = ctypes.c_int
         handle.vkpt_quad_closest_hit.argtypes = [
-            p, p, p, i, i, p, p, p, i64, p, p, p, p, p]
+            p, p, p, i, i, p, p, p, i64, p, p, p, p, p, p]
         handle.vkpt_oct_closest_hit.restype = ctypes.c_int
         handle.vkpt_oct_closest_hit.argtypes = [
-            p, p, p, i, p, p, p, i64, p, p, p, p, p]
+            p, p, p, i, p, p, p, i64, p, p, p, p, p, p]
         handle.vkpt_quad_any_hit.restype = ctypes.c_int
         handle.vkpt_quad_any_hit.argtypes = [
-            p, p, p, i, i, p, p, p, i64, p, p]
+            p, p, p, i, i, p, p, p, i64, p, p, p]
+        handle.vkpt_quad_stats.restype = ctypes.c_int
+        handle.vkpt_quad_stats.argtypes = [
+            i, i, p, p, p, i, p, p, p, i64, p, p, p, p, p, p, p, p]
+        handle.vkpt_quad_stats_count.restype = ctypes.c_int
+        handle.vkpt_quad_stats_count.argtypes = []
         handle.vkpt_pair_closest_hit.restype = ctypes.c_int
         handle.vkpt_pair_closest_hit.argtypes = [
             p, p, p, i, i, p, p, i, p, p, p, i64, p, p, p, p, p]
@@ -240,6 +248,14 @@ def _raise_on(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def _batches(n: int, device) -> torch.Tensor:
+    """The zeroed counter from which the persistent warps of the stack
+    kernels take their 32-ray batches (one per launch)."""
+    if n > 2 ** 31 - 64:
+        raise ValueError(f"{n} rays: the stack kernels take fewer than 2^31")
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
 def quad_closest_hit(box, link, leaves, origin, direction, t_lane):
     """Launch the quad closest-hit kernel (coefficient leaves when
     ``leaves`` has 40 columns); returns (t, tri, u, v)."""
@@ -250,7 +266,7 @@ def quad_closest_hit(box, link, leaves, origin, direction, t_lane):
     _raise_on("quad_closest_hit", lib().vkpt_quad_closest_hit(
         box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
         coef, *_ptrs(origin, direction, t_lane), n, *_ptrs(*out),
-        _stream(origin.device)))
+        _batches(n, origin.device).data_ptr(), _stream(origin.device)))
     return out
 
 
@@ -264,7 +280,7 @@ def oct_closest_hit(box, link, leaves, origin, direction, t_lane):
     _raise_on("oct_closest_hit", lib().vkpt_oct_closest_hit(
         box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
         *_ptrs(origin, direction, t_lane), n, *_ptrs(*out),
-        _stream(origin.device)))
+        _batches(n, origin.device).data_ptr(), _stream(origin.device)))
     return out
 
 
@@ -278,8 +294,68 @@ def quad_any_hit(box, link, leaves, origin, direction, t_lane):
     _raise_on("quad_any_hit", lib().vkpt_quad_any_hit(
         box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
         coef, *_ptrs(origin, direction, t_lane), n, hit.data_ptr(),
-        _stream(origin.device)))
+        _batches(n, origin.device).data_ptr(), _stream(origin.device)))
     return hit.bool()
+
+
+# Counters of the quad kernels' statistics build (csrc/stack_traverse.cu,
+# the kSt* enum), then a 65-bin histogram of each ray's deepest stack
+# (0..63 entries, 64 or more).
+STACK_STATS = ("node_warps", "node_lanes", "leaf_warps", "leaf_lanes",
+               "rays", "warps", "batch_rounds", "deepest")
+STACK_DESIGNS = {"simple": 0, "tuned": 1}
+
+
+def quad_stats(design: str, any_hit: bool, box, link, leaves, origin,
+               direction, t_lane):
+    """Run the statistics build of a quad kernel (``design`` "simple",
+    the first design of the walk, or "tuned", the kernels' own; exact
+    leaves) and return
+    (its hit outputs, the list of counters: STACK_STATS, then the
+    depth histogram)."""
+    if _check_tables(box, link, leaves, coef_ok=False):
+        raise ValueError("the statistics build takes exact leaves")
+    _check_rays(origin, direction, t_lane, box.device)
+    n = origin.shape[0]
+    dev = origin.device
+    out = _hit_outputs(n, dev)
+    hit = torch.empty(n, dtype=torch.uint8, device=dev)
+    st = torch.zeros(lib().vkpt_quad_stats_count(), dtype=torch.int64,
+                     device=dev)
+    _raise_on("quad_stats", lib().vkpt_quad_stats(
+        STACK_DESIGNS[design], int(any_hit), box.data_ptr(), link.data_ptr(),
+        leaves.data_ptr(), leaves.shape[1],
+        *_ptrs(origin, direction, t_lane), n, *_ptrs(*out), hit.data_ptr(),
+        _batches(n, dev).data_ptr(), st.data_ptr(), _stream(dev)))
+    return (hit.bool() if any_hit else out), st.cpu().tolist()
+
+
+def summarize_stack_stats(counters) -> dict:
+    """SIMT efficiency (active lanes / 32, averaged over warp iterations)
+    of the node steps and of the entries into a node's leaves, node
+    steps per ray against node-step rounds per warp batch (the tail),
+    and the stack depth reached by each ray (mean, 99th percentile,
+    deepest, share above 8 and 24 entries), from the counters of the
+    statistics build."""
+    c = dict(zip(STACK_STATS, counters))
+    hist = list(counters[len(STACK_STATS):])
+    rays, total = max(c["rays"], 1), max(sum(hist), 1)
+    acc, p99 = 0, None
+    for k, x in enumerate(hist):
+        acc += x
+        if p99 is None and acc >= 0.99 * total:
+            p99 = k
+    return {
+        "simt_node": c["node_lanes"] / max(32 * c["node_warps"], 1),
+        "simt_leaf": c["leaf_lanes"] / max(32 * c["leaf_warps"], 1),
+        "steps_per_ray": c["node_lanes"] / rays,
+        "rounds_per_warp": c["batch_rounds"] / max(c["warps"], 1),
+        "leaf_entries_per_ray": c["leaf_lanes"] / rays,
+        "depth_mean": sum(k * x for k, x in enumerate(hist)) / total,
+        "depth_p99": p99, "deepest": c["deepest"],
+        "depth_over_8": sum(hist[9:]) / total,
+        "depth_over_24": sum(hist[25:]) / total,
+    }
 
 
 def pair_closest_hit(box, link, leaves, origin, direction, t_lane,

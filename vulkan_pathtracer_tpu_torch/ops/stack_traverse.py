@@ -67,7 +67,10 @@ the same order):
   box, so none of them could pass the slab test (exact);
 - an inactive lane (t_lane < 0) returns a miss without traversing;
 - any hit uses t_lim = t_lane throughout and stops at the first
-  accepted triangle, so its bit equals ``closest.t < MISS_T``.
+  accepted triangle, so its bit equals ``closest.t < MISS_T``; the quad
+  any hit visits hit internal children in slot order (the order does
+  not change the bit, and with a fixed limit no popped node is ever
+  culled), the pair any hit near-first.
 
 The wrappers dispatch on the device of the rays: CPU tensors run the
 plain version, CUDA tensors launch the kernel, anything else raises.
@@ -298,11 +301,14 @@ def _safe_inv(d: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.where(torch.abs(d) < INV_EPS, sub, d)
 
 
-def _leaf_mt(tri9, o, d, det_sign=None):
+def _leaf_mt(tri9, o, d, det_sign=None, exits=None):
     """Möller–Trumbore of rays (M, 1, 3) against leaf triangles
     (M, block, 9), term for term as the kernel's leaf loop; with
     ``det_sign`` (M, 1) the front test is det * det_sign > 0.
-    Returns (front & barycentric window, t, u, v), each (M, block)."""
+    Returns (front & barycentric window, t, u, v), each (M, block).
+    ``exits``, a dict, counts the triangles at which the kernels'
+    early-exit test (traverse.cuh mt, EARLY) stops: at the back face
+    (``tri_back``), at u (``tri_u``), at v (``tri_v``)."""
     v0x, v0y, v0z = tri9[..., 0], tri9[..., 1], tri9[..., 2]
     e1x, e1y, e1z = tri9[..., 3], tri9[..., 4], tri9[..., 5]
     e2x, e2y, e2z = tri9[..., 6], tri9[..., 7], tri9[..., 8]
@@ -324,6 +330,11 @@ def _leaf_mt(tri9, o, d, det_sign=None):
     v = (dx * qx + dy * qy + dz * qz) * inv_det
     t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
     ok = front & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > TMIN)
+    if exits is not None:
+        u_ok = front & (u >= 0.0) & (u <= 1.0)
+        exits["tri_back"] += int((~front).sum())
+        exits["tri_u"] += int((front & ~u_ok).sum())
+        exits["tri_v"] += int((u_ok & ~((v >= 0.0) & (u + v <= 1.0))).sum())
     return ok, t, u, v
 
 
@@ -379,17 +390,19 @@ def _coef_rays(inst_inv, inst_feat, mb_bits: int, leaf, o, d):
 def _traverse_plain(box, link, leaves, origin, direction, t_lane,
                     any_hit: bool, near_leaves: bool, inst_inv=None,
                     mb_bits: int = 0, leaf_visits=None, stats=None,
-                    inst_feat=None, sortnet=None):
+                    inst_feat=None, sortnet=None, slot_order: bool = False):
     """Per-ray stack traversal with tensor ops over a width-W table
     (W = box.shape[1]): every live ray advances one node per iteration.
     ``near_leaves`` orders a row's leaf children by entry distance (the
     pair kernels) instead of by slot (the n-ary kernels); ``sortnet``
     orders internal children by that comparator network instead of a
-    stable sort.  ``leaves`` with 40 columns is a coefficient table
-    (the coefficient leaf test; ``inst_feat`` on two-level scenes).
-    ``stats``, a dict, accumulates node visits (row loads) and
-    leaf-block visits.  Returns (t, tri, u, v) for closest hit or a bool
-    tensor for any hit."""
+    stable sort; ``slot_order`` (an any hit) visits them in slot order
+    and culls no popped node (the quad any-hit kernel).  ``leaves``
+    with 40 columns is a coefficient table (the coefficient leaf test;
+    ``inst_feat`` on two-level scenes).  ``stats``, a dict, accumulates
+    node visits (row loads), leaf-block visits and (exact leaves)
+    _leaf_mt's early exits.  Returns (t, tri, u, v) for closest hit or
+    a bool tensor for any hit."""
     dev = origin.device
     n = origin.shape[0]
     width = box.shape[1]
@@ -411,9 +424,11 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
     cur = torch.where(t_lane >= 0, 0, -1).to(torch.int64)
     cur_tn = torch.full((n,), float("-inf"), dtype=torch.float32, device=dev)
     big = torch.full((), BIG, dtype=torch.float32, device=dev)
+    slots = torch.arange(width, dtype=torch.float32, device=dev)
     if stats is not None:
-        stats.setdefault("node_visits", 0)
-        stats.setdefault("leaf_visits", 0)
+        for key in ("node_visits", "leaf_visits", "tri_back", "tri_u",
+                    "tri_v"):
+            stats.setdefault(key, 0)
 
     while True:
         idx = torch.nonzero(cur >= 0).squeeze(1)
@@ -422,7 +437,8 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
         c = cur[idx]
         tl = t_lane[idx]
         t_lim = tl if any_hit else torch.minimum(t_best[idx], tl)
-        visit = cur_tn[idx] <= t_lim
+        visit = (torch.ones_like(tl, dtype=torch.bool) if slot_order
+                 else cur_tn[idx] <= t_lim)
         if stats is not None:
             stats["node_visits"] += int(visit.sum())
 
@@ -484,7 +500,7 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
                                                   det_sign)
             else:
                 ok, t, u, v = _leaf_mt(leaves[row], o_r[:, None, :],
-                                       d_r[:, None, :], det_sign)
+                                       d_r[:, None, :], det_sign, stats)
             lim = tl_r if any_hit else torch.minimum(t_best[rays], tl_r)
             acc = ok & (t < lim[:, None])
             found = acc.any(dim=1)
@@ -501,7 +517,8 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
             v_best[rs] = v[sel, ks]
             tri_best[rs] = (leaf[sel] * block + ks).to(torch.int32)
 
-        keys = torch.where(slot_hit & (lk >= 0), tn, big)
+        keys = torch.where(slot_hit & (lk >= 0), slots if slot_order else tn,
+                           big)
         skeys, child = _sort_children(keys, lk, sortnet)
         child = child.to(torch.int64)
         live = skeys < BIG
@@ -542,10 +559,12 @@ def quad_closest_hit_plain(quad_box, quad_link, leaves, origin, direction,
 
 def quad_any_hit_plain(quad_box, quad_link, leaves, origin, direction,
                        t_lane, leaf_visits=None, stats=None) -> torch.Tensor:
-    """Plain version of the quad any-hit kernel (any device): (N,) bool."""
+    """Plain version of the quad any-hit kernel (any device): (N,) bool.
+    Hit internal children are visited in slot order, as the kernel does:
+    the bit does not depend on the order."""
     return _traverse_plain(quad_box, quad_link, leaves, origin, direction,
                            t_lane, True, False, leaf_visits=leaf_visits,
-                           stats=stats)
+                           stats=stats, slot_order=True)
 
 
 def oct_closest_hit_plain(oct_box, oct_link, leaves, origin, direction,
