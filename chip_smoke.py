@@ -17,11 +17,10 @@ before the result line):
    primary and 65,536 bounce rays, and both kernels timed at the
    headline frame's shapes (2,073,600 primaries; the sorted last-bounce
    launch), t, tri, u, v and the any-hit bit bitwise; the statistics
-   build of both quad kernels at the same shapes, the simple design
-   and the tuned one (SIMT efficiency of node steps and leaf entries, node-step
-   rounds per warp against steps per ray, stack depth), its outputs
-   bitwise the plain versions'; the flat variant of the pair kernels on
-   the columns rays, bitwise;
+   build of both quad kernels at the same shapes (SIMT efficiency of
+   node steps and leaf entries, node-step rounds per warp against steps
+   per ray, stack depth), its outputs bitwise the plain versions'; the
+   flat variant of the pair kernels on the columns rays, bitwise;
 4. flat main path — the headline frame (atrium, 1920x1080, 1 spp, 2
    bounces, leaf 28) through the same loader and pipeline as
    ``python -m vulkan_pathtracer_tpu_torch``: 1 warm-up + 4 timed frames
@@ -200,9 +199,7 @@ def main() -> int:
     os.makedirs(WORK, exist_ok=True)
     t_start = time.perf_counter()
 
-    from vulkan_pathtracer_tpu_torch.models.device_scene import (
-        native_library_loaded,
-    )
+    from vulkan_pathtracer_tpu_torch.ops.native import get_lib
 
     # -- 1. device ---------------------------------------------------------
     dev = torch.device(DEVICE)
@@ -219,7 +216,7 @@ def main() -> int:
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda)
     check(cap == (9, 0), f"expected compute capability (9, 0), got {cap}")
-    check(native_library_loaded(), "native SAH library (native/) not loaded")
+    get_lib()  # the native SAH build (native/); raises if it fails
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -668,24 +665,22 @@ def main() -> int:
                 tables, n_prim, 1, scene, any_err)
     phase("timing", kernel="quad_any_hit", live=live1)
 
-    # The statistics build of both quad kernels at the same shapes: the
-    # simple design and the tuned one (outside the counted main paths).
+    # The statistics build of both quad kernels at the same shapes
+    # (outside the counted main paths).
     ref_c = st.quad_closest_hit_plain(*targs)
     ref_a = st.quad_any_hit_plain(*aargs)
-    for design in kernels.STACK_DESIGNS:
-        for key, args, ref in (("quad_closest_hit", targs, ref_c),
-                               ("quad_any_hit", aargs, ref_a)):
-            out, counters = kernels.quad_stats(design, key == "quad_any_hit",
-                                               *args)
-            sync()
-            same = (torch.equal(out, ref) if key == "quad_any_hit" else
-                    all(torch.equal(a, b) for a, b in zip(out, ref)))
-            check(same, f"{key} statistics build ({design}) != plain version")
-            summary = kernels.summarize_stack_stats(counters)
-            results[key].setdefault("stats", {})[design] = summary
-            phase("stats", kernel=key, design=design, **{
-                k: f"{v:.4f}" if isinstance(v, float) else v
-                for k, v in summary.items()})
+    for key, args, ref in (("quad_closest_hit", targs, ref_c),
+                           ("quad_any_hit", aargs, ref_a)):
+        out, counters = kernels.quad_stats(key == "quad_any_hit", *args)
+        sync()
+        same = (torch.equal(out, ref) if key == "quad_any_hit" else
+                all(torch.equal(a, b) for a, b in zip(out, ref)))
+        check(same, f"{key} statistics build != plain version")
+        summary = kernels.summarize_stack_stats(counters)
+        results[key]["stats"] = summary
+        phase("stats", kernel=key, **{
+            k: f"{v:.4f}" if isinstance(v, float) else v
+            for k, v in summary.items()})
     del o, d, o1, d1, a1, targs, aargs, ref_c, ref_a
     phase("phase", name="atrium flat kernels",
           seconds=f"{time.perf_counter() - t0:.1f}")

@@ -274,9 +274,8 @@ def test_quad_kernels_ragged_inactive_and_relaunched(cuda, scene_paths, n):
     assert (ref.t[~active] == MISS_T).all()
 
 
-@pytest.mark.parametrize("design", list(kernels.STACK_DESIGNS))
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_quad_statistics_build(cuda, scene_paths, design, any_hit):
+def test_quad_statistics_build(cuda, scene_paths, any_hit):
     """The statistics build: the plain versions' outputs, one traced ray
     per active lane, a histogram of every ray's deepest stack."""
     scene = build_device_scene(gltf.load(scene_paths["columns"]),
@@ -284,7 +283,7 @@ def test_quad_statistics_build(cuda, scene_paths, design, any_hit):
     o, d, active = _rays(3000, seed=8, device=cuda)
     t_lane = st.lane_limits(3000, active, cuda)
     args = (scene.quad_box, scene.quad_link, scene.leaves, o, d, t_lane)
-    out, counters = kernels.quad_stats(design, any_hit, *args)
+    out, counters = kernels.quad_stats(any_hit, *args)
     if any_hit:
         assert torch.equal(out, st.quad_any_hit_plain(*args))
     else:

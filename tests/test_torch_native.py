@@ -111,12 +111,11 @@ def test_bake_without_library_raises(monkeypatch):
         raise RuntimeError("native build failed (test)")
 
     monkeypatch.setattr(native, "get_lib", broken)
-    monkeypatch.setattr(device_scene, "get_lib", broken)
     v0, e1, e2 = _triangles(64)
     with pytest.raises(RuntimeError, match="native build failed"):
         build_bvh_host(v0, e1, e2, max_leaf_size=4)
     with pytest.raises(RuntimeError, match="native build failed"):
-        device_scene.native_library_loaded()
+        device_scene.transform_dirs_native(v0, np.eye(3))
     # The NumPy LBVH stays, asked for by name.
     assert build_bvh_host(v0, e1, e2, max_leaf_size=4,
                           use_native=False).node_count > 0

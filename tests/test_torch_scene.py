@@ -8,6 +8,8 @@ equal the port's own bake, including the quad-table re-layout (JAX
 NaN-box empty slots -> EMPTY links).  Tolerance: none.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -19,9 +21,9 @@ from vulkan_pathtracer_tpu.models.device_scene import (
 from vulkan_pathtracer_tpu_torch.models import gltf as tgltf
 from vulkan_pathtracer_tpu_torch.models.device_scene import (
     build_device_scene,
-    native_library_loaded,
     scene_from_jax_arrays,
 )
+from vulkan_pathtracer_tpu_torch.ops import native
 from vulkan_pathtracer_tpu_torch.ops.stack_traverse import EMPTY
 
 from tests.native_guard import native_libraries  # noqa: F401
@@ -58,8 +60,8 @@ def assert_scenes_equal(a, b):
 
 
 def test_native_sah_library_loaded():
-    # Without it ops/bvh.py silently builds a NumPy LBVH (another tree).
-    assert native_library_loaded()
+    # The SAH build the bakes call (a failed build or load raises).
+    assert native.get_lib().sah_build.restype is ctypes.c_int64
 
 
 def test_loader_matches(columns_glb):

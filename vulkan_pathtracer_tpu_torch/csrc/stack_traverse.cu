@@ -15,8 +15,9 @@
 // float operations in the same order (traverse.cuh: -fmad=false).
 //
 // What bounded the first, simple design of these kernels on this card
-// (SimpleDesign in stack_walk.cuh; chip_smoke.py runs it and the tuned
-// one through the statistics build) was not the stack, which stays
+// (a thread per ray over a grid of the rays, near-first any hit, each
+// node's leaves tested at once; measured with the statistics build
+// below, PERF.md section 6) was not the stack, which stays
 // shallow (4 entries on average, deepest 10 on the primaries and 15 on
 // bounce 1 of 288), nor HBM (the atrium's tables, about 10 MB, sit in
 // the 50 MB L2), but idle lanes.  On the
@@ -26,7 +27,7 @@
 // waited, and a warp ran 1.6x the node steps of its average ray.
 //
 // What the design does about it (stack_walk.cuh; each choice measured
-// by app/stack_lab.py at the headline's shapes, PERF.md section 6):
+// at the headline's shapes, PERF.md section 6):
 //   - postponed leaves (Aila and Laine, "Understanding the Efficiency
 //     of Ray Traversal on GPUs", HPG 2009, while-while): lanes step
 //     through nodes until every unfinished lane holds the leaf children
@@ -66,20 +67,20 @@
 
 namespace {
 
-// Design<sort (any hit), postpone, shared window, persistent, min blocks
-// per SM, refill, early-exit triangle test>.
-using QuadClosestDesign = Design<true, true, 0, true, 6, false, true>;
-using QuadAnyDesign = Design<false, true, 0, true, 8, true, false>;
-using OctDesign = Design<true, false, 0, false, 1, false, true>;
-using CoefClosestDesign = Design<true, true, 0, true, 1>;
-using CoefAnyDesign = Design<false, true, 0, true, 1, true>;
+// Design<sort (any hit), postpone, persistent, min blocks per SM,
+// refill, early-exit triangle test>.
+using QuadClosestDesign = Design<true, true, true, 6, false, true>;
+using QuadAnyDesign = Design<false, true, true, 8, true, false>;
+using OctDesign = Design<true, false, false, 1, false, true>;
+using CoefClosestDesign = Design<true, true, true, 1>;
+using CoefAnyDesign = Design<false, true, true, 1, true>;
 
 }  // namespace
 
 // C launchers: pointers, sizes and the stream in; cudaGetLastError()
 // out (0 = the launch was accepted).  coef != 0: `leaves` is the
-// (n_leaves, block, 40) coefficient table.  `batches`: one zeroed
-// unsigned counter for the persistent warps.
+// (n_leaves, block, 40) coefficient table.  `batches`: one unsigned
+// counter for the persistent warps, zeroed by the launcher on `stream`.
 extern "C" int vkpt_quad_closest_hit(const float* box, const int* link,
                                      const float* leaves, int block, int coef,
                                      const float* origin,
@@ -119,31 +120,20 @@ extern "C" int vkpt_quad_any_hit(const float* box, const int* link,
       nullptr, nullptr, nullptr, hit_out, batches, nullptr, stream);
 }
 
-// The statistics build of the quad kernels (exact leaves): design 0 is
-// the simple design, 1 the tuned one; `st` holds kStCount zeroed
-// counters.  The hit outputs are those of the production kernels.
-extern "C" int vkpt_quad_stats(int design, int any, const float* box,
-                               const int* link, const float* leaves,
-                               int block, const float* origin,
-                               const float* direction, const float* t_lane,
-                               int64_t n, float* t_out, int* tri_out,
-                               float* u_out, float* v_out, uint8_t* hit_out,
-                               unsigned* batches, unsigned long long* st,
-                               void* stream) {
-  using Fn = int (*)(const float*, const int*, const float*, int,
-                     const float*, const float*, const float*, int64_t,
-                     float*, int*, float*, float*, uint8_t*, unsigned*,
-                     unsigned long long*, void*);
-  const Fn table[2][2] = {
-      {launch<4, false, false, SimpleDesign, true>,
-       launch<4, true, false, SimpleDesign, true>},
-      {launch<4, false, false, QuadClosestDesign, true>,
-       launch<4, true, false, QuadAnyDesign, true>}};
-  if (design < 0 || design > 1) return (int)cudaErrorInvalidValue;
-  return table[design][any ? 1 : 0](box, link, leaves, block, origin,
-                                    direction, t_lane, n, t_out, tri_out,
-                                    u_out, v_out, hit_out, batches, st,
-                                    stream);
+// The statistics build of the quad kernels (exact leaves, the designs
+// above); `st` holds kStCount zeroed counters.  The hit outputs are
+// those of the production kernels.
+extern "C" int vkpt_quad_stats(int any, const float* box, const int* link,
+                               const float* leaves, int block,
+                               const float* origin, const float* direction,
+                               const float* t_lane, int64_t n, float* t_out,
+                               int* tri_out, float* u_out, float* v_out,
+                               uint8_t* hit_out, unsigned* batches,
+                               unsigned long long* st, void* stream) {
+  return (any ? launch<4, true, false, QuadAnyDesign, true>
+              : launch<4, false, false, QuadClosestDesign, true>)(
+      box, link, leaves, block, origin, direction, t_lane, n, t_out, tri_out,
+      u_out, v_out, hit_out, batches, st, stream);
 }
 
 extern "C" int vkpt_quad_stats_count() { return kStCount; }

@@ -1,8 +1,7 @@
 // The stack walk of the quad and oct kernels (stack_traverse.cu) as
 // compile-time design choices (Design): the kernel template, its
 // launcher and the statistics build's counters.  The choices and what
-// each does about this card are described in stack_traverse.cu;
-// csrc/lab/ instantiates more of them for app/stack_lab.py.
+// each does about this card are described in stack_traverse.cu.
 
 #pragma once
 
@@ -20,32 +19,22 @@ constexpr unsigned kFull = 0xffffffffu;
 //             the closest hit always does;
 //   POSTPONE  while-while: node steps until every unfinished lane holds
 //             leaf children, then the warp's leaf tests together;
-//   WIN       the bottom WIN stack entries in dynamic shared memory;
 //   PERSIST   a grid that fills the SMs, warps taking 32-ray batches
 //             from a counter;
 //   MINB      __launch_bounds__ minimum blocks per SM (a register cap);
-//   REFILL    a lane whose ray is done takes the next one at once (from
-//             the counter, or CHUNK > 0: from a chunk of CHUNK
-//             consecutive rays its warp owns);
-//   EARLY     the triangle test returns at its first failed condition;
-//   PREFETCH  the leaf loop loads the next four triangles ahead.
-template <bool SORT, bool POSTPONE, int WIN, bool PERSIST, int MINB,
-          bool REFILL = false, bool EARLY = false, int CHUNK = 0,
-          bool PREFETCH = false>
+//   REFILL    a lane whose ray is done takes the next one from the
+//             counter at once;
+//   EARLY     the triangle test returns at its first failed condition.
+template <bool SORT, bool POSTPONE, bool PERSIST, int MINB,
+          bool REFILL = false, bool EARLY = false>
 struct Design {
   static constexpr bool kSort = SORT;  // any hit only; the closest hit sorts
   static constexpr bool kPostpone = POSTPONE;
-  static constexpr int kWin = WIN;
   static constexpr bool kPersist = PERSIST || REFILL;
   static constexpr int kMinBlocks = MINB;
   static constexpr bool kRefill = REFILL;  // implies PERSIST and POSTPONE
   static constexpr bool kEarly = EARLY;    // traverse.cuh mt<..., EARLY>
-  static constexpr int kChunk = CHUNK;     // refill from warp-owned chunks
-  static constexpr bool kPrefetch = PREFETCH;  // traverse.cuh leaf_block
 };
-// The first design: a thread per ray over a grid of the rays, near-first
-// any hit, each node's leaves tested at once.
-using SimpleDesign = Design<true, false, 0, false, 1>;
 
 // Statistics build (STATS): counters of one launch, in this order
 // (mirrored in ops/kernels.STACK_STATS).
@@ -71,9 +60,8 @@ __device__ __forceinline__ void count_active(unsigned long long* st,
   }
 }
 
-// One ray's walk state: the stack (WIN entries in this thread's column
-// of shared memory, the rest in the kernel's local arrays), the current
-// node and the leaf children of the last node visited.  The arrays stay
+// One ray's walk state: the stack (in the kernel's local arrays), the
+// current node and the leaf children of the last node visited.  The arrays stay
 // outside the struct: an array indexed at run time inside it would put
 // every member in local memory.
 template <int W, bool ANY, bool COEF, class D, bool STATS>
@@ -82,16 +70,11 @@ struct Walk {
   // Per-ray stack entries: at most W - 1 pushes per collapsed level
   // (ops/stack_traverse.STACK_SLOTS; the bakes refuse deeper trees).
   static constexpr int kStack = W == 4 ? 288 : 224;
-  static constexpr int kWin = D::kWin;
-  static constexpr int kLocal = kStack - kWin;
-  static constexpr size_t kSmemPerThread = kWin * (kSort ? 8 : 4);
 
   const float* __restrict__ box;
   const int* __restrict__ link;
   const float* __restrict__ leaves;
   int block;
-  int* win_node;  // entry k at win_node[k * kThreads]
-  float* win_tn;
   int* stack;
   float* stack_tn;
   int sp, cur, deepest;
@@ -100,26 +83,16 @@ struct Walk {
   unsigned long long* st;  // STATS: the launch's counters
 
   __device__ __forceinline__ void push(int node, float tn) {
-    if (sp < kWin) {
-      win_node[sp * kThreads] = node;
-      if (kSort) win_tn[sp * kThreads] = tn;
-    } else {
-      stack[sp - kWin] = node;
-      if (kSort) stack_tn[sp - kWin] = tn;
-    }
+    stack[sp] = node;
+    if (kSort) stack_tn[sp] = tn;
     ++sp;
     if (STATS) deepest = max(deepest, sp);
   }
 
   __device__ __forceinline__ void pop(int& node, float& tn) {
     --sp;
-    if (sp < kWin) {
-      node = win_node[sp * kThreads];
-      tn = kSort ? win_tn[sp * kThreads] : 0.0f;
-    } else {
-      node = stack[sp - kWin];
-      tn = kSort ? stack_tn[sp - kWin] : 0.0f;
-    }
+    node = stack[sp];
+    tn = kSort ? stack_tn[sp] : 0.0f;
   }
 
   __device__ __forceinline__ void start(bool active) {
@@ -191,7 +164,7 @@ struct Walk {
 #pragma unroll
         for (int s = 0; s < W; ++s) {
           if (hit[s] && lk[s] < 0) {
-            visit_leaf<ANY, false, COEF, D::kEarly, D::kPrefetch>(
+            visit_leaf<ANY, false, COEF, D::kEarly>(
                 r, leaves, block, nullptr, 0, -lk[s] - 1, b);
             if (ANY && b.any) return true;
           }
@@ -251,7 +224,7 @@ struct Walk {
 #pragma unroll
     for (int s = 0; s < W; ++s) {
       if (pend[s] >= 0) {
-        visit_leaf<ANY, false, COEF, D::kEarly, D::kPrefetch>(
+        visit_leaf<ANY, false, COEF, D::kEarly>(
             r, leaves, block, nullptr, 0, pend[s], b);
         pend[s] = -1;
         if (ANY && b.any) return true;
@@ -324,16 +297,14 @@ __device__ __forceinline__ void store_hit(int64_t i, const Best& b,
 // postponed loop of trace(), where every lane whose ray is done stores
 // it and takes the next ray from `batches` before the warp's next node
 // phase, so lanes are not left idle behind the warp's longest ray.  The
-// rays taken together are consecutive in the caller's order: from the
-// global counter (CHUNK = 0) or from the warp's own chunk.
-template <class Wk, bool ANY, int CHUNK, bool STATS>
+// rays taken together are consecutive in the caller's order.
+template <class Wk, bool ANY, bool STATS>
 __device__ __forceinline__ void refill_loop(
     Wk& w, const float* origin, const float* direction, const float* t_lane,
     int64_t n, float* t_out, int* tri_out, float* u_out, float* v_out,
     uint8_t* hit_out, unsigned* batches, unsigned long long* st) {
   const unsigned lane = threadIdx.x & 31;
   int64_t i = -1;  // this lane's ray; -1: none yet or stored
-  int64_t next = 0, end = 0;  // CHUNK: the rest of the warp's chunk
   bool done = true, retired = false;
   Ray r;
   Best b{kMissT, 0.0f, 0.0f, -1, false};
@@ -352,24 +323,9 @@ __device__ __forceinline__ void refill_loop(
     if (need) {
       const int k = __popc(need);
       const int rank = __popc(need & ((1u << lane) - 1u));
-      if (CHUNK > 0) {
-        // The first rem lanes take the rest of the warp's chunk, the
-        // others the start of a new one.
-        const int64_t rem = end - next;
-        int64_t fresh = 0;
-        if (rem < k) fresh = next_batch(batches, (unsigned)CHUNK);
-        if (want) i = rank < rem ? next + rank : fresh + (rank - rem);
-        if (rem < k) {
-          next = fresh + (k - rem);
-          end = fresh + CHUNK;
-        } else {
-          next += k;
-        }
-      } else {
-        const int64_t base = next_batch(batches, (unsigned)k);
-        if (want) i = base + rank;
-      }
+      const int64_t base = next_batch(batches, (unsigned)k);
       if (want) {
+        i = base + rank;
         if (i < n) {
           r = load_ray(origin, direction, t_lane, i);
           b = Best{kMissT, 0.0f, 0.0f, -1, false};
@@ -413,23 +369,19 @@ stack_kernel(const float* __restrict__ box, const int* __restrict__ link,
              uint8_t* __restrict__ hit_out, unsigned* batches,
              unsigned long long* st) {
   using Wk = Walk<W, ANY, COEF, D, STATS>;
-  extern __shared__ float window[];
   Wk w;
-  int stack[Wk::kLocal];
-  float stack_tn[Wk::kSort ? Wk::kLocal : 1];
+  int stack[Wk::kStack];
+  float stack_tn[Wk::kSort ? Wk::kStack : 1];
   w.stack = stack;
   w.stack_tn = stack_tn;
   w.box = box;
   w.link = link;
   w.leaves = leaves;
   w.block = block;
-  w.win_node = reinterpret_cast<int*>(window) + threadIdx.x;
-  w.win_tn = window + Wk::kWin * kThreads + threadIdx.x;
   w.st = st;
   if constexpr (D::kRefill) {
-    refill_loop<Wk, ANY, D::kChunk, STATS>(w, origin, direction, t_lane, n,
-                                           t_out, tri_out, u_out, v_out,
-                                           hit_out, batches, st);
+    refill_loop<Wk, ANY, STATS>(w, origin, direction, t_lane, n, t_out,
+                                tri_out, u_out, v_out, hit_out, batches, st);
     return;
   }
   int64_t base = D::kPersist
@@ -461,6 +413,27 @@ stack_kernel(const float* __restrict__ box, const int* __restrict__ link,
   }
 }
 
+// Blocks of `kernel` that the device's SMs hold at once: read once per
+// device and instantiation (a persistent grid).
+template <class K>
+int64_t resident_blocks(K kernel) {
+  constexpr int kMaxDevices = 64;
+  static int64_t blocks[kMaxDevices] = {};  // 0: not read yet
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices) dev = kMaxDevices - 1;
+  if (blocks[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                  0);
+    blocks[dev] = (int64_t)std::max(sms, 1) * std::max(per_sm, 1);
+  }
+  return blocks[dev];
+}
+
+// `batches`: the persistent warps' counter, zeroed here on `stream`
+// before the launch.
 template <int W, bool ANY, bool COEF, class D, bool STATS = false>
 int launch(const float* box, const int* link, const float* leaves,
            int block, const float* origin, const float* direction,
@@ -469,21 +442,15 @@ int launch(const float* box, const int* link, const float* leaves,
            unsigned long long* st, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const auto kernel = stack_kernel<W, ANY, COEF, D, STATS>;
-  const size_t smem = Walk<W, ANY, COEF, D, STATS>::kSmemPerThread * kThreads;
   int64_t grid = (n + kThreads - 1) / kThreads;
   if (D::kPersist) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                  smem);
-    grid = std::min<int64_t>(grid, (int64_t)sms * std::max(per_sm, 1));
+    grid = std::min(grid, resident_blocks(kernel));
+    cudaMemsetAsync(batches, 0, sizeof(unsigned), (cudaStream_t)stream);
   }
-  kernel<<<(unsigned)grid, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
       box, link, leaves, block, origin, direction, t_lane, n, t_out, tri_out,
       u_out, v_out, hit_out, batches, st);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
-

@@ -85,9 +85,7 @@ struct Best {
 // id leaf * block + k (leaf = row for flat tables, the packed
 // instance | block value for instanced ones).  The limit tightens as
 // hits are accepted (strict <: the first of equal-t triangles wins).
-// PREFETCH loads the next group of four triangles before testing this
-// one.
-template <bool ANY, bool SIGNED, bool EARLY = false, bool PREFETCH = false>
+template <bool ANY, bool SIGNED, bool EARLY = false>
 __device__ __forceinline__ void leaf_block(const Ray& r,
                                            const float* __restrict__ leaves,
                                            int row, int leaf, int block,
@@ -97,24 +95,15 @@ __device__ __forceinline__ void leaf_block(const Ray& r,
   if ((block & 3) == 0) {
     // Four triangles are 36 floats = nine float4 loads.
     const float4* p = reinterpret_cast<const float4*>(base);
-    float4 ahead[9];
-    if (PREFETCH) {
-#pragma unroll
-      for (int q = 0; q < 9; ++q) ahead[q] = __ldg(p + q);
-    }
     for (int g = 0; g < block / 4; ++g) {
       float w[36];
 #pragma unroll
       for (int q = 0; q < 9; ++q) {
-        const float4 f = PREFETCH ? ahead[q] : __ldg(p + g * 9 + q);
+        const float4 f = __ldg(p + g * 9 + q);
         w[4 * q + 0] = f.x;
         w[4 * q + 1] = f.y;
         w[4 * q + 2] = f.z;
         w[4 * q + 3] = f.w;
-      }
-      if (PREFETCH && g + 1 < block / 4) {
-#pragma unroll
-        for (int q = 0; q < 9; ++q) ahead[q] = __ldg(p + (g + 1) * 9 + q);
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -285,8 +274,7 @@ __device__ __forceinline__ void coef_leaf(const Ray& r,
 // pallas_traverse.py:219-227, the same order of operations) and det_sign.
 // COEF: the coefficient leaf test instead (coef_leaf; `leaves` is then
 // the (n_leaves, block, 40) coefficient table).
-template <bool ANY, bool INST, bool COEF = false, bool EARLY = false,
-          bool PREFETCH = false>
+template <bool ANY, bool INST, bool COEF = false, bool EARLY = false>
 __device__ __forceinline__ void visit_leaf(const Ray& r,
                                            const float* __restrict__ leaves,
                                            int block,
@@ -300,8 +288,7 @@ __device__ __forceinline__ void visit_leaf(const Ray& r,
     return;
   }
   if (!INST) {
-    leaf_block<ANY, false, EARLY, PREFETCH>(r, leaves, leaf, leaf, block,
-                                            1.0f, b);
+    leaf_block<ANY, false, EARLY>(r, leaves, leaf, leaf, block, 1.0f, b);
     return;
   }
   const int inst = leaf >> mb_bits;
@@ -323,8 +310,7 @@ __device__ __forceinline__ void visit_leaf(const Ray& r,
   o.dx = m[0] * r.dx + m[1] * r.dy + m[2] * r.dz;
   o.dy = m[3] * r.dx + m[4] * r.dy + m[5] * r.dz;
   o.dz = m[6] * r.dx + m[7] * r.dy + m[8] * r.dz;
-  leaf_block<ANY, true, EARLY, PREFETCH>(o, leaves, row, leaf, block, m[12],
-                                         b);
+  leaf_block<ANY, true, EARLY>(o, leaves, row, leaf, block, m[12], b);
 }
 
 // Slab test of one child box (lo.xyz, hi.xyz) against t_lim

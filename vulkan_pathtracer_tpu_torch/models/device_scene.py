@@ -76,7 +76,6 @@ from vulkan_pathtracer_tpu_torch.ops.mxu_mt import (
 )
 from vulkan_pathtracer_tpu_torch.ops.native import (
     bake_triangles_native,
-    get_lib,
     transform_dirs_native,
 )
 from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
@@ -89,13 +88,6 @@ from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
 from vulkan_pathtracer_tpu_torch.utils.config import FRONTIER_WIDTH
 
 PAD = 128
-
-
-def native_library_loaded() -> bool:
-    """Whether the native host library (SAH BVH build, triangle bake) is
-    loaded; it is built at first call, and a failed build or load
-    raises with its message."""
-    return get_lib() is not None
 
 
 @dataclass

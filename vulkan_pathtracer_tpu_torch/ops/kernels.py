@@ -53,29 +53,25 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
-def build(units=None, name: str = "libvkpt_torch_kernels",
-          info: dict = BUILD_INFO) -> str:
-    """Compile the translation units ``units`` (default: csrc/*.cu)
-    into the hashed build directory (unless already built) and return
-    the library path.  The hash covers every source under csrc/, so a
-    unit that includes another is rebuilt when either changes."""
-    units = units or [s for s in _sources() if s.endswith(".cu")]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS + [name]).encode())
-    for path in sorted(glob.glob(os.path.join(_CSRC, "**", "*.cu*"),
-                                 recursive=True)):
+def build() -> str:
+    """Compile csrc/ into the hashed build directory (unless already
+    built) and return the library path."""
+    sources = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
         with open(path, "rb") as f:
-            digest.update(os.path.relpath(path, _CSRC).encode() + f.read())
+            digest.update(os.path.basename(path).encode() + f.read())
     out_dir = os.path.join(BUILD_DIR, digest.hexdigest()[:16])
-    lib_path = os.path.join(out_dir, f"{name}.so")
+    lib_path = os.path.join(out_dir, "libvkpt_torch_kernels.so")
     if os.path.exists(lib_path):
-        info.update(seconds=0.0, log="(cached build)", path=lib_path)
+        BUILD_INFO.update(seconds=0.0, log="(cached build)", path=lib_path)
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []
-    for src in units:
+    for src in (s for s in sources if s.endswith(".cu")):
         obj = os.path.join(out_dir, os.path.basename(src) + f".{tag}.o")
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
         jobs.append((cmd, obj, subprocess.Popen(
@@ -96,7 +92,8 @@ def build(units=None, name: str = "libvkpt_torch_kernels",
     os.replace(tmp, lib_path)
     for _, obj, _ in jobs:
         os.remove(obj)
-    info.update(seconds=time.perf_counter() - t0, log=log, path=lib_path)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log,
+                      path=lib_path)
     return lib_path
 
 
@@ -118,7 +115,7 @@ def lib() -> ctypes.CDLL:
             p, p, p, i, i, p, p, p, i64, p, p, p]
         handle.vkpt_quad_stats.restype = ctypes.c_int
         handle.vkpt_quad_stats.argtypes = [
-            i, i, p, p, p, i, p, p, p, i64, p, p, p, p, p, p, p, p]
+            i, p, p, p, i, p, p, p, i64, p, p, p, p, p, p, p, p]
         handle.vkpt_quad_stats_count.restype = ctypes.c_int
         handle.vkpt_quad_stats_count.argtypes = []
         handle.vkpt_pair_closest_hit.restype = ctypes.c_int
@@ -248,12 +245,19 @@ def _raise_on(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+_BATCHES = {}  # device -> the stack kernels' batch counter
+
+
 def _batches(n: int, device) -> torch.Tensor:
-    """The zeroed counter from which the persistent warps of the stack
-    kernels take their 32-ray batches (one per launch)."""
+    """The counter from which the persistent warps of the stack kernels
+    take their 32-ray batches: one per device, zeroed by the launcher on
+    the launch's stream before each launch (so launches of one device
+    share it in stream order)."""
     if n > 2 ** 31 - 64:
         raise ValueError(f"{n} rays: the stack kernels take fewer than 2^31")
-    return torch.zeros(1, dtype=torch.int32, device=device)
+    if device not in _BATCHES:
+        _BATCHES[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _BATCHES[device]
 
 
 def quad_closest_hit(box, link, leaves, origin, direction, t_lane):
@@ -303,16 +307,12 @@ def quad_any_hit(box, link, leaves, origin, direction, t_lane):
 # (0..63 entries, 64 or more).
 STACK_STATS = ("node_warps", "node_lanes", "leaf_warps", "leaf_lanes",
                "rays", "warps", "batch_rounds", "deepest")
-STACK_DESIGNS = {"simple": 0, "tuned": 1}
 
 
-def quad_stats(design: str, any_hit: bool, box, link, leaves, origin,
-               direction, t_lane):
-    """Run the statistics build of a quad kernel (``design`` "simple",
-    the first design of the walk, or "tuned", the kernels' own; exact
-    leaves) and return
-    (its hit outputs, the list of counters: STACK_STATS, then the
-    depth histogram)."""
+def quad_stats(any_hit: bool, box, link, leaves, origin, direction, t_lane):
+    """Run the statistics build of a quad kernel (the kernels' own
+    designs, exact leaves) and return (its hit outputs, the list of
+    counters: STACK_STATS, then the depth histogram)."""
     if _check_tables(box, link, leaves, coef_ok=False):
         raise ValueError("the statistics build takes exact leaves")
     _check_rays(origin, direction, t_lane, box.device)
@@ -323,10 +323,10 @@ def quad_stats(design: str, any_hit: bool, box, link, leaves, origin,
     st = torch.zeros(lib().vkpt_quad_stats_count(), dtype=torch.int64,
                      device=dev)
     _raise_on("quad_stats", lib().vkpt_quad_stats(
-        STACK_DESIGNS[design], int(any_hit), box.data_ptr(), link.data_ptr(),
-        leaves.data_ptr(), leaves.shape[1],
-        *_ptrs(origin, direction, t_lane), n, *_ptrs(*out), hit.data_ptr(),
-        _batches(n, dev).data_ptr(), st.data_ptr(), _stream(dev)))
+        int(any_hit), box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
+        leaves.shape[1], *_ptrs(origin, direction, t_lane), n, *_ptrs(*out),
+        hit.data_ptr(), _batches(n, dev).data_ptr(), st.data_ptr(),
+        _stream(dev)))
     return (hit.bool() if any_hit else out), st.cpu().tolist()
 
 
