@@ -15,12 +15,10 @@ instanced) and the wide kernel are held to their plain versions the
 same way, as are the oct kernel, the frontier kernels (width 16 and
 32) and every kernel built with coefficient leaves (``mt="mxu"``: quad,
 pair flat and two-level, with a mirrored instance, and frontier).
-The quad and oct kernels take the scene's record tables and contiguous
-copies alike.  The persistent quad and oct kernels are also launched on
-ray counts that are no multiple of 32, with inactive lanes, twice in a
-row (the batch counter zeroed before each launch), and the quad
-kernels' statistics build is held to the plain versions with its
-counters checked.
+The persistent quad and oct kernels are also launched on ray counts
+that are no multiple of 32, with inactive lanes, twice in a row (a
+fresh batch counter per launch), and the quad kernels' statistics
+build is held to the plain versions with its counters checked.
 """
 
 import numpy as np
@@ -253,10 +251,9 @@ def test_pair_coef_kernels_match_plain(cuda, scene_paths, instanced):
 @pytest.mark.parametrize("n", [1, 33, 1000, 4099])
 def test_quad_kernels_ragged_inactive_and_relaunched(cuda, scene_paths, n):
     """The persistent quad kernels on a ray count that is no multiple of
-    32, with a third of the lanes inactive, launched twice: the launcher
-    zeroes the batch counter before each launch, so the second traces
-    every ray again (a counter left at n would return the outputs
-    unwritten)."""
+    32, with a third of the lanes inactive, launched twice: each launch
+    takes a fresh zeroed batch counter, so the second traces every ray
+    again (a counter left at n would return the outputs unwritten)."""
     scene = build_device_scene(gltf.load(scene_paths["columns"]),
                                max_leaf_size=28, device=cuda)
     o, d, active = _rays(n, seed=n, device=cuda)
@@ -275,37 +272,6 @@ def test_quad_kernels_ragged_inactive_and_relaunched(cuda, scene_paths, n):
         assert torch.equal(occ, ref.t < MISS_T)
     assert not occ[~active].any()
     assert (ref.t[~active] == MISS_T).all()
-
-
-def test_stack_kernels_take_records_and_contiguous_tables(cuda, scene_paths):
-    """The scene's quad and oct tables are views of one record table
-    (row stride 32 / 64 words); the kernels give the same bits on them
-    and on contiguous copies, and refuse rows that are not 16-byte
-    aligned."""
-    scene = build_device_scene(gltf.load(scene_paths["columns"]),
-                               max_leaf_size=14, device=cuda)
-    assert scene.quad_box.stride(0) == 32 and scene.oct_box.stride(0) == 64
-    o, d, active = _rays(2048, seed=31, device=cuda)
-    t_lane = st.lane_limits(2048, active, cuda)
-    rec = (scene.quad_box, scene.quad_link)
-    flat = tuple(x.contiguous() for x in rec)
-    for box, link in (rec, flat):
-        args = (box, link, scene.leaves, o, d, t_lane)
-        _assert_equal(kernels.quad_closest_hit(*args),
-                      st.quad_closest_hit_plain(*rec, *args[2:]))
-        assert torch.equal(kernels.quad_any_hit(*args),
-                           st.quad_any_hit_plain(*rec, *args[2:]))
-    for box, link in ((scene.oct_box, scene.oct_link),
-                      (scene.oct_box.contiguous(),
-                       scene.oct_link.contiguous())):
-        _assert_equal(
-            kernels.oct_closest_hit(box, link, scene.leaves, o, d, t_lane),
-            st.oct_closest_hit_plain(scene.oct_box, scene.oct_link,
-                                     scene.leaves, o, d, t_lane))
-    odd = torch.empty(flat[0].numel() + 1, device=cuda)[1:].view(
-        flat[0].shape)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        kernels.quad_closest_hit(odd, flat[1], scene.leaves, o, d, t_lane)
 
 
 @pytest.mark.parametrize("any_hit", [False, True])

@@ -24,11 +24,7 @@ from vulkan_pathtracer_tpu_torch.models.device_scene import (
     scene_from_jax_arrays,
 )
 from vulkan_pathtracer_tpu_torch.ops import native
-from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
-    EMPTY,
-    RECORD_WORDS,
-    nary_tables_from_jax,
-)
+from vulkan_pathtracer_tpu_torch.ops.stack_traverse import EMPTY
 
 from tests.native_guard import native_libraries  # noqa: F401
 
@@ -118,32 +114,6 @@ def test_quad_tables_layout(columns_glb):
     # Every leaf block is referenced exactly once.
     assert np.array_equal(np.sort(leaf_ids), np.arange(n_leaves))
     assert np.isfinite(box).all()
-
-
-@pytest.mark.parametrize("kind, width", [("quad", 4), ("oct", 8)])
-def test_nary_records_read_back_tables(columns_glb, kind, width):
-    """The quad and oct tables are views of one record table (boxes,
-    links as int32 bits, zero padding; 128 B or 256 B per row): from the
-    port's bake and from JAX's rows, a record reads back the (N, W, 6)
-    boxes and (N, W) links that nary_tables_from_jax gives."""
-    jd = jax_build(jgltf.load(columns_glb), build_bvh=True, max_leaf_size=28)
-    arrays, meta = jax_scene_arrays(jd)
-    want_box, want_link = nary_tables_from_jax(arrays[f"bvh_{kind}"], width)
-    words = RECORD_WORDS[width]
-    for td in (build_device_scene(tgltf.load(columns_glb), max_leaf_size=28,
-                                  device="cpu"),
-               scene_from_jax_arrays(arrays, meta, "cpu")):
-        box, link = getattr(td, f"{kind}_box"), getattr(td, f"{kind}_link")
-        assert box.stride() == (words, 6, 1) and link.stride() == (words, 1)
-        assert link.data_ptr() - box.data_ptr() == 4 * 6 * width
-        rec = torch.as_strided(box, (box.shape[0], words), (words, 1)).numpy()
-        assert np.array_equal(box.numpy(), want_box)
-        assert np.array_equal(link.numpy(), want_link)
-        assert np.array_equal(rec[:, :6 * width].reshape(-1, width, 6),
-                              want_box)
-        assert np.array_equal(
-            rec[:, 6 * width:7 * width].view(np.int32), want_link)
-        assert not rec[:, 7 * width:].any()
 
 
 def test_bake_places_tables_on_device(box_glb):

@@ -78,13 +78,10 @@ using CoefAnyDesign = Design<false, true, true, 1, true>;
 }  // namespace
 
 // C launchers: pointers, sizes and the stream in; cudaGetLastError()
-// out (0 = the launch was accepted).  box_stride / link_stride: the
-// tables' row strides in elements (a record table, or contiguous
-// tables; rows 16-byte aligned).  coef != 0: `leaves` is the
+// out (0 = the launch was accepted).  coef != 0: `leaves` is the
 // (n_leaves, block, 40) coefficient table.  `batches`: one unsigned
 // counter for the persistent warps, zeroed by the launcher on `stream`.
 extern "C" int vkpt_quad_closest_hit(const float* box, const int* link,
-                                     int box_stride, int link_stride,
                                      const float* leaves, int block, int coef,
                                      const float* origin,
                                      const float* direction,
@@ -94,13 +91,11 @@ extern "C" int vkpt_quad_closest_hit(const float* box, const int* link,
                                      void* stream) {
   return (coef ? launch<4, false, true, CoefClosestDesign>
                : launch<4, false, false, QuadClosestDesign>)(
-      box, link, box_stride, link_stride, leaves, block, origin, direction,
-      t_lane, n, t_out, tri_out, u_out, v_out, nullptr, batches, nullptr,
-      stream);
+      box, link, leaves, block, origin, direction, t_lane, n, t_out, tri_out,
+      u_out, v_out, nullptr, batches, nullptr, stream);
 }
 
 extern "C" int vkpt_oct_closest_hit(const float* box, const int* link,
-                                    int box_stride, int link_stride,
                                     const float* leaves, int block,
                                     const float* origin,
                                     const float* direction,
@@ -109,13 +104,11 @@ extern "C" int vkpt_oct_closest_hit(const float* box, const int* link,
                                     float* v_out, unsigned* batches,
                                     void* stream) {
   return launch<8, false, false, OctDesign>(
-      box, link, box_stride, link_stride, leaves, block, origin, direction,
-      t_lane, n, t_out, tri_out, u_out, v_out, nullptr, batches, nullptr,
-      stream);
+      box, link, leaves, block, origin, direction, t_lane, n, t_out, tri_out,
+      u_out, v_out, nullptr, batches, nullptr, stream);
 }
 
 extern "C" int vkpt_quad_any_hit(const float* box, const int* link,
-                                 int box_stride, int link_stride,
                                  const float* leaves, int block, int coef,
                                  const float* origin, const float* direction,
                                  const float* t_lane, int64_t n,
@@ -123,16 +116,14 @@ extern "C" int vkpt_quad_any_hit(const float* box, const int* link,
                                  void* stream) {
   return (coef ? launch<4, true, true, CoefAnyDesign>
                : launch<4, true, false, QuadAnyDesign>)(
-      box, link, box_stride, link_stride, leaves, block, origin, direction,
-      t_lane, n, nullptr, nullptr, nullptr, nullptr, hit_out, batches,
-      nullptr, stream);
+      box, link, leaves, block, origin, direction, t_lane, n, nullptr,
+      nullptr, nullptr, nullptr, hit_out, batches, nullptr, stream);
 }
 
 // The statistics build of the quad kernels (exact leaves, the designs
 // above); `st` holds kStCount zeroed counters.  The hit outputs are
 // those of the production kernels.
 extern "C" int vkpt_quad_stats(int any, const float* box, const int* link,
-                               int box_stride, int link_stride,
                                const float* leaves, int block,
                                const float* origin, const float* direction,
                                const float* t_lane, int64_t n, float* t_out,
@@ -141,8 +132,8 @@ extern "C" int vkpt_quad_stats(int any, const float* box, const int* link,
                                unsigned long long* st, void* stream) {
   return (any ? launch<4, true, false, QuadAnyDesign, true>
               : launch<4, false, false, QuadClosestDesign, true>)(
-      box, link, box_stride, link_stride, leaves, block, origin, direction,
-      t_lane, n, t_out, tri_out, u_out, v_out, hit_out, batches, st, stream);
+      box, link, leaves, block, origin, direction, t_lane, n, t_out, tri_out,
+      u_out, v_out, hit_out, batches, st, stream);
 }
 
 extern "C" int vkpt_quad_stats_count() { return kStCount; }

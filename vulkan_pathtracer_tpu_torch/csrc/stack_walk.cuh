@@ -71,11 +71,10 @@ struct Walk {
   // (ops/stack_traverse.STACK_SLOTS; the bakes refuse deeper trees).
   static constexpr int kStack = W == 4 ? 288 : 224;
 
-  const float* __restrict__ box;  // row k at box + k * box_stride
-  const int* __restrict__ link;   // row k at link + k * link_stride
+  const float* __restrict__ box;
+  const int* __restrict__ link;
   const float* __restrict__ leaves;
   int block;
-  int box_stride, link_stride;
   int* stack;
   float* stack_tn;
   int sp, cur, deepest;
@@ -126,7 +125,7 @@ struct Walk {
     for (int s = 0; s < W; ++s) pend[s] = -1;
     if (!kSort || cur_tn <= t_lim) {
       const float4* brow =
-          reinterpret_cast<const float4*>(box + (size_t)cur * box_stride);
+          reinterpret_cast<const float4*>(box) + (size_t)cur * (W * 6 / 4);
       float bx[W * 6];
 #pragma unroll
       for (int q = 0; q < W * 6 / 4; ++q) {
@@ -137,7 +136,7 @@ struct Walk {
         bx[4 * q + 3] = f.w;
       }
       const int4* lrow =
-          reinterpret_cast<const int4*>(link + (size_t)cur * link_stride);
+          reinterpret_cast<const int4*>(link) + (size_t)cur * (W / 4);
       int lk[W];
 #pragma unroll
       for (int q = 0; q < W / 4; ++q) {
@@ -361,7 +360,6 @@ __device__ __forceinline__ void refill_loop(
 template <int W, bool ANY, bool COEF, class D, bool STATS>
 __global__ void __launch_bounds__(kThreads, D::kMinBlocks)
 stack_kernel(const float* __restrict__ box, const int* __restrict__ link,
-             int box_stride, int link_stride,
              const float* __restrict__ leaves, int block,
              const float* __restrict__ origin,
              const float* __restrict__ direction,
@@ -378,8 +376,6 @@ stack_kernel(const float* __restrict__ box, const int* __restrict__ link,
   w.stack_tn = stack_tn;
   w.box = box;
   w.link = link;
-  w.box_stride = box_stride;
-  w.link_stride = link_stride;
   w.leaves = leaves;
   w.block = block;
   w.st = st;
@@ -439,12 +435,11 @@ int64_t resident_blocks(K kernel) {
 // `batches`: the persistent warps' counter, zeroed here on `stream`
 // before the launch.
 template <int W, bool ANY, bool COEF, class D, bool STATS = false>
-int launch(const float* box, const int* link, int box_stride,
-           int link_stride, const float* leaves, int block,
-           const float* origin, const float* direction, const float* t_lane,
-           int64_t n, float* t_out, int* tri_out, float* u_out, float* v_out,
-           uint8_t* hit_out, unsigned* batches, unsigned long long* st,
-           void* stream) {
+int launch(const float* box, const int* link, const float* leaves,
+           int block, const float* origin, const float* direction,
+           const float* t_lane, int64_t n, float* t_out, int* tri_out,
+           float* u_out, float* v_out, uint8_t* hit_out, unsigned* batches,
+           unsigned long long* st, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const auto kernel = stack_kernel<W, ANY, COEF, D, STATS>;
   int64_t grid = (n + kThreads - 1) / kThreads;
@@ -453,8 +448,8 @@ int launch(const float* box, const int* link, int box_stride,
     cudaMemsetAsync(batches, 0, sizeof(unsigned), (cudaStream_t)stream);
   }
   kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      box, link, box_stride, link_stride, leaves, block, origin, direction,
-      t_lane, n, t_out, tri_out, u_out, v_out, hit_out, batches, st);
+      box, link, leaves, block, origin, direction, t_lane, n, t_out, tri_out,
+      u_out, v_out, hit_out, batches, st);
   return (int)cudaGetLastError();
 }
 

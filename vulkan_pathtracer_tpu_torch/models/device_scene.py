@@ -80,12 +80,10 @@ from vulkan_pathtracer_tpu_torch.ops.native import (
 )
 from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
     EMPTY,
-    build_nary_records,
     build_oct_tables,
     build_pair_tables,
     build_quad_tables,
     nary_tables_from_jax,
-    record_tables,
 )
 from vulkan_pathtracer_tpu_torch.utils.config import FRONTIER_WIDTH
 
@@ -108,8 +106,6 @@ class DeviceScene:
     leaves: torch.Tensor        # (n_leaves, block, 9) f32
     root_lo: torch.Tensor       # (3,) f32 root AABB (world)
     root_hi: torch.Tensor       # (3,) f32
-    # The quad and oct tables are views of one record table each
-    # (ops/stack_traverse.build_nary_records).
     quad_box: Optional[torch.Tensor] = None   # (N4, 4, 6) f32, flat only
     quad_link: Optional[torch.Tensor] = None  # (N4, 4) int32
     pair_box: Optional[torch.Tensor] = None   # (Ni, 2, 6) f32
@@ -242,23 +238,12 @@ def flat_skip_nodes(bvh) -> np.ndarray:
 
 
 def _to_device(host: dict, meta: dict, device) -> DeviceScene:
-    """Upload the host arrays (None stays None) and build the scene; the
-    quad and oct tables go up as one record table each."""
+    """Upload the host arrays (None stays None) and build the scene."""
     dev = torch.device(device)
-    host = dict(host)
-    records = {}
-    for kind, width in (("quad", 4), ("oct", 8)):
-        box = host.pop(f"{kind}_box", None)
-        link = host.pop(f"{kind}_link", None)
-        records[f"{kind}_box"] = records[f"{kind}_link"] = None
-        if box is not None:
-            rec = torch.from_numpy(build_nary_records(box, link)).to(dev)
-            records[f"{kind}_box"], records[f"{kind}_link"] = \
-                record_tables(rec, width)
     tensors = {k: None if v is None else
                torch.from_numpy(np.array(v, order="C")).to(dev)
                for k, v in host.items()}
-    return DeviceScene(**tensors, **records, **meta)
+    return DeviceScene(**tensors, **meta)
 
 
 def pack_materials(scene: Scene) -> dict:

@@ -106,16 +106,16 @@ def lib() -> ctypes.CDLL:
         i, i64 = ctypes.c_int, ctypes.c_int64
         handle.vkpt_quad_closest_hit.restype = ctypes.c_int
         handle.vkpt_quad_closest_hit.argtypes = [
-            p, p, i, i, p, i, i, p, p, p, i64, p, p, p, p, p, p]
+            p, p, p, i, i, p, p, p, i64, p, p, p, p, p, p]
         handle.vkpt_oct_closest_hit.restype = ctypes.c_int
         handle.vkpt_oct_closest_hit.argtypes = [
-            p, p, i, i, p, i, p, p, p, i64, p, p, p, p, p, p]
+            p, p, p, i, p, p, p, i64, p, p, p, p, p, p]
         handle.vkpt_quad_any_hit.restype = ctypes.c_int
         handle.vkpt_quad_any_hit.argtypes = [
-            p, p, i, i, p, i, i, p, p, p, i64, p, p, p]
+            p, p, p, i, i, p, p, p, i64, p, p, p]
         handle.vkpt_quad_stats.restype = ctypes.c_int
         handle.vkpt_quad_stats.argtypes = [
-            i, p, p, i, i, p, i, p, p, p, i64, p, p, p, p, p, p, p, p]
+            i, p, p, p, i, p, p, p, i64, p, p, p, p, p, p, p, p]
         handle.vkpt_quad_stats_count.restype = ctypes.c_int
         handle.vkpt_quad_stats_count.argtypes = []
         handle.vkpt_pair_closest_hit.restype = ctypes.c_int
@@ -173,36 +173,6 @@ def _check_tables(box, link, leaves, width: int = 4, coef_ok: bool = True):
         raise ValueError(f"{kind} kernel: exact leaves only (n_leaves, "
                          f"block, 9)")
     return coef
-
-
-def _stack_tables(box, link, leaves, width: int = 4, coef_ok: bool = True):
-    """The quad (width 4) or oct (width 8) tables of the stack kernels:
-    contiguous, or views of one record table (build_nary_records); rows
-    dense and 16-byte aligned, at any row stride.  Returns (1 when the
-    leaf table is a coefficient table, else 0; the launchers' table
-    arguments: box and link pointers, then their row strides in
-    elements)."""
-    kind = TABLE_NAMES[width]
-    for name, x, dtype, shape, inner in (
-            (f"{kind}_box", box, torch.float32, (width, 6), (6, 1)),
-            (f"{kind}_link", link, torch.int32, (width,), (1,))):
-        if x.device.type != "cuda":
-            raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
-        if x.dtype != dtype:
-            raise ValueError(f"{name}: expected {dtype}, got {x.dtype}")
-        if tuple(x.shape[1:]) != shape or x.shape[0] != box.shape[0]:
-            raise ValueError(f"{name}: expected shape {(box.shape[0],) + shape}"
-                             f", got {tuple(x.shape)}")
-        if (x.shape[0] > 1 and x.stride(0) % 4) or \
-                tuple(x.stride()[1:]) != inner or x.data_ptr() % 16:
-            raise ValueError(f"{name}: rows must be dense and 16-byte "
-                             f"aligned")
-    coef = _check_leaves(leaves, box.device)
-    if coef and not coef_ok:
-        raise ValueError(f"{kind} kernel: exact leaves only (n_leaves, "
-                         f"block, 9)")
-    return coef, [box.data_ptr(), link.data_ptr(), box.stride(0),
-                  link.stride(0)]
 
 
 def _check_leaves(leaves, device) -> int:
@@ -293,12 +263,13 @@ def _batches(n: int, device) -> torch.Tensor:
 def quad_closest_hit(box, link, leaves, origin, direction, t_lane):
     """Launch the quad closest-hit kernel (coefficient leaves when
     ``leaves`` has 40 columns); returns (t, tri, u, v)."""
-    coef, tables = _stack_tables(box, link, leaves)
+    coef = _check_tables(box, link, leaves)
     _check_rays(origin, direction, t_lane, box.device)
     n = origin.shape[0]
     out = _hit_outputs(n, origin.device)
     _raise_on("quad_closest_hit", lib().vkpt_quad_closest_hit(
-        *tables, leaves.data_ptr(), leaves.shape[1], coef, *_ptrs(origin, direction, t_lane), n, *_ptrs(*out),
+        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
+        coef, *_ptrs(origin, direction, t_lane), n, *_ptrs(*out),
         _batches(n, origin.device).data_ptr(), _stream(origin.device)))
     return out
 
@@ -306,12 +277,12 @@ def quad_closest_hit(box, link, leaves, origin, direction, t_lane):
 def oct_closest_hit(box, link, leaves, origin, direction, t_lane):
     """Launch the oct closest-hit kernel (exact leaves); returns
     (t, tri, u, v)."""
-    _, tables = _stack_tables(box, link, leaves, width=8, coef_ok=False)
+    _check_tables(box, link, leaves, width=8, coef_ok=False)
     _check_rays(origin, direction, t_lane, box.device)
     n = origin.shape[0]
     out = _hit_outputs(n, origin.device)
     _raise_on("oct_closest_hit", lib().vkpt_oct_closest_hit(
-        *tables, leaves.data_ptr(), leaves.shape[1],
+        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
         *_ptrs(origin, direction, t_lane), n, *_ptrs(*out),
         _batches(n, origin.device).data_ptr(), _stream(origin.device)))
     return out
@@ -320,12 +291,13 @@ def oct_closest_hit(box, link, leaves, origin, direction, t_lane):
 def quad_any_hit(box, link, leaves, origin, direction, t_lane):
     """Launch the quad any-hit kernel (coefficient leaves when ``leaves``
     has 40 columns); returns an (N,) bool tensor."""
-    coef, tables = _stack_tables(box, link, leaves)
+    coef = _check_tables(box, link, leaves)
     _check_rays(origin, direction, t_lane, box.device)
     n = origin.shape[0]
     hit = torch.empty(n, dtype=torch.uint8, device=origin.device)
     _raise_on("quad_any_hit", lib().vkpt_quad_any_hit(
-        *tables, leaves.data_ptr(), leaves.shape[1], coef, *_ptrs(origin, direction, t_lane), n, hit.data_ptr(),
+        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
+        coef, *_ptrs(origin, direction, t_lane), n, hit.data_ptr(),
         _batches(n, origin.device).data_ptr(), _stream(origin.device)))
     return hit.bool()
 
@@ -341,7 +313,8 @@ def quad_stats(any_hit: bool, box, link, leaves, origin, direction, t_lane):
     """Run the statistics build of a quad kernel (the kernels' own
     designs, exact leaves) and return (its hit outputs, the list of
     counters: STACK_STATS, then the depth histogram)."""
-    _, tables = _stack_tables(box, link, leaves, coef_ok=False)
+    if _check_tables(box, link, leaves, coef_ok=False):
+        raise ValueError("the statistics build takes exact leaves")
     _check_rays(origin, direction, t_lane, box.device)
     n = origin.shape[0]
     dev = origin.device
@@ -350,7 +323,8 @@ def quad_stats(any_hit: bool, box, link, leaves, origin, direction, t_lane):
     st = torch.zeros(lib().vkpt_quad_stats_count(), dtype=torch.int64,
                      device=dev)
     _raise_on("quad_stats", lib().vkpt_quad_stats(
-        int(any_hit), *tables, leaves.data_ptr(), leaves.shape[1], *_ptrs(origin, direction, t_lane), n, *_ptrs(*out),
+        int(any_hit), box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
+        leaves.shape[1], *_ptrs(origin, direction, t_lane), n, *_ptrs(*out),
         hit.data_ptr(), _batches(n, dev).data_ptr(), st.data_ptr(),
         _stream(dev)))
     return (hit.bool() if any_hit else out), st.cpu().tolist()

@@ -26,12 +26,6 @@ boundary, see models/device_scene.scene_from_jax_arrays):
 - ``oct_box (N8, 8, 6)`` / ``oct_link (N8, 8)``: the same for the
   8-wide collapse (three binary levels per row); the frontier tables
   of ops/frontier.py are the 16- and 32-wide ones.
-- A scene keeps its quad and oct tables as one record per row
-  (``build_nary_records``: the boxes, the links as int32 bits, zero
-  padding to 128 B for width 4 and 256 B for width 8, as JAX's own
-  rows), so the kernels load a node from one or two aligned lines;
-  ``quad_box`` / ``quad_link`` are views of it (``record_tables``),
-  and the kernels and plain versions take contiguous tables too.
 - ``pair_box (Ni, 2, 6) f32`` / ``pair_link (Ni, 2) int32``: the two
   children of each internal node, rows in preorder rank (root = row 0).
   A link >= 0 is a child row, -(leaf_value+1) a leaf.  ``leaf_value``
@@ -231,29 +225,6 @@ def nary_tables_from_jax(rows: np.ndarray, width: int):
     link = np.where(empty, EMPTY, enc.astype(np.int64)).astype(np.int32)
     box = np.where(empty[:, :, None], np.float32(0.0), box)
     return box, link
-
-
-# f32 words of an n-ary record: 6 * width box words, width links, padding.
-RECORD_WORDS = {4: 32, 8: 64}
-
-
-def build_nary_records(box: np.ndarray, link: np.ndarray) -> np.ndarray:
-    """(N, RECORD_WORDS[width]) f32 records of n-ary tables (N, width, 6)
-    / (N, width): the boxes, then the links as int32 bits, then zeros."""
-    n, width = link.shape
-    rec = np.zeros((n, RECORD_WORDS[width]), np.float32)
-    rec[:, :6 * width] = box.reshape(n, 6 * width)
-    rec[:, 6 * width:7 * width] = np.ascontiguousarray(
-        link, np.int32).view(np.float32)
-    return rec
-
-
-def record_tables(rec: torch.Tensor, width: int):
-    """The (box (N, width, 6) f32, link (N, width) int32) views of an
-    n-ary record table."""
-    n = rec.shape[0]
-    return (rec[:, :6 * width].view(n, width, 6),
-            rec[:, 6 * width:7 * width].view(torch.int32))
 
 
 def _pair_tables(bmin, bmax, left, right, leaf_value):
