@@ -16,9 +16,10 @@ same way, as are the oct kernel, the frontier kernels (width 16 and
 32) and every kernel built with coefficient leaves (``mt="mxu"``: quad,
 pair flat and two-level, with a mirrored instance, and frontier).
 The persistent quad and oct kernels are also launched on ray counts
-that are no multiple of 32, with inactive lanes, twice in a row (a
-fresh batch counter per launch), and the quad kernels' statistics
-build is held to the plain versions with its counters checked.
+that are no multiple of 32, with inactive lanes, twice in a row (the
+batch counter zeroed before each launch), and the quad kernels'
+statistics build is held to the plain versions with its counters
+checked.
 """
 
 import numpy as np
@@ -251,9 +252,10 @@ def test_pair_coef_kernels_match_plain(cuda, scene_paths, instanced):
 @pytest.mark.parametrize("n", [1, 33, 1000, 4099])
 def test_quad_kernels_ragged_inactive_and_relaunched(cuda, scene_paths, n):
     """The persistent quad kernels on a ray count that is no multiple of
-    32, with a third of the lanes inactive, launched twice: each launch
-    takes a fresh zeroed batch counter, so the second traces every ray
-    again (a counter left at n would return the outputs unwritten)."""
+    32, with a third of the lanes inactive, launched twice: the launcher
+    zeroes the batch counter before each launch, so the second traces
+    every ray again (a counter left at n would return the outputs
+    unwritten)."""
     scene = build_device_scene(gltf.load(scene_paths["columns"]),
                                max_leaf_size=28, device=cuda)
     o, d, active = _rays(n, seed=n, device=cuda)

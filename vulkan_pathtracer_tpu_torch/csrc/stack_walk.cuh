@@ -413,10 +413,11 @@ stack_kernel(const float* __restrict__ box, const int* __restrict__ link,
   }
 }
 
-// Blocks of `kernel` that the device's SMs hold at once: read once per
-// device and instantiation (a persistent grid).
-template <class K>
-int64_t resident_blocks(K kernel) {
+// Blocks of one instantiation of stack_kernel that the device's SMs
+// hold at once (a persistent grid): read once per device and
+// instantiation, as the occupancy does not change between launches.
+template <int W, bool ANY, bool COEF, class D, bool STATS>
+int64_t resident_blocks() {
   constexpr int kMaxDevices = 64;
   static int64_t blocks[kMaxDevices] = {};  // 0: not read yet
   int dev = 0;
@@ -425,8 +426,8 @@ int64_t resident_blocks(K kernel) {
   if (blocks[dev] == 0) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                  0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, stack_kernel<W, ANY, COEF, D, STATS>, kThreads, 0);
     blocks[dev] = (int64_t)std::max(sms, 1) * std::max(per_sm, 1);
   }
   return blocks[dev];
@@ -444,7 +445,7 @@ int launch(const float* box, const int* link, const float* leaves,
   const auto kernel = stack_kernel<W, ANY, COEF, D, STATS>;
   int64_t grid = (n + kThreads - 1) / kThreads;
   if (D::kPersist) {
-    grid = std::min(grid, resident_blocks(kernel));
+    grid = std::min(grid, resident_blocks<W, ANY, COEF, D, STATS>());
     cudaMemsetAsync(batches, 0, sizeof(unsigned), (cudaStream_t)stream);
   }
   kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
