@@ -32,7 +32,13 @@ before the result line):
    bitwise: the columns scene as 197 instances of 33 meshes (leaf 14)
    with a frame's primary and bounce rays, the instanced atrium (32
    instances, leaf 14) with 65,536 primary and 65,536 live bounce rays;
-   both kernels timed at the instanced 1080p frame's shapes;
+   both kernels timed at the instanced 1080p frame's shapes, where the
+   closest hit equals its plain version bitwise (t, tri, u, v) on all
+   2,073,600 primaries and the any hit on the whole bounce-1 launch
+   (also against the closest-hit mask); the statistics build of both
+   (as for the quad kernels, plus leaf visits and the share of them
+   that change the lane's instance), its outputs bitwise the plain
+   versions';
 6. instanced main path — the atrium through ``load_pipeline(...,
    instanced=True)`` (``--instanced``): 1 warm-up + 4 timed frames, the
    counters read around them (pair 4 each, quad 0); a 320x180
@@ -440,6 +446,21 @@ def main() -> int:
                 "operations" if ops_ms >= bytes_ms else "bytes")
 
     results = {}
+    plain_outputs = {}   # the timed plain runs' outputs, by kernel key
+
+    def stack_stats(key, run, ref):
+        """The statistics build of a stack kernel (outside the counted
+        main paths), its outputs bitwise the plain version's."""
+        out, counters = run()
+        sync()
+        same = (torch.equal(out, ref) if key.endswith("any_hit") else
+                all(torch.equal(a, b) for a, b in zip(out, ref)))
+        check(same, f"{key} statistics build != plain version")
+        summary = kernels.summarize_stack_stats(counters)
+        results[key]["stats"] = summary
+        phase("stats", kernel=key, **{
+            k: f"{v:.4f}" if isinstance(v, float) else v
+            for k, v in summary.items()})
 
     def time_kernel(key, launch, plain, tables, n_rays, out_bytes, scene,
                     compare, tag=""):
@@ -450,6 +471,7 @@ def main() -> int:
         k_ms, k_out = cuda_ms(launch, 5)
         stats = {}
         p_ms, p_out = cuda_ms(lambda: plain(stats), 1, False)
+        plain_outputs[key + tag] = p_out
         err = compare(k_out, p_out)
         b_ms, b_by = bound(tables, n_rays, out_bytes, stats,
                            VISIT_OPS[key.split("_")[0]],
@@ -475,6 +497,13 @@ def main() -> int:
     def any_err(k, p):
         check(torch.equal(k, p), "bounce-1 any hit: kernel != plain")
         return (k != p).float().max().item()
+
+    def bitwise_err(k, p):
+        """Full-frame primaries, t, tri, u, v bitwise (0.0 returned)."""
+        for f, a, b in zip("t tri u v".split(), k, p):
+            check(torch.equal(a, b), f"full-frame primaries: {f} differs on "
+                  f"{int((a != b).sum())} rays")
+        return 0.0
 
     def only(**counts):
         """The launch counters expected of a path: ``counts``, 0 else."""
@@ -665,23 +694,11 @@ def main() -> int:
                 tables, n_prim, 1, scene, any_err)
     phase("timing", kernel="quad_any_hit", live=live1)
 
-    # The statistics build of both quad kernels at the same shapes
-    # (outside the counted main paths).
-    ref_c = st.quad_closest_hit_plain(*targs)
-    ref_a = st.quad_any_hit_plain(*aargs)
-    for key, args, ref in (("quad_closest_hit", targs, ref_c),
-                           ("quad_any_hit", aargs, ref_a)):
-        out, counters = kernels.quad_stats(key == "quad_any_hit", *args)
-        sync()
-        same = (torch.equal(out, ref) if key == "quad_any_hit" else
-                all(torch.equal(a, b) for a, b in zip(out, ref)))
-        check(same, f"{key} statistics build != plain version")
-        summary = kernels.summarize_stack_stats(counters)
-        results[key]["stats"] = summary
-        phase("stats", kernel=key, **{
-            k: f"{v:.4f}" if isinstance(v, float) else v
-            for k, v in summary.items()})
-    del o, d, o1, d1, a1, targs, aargs, ref_c, ref_a
+    # The statistics build of both quad kernels at the same shapes.
+    for key, args in (("quad_closest_hit", targs), ("quad_any_hit", aargs)):
+        stack_stats(key, lambda: kernels.quad_stats(
+            key == "quad_any_hit", *args), plain_outputs.pop(key))
+    del o, d, o1, d1, a1, targs, aargs
     phase("phase", name="atrium flat kernels",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
@@ -742,12 +759,19 @@ def main() -> int:
     pargs = st.pair_args(iscene, o, d, None)
     time_kernel("pair_closest_hit", lambda: kernels.pair_closest_hit(*pargs),
                 lambda s=None: st.pair_closest_hit_plain(*pargs, stats=s),
-                itables, n_prim, 16, iscene, closest_err)
+                itables, n_prim, 16, iscene, bitwise_err)
     paargs = st.pair_args(iscene, o1, d1, a1)
     time_kernel("pair_any_hit", lambda: kernels.pair_any_hit(*paargs),
                 lambda s=None: st.pair_any_hit_plain(*paargs, stats=s),
                 itables, n_prim, 1, iscene, any_err)
     phase("timing", kernel="pair_any_hit", live=ilive1)
+    check(torch.equal(plain_outputs["pair_any_hit"],
+                      kernels.pair_closest_hit(*paargs)[0] < MISS_T),
+          "bounce-1 pair any hit != closest.t < MISS_T")
+    # The statistics build of both pair kernels at the same shapes.
+    for key, args in (("pair_closest_hit", pargs), ("pair_any_hit", paargs)):
+        stack_stats(key, lambda: kernels.pair_stats(
+            key == "pair_any_hit", *args[:8]), plain_outputs.pop(key))
     del o, d, o1, d1, a1, pargs, paargs
     phase("phase", name="instanced kernels",
           seconds=f"{time.perf_counter() - t0:.1f}")
@@ -1020,7 +1044,7 @@ def main() -> int:
         cargs = args_fn(scene, *rays, None, coef)
         time_kernel(f"{fam}_closest_hit{suffix}", lambda: ck(*cargs),
                     lambda s=None: cp(*cargs, stats=s), tables, n_prim, 16,
-                    scene, closest_err)
+                    scene, bitwise_err if fam == "pair" else closest_err)
         aargs = args_fn(scene, *any_rays, coef)
         time_kernel(f"{fam}_any_hit{suffix}", lambda: ak(*aargs),
                     lambda s=None: ap(*aargs, stats=s), tables, n_prim, 1,

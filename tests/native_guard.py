@@ -18,6 +18,10 @@ both packages and compare them, so before they run, once per worker,
 - asserts that both packages hold a library.
 
 A machine without a C++ toolchain then fails with one message.
+The first step alone, ``make_jax_library_whole``, also runs once per
+pytest process before collection (the repository's ``conftest.py``),
+so no JAX loader, in any worker, meets the file missing and runs its
+own ``make`` in place.
 
 Stress run (``python -m tests.native_guard --stress 6`` from the repo
 root): deletes both builds, starts that many processes at once, each of
@@ -51,6 +55,17 @@ def _loads(path: str) -> bool:
     """Whether a fresh process loads the library at ``path``."""
     return subprocess.run([sys.executable, "-c", _LOADS, path],
                           capture_output=True).returncode == 0
+
+
+def make_jax_library_whole() -> None:
+    """Under the port's build lock, make native/libvkpt_native.so a
+    library that a fresh process loads: where it is missing or partly
+    written, link it into a temporary file and move that into place.
+    Imports neither JAX nor torch (the repository's conftest.py runs it
+    before any test module is collected)."""
+    with port_native.build_lock():
+        if not _loads(JAX_LIB):
+            port_native.make_into(JAX_LIB)
 
 
 def ensure_native_libraries(mp: pytest.MonkeyPatch) -> None:

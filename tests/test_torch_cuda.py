@@ -19,7 +19,9 @@ The persistent quad and oct kernels are also launched on ray counts
 that are no multiple of 32, with inactive lanes, twice in a row (the
 batch counter zeroed before each launch), and the quad kernels'
 statistics build is held to the plain versions with its counters
-checked.
+checked; so are the pair kernels' (two-level, exact and
+coefficient leaves), and stack kernels launched on two side streams at
+once, each with its own batch counter.
 """
 
 import numpy as np
@@ -297,6 +299,87 @@ def test_quad_statistics_build(cuda, scene_paths, any_hit):
     summary = kernels.summarize_stack_stats(counters)
     assert 0.0 < summary["simt_node"] <= 1.0
     assert 0.0 < summary["simt_leaf"] <= 1.0
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000, 4099])
+@pytest.mark.parametrize("mt", ["exact", "mxu"])
+def test_pair_kernels_ragged_inactive_and_relaunched(cuda, scene_paths, n,
+                                                     mt):
+    """The persistent pair kernels (two-level, exact and coefficient
+    leaves) on a ray count that is no multiple of 32, with a third of
+    the lanes inactive, launched twice: the launcher zeroes the batch
+    counter before each launch, and each lane's instance cache starts
+    afresh with every ray it takes."""
+    scene = build_instanced_scene(gltf.load(scene_paths["columns"]),
+                                  max_leaf_size=14, device=cuda, mt=mt)
+    o, d, active = _rays(n, seed=n + 1, device=cuda)
+    active[::3] = False
+    args = st.pair_args(scene, o, d, active, mt == "mxu")
+    ref = st.pair_closest_hit_plain(*args)
+    ref_any = st.pair_any_hit_plain(*args)
+    for _ in range(2):
+        _assert_equal(kernels.pair_closest_hit(*args), ref)
+        occ = kernels.pair_any_hit(*args)
+        assert torch.equal(occ, ref_any)
+        if mt == "exact":
+            assert torch.equal(occ, ref.t < MISS_T)
+    assert not occ[~active].any()
+    assert (ref.t[~active] == MISS_T).all()
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("instanced", [False, True])
+def test_pair_statistics_build(cuda, scene_paths, any_hit, instanced):
+    """The pair kernels' statistics build: the plain versions' outputs
+    and leaf visits, one traced ray per active lane, instance changes
+    counted on the two-level scene only."""
+    host = gltf.load(scene_paths["columns"])
+    scene = (build_instanced_scene(host, max_leaf_size=14, device=cuda)
+             if instanced else
+             build_device_scene(host, max_leaf_size=14, device=cuda))
+    o, d, active = _rays(3000, seed=9, device=cuda)
+    args = st.pair_args(scene, o, d, active)
+    out, counters = kernels.pair_stats(any_hit, *args[:8])
+    stats = {}
+    if any_hit:
+        assert torch.equal(out, st.pair_any_hit_plain(*args, stats=stats))
+    else:
+        _assert_equal(out, st.pair_closest_hit_plain(*args, stats=stats))
+    c = dict(zip(kernels.STACK_STATS, counters))
+    hist = counters[len(kernels.STACK_STATS):]
+    assert c["rays"] == int(active.sum()) == sum(hist)
+    assert 0 < c["deepest"] <= st.STACK_SLOTS[2]
+    assert c["leaf_visits"] == stats["leaf_visits"]
+    assert (0 < c["instance_changes"] <= c["leaf_visits"]) == instanced
+    summary = kernels.summarize_stack_stats(counters)
+    assert 0.0 < summary["simt_node"] <= 1.0
+    assert 0.0 < summary["simt_leaf"] <= 1.0
+
+
+def test_kernels_on_side_streams(cuda, scene_paths):
+    """Stack kernels launched on two streams that are not the default
+    one, at once: each (device, stream) has its own batch counter, and
+    both launches equal the plain versions."""
+    scene = build_instanced_scene(gltf.load(scene_paths["columns"]),
+                                  max_leaf_size=14, device=cuda)
+    flat = build_device_scene(gltf.load(scene_paths["columns"]),
+                              max_leaf_size=28, device=cuda)
+    o, d, active = _rays(20000, seed=31, device=cuda)
+    pargs = st.pair_args(scene, o, d, active)
+    qargs = st.quad_args(flat, o, d, active)
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    outs = []
+    for s, (fn, args) in zip(streams, ((kernels.pair_closest_hit, pargs),
+                                       (kernels.quad_closest_hit, qargs))):
+        with torch.cuda.stream(s):
+            outs.append(fn(*args))
+    torch.cuda.synchronize()
+    _assert_equal(outs[0], st.pair_closest_hit_plain(*pargs))
+    _assert_equal(outs[1], st.quad_closest_hit_plain(*qargs))
+    keys = {(o.device, s.cuda_stream) for s in streams}
+    assert keys <= set(kernels._BATCHES)
+    assert len({kernels._BATCHES[k].data_ptr() for k in keys}) == 2
 
 
 def test_kernel_skips_empty_slots(cuda):

@@ -400,3 +400,57 @@ def test_instanced_frame_matches_jax(bakes, request):
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def coef_bakes(columns_glb):
+    """kind -> (JAX bake, port bake) of the columns at LEAF with both
+    leaf tables (exact blocks and the coefficients of VKPT_MT=mxu)."""
+    from vulkan_pathtracer_tpu.ops.mxu_mt import ensure_mt_coefs
+
+    return {
+        "flat": (ensure_mt_coefs(jax_flat(jgltf.load(columns_glb),
+                                          build_bvh=True,
+                                          max_leaf_size=LEAF)),
+                 build_device_scene(gltf.load(columns_glb),
+                                    max_leaf_size=LEAF, device="cpu",
+                                    mt="mxu")),
+        "instanced": (ensure_mt_coefs(jax_inst(jgltf.load(columns_glb),
+                                               max_leaf_size=LEAF)),
+                      build_instanced_scene(gltf.load(columns_glb),
+                                            max_leaf_size=LEAF,
+                                            device="cpu", mt="mxu"))}
+
+
+@pytest.mark.parametrize("mt", ["exact", "mxu"])
+@pytest.mark.parametrize("kind", ["flat", "instanced"])
+def test_pair_anyhit_slot_order_matches_pallas(coef_bakes, kind, mt,
+                                               monkeypatch):
+    """The pair any hit walks hit children in slot order (the kernel's
+    walk since the Hopper redesign); its bit is JAX's near-first one,
+    exact and under VKPT_MT=mxu, and the port's own near-first walk's."""
+    import jax
+
+    jd, td = coef_bakes[kind]
+    o, d = _rays(1024, seed=29)
+    active = np.arange(1024) % 5 != 0
+    if mt == "mxu":
+        monkeypatch.setenv("VKPT_MT", "mxu")
+    jax.clear_caches()   # JAX reads VKPT_MT while it traces
+    ref = np.asarray(pp.pallas_pair_any_hit(
+        jd, jnp.asarray(o), jnp.asarray(d), jnp.asarray(active),
+        interpret=True, packet=512))
+    monkeypatch.delenv("VKPT_MT", raising=False)
+    jax.clear_caches()
+    o_t, d_t, a_t = map(torch.from_numpy, (o, d, active))
+    args = st.pair_args(td, o_t, d_t, a_t, mt == "mxu")
+    got = st.pair_any_hit_plain(*args)
+    near_first = st._traverse_plain(*args[:6], True, True, *args[6:8],
+                                    inst_feat=args[8])
+    assert 100 < int(got.sum()) < int(a_t.sum())
+    assert np.array_equal(got.numpy(), ref)
+    assert torch.equal(got, near_first)
+    assert not got[~a_t].any()
+    if mt == "exact":
+        closest = st.pair_closest_hit_plain(*args)
+        assert torch.equal(got, closest.t < MISS_T)

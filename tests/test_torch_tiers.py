@@ -331,6 +331,29 @@ def test_refusals(scenes, monkeypatch):
     assert exc.value.code == 2
 
 
+@pytest.mark.parametrize("value", ["1.5", "0.0"])
+def test_presplit_refused(monkeypatch, capsys, value):
+    """VKPT_PRESPLIT, which JAX's bake reads (device_scene.py:410), is
+    refused by the CLI (exit 2, "not yet ported") rather than ignored;
+    unset or 0 it passes."""
+    from vulkan_pathtracer_tpu_torch.app.main import (
+        parse_args,
+        tier_fields_from_env,
+    )
+
+    monkeypatch.setenv("VKPT_PRESPLIT", value)
+    with pytest.raises(SystemExit) as exc:
+        parse_args(["-s", "scene.glb"])
+    assert exc.value.code == 2
+    assert "VKPT_PRESPLIT" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="not yet ported"):
+        tier_fields_from_env({"VKPT_PRESPLIT": value})
+    assert tier_fields_from_env({"VKPT_PRESPLIT": "0"})["mt"] == "exact"
+    monkeypatch.setenv("VKPT_PRESPLIT", "0")
+    config, _ = parse_args(["-s", "scene.glb"])
+    assert config.mt == "exact"
+
+
 def test_tier_fields_from_env():
     from vulkan_pathtracer_tpu_torch.app.main import tier_fields_from_env
 

@@ -61,8 +61,10 @@ def tier_fields_from_env(environ=None) -> dict:
     """RenderConfig's tier fields from the JAX package's ``VKPT_*``
     variables (unset -> None, JAX's default).  Raises ValueError on a
     value the port refuses: an unknown ``VKPT_MT`` or frontier width,
-    and ``VKPT_MXU_PRECISION=default`` (mxu_mt.py:58-80, the one-pass
-    bf16 product of the coefficient leaves), which is not yet ported."""
+    ``VKPT_MXU_PRECISION=default`` (mxu_mt.py:58-80, the one-pass bf16
+    product of the coefficient leaves) and ``VKPT_PRESPLIT`` other than
+    0 (device_scene.py:410, triangle pre-splitting at bake time), which
+    are not yet ported."""
     env = os.environ if environ is None else environ
 
     def get(name):
@@ -80,6 +82,11 @@ def tier_fields_from_env(environ=None) -> dict:
                          "them in f32 (highest)")
     if precision not in ("high", "highest"):
         raise ValueError(f"VKPT_MXU_PRECISION={precision!r}: highest")
+    presplit = get("VKPT_PRESPLIT")
+    if presplit is not None and presplit != "0":
+        raise ValueError(f"VKPT_PRESPLIT={presplit} (triangle pre-splitting "
+                         f"in the bake): not yet ported in "
+                         f"vulkan_pathtracer_tpu_torch; unset it or set 0")
     width = int(get("VKPT_FRONTIER_WIDTH") or FRONTIER_WIDTH)
     if width not in FRONTIER_WIDTHS:
         raise ValueError(f"VKPT_FRONTIER_WIDTH={width}: 16 | 32")

@@ -1,5 +1,6 @@
 // Pair-BVH (BVH2) stack traversal on Hopper: closest hit and any hit,
-// flat or two-level (instanced).
+// flat or two-level (instanced), as instances of the stack walk of the
+// quad kernels (stack_walk.cuh at width 2).
 //
 // Replaces the two Pallas TPU kernels of the instanced path:
 //   - closest hit: vulkan_pathtracer_tpu/ops/pallas_pair.py
@@ -20,147 +21,65 @@
 // (instanced), whose triangle ids are v * block + k.
 //
 // What bounds it on this card: as for the quad kernels, dependent loads
-// and divergence, not HBM bandwidth — a BVH2 visit is one 56 B row and
-// two slab tests, so a ray makes about twice as many dependent row
-// loads as in a quad table.  Two-level scenes add, at each leaf visit,
-// a 64 B instance row and 33 flops of object-space ray transform.
-// The instanced atrium's tables (about 6 MB at leaf 14) sit in the
-// 50 MB L2.
+// and idle lanes, not HBM bandwidth (the instanced atrium's tables,
+// about 6 MB at leaf 14, sit in the 50 MB L2).  A BVH2 visit is one
+// 56 B row and two slab tests, so a ray makes about twice as many
+// dependent row loads as in a quad table, and the instanced atrium's
+// per-material meshes overlap (606 pair rows and 51 leaf blocks per
+// primary).  Two-level scenes add, at each leaf visit, a 64 B instance
+// row and 33 operations of object-space ray transform (190 for the
+// coefficient leaves' feature transform).
 //
-// What the design does about it: one ray per thread with its own stack
-// of STACK_CAP entries (one push per tree level at most), near-first
-// descent by the ray's own entry distance, leaf children tested
-// nearer-first so the nearer hit tightens the farther block's window,
-// culling of popped nodes whose entry lies beyond the current hit,
-// __ldg vector loads of rows, instance records and leaf blocks, and
-// rays sorted by the caller (2D tiles, the 6d Morton key).
+// What the design does about it (the walk's choices are described in
+// stack_walk.cuh and stack_traverse.cu; each was measured on the
+// instanced atrium, PERF.md section 6): the design choices of the
+// *Design aliases below.  Each ray's sequence of leaf tests is that of
+// the plain versions: the closest hit tests a row's leaf children
+// nearer-first (postponed leaves keep that order, so ties at equal t
+// resolve as before); the any hit's bit does not depend on the order,
+// and its plain version follows the kernel's walk.
 
-#include "traverse.cuh"
+#include <type_traits>
+
+#include "stack_walk.cuh"
 
 namespace {
 
-constexpr int kStackSize = 96;  // STACK_CAP: one push per tree level
+// Design<sort (any hit), postpone, persistent, min blocks per SM,
+// refill, early-exit triangle test, instance cache, leaf queue>.
+using PairClosestDesign = Design<true, true, true, 1, false, true, true>;
+using PairAnyDesign = Design<false, true, true, 1, true, false, true>;
+using CoefPairClosestDesign = Design<true, true, true, 1, false, false, true>;
+using CoefPairAnyDesign = Design<false, true, true, 1, true, false, true>;
 
-template <bool ANY, bool INST, bool COEF>
-__device__ void pair_traverse(const float* __restrict__ box,
-                              const int* __restrict__ link,
-                              const float* __restrict__ leaves, int block,
-                              const float* __restrict__ inst_inv,
-                              const float* __restrict__ inst_feat,
-                              int mb_bits, const Ray& r, Best& b) {
-  int stack[kStackSize];
-  float stack_tn[kStackSize];
-  int sp = 0;
-  int cur = 0;
-  float cur_tn = -INFINITY;
-  while (cur >= 0) {
-    const float t_lim = ANY ? r.tl : fminf(b.t, r.tl);
-    int next = -1;
-    float next_tn = 0.0f;
-    if (cur_tn <= t_lim) {
-      const float4* brow = reinterpret_cast<const float4*>(box) + cur * 3;
-      float bx[12];
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        const float4 f = __ldg(brow + q);
-        bx[4 * q + 0] = f.x;
-        bx[4 * q + 1] = f.y;
-        bx[4 * q + 2] = f.z;
-        bx[4 * q + 3] = f.w;
-      }
-      const int2 l2 = __ldg(reinterpret_cast<const int2*>(link) + cur);
-      const int lk[2] = {l2.x, l2.y};
-      float tn[2];
-      bool hit[2];
-      hit[0] = slab(r, bx, t_lim, tn[0]);
-      hit[1] = slab(r, bx + 6, t_lim, tn[1]);
-      // Nearer child first (pallas_pair.py:807: near0 = m0 <= m1, a
-      // missed child counting as BIG).
-      const float e0 = hit[0] ? tn[0] : kBig;
-      const float e1 = hit[1] ? tn[1] : kBig;
-      const int near = e0 <= e1 ? 0 : 1;
-      const int far = 1 - near;
-      // Leaf children nearer-first.
-      if (hit[near] && lk[near] < 0) {
-        visit_leaf<ANY, INST, COEF>(r, leaves, block, inst_inv, mb_bits,
-                                    -lk[near] - 1, b, inst_feat);
-        if (ANY && b.any) return;
-      }
-      if (hit[far] && lk[far] < 0) {
-        visit_leaf<ANY, INST, COEF>(r, leaves, block, inst_inv, mb_bits,
-                                    -lk[far] - 1, b, inst_feat);
-        if (ANY && b.any) return;
-      }
-      // Internal children: descend the nearer, push the farther.
-      const bool in_near = hit[near] && lk[near] >= 0;
-      const bool in_far = hit[far] && lk[far] >= 0;
-      if (in_near) {
-        next = lk[near];
-        next_tn = tn[near];
-        if (in_far) {
-          stack[sp] = lk[far];
-          stack_tn[sp] = tn[far];
-          ++sp;
-        }
-      } else if (in_far) {
-        next = lk[far];
-        next_tn = tn[far];
-      }
-    }
-    if (next < 0 && sp > 0) {
-      --sp;
-      next = stack[sp];
-      next_tn = stack_tn[sp];
-    }
-    cur = next;
-    cur_tn = next_tn;
+template <bool ANY, bool COEF>
+using PairDesign =
+    std::conditional_t<ANY,
+                       std::conditional_t<COEF, CoefPairAnyDesign,
+                                          PairAnyDesign>,
+                       std::conditional_t<COEF, CoefPairClosestDesign,
+                                          PairClosestDesign>>;
+
+// The instantiation for the tables: flat or two-level, exact or
+// coefficient leaves (the statistics build: exact leaves only).
+template <bool ANY, bool STATS = false>
+int pair_launch(const Tables& tab, int coef, const float* origin,
+                const float* direction, const float* t_lane, int64_t n,
+                float* t_out, int* tri_out, float* u_out, float* v_out,
+                uint8_t* hit_out, unsigned* batches, unsigned long long* st,
+                void* stream) {
+  using Exact = PairDesign<ANY, false>;
+  using Coef = PairDesign<ANY, true>;
+  const bool inst = tab.inst_inv != nullptr;
+  auto run = inst ? launch<2, ANY, false, true, Exact, STATS>
+                  : launch<2, ANY, false, false, Exact, STATS>;
+  if constexpr (!STATS) {
+    if (coef)
+      run = inst ? launch<2, ANY, true, true, Coef>
+                 : launch<2, ANY, true, false, Coef>;
   }
-}
-
-template <bool INST, bool COEF>
-__global__ void __launch_bounds__(kThreads)
-pair_closest_hit_kernel(const float* __restrict__ box,
-                        const int* __restrict__ link,
-                        const float* __restrict__ leaves, int block,
-                        const float* __restrict__ inst_inv,
-                        const float* __restrict__ inst_feat, int mb_bits,
-                        const float* __restrict__ origin,
-                        const float* __restrict__ direction,
-                        const float* __restrict__ t_lane, int64_t n,
-                        float* __restrict__ t_out, int* __restrict__ tri_out,
-                        float* __restrict__ u_out, float* __restrict__ v_out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(origin, direction, t_lane, i);
-  Best b{kMissT, 0.0f, 0.0f, -1, false};
-  if (r.tl >= 0.0f)
-    pair_traverse<false, INST, COEF>(box, link, leaves, block, inst_inv,
-                                     inst_feat, mb_bits, r, b);
-  t_out[i] = b.t;
-  tri_out[i] = b.tri;
-  u_out[i] = b.u;
-  v_out[i] = b.v;
-}
-
-template <bool INST, bool COEF>
-__global__ void __launch_bounds__(kThreads)
-pair_any_hit_kernel(const float* __restrict__ box,
-                    const int* __restrict__ link,
-                    const float* __restrict__ leaves, int block,
-                    const float* __restrict__ inst_inv,
-                    const float* __restrict__ inst_feat, int mb_bits,
-                    const float* __restrict__ origin,
-                    const float* __restrict__ direction,
-                    const float* __restrict__ t_lane, int64_t n,
-                    uint8_t* __restrict__ hit_out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(origin, direction, t_lane, i);
-  Best b{kMissT, 0.0f, 0.0f, -1, false};
-  if (r.tl >= 0.0f)
-    pair_traverse<true, INST, COEF>(box, link, leaves, block, inst_inv,
-                                    inst_feat, mb_bits, r, b);
-  hit_out[i] = b.any ? 1 : 0;
+  return run(tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
+             hit_out, batches, st, stream);
 }
 
 }  // namespace
@@ -169,6 +88,8 @@ pair_any_hit_kernel(const float* __restrict__ box,
 // out (0 = the launch was accepted).  inst_inv == nullptr selects the
 // flat variant; coef != 0 the coefficient leaves (`leaves` is then the
 // (n_leaves, block, 40) table, and a two-level scene passes inst_feat).
+// `batches`: one unsigned counter for the persistent warps, zeroed by
+// the launcher on `stream`.
 extern "C" int vkpt_pair_closest_hit(const float* box, const int* link,
                                      const float* leaves, int block, int coef,
                                      const float* inst_inv,
@@ -177,25 +98,12 @@ extern "C" int vkpt_pair_closest_hit(const float* box, const int* link,
                                      const float* direction,
                                      const float* t_lane, int64_t n,
                                      float* t_out, int* tri_out, float* u_out,
-                                     float* v_out, void* stream) {
-  if (n > 0) {
-    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-    const cudaStream_t s = (cudaStream_t)stream;
-#define VKPT_PAIR_CH(INST, COEF)                                          \
-  pair_closest_hit_kernel<INST, COEF><<<grid, kThreads, 0, s>>>(          \
-      box, link, leaves, block, inst_inv, inst_feat, mb_bits, origin,     \
-      direction, t_lane, n, t_out, tri_out, u_out, v_out)
-    if (inst_inv != nullptr && coef)
-      VKPT_PAIR_CH(true, true);
-    else if (inst_inv != nullptr)
-      VKPT_PAIR_CH(true, false);
-    else if (coef)
-      VKPT_PAIR_CH(false, true);
-    else
-      VKPT_PAIR_CH(false, false);
-#undef VKPT_PAIR_CH
-  }
-  return (int)cudaGetLastError();
+                                     float* v_out, unsigned* batches,
+                                     void* stream) {
+  const Tables tab{box, link, leaves, block, inst_inv, inst_feat, mb_bits};
+  return pair_launch<false>(tab, coef, origin, direction, t_lane, n, t_out,
+                            tri_out, u_out, v_out, nullptr, batches, nullptr,
+                            stream);
 }
 
 extern "C" int vkpt_pair_any_hit(const float* box, const int* link,
@@ -204,23 +112,28 @@ extern "C" int vkpt_pair_any_hit(const float* box, const int* link,
                                  const float* inst_feat, int mb_bits,
                                  const float* origin, const float* direction,
                                  const float* t_lane, int64_t n,
-                                 uint8_t* hit_out, void* stream) {
-  if (n > 0) {
-    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-    const cudaStream_t s = (cudaStream_t)stream;
-#define VKPT_PAIR_AH(INST, COEF)                                         \
-  pair_any_hit_kernel<INST, COEF><<<grid, kThreads, 0, s>>>(             \
-      box, link, leaves, block, inst_inv, inst_feat, mb_bits, origin,    \
-      direction, t_lane, n, hit_out)
-    if (inst_inv != nullptr && coef)
-      VKPT_PAIR_AH(true, true);
-    else if (inst_inv != nullptr)
-      VKPT_PAIR_AH(true, false);
-    else if (coef)
-      VKPT_PAIR_AH(false, true);
-    else
-      VKPT_PAIR_AH(false, false);
-#undef VKPT_PAIR_AH
-  }
-  return (int)cudaGetLastError();
+                                 uint8_t* hit_out, unsigned* batches,
+                                 void* stream) {
+  const Tables tab{box, link, leaves, block, inst_inv, inst_feat, mb_bits};
+  return pair_launch<true>(tab, coef, origin, direction, t_lane, n, nullptr,
+                           nullptr, nullptr, nullptr, hit_out, batches,
+                           nullptr, stream);
+}
+
+// The statistics build of the pair kernels (the designs above, flat or
+// two-level, exact leaves); `st` holds kStCount zeroed counters.  The
+// hit outputs are those of the production kernels.
+extern "C" int vkpt_pair_stats(int any, const float* box, const int* link,
+                               const float* leaves, int block,
+                               const float* inst_inv, int mb_bits,
+                               const float* origin,
+                               const float* direction, const float* t_lane,
+                               int64_t n, float* t_out, int* tri_out,
+                               float* u_out, float* v_out, uint8_t* hit_out,
+                               unsigned long long* st, unsigned* batches,
+                               void* stream) {
+  const Tables tab{box, link, leaves, block, inst_inv, nullptr, mb_bits};
+  return (any ? pair_launch<true, true> : pair_launch<false, true>)(
+      tab, 0, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
+      hit_out, batches, st, stream);
 }

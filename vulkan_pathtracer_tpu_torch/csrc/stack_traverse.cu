@@ -89,10 +89,11 @@ extern "C" int vkpt_quad_closest_hit(const float* box, const int* link,
                                      float* t_out, int* tri_out, float* u_out,
                                      float* v_out, unsigned* batches,
                                      void* stream) {
-  return (coef ? launch<4, false, true, CoefClosestDesign>
-               : launch<4, false, false, QuadClosestDesign>)(
-      box, link, leaves, block, origin, direction, t_lane, n, t_out, tri_out,
-      u_out, v_out, nullptr, batches, nullptr, stream);
+  const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
+  return (coef ? launch<4, false, true, false, CoefClosestDesign>
+               : launch<4, false, false, false, QuadClosestDesign>)(
+      tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
+      nullptr, batches, nullptr, stream);
 }
 
 extern "C" int vkpt_oct_closest_hit(const float* box, const int* link,
@@ -103,9 +104,10 @@ extern "C" int vkpt_oct_closest_hit(const float* box, const int* link,
                                     float* t_out, int* tri_out, float* u_out,
                                     float* v_out, unsigned* batches,
                                     void* stream) {
-  return launch<8, false, false, OctDesign>(
-      box, link, leaves, block, origin, direction, t_lane, n, t_out, tri_out,
-      u_out, v_out, nullptr, batches, nullptr, stream);
+  const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
+  return launch<8, false, false, false, OctDesign>(
+      tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
+      nullptr, batches, nullptr, stream);
 }
 
 extern "C" int vkpt_quad_any_hit(const float* box, const int* link,
@@ -114,10 +116,11 @@ extern "C" int vkpt_quad_any_hit(const float* box, const int* link,
                                  const float* t_lane, int64_t n,
                                  uint8_t* hit_out, unsigned* batches,
                                  void* stream) {
-  return (coef ? launch<4, true, true, CoefAnyDesign>
-               : launch<4, true, false, QuadAnyDesign>)(
-      box, link, leaves, block, origin, direction, t_lane, n, nullptr,
-      nullptr, nullptr, nullptr, hit_out, batches, nullptr, stream);
+  const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
+  return (coef ? launch<4, true, true, false, CoefAnyDesign>
+               : launch<4, true, false, false, QuadAnyDesign>)(
+      tab, origin, direction, t_lane, n, nullptr, nullptr, nullptr, nullptr,
+      hit_out, batches, nullptr, stream);
 }
 
 // The statistics build of the quad kernels (exact leaves, the designs
@@ -128,12 +131,13 @@ extern "C" int vkpt_quad_stats(int any, const float* box, const int* link,
                                const float* origin, const float* direction,
                                const float* t_lane, int64_t n, float* t_out,
                                int* tri_out, float* u_out, float* v_out,
-                               uint8_t* hit_out, unsigned* batches,
-                               unsigned long long* st, void* stream) {
-  return (any ? launch<4, true, false, QuadAnyDesign, true>
-              : launch<4, false, false, QuadClosestDesign, true>)(
-      box, link, leaves, block, origin, direction, t_lane, n, t_out, tri_out,
-      u_out, v_out, hit_out, batches, st, stream);
+                               uint8_t* hit_out, unsigned long long* st,
+                               unsigned* batches, void* stream) {
+  const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
+  return (any ? launch<4, true, false, false, QuadAnyDesign, true>
+              : launch<4, false, false, false, QuadClosestDesign, true>)(
+      tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
+      hit_out, batches, st, stream);
 }
 
-extern "C" int vkpt_quad_stats_count() { return kStCount; }
+extern "C" int vkpt_stack_stats_count() { return kStCount; }

@@ -1,7 +1,8 @@
-// The stack walk of the quad and oct kernels (stack_traverse.cu) as
-// compile-time design choices (Design): the kernel template, its
-// launcher and the statistics build's counters.  The choices and what
-// each does about this card are described in stack_traverse.cu.
+// The stack walk of the pair, quad and oct kernels (pair_traverse.cu,
+// stack_traverse.cu) as compile-time design choices (Design): the
+// kernel template, its launcher and the statistics build's counters.
+// The choices and what each does about this card are described in
+// stack_traverse.cu (quad, oct) and pair_traverse.cu (pair).
 
 #pragma once
 
@@ -24,9 +25,17 @@ constexpr unsigned kFull = 0xffffffffu;
 //   MINB      __launch_bounds__ minimum blocks per SM (a register cap);
 //   REFILL    a lane whose ray is done takes the next one from the
 //             counter at once;
-//   EARLY     the triangle test returns at its first failed condition.
+//   EARLY     the triangle test returns at its first failed condition;
+//   CACHE     two-level scenes: each lane keeps the object-space ray
+//             (or the transformed features of coefficient leaves) of
+//             its last instance and recomputes them only when a leaf
+//             of another instance comes;
+//   QUEUE     any hit with POSTPONE: a lane queues the leaf children of
+//             several nodes, up to QUEUE entries, before the warp's
+//             leaf tests (0: one node's).
 template <bool SORT, bool POSTPONE, bool PERSIST, int MINB,
-          bool REFILL = false, bool EARLY = false>
+          bool REFILL = false, bool EARLY = false, bool CACHE = false,
+          int QUEUE = 0>
 struct Design {
   static constexpr bool kSort = SORT;  // any hit only; the closest hit sorts
   static constexpr bool kPostpone = POSTPONE;
@@ -34,20 +43,25 @@ struct Design {
   static constexpr int kMinBlocks = MINB;
   static constexpr bool kRefill = REFILL;  // implies PERSIST and POSTPONE
   static constexpr bool kEarly = EARLY;    // traverse.cuh mt<..., EARLY>
+  static constexpr bool kCache = CACHE;
+  static constexpr int kQueue = QUEUE;
 };
 
 // Statistics build (STATS): counters of one launch, in this order
 // (mirrored in ops/kernels.STACK_STATS).
 enum : int {
-  kStNodeWarps,   // warp iterations of the node step
-  kStNodeLanes,   // lanes active in them (= node steps of all rays)
-  kStLeafWarps,   // warp entries into a node's leaf children
-  kStLeafLanes,   // lanes active in them
-  kStRays,        // rays traversed (t_lane >= 0)
-  kStWarps,       // warp batches with at least one ray (not under REFILL)
-  kStBatchIters,  // node-step rounds of each batch's warp (not under REFILL)
-  kStDeepest,     // deepest stack of any ray
-  kStHist,        // histogram of each ray's deepest stack: 0..63, 64+
+  kStNodeWarps,    // warp iterations of the node step
+  kStNodeLanes,    // lanes active in them (= node steps of all rays)
+  kStLeafWarps,    // warp entries into a node's leaf children
+  kStLeafLanes,    // lanes active in them
+  kStRays,         // rays traversed (t_lane >= 0)
+  kStWarps,        // warp batches with at least one ray (not under REFILL)
+  kStBatchIters,   // node-step rounds of each batch's warp (not under REFILL)
+  kStDeepest,      // deepest stack of any ray
+  kStLeafVisits,   // leaf blocks tested
+  kStInstChanges,  // two-level: leaf visits whose instance differs from
+                   // the lane's previous leaf visit of the same ray
+  kStHist,         // histogram of each ray's deepest stack: 0..63, 64+
   kStCount = kStHist + 65
 };
 
@@ -61,25 +75,39 @@ __device__ __forceinline__ void count_active(unsigned long long* st,
 }
 
 // One ray's walk state: the stack (in the kernel's local arrays), the
-// current node and the leaf children of the last node visited.  The arrays stay
-// outside the struct: an array indexed at run time inside it would put
-// every member in local memory.
-template <int W, bool ANY, bool COEF, class D, bool STATS>
+// current node, the leaf children waiting for the warp's leaf phase and
+// (two-level, CACHE) the object-space ray of the lane's last instance.
+// The stack arrays stay outside the struct: an array indexed at run
+// time inside it would put every member in local memory.
+template <int W, bool ANY, bool COEF, bool INST, class D, bool STATS>
 struct Walk {
   static constexpr bool kSort = !ANY || D::kSort;
-  // Per-ray stack entries: at most W - 1 pushes per collapsed level
+  // Per-ray stack entries: one push per level in a pair row, at most
+  // W - 1 per collapsed level in an n-ary one
   // (ops/stack_traverse.STACK_SLOTS; the bakes refuse deeper trees).
-  static constexpr int kStack = W == 4 ? 288 : 224;
+  static constexpr int kStack = W == 2 ? 96 : W == 4 ? 288 : 224;
+  // QUEUE: pending leaves are appended in test order, up to kPend;
+  // else pend[s] holds slot s's leaf (W == 2: nearer first).
+  static constexpr bool kQueued = D::kQueue > W;
+  static constexpr int kPend = kQueued ? D::kQueue : W;
 
   const float* __restrict__ box;
   const int* __restrict__ link;
   const float* __restrict__ leaves;
-  int block;
+  const float* __restrict__ inst_inv;   // INST: (I, 16)
+  const float* __restrict__ inst_feat;  // INST and COEF: (I, 10, 16)
+  int block, mb_bits;
   int* stack;
   float* stack_tn;
-  int sp, cur, deepest;
+  int sp, cur, deepest, npend;
   float cur_tn;
-  int pend[W];  // leaf block of each hit leaf slot of the last node, else -1
+  int pend[kPend];  // leaf values waiting for the leaf phase, else -1
+  // INST: the instance of the lane's last leaf visit, its object-space
+  // ray (exact leaves) or transformed features (COEF) and det_sign.
+  int last_inst;
+  Ray o;
+  float fo[COEF ? 10 : 1];
+  float sign;
   unsigned long long* st;  // STATS: the launch's counters
 
   __device__ __forceinline__ void push(int node, float tn) {
@@ -98,31 +126,80 @@ struct Walk {
   __device__ __forceinline__ void start(bool active) {
     sp = 0;
     deepest = 0;
+    npend = 0;
+    last_inst = -1;
     cur = active ? 0 : -1;
     cur_tn = -INFINITY;
 #pragma unroll
-    for (int s = 0; s < W; ++s) pend[s] = -1;
+    for (int s = 0; s < kPend; ++s) pend[s] = -1;
   }
 
   __device__ __forceinline__ bool pending() const {
+    if (kQueued) return npend > 0;
     bool any = false;
 #pragma unroll
     for (int s = 0; s < W; ++s) any = any || pend[s] >= 0;
     return any;
   }
 
+  // Whether the lane takes part in the warp's next node step: it has a
+  // node to visit and room for that node's leaf children.
+  __device__ __forceinline__ bool can_step() const {
+    return cur >= 0 && (kQueued ? npend <= kPend - W : !pending());
+  }
+
+  // Test leaf `leaf`: the flat block, or the two-level decode, whose
+  // object-space ray (features) CACHE keeps while the instance stays.
+  __device__ __forceinline__ void visit(const Ray& r, int leaf, Best& b) {
+    if (STATS) atomicAdd(st + kStLeafVisits, 1ull);
+    if (!INST) {
+      visit_leaf<ANY, false, COEF, D::kEarly>(r, leaves, block, nullptr, 0,
+                                              leaf, b);
+      return;
+    }
+    const int inst = leaf >> mb_bits;
+    if (STATS && inst != last_inst) atomicAdd(st + kStInstChanges, 1ull);
+    if (!D::kCache) {
+      last_inst = inst;
+      visit_leaf<ANY, true, COEF, D::kEarly>(r, leaves, block, inst_inv,
+                                             mb_bits, leaf, b, inst_feat);
+      return;
+    }
+    if (inst != last_inst) {
+      last_inst = inst;
+      if (COEF) {
+        float f[10];
+        ray_features(r, f);
+        sign = object_features(f, inst_inv, inst_feat, inst, fo);
+      } else {
+        sign = object_ray(r, inst_inv, inst, o);
+      }
+    }
+    const int row = leaf & ((1 << mb_bits) - 1);
+    if (COEF)
+      coef_block<ANY, true>(fo, leaves, row, leaf, block, sign, r.tl, b);
+    else
+      leaf_block<ANY, true, D::kEarly>(o, leaves, row, leaf, block, sign, b);
+  }
+
   // Visit node `cur`: slab-test its W children against the current
-  // limit, record its hit leaf slots in pend (POSTPONE) or test them at
-  // once (true when that resolves an any hit), push the hit
+  // limit, record its hit leaf children in pend (POSTPONE) or test them
+  // at once (true when that resolves an any hit), push the hit
   // internal children (near-first order: far-to-near pushes, the
   // nearest descended; slot order without the sort), then move to the
-  // next node, popping when no child was hit.
+  // next node, popping when no child was hit.  Leaf children are tested
+  // in slot order, or nearer-first in a pair row that the walk sorts
+  // (pallas_pair.py:807: near = e0 <= e1, a missed child counting as
+  // kBig), so each ray's sequence of leaf tests is the kernel's plain
+  // version's.
   __device__ __forceinline__ bool node_step(const Ray& r, Best& b) {
     const float t_lim = ANY ? r.tl : fminf(b.t, r.tl);
     int next = -1;
     float next_tn = 0.0f;
+    if (!kQueued) {
 #pragma unroll
-    for (int s = 0; s < W; ++s) pend[s] = -1;
+      for (int s = 0; s < W; ++s) pend[s] = -1;
+    }
     if (!kSort || cur_tn <= t_lim) {
       const float4* brow =
           reinterpret_cast<const float4*>(box) + (size_t)cur * (W * 6 / 4);
@@ -135,37 +212,64 @@ struct Walk {
         bx[4 * q + 2] = f.z;
         bx[4 * q + 3] = f.w;
       }
-      const int4* lrow =
-          reinterpret_cast<const int4*>(link) + (size_t)cur * (W / 4);
       int lk[W];
+      if constexpr (W == 2) {
+        const int2 l2 = __ldg(reinterpret_cast<const int2*>(link) + cur);
+        lk[0] = l2.x;
+        lk[1] = l2.y;
+      } else {
+        const int4* lrow =
+            reinterpret_cast<const int4*>(link) + (size_t)cur * (W / 4);
 #pragma unroll
-      for (int q = 0; q < W / 4; ++q) {
-        const int4 l4 = __ldg(lrow + q);
-        lk[4 * q + 0] = l4.x;
-        lk[4 * q + 1] = l4.y;
-        lk[4 * q + 2] = l4.z;
-        lk[4 * q + 3] = l4.w;
+        for (int q = 0; q < W / 4; ++q) {
+          const int4 l4 = __ldg(lrow + q);
+          lk[4 * q + 0] = l4.x;
+          lk[4 * q + 1] = l4.y;
+          lk[4 * q + 2] = l4.z;
+          lk[4 * q + 3] = l4.w;
+        }
       }
       float tn[W];
       bool hit[W];
+      int lf[W];  // the hit leaf children in test order, else -1
 #pragma unroll
       for (int s = 0; s < W; ++s) {
         hit[s] = slab(r, bx + 6 * s, t_lim, tn[s]) && (lk[s] != kEmpty);
-        if (D::kPostpone && hit[s] && lk[s] < 0) pend[s] = -lk[s] - 1;
+        lf[s] = hit[s] && lk[s] < 0 ? -lk[s] - 1 : -1;
       }
-      if (!D::kPostpone) {
-        // Leaf slots first, in slot order.
+      if (W == 2 && kSort) {
+        const float e0 = hit[0] ? tn[0] : kBig;
+        const float e1 = hit[1] ? tn[1] : kBig;
+        if (e1 < e0) {
+          const int l0 = lf[0];
+          lf[0] = lf[W - 1];
+          lf[W - 1] = l0;
+        }
+      }
+      if (kQueued) {
+#pragma unroll
+        for (int s = 0; s < W; ++s) {
+          if (lf[s] >= 0) {
+#pragma unroll
+            for (int q = 0; q < kPend; ++q)
+              if (q == npend) pend[q] = lf[s];
+            ++npend;
+          }
+        }
+      } else if (D::kPostpone) {
+#pragma unroll
+        for (int s = 0; s < W; ++s) pend[s] = lf[s];
+      } else {
         if (STATS) {
           bool any_leaf = false;
 #pragma unroll
-          for (int s = 0; s < W; ++s) any_leaf |= hit[s] && lk[s] < 0;
+          for (int s = 0; s < W; ++s) any_leaf |= lf[s] >= 0;
           if (any_leaf) count_active(st, kStLeafWarps);
         }
 #pragma unroll
         for (int s = 0; s < W; ++s) {
-          if (hit[s] && lk[s] < 0) {
-            visit_leaf<ANY, false, COEF, D::kEarly>(
-                r, leaves, block, nullptr, 0, -lk[s] - 1, b);
+          if (lf[s] >= 0) {
+            visit(r, lf[s], b);
             if (ANY && b.any) return true;
           }
         }
@@ -217,19 +321,22 @@ struct Walk {
     return false;
   }
 
-  // POSTPONE: the leaf children of the last node, in slot order; true
-  // when an any hit is resolved.
+  // POSTPONE: the pending leaf children in test order; true when an any
+  // hit is resolved.
   __device__ __forceinline__ bool visit_pending(const Ray& r, Best& b) {
     if (STATS) count_active(st, kStLeafWarps);
 #pragma unroll
-    for (int s = 0; s < W; ++s) {
-      if (pend[s] >= 0) {
-        visit_leaf<ANY, false, COEF, D::kEarly>(
-            r, leaves, block, nullptr, 0, pend[s], b);
+    for (int s = 0; s < kPend; ++s) {
+      if (kQueued ? s < npend : pend[s] >= 0) {
+        visit(r, pend[s], b);
         pend[s] = -1;
-        if (ANY && b.any) return true;
+        if (ANY && b.any) {
+          npend = 0;
+          return true;
+        }
       }
     }
+    npend = 0;
     return false;
   }
 };
@@ -253,9 +360,10 @@ __device__ __forceinline__ int trace(Wk& w, const Ray& r, Best& b,
   }
   bool done = w.cur < 0;
   while (__any_sync(kFull, !done)) {
-    // Node steps until every unfinished lane holds leaf children.
+    // Node steps until every unfinished lane holds leaf children (or,
+    // QUEUE, has no room for more or no node left).
     while (true) {
-      const bool step = !done && !w.pending();
+      const bool step = !done && w.can_step();
       if (!__any_sync(kFull, step)) break;
       ++rounds;
       if (step) {
@@ -340,7 +448,7 @@ __device__ __forceinline__ void refill_loop(
     }
     if (__all_sync(kFull, retired)) return;
     while (true) {
-      const bool step = !done && !w.pending();
+      const bool step = !done && w.can_step();
       if (!__any_sync(kFull, step)) break;
       if (step) {
         if (STATS) count_active(st, kStNodeWarps);
@@ -354,30 +462,43 @@ __device__ __forceinline__ void refill_loop(
   }
 }
 
+// The tables a launch reads: node rows of W slots, leaf blocks (exact
+// or coefficient) and, two-level, the instance records.
+struct Tables {
+  const float* box;
+  const int* link;
+  const float* leaves;
+  int block;
+  const float* inst_inv;   // INST: (I, 16)
+  const float* inst_feat;  // INST and COEF: (I, 10, 16)
+  int mb_bits;
+};
+
 // Closest hit (t, tri, u, v out) or any hit (hit out) of n rays.
 // Without PERSIST a warp takes the 32 rays at its own position in the
 // grid; with it, batches of 32 from `batches` until none is left.
-template <int W, bool ANY, bool COEF, class D, bool STATS>
+template <int W, bool ANY, bool COEF, bool INST, class D, bool STATS>
 __global__ void __launch_bounds__(kThreads, D::kMinBlocks)
-stack_kernel(const float* __restrict__ box, const int* __restrict__ link,
-             const float* __restrict__ leaves, int block,
-             const float* __restrict__ origin,
+stack_kernel(const Tables tab, const float* __restrict__ origin,
              const float* __restrict__ direction,
              const float* __restrict__ t_lane, int64_t n,
              float* __restrict__ t_out, int* __restrict__ tri_out,
              float* __restrict__ u_out, float* __restrict__ v_out,
              uint8_t* __restrict__ hit_out, unsigned* batches,
              unsigned long long* st) {
-  using Wk = Walk<W, ANY, COEF, D, STATS>;
+  using Wk = Walk<W, ANY, COEF, INST, D, STATS>;
   Wk w;
   int stack[Wk::kStack];
   float stack_tn[Wk::kSort ? Wk::kStack : 1];
   w.stack = stack;
   w.stack_tn = stack_tn;
-  w.box = box;
-  w.link = link;
-  w.leaves = leaves;
-  w.block = block;
+  w.box = tab.box;
+  w.link = tab.link;
+  w.leaves = tab.leaves;
+  w.block = tab.block;
+  w.inst_inv = tab.inst_inv;
+  w.inst_feat = tab.inst_feat;
+  w.mb_bits = tab.mb_bits;
   w.st = st;
   if constexpr (D::kRefill) {
     refill_loop<Wk, ANY, STATS>(w, origin, direction, t_lane, n, t_out,
@@ -416,7 +537,8 @@ stack_kernel(const float* __restrict__ box, const int* __restrict__ link,
 // Blocks of one instantiation of stack_kernel that the device's SMs
 // hold at once (a persistent grid): read once per device and
 // instantiation, as the occupancy does not change between launches.
-template <int W, bool ANY, bool COEF, class D, bool STATS>
+// The wrappers set the tensors' device current before the launch.
+template <int W, bool ANY, bool COEF, bool INST, class D, bool STATS>
 int64_t resident_blocks() {
   constexpr int kMaxDevices = 64;
   static int64_t blocks[kMaxDevices] = {};  // 0: not read yet
@@ -427,7 +549,7 @@ int64_t resident_blocks() {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, stack_kernel<W, ANY, COEF, D, STATS>, kThreads, 0);
+        &per_sm, stack_kernel<W, ANY, COEF, INST, D, STATS>, kThreads, 0);
     blocks[dev] = (int64_t)std::max(sms, 1) * std::max(per_sm, 1);
   }
   return blocks[dev];
@@ -435,22 +557,21 @@ int64_t resident_blocks() {
 
 // `batches`: the persistent warps' counter, zeroed here on `stream`
 // before the launch.
-template <int W, bool ANY, bool COEF, class D, bool STATS = false>
-int launch(const float* box, const int* link, const float* leaves,
-           int block, const float* origin, const float* direction,
+template <int W, bool ANY, bool COEF, bool INST, class D, bool STATS = false>
+int launch(const Tables& tab, const float* origin, const float* direction,
            const float* t_lane, int64_t n, float* t_out, int* tri_out,
            float* u_out, float* v_out, uint8_t* hit_out, unsigned* batches,
            unsigned long long* st, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const auto kernel = stack_kernel<W, ANY, COEF, D, STATS>;
+  const auto kernel = stack_kernel<W, ANY, COEF, INST, D, STATS>;
   int64_t grid = (n + kThreads - 1) / kThreads;
   if (D::kPersist) {
-    grid = std::min(grid, resident_blocks<W, ANY, COEF, D, STATS>());
+    grid = std::min(grid, resident_blocks<W, ANY, COEF, INST, D, STATS>());
     cudaMemsetAsync(batches, 0, sizeof(unsigned), (cudaStream_t)stream);
   }
   kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      box, link, leaves, block, origin, direction, t_lane, n, t_out, tri_out,
-      u_out, v_out, hit_out, batches, st);
+      tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
+      hit_out, batches, st);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
-// Shared pieces of the traversal kernels (stack_traverse.cu,
-// pair_traverse.cu, skip_traverse.cu, frontier_traverse.cu): constants,
+// Shared pieces of the traversal kernels (stack_walk.cuh for
+// stack_traverse.cu and pair_traverse.cu, skip_traverse.cu,
+// frontier_traverse.cu): constants,
 // the ray record, Möller–Trumbore, the leaf-block loop, the coefficient
 // leaf test, the instanced leaf decode and the slab test.  The plain
 // PyTorch versions in ops/stack_traverse.py, ops/frontier.py,
@@ -236,11 +237,26 @@ __device__ __forceinline__ void coef_block(const float* f,
   }
 }
 
-// One coefficient leaf child: flat, or (INST) the two-level decode —
-// the instance's (10, 16) feature transform A applied to the world
-// features (feats_obj = A @ pad16(feats), pallas_pair.py:736-747), then
-// det_sign (inst_inv[12]) scaling, so mirrored instances cull as the
-// exact kernels do.
+// The instance's (10, 16) feature transform A applied to the world
+// features f (feats_obj = A @ pad16(feats), pallas_pair.py:736-747)
+// into fo; returns det_sign (inst_inv[12]), so mirrored instances cull
+// as the exact kernels do.
+__device__ __forceinline__ float object_features(
+    const float* f, const float* __restrict__ inst_inv,
+    const float* __restrict__ inst_feat, int inst, float* fo) {
+  const float* A = inst_feat + (size_t)inst * 160;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    float a[10];
+#pragma unroll
+    for (int j = 0; j < 10; ++j) a[j] = __ldg(A + 16 * i + j);
+    fo[i] = dot10(a, f);
+  }
+  return __ldg(inst_inv + (size_t)inst * 16 + 12);
+}
+
+// One coefficient leaf child: flat, or (INST) the two-level decode
+// (object_features, then the det_sign-scaled test).
 template <bool ANY, bool INST>
 __device__ __forceinline__ void coef_leaf(const Ray& r,
                                           const float* __restrict__ coefs,
@@ -256,22 +272,39 @@ __device__ __forceinline__ void coef_leaf(const Ray& r,
   }
   const int inst = leaf >> mb_bits;
   const int row = leaf & ((1 << mb_bits) - 1);
-  const float* A = inst_feat + (size_t)inst * 160;
   float fo[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    float a[10];
-#pragma unroll
-    for (int j = 0; j < 10; ++j) a[j] = __ldg(A + 16 * i + j);
-    fo[i] = dot10(a, f);
-  }
-  const float det_sign = __ldg(inst_inv + (size_t)inst * 16 + 12);
+  const float det_sign = object_features(f, inst_inv, inst_feat, inst, fo);
   coef_block<ANY, true>(fo, coefs, row, leaf, block, det_sign, r.tl, b);
 }
 
+// The ray in instance `inst`'s object space (pallas_pair.py:661-673 and
+// pallas_traverse.py:219-227, the same order of operations) into o;
+// returns the instance's det_sign.
+__device__ __forceinline__ float object_ray(const Ray& r,
+                                            const float* __restrict__ inst_inv,
+                                            int inst, Ray& o) {
+  const float4* mp = reinterpret_cast<const float4*>(inst_inv) + inst * 4;
+  float m[16];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 f = __ldg(mp + q);
+    m[4 * q + 0] = f.x;
+    m[4 * q + 1] = f.y;
+    m[4 * q + 2] = f.z;
+    m[4 * q + 3] = f.w;
+  }
+  o = r;
+  o.ox = m[0] * r.ox + m[1] * r.oy + m[2] * r.oz + m[9];
+  o.oy = m[3] * r.ox + m[4] * r.oy + m[5] * r.oz + m[10];
+  o.oz = m[6] * r.ox + m[7] * r.oy + m[8] * r.oz + m[11];
+  o.dx = m[0] * r.dx + m[1] * r.dy + m[2] * r.dz;
+  o.dy = m[3] * r.dx + m[4] * r.dy + m[5] * r.dz;
+  o.dz = m[6] * r.dx + m[7] * r.dy + m[8] * r.dz;
+  return m[12];
+}
+
 // One leaf child: the flat block, or (INST) the instanced decode —
-// block row, object-space ray (pallas_pair.py:661-673 and
-// pallas_traverse.py:219-227, the same order of operations) and det_sign.
+// block row, object-space ray (object_ray) and det_sign.
 // COEF: the coefficient leaf test instead (coef_leaf; `leaves` is then
 // the (n_leaves, block, 40) coefficient table).
 template <bool ANY, bool INST, bool COEF = false, bool EARLY = false>
@@ -293,24 +326,9 @@ __device__ __forceinline__ void visit_leaf(const Ray& r,
   }
   const int inst = leaf >> mb_bits;
   const int row = leaf & ((1 << mb_bits) - 1);
-  const float4* mp = reinterpret_cast<const float4*>(inst_inv) + inst * 4;
-  float m[16];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float4 f = __ldg(mp + q);
-    m[4 * q + 0] = f.x;
-    m[4 * q + 1] = f.y;
-    m[4 * q + 2] = f.z;
-    m[4 * q + 3] = f.w;
-  }
-  Ray o = r;
-  o.ox = m[0] * r.ox + m[1] * r.oy + m[2] * r.oz + m[9];
-  o.oy = m[3] * r.ox + m[4] * r.oy + m[5] * r.oz + m[10];
-  o.oz = m[6] * r.ox + m[7] * r.oy + m[8] * r.oz + m[11];
-  o.dx = m[0] * r.dx + m[1] * r.dy + m[2] * r.dz;
-  o.dy = m[3] * r.dx + m[4] * r.dy + m[5] * r.dz;
-  o.dz = m[6] * r.dx + m[7] * r.dy + m[8] * r.dz;
-  leaf_block<ANY, true, EARLY>(o, leaves, row, leaf, block, m[12], b);
+  Ray o;
+  const float det_sign = object_ray(r, inst_inv, inst, o);
+  leaf_block<ANY, true, EARLY>(o, leaves, row, leaf, block, det_sign, b);
 }
 
 // Slab test of one child box (lo.xyz, hi.xyz) against t_lim

@@ -97,48 +97,51 @@ def build() -> str:
     return lib_path
 
 
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# The C launchers' argument types (csrc/*.cu): pointers and the stream
+# as c_void_p, sizes as c_int / c_int64; each returns an int.
+SIGNATURES = {
+    "vkpt_quad_closest_hit": [_P, _P, _P, _I, _I, _P, _P, _P, _I64, _P, _P,
+                              _P, _P, _P, _P],
+    "vkpt_oct_closest_hit": [_P, _P, _P, _I, _P, _P, _P, _I64, _P, _P, _P,
+                             _P, _P, _P],
+    "vkpt_quad_any_hit": [_P, _P, _P, _I, _I, _P, _P, _P, _I64, _P, _P, _P],
+    "vkpt_quad_stats": [_I, _P, _P, _P, _I, _P, _P, _P, _I64, _P, _P, _P,
+                        _P, _P, _P, _P, _P],
+    "vkpt_stack_stats_count": [],
+    "vkpt_pair_closest_hit": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
+                              _I64, _P, _P, _P, _P, _P, _P],
+    "vkpt_pair_any_hit": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _I64,
+                          _P, _P, _P],
+    "vkpt_pair_stats": [_I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I64, _P,
+                        _P, _P, _P, _P, _P, _P, _P],
+    "vkpt_frontier_closest_hit": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _I64,
+                                  _P, _P, _P, _P, _P],
+    "vkpt_frontier_any_hit": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _I64, _P,
+                              _P],
+    "vkpt_skip_closest_hit": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I64, _P,
+                              _P, _P, _P, _P],
+    "vkpt_wide_closest_hit": [_P, _I, _P, _I, _P, _P, _P, _I64, _P, _P, _P,
+                              _P, _P],
+}
+
+
+def bind(handle: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the launchers ``handle``
+    exports (a library built from some of csrc/ binds those only)."""
+    for name, argtypes in SIGNATURES.items():
+        if hasattr(handle, name):
+            fn = getattr(handle, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built at first call)."""
     global _LIB
     if _LIB is None:
-        handle = ctypes.CDLL(build())
-        p = ctypes.c_void_p
-        i, i64 = ctypes.c_int, ctypes.c_int64
-        handle.vkpt_quad_closest_hit.restype = ctypes.c_int
-        handle.vkpt_quad_closest_hit.argtypes = [
-            p, p, p, i, i, p, p, p, i64, p, p, p, p, p, p]
-        handle.vkpt_oct_closest_hit.restype = ctypes.c_int
-        handle.vkpt_oct_closest_hit.argtypes = [
-            p, p, p, i, p, p, p, i64, p, p, p, p, p, p]
-        handle.vkpt_quad_any_hit.restype = ctypes.c_int
-        handle.vkpt_quad_any_hit.argtypes = [
-            p, p, p, i, i, p, p, p, i64, p, p, p]
-        handle.vkpt_quad_stats.restype = ctypes.c_int
-        handle.vkpt_quad_stats.argtypes = [
-            i, p, p, p, i, p, p, p, i64, p, p, p, p, p, p, p, p]
-        handle.vkpt_quad_stats_count.restype = ctypes.c_int
-        handle.vkpt_quad_stats_count.argtypes = []
-        handle.vkpt_pair_closest_hit.restype = ctypes.c_int
-        handle.vkpt_pair_closest_hit.argtypes = [
-            p, p, p, i, i, p, p, i, p, p, p, i64, p, p, p, p, p]
-        handle.vkpt_pair_any_hit.restype = ctypes.c_int
-        handle.vkpt_pair_any_hit.argtypes = [
-            p, p, p, i, i, p, p, i, p, p, p, i64, p, p]
-        handle.vkpt_frontier_closest_hit.restype = ctypes.c_int
-        handle.vkpt_frontier_closest_hit.argtypes = [
-            p, p, i, p, i, i, p, p, p, i64, p, p, p, p, p]
-        handle.vkpt_frontier_any_hit.restype = ctypes.c_int
-        handle.vkpt_frontier_any_hit.argtypes = [
-            p, p, i, p, i, i, p, p, p, i64, p, p]
-        handle.vkpt_skip_closest_hit.restype = ctypes.c_int
-        handle.vkpt_skip_closest_hit.argtypes = [
-            p, ctypes.c_int, p, ctypes.c_int, p, ctypes.c_int, p, p, p,
-            ctypes.c_int64, p, p, p, p, p]
-        handle.vkpt_wide_closest_hit.restype = ctypes.c_int
-        handle.vkpt_wide_closest_hit.argtypes = [
-            p, ctypes.c_int, p, ctypes.c_int, p, p, p, ctypes.c_int64, p, p,
-            p, p, p]
-        _LIB = handle
+        _LIB = bind(ctypes.CDLL(build()))
     return _LIB
 
 
@@ -226,10 +229,6 @@ def _check_rays(origin, direction, t_lane, device):
             raise ValueError(f"{name} lies on {x.device}, tables on {device}")
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _hit_outputs(n: int, device):
     t = torch.empty(n, dtype=torch.float32, device=device)
     tri = torch.empty(n, dtype=torch.int32, device=device)
@@ -240,24 +239,35 @@ def _ptrs(*tensors):
     return [x.data_ptr() for x in tensors]
 
 
-def _raise_on(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+_BATCHES = {}  # (device, stream) -> the stack kernels' batch counter
 
 
-_BATCHES = {}  # device -> the stack kernels' batch counter
-
-
-def _batches(n: int, device) -> torch.Tensor:
+def _batches(n: int, device, stream: int) -> torch.Tensor:
     """The counter from which the persistent warps of the stack kernels
-    take their 32-ray batches: one per device, zeroed by the launcher on
-    the launch's stream before each launch (so launches of one device
-    share it in stream order)."""
+    take their 32-ray batches: one per device and stream, zeroed by the
+    launcher on that stream before each launch (so the launches that
+    share it run one after another)."""
     if n > 2 ** 31 - 64:
         raise ValueError(f"{n} rays: the stack kernels take fewer than 2^31")
-    if device not in _BATCHES:
-        _BATCHES[device] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _BATCHES[device]
+    key = (torch.device(device), stream)
+    if key not in _BATCHES:
+        _BATCHES[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _BATCHES[key]
+
+
+def _launch(name: str, device, fn, *args, batches: int = None) -> None:
+    """Call launcher ``fn`` with ``args`` on the current stream of
+    ``device``, with that device current (the launchers size persistent
+    grids by the current device); ``batches`` = the ray count of a stack
+    kernel, whose batch counter for that stream goes before the stream.
+    Raises on a launch the runtime refused."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        extra = (() if batches is None else
+                 (_batches(batches, device, stream).data_ptr(),))
+        rc = fn(*args, *extra, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def quad_closest_hit(box, link, leaves, origin, direction, t_lane):
@@ -267,10 +277,10 @@ def quad_closest_hit(box, link, leaves, origin, direction, t_lane):
     _check_rays(origin, direction, t_lane, box.device)
     n = origin.shape[0]
     out = _hit_outputs(n, origin.device)
-    _raise_on("quad_closest_hit", lib().vkpt_quad_closest_hit(
-        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
-        coef, *_ptrs(origin, direction, t_lane), n, *_ptrs(*out),
-        _batches(n, origin.device).data_ptr(), _stream(origin.device)))
+    _launch("quad_closest_hit", origin.device, lib().vkpt_quad_closest_hit,
+            box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
+            leaves.shape[1], coef, *_ptrs(origin, direction, t_lane), n,
+            *_ptrs(*out), batches=n)
     return out
 
 
@@ -281,10 +291,10 @@ def oct_closest_hit(box, link, leaves, origin, direction, t_lane):
     _check_rays(origin, direction, t_lane, box.device)
     n = origin.shape[0]
     out = _hit_outputs(n, origin.device)
-    _raise_on("oct_closest_hit", lib().vkpt_oct_closest_hit(
-        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
-        *_ptrs(origin, direction, t_lane), n, *_ptrs(*out),
-        _batches(n, origin.device).data_ptr(), _stream(origin.device)))
+    _launch("oct_closest_hit", origin.device, lib().vkpt_oct_closest_hit,
+            box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
+            leaves.shape[1], *_ptrs(origin, direction, t_lane), n,
+            *_ptrs(*out), batches=n)
     return out
 
 
@@ -295,18 +305,35 @@ def quad_any_hit(box, link, leaves, origin, direction, t_lane):
     _check_rays(origin, direction, t_lane, box.device)
     n = origin.shape[0]
     hit = torch.empty(n, dtype=torch.uint8, device=origin.device)
-    _raise_on("quad_any_hit", lib().vkpt_quad_any_hit(
-        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
-        coef, *_ptrs(origin, direction, t_lane), n, hit.data_ptr(),
-        _batches(n, origin.device).data_ptr(), _stream(origin.device)))
+    _launch("quad_any_hit", origin.device, lib().vkpt_quad_any_hit,
+            box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
+            leaves.shape[1], coef, *_ptrs(origin, direction, t_lane), n,
+            hit.data_ptr(), batches=n)
     return hit.bool()
 
 
-# Counters of the quad kernels' statistics build (csrc/stack_traverse.cu,
+# Counters of the stack kernels' statistics build (csrc/stack_walk.cuh,
 # the kSt* enum), then a 65-bin histogram of each ray's deepest stack
 # (0..63 entries, 64 or more).
 STACK_STATS = ("node_warps", "node_lanes", "leaf_warps", "leaf_lanes",
-               "rays", "warps", "batch_rounds", "deepest")
+               "rays", "warps", "batch_rounds", "deepest", "leaf_visits",
+               "instance_changes")
+
+
+def _stats(name, fn, any_hit, lead, rest, origin, direction, t_lane):
+    """Run statistics launcher ``fn`` (arguments ``lead``, the rays,
+    ``rest``, then the outputs, the counters and the batch counter) and
+    return (its hit outputs, the list of counters)."""
+    n = origin.shape[0]
+    dev = origin.device
+    out = _hit_outputs(n, dev)
+    hit = torch.empty(n, dtype=torch.uint8, device=dev)
+    st = torch.zeros(lib().vkpt_stack_stats_count(), dtype=torch.int64,
+                     device=dev)
+    _launch(name, dev, fn, int(any_hit), *lead,
+            *_ptrs(origin, direction, t_lane), n, *rest, *_ptrs(*out),
+            hit.data_ptr(), st.data_ptr(), batches=n)
+    return (hit.bool() if any_hit else out), st.cpu().tolist()
 
 
 def quad_stats(any_hit: bool, box, link, leaves, origin, direction, t_lane):
@@ -316,27 +343,35 @@ def quad_stats(any_hit: bool, box, link, leaves, origin, direction, t_lane):
     if _check_tables(box, link, leaves, coef_ok=False):
         raise ValueError("the statistics build takes exact leaves")
     _check_rays(origin, direction, t_lane, box.device)
-    n = origin.shape[0]
-    dev = origin.device
-    out = _hit_outputs(n, dev)
-    hit = torch.empty(n, dtype=torch.uint8, device=dev)
-    st = torch.zeros(lib().vkpt_quad_stats_count(), dtype=torch.int64,
-                     device=dev)
-    _raise_on("quad_stats", lib().vkpt_quad_stats(
-        int(any_hit), box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
-        leaves.shape[1], *_ptrs(origin, direction, t_lane), n, *_ptrs(*out),
-        hit.data_ptr(), _batches(n, dev).data_ptr(), st.data_ptr(),
-        _stream(dev)))
-    return (hit.bool() if any_hit else out), st.cpu().tolist()
+    return _stats("quad_stats", lib().vkpt_quad_stats, any_hit,
+                  (box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
+                   leaves.shape[1]), (), origin, direction, t_lane)
+
+
+def pair_stats(any_hit: bool, box, link, leaves, origin, direction, t_lane,
+               inst_inv=None, mb_bits: int = 0):
+    """Run the statistics build of a pair kernel (the kernels' own
+    designs, exact leaves, flat or two-level) and return (its hit
+    outputs, the list of counters: STACK_STATS, then the depth
+    histogram)."""
+    if _check_tables(box, link, leaves, width=2, coef_ok=False):
+        raise ValueError("the statistics build takes exact leaves")
+    _check_rays(origin, direction, t_lane, box.device)
+    inst = _check_inst(inst_inv, mb_bits, box.device)
+    return _stats("pair_stats", lib().vkpt_pair_stats, any_hit,
+                  (box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
+                   leaves.shape[1], inst, mb_bits), (), origin, direction,
+                  t_lane)
 
 
 def summarize_stack_stats(counters) -> dict:
     """SIMT efficiency (active lanes / 32, averaged over warp iterations)
     of the node steps and of the entries into a node's leaves, node
     steps per ray against node-step rounds per warp batch (the tail),
-    and the stack depth reached by each ray (mean, 99th percentile,
-    deepest, share above 8 and 24 entries), from the counters of the
-    statistics build."""
+    leaf visits per ray and the share of them whose instance differs
+    from the lane's previous leaf visit, and the stack depth reached by
+    each ray (mean, 99th percentile, deepest, share above 8 and 24
+    entries), from the counters of the statistics build."""
     c = dict(zip(STACK_STATS, counters))
     hist = list(counters[len(STACK_STATS):])
     rays, total = max(c["rays"], 1), max(sum(hist), 1)
@@ -351,6 +386,9 @@ def summarize_stack_stats(counters) -> dict:
         "steps_per_ray": c["node_lanes"] / rays,
         "rounds_per_warp": c["batch_rounds"] / max(c["warps"], 1),
         "leaf_entries_per_ray": c["leaf_lanes"] / rays,
+        "leaf_visits_per_ray": c["leaf_visits"] / rays,
+        "instance_change_share": (c["instance_changes"]
+                                  / max(c["leaf_visits"], 1)),
         "depth_mean": sum(k * x for k, x in enumerate(hist)) / total,
         "depth_p99": p99, "deepest": c["deepest"],
         "depth_over_8": sum(hist[9:]) / total,
@@ -369,10 +407,10 @@ def pair_closest_hit(box, link, leaves, origin, direction, t_lane,
     feat = _check_feat(inst_feat, inst, coef, box.device)
     n = origin.shape[0]
     out = _hit_outputs(n, origin.device)
-    _raise_on("pair_closest_hit", lib().vkpt_pair_closest_hit(
-        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
-        coef, inst, feat, mb_bits, *_ptrs(origin, direction, t_lane), n,
-        *_ptrs(*out), _stream(origin.device)))
+    _launch("pair_closest_hit", origin.device, lib().vkpt_pair_closest_hit,
+            box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
+            leaves.shape[1], coef, inst, feat, mb_bits,
+            *_ptrs(origin, direction, t_lane), n, *_ptrs(*out), batches=n)
     return out
 
 
@@ -386,10 +424,10 @@ def pair_any_hit(box, link, leaves, origin, direction, t_lane,
     feat = _check_feat(inst_feat, inst, coef, box.device)
     n = origin.shape[0]
     hit = torch.empty(n, dtype=torch.uint8, device=origin.device)
-    _raise_on("pair_any_hit", lib().vkpt_pair_any_hit(
-        box.data_ptr(), link.data_ptr(), leaves.data_ptr(), leaves.shape[1],
-        coef, inst, feat, mb_bits, *_ptrs(origin, direction, t_lane), n,
-        hit.data_ptr(), _stream(origin.device)))
+    _launch("pair_any_hit", origin.device, lib().vkpt_pair_any_hit,
+            box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
+            leaves.shape[1], coef, inst, feat, mb_bits,
+            *_ptrs(origin, direction, t_lane), n, hit.data_ptr(), batches=n)
     return hit.bool()
 
 
@@ -410,10 +448,10 @@ def frontier_closest_hit(box, link, leaves, origin, direction, t_lane):
     _check_rays(origin, direction, t_lane, box.device)
     n = origin.shape[0]
     out = _hit_outputs(n, origin.device)
-    _raise_on("frontier_closest_hit", lib().vkpt_frontier_closest_hit(
-        box.data_ptr(), link.data_ptr(), width, leaves.data_ptr(),
-        leaves.shape[1], coef, *_ptrs(origin, direction, t_lane), n,
-        *_ptrs(*out), _stream(origin.device)))
+    _launch("frontier_closest_hit", origin.device,
+            lib().vkpt_frontier_closest_hit, box.data_ptr(), link.data_ptr(),
+            width, leaves.data_ptr(), leaves.shape[1], coef,
+            *_ptrs(origin, direction, t_lane), n, *_ptrs(*out))
     return out
 
 
@@ -424,10 +462,10 @@ def frontier_any_hit(box, link, leaves, origin, direction, t_lane):
     _check_rays(origin, direction, t_lane, box.device)
     n = origin.shape[0]
     hit = torch.empty(n, dtype=torch.uint8, device=origin.device)
-    _raise_on("frontier_any_hit", lib().vkpt_frontier_any_hit(
-        box.data_ptr(), link.data_ptr(), width, leaves.data_ptr(),
-        leaves.shape[1], coef, *_ptrs(origin, direction, t_lane), n,
-        hit.data_ptr(), _stream(origin.device)))
+    _launch("frontier_any_hit", origin.device, lib().vkpt_frontier_any_hit,
+            box.data_ptr(), link.data_ptr(), width, leaves.data_ptr(),
+            leaves.shape[1], coef, *_ptrs(origin, direction, t_lane), n,
+            hit.data_ptr())
     return hit.bool()
 
 
@@ -444,15 +482,12 @@ def skip_closest_hit(nodes, leaves, origin, direction, t_lane,
     _check_rays(origin, direction, t_lane, nodes.device)
     inst = _check_inst(inst_inv, mb_bits, nodes.device)
     n = origin.shape[0]
-    t, tri, u, v = _hit_outputs(n, origin.device)
-    rc = lib().vkpt_skip_closest_hit(
-        nodes.data_ptr(), nodes.shape[0] // 8, leaves.data_ptr(),
-        leaves.shape[1], inst, mb_bits, origin.data_ptr(),
-        direction.data_ptr(), t_lane.data_ptr(), n, t.data_ptr(),
-        tri.data_ptr(), u.data_ptr(), v.data_ptr(), _stream(origin.device))
-    if rc != 0:
-        raise RuntimeError(f"skip_closest_hit launch failed: CUDA error {rc}")
-    return t, tri, u, v
+    out = _hit_outputs(n, origin.device)
+    _launch("skip_closest_hit", origin.device, lib().vkpt_skip_closest_hit,
+            nodes.data_ptr(), nodes.shape[0] // 8, leaves.data_ptr(),
+            leaves.shape[1], inst, mb_bits,
+            *_ptrs(origin, direction, t_lane), n, *_ptrs(*out))
+    return out
 
 
 def wide_closest_hit(tiles, leaves, origin, direction, t_lane):
@@ -465,12 +500,9 @@ def wide_closest_hit(tiles, leaves, origin, direction, t_lane):
         raise ValueError("wide kernel: exact leaves only (n_leaves, block, 9)")
     _check_rays(origin, direction, t_lane, tiles.device)
     n = origin.shape[0]
-    t, tri, u, v = _hit_outputs(n, origin.device)
-    rc = lib().vkpt_wide_closest_hit(
-        tiles.data_ptr(), tiles.shape[0] // 8, leaves.data_ptr(),
-        leaves.shape[1], origin.data_ptr(), direction.data_ptr(),
-        t_lane.data_ptr(), n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-        v.data_ptr(), _stream(origin.device))
-    if rc != 0:
-        raise RuntimeError(f"wide_closest_hit launch failed: CUDA error {rc}")
-    return t, tri, u, v
+    out = _hit_outputs(n, origin.device)
+    _launch("wide_closest_hit", origin.device, lib().vkpt_wide_closest_hit,
+            tiles.data_ptr(), tiles.shape[0] // 8, leaves.data_ptr(),
+            leaves.shape[1], *_ptrs(origin, direction, t_lane), n,
+            *_ptrs(*out))
+    return out

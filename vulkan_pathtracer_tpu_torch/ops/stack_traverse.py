@@ -68,9 +68,9 @@ the same order):
 - an inactive lane (t_lane < 0) returns a miss without traversing;
 - any hit uses t_lim = t_lane throughout and stops at the first
   accepted triangle, so its bit equals ``closest.t < MISS_T``; the quad
-  any hit visits hit internal children in slot order (the order does
-  not change the bit, and with a fixed limit no popped node is ever
-  culled), the pair any hit near-first.
+  and pair any hits visit hit children, leaves and internal nodes, in
+  slot order (the order does not change the bit, and with a fixed limit
+  no popped node is ever culled).
 
 The wrappers dispatch on the device of the rays: CPU tensors run the
 plain version, CUDA tensors launch the kernel, anything else raises.
@@ -90,7 +90,7 @@ STACK_CAP = 96   # >= binary tree depth; the table builders assert it
 # level for a pair row, else width - 1 per collapsed level, with the
 # collapsed depth <= ceil((STACK_CAP - 1) / log2(width)) for any tree of
 # depth <= STACK_CAP (the quad kernel keeps 3 * STACK_CAP).  Mirrored in
-# csrc/stack_traverse.cu and csrc/frontier_traverse.cu.
+# csrc/stack_walk.cuh and csrc/frontier_traverse.cu.
 STACK_SLOTS = {2: STACK_CAP, 4: 3 * STACK_CAP, 8: 7 * 32, 16: 15 * 24,
                32: 31 * 19}
 EMPTY = -(2 ** 31)
@@ -594,10 +594,12 @@ def pair_any_hit_plain(pair_box, pair_link, leaves, origin, direction,
                        t_lane, inst_inv=None, mb_bits: int = 0,
                        inst_feat=None, leaf_visits=None,
                        stats=None) -> torch.Tensor:
-    """Plain version of the pair any-hit kernel (any device): (N,) bool."""
+    """Plain version of the pair any-hit kernel (any device): (N,) bool.
+    Hit children, leaves and internal nodes, are visited in slot order,
+    as the kernel does: the bit does not depend on the order."""
     return _traverse_plain(pair_box, pair_link, leaves, origin, direction,
-                           t_lane, True, True, inst_inv, mb_bits,
-                           leaf_visits, stats, inst_feat)
+                           t_lane, True, False, inst_inv, mb_bits,
+                           leaf_visits, stats, inst_feat, slot_order=True)
 
 
 # -- wrappers ---------------------------------------------------------------
