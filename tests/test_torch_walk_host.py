@@ -42,6 +42,7 @@ UNITS = ("stack_traverse.cu", "pair_traverse.cu")
 FLAGS = ["-std=c++20", "-O1", "-ffp-contract=off", "-pthread", "-fPIC",
          "-x", "c++"]
 LAUNCH = re.compile(r"(\w+(?:<[^;{}]*?>)?)<<<(.*?)>>>\(", re.S)
+MOCK_LAUNCH = r"vkpt_mock::launch(vkpt_mock::Cfg{\2}, \1, "
 
 
 @pytest.fixture(scope="module")
@@ -55,8 +56,7 @@ def host_lib(tmp_path_factory):
     for name in os.listdir(CSRC):
         if name.endswith((".cu", ".cuh", ".h")):
             with open(os.path.join(CSRC, name)) as f:
-                text = LAUNCH.sub(r"vkpt_mock::launch(vkpt_mock::Cfg{\2}, \1, ",
-                                  f.read())
+                text = LAUNCH.sub(MOCK_LAUNCH, f.read())
             (out / name).write_text(text)
     (out / "cuda_runtime.h").write_text('#include "host_mock.h"\n')
     procs = [subprocess.Popen(

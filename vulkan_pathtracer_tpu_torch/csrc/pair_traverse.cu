@@ -30,14 +30,27 @@
 // row and 33 operations of object-space ray transform (190 for the
 // coefficient leaves' feature transform).
 //
-// What the design does about it (the walk's choices are described in
-// stack_walk.cuh and stack_traverse.cu; each was measured on the
-// instanced atrium, PERF.md section 6): the design choices of the
-// *Design aliases below.  Each ray's sequence of leaf tests is that of
-// the plain versions: the closest hit tests a row's leaf children
-// nearer-first (postponed leaves keep that order, so ties at equal t
-// resolve as before); the any hit's bit does not depend on the order,
-// and its plain version follows the kernel's walk.
+// What the design does about it (measured on the instanced atrium's
+// 2,073,600 primaries and its sorted bounce-1 launch against PR 2's
+// walk, PERF.md section 6; the walk's choices in stack_walk.cuh):
+//   - postponed leaves (while-while): the first design tested a row's
+//     leaf children at once and ran its leaf tests at 20% (closest) and
+//     7% (any) SIMT efficiency; postponed, 90%, although node steps fall
+//     to 48% / 24%;
+//   - the any hit refills lanes from the counter and queues the leaf
+//     children of several nodes, up to 8 entries (16 with coefficient
+//     leaves), before the warp's leaf tests: fewer, fuller leaf phases
+//     (node SIMT 0.24 -> 0.46); it walks in slot order, as its plain
+//     version does (the bit does not depend on the order);
+//   - every lane keeps its last instance's object-space ray (features),
+//     which half the leaf visits reuse;
+//   - the exact closest hit takes the early-exit triangle test and the
+//     plain grid, the coefficient one persistent warps; register caps
+//     by __launch_bounds__: 6 blocks per SM (at most 85 registers) for
+//     the exact kernels, 7 (73) for the coefficient closest hit.
+// Each ray's sequence of leaf tests is that of the plain versions: the
+// closest hit tests a row's leaf children nearer-first (postponed
+// leaves keep that order, so ties at equal t resolve as before).
 
 #include <type_traits>
 
@@ -46,11 +59,12 @@
 namespace {
 
 // Design<sort (any hit), postpone, persistent, min blocks per SM,
-// refill, early-exit triangle test, instance cache, leaf queue>.
-using PairClosestDesign = Design<true, true, true, 1, false, true, true>;
-using PairAnyDesign = Design<false, true, true, 1, true, false, true>;
-using CoefPairClosestDesign = Design<true, true, true, 1, false, false, true>;
-using CoefPairAnyDesign = Design<false, true, true, 1, true, false, true>;
+// refill, early-exit triangle test, leaf queue>; every design keeps the
+// lane's last instance (stack_walk.cuh).
+using PairClosestDesign = Design<true, true, false, 6, false, true>;
+using PairAnyDesign = Design<false, true, true, 6, true, false, 8>;
+using CoefPairClosestDesign = Design<true, true, true, 7>;
+using CoefPairAnyDesign = Design<false, true, true, 1, true, false, 16>;
 
 template <bool ANY, bool COEF>
 using PairDesign =

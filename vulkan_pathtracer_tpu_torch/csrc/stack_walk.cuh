@@ -26,16 +26,16 @@ constexpr unsigned kFull = 0xffffffffu;
 //   REFILL    a lane whose ray is done takes the next one from the
 //             counter at once;
 //   EARLY     the triangle test returns at its first failed condition;
-//   CACHE     two-level scenes: each lane keeps the object-space ray
-//             (or the transformed features of coefficient leaves) of
-//             its last instance and recomputes them only when a leaf
-//             of another instance comes;
 //   QUEUE     any hit with POSTPONE: a lane queues the leaf children of
 //             several nodes, up to QUEUE entries, before the warp's
 //             leaf tests (0: one node's).
+// On two-level scenes every design keeps, per lane, the object-space
+// ray (or the transformed features of coefficient leaves) of its last
+// instance, and recomputes them only when a leaf of another instance
+// comes (the same operations on the same inputs: bitwise the values
+// of a recomputation).
 template <bool SORT, bool POSTPONE, bool PERSIST, int MINB,
-          bool REFILL = false, bool EARLY = false, bool CACHE = false,
-          int QUEUE = 0>
+          bool REFILL = false, bool EARLY = false, int QUEUE = 0>
 struct Design {
   static constexpr bool kSort = SORT;  // any hit only; the closest hit sorts
   static constexpr bool kPostpone = POSTPONE;
@@ -43,7 +43,6 @@ struct Design {
   static constexpr int kMinBlocks = MINB;
   static constexpr bool kRefill = REFILL;  // implies PERSIST and POSTPONE
   static constexpr bool kEarly = EARLY;    // traverse.cuh mt<..., EARLY>
-  static constexpr bool kCache = CACHE;
   static constexpr int kQueue = QUEUE;
 };
 
@@ -76,7 +75,7 @@ __device__ __forceinline__ void count_active(unsigned long long* st,
 
 // One ray's walk state: the stack (in the kernel's local arrays), the
 // current node, the leaf children waiting for the warp's leaf phase and
-// (two-level, CACHE) the object-space ray of the lane's last instance.
+// (two-level) the object-space ray of the lane's last instance.
 // The stack arrays stay outside the struct: an array indexed at run
 // time inside it would put every member in local memory.
 template <int W, bool ANY, bool COEF, bool INST, class D, bool STATS>
@@ -149,7 +148,7 @@ struct Walk {
   }
 
   // Test leaf `leaf`: the flat block, or the two-level decode, whose
-  // object-space ray (features) CACHE keeps while the instance stays.
+  // object-space ray (features) is kept while the instance stays.
   __device__ __forceinline__ void visit(const Ray& r, int leaf, Best& b) {
     if (STATS) atomicAdd(st + kStLeafVisits, 1ull);
     if (!INST) {
@@ -158,14 +157,8 @@ struct Walk {
       return;
     }
     const int inst = leaf >> mb_bits;
-    if (STATS && inst != last_inst) atomicAdd(st + kStInstChanges, 1ull);
-    if (!D::kCache) {
-      last_inst = inst;
-      visit_leaf<ANY, true, COEF, D::kEarly>(r, leaves, block, inst_inv,
-                                             mb_bits, leaf, b, inst_feat);
-      return;
-    }
     if (inst != last_inst) {
+      if (STATS) atomicAdd(st + kStInstChanges, 1ull);
       last_inst = inst;
       if (COEF) {
         float f[10];

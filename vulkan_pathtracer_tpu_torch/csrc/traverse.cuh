@@ -255,26 +255,15 @@ __device__ __forceinline__ float object_features(
   return __ldg(inst_inv + (size_t)inst * 16 + 12);
 }
 
-// One coefficient leaf child: flat, or (INST) the two-level decode
-// (object_features, then the det_sign-scaled test).
-template <bool ANY, bool INST>
+// One coefficient leaf child of a flat table (the two-level decode is
+// the stack walk's: object_features, then coef_block with det_sign).
+template <bool ANY>
 __device__ __forceinline__ void coef_leaf(const Ray& r,
                                           const float* __restrict__ coefs,
-                                          int block,
-                                          const float* __restrict__ inst_inv,
-                                          const float* __restrict__ inst_feat,
-                                          int mb_bits, int leaf, Best& b) {
+                                          int block, int leaf, Best& b) {
   float f[10];
   ray_features(r, f);
-  if (!INST) {
-    coef_block<ANY, false>(f, coefs, leaf, leaf, block, 1.0f, r.tl, b);
-    return;
-  }
-  const int inst = leaf >> mb_bits;
-  const int row = leaf & ((1 << mb_bits) - 1);
-  float fo[10];
-  const float det_sign = object_features(f, inst_inv, inst_feat, inst, fo);
-  coef_block<ANY, true>(fo, coefs, row, leaf, block, det_sign, r.tl, b);
+  coef_block<ANY, false>(f, coefs, leaf, leaf, block, 1.0f, r.tl, b);
 }
 
 // The ray in instance `inst`'s object space (pallas_pair.py:661-673 and
@@ -305,19 +294,17 @@ __device__ __forceinline__ float object_ray(const Ray& r,
 
 // One leaf child: the flat block, or (INST) the instanced decode —
 // block row, object-space ray (object_ray) and det_sign.
-// COEF: the coefficient leaf test instead (coef_leaf; `leaves` is then
-// the (n_leaves, block, 40) coefficient table).
+// COEF (flat tables): the coefficient leaf test instead (coef_leaf;
+// `leaves` is then the (n_leaves, block, 40) coefficient table).
 template <bool ANY, bool INST, bool COEF = false, bool EARLY = false>
 __device__ __forceinline__ void visit_leaf(const Ray& r,
                                            const float* __restrict__ leaves,
                                            int block,
                                            const float* __restrict__ inst_inv,
-                                           int mb_bits, int leaf, Best& b,
-                                           const float* __restrict__ inst_feat =
-                                               nullptr) {
+                                           int mb_bits, int leaf, Best& b) {
+  static_assert(!(INST && COEF), "two-level coefficient leaves: Walk::visit");
   if (COEF) {
-    coef_leaf<ANY, INST>(r, leaves, block, inst_inv, inst_feat, mb_bits, leaf,
-                         b);
+    coef_leaf<ANY>(r, leaves, block, leaf, b);
     return;
   }
   if (!INST) {

@@ -320,18 +320,18 @@ STACK_STATS = ("node_warps", "node_lanes", "leaf_warps", "leaf_lanes",
                "instance_changes")
 
 
-def _stats(name, fn, any_hit, lead, rest, origin, direction, t_lane):
-    """Run statistics launcher ``fn`` (arguments ``lead``, the rays,
-    ``rest``, then the outputs, the counters and the batch counter) and
-    return (its hit outputs, the list of counters)."""
+def _stats(name, fn, any_hit, tables, origin, direction, t_lane):
+    """Run statistics launcher ``fn`` (arguments: the any-hit flag,
+    ``tables``, the rays, the outputs, the counters and the batch
+    counter) and return (its hit outputs, the list of counters)."""
     n = origin.shape[0]
     dev = origin.device
     out = _hit_outputs(n, dev)
     hit = torch.empty(n, dtype=torch.uint8, device=dev)
     st = torch.zeros(lib().vkpt_stack_stats_count(), dtype=torch.int64,
                      device=dev)
-    _launch(name, dev, fn, int(any_hit), *lead,
-            *_ptrs(origin, direction, t_lane), n, *rest, *_ptrs(*out),
+    _launch(name, dev, fn, int(any_hit), *tables,
+            *_ptrs(origin, direction, t_lane), n, *_ptrs(*out),
             hit.data_ptr(), st.data_ptr(), batches=n)
     return (hit.bool() if any_hit else out), st.cpu().tolist()
 
@@ -345,7 +345,7 @@ def quad_stats(any_hit: bool, box, link, leaves, origin, direction, t_lane):
     _check_rays(origin, direction, t_lane, box.device)
     return _stats("quad_stats", lib().vkpt_quad_stats, any_hit,
                   (box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
-                   leaves.shape[1]), (), origin, direction, t_lane)
+                   leaves.shape[1]), origin, direction, t_lane)
 
 
 def pair_stats(any_hit: bool, box, link, leaves, origin, direction, t_lane,
@@ -360,8 +360,7 @@ def pair_stats(any_hit: bool, box, link, leaves, origin, direction, t_lane,
     inst = _check_inst(inst_inv, mb_bits, box.device)
     return _stats("pair_stats", lib().vkpt_pair_stats, any_hit,
                   (box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
-                   leaves.shape[1], inst, mb_bits), (), origin, direction,
-                  t_lane)
+                   leaves.shape[1], inst, mb_bits), origin, direction, t_lane)
 
 
 def summarize_stack_stats(counters) -> dict:
