@@ -224,12 +224,13 @@ struct Walk {
       }
       float tn[W];
       bool hit[W];
+#pragma unroll
+      for (int s = 0; s < W; ++s)
+        hit[s] = slab(r, bx + 6 * s, t_lim, tn[s]) && (lk[s] != kEmpty);
       int lf[W];  // the hit leaf children in test order, else -1
 #pragma unroll
-      for (int s = 0; s < W; ++s) {
-        hit[s] = slab(r, bx + 6 * s, t_lim, tn[s]) && (lk[s] != kEmpty);
+      for (int s = 0; s < W; ++s)
         lf[s] = hit[s] && lk[s] < 0 ? -lk[s] - 1 : -1;
-      }
       if (W == 2 && kSort) {
         const float e0 = hit[0] ? tn[0] : kBig;
         const float e1 = hit[1] ? tn[1] : kBig;
@@ -259,10 +260,12 @@ struct Walk {
           for (int s = 0; s < W; ++s) any_leaf |= lf[s] >= 0;
           if (any_leaf) count_active(st, kStLeafWarps);
         }
+        // In slot order the test stays hit[s] && lk[s] < 0 in place:
+        // reading the leaf values from lf made the oct kernel slower.
 #pragma unroll
         for (int s = 0; s < W; ++s) {
-          if (lf[s] >= 0) {
-            visit(r, lf[s], b);
+          if (W == 2 ? lf[s] >= 0 : hit[s] && lk[s] < 0) {
+            visit(r, W == 2 ? lf[s] : -lk[s] - 1, b);
             if (ANY && b.any) return true;
           }
         }
