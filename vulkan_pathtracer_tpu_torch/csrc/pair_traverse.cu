@@ -31,8 +31,9 @@
 // coefficient leaves' feature transform).
 //
 // What the design does about it (measured on the instanced atrium's
-// 2,073,600 primaries and its sorted bounce-1 launch against PR 2's
-// walk, PERF.md section 6; the walk's choices in stack_walk.cuh):
+// 2,073,600 primaries and its sorted bounce-1 launch against the first
+// design, which tested each row's leaves at once, PERF.md section 6;
+// the walk's choices in stack_walk.cuh):
 //   - postponed leaves (while-while): the first design tested a row's
 //     leaf children at once and ran its leaf tests at 20% (closest) and
 //     7% (any) SIMT efficiency; postponed, 90%, although node steps fall
