@@ -48,8 +48,12 @@ before the result line):
    and instanced (leaf 14, the skip kernel) with a frame's primary and
    bounce rays; the atrium flat (``load_pipeline`` with ``--traversal
    pallas8``, which bakes the wide tiles too) and instanced with 65,536
-   primary and 65,536 live bounce rays; the skip kernel timed on the
-   2,073,600 primaries flat and instanced, the wide kernel flat;
+   primary and 65,536 live bounce rays; the skip kernel timed on both
+   launches of a ``pallas_packet`` frame (the 2,073,600 primaries and
+   the sorted bounce-1 launch, the rays and order that path gives it)
+   flat and instanced, and held bitwise (t, tri, u, v) to its plain
+   version on each at full size, with its statistics build (as for the
+   pair kernels, no stack); the wide kernel timed flat;
 8. ``--traversal`` main paths — flat ``pallas_packet``, flat
    ``pallas8`` and instanced ``pallas_packet`` at 1080p: 1 warm-up + 4
    timed frames each, the counters read around them (the path's kernel
@@ -70,7 +74,9 @@ before the result line):
    leaf 28; the two-level pair with coefficient leaves at leaf 14) with
    a frame's primary and bounce rays, the atrium with 65,536 primary
    and 65,536 live bounce rays; each timed at the headline's shapes
-   (2,073,600 primaries; the sorted bounce-1 launch for any hits);
+   (2,073,600 primaries; the sorted bounce-1 launch for any hits); the
+   frontier any hit also against the frontier closest hit's mask on the
+   whole bounce-1 launch, and its statistics build there;
 10. tier main paths — 1080p, 1 warm-up + 4 timed frames each, the
    counters read around the 4 frames: (a) flat ``oct`` at leaf 28 (oct
    4, quad any hit 4), (b) flat frontier with coefficient leaves at
@@ -91,8 +97,8 @@ Each kernel's ``bound_ms`` is the larger of its operations over the
 card's f32 peak and its bytes over the HBM rate, counted from this
 run's inputs: node and leaf visits from the plain version (the same
 algorithm) times the per-visit operations of the kernel source.  The
-skip kernel's entry carries its instanced timing under ``*_instanced``
-keys.
+skip kernel's entry carries its bounce-1 and instanced timings under
+``*_bounce1``, ``*_instanced`` and ``*_instanced_bounce1`` keys.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -158,7 +164,8 @@ SMALL_W, SMALL_H = 320, 180
 # pair row 3 selects, a skip record its leaf test, a wide tile 8 slabs
 # and 2 leafword tests per slot, an oct row 8 slabs, 8 EMPTY tests and
 # an 8-key insertion sort (28 compares), a frontier row W slabs, W EMPTY
-# tests and the Batcher network (63 comparators at W = 16, 191 at 32);
+# tests and the Batcher network (63 comparators at W = 16, 191 at 32;
+# none in the any hit, which walks in slot order);
 # Möller–Trumbore is 54 per triangle (55 with det_sign); the
 # object-space transform of an instanced leaf visit 33; the ray set-up
 # (3 safe reciprocals, 3 products) 18.  Coefficient leaves
@@ -169,7 +176,8 @@ SMALL_W, SMALL_H = 320, 180
 PEAK_F32, HBM_BPS = 67e12, 3.35e12
 VISIT_OPS = {"quad": 4 * 25 + 4 + 6, "pair": 2 * 25 + 3, "skip": 25 + 1,
              "wide": 8 * (25 + 2), "oct": 8 * 25 + 8 + 28,
-             "frontier": 16 * 25 + 16 + 63, "frontier32": 32 * 25 + 32 + 191}
+             "frontier": 16 * 25 + 16 + 63, "frontier32": 32 * 25 + 32 + 191,
+             "frontier_any": 16 * 25 + 16}
 MT_OPS, XFORM_OPS, RAY_OPS = 54, 33, 18
 # The early-exit triangle test (traverse.cuh mt, EARLY; the quad, oct
 # and exact pair closest hits) stops after 15 operations at a back face,
@@ -339,13 +347,14 @@ def main() -> int:
               instanced=scene.instanced, hits=int((p.t < MISS_T).sum()),
               bit_equal=True, any_equal_to_closest=True)
 
-    def bounce_rays(scene, cam, frame, width, height):
+    def bounce_rays(scene, cam, frame, width, height, tier="auto"):
         """Primary rays of a frame and the sorted bounce-1 rays that the
-        main path hands the last-bounce kernel (closest hit by kernel)."""
+        main path of closest-hit tier ``tier`` hands its bounce-1 kernel
+        (in that launch's order)."""
         pos, hor, ver, fwd = pl.camera_tensors(cam, dev)
         o, d, sx, sy, _ = pl.primary_rays(pos, hor, ver, fwd, frame, width,
                                           height)
-        hit = wf._closest_hit(scene, o, d, None)
+        hit = wf._closest_hit(scene, o, d, None, tier)
         did_hit = hit.t < MISS_T
         tri_data = get_triangle_data(scene, hit)
         mat = get_material_data(scene, tri_data)
@@ -449,17 +458,18 @@ def main() -> int:
     results = {}
     plain_outputs = {}   # the timed plain runs' outputs, by kernel key
 
-    def stack_stats(key, run, ref):
-        """The statistics build of a stack kernel (outside the counted
-        main paths), its outputs bitwise the plain version's."""
+    def stack_stats(key, run, ref, tag=""):
+        """The statistics build of a kernel on the stack walk or the skip
+        walk (outside the counted main paths), its outputs bitwise the
+        plain version's; ``tag`` as in time_kernel."""
         out, counters = run()
         sync()
-        same = (torch.equal(out, ref) if key.endswith("any_hit") else
+        same = (torch.equal(out, ref) if "any_hit" in key else
                 all(torch.equal(a, b) for a, b in zip(out, ref)))
-        check(same, f"{key} statistics build != plain version")
+        check(same, f"{key}{tag} statistics build != plain version")
         summary = kernels.summarize_stack_stats(counters)
-        results[key]["stats"] = summary
-        phase("stats", kernel=key, **{
+        results[key]["stats" + tag] = summary
+        phase("stats", kernel=key + tag, **{
             k: f"{v:.4f}" if isinstance(v, float) else v
             for k, v in summary.items()})
 
@@ -475,7 +485,8 @@ def main() -> int:
         plain_outputs[key + tag] = p_out
         err = compare(k_out, p_out)
         b_ms, b_by = bound(tables, n_rays, out_bytes, stats,
-                           VISIT_OPS[key.split("_")[0]],
+                           VISIT_OPS["frontier_any" if key.startswith(
+                               "frontier_any") else key.split("_")[0]],
                            scene.max_leaf_size, int(scene.instanced),
                            coef=key.endswith("_coef"),
                            early=key in EARLY_EXIT)
@@ -500,9 +511,9 @@ def main() -> int:
         return (k != p).float().max().item()
 
     def bitwise_err(k, p):
-        """Full-frame primaries, t, tri, u, v bitwise (0.0 returned)."""
+        """A full-size launch, t, tri, u, v bitwise (0.0 returned)."""
         for f, a, b in zip("t tri u v".split(), k, p):
-            check(torch.equal(a, b), f"full-frame primaries: {f} differs on "
+            check(torch.equal(a, b), f"full-size launch: {f} differs on "
                   f"{int((a != b).sum())} rays")
         return 0.0
 
@@ -629,6 +640,28 @@ def main() -> int:
             compare_bitwise(label + "/wide", kernels.wide_closest_hit,
                             sk.wide_closest_hit_plain,
                             sk.wide_args(scene, o, d, active))
+
+    def time_skip(scene, prim, bounce1, tag):
+        """The skip kernel on both launches of a ``pallas_packet`` frame
+        (the 2,073,600 primaries; the sorted bounce-1 launch), timed and
+        held bitwise (t, tri, u, v) to its plain version at full size,
+        and its statistics build on both."""
+        tables = (scene.skip_nodes, scene.leaves) + (
+            (scene.inst_inv,) if scene.instanced else ())
+        for shape, rays in (("", prim), ("_bounce1", bounce1)):
+            args = sk.skip_args(scene, *rays)
+            time_kernel("skip_closest_hit",
+                        lambda: kernels.skip_closest_hit(*args),
+                        lambda s=None: sk.skip_closest_hit_plain(*args,
+                                                                 stats=s),
+                        tables, n_prim, 16, scene, bitwise_err,
+                        tag=tag + shape)
+            if shape:
+                phase("timing", kernel="skip_closest_hit" + tag + shape,
+                      live=int(bounce1[2].sum()))
+            stack_stats("skip_closest_hit", lambda: kernels.skip_stats(*args),
+                        plain_outputs.pop("skip_closest_hit" + tag + shape),
+                        tag + shape)
 
     # Columns (bench.py's 56k sidecar) at leaf 28: all rays of a
     # COLS_W x COLS_H frame, primaries and their bounce rays; the flat
@@ -821,41 +854,33 @@ def main() -> int:
           seconds=f"{time.perf_counter() - t1:.1f}")
     check(wscene.num_triangles == ATRIUM_TRIS and wscene.max_leaf_size == 28,
           "the pallas8 bake is not the headline atrium at leaf 28")
-    o, d, o1, d1, a1, _ = bounce_rays(wscene, cam0, 0, WIDTH, HEIGHT)
+    o, d, o1, d1, a1, _ = bounce_rays(wscene, cam0, 0, WIDTH, HEIGHT,
+                                      "pallas_packet")
     sel = subset(n_prim, N_SUB, 5)
     compare_skip("atrium/primary", wscene, o[sel], d[sel])
     live_idx = torch.nonzero(a1).squeeze(1)
     sel = live_idx[subset(live_idx.shape[0], N_SUB, 6)]
     compare_skip("atrium/bounce", wscene, o1[sel], d1[sel])
-    sargs = sk.skip_args(wscene, o, d, None)
-    time_kernel("skip_closest_hit",
-                lambda: kernels.skip_closest_hit(*sargs),
-                lambda s=None: sk.skip_closest_hit_plain(*sargs, stats=s),
-                (wscene.skip_nodes, wscene.leaves), n_prim, 16, wscene,
-                closest_err)
+    time_skip(wscene, (o, d, None), (o1, d1, a1), "")
     wargs = sk.wide_args(wscene, o, d, None)
     time_kernel("wide_closest_hit",
                 lambda: kernels.wide_closest_hit(*wargs),
                 lambda s=None: sk.wide_closest_hit_plain(*wargs, stats=s),
                 (wscene.wide_nodes, wscene.leaves), n_prim, 16, wscene,
                 closest_err)
-    del o, d, o1, d1, a1, sargs, wargs
+    del o, d, o1, d1, a1, wargs
 
     # The instanced atrium (phase 5's bake): the skip kernel with the
     # instanced leaf decode.
-    o, d, o1, d1, a1, _ = bounce_rays(iscene, cam0, 0, WIDTH, HEIGHT)
+    o, d, o1, d1, a1, _ = bounce_rays(iscene, cam0, 0, WIDTH, HEIGHT,
+                                      "pallas_packet")
     sel = subset(n_prim, N_SUB, 7)
     compare_skip("atrium-inst/primary", iscene, o[sel], d[sel])
     live_idx = torch.nonzero(a1).squeeze(1)
     sel = live_idx[subset(live_idx.shape[0], N_SUB, 8)]
     compare_skip("atrium-inst/bounce", iscene, o1[sel], d1[sel])
-    iargs = sk.skip_args(iscene, o, d, None)
-    time_kernel("skip_closest_hit",
-                lambda: kernels.skip_closest_hit(*iargs),
-                lambda s=None: sk.skip_closest_hit_plain(*iargs, stats=s),
-                (iscene.skip_nodes, iscene.leaves, iscene.inst_inv), n_prim,
-                16, iscene, closest_err, tag="_instanced")
-    del o, d, o1, d1, a1, iargs
+    time_skip(iscene, (o, d, None), (o1, d1, a1), "_instanced")
+    del o, d, o1, d1, a1
     phase("phase", name="skip and wide kernels",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
@@ -1050,6 +1075,20 @@ def main() -> int:
         time_kernel(f"{fam}_any_hit{suffix}", lambda: ak(*aargs),
                     lambda s=None: ap(*aargs, stats=s), tables, n_prim, 1,
                     scene, any_err)
+        if fam == "frontier":
+            # The whole bounce-1 launch: the any-hit bit against the
+            # frontier closest hit's mask (exactly so with exact leaves),
+            # and the any hit's statistics build.
+            key = f"frontier_any_hit{suffix}"
+            agree = (plain_outputs[key] == (ck(*aargs)[0] < MISS_T)).float()
+            agree = agree.mean().item()
+            check(agree == 1.0 or (coef and agree >= 0.998),
+                  f"bounce-1 {key} agrees with the closest-hit mask on "
+                  f"{agree:.6f} of rays")
+            phase("kernels", check=f"bounce-1 {key} vs closest mask",
+                  rays=n_prim, any_vs_closest=f"{agree:.6f}")
+            stack_stats(key, lambda: kernels.frontier_stats(*aargs),
+                        plain_outputs.pop(key))
 
     t1 = time.perf_counter()
     o, d, o1, d1, a1, _ = atrium_checks("atrium-a", apipe.scene, 11,

@@ -20,8 +20,10 @@ that are no multiple of 32, with inactive lanes, twice in a row (the
 batch counter zeroed before each launch), and the quad kernels'
 statistics build is held to the plain versions with its counters
 checked; so are the pair kernels' (two-level, exact and
-coefficient leaves), and stack kernels launched on two side streams at
-once, each with its own batch counter.
+coefficient leaves), the skip kernel's (flat and two-level) and the
+frontier any hit's (widths 16 and 32, exact and coefficient leaves), and
+stack kernels launched on two side streams at once, each with its own
+batch counter.
 """
 
 import numpy as np
@@ -351,6 +353,91 @@ def test_pair_statistics_build(cuda, scene_paths, any_hit, instanced):
     assert 0 < c["deepest"] <= st.STACK_SLOTS[2]
     assert c["leaf_visits"] == stats["leaf_visits"]
     assert (0 < c["instance_changes"] <= c["leaf_visits"]) == instanced
+    summary = kernels.summarize_stack_stats(counters)
+    assert 0.0 < summary["simt_node"] <= 1.0
+    assert 0.0 < summary["simt_leaf"] <= 1.0
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000, 4099])
+@pytest.mark.parametrize("instanced", [False, True])
+def test_skip_kernel_ragged_inactive_and_relaunched(cuda, scene_paths, n,
+                                                    instanced):
+    """The skip kernel (flat, and two-level with its instance cache) on a
+    ray count that is no multiple of 32, with a third of the lanes
+    inactive, launched twice with fresh batch counters: bitwise its plain
+    version each time."""
+    host = gltf.load(scene_paths["columns"])
+    scene = (build_instanced_scene(host, max_leaf_size=14, device=cuda)
+             if instanced else
+             build_device_scene(host, max_leaf_size=28, device=cuda))
+    o, d, active = _rays(n, seed=n + 5, device=cuda)
+    active[::3] = False
+    args = sk.skip_args(scene, o, d, active)
+    ref = sk.skip_closest_hit_plain(*args)
+    for _ in range(2):
+        _assert_equal(kernels.skip_closest_hit(*args), ref)
+    assert (ref.t[~active] == MISS_T).all()
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000, 4099])
+@pytest.mark.parametrize("width,mt", [(16, "exact"), (32, "exact"),
+                                      (16, "mxu"), (32, "mxu")])
+def test_frontier_any_hit_ragged_inactive_and_relaunched(cuda, scene_paths,
+                                                         n, width, mt):
+    """The frontier any hit on the shared walk (refill, leaf entries) on a
+    ray count that is no multiple of 32, with a third of the lanes
+    inactive, launched twice with fresh batch counters: its plain
+    version's bit each time, with exact leaves the closest hit's mask."""
+    scene = build_device_scene(gltf.load(scene_paths["columns"]),
+                               max_leaf_size=14, device=cuda, mt=mt,
+                               frontier_width=width)
+    o, d, active = _rays(n, seed=n + 7, device=cuda)
+    active[::3] = False
+    args = fr.frontier_args(scene, o, d, active, mt == "mxu")
+    ref = fr.frontier_any_hit_plain(*args)
+    for _ in range(2):
+        occ = kernels.frontier_any_hit(*args)
+        assert torch.equal(occ, ref)
+    if mt == "exact":
+        assert torch.equal(occ, fr.frontier_closest_hit_plain(*args).t
+                           < MISS_T)
+    assert not occ[~active].any()
+
+
+@pytest.mark.parametrize("kind", ["flat", "instanced", "frontier",
+                                  "frontier_mxu"])
+def test_skip_and_frontier_statistics_build(cuda, scene_paths, kind):
+    """The statistics builds of the skip kernel and the frontier any hit:
+    the plain versions' outputs and leaf visits, one traced ray per
+    active lane, instance changes on the two-level scene only, no stack
+    in the skip walk."""
+    host = gltf.load(scene_paths["columns"])
+    o, d, active = _rays(3000, seed=10, device=cuda)
+    stats = {}
+    if kind.startswith("frontier"):
+        mxu = kind.endswith("mxu")
+        scene = build_device_scene(host, max_leaf_size=14, device=cuda,
+                                   mt="mxu" if mxu else "exact")
+        args = fr.frontier_args(scene, o, d, active, mxu)
+        out, counters = kernels.frontier_stats(*args)
+        assert torch.equal(out, fr.frontier_any_hit_plain(*args,
+                                                          stats=stats))
+    else:
+        scene = (build_instanced_scene(host, max_leaf_size=14, device=cuda)
+                 if kind == "instanced" else
+                 build_device_scene(host, max_leaf_size=28, device=cuda))
+        args = sk.skip_args(scene, o, d, active)
+        out, counters = kernels.skip_stats(*args)
+        _assert_equal(out, sk.skip_closest_hit_plain(*args, stats=stats))
+    c = dict(zip(kernels.STACK_STATS, counters))
+    hist = counters[len(kernels.STACK_STATS):]
+    assert c["rays"] == int(active.sum()) == sum(hist)
+    assert c["leaf_visits"] == stats["leaf_visits"] > 0
+    assert (c["instance_changes"] > 0) == (kind == "instanced")
+    if kind.startswith("frontier"):
+        assert 0 < c["deepest"] <= st.STACK_SLOTS[16]
+    else:
+        assert c["deepest"] == 0 and c["node_lanes"] == stats["node_visits"]
     summary = kernels.summarize_stack_stats(counters)
     assert 0.0 < summary["simt_node"] <= 1.0
     assert 0.0 < summary["simt_leaf"] <= 1.0

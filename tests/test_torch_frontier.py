@@ -12,7 +12,9 @@
   JAX suite's tolerances (hit masks equal, t allclose 1e-5, tri
   agreement >= 0.999), the any-hit bit equal to the port's own
   ``closest.t < MISS_T``; coefficient leaves (``VKPT_MT=mxu`` around
-  the JAX call) at tests/test_mxu_mt.py's relaxed budget.
+  the JAX call) at tests/test_mxu_mt.py's relaxed budget.  The any
+  hit's slot-order walk at widths 16 and 32: its bit equal to JAX's
+  and to the port's near-first walk, exact and coefficient leaves.
 - A 64x48 frame with the frontier kernels on every bounce against the
   JAX pipeline with ``VKPT_KERNEL_*=frontier`` and
   ``VKPT_ANYHIT_KERNEL=frontier``.
@@ -202,6 +204,41 @@ def test_any_plain_matches_pallas_interpret(scenes):
     closest = fr.frontier_closest_hit(td, o_t, d_t, act)
     assert torch.equal(got, closest.t < MISS_T)
     assert not got[~act].any() and got.sum() > 100
+
+
+@pytest.mark.parametrize("mt", ["exact", "mxu"])
+@pytest.mark.parametrize("width", [16, 32])
+def test_any_slot_order_matches_pallas(scenes, width, mt, monkeypatch):
+    """The any hit's plain version walks hit children in slot order (the
+    kernel's walk since the Hopper redesign); its bit is JAX's
+    near-first one (pallas_frontier_any_hit in interpret mode, exact and
+    under VKPT_MT=mxu) and the port's own near-first walk with the
+    Batcher network."""
+    import jax
+
+    jd, td = scenes(width)
+    o, d = _rays(1024, seed=37 + width)
+    active = np.arange(1024) % 5 != 0
+    if mt == "mxu":
+        monkeypatch.setenv("VKPT_MT", "mxu")
+    jax.clear_caches()   # JAX reads VKPT_MT while it traces
+    ref = np.asarray(pf.pallas_frontier_any_hit(
+        jd, jnp.asarray(o), jnp.asarray(d), jnp.asarray(active),
+        interpret=True, packet=512))
+    monkeypatch.delenv("VKPT_MT", raising=False)
+    jax.clear_caches()
+    o_t, d_t, a_t = map(torch.from_numpy, (o, d, active))
+    args = fr.frontier_args(td, o_t, d_t, a_t, mt == "mxu")
+    got = fr.frontier_any_hit_plain(*args)
+    near_first = st._traverse_plain(*args, True, False,
+                                    sortnet=fr.batcher_oem(width))
+    assert 100 < int(got.sum()) < int(a_t.sum())
+    assert np.array_equal(got.numpy(), ref)
+    assert torch.equal(got, near_first)
+    assert not got[~a_t].any()
+    if mt == "exact":
+        closest = fr.frontier_closest_hit_plain(*args)
+        assert torch.equal(got, closest.t < MISS_T)
 
 
 def test_coefficient_leaves_match_pallas_interpret(scenes, monkeypatch):

@@ -1,16 +1,19 @@
-"""The stack walk's CUDA source on the CPU: the pair and quad kernels of
-``csrc/stack_walk.cuh`` (``pair_traverse.cu``, ``stack_traverse.cu``)
-compiled with g++ against ``csrc/host_mock.h``, a stand-in for the CUDA
-runtime that runs each warp as 32 threads voting through a barrier,
-and held bitwise to their plain PyTorch versions.
+"""The walks' CUDA source on the CPU: the pair, quad and frontier any-hit
+kernels of ``csrc/stack_walk.cuh`` (``pair_traverse.cu``,
+``stack_traverse.cu``, ``frontier_traverse.cu``) and the skip kernel
+(``skip_traverse.cu``) compiled with g++ against ``csrc/host_mock.h``, a
+stand-in for the CUDA runtime that runs each warp as 32 threads voting
+through a barrier, and held bitwise to their plain PyTorch versions.
 
 What this covers that the CPU tests of the plain versions cannot: the
 kernels' own control flow — postponed leaves and their near-first order
-in a pair row, persistent warps and ray refill on a small grid (the
-mock reports 2 SMs of 2 blocks, so warps take many batches), the
-instance cache of two-level scenes, the statistics build — on the
-columns scene flat and two-level, exact and coefficient leaves, with a
-third of the lanes inactive and a ray count that is no multiple of 32.
+in a pair row or preorder in a skip walk, the frontier any hit's leaf
+entries, persistent warps and ray refill on a small grid (the mock
+reports 2 SMs of 2 blocks, so warps take many batches), the instance
+cache of two-level scenes, the statistics build — on the columns scene
+flat and two-level, exact and coefficient leaves, frontier widths 16
+and 32, with a third of the lanes inactive and a ray count that is no
+multiple of 32.
 The comparison is exact (t, tri, u, v and the any-hit bit): the sources
 are built with ``-ffp-contract=off``, as nvcc builds them with
 ``-fmad=false``, and perform the plain versions' float operations in
@@ -32,13 +35,16 @@ from vulkan_pathtracer_tpu_torch.models.device_scene import build_device_scene
 from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
     build_instanced_scene,
 )
+from vulkan_pathtracer_tpu_torch.ops import frontier as fr
 from vulkan_pathtracer_tpu_torch.ops import kernels
+from vulkan_pathtracer_tpu_torch.ops import skip_traverse as sk
 from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "vulkan_pathtracer_tpu_torch", "csrc")
-UNITS = ("stack_traverse.cu", "pair_traverse.cu")
+UNITS = ("stack_traverse.cu", "pair_traverse.cu", "skip_traverse.cu",
+         "frontier_traverse.cu")
 FLAGS = ["-std=c++20", "-O1", "-ffp-contract=off", "-pthread", "-fPIC",
          "-x", "c++"]
 LAUNCH = re.compile(r"(\w+(?:<[^;{}]*?>)?)<<<(.*?)>>>\(", re.S)
@@ -116,18 +122,43 @@ def quad_host(lib, any_hit, box, link, leaves, o, d, t_lane):
     return out
 
 
-def stats_host(lib, any_hit, width, box, link, leaves, o, d, t_lane,
+def skip_host(lib, nodes, leaves, o, d, t_lane, inst_inv=None, mb_bits=0):
+    n = o.shape[0]
+    out = _outputs(n)
+    _launch(lib.vkpt_skip_closest_hit, *_ptrs(nodes), nodes.shape[0] // 8,
+            *_ptrs(leaves), leaves.shape[1], *_ptrs(inst_inv), mb_bits,
+            *_ptrs(o, d, t_lane), n, *_ptrs(*out), n=n)
+    return out
+
+
+def frontier_host(lib, box, link, leaves, o, d, t_lane):
+    n = o.shape[0]
+    hit = torch.full((n,), 7, dtype=torch.uint8)
+    _launch(lib.vkpt_frontier_any_hit, *_ptrs(box, link), box.shape[1],
+            *_ptrs(leaves), leaves.shape[1], int(leaves.shape[2] == 40),
+            *_ptrs(o, d, t_lane), n, hit.data_ptr(), n=n)
+    return hit.bool()
+
+
+def stats_host(lib, any_hit, kind, box, link, leaves, o, d, t_lane,
                inst_inv=None, mb_bits=0):
+    """The statistics build of kernel ``kind`` (quad, pair, skip with
+    ``box`` the skip records and ``link`` None, or frontier)."""
     n = o.shape[0]
     out = _outputs(n)
     hit = torch.full((n,), 7, dtype=torch.uint8)
     counters = torch.zeros(lib.vkpt_stack_stats_count(), dtype=torch.int64)
-    lead = (int(any_hit), *_ptrs(box, link, leaves), leaves.shape[1])
-    if width == 2:
-        lead = (*lead, *_ptrs(inst_inv), mb_bits)
-        fn = lib.vkpt_pair_stats
+    if kind == "skip":
+        lead = (0, *_ptrs(box), box.shape[0] // 8, *_ptrs(leaves),
+                leaves.shape[1], *_ptrs(inst_inv), mb_bits)
+    elif kind == "frontier":
+        lead = (1, *_ptrs(box, link), box.shape[1], *_ptrs(leaves),
+                leaves.shape[1], int(leaves.shape[2] == 40))
     else:
-        fn = lib.vkpt_quad_stats
+        lead = (int(any_hit), *_ptrs(box, link, leaves), leaves.shape[1])
+        if kind == "pair":
+            lead = (*lead, *_ptrs(inst_inv), mb_bits)
+    fn = getattr(lib, f"vkpt_{kind}_stats")
     _launch(fn, *lead, *_ptrs(o, d, t_lane), n, *_ptrs(*out),
             hit.data_ptr(), counters.data_ptr(), n=n)
     return (hit.bool() if any_hit else out), counters.tolist()
@@ -155,6 +186,8 @@ def scenes(columns_glb):
     return {
         "flat": build_device_scene(host, max_leaf_size=8, device="cpu",
                                    mt="mxu"),
+        "flat32": build_device_scene(host, max_leaf_size=8, device="cpu",
+                                     mt="mxu", frontier_width=32),
         "instanced": build_instanced_scene(host, max_leaf_size=14,
                                            device="cpu", mt="mxu")}
 
@@ -199,7 +232,7 @@ def test_pair_statistics_build(host_lib, scenes, kind, any_hit):
     scene = scenes[kind]
     o, d, active = _rays(640, seed=13)
     args = st.pair_args(scene, o, d, active)
-    out, counters = stats_host(host_lib, any_hit, 2, *args[:6],
+    out, counters = stats_host(host_lib, any_hit, "pair", *args[:6],
                                inst_inv=args[6], mb_bits=args[7])
     plain_stats = {}
     if any_hit:
@@ -240,6 +273,109 @@ def test_pair_leaf_order_decides_ties(host_lib):
     assert (ref.t == 5.0).all() and (ref.tri == 1).all()
     _assert_closest(pair_host(host_lib, False, box, link, leaves, o, d,
                               t_lane), ref)
+
+
+@pytest.mark.parametrize("kind", ["flat", "instanced"])
+def test_skip_kernel_matches_plain(host_lib, scenes, kind):
+    """The skip kernel of the kept design (postponed leaves; two-level:
+    the instance cache), bitwise its plain version."""
+    o, d, active = _rays(999, seed=21)
+    args = sk.skip_args(scenes[kind], o, d, active)
+    ref = sk.skip_closest_hit_plain(*args)
+    assert 100 < int((ref.t < MISS_T).sum()) < int(active.sum())
+    _assert_closest(skip_host(host_lib, *args), ref)
+
+
+@pytest.mark.parametrize("coef", [False, True], ids=["exact", "coef"])
+@pytest.mark.parametrize("width", [16, 32])
+def test_frontier_any_hit_matches_plain(host_lib, scenes, width, coef):
+    """The frontier any hit on the shared walk (slot order, leaf entries,
+    refill), bitwise its plain version; with exact leaves the closest
+    hit's mask too."""
+    scene = scenes["flat" if width == 16 else "flat32"]
+    assert scene.frontier_box.shape[1] == width
+    o, d, active = _rays(999, seed=31 + coef)
+    args = fr.frontier_args(scene, o, d, active, coef)
+    occ = frontier_host(host_lib, *args)
+    ref = fr.frontier_any_hit_plain(*args)
+    assert 100 < int(ref.sum()) < int(active.sum())
+    assert torch.equal(occ, ref)
+    if not coef:
+        assert torch.equal(occ, fr.frontier_closest_hit_plain(*args).t
+                           < MISS_T)
+    assert not occ[~active].any()
+
+
+@pytest.mark.parametrize("kind", ["flat", "instanced", "frontier",
+                                  "frontier_coef"])
+def test_skip_and_frontier_statistics_build(host_lib, scenes, kind):
+    """The statistics builds of the skip kernel and the frontier any hit:
+    the plain versions' outputs and leaf visits (each ray tests its
+    leaves in its plain version's order), one traced ray per active
+    lane, instance changes on the two-level scene only, no stack in the
+    skip walk."""
+    o, d, active = _rays(640, seed=17)
+    stats = {}
+    if kind.startswith("frontier"):
+        args = fr.frontier_args(scenes["flat"], o, d, active,
+                                kind.endswith("coef"))
+        out, counters = stats_host(host_lib, True, "frontier", *args)
+        assert torch.equal(out, fr.frontier_any_hit_plain(*args,
+                                                          stats=stats))
+    else:
+        args = sk.skip_args(scenes[kind], o, d, active)
+        out, counters = stats_host(host_lib, False, "skip", args[0], None,
+                                   *args[1:])
+        _assert_closest(out, sk.skip_closest_hit_plain(*args, stats=stats))
+    c = dict(zip(kernels.STACK_STATS, counters))
+    hist = counters[len(kernels.STACK_STATS):]
+    assert c["rays"] == int(active.sum()) == sum(hist)
+    assert c["leaf_visits"] == stats["leaf_visits"] > 0
+    assert (c["instance_changes"] > 0) == (kind == "instanced")
+    assert c["instance_changes"] <= c["leaf_visits"]
+    if kind.startswith("frontier"):
+        assert 0 < c["deepest"] <= st.STACK_SLOTS[16]
+    else:
+        assert c["deepest"] == 0 and hist[0] == c["rays"]
+
+
+def _skip_records(order):
+    """(8*3, 8) skip records of a root and two leaf records, the leaves
+    in preorder ``order`` in every octant block: block-1 leaf values 0
+    (box z 4..6) and 1 (box z 1..6)."""
+    leaf_box = {0: [-2.0, -2.0, 4.0, 4.0, 4.0, 6.0],
+                1: [-2.0, -2.0, 1.0, 4.0, 4.0, 6.0]}
+    recs = [([-2.0, -2.0, 0.0, 4.0, 4.0, 6.0], 3, -1)]
+    recs += [(leaf_box[v], 2 + k, v) for k, v in enumerate(order)]
+    block = np.zeros((3, 8), np.float32)
+    for r, (box, skip, leaf) in enumerate(recs):
+        block[r, :6] = box
+        block[r, 6:8] = np.array([skip, leaf], np.int32).view(np.float32)
+    return torch.from_numpy(np.tile(block, (8, 1)))
+
+
+@pytest.mark.parametrize("order", [(0, 1), (1, 0)], ids=["0-1", "1-0"])
+def test_skip_preorder_decides_ties(host_lib, order):
+    """Two leaves whose triangles lie at the same t: the first leaf in
+    the ray's preorder wins the tie under the strict-less update, so
+    swapping the two records swaps the winner; the postponed kernel
+    keeps each ray's preorder (some lanes miss the root and finish at
+    once, the others wait at a leaf for the warp's leaf phase)."""
+    def tri(z):
+        return [-1.0, -1.0, z, 0.0, 4.0, 0.0, 4.0, 0.0, 0.0]
+
+    leaves = torch.tensor([[tri(5.0)], [tri(5.0)]])
+    nodes = _skip_records(order)
+    n = 96
+    o = torch.zeros((n, 3))
+    o[:, 0] = torch.linspace(-3.0, 0.5, n)
+    d = torch.tensor([[0.0, 0.0, 1.0]]).expand(n, 3).contiguous()
+    t_lane = st.lane_limits(n, None, "cpu")
+    ref = sk.skip_closest_hit_plain(nodes, leaves, o, d, t_lane)
+    hit = ref.t < MISS_T
+    assert 0 < int(hit.sum()) < n and (ref.t[hit] == 5.0).all()
+    assert (ref.tri[hit] == order[0]).all()
+    _assert_closest(skip_host(host_lib, nodes, leaves, o, d, t_lane), ref)
 
 
 def test_launch_guard_and_batch_counters(monkeypatch):

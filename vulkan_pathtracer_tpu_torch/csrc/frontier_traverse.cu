@@ -39,8 +39,10 @@
 // drain, which also keeps one copy of the leaf test in the code), and
 // pop culling as in the quad kernel.
 
+#include <type_traits>
+
 #include "sortnet.cuh"
-#include "traverse.cuh"
+#include "stack_walk.cuh"
 
 namespace {
 
@@ -179,22 +181,35 @@ frontier_closest_hit_kernel(const float* __restrict__ box,
   v_out[i] = b.v;
 }
 
-template <int W, bool COEF>
-__global__ void __launch_bounds__(kThreads)
-frontier_any_hit_kernel(const float* __restrict__ box,
-                        const int* __restrict__ link,
-                        const float* __restrict__ leaves, int block,
-                        const float* __restrict__ origin,
-                        const float* __restrict__ direction,
-                        const float* __restrict__ t_lane, int64_t n,
-                        uint8_t* __restrict__ hit_out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(origin, direction, t_lane, i);
-  Best b{kMissT, 0.0f, 0.0f, -1, false};
-  if (r.tl >= 0.0f)
-    frontier_traverse<true, W, COEF>(box, link, leaves, block, r, b);
-  hit_out[i] = b.any ? 1 : 0;
+// The any hit: the stack walk of stack_walk.cuh at width 16 or 32
+// (slot order, leaves as node entries).
+// Design<sort (no), postpone, persistent, min blocks per SM, refill,
+// early-exit triangle test, leaf queue>.
+using FrontierAnyDesign = Design<false, true, true, 6, true, false, 8>;
+using CoefFrontierAnyDesign = Design<false, true, true, 6, false, false, 8>;
+
+template <int W, bool COEF, bool STATS = false>
+int any_launch(const Tables& tab, const float* origin,
+               const float* direction, const float* t_lane, int64_t n,
+               uint8_t* hit_out, unsigned* batches, unsigned long long* st,
+               void* stream) {
+  using D = std::conditional_t<COEF, CoefFrontierAnyDesign, FrontierAnyDesign>;
+  return launch<W, true, COEF, false, D, STATS>(
+      tab, origin, direction, t_lane, n, nullptr, nullptr, nullptr, nullptr,
+      hit_out, batches, st, stream);
+}
+
+template <bool STATS>
+int any_dispatch(int width, int coef, const Tables& tab, const float* origin,
+                 const float* direction, const float* t_lane, int64_t n,
+                 uint8_t* hit_out, unsigned* batches, unsigned long long* st,
+                 void* stream) {
+  if (width != 16 && width != 32) return (int)cudaErrorInvalidValue;
+  const auto run = width == 16 ? (coef ? any_launch<16, true, STATS>
+                                       : any_launch<16, false, STATS>)
+                               : (coef ? any_launch<32, true, STATS>
+                                       : any_launch<32, false, STATS>);
+  return run(tab, origin, direction, t_lane, n, hit_out, batches, st, stream);
 }
 
 }  // namespace
@@ -233,29 +248,37 @@ extern "C" int vkpt_frontier_closest_hit(const float* box, const int* link,
   return (int)cudaGetLastError();
 }
 
+// `batches`: one unsigned counter for the any hit's persistent warps,
+// zeroed by the launcher on `stream`.
 extern "C" int vkpt_frontier_any_hit(const float* box, const int* link,
                                      int width, const float* leaves,
                                      int block, int coef,
                                      const float* origin,
                                      const float* direction,
                                      const float* t_lane, int64_t n,
-                                     uint8_t* hit_out, void* stream) {
-  if (width != 16 && width != 32) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-    const cudaStream_t s = (cudaStream_t)stream;
-#define VKPT_FRONTIER_AH(W, COEF)                                        \
-  frontier_any_hit_kernel<W, COEF><<<grid, kThreads, 0, s>>>(            \
-      box, link, leaves, block, origin, direction, t_lane, n, hit_out)
-    if (width == 16 && coef)
-      VKPT_FRONTIER_AH(16, true);
-    else if (width == 16)
-      VKPT_FRONTIER_AH(16, false);
-    else if (coef)
-      VKPT_FRONTIER_AH(32, true);
-    else
-      VKPT_FRONTIER_AH(32, false);
-#undef VKPT_FRONTIER_AH
-  }
-  return (int)cudaGetLastError();
+                                     uint8_t* hit_out, unsigned* batches,
+                                     void* stream) {
+  const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
+  return any_dispatch<false>(width, coef, tab, origin, direction, t_lane, n,
+                             hit_out, batches, nullptr, stream);
+}
+
+// The statistics build of the any hit (the designs above; any must be
+// 1); `st` holds kStCount zeroed counters.  The hit output is that of
+// the production kernel; t_out .. v_out are not written.
+extern "C" int vkpt_frontier_stats(int any, const float* box,
+                                   const int* link, int width,
+                                   const float* leaves, int block, int coef,
+                                   const float* origin,
+                                   const float* direction,
+                                   const float* t_lane, int64_t n,
+                                   float* t_out, int* tri_out, float* u_out,
+                                   float* v_out, uint8_t* hit_out,
+                                   unsigned long long* st, unsigned* batches,
+                                   void* stream) {
+  if (!any) return (int)cudaErrorInvalidValue;
+  (void)t_out, (void)tri_out, (void)u_out, (void)v_out;
+  const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
+  return any_dispatch<true>(width, coef, tab, origin, direction, t_lane, n,
+                            hit_out, batches, st, stream);
 }

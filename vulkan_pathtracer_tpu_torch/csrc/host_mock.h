@@ -1,7 +1,7 @@
-// A CPU stand-in for the parts of the CUDA runtime that the stack walk
-// (stack_walk.cuh, with stack_traverse.cu and pair_traverse.cu) uses, so
-// that g++ builds those sources into a host library whose C launchers
-// run on host memory.  tests/test_torch_walk_host.py builds it and holds
+// A CPU stand-in for the parts of the CUDA runtime that the traversal
+// kernels (stack_walk.cuh with stack_traverse.cu, pair_traverse.cu and
+// frontier_traverse.cu; skip_traverse.cu) use, so that g++ builds those
+// sources into a host library whose C launchers run on host memory.  tests/test_torch_walk_host.py builds it and holds
 // the kernels' outputs to their plain PyTorch versions bitwise.
 //
 // Each block's threads run as std::threads (blocks one after another);
@@ -46,7 +46,7 @@ struct dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
 using cudaStream_t = void*;
-enum cudaError_t { cudaSuccess = 0 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 
 using std::max;
@@ -63,7 +63,7 @@ struct Warp {
   }
 };
 
-inline thread_local dim3 thread_idx, block_idx;
+inline thread_local dim3 thread_idx, block_idx, block_dim;
 inline thread_local Warp* warp = nullptr;
 
 inline unsigned lane() { return thread_idx.x & 31u; }
@@ -101,6 +101,7 @@ void launch(Cfg c, K kernel, A... args) {
       threads.emplace_back([&, t] {
         thread_idx.x = (unsigned)t;
         block_idx.x = (unsigned)b;
+        block_dim.x = (unsigned)c.threads;
         warp = warps[t / 32].get();
         kernel(args...);
         warp->live[t & 31] = false;
@@ -115,10 +116,17 @@ void launch(Cfg c, K kernel, A... args) {
 
 #define threadIdx (vkpt_mock::thread_idx)
 #define blockIdx (vkpt_mock::block_idx)
+#define blockDim (vkpt_mock::block_dim)
 
 template <class T>
 inline T __ldg(const T* p) {
   return *p;
+}
+
+inline int __float_as_int(float f) {
+  int i;
+  std::memcpy(&i, &f, sizeof i);
+  return i;
 }
 
 inline unsigned __activemask() { return 0xffffffffu; }

@@ -48,7 +48,7 @@
 // per tile, one ray per thread so a thread never waits on another's
 // branch, and rays sorted by the caller (2D tiles, the 6d Morton key).
 
-#include "traverse.cuh"
+#include "stack_walk.cuh"
 
 namespace {
 
@@ -74,52 +74,122 @@ __device__ __forceinline__ bool slab_sub(const Ray& r, const float* c,
   return n <= f;
 }
 
-template <bool INST>
-__global__ void __launch_bounds__(kThreads)
-skip_closest_hit_kernel(const float* __restrict__ nodes, int n_nodes,
-                        const float* __restrict__ leaves, int block,
-                        const float* __restrict__ inst_inv, int mb_bits,
-                        const float* __restrict__ origin,
-                        const float* __restrict__ direction,
-                        const float* __restrict__ t_lane, int64_t n,
-                        float* __restrict__ t_out, int* __restrict__ tri_out,
-                        float* __restrict__ u_out, float* __restrict__ v_out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(origin, direction, t_lane, i);
-  Best b{kMissT, 0.0f, 0.0f, -1, false};
-  if (r.tl >= 0.0f) {
-    const float4* rec = reinterpret_cast<const float4*>(nodes) +
-                        (size_t)octant_of(r) * n_nodes * 2;
-    int cur = 0;
-    while (cur < n_nodes) {
-      const float4 a = __ldg(rec + 2 * cur);
-      const float4 c = __ldg(rec + 2 * cur + 1);
-      const float box[6] = {a.x, a.y, a.z, a.w, c.x, c.y};
-      const int skip = __float_as_int(c.z);
-      const int leaf = __float_as_int(c.w);
-      float tn;
-      const bool hit = slab(r, box, fminf(b.t, r.tl), tn);
-      if (leaf >= 0) {
-        if (hit) {
-          if (INST)
-            visit_leaf<false, true>(r, leaves, block, inst_inv, mb_bits, leaf,
-                                    b);
-          else   // the block's first triangle: row leaf / block
-            leaf_block<false, false>(r, leaves, leaf / block, leaf / block,
-                                     block, 1.0f, b);
-        }
-        cur = skip;
+// The skip walk of one ray, with the interface of the stack walk
+// (stack_walk.cuh Walk), so that the warp loops, the launcher and the
+// statistics build are the stack kernels': the cursor in the ray's
+// octant preorder, and (POSTPONE) the leaf whose box it hit, waiting
+// for the warp's leaf phase.  A waiting lane takes no node step, so
+// each ray tests its records and leaves in exactly its own preorder,
+// each record against the t_best its plain version sees.
+template <bool INST, class D, bool STATS>
+struct SkipWalk {
+  const float4* __restrict__ nodes;  // all 8 octant blocks
+  int n_nodes;
+  LeafTest<false, false, INST, D, STATS> lt;
+  const float4* rec;  // the ray's octant block
+  int cur, pend, deepest;
+  unsigned long long* st;  // STATS: the launch's counters
+
+  __device__ __forceinline__ void start(const Ray& r, bool active) {
+    cur = active ? 0 : -1;
+    pend = -1;
+    deepest = 0;  // no stack
+    lt.reset();
+    if (active) rec = nodes + (size_t)octant_of(r) * n_nodes * 2;
+  }
+
+  __device__ __forceinline__ bool pending() const { return pend >= 0; }
+
+  __device__ __forceinline__ bool can_step() const {
+    return cur >= 0 && pend < 0;
+  }
+
+  // A flat leaf value is its block's first triangle (row = leaf /
+  // block), a two-level one the packed instance and block.
+  __device__ __forceinline__ void visit(const Ray& r, int leaf, Best& b) {
+    lt.visit(r, INST ? leaf : leaf / lt.block, b);
+  }
+
+  // Record `cur`: box hit -> cur + 1 (internal) or its leaf (tested at
+  // once, or held under POSTPONE) and the skip pointer; missed -> skip.
+  __device__ __forceinline__ bool node_step(const Ray& r, Best& b) {
+    const float4 a = __ldg(rec + 2 * cur);
+    const float4 c = __ldg(rec + 2 * cur + 1);
+    const float box[6] = {a.x, a.y, a.z, a.w, c.x, c.y};
+    const int skip = __float_as_int(c.z);
+    const int leaf = __float_as_int(c.w);
+    float tn;
+    const bool hit = slab(r, box, fminf(b.t, r.tl), tn);
+    int next = skip;
+    if (leaf < 0) {
+      if (hit) next = cur + 1;
+    } else if (hit) {
+      if (D::kPostpone) {
+        pend = leaf;
       } else {
-        cur = hit ? cur + 1 : skip;
+        if (STATS) count_active(st, kStLeafWarps);
+        visit(r, leaf, b);
       }
     }
+    cur = next < n_nodes ? next : -1;
+    return false;
   }
-  t_out[i] = b.t;
-  tri_out[i] = b.tri;
-  u_out[i] = b.u;
-  v_out[i] = b.v;
+
+  __device__ __forceinline__ bool visit_pending(const Ray& r, Best& b) {
+    if (STATS) count_active(st, kStLeafWarps);
+    visit(r, pend, b);
+    pend = -1;
+    return false;
+  }
+};
+
+struct SkipTables {
+  const float* nodes;
+  int n_nodes;
+  const float* leaves;
+  int block;
+  const float* inst_inv;  // INST: (I, 16)
+  int mb_bits;
+};
+
+template <bool INST, class D, bool STATS>
+__global__ void __launch_bounds__(kThreads, D::kMinBlocks)
+skip_kernel(const SkipTables tab, const float* __restrict__ origin,
+            const float* __restrict__ direction,
+            const float* __restrict__ t_lane, int64_t n,
+            float* __restrict__ t_out, int* __restrict__ tri_out,
+            float* __restrict__ u_out, float* __restrict__ v_out,
+            unsigned* batches, unsigned long long* st) {
+  using Wk = SkipWalk<INST, D, STATS>;
+  Wk w;
+  w.nodes = reinterpret_cast<const float4*>(tab.nodes);
+  w.n_nodes = tab.n_nodes;
+  w.lt.leaves = tab.leaves;
+  w.lt.block = tab.block;
+  w.lt.inst_inv = tab.inst_inv;
+  w.lt.inst_feat = nullptr;
+  w.lt.mb_bits = tab.mb_bits;
+  w.lt.st = st;
+  w.st = st;
+  run_rays<Wk, false, D, STATS>(w, origin, direction, t_lane, n, t_out,
+                                tri_out, u_out, v_out, nullptr, batches, st);
 }
+
+template <bool INST, class D, bool STATS = false>
+int skip_launch(const SkipTables& tab, const float* origin,
+                const float* direction, const float* t_lane, int64_t n,
+                float* t_out, int* tri_out, float* u_out, float* v_out,
+                unsigned* batches, unsigned long long* st, void* stream) {
+  return launch_kernel<skip_kernel<INST, D, STATS>, D>(
+      n, batches, stream, tab, origin, direction, t_lane, n, t_out, tri_out,
+      u_out, v_out, batches, st);
+}
+
+// Design<sort (unused), postpone, persistent, min blocks per SM,
+// refill, early-exit triangle test, queue (unused), instance cache,
+// leaf phase at>.
+using SkipFlatDesign = Design<true, true, true, 6, false, true>;
+using SkipInstDesign = Design<true, true, false, 6, false, true, 0, false, 16>;
 
 __global__ void __launch_bounds__(kThreads)
 wide_closest_hit_kernel(const float* __restrict__ tiles, int n_wide,
@@ -176,7 +246,8 @@ wide_closest_hit_kernel(const float* __restrict__ tiles, int n_wide,
 
 // C launchers: pointers, sizes and the stream in; cudaGetLastError()
 // out (0 = the launch was accepted).  inst_inv == nullptr selects the
-// flat skip kernel.
+// flat skip kernel.  `batches`: one unsigned counter for persistent
+// warps, zeroed by the launcher on `stream`.
 extern "C" int vkpt_skip_closest_hit(const float* nodes, int n_nodes,
                                      const float* leaves, int block,
                                      const float* inst_inv, int mb_bits,
@@ -184,20 +255,33 @@ extern "C" int vkpt_skip_closest_hit(const float* nodes, int n_nodes,
                                      const float* direction,
                                      const float* t_lane, int64_t n,
                                      float* t_out, int* tri_out, float* u_out,
-                                     float* v_out, void* stream) {
-  if (n > 0) {
-    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (inst_inv != nullptr)
-      skip_closest_hit_kernel<true><<<grid, kThreads, 0, s>>>(
-          nodes, n_nodes, leaves, block, inst_inv, mb_bits, origin,
-          direction, t_lane, n, t_out, tri_out, u_out, v_out);
-    else
-      skip_closest_hit_kernel<false><<<grid, kThreads, 0, s>>>(
-          nodes, n_nodes, leaves, block, inst_inv, mb_bits, origin,
-          direction, t_lane, n, t_out, tri_out, u_out, v_out);
-  }
-  return (int)cudaGetLastError();
+                                     float* v_out, unsigned* batches,
+                                     void* stream) {
+  const SkipTables tab{nodes, n_nodes, leaves, block, inst_inv, mb_bits};
+  return (inst_inv != nullptr ? skip_launch<true, SkipInstDesign>
+                              : skip_launch<false, SkipFlatDesign>)(
+      tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
+      batches, nullptr, stream);
+}
+
+// The statistics build of the skip kernel (the designs above, flat or
+// two-level; any must be 0: a closest hit); `st` holds kStCount zeroed
+// counters.  The hit outputs are those of the production kernels.
+extern "C" int vkpt_skip_stats(int any, const float* nodes, int n_nodes,
+                               const float* leaves, int block,
+                               const float* inst_inv, int mb_bits,
+                               const float* origin, const float* direction,
+                               const float* t_lane, int64_t n, float* t_out,
+                               int* tri_out, float* u_out, float* v_out,
+                               uint8_t* hit_out, unsigned long long* st,
+                               unsigned* batches, void* stream) {
+  if (any) return (int)cudaErrorInvalidValue;
+  (void)hit_out;
+  const SkipTables tab{nodes, n_nodes, leaves, block, inst_inv, mb_bits};
+  return (inst_inv != nullptr ? skip_launch<true, SkipInstDesign, true>
+                              : skip_launch<false, SkipFlatDesign, true>)(
+      tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
+      batches, st, stream);
 }
 
 extern "C" int vkpt_wide_closest_hit(const float* tiles, int n_wide,

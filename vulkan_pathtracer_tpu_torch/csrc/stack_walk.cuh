@@ -1,8 +1,12 @@
-// The stack walk of the pair, quad and oct kernels (pair_traverse.cu,
-// stack_traverse.cu) as compile-time design choices (Design): the
-// kernel template, its launcher and the statistics build's counters.
-// The choices and what each does about this card are described in
-// stack_traverse.cu (quad, oct) and pair_traverse.cu (pair).
+// The stack walk of the pair, quad, oct and frontier any-hit kernels
+// (pair_traverse.cu, stack_traverse.cu, frontier_traverse.cu) as
+// compile-time design choices (Design): the kernel template, the leaf
+// phase with its instance cache, the warp loops (postponed leaves, ray
+// refill, persistent batches), the persistent launcher and the
+// statistics build's counters, which skip_traverse.cu's skip walk
+// shares.  The choices and what each does about this card are
+// described in stack_traverse.cu (quad, oct), pair_traverse.cu (pair),
+// frontier_traverse.cu (frontier any hit) and skip_traverse.cu.
 
 #pragma once
 
@@ -28,14 +32,17 @@ constexpr unsigned kFull = 0xffffffffu;
 //   EARLY     the triangle test returns at its first failed condition;
 //   QUEUE     any hit with POSTPONE: a lane queues the leaf children of
 //             several nodes, up to QUEUE entries, before the warp's
-//             leaf tests (0: one node's).
-// On two-level scenes every design keeps, per lane, the object-space
-// ray (or the transformed features of coefficient leaves) of its last
-// instance, and recomputes them only when a leaf of another instance
-// comes (the same operations on the same inputs: bitwise the values
-// of a recomputation).
+//             leaf tests (0: one node's);
+//   CACHE     two-level scenes: each lane keeps the object-space ray
+//             (or the transformed features of coefficient leaves) of
+//             its last instance, and recomputes them only when a leaf
+//             of another instance comes (the same operations on the
+//             same inputs: bitwise the values of a recomputation);
+//   LEAF_AT   POSTPONE: the warp's leaf phase starts once LEAF_AT lanes
+//             wait at leaves (0: once every unfinished lane does).
 template <bool SORT, bool POSTPONE, bool PERSIST, int MINB,
-          bool REFILL = false, bool EARLY = false, int QUEUE = 0>
+          bool REFILL = false, bool EARLY = false, int QUEUE = 0,
+          bool CACHE = true, int LEAF_AT = 0>
 struct Design {
   static constexpr bool kSort = SORT;  // any hit only; the closest hit sorts
   static constexpr bool kPostpone = POSTPONE;
@@ -44,6 +51,8 @@ struct Design {
   static constexpr bool kRefill = REFILL;  // implies PERSIST and POSTPONE
   static constexpr bool kEarly = EARLY;    // traverse.cuh mt<..., EARLY>
   static constexpr int kQueue = QUEUE;
+  static constexpr bool kCache = CACHE;
+  static constexpr int kLeafAt = LEAF_AT;
 };
 
 // Statistics build (STATS): counters of one launch, in this order
@@ -73,82 +82,25 @@ __device__ __forceinline__ void count_active(unsigned long long* st,
   }
 }
 
-// One ray's walk state: the stack (in the kernel's local arrays), the
-// current node, the leaf children waiting for the warp's leaf phase and
-// (two-level) the object-space ray of the lane's last instance.
-// The stack arrays stay outside the struct: an array indexed at run
-// time inside it would put every member in local memory.
-template <int W, bool ANY, bool COEF, bool INST, class D, bool STATS>
-struct Walk {
-  static constexpr bool kSort = !ANY || D::kSort;
-  // Per-ray stack entries: one push per level in a pair row, at most
-  // W - 1 per collapsed level in an n-ary one
-  // (ops/stack_traverse.STACK_SLOTS; the bakes refuse deeper trees).
-  static constexpr int kStack = W == 2 ? 96 : W == 4 ? 288 : 224;
-  // QUEUE: pending leaves are appended in test order, up to kPend;
-  // else pend[s] holds slot s's leaf (W == 2: nearer first).
-  static constexpr bool kQueued = D::kQueue > W;
-  static constexpr int kPend = kQueued ? D::kQueue : W;
-
-  const float* __restrict__ box;
-  const int* __restrict__ link;
+// The leaf phase of one lane: leaf `leaf` tested against the ray, the
+// flat block or the two-level decode, whose object-space ray (features)
+// is kept while the instance stays (D::kCache), reset with every ray.
+template <bool ANY, bool COEF, bool INST, class D, bool STATS>
+struct LeafTest {
   const float* __restrict__ leaves;
   const float* __restrict__ inst_inv;   // INST: (I, 16)
   const float* __restrict__ inst_feat;  // INST and COEF: (I, 10, 16)
   int block, mb_bits;
-  int* stack;
-  float* stack_tn;
-  int sp, cur, deepest, npend;
-  float cur_tn;
-  int pend[kPend];  // leaf values waiting for the leaf phase, else -1
+  unsigned long long* st;  // STATS: the launch's counters
   // INST: the instance of the lane's last leaf visit, its object-space
   // ray (exact leaves) or transformed features (COEF) and det_sign.
   int last_inst;
   Ray o;
   float fo[COEF ? 10 : 1];
   float sign;
-  unsigned long long* st;  // STATS: the launch's counters
 
-  __device__ __forceinline__ void push(int node, float tn) {
-    stack[sp] = node;
-    if (kSort) stack_tn[sp] = tn;
-    ++sp;
-    if (STATS) deepest = max(deepest, sp);
-  }
+  __device__ __forceinline__ void reset() { last_inst = -1; }
 
-  __device__ __forceinline__ void pop(int& node, float& tn) {
-    --sp;
-    node = stack[sp];
-    tn = kSort ? stack_tn[sp] : 0.0f;
-  }
-
-  __device__ __forceinline__ void start(bool active) {
-    sp = 0;
-    deepest = 0;
-    npend = 0;
-    last_inst = -1;
-    cur = active ? 0 : -1;
-    cur_tn = -INFINITY;
-#pragma unroll
-    for (int s = 0; s < kPend; ++s) pend[s] = -1;
-  }
-
-  __device__ __forceinline__ bool pending() const {
-    if (kQueued) return npend > 0;
-    bool any = false;
-#pragma unroll
-    for (int s = 0; s < W; ++s) any = any || pend[s] >= 0;
-    return any;
-  }
-
-  // Whether the lane takes part in the warp's next node step: it has a
-  // node to visit and room for that node's leaf children.
-  __device__ __forceinline__ bool can_step() const {
-    return cur >= 0 && (kQueued ? npend <= kPend - W : !pending());
-  }
-
-  // Test leaf `leaf`: the flat block, or the two-level decode, whose
-  // object-space ray (features) is kept while the instance stays.
   __device__ __forceinline__ void visit(const Ray& r, int leaf, Best& b) {
     if (STATS) atomicAdd(st + kStLeafVisits, 1ull);
     if (!INST) {
@@ -157,8 +109,8 @@ struct Walk {
       return;
     }
     const int inst = leaf >> mb_bits;
-    if (inst != last_inst) {
-      if (STATS) atomicAdd(st + kStInstChanges, 1ull);
+    if (inst != last_inst || !D::kCache) {
+      if (STATS && inst != last_inst) atomicAdd(st + kStInstChanges, 1ull);
       last_inst = inst;
       if (COEF) {
         float f[10];
@@ -174,6 +126,115 @@ struct Walk {
     else
       leaf_block<ANY, true, D::kEarly>(o, leaves, row, leaf, block, sign, b);
   }
+};
+
+// One ray's walk state: the stack (in the kernel's local arrays), the
+// current node, the leaf children waiting for the warp's leaf phase and
+// the leaf phase itself (LeafTest).
+// The stack arrays stay outside the struct: an array indexed at run
+// time inside it would put every member in local memory.
+// Widths 16 and 32 (the frontier any hit: slot order, flat tables)
+// keep their waiting leaves as (node, slot mask) entries, up to 4 under
+// QUEUE (then up to QUEUE leaves), and read each leaf value from the
+// node's link row when its test comes: W leaf values would take 16-32
+// registers per lane.
+template <int W, bool ANY, bool COEF, bool INST, class D, bool STATS>
+struct Walk {
+  static constexpr bool kSort = !ANY || D::kSort;
+  static constexpr bool kMask = W >= 16;
+  static_assert(!kMask || (ANY && !kSort && !INST),
+                "widths 16 and 32: the flat slot-order any hit");
+  // Per-ray stack entries: one push per level in a pair row, at most
+  // W - 1 per collapsed level in an n-ary one
+  // (ops/stack_traverse.STACK_SLOTS; the bakes refuse deeper trees).
+  static constexpr int kStack = W == 2    ? 96
+                                : W == 4  ? 288
+                                : W == 8  ? 224
+                                : W == 16 ? 360
+                                          : 589;
+  // QUEUE: pending leaves are appended in test order, up to kPend;
+  // else pend[s] holds slot s's leaf (W == 2: nearer first).
+  static constexpr bool kQueued = !kMask && D::kQueue > W;
+  static constexpr int kPend = kQueued ? D::kQueue : W;
+  static constexpr int kEntries = D::kQueue > 0 ? 4 : 1;  // kMask
+
+  const float* __restrict__ box;
+  const int* __restrict__ link;
+  LeafTest<ANY, COEF, INST, D, STATS> lt;
+  int* stack;
+  float* stack_tn;
+  int sp, cur, deepest, npend;
+  float cur_tn;
+  int pend[kMask ? 1 : kPend];  // leaf values waiting for the leaf phase
+  int qnode[kMask ? kEntries : 1];       // kMask: nodes with waiting
+  unsigned qmask[kMask ? kEntries : 1];  // leaves, their slot masks
+  int nq;
+  unsigned long long* st;  // STATS: the launch's counters
+
+  __device__ __forceinline__ void push(int node, float tn) {
+    stack[sp] = node;
+    if (kSort) stack_tn[sp] = tn;
+    ++sp;
+    if (STATS) deepest = max(deepest, sp);
+  }
+
+  __device__ __forceinline__ void pop(int& node, float& tn) {
+    --sp;
+    node = stack[sp];
+    tn = kSort ? stack_tn[sp] : 0.0f;
+  }
+
+  __device__ __forceinline__ void start(const Ray&, bool active) {
+    sp = 0;
+    deepest = 0;
+    npend = 0;
+    nq = 0;
+    lt.reset();
+    cur = active ? 0 : -1;
+    cur_tn = -INFINITY;
+    if (!kMask) {
+#pragma unroll
+      for (int s = 0; s < kPend; ++s) pend[s] = -1;
+    }
+  }
+
+  __device__ __forceinline__ bool pending() const {
+    if (kMask) return nq > 0;
+    if (kQueued) return npend > 0;
+    bool any = false;
+#pragma unroll
+    for (int s = 0; s < (kMask ? 1 : W); ++s) any = any || pend[s] >= 0;
+    return any;
+  }
+
+  // Whether the lane takes part in the warp's next node step: it has a
+  // node to visit and room for that node's leaf children.
+  __device__ __forceinline__ bool can_step() const {
+    if (kMask)
+      return cur >= 0 && (D::kQueue > 0 ? nq < kEntries && npend < D::kQueue
+                                        : nq == 0);
+    return cur >= 0 && (kQueued ? npend <= kPend - W : !pending());
+  }
+
+  __device__ __forceinline__ void visit(const Ray& r, int leaf, Best& b) {
+    lt.visit(r, leaf, b);
+  }
+
+  __device__ __forceinline__ bool node_step(const Ray& r, Best& b) {
+    if constexpr (kMask)
+      return wide_step(r, b);
+    else
+      return narrow_step(r, b);
+  }
+
+  // POSTPONE: the pending leaf children in test order; true when an any
+  // hit is resolved.
+  __device__ __forceinline__ bool visit_pending(const Ray& r, Best& b) {
+    if constexpr (kMask)
+      return wide_pending(r, b);
+    else
+      return narrow_pending(r, b);
+  }
 
   // Visit node `cur`: slab-test its W children against the current
   // limit, record its hit leaf children in pend (POSTPONE) or test them
@@ -185,7 +246,7 @@ struct Walk {
   // (pallas_pair.py:807: near = e0 <= e1, a missed child counting as
   // kBig), so each ray's sequence of leaf tests is the kernel's plain
   // version's.
-  __device__ __forceinline__ bool node_step(const Ray& r, Best& b) {
+  __device__ __forceinline__ bool narrow_step(const Ray& r, Best& b) {
     const float t_lim = ANY ? r.tl : fminf(b.t, r.tl);
     int next = -1;
     float next_tn = 0.0f;
@@ -317,9 +378,7 @@ struct Walk {
     return false;
   }
 
-  // POSTPONE: the pending leaf children in test order; true when an any
-  // hit is resolved.
-  __device__ __forceinline__ bool visit_pending(const Ray& r, Best& b) {
+  __device__ __forceinline__ bool narrow_pending(const Ray& r, Best& b) {
     if (STATS) count_active(st, kStLeafWarps);
 #pragma unroll
     for (int s = 0; s < kPend; ++s) {
@@ -335,6 +394,124 @@ struct Walk {
     npend = 0;
     return false;
   }
+
+  // Widths 16 and 32: slot order, each hit leaf child as a bit of the
+  // node's entry (tested at once without POSTPONE), the hit internal
+  // children pushed so that the lowest slot is descended and the next
+  // lowest popped first, as in the plain version (slot_order).
+  __device__ __forceinline__ bool wide_step(const Ray& r, Best& b) {
+    const float4* brow =
+        reinterpret_cast<const float4*>(box) + (size_t)cur * (W * 6 / 4);
+    const int4* lrow =
+        reinterpret_cast<const int4*>(link) + (size_t)cur * (W / 4);
+    int lk[W];
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      const int4 l4 = __ldg(lrow + q);
+      lk[4 * q + 0] = l4.x;
+      lk[4 * q + 1] = l4.y;
+      lk[4 * q + 2] = l4.z;
+      lk[4 * q + 3] = l4.w;
+    }
+    unsigned leafm = 0, inner = 0;
+#pragma unroll
+    for (int p = 0; p < W / 2; ++p) {
+      float bx[12];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float4 f = __ldg(brow + 3 * p + q);
+        bx[4 * q + 0] = f.x;
+        bx[4 * q + 1] = f.y;
+        bx[4 * q + 2] = f.z;
+        bx[4 * q + 3] = f.w;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int s = 2 * p + h;
+        float tn;
+        if (slab(r, bx + 6 * h, r.tl, tn) && lk[s] != kEmpty) {
+          if (lk[s] < 0)
+            leafm |= 1u << s;
+          else
+            inner |= 1u << s;
+        }
+      }
+    }
+    if (leafm != 0) {
+      if (D::kPostpone) {
+#pragma unroll
+        for (int q = 0; q < kEntries; ++q) {
+          if (q == nq) {
+            qnode[q] = cur;
+            qmask[q] = leafm;
+          }
+        }
+        ++nq;
+        npend += __popc(leafm);
+      } else {
+        if (STATS) count_active(st, kStLeafWarps);
+        if (test_mask(r, cur, leafm, b)) return true;
+      }
+    }
+    int next = -1;
+#pragma unroll
+    for (int s = W - 1; s >= 0; --s) {
+      if ((inner >> s) & 1u) {
+        if (next >= 0) push(next, 0.0f);
+        next = lk[s];
+      }
+    }
+    if (next < 0 && sp > 0) {
+      float tn;
+      pop(next, tn);
+    }
+    cur = next;
+    return false;
+  }
+
+  // The leaves of `node` whose slots are set in `m`, in slot order.
+  __device__ __forceinline__ bool test_mask(const Ray& r, int node,
+                                            unsigned m, Best& b) {
+#pragma unroll 1
+    for (; m != 0; m &= m - 1) {
+      const int s = __ffs(m) - 1;
+      visit(r, -__ldg(link + (size_t)node * W + s) - 1, b);
+      if (ANY && b.any) return true;
+    }
+    return false;
+  }
+
+  // The entries in queue order, one loop over all their leaves, so the
+  // warp's lanes test their i-th leaves together.
+  __device__ __forceinline__ bool wide_pending(const Ray& r, Best& b) {
+    if (STATS) count_active(st, kStLeafWarps);
+    int e = 0, node = qnode[0];
+    unsigned m = qmask[0];
+    bool hit = false;
+#pragma unroll 1
+    while (true) {
+      while (m == 0 && ++e < nq) {
+#pragma unroll
+        for (int q = 1; q < kEntries; ++q) {
+          if (q == e) {
+            node = qnode[q];
+            m = qmask[q];
+          }
+        }
+      }
+      if (m == 0) break;
+      const int s = __ffs(m) - 1;
+      m &= m - 1;
+      visit(r, -__ldg(link + (size_t)node * W + s) - 1, b);
+      if (ANY && b.any) {
+        hit = true;
+        break;
+      }
+    }
+    nq = 0;
+    npend = 0;
+    return hit;
+  }
 };
 
 // One ray per lane; every lane of the warp calls it (inactive lanes
@@ -343,7 +520,7 @@ struct Walk {
 template <class Wk, class D, bool STATS>
 __device__ __forceinline__ int trace(Wk& w, const Ray& r, Best& b,
                                      bool active, unsigned long long* st) {
-  w.start(active);
+  w.start(r, active);
   int rounds = 0;
   if (!D::kPostpone) {
     while (w.cur >= 0) {
@@ -357,10 +534,14 @@ __device__ __forceinline__ int trace(Wk& w, const Ray& r, Best& b,
   bool done = w.cur < 0;
   while (__any_sync(kFull, !done)) {
     // Node steps until every unfinished lane holds leaf children (or,
-    // QUEUE, has no room for more or no node left).
+    // QUEUE, has no room for more or no node left; LEAF_AT: until that
+    // many lanes wait).
     while (true) {
       const bool step = !done && w.can_step();
       if (!__any_sync(kFull, step)) break;
+      if (D::kLeafAt > 0 &&
+          __popc(__ballot_sync(kFull, !done && w.pending())) >= D::kLeafAt)
+        break;
       ++rounds;
       if (step) {
         if (STATS) count_active(st, kStNodeWarps);
@@ -402,7 +583,7 @@ __device__ __forceinline__ void store_hit(int64_t i, const Best& b,
 // it and takes the next ray from `batches` before the warp's next node
 // phase, so lanes are not left idle behind the warp's longest ray.  The
 // rays taken together are consecutive in the caller's order.
-template <class Wk, bool ANY, bool STATS>
+template <class Wk, class D, bool ANY, bool STATS>
 __device__ __forceinline__ void refill_loop(
     Wk& w, const float* origin, const float* direction, const float* t_lane,
     int64_t n, float* t_out, int* tri_out, float* u_out, float* v_out,
@@ -412,7 +593,7 @@ __device__ __forceinline__ void refill_loop(
   bool done = true, retired = false;
   Ray r;
   Best b{kMissT, 0.0f, 0.0f, -1, false};
-  w.start(false);
+  w.start(r, false);
   while (true) {
     if (done && i >= 0) {
       store_hit<ANY>(i, b, t_out, tri_out, u_out, v_out, hit_out);
@@ -433,7 +614,7 @@ __device__ __forceinline__ void refill_loop(
         if (i < n) {
           r = load_ray(origin, direction, t_lane, i);
           b = Best{kMissT, 0.0f, 0.0f, -1, false};
-          w.start(r.tl >= 0.0f);
+          w.start(r, r.tl >= 0.0f);
           done = w.cur < 0;
           if (STATS && !done) atomicAdd(st + kStRays, 1ull);
         } else {
@@ -446,6 +627,9 @@ __device__ __forceinline__ void refill_loop(
     while (true) {
       const bool step = !done && w.can_step();
       if (!__any_sync(kFull, step)) break;
+      if (D::kLeafAt > 0 &&
+          __popc(__ballot_sync(kFull, !done && w.pending())) >= D::kLeafAt)
+        break;
       if (step) {
         if (STATS) count_active(st, kStNodeWarps);
         w.node_step(r, b);
@@ -458,46 +642,21 @@ __device__ __forceinline__ void refill_loop(
   }
 }
 
-// The tables a launch reads: node rows of W slots, leaf blocks (exact
-// or coefficient) and, two-level, the instance records.
-struct Tables {
-  const float* box;
-  const int* link;
-  const float* leaves;
-  int block;
-  const float* inst_inv;   // INST: (I, 16)
-  const float* inst_feat;  // INST and COEF: (I, 10, 16)
-  int mb_bits;
-};
-
-// Closest hit (t, tri, u, v out) or any hit (hit out) of n rays.
-// Without PERSIST a warp takes the 32 rays at its own position in the
-// grid; with it, batches of 32 from `batches` until none is left.
-template <int W, bool ANY, bool COEF, bool INST, class D, bool STATS>
-__global__ void __launch_bounds__(kThreads, D::kMinBlocks)
-stack_kernel(const Tables tab, const float* __restrict__ origin,
-             const float* __restrict__ direction,
-             const float* __restrict__ t_lane, int64_t n,
-             float* __restrict__ t_out, int* __restrict__ tri_out,
-             float* __restrict__ u_out, float* __restrict__ v_out,
-             uint8_t* __restrict__ hit_out, unsigned* batches,
-             unsigned long long* st) {
-  using Wk = Walk<W, ANY, COEF, INST, D, STATS>;
-  Wk w;
-  int stack[Wk::kStack];
-  float stack_tn[Wk::kSort ? Wk::kStack : 1];
-  w.stack = stack;
-  w.stack_tn = stack_tn;
-  w.box = tab.box;
-  w.link = tab.link;
-  w.leaves = tab.leaves;
-  w.block = tab.block;
-  w.inst_inv = tab.inst_inv;
-  w.inst_feat = tab.inst_feat;
-  w.mb_bits = tab.mb_bits;
-  w.st = st;
+// The rays of a launch, for any walk Wk with the interface of Walk
+// (start, can_step, node_step, pending, visit_pending, cur, deepest):
+// REFILL's loop, or warps taking the 32 rays at their own position in
+// the grid (without PERSIST) or batches of 32 from `batches` until none
+// is left.
+template <class Wk, bool ANY, class D, bool STATS>
+__device__ __forceinline__ void run_rays(
+    Wk& w, const float* __restrict__ origin,
+    const float* __restrict__ direction, const float* __restrict__ t_lane,
+    int64_t n, float* __restrict__ t_out, int* __restrict__ tri_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    uint8_t* __restrict__ hit_out, unsigned* batches,
+    unsigned long long* st) {
   if constexpr (D::kRefill) {
-    refill_loop<Wk, ANY, STATS>(w, origin, direction, t_lane, n, t_out,
+    refill_loop<Wk, D, ANY, STATS>(w, origin, direction, t_lane, n, t_out,
                                 tri_out, u_out, v_out, hit_out, batches, st);
     return;
   }
@@ -530,11 +689,52 @@ stack_kernel(const Tables tab, const float* __restrict__ origin,
   }
 }
 
-// Blocks of one instantiation of stack_kernel that the device's SMs
-// hold at once (a persistent grid): read once per device and
-// instantiation, as the occupancy does not change between launches.
-// The wrappers set the tensors' device current before the launch.
+// The tables a launch reads: node rows of W slots, leaf blocks (exact
+// or coefficient) and, two-level, the instance records.
+struct Tables {
+  const float* box;
+  const int* link;
+  const float* leaves;
+  int block;
+  const float* inst_inv;   // INST: (I, 16)
+  const float* inst_feat;  // INST and COEF: (I, 10, 16)
+  int mb_bits;
+};
+
+// Closest hit (t, tri, u, v out) or any hit (hit out) of n rays.
 template <int W, bool ANY, bool COEF, bool INST, class D, bool STATS>
+__global__ void __launch_bounds__(kThreads, D::kMinBlocks)
+stack_kernel(const Tables tab, const float* __restrict__ origin,
+             const float* __restrict__ direction,
+             const float* __restrict__ t_lane, int64_t n,
+             float* __restrict__ t_out, int* __restrict__ tri_out,
+             float* __restrict__ u_out, float* __restrict__ v_out,
+             uint8_t* __restrict__ hit_out, unsigned* batches,
+             unsigned long long* st) {
+  using Wk = Walk<W, ANY, COEF, INST, D, STATS>;
+  Wk w;
+  int stack[Wk::kStack];
+  float stack_tn[Wk::kSort ? Wk::kStack : 1];
+  w.stack = stack;
+  w.stack_tn = stack_tn;
+  w.box = tab.box;
+  w.link = tab.link;
+  w.lt.leaves = tab.leaves;
+  w.lt.block = tab.block;
+  w.lt.inst_inv = tab.inst_inv;
+  w.lt.inst_feat = tab.inst_feat;
+  w.lt.mb_bits = tab.mb_bits;
+  w.lt.st = st;
+  w.st = st;
+  run_rays<Wk, ANY, D, STATS>(w, origin, direction, t_lane, n, t_out,
+                              tri_out, u_out, v_out, hit_out, batches, st);
+}
+
+// Blocks of kernel K that the device's SMs hold at once (a persistent
+// grid): read once per device and kernel, as the occupancy does not
+// change between launches.  The wrappers set the tensors' device
+// current before the launch.
+template <auto K>
 int64_t resident_blocks() {
   constexpr int kMaxDevices = 64;
   static int64_t blocks[kMaxDevices] = {};  // 0: not read yet
@@ -544,31 +744,36 @@ int64_t resident_blocks() {
   if (blocks[dev] == 0) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, stack_kernel<W, ANY, COEF, INST, D, STATS>, kThreads, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K, kThreads, 0);
     blocks[dev] = (int64_t)std::max(sms, 1) * std::max(per_sm, 1);
   }
   return blocks[dev];
 }
 
-// `batches`: the persistent warps' counter, zeroed here on `stream`
-// before the launch.
+// Launch kernel K of design D over n rays on `stream` with `args`; a
+// persistent grid fills the SMs once, and `batches`, the persistent
+// warps' counter, is zeroed on `stream` before the launch.
+template <auto K, class D, class... A>
+int launch_kernel(int64_t n, unsigned* batches, void* stream, A... args) {
+  if (n <= 0) return (int)cudaGetLastError();
+  int64_t grid = (n + kThreads - 1) / kThreads;
+  if (D::kPersist) {
+    grid = std::min(grid, resident_blocks<K>());
+    cudaMemsetAsync(batches, 0, sizeof(unsigned), (cudaStream_t)stream);
+  }
+  const auto kernel = K;
+  kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 template <int W, bool ANY, bool COEF, bool INST, class D, bool STATS = false>
 int launch(const Tables& tab, const float* origin, const float* direction,
            const float* t_lane, int64_t n, float* t_out, int* tri_out,
            float* u_out, float* v_out, uint8_t* hit_out, unsigned* batches,
            unsigned long long* st, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  const auto kernel = stack_kernel<W, ANY, COEF, INST, D, STATS>;
-  int64_t grid = (n + kThreads - 1) / kThreads;
-  if (D::kPersist) {
-    grid = std::min(grid, resident_blocks<W, ANY, COEF, INST, D, STATS>());
-    cudaMemsetAsync(batches, 0, sizeof(unsigned), (cudaStream_t)stream);
-  }
-  kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
-      hit_out, batches, st);
-  return (int)cudaGetLastError();
+  return launch_kernel<stack_kernel<W, ANY, COEF, INST, D, STATS>, D>(
+      n, batches, stream, tab, origin, direction, t_lane, n, t_out, tri_out,
+      u_out, v_out, hit_out, batches, st);
 }
 
 }  // namespace

@@ -31,7 +31,10 @@ boundary, ``tables_from_jax``):
 
 Order inside a node: hit leaf slots in slot order, then the internal
 children sorted by entry distance with the Batcher network (swap on
-``<=``), pushed far to near, descent to the nearest.  Exact leaves
+``<=``), pushed far to near, descent to the nearest.  The any hit
+visits internal children in slot order instead (its bit does not
+depend on the order; csrc/frontier_traverse.cu runs it on the stack
+walk of the quad and pair any hits).  Exact leaves
 need a block of at most 14 triangles, as in the JAX package (the
 Pallas kernel's static lane indices): a larger block raises its
 ValueError, so leaf 28 needs ``mt="mxu"``.
@@ -141,10 +144,13 @@ def frontier_closest_hit_plain(box, link, leaves, origin, direction, t_lane,
 def frontier_any_hit_plain(box, link, leaves, origin, direction, t_lane,
                            leaf_visits=None, stats=None) -> torch.Tensor:
     """Plain version of the frontier any-hit kernel (any device): (N,)
-    bool."""
+    bool.  Hit children, leaves and internal nodes, are visited in slot
+    order, as the kernel does: the bit does not depend on the order, and
+    equals the near-first walk's with the Batcher network
+    (pallas_frontier_any_hit's)."""
     return _traverse_plain(box, link, leaves, origin, direction, t_lane,
                            True, False, leaf_visits=leaf_visits, stats=stats,
-                           sortnet=batcher_oem(box.shape[1]))
+                           slot_order=True)
 
 
 # -- wrappers -------------------------------------------------------------

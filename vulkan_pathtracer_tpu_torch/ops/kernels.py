@@ -118,9 +118,13 @@ SIGNATURES = {
     "vkpt_frontier_closest_hit": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _I64,
                                   _P, _P, _P, _P, _P],
     "vkpt_frontier_any_hit": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _I64, _P,
-                              _P],
+                              _P, _P],
+    "vkpt_frontier_stats": [_I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I64, _P,
+                            _P, _P, _P, _P, _P, _P, _P],
     "vkpt_skip_closest_hit": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I64, _P,
-                              _P, _P, _P, _P],
+                              _P, _P, _P, _P, _P],
+    "vkpt_skip_stats": [_I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _I64, _P, _P,
+                        _P, _P, _P, _P, _P, _P],
     "vkpt_wide_closest_hit": [_P, _I, _P, _I, _P, _P, _P, _I64, _P, _P, _P,
                               _P, _P],
 }
@@ -464,8 +468,33 @@ def frontier_any_hit(box, link, leaves, origin, direction, t_lane):
     _launch("frontier_any_hit", origin.device, lib().vkpt_frontier_any_hit,
             box.data_ptr(), link.data_ptr(), width, leaves.data_ptr(),
             leaves.shape[1], coef, *_ptrs(origin, direction, t_lane), n,
-            hit.data_ptr())
+            hit.data_ptr(), batches=n)
     return hit.bool()
+
+
+def frontier_stats(box, link, leaves, origin, direction, t_lane):
+    """Run the statistics build of the frontier any hit (its own design,
+    exact or coefficient leaves) and return (its hit bit, the list of
+    counters: STACK_STATS, then the depth histogram)."""
+    width = _frontier_width(box)
+    coef = _check_tables(box, link, leaves, width=width)
+    _check_rays(origin, direction, t_lane, box.device)
+    return _stats("frontier_stats", lib().vkpt_frontier_stats, True,
+                  (box.data_ptr(), link.data_ptr(), width, leaves.data_ptr(),
+                   leaves.shape[1], coef), origin, direction, t_lane)
+
+
+def _check_skip(nodes, leaves, origin, direction, t_lane, inst_inv,
+                mb_bits):
+    """The skip kernel's tables and rays; returns the instance table's
+    pointer (None for a flat scene)."""
+    if nodes.shape[0] % 8:
+        raise ValueError("skip_nodes: expected 8 octant blocks of records")
+    _check("skip_nodes", nodes, torch.float32, (None, 8))
+    if _check_leaves(leaves, nodes.device):
+        raise ValueError("skip kernel: exact leaves only (n_leaves, block, 9)")
+    _check_rays(origin, direction, t_lane, nodes.device)
+    return _check_inst(inst_inv, mb_bits, nodes.device)
 
 
 def skip_closest_hit(nodes, leaves, origin, direction, t_lane,
@@ -473,20 +502,28 @@ def skip_closest_hit(nodes, leaves, origin, direction, t_lane,
     """Launch the skip-record closest-hit kernel over the 8 octant
     preorders (instanced when ``inst_inv`` is given); returns
     (t, tri, u, v)."""
-    if nodes.shape[0] % 8:
-        raise ValueError("skip_nodes: expected 8 octant blocks of records")
-    _check("skip_nodes", nodes, torch.float32, (None, 8))
-    if _check_leaves(leaves, nodes.device):
-        raise ValueError("skip kernel: exact leaves only (n_leaves, block, 9)")
-    _check_rays(origin, direction, t_lane, nodes.device)
-    inst = _check_inst(inst_inv, mb_bits, nodes.device)
+    inst = _check_skip(nodes, leaves, origin, direction, t_lane, inst_inv,
+                       mb_bits)
     n = origin.shape[0]
     out = _hit_outputs(n, origin.device)
     _launch("skip_closest_hit", origin.device, lib().vkpt_skip_closest_hit,
             nodes.data_ptr(), nodes.shape[0] // 8, leaves.data_ptr(),
             leaves.shape[1], inst, mb_bits,
-            *_ptrs(origin, direction, t_lane), n, *_ptrs(*out))
+            *_ptrs(origin, direction, t_lane), n, *_ptrs(*out), batches=n)
     return out
+
+
+def skip_stats(nodes, leaves, origin, direction, t_lane, inst_inv=None,
+               mb_bits: int = 0):
+    """Run the statistics build of the skip kernel (its own designs,
+    flat or two-level) and return (its hit outputs, the list of
+    counters: STACK_STATS, then the depth histogram, all at 0: the walk
+    keeps no stack)."""
+    inst = _check_skip(nodes, leaves, origin, direction, t_lane, inst_inv,
+                       mb_bits)
+    return _stats("skip_stats", lib().vkpt_skip_stats, False,
+                  (nodes.data_ptr(), nodes.shape[0] // 8, leaves.data_ptr(),
+                   leaves.shape[1], inst, mb_bits), origin, direction, t_lane)
 
 
 def wide_closest_hit(tiles, leaves, origin, direction, t_lane):
