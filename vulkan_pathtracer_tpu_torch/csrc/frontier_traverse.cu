@@ -15,29 +15,43 @@
 // On the TPU a frontier visit tests the 16 child boxes of a collapsed
 // node with one slab-coefficient matmul over a packet, whose product
 // gives each plane as lo * ix + 1 * (-(ox * ix)): in f32 that is the
-// stack kernels' slab() with o * inv hoisted, which is what this kernel
-// runs, per ray, on CUDA cores.  The boxes are the bake's guard-dilated
+// stack kernels' slab() with o * inv hoisted, which these kernels run,
+// per ray, on CUDA cores.  The boxes are the bake's guard-dilated
 // ones (ops/frontier.py): the dilation, sized for a one-pass bf16
 // product, only adds visits here; the hits equal the quad kernel's up
 // to ties of equal t.
 //
-// Order inside a node, as in the Pallas bodies: hit leaf slots are
+// The closest hit, in the order of the Pallas body: hit leaf slots are
 // visited in slot order (pallas_frontier.py:471-499); internal children
 // are sorted by entry distance with the Batcher network swapping on
 // `<=` (:503-518, sortnet.cuh), pushed far to near, and the walk
 // descends to the nearest (:520-541).  The network is not stable, so
-// the plain version runs the same comparator list.
+// the plain version runs the same comparator list.  Its design: one
+// ray per thread with its own stack (W - 1 entries per collapsed
+// level, STACK_SLOTS in ops/stack_traverse; the bake refuses deeper
+// trees), float4 loads of two slots at a time, the keys and children
+// of a node in registers (the network's indices are constants), a
+// W-entry leaf queue drained by one loop, and pop culling as in the
+// quad kernel.
 //
-// What bounds it on this card: dependent loads of a 24 W + 4 W byte node
-// row (448 B at W = 16) and the leaf blocks, and the W slab tests and
-// the network (63 comparators at 16, 191 at 32) per visit, with rays of
-// a warp diverging.  The design: one ray per thread with its own stack
-// (W - 1 entries per collapsed level, STACK_SLOTS in ops/stack_traverse;
-// the bake refuses deeper trees), float4 loads of two slots at a time,
-// the keys and children of a node in registers (the network's indices
-// are constants), a W-entry leaf queue drained by one loop (the Pallas
-// drain, which also keeps one copy of the leaf test in the code), and
-// pop culling as in the quad kernel.
+// The any hit's bit does not depend on the walk's order, so it walks
+// hit children in slot order, with no network and no stack of entry
+// distances, as its plain version does (slot_order), on the stack walk
+// of the quad and pair any hits (stack_walk.cuh at width 16 or 32,
+// waiting leaves as (node, slot mask) entries).  What bounded the first,
+// near-first design on the bounce-1 launch of paths (b) and (c): idle
+// lanes, as for the quad and pair any hits (slot order without
+// postponing: node / leaf SIMT efficiency 0.46 / 0.26 exact), the
+// 63-comparator network per node, and a 2.9 KB local int + float stack
+// per thread.  The kept designs (PERF.md section 6; 20 candidates
+// timed side by side):
+//   - postponed leaves: a lane queues the leaf children of up to 4
+//     nodes, until 8 leaves wait, before the warp tests leaves together
+//     (leaf SIMT 0.94-0.96);
+//   - exact leaves refill lanes from the batch counter (node SIMT
+//     0.60); coefficient leaves keep persistent warps without refill,
+//     whose leaf phase is bound by the 160 B-per-triangle rows;
+//   - a register cap of 6 blocks per SM (85 registers).
 
 #include <type_traits>
 
@@ -59,7 +73,7 @@ namespace {
     ch[b] = cb;                                       \
   }
 
-template <bool ANY, int W, bool COEF>
+template <int W, bool COEF>
 __device__ void frontier_traverse(const float* __restrict__ box,
                                   const int* __restrict__ link,
                                   const float* __restrict__ leaves, int block,
@@ -71,7 +85,7 @@ __device__ void frontier_traverse(const float* __restrict__ box,
   int cur = 0;
   float cur_tn = -INFINITY;
   while (cur >= 0) {
-    const float t_lim = ANY ? r.tl : fminf(b.t, r.tl);
+    const float t_lim = fminf(b.t, r.tl);
     int next = -1;
     float next_tn = 0.0f;
     if (cur_tn <= t_lim) {
@@ -120,11 +134,9 @@ __device__ void frontier_traverse(const float* __restrict__ box,
         }
       }
 #pragma unroll 1
-      for (int i = 0; i < qn; ++i) {
-        visit_leaf<ANY, false, COEF>(r, leaves, block, nullptr, 0, queue[i],
-                                     b);
-        if (ANY && b.any) return;
-      }
+      for (int i = 0; i < qn; ++i)
+        visit_leaf<false, false, COEF>(r, leaves, block, nullptr, 0,
+                                       queue[i], b);
       // Internal children: the Batcher network, push far to near,
       // descend to the nearest.
       if constexpr (W == 16) {
@@ -174,7 +186,7 @@ frontier_closest_hit_kernel(const float* __restrict__ box,
   const Ray r = load_ray(origin, direction, t_lane, i);
   Best b{kMissT, 0.0f, 0.0f, -1, false};
   if (r.tl >= 0.0f)
-    frontier_traverse<false, W, COEF>(box, link, leaves, block, r, b);
+    frontier_traverse<W, COEF>(box, link, leaves, block, r, b);
   t_out[i] = b.t;
   tri_out[i] = b.tri;
   u_out[i] = b.u;

@@ -1,8 +1,9 @@
 // A CPU stand-in for the parts of the CUDA runtime that the traversal
 // kernels (stack_walk.cuh with stack_traverse.cu, pair_traverse.cu and
 // frontier_traverse.cu; skip_traverse.cu) use, so that g++ builds those
-// sources into a host library whose C launchers run on host memory.  tests/test_torch_walk_host.py builds it and holds
-// the kernels' outputs to their plain PyTorch versions bitwise.
+// sources into a host library whose C launchers run on host memory.
+// tests/test_torch_walk_host.py builds it and holds the kernels' outputs
+// to their plain PyTorch versions bitwise.
 //
 // Each block's threads run as std::threads (blocks one after another);
 // the 32 threads of a warp share a std::barrier, through which the warp

@@ -1,7 +1,7 @@
 // Skip-pointer (stackless) closest hit on Hopper: the binary preorder
 // walk and the 8-wide tile walk, one ray per thread.
 //
-// skip_closest_hit_kernel<INST> replaces the Pallas TPU kernels that
+// skip_closest_hit_kernel<INST, D> replaces the Pallas TPU kernels that
 // return the closest hit of a skip-pointer walk over the same 8
 // direction-octant preorders (vulkan_pathtracer_tpu/ops/pallas_traverse.py):
 //   - kernel 5, _make_kernel (pallas_closest_hit, the packet cursor,
@@ -35,18 +35,37 @@
 // kernels intersect every lane of a visited leaf); the closest hit is
 // the same up to ties of equal t and slab-versus-MT rounding.
 //
-// What bounds it on this card: dependent loads and divergence, as for
-// the stack kernels — every visit is a dependent 32 B (binary) or
-// 256 B (wide) load whose address comes from the previous visit, and a
-// skip walk visits more nodes than a near-first stack walk (no culling
-// of far subtrees by entry distance, a fixed per-octant child order).
-// The tables of the 1080p atrium (about 5 MB of records, 4 MB of
-// tiles, 14 MB of leaves) sit in the 50 MB L2.
+// What bounds the skip kernel on this card: idle lanes and dependent
+// loads.  Every visit is a dependent 32 B record load whose address
+// comes from the previous visit, a skip walk visits more nodes than a
+// near-first stack walk (no culling by entry distance), and the
+// instanced atrium's per-material meshes overlap: 1,220 record visits
+// and 50 leaf blocks per primary.  The first design (one ray per thread,
+// each lane testing its leaf as soon as it met one) ran its leaf tests
+// at 17% SIMT efficiency on the instanced primaries and 6% on the
+// incoherent bounce-1 rays (PERF.md section 6), so the bounce-1 launch
+// took 2.6x the primaries' time.  The tables (about 5 MB of records,
+// 14 MB of leaves at 1080p) sit in the 50 MB L2.
 //
-// What the design does about it: no stack and no shared memory (one
-// cursor register), two 16 B __ldg loads per binary visit and sixteen
-// per tile, one ray per thread so a thread never waits on another's
-// branch, and rays sorted by the caller (2D tiles, the 6d Morton key).
+// What the design does about it (the stack kernels' warp loops through
+// SkipWalk; 30 candidates timed side by side on both launches of a
+// pallas_packet frame, PERF.md section 6):
+//   - postponed leaves: a lane whose record is a hit leaf holds it and
+//     takes no node step until the warp's leaf phase, so each ray still
+//     tests its records and leaves in its own preorder, each record
+//     against the t_best its plain version sees (ties resolve as
+//     before); leaf SIMT 0.17 -> 0.90 (instanced primaries);
+//   - two-level: the leaf phase starts once 16 lanes wait, not all of
+//     them (node steps of the others are not held back as long), and
+//     the object-space ray is recomputed at every leaf visit: keeping
+//     the last instance's (as the pair kernels do) measured 0.8%
+//     slower here;
+//   - flat: persistent warps;
+//   - the early-exit triangle test (traverse.cuh mt, EARLY) and a
+//     register cap of 6 blocks per SM (85 registers).
+// The wide kernel keeps the first design: no stack and no shared memory
+// (one cursor register), sixteen 16 B __ldg loads per tile, one ray
+// per thread, rays sorted by the caller (2D tiles, the 6d Morton key).
 
 #include "stack_walk.cuh"
 
@@ -154,12 +173,13 @@ struct SkipTables {
 
 template <bool INST, class D, bool STATS>
 __global__ void __launch_bounds__(kThreads, D::kMinBlocks)
-skip_kernel(const SkipTables tab, const float* __restrict__ origin,
-            const float* __restrict__ direction,
-            const float* __restrict__ t_lane, int64_t n,
-            float* __restrict__ t_out, int* __restrict__ tri_out,
-            float* __restrict__ u_out, float* __restrict__ v_out,
-            unsigned* batches, unsigned long long* st) {
+skip_closest_hit_kernel(const SkipTables tab,
+                        const float* __restrict__ origin,
+                        const float* __restrict__ direction,
+                        const float* __restrict__ t_lane, int64_t n,
+                        float* __restrict__ t_out, int* __restrict__ tri_out,
+                        float* __restrict__ u_out, float* __restrict__ v_out,
+                        unsigned* batches, unsigned long long* st) {
   using Wk = SkipWalk<INST, D, STATS>;
   Wk w;
   w.nodes = reinterpret_cast<const float4*>(tab.nodes);
@@ -180,7 +200,7 @@ int skip_launch(const SkipTables& tab, const float* origin,
                 const float* direction, const float* t_lane, int64_t n,
                 float* t_out, int* tri_out, float* u_out, float* v_out,
                 unsigned* batches, unsigned long long* st, void* stream) {
-  return launch_kernel<skip_kernel<INST, D, STATS>, D>(
+  return launch_kernel<skip_closest_hit_kernel<INST, D, STATS>, D>(
       n, batches, stream, tab, origin, direction, t_lane, n, t_out, tri_out,
       u_out, v_out, batches, st);
 }
