@@ -179,12 +179,13 @@ VISIT_OPS = {"quad": 4 * 25 + 4 + 6, "pair": 2 * 25 + 3, "skip": 25 + 1,
              "frontier": 16 * 25 + 16 + 63, "frontier32": 32 * 25 + 32 + 191,
              "frontier_any": 16 * 25 + 16}
 MT_OPS, XFORM_OPS, RAY_OPS = 54, 33, 18
-# The early-exit triangle test (traverse.cuh mt, EARLY; the quad, oct
-# and exact pair closest hits) stops after 15 operations at a back face,
-# 27 at u and 45 at v (one more each with det_sign); the plain version
-# counts each kind.
+# The early-exit triangle test (traverse.cuh mt, EARLY; the quad, oct,
+# exact pair and skip closest hits) stops after 15 operations at a back
+# face, 27 at u and 45 at v (one more each with det_sign); the plain
+# version counts each kind.
 MT_EXIT_OPS = (15, 27, 45)
-EARLY_EXIT = ("quad_closest_hit", "oct_closest_hit", "pair_closest_hit")
+EARLY_EXIT = ("quad_closest_hit", "oct_closest_hit", "pair_closest_hit",
+              "skip_closest_hit")
 COEF_OPS, COEF_SIGN_OPS, FEAT_OPS, FEAT_XFORM_OPS = 86, 4, 9, 190
 
 

@@ -339,6 +339,23 @@ def test_skip_and_frontier_statistics_build(host_lib, scenes, kind):
         assert c["deepest"] == 0 and hist[0] == c["rays"]
 
 
+@pytest.mark.parametrize("kind", ["flat", "instanced"])
+def test_skip_plain_counts_early_exits(scenes, kind):
+    """The skip plain version's statistics count where the kernel's
+    early-exit triangle test stops (back face, u, v), which the bound
+    subtracts, and leave its outputs bitwise as they were: every ray
+    with a hit passed all three tests at least once."""
+    o, d, active = _rays(777, seed=23)
+    args = sk.skip_args(scenes[kind], o, d, active)
+    stats = {}
+    ref = sk.skip_closest_hit_plain(*args)
+    _assert_closest(sk.skip_closest_hit_plain(*args, stats=stats), ref)
+    tested = stats["leaf_visits"] * scenes[kind].leaves.shape[1]
+    exits = stats["tri_back"] + stats["tri_u"] + stats["tri_v"]
+    assert min(stats["tri_back"], stats["tri_u"], stats["tri_v"]) > 0
+    assert tested - exits >= int((ref.t < MISS_T).sum()) > 0
+
+
 def _skip_records(order):
     """(8*3, 8) skip records of a root and two leaf records, the leaves
     in preorder ``order`` in every octant block: block-1 leaf values 0

@@ -57,9 +57,9 @@
 //     before); leaf SIMT 0.17 -> 0.90 (instanced primaries);
 //   - two-level: the leaf phase starts once 16 lanes wait, not all of
 //     them (node steps of the others are not held back as long), and
-//     the object-space ray is recomputed at every leaf visit: keeping
-//     the last instance's (as the pair kernels do) measured 0.8%
-//     slower here;
+//     each lane keeps its last instance's object-space ray, as the pair
+//     kernels do (recomputing it at every leaf visit measured no
+//     faster beyond the spread of repeated runs);
 //   - flat: persistent warps;
 //   - the early-exit triangle test (traverse.cuh mt, EARLY) and a
 //     register cap of 6 blocks per SM (85 registers).
@@ -96,12 +96,14 @@ __device__ __forceinline__ bool slab_sub(const Ray& r, const float* c,
 // The skip walk of one ray, with the interface of the stack walk
 // (stack_walk.cuh Walk), so that the warp loops, the launcher and the
 // statistics build are the stack kernels': the cursor in the ray's
-// octant preorder, and (POSTPONE) the leaf whose box it hit, waiting
-// for the warp's leaf phase.  A waiting lane takes no node step, so
-// each ray tests its records and leaves in exactly its own preorder,
-// each record against the t_best its plain version sees.
+// octant preorder, and the leaf whose box it hit, waiting for the
+// warp's leaf phase.  A waiting lane takes no node step, so each ray
+// tests its records and leaves in exactly its own preorder, each record
+// against the t_best its plain version sees.
 template <bool INST, class D, bool STATS>
 struct SkipWalk {
+  static_assert(D::kPostpone && !D::kRefill,
+                "the skip walk postpones its leaves, without refill");
   const float4* __restrict__ nodes;  // all 8 octant blocks
   int n_nodes;
   LeafTest<false, false, INST, D, STATS> lt;
@@ -129,8 +131,8 @@ struct SkipWalk {
     lt.visit(r, INST ? leaf : leaf / lt.block, b);
   }
 
-  // Record `cur`: box hit -> cur + 1 (internal) or its leaf (tested at
-  // once, or held under POSTPONE) and the skip pointer; missed -> skip.
+  // Record `cur`: box hit -> cur + 1 (internal) or its leaf (held for
+  // the leaf phase) and the skip pointer; missed -> skip.
   __device__ __forceinline__ bool node_step(const Ray& r, Best& b) {
     const float4 a = __ldg(rec + 2 * cur);
     const float4 c = __ldg(rec + 2 * cur + 1);
@@ -143,12 +145,7 @@ struct SkipWalk {
     if (leaf < 0) {
       if (hit) next = cur + 1;
     } else if (hit) {
-      if (D::kPostpone) {
-        pend = leaf;
-      } else {
-        if (STATS) count_active(st, kStLeafWarps);
-        visit(r, leaf, b);
-      }
+      pend = leaf;
     }
     cur = next < n_nodes ? next : -1;
     return false;
@@ -206,10 +203,9 @@ int skip_launch(const SkipTables& tab, const float* origin,
 }
 
 // Design<sort (unused), postpone, persistent, min blocks per SM,
-// refill, early-exit triangle test, queue (unused), instance cache,
-// leaf phase at>.
+// refill, early-exit triangle test, queue (unused), leaf phase at>.
 using SkipFlatDesign = Design<true, true, true, 6, false, true>;
-using SkipInstDesign = Design<true, true, false, 6, false, true, 0, false, 16>;
+using SkipInstDesign = Design<true, true, false, 6, false, true, 0, 16>;
 
 __global__ void __launch_bounds__(kThreads)
 wide_closest_hit_kernel(const float* __restrict__ tiles, int n_wide,

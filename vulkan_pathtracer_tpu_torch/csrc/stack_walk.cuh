@@ -33,25 +33,28 @@ constexpr unsigned kFull = 0xffffffffu;
 //   QUEUE     any hit with POSTPONE: a lane queues the leaf children of
 //             several nodes, up to QUEUE entries, before the warp's
 //             leaf tests (0: one node's);
-//   CACHE     two-level scenes: each lane keeps the object-space ray
-//             (or the transformed features of coefficient leaves) of
-//             its last instance, and recomputes them only when a leaf
-//             of another instance comes (the same operations on the
-//             same inputs: bitwise the values of a recomputation);
-//   LEAF_AT   POSTPONE: the warp's leaf phase starts once LEAF_AT lanes
-//             wait at leaves (0: once every unfinished lane does).
+//   LEAF_AT   POSTPONE without REFILL: the warp's leaf phase starts once
+//             LEAF_AT lanes wait at leaves (0: once every unfinished
+//             lane does).
+// On two-level scenes each lane keeps the object-space ray (or the
+// transformed features of coefficient leaves) of its last instance, and
+// recomputes them only when a leaf of another instance comes (the same
+// operations on the same inputs: bitwise the values of a
+// recomputation).
 template <bool SORT, bool POSTPONE, bool PERSIST, int MINB,
           bool REFILL = false, bool EARLY = false, int QUEUE = 0,
-          bool CACHE = true, int LEAF_AT = 0>
+          int LEAF_AT = 0>
 struct Design {
+  static_assert(!REFILL || POSTPONE, "refill runs the postponed loop");
+  static_assert(LEAF_AT == 0 || (POSTPONE && !REFILL),
+                "the leaf threshold is the postponed loop's without refill");
   static constexpr bool kSort = SORT;  // any hit only; the closest hit sorts
   static constexpr bool kPostpone = POSTPONE;
   static constexpr bool kPersist = PERSIST || REFILL;
   static constexpr int kMinBlocks = MINB;
-  static constexpr bool kRefill = REFILL;  // implies PERSIST and POSTPONE
+  static constexpr bool kRefill = REFILL;
   static constexpr bool kEarly = EARLY;    // traverse.cuh mt<..., EARLY>
   static constexpr int kQueue = QUEUE;
-  static constexpr bool kCache = CACHE;
   static constexpr int kLeafAt = LEAF_AT;
 };
 
@@ -84,7 +87,7 @@ __device__ __forceinline__ void count_active(unsigned long long* st,
 
 // The leaf phase of one lane: leaf `leaf` tested against the ray, the
 // flat block or the two-level decode, whose object-space ray (features)
-// is kept while the instance stays (D::kCache), reset with every ray.
+// is kept while the instance stays, reset with every ray.
 template <bool ANY, bool COEF, bool INST, class D, bool STATS>
 struct LeafTest {
   const float* __restrict__ leaves;
@@ -109,8 +112,8 @@ struct LeafTest {
       return;
     }
     const int inst = leaf >> mb_bits;
-    if (inst != last_inst || !D::kCache) {
-      if (STATS && inst != last_inst) atomicAdd(st + kStInstChanges, 1ull);
+    if (inst != last_inst) {
+      if (STATS) atomicAdd(st + kStInstChanges, 1ull);
       last_inst = inst;
       if (COEF) {
         float f[10];
@@ -133,17 +136,18 @@ struct LeafTest {
 // the leaf phase itself (LeafTest).
 // The stack arrays stay outside the struct: an array indexed at run
 // time inside it would put every member in local memory.
-// Widths 16 and 32 (the frontier any hit: slot order, flat tables)
-// keep their waiting leaves as (node, slot mask) entries, up to 4 under
-// QUEUE (then up to QUEUE leaves), and read each leaf value from the
-// node's link row when its test comes: W leaf values would take 16-32
-// registers per lane.
+// Widths 16 and 32 (the frontier any hit: slot order, flat tables,
+// postponed with a queue) keep their waiting leaves as (node, slot mask)
+// entries, up to 4 entries and QUEUE leaves, and read each leaf value
+// from the node's link row when its test comes: W leaf values would take
+// 16-32 registers per lane.
 template <int W, bool ANY, bool COEF, bool INST, class D, bool STATS>
 struct Walk {
   static constexpr bool kSort = !ANY || D::kSort;
   static constexpr bool kMask = W >= 16;
-  static_assert(!kMask || (ANY && !kSort && !INST),
-                "widths 16 and 32: the flat slot-order any hit");
+  static_assert(!kMask || (ANY && !kSort && !INST && D::kPostpone &&
+                            D::kQueue > 0),
+                "widths 16 and 32: the flat slot-order any hit, queued");
   // Per-ray stack entries: one push per level in a pair row, at most
   // W - 1 per collapsed level in an n-ary one
   // (ops/stack_traverse.STACK_SLOTS; the bakes refuse deeper trees).
@@ -156,7 +160,7 @@ struct Walk {
   // else pend[s] holds slot s's leaf (W == 2: nearer first).
   static constexpr bool kQueued = !kMask && D::kQueue > W;
   static constexpr int kPend = kQueued ? D::kQueue : W;
-  static constexpr int kEntries = D::kQueue > 0 ? 4 : 1;  // kMask
+  static constexpr int kEntries = 4;  // kMask
 
   const float* __restrict__ box;
   const int* __restrict__ link;
@@ -210,9 +214,7 @@ struct Walk {
   // Whether the lane takes part in the warp's next node step: it has a
   // node to visit and room for that node's leaf children.
   __device__ __forceinline__ bool can_step() const {
-    if (kMask)
-      return cur >= 0 && (D::kQueue > 0 ? nq < kEntries && npend < D::kQueue
-                                        : nq == 0);
+    if (kMask) return cur >= 0 && nq < kEntries && npend < D::kQueue;
     return cur >= 0 && (kQueued ? npend <= kPend - W : !pending());
   }
 
@@ -396,9 +398,9 @@ struct Walk {
   }
 
   // Widths 16 and 32: slot order, each hit leaf child as a bit of the
-  // node's entry (tested at once without POSTPONE), the hit internal
-  // children pushed so that the lowest slot is descended and the next
-  // lowest popped first, as in the plain version (slot_order).
+  // node's queue entry, the hit internal children pushed so that the
+  // lowest slot is descended and the next lowest popped first, as in the
+  // plain version (slot_order).
   __device__ __forceinline__ bool wide_step(const Ray& r, Best& b) {
     const float4* brow =
         reinterpret_cast<const float4*>(box) + (size_t)cur * (W * 6 / 4);
@@ -438,20 +440,15 @@ struct Walk {
       }
     }
     if (leafm != 0) {
-      if (D::kPostpone) {
 #pragma unroll
-        for (int q = 0; q < kEntries; ++q) {
-          if (q == nq) {
-            qnode[q] = cur;
-            qmask[q] = leafm;
-          }
+      for (int q = 0; q < kEntries; ++q) {
+        if (q == nq) {
+          qnode[q] = cur;
+          qmask[q] = leafm;
         }
-        ++nq;
-        npend += __popc(leafm);
-      } else {
-        if (STATS) count_active(st, kStLeafWarps);
-        if (test_mask(r, cur, leafm, b)) return true;
       }
+      ++nq;
+      npend += __popc(leafm);
     }
     int next = -1;
 #pragma unroll
@@ -466,18 +463,6 @@ struct Walk {
       pop(next, tn);
     }
     cur = next;
-    return false;
-  }
-
-  // The leaves of `node` whose slots are set in `m`, in slot order.
-  __device__ __forceinline__ bool test_mask(const Ray& r, int node,
-                                            unsigned m, Best& b) {
-#pragma unroll 1
-    for (; m != 0; m &= m - 1) {
-      const int s = __ffs(m) - 1;
-      visit(r, -__ldg(link + (size_t)node * W + s) - 1, b);
-      if (ANY && b.any) return true;
-    }
     return false;
   }
 
@@ -627,9 +612,6 @@ __device__ __forceinline__ void refill_loop(
     while (true) {
       const bool step = !done && w.can_step();
       if (!__any_sync(kFull, step)) break;
-      if (D::kLeafAt > 0 &&
-          __popc(__ballot_sync(kFull, !done && w.pending())) >= D::kLeafAt)
-        break;
       if (step) {
         if (STATS) count_active(st, kStNodeWarps);
         w.node_step(r, b);

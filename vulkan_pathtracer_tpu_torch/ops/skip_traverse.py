@@ -60,7 +60,8 @@ def skip_closest_hit_plain(nodes, leaves, origin, direction, t_lane,
                            stats=None) -> Hit:
     """Plain version of the skip kernel (any device); ``inst_inv`` set
     = the instanced leaf decode.  ``stats``, a dict, accumulates node
-    visits and leaf-block visits."""
+    visits, leaf-block visits and the early exits of the kernel's
+    triangle test (ops/traverse.skip_walk)."""
     return skip_walk(nodes, leaves, origin, direction, t_lane, "hoisted",
                      inst_inv, mb_bits, stats)
 
@@ -68,8 +69,8 @@ def skip_closest_hit_plain(nodes, leaves, origin, direction, t_lane,
 def wide_closest_hit_plain(tiles, leaves, origin, direction, t_lane,
                            stats=None) -> Hit:
     """Plain version of the wide kernel (any device) over (8*Nw, 8, 8)
-    slot tiles; ``stats`` as in skip_closest_hit_plain (node visits are
-    tile visits)."""
+    slot tiles; ``stats`` accumulates tile visits and leaf-block visits
+    (the wide kernel's triangle test has no early exit)."""
     dev = origin.device
     n = origin.shape[0]
     n_wide = tiles.shape[0] // 8

@@ -75,13 +75,14 @@ def slab_hit(lo, hi, origin, inv, oxi, t_lim, form: str):
 
 
 def leaf_visit(leaves, origin, direction, rays, leaf, t_lane, best,
-               inst_inv=None, mb_bits: int = 0):
+               inst_inv=None, mb_bits: int = 0, exits=None):
     """Möller–Trumbore of rays ``rays`` (M,) against the blocks of leaf
     values ``leaf`` (M,) int64, updating ``best`` = [t, tri, u, v] in
     place: the nearest accepted triangle below min(t_best, t_lane), the
     first of equal t (a kernel's in-order strict-< accept).  A flat leaf
     value is its block's first triangle, a two-level one the packed
-    ``inst << mb_bits | block`` (triangle ids value * block + k)."""
+    ``inst << mb_bits | block`` (triangle ids value * block + k).
+    ``exits``, a dict, counts the early-exit test's exits (_leaf_mt)."""
     t_best, tri_best, u_best, v_best = best
     block = leaves.shape[1]
     o_r, d_r = origin[rays], direction[rays]
@@ -95,7 +96,7 @@ def leaf_visit(leaves, origin, direction, rays, leaf, t_lane, best,
         row = leaf // block
         first = leaf
     ok, t, u, v = _leaf_mt(leaves[row], o_r[:, None, :], d_r[:, None, :],
-                           det_sign)
+                           det_sign, exits)
     lim = torch.minimum(t_best[rays], t_lane[rays])
     acc = ok & (t < lim[:, None])
     found = acc.any(dim=1)
@@ -114,7 +115,8 @@ def skip_walk(nodes, leaves, origin, direction, t_lane, form: str,
     """Closest hit of a per-ray walk over the 8 octant preorders of a
     skip record table ``nodes`` (8*Nn, 8) f32 (bmin | bmax | skip bits
     | leaf bits).  Lanes with t_lane < 0 return a miss without walking.
-    ``stats``, a dict, accumulates node visits and leaf-block visits."""
+    ``stats``, a dict, accumulates node visits, leaf-block visits and
+    the early exits of their triangle tests (_leaf_mt)."""
     dev = origin.device
     n = origin.shape[0]
     n_nodes = nodes.shape[0] // 8
@@ -128,8 +130,9 @@ def skip_walk(nodes, leaves, origin, direction, t_lane, form: str,
             torch.zeros(n, dtype=torch.float32, device=dev)]
     cur = torch.where(t_lane >= 0, 0, n_nodes).to(torch.int64)
     if stats is not None:
-        stats.setdefault("node_visits", 0)
-        stats.setdefault("leaf_visits", 0)
+        for key in ("node_visits", "leaf_visits", "tri_back", "tri_u",
+                    "tri_v"):
+            stats.setdefault(key, 0)
     idx = torch.nonzero(cur < n_nodes).squeeze(1)
     while idx.numel():
         rec = base[idx] + cur[idx]
@@ -145,7 +148,7 @@ def skip_walk(nodes, leaves, origin, direction, t_lane, form: str,
             stats["leaf_visits"] += j.numel()
         if j.numel():
             leaf_visit(leaves, origin, direction, idx[j], leaf[j], t_lane,
-                       best, inst_inv, mb_bits)
+                       best, inst_inv, mb_bits, stats)
         cur[idx] = torch.where(hit & ~is_leaf, cur[idx] + 1, skip)
         idx = idx[cur[idx] < n_nodes]
     return Hit(*best)
