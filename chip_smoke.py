@@ -51,9 +51,10 @@ before the result line):
    primary and 65,536 live bounce rays; the skip kernel timed on both
    launches of a ``pallas_packet`` frame (the 2,073,600 primaries and
    the sorted bounce-1 launch, the rays and order that path gives it)
-   flat and instanced, and held bitwise (t, tri, u, v) to its plain
-   version on each at full size, with its statistics build (as for the
-   pair kernels, no stack); the wide kernel timed flat;
+   flat and instanced, the wide kernel on both launches of a
+   ``pallas8`` frame, each held bitwise (t, tri, u, v) to its plain
+   version on each launch at full size, with its statistics build (as
+   for the pair kernels, no stack);
 8. ``--traversal`` main paths — flat ``pallas_packet``, flat
    ``pallas8`` and instanced ``pallas_packet`` at 1080p: 1 warm-up + 4
    timed frames each, the counters read around them (the path's kernel
@@ -75,8 +76,11 @@ before the result line):
    a frame's primary and bounce rays, the atrium with 65,536 primary
    and 65,536 live bounce rays; each timed at the headline's shapes
    (2,073,600 primaries; the sorted bounce-1 launch for any hits); the
+   pair and frontier closest hits bitwise on all primaries; the
    frontier any hit also against the frontier closest hit's mask on the
-   whole bounce-1 launch, and its statistics build there;
+   whole bounce-1 launch; the statistics builds of both frontier
+   kernels on their launches (for the closest hit also the share of
+   visited nodes with 0, 1 and 2 or more hit internal children);
 10. tier main paths — 1080p, 1 warm-up + 4 timed frames each, the
    counters read around the 4 frames: (a) flat ``oct`` at leaf 28 (oct
    4, quad any hit 4), (b) flat frontier with coefficient leaves at
@@ -98,7 +102,8 @@ card's f32 peak and its bytes over the HBM rate, counted from this
 run's inputs: node and leaf visits from the plain version (the same
 algorithm) times the per-visit operations of the kernel source.  The
 skip kernel's entry carries its bounce-1 and instanced timings under
-``*_bounce1``, ``*_instanced`` and ``*_instanced_bounce1`` keys.
+``*_bounce1``, ``*_instanced`` and ``*_instanced_bounce1`` keys, the
+wide kernel's its bounce-1 timing under ``*_bounce1`` keys.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -642,27 +647,32 @@ def main() -> int:
                             sk.wide_closest_hit_plain,
                             sk.wide_args(scene, o, d, active))
 
-    def time_skip(scene, prim, bounce1, tag):
-        """The skip kernel on both launches of a ``pallas_packet`` frame
-        (the 2,073,600 primaries; the sorted bounce-1 launch), timed and
-        held bitwise (t, tri, u, v) to its plain version at full size,
-        and its statistics build on both."""
-        tables = (scene.skip_nodes, scene.leaves) + (
-            (scene.inst_inv,) if scene.instanced else ())
+    def time_launches(key, args_of, kernel, plain, stats_fn, tables, scene,
+                      prim, bounce1, tag=""):
+        """A closest-hit kernel on both launches of a ``--traversal``
+        frame (the 2,073,600 primaries; the sorted bounce-1 launch, the
+        rays and order that path gives it), timed and held bitwise (t,
+        tri, u, v) to its plain version at full size, and its
+        statistics build on both."""
         for shape, rays in (("", prim), ("_bounce1", bounce1)):
-            args = sk.skip_args(scene, *rays)
-            time_kernel("skip_closest_hit",
-                        lambda: kernels.skip_closest_hit(*args),
-                        lambda s=None: sk.skip_closest_hit_plain(*args,
-                                                                 stats=s),
-                        tables, n_prim, 16, scene, bitwise_err,
-                        tag=tag + shape)
+            args = args_of(scene, *rays)
+            time_kernel(key, lambda: kernel(*args),
+                        lambda s=None: plain(*args, stats=s), tables,
+                        n_prim, 16, scene, bitwise_err, tag=tag + shape)
             if shape:
-                phase("timing", kernel="skip_closest_hit" + tag + shape,
+                phase("timing", kernel=key + tag + shape,
                       live=int(bounce1[2].sum()))
-            stack_stats("skip_closest_hit", lambda: kernels.skip_stats(*args),
-                        plain_outputs.pop("skip_closest_hit" + tag + shape),
-                        tag + shape)
+            stack_stats(key, lambda: stats_fn(*args),
+                        plain_outputs.pop(key + tag + shape), tag + shape)
+
+    def time_skip(scene, prim, bounce1, tag):
+        """The skip kernel on both launches of a ``pallas_packet``
+        frame."""
+        time_launches("skip_closest_hit", sk.skip_args,
+                      kernels.skip_closest_hit, sk.skip_closest_hit_plain,
+                      kernels.skip_stats, (scene.skip_nodes, scene.leaves) + (
+                          (scene.inst_inv,) if scene.instanced else ()),
+                      scene, prim, bounce1, tag)
 
     # Columns (bench.py's 56k sidecar) at leaf 28: all rays of a
     # COLS_W x COLS_H frame, primaries and their bounce rays; the flat
@@ -863,13 +873,15 @@ def main() -> int:
     sel = live_idx[subset(live_idx.shape[0], N_SUB, 6)]
     compare_skip("atrium/bounce", wscene, o1[sel], d1[sel])
     time_skip(wscene, (o, d, None), (o1, d1, a1), "")
-    wargs = sk.wide_args(wscene, o, d, None)
-    time_kernel("wide_closest_hit",
-                lambda: kernels.wide_closest_hit(*wargs),
-                lambda s=None: sk.wide_closest_hit_plain(*wargs, stats=s),
-                (wscene.wide_nodes, wscene.leaves), n_prim, 16, wscene,
-                closest_err)
-    del o, d, o1, d1, a1, wargs
+    # The wide kernel on both launches of a pallas8 frame: its bounce-1
+    # rays come from its own primaries' hits.
+    _, _, o1, d1, a1, _ = bounce_rays(wscene, cam0, 0, WIDTH, HEIGHT,
+                                      "pallas8")
+    time_launches("wide_closest_hit", sk.wide_args, kernels.wide_closest_hit,
+                  sk.wide_closest_hit_plain, kernels.wide_stats,
+                  (wscene.wide_nodes, wscene.leaves), wscene, (o, d, None),
+                  (o1, d1, a1))
+    del o, d, o1, d1, a1
 
     # The instanced atrium (phase 5's bake): the skip kernel with the
     # instanced leaf decode.
@@ -1071,15 +1083,19 @@ def main() -> int:
         cargs = args_fn(scene, *rays, None, coef)
         time_kernel(f"{fam}_closest_hit{suffix}", lambda: ck(*cargs),
                     lambda s=None: cp(*cargs, stats=s), tables, n_prim, 16,
-                    scene, bitwise_err if fam == "pair" else closest_err)
+                    scene, closest_err if fam == "quad" else bitwise_err)
         aargs = args_fn(scene, *any_rays, coef)
         time_kernel(f"{fam}_any_hit{suffix}", lambda: ak(*aargs),
                     lambda s=None: ap(*aargs, stats=s), tables, n_prim, 1,
                     scene, any_err)
         if fam == "frontier":
-            # The whole bounce-1 launch: the any-hit bit against the
-            # frontier closest hit's mask (exactly so with exact leaves),
-            # and the any hit's statistics build.
+            # The closest hit's statistics build on the primaries; the
+            # whole bounce-1 launch: the any-hit bit against the frontier
+            # closest hit's mask (exactly so with exact leaves), and the
+            # any hit's statistics build.
+            key = f"frontier_closest_hit{suffix}"
+            stack_stats(key, lambda: kernels.frontier_stats(False, *cargs),
+                        plain_outputs.pop(key))
             key = f"frontier_any_hit{suffix}"
             agree = (plain_outputs[key] == (ck(*aargs)[0] < MISS_T)).float()
             agree = agree.mean().item()
@@ -1088,7 +1104,7 @@ def main() -> int:
                   f"{agree:.6f} of rays")
             phase("kernels", check=f"bounce-1 {key} vs closest mask",
                   rays=n_prim, any_vs_closest=f"{agree:.6f}")
-            stack_stats(key, lambda: kernels.frontier_stats(*aargs),
+            stack_stats(key, lambda: kernels.frontier_stats(True, *aargs),
                         plain_outputs.pop(key))
 
     t1 = time.perf_counter()

@@ -20,10 +20,10 @@ that are no multiple of 32, with inactive lanes, twice in a row (the
 batch counter zeroed before each launch), and the quad kernels'
 statistics build is held to the plain versions with its counters
 checked; so are the pair kernels' (two-level, exact and
-coefficient leaves), the skip kernel's (flat and two-level) and the
-frontier any hit's (widths 16 and 32, exact and coefficient leaves), and
-stack kernels launched on two side streams at once, each with its own
-batch counter.
+coefficient leaves), the skip kernel's (flat and two-level), the wide
+kernel's and both frontier kernels' (widths 16 and 32, exact and
+coefficient leaves), and walk kernels launched on two side streams at
+once, each with its own batch counter.
 """
 
 import numpy as np
@@ -404,13 +404,53 @@ def test_frontier_any_hit_ragged_inactive_and_relaunched(cuda, scene_paths,
     assert not occ[~active].any()
 
 
+@pytest.mark.parametrize("n", [1, 33, 1000, 4099])
+@pytest.mark.parametrize("width,mt", [(16, "exact"), (32, "exact"),
+                                      (16, "mxu"), (32, "mxu")])
+def test_frontier_closest_hit_ragged_inactive_and_relaunched(
+        cuda, scene_paths, n, width, mt):
+    """The frontier closest hit on the shared walk (leaf entries, the
+    Batcher network) on a ray count that is no multiple of 32, with a
+    third of the lanes inactive, launched twice with fresh batch
+    counters: bitwise its plain version each time."""
+    scene = build_device_scene(gltf.load(scene_paths["columns"]),
+                               max_leaf_size=14, device=cuda, mt=mt,
+                               frontier_width=width)
+    o, d, active = _rays(n, seed=n + 9, device=cuda)
+    active[::3] = False
+    args = fr.frontier_args(scene, o, d, active, mt == "mxu")
+    ref = fr.frontier_closest_hit_plain(*args)
+    for _ in range(2):
+        _assert_equal(kernels.frontier_closest_hit(*args), ref)
+    assert (ref.t[~active] == MISS_T).all()
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000, 4099])
+def test_wide_kernel_ragged_inactive_and_relaunched(cuda, scene_paths, n):
+    """The wide kernel on a ray count that is no multiple of 32, with a
+    third of the lanes inactive, launched twice with fresh batch
+    counters: bitwise its plain version each time."""
+    scene = build_device_scene(gltf.load(scene_paths["columns"]),
+                               max_leaf_size=28, device=cuda, wide=True)
+    o, d, active = _rays(n, seed=n + 11, device=cuda)
+    active[::3] = False
+    args = sk.wide_args(scene, o, d, active)
+    ref = sk.wide_closest_hit_plain(*args)
+    for _ in range(2):
+        _assert_equal(kernels.wide_closest_hit(*args), ref)
+    assert (ref.t[~active] == MISS_T).all()
+
+
 @pytest.mark.parametrize("kind", ["flat", "instanced", "frontier",
-                                  "frontier_mxu"])
+                                  "frontier_mxu", "frontier_closest",
+                                  "frontier_closest_mxu", "wide"])
 def test_skip_and_frontier_statistics_build(cuda, scene_paths, kind):
-    """The statistics builds of the skip kernel and the frontier any hit:
-    the plain versions' outputs and leaf visits, one traced ray per
-    active lane, instance changes on the two-level scene only, no stack
-    in the skip walk."""
+    """The statistics builds of the skip and wide kernels and of both
+    frontier kernels: the plain versions' outputs and leaf visits, one
+    traced ray per active lane, instance changes on the two-level scene
+    only, no stack in the skip and wide walks; the frontier closest
+    hit's count of visited nodes by hit internal children, the plain
+    version's."""
     host = gltf.load(scene_paths["columns"])
     o, d, active = _rays(3000, seed=10, device=cuda)
     stats = {}
@@ -419,9 +459,20 @@ def test_skip_and_frontier_statistics_build(cuda, scene_paths, kind):
         scene = build_device_scene(host, max_leaf_size=14, device=cuda,
                                    mt="mxu" if mxu else "exact")
         args = fr.frontier_args(scene, o, d, active, mxu)
-        out, counters = kernels.frontier_stats(*args)
-        assert torch.equal(out, fr.frontier_any_hit_plain(*args,
-                                                          stats=stats))
+        if "closest" in kind:
+            out, counters = kernels.frontier_stats(False, *args)
+            _assert_equal(out, fr.frontier_closest_hit_plain(*args,
+                                                             stats=stats))
+        else:
+            out, counters = kernels.frontier_stats(True, *args)
+            assert torch.equal(out, fr.frontier_any_hit_plain(*args,
+                                                              stats=stats))
+    elif kind == "wide":
+        scene = build_device_scene(host, max_leaf_size=28, device=cuda,
+                                   wide=True)
+        args = sk.wide_args(scene, o, d, active)
+        out, counters = kernels.wide_stats(*args)
+        _assert_equal(out, sk.wide_closest_hit_plain(*args, stats=stats))
     else:
         scene = (build_instanced_scene(host, max_leaf_size=14, device=cuda)
                  if kind == "instanced" else
@@ -438,32 +489,44 @@ def test_skip_and_frontier_statistics_build(cuda, scene_paths, kind):
         assert 0 < c["deepest"] <= st.STACK_SLOTS[16]
     else:
         assert c["deepest"] == 0 and c["node_lanes"] == stats["node_visits"]
+    if "closest" in kind:
+        assert [c[f"inner_{k}"] for k in range(3)] == [
+            stats[f"inner_{k}"] for k in range(3)]
     summary = kernels.summarize_stack_stats(counters)
     assert 0.0 < summary["simt_node"] <= 1.0
     assert 0.0 < summary["simt_leaf"] <= 1.0
 
 
-def test_kernels_on_side_streams(cuda, scene_paths):
-    """Stack kernels launched on two streams that are not the default
+@pytest.mark.parametrize("pair", ["pair+quad", "frontier+wide"])
+def test_kernels_on_side_streams(cuda, scene_paths, pair):
+    """Walk kernels launched on two streams that are not the default
     one, at once: each (device, stream) has its own batch counter, and
     both launches equal the plain versions."""
-    scene = build_instanced_scene(gltf.load(scene_paths["columns"]),
-                                  max_leaf_size=14, device=cuda)
-    flat = build_device_scene(gltf.load(scene_paths["columns"]),
-                              max_leaf_size=28, device=cuda)
+    host = gltf.load(scene_paths["columns"])
     o, d, active = _rays(20000, seed=31, device=cuda)
-    pargs = st.pair_args(scene, o, d, active)
-    qargs = st.quad_args(flat, o, d, active)
+    if pair == "pair+quad":
+        scene = build_instanced_scene(host, max_leaf_size=14, device=cuda)
+        flat = build_device_scene(host, max_leaf_size=28, device=cuda)
+        runs = ((kernels.pair_closest_hit, st.pair_closest_hit_plain,
+                 st.pair_args(scene, o, d, active)),
+                (kernels.quad_closest_hit, st.quad_closest_hit_plain,
+                 st.quad_args(flat, o, d, active)))
+    else:
+        flat = build_device_scene(host, max_leaf_size=14, device=cuda,
+                                  wide=True)
+        runs = ((kernels.frontier_closest_hit, fr.frontier_closest_hit_plain,
+                 fr.frontier_args(flat, o, d, active)),
+                (kernels.wide_closest_hit, sk.wide_closest_hit_plain,
+                 sk.wide_args(flat, o, d, active)))
     streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
     torch.cuda.synchronize()
     outs = []
-    for s, (fn, args) in zip(streams, ((kernels.pair_closest_hit, pargs),
-                                       (kernels.quad_closest_hit, qargs))):
+    for s, (fn, _, args) in zip(streams, runs):
         with torch.cuda.stream(s):
             outs.append(fn(*args))
     torch.cuda.synchronize()
-    _assert_equal(outs[0], st.pair_closest_hit_plain(*pargs))
-    _assert_equal(outs[1], st.quad_closest_hit_plain(*qargs))
+    for out, (_, plain, args) in zip(outs, runs):
+        _assert_equal(out, plain(*args))
     keys = {(o.device, s.cuda_stream) for s in streams}
     assert keys <= set(kernels._BATCHES)
     assert len({kernels._BATCHES[k].data_ptr() for k in keys}) == 2

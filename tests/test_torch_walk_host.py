@@ -1,19 +1,20 @@
-"""The walks' CUDA source on the CPU: the pair, quad and frontier any-hit
-kernels of ``csrc/stack_walk.cuh`` (``pair_traverse.cu``,
-``stack_traverse.cu``, ``frontier_traverse.cu``) and the skip kernel
+"""The walks' CUDA source on the CPU: the pair, quad and frontier kernels
+of ``csrc/stack_walk.cuh`` (``pair_traverse.cu``, ``stack_traverse.cu``,
+``frontier_traverse.cu``) and the skip and wide kernels
 (``skip_traverse.cu``) compiled with g++ against ``csrc/host_mock.h``, a
 stand-in for the CUDA runtime that runs each warp as 32 threads voting
 through a barrier, and held bitwise to their plain PyTorch versions.
 
 What this covers that the CPU tests of the plain versions cannot: the
 kernels' own control flow — postponed leaves and their near-first order
-in a pair row or preorder in a skip walk, the frontier any hit's leaf
-entries, persistent warps and ray refill on a small grid (the mock
-reports 2 SMs of 2 blocks, so warps take many batches), the instance
-cache of two-level scenes, the statistics build — on the columns scene
-flat and two-level, exact and coefficient leaves, frontier widths 16
-and 32, with a third of the lanes inactive and a ray count that is no
-multiple of 32.
+in a pair row, preorder in a skip walk, slot order in a wide tile or a
+frontier node, the frontier kernels' leaf entries and the closest hit's
+Batcher network, persistent warps and ray refill on a small grid (the
+mock reports 2 SMs of 2 blocks, so warps take many batches), the
+instance cache of two-level scenes, the statistics builds — on the
+columns scene flat and two-level, exact and coefficient leaves,
+frontier widths 16 and 32, with a third of the lanes inactive and a ray
+count that is no multiple of 32.
 The comparison is exact (t, tri, u, v and the any-hit bit): the sources
 are built with ``-ffp-contract=off``, as nvcc builds them with
 ``-fmad=false``, and perform the plain versions' float operations in
@@ -131,28 +132,47 @@ def skip_host(lib, nodes, leaves, o, d, t_lane, inst_inv=None, mb_bits=0):
     return out
 
 
-def frontier_host(lib, box, link, leaves, o, d, t_lane):
+def frontier_host(lib, any_hit, box, link, leaves, o, d, t_lane):
     n = o.shape[0]
-    hit = torch.full((n,), 7, dtype=torch.uint8)
-    _launch(lib.vkpt_frontier_any_hit, *_ptrs(box, link), box.shape[1],
-            *_ptrs(leaves), leaves.shape[1], int(leaves.shape[2] == 40),
-            *_ptrs(o, d, t_lane), n, hit.data_ptr(), n=n)
-    return hit.bool()
+    head = (*_ptrs(box, link), box.shape[1], *_ptrs(leaves), leaves.shape[1],
+            int(leaves.shape[2] == 40), *_ptrs(o, d, t_lane), n)
+    if any_hit:
+        hit = torch.full((n,), 7, dtype=torch.uint8)
+        _launch(lib.vkpt_frontier_any_hit, *head, hit.data_ptr(), n=n)
+        return hit.bool()
+    out = _outputs(n)
+    _launch(lib.vkpt_frontier_closest_hit, *head, *_ptrs(*out), n=n)
+    return out
+
+
+def wide_host(lib, tiles, leaves, o, d, t_lane):
+    n = o.shape[0]
+    out = _outputs(n)
+    _launch(lib.vkpt_wide_closest_hit, *_ptrs(tiles), tiles.shape[0] // 8,
+            *_ptrs(leaves), leaves.shape[1], *_ptrs(o, d, t_lane), n,
+            *_ptrs(*out), n=n)
+    return out
 
 
 def stats_host(lib, any_hit, kind, box, link, leaves, o, d, t_lane,
                inst_inv=None, mb_bits=0):
-    """The statistics build of kernel ``kind`` (quad, pair, skip with
-    ``box`` the skip records and ``link`` None, or frontier)."""
+    """The statistics build of kernel ``kind`` (quad, pair, skip or wide
+    with ``box`` the skip records or wide tiles and ``link`` None, or
+    frontier)."""
     n = o.shape[0]
     out = _outputs(n)
     hit = torch.full((n,), 7, dtype=torch.uint8)
     counters = torch.zeros(lib.vkpt_stack_stats_count(), dtype=torch.int64)
+    if kind == "wide":
+        _launch(lib.vkpt_wide_stats, *_ptrs(box), box.shape[0] // 8,
+                *_ptrs(leaves), leaves.shape[1], *_ptrs(o, d, t_lane), n,
+                *_ptrs(*out), counters.data_ptr(), n=n)
+        return out, counters.tolist()
     if kind == "skip":
         lead = (0, *_ptrs(box), box.shape[0] // 8, *_ptrs(leaves),
                 leaves.shape[1], *_ptrs(inst_inv), mb_bits)
     elif kind == "frontier":
-        lead = (1, *_ptrs(box, link), box.shape[1], *_ptrs(leaves),
+        lead = (int(any_hit), *_ptrs(box, link), box.shape[1], *_ptrs(leaves),
                 leaves.shape[1], int(leaves.shape[2] == 40))
     else:
         lead = (int(any_hit), *_ptrs(box, link, leaves), leaves.shape[1])
@@ -185,7 +205,7 @@ def scenes(columns_glb):
     host = gltf.load(columns_glb)
     return {
         "flat": build_device_scene(host, max_leaf_size=8, device="cpu",
-                                   mt="mxu"),
+                                   mt="mxu", wide=True),
         "flat32": build_device_scene(host, max_leaf_size=8, device="cpu",
                                      mt="mxu", frontier_width=32),
         "instanced": build_instanced_scene(host, max_leaf_size=14,
@@ -296,7 +316,7 @@ def test_frontier_any_hit_matches_plain(host_lib, scenes, width, coef):
     assert scene.frontier_box.shape[1] == width
     o, d, active = _rays(999, seed=31 + coef)
     args = fr.frontier_args(scene, o, d, active, coef)
-    occ = frontier_host(host_lib, *args)
+    occ = frontier_host(host_lib, True, *args)
     ref = fr.frontier_any_hit_plain(*args)
     assert 100 < int(ref.sum()) < int(active.sum())
     assert torch.equal(occ, ref)
@@ -306,22 +326,58 @@ def test_frontier_any_hit_matches_plain(host_lib, scenes, width, coef):
     assert not occ[~active].any()
 
 
+@pytest.mark.parametrize("coef", [False, True], ids=["exact", "coef"])
+@pytest.mark.parametrize("width", [16, 32])
+def test_frontier_closest_hit_matches_plain(host_lib, scenes, width, coef):
+    """The frontier closest hit (near-first, the Batcher network, leaf
+    slots in slot order), bitwise its plain version."""
+    scene = scenes["flat" if width == 16 else "flat32"]
+    o, d, active = _rays(999, seed=41 + coef)
+    args = fr.frontier_args(scene, o, d, active, coef)
+    ref = fr.frontier_closest_hit_plain(*args)
+    assert 100 < int((ref.t < MISS_T).sum()) < int(active.sum())
+    _assert_closest(frontier_host(host_lib, False, *args), ref)
+    assert (ref.t[~active] == MISS_T).all()
+
+
+def test_wide_kernel_matches_plain(host_lib, scenes):
+    """The wide kernel (leaf slots in slot order against the tightening
+    t_best), bitwise its plain version."""
+    o, d, active = _rays(999, seed=43)
+    args = sk.wide_args(scenes["flat"], o, d, active)
+    ref = sk.wide_closest_hit_plain(*args)
+    assert 100 < int((ref.t < MISS_T).sum()) < int(active.sum())
+    _assert_closest(wide_host(host_lib, *args), ref)
+
+
 @pytest.mark.parametrize("kind", ["flat", "instanced", "frontier",
-                                  "frontier_coef"])
+                                  "frontier_coef", "frontier_closest",
+                                  "frontier_closest_coef", "wide"])
 def test_skip_and_frontier_statistics_build(host_lib, scenes, kind):
-    """The statistics builds of the skip kernel and the frontier any hit:
-    the plain versions' outputs and leaf visits (each ray tests its
-    leaves in its plain version's order), one traced ray per active
-    lane, instance changes on the two-level scene only, no stack in the
-    skip walk."""
+    """The statistics builds of the skip and wide kernels and of both
+    frontier kernels: the plain versions' outputs and leaf visits (each
+    ray tests its leaves in its plain version's order), one traced ray
+    per active lane, instance changes on the two-level scene only, no
+    stack in the skip and wide walks; the frontier closest hit's count
+    of visited nodes by hit internal children, the plain version's."""
     o, d, active = _rays(640, seed=17)
     stats = {}
     if kind.startswith("frontier"):
         args = fr.frontier_args(scenes["flat"], o, d, active,
                                 kind.endswith("coef"))
-        out, counters = stats_host(host_lib, True, "frontier", *args)
-        assert torch.equal(out, fr.frontier_any_hit_plain(*args,
-                                                          stats=stats))
+        if "closest" in kind:
+            out, counters = stats_host(host_lib, False, "frontier", *args)
+            _assert_closest(out, fr.frontier_closest_hit_plain(
+                *args, stats=stats))
+        else:
+            out, counters = stats_host(host_lib, True, "frontier", *args)
+            assert torch.equal(out, fr.frontier_any_hit_plain(*args,
+                                                              stats=stats))
+    elif kind == "wide":
+        args = sk.wide_args(scenes["flat"], o, d, active)
+        out, counters = stats_host(host_lib, False, "wide", args[0], None,
+                                   *args[1:])
+        _assert_closest(out, sk.wide_closest_hit_plain(*args, stats=stats))
     else:
         args = sk.skip_args(scenes[kind], o, d, active)
         out, counters = stats_host(host_lib, False, "skip", args[0], None,
@@ -337,6 +393,13 @@ def test_skip_and_frontier_statistics_build(host_lib, scenes, kind):
         assert 0 < c["deepest"] <= st.STACK_SLOTS[16]
     else:
         assert c["deepest"] == 0 and hist[0] == c["rays"]
+    if "closest" in kind:
+        assert [c[f"inner_{k}"] for k in range(3)] == [
+            stats[f"inner_{k}"] for k in range(3)]
+        assert sum(c[f"inner_{k}"] for k in range(3)) == stats["node_visits"]
+        assert min(c[f"inner_{k}"] for k in range(3)) > 0
+    else:
+        assert c["inner_0"] == c["inner_1"] == c["inner_2"] == 0
 
 
 @pytest.mark.parametrize("kind", ["flat", "instanced"])
@@ -393,6 +456,65 @@ def test_skip_preorder_decides_ties(host_lib, order):
     assert 0 < int(hit.sum()) < n and (ref.t[hit] == 5.0).all()
     assert (ref.tri[hit] == order[0]).all()
     _assert_closest(skip_host(host_lib, nodes, leaves, o, d, t_lane), ref)
+
+
+def _tie_rays(n, x0, x1):
+    """n rays along +z from z = 0, spread along x from x0 to x1."""
+    o = torch.zeros((n, 3))
+    o[:, 0] = torch.linspace(x0, x1, n)
+    d = torch.tensor([[0.0, 0.0, 1.0]]).expand(n, 3).contiguous()
+    return o, d, st.lane_limits(n, None, "cpu")
+
+
+def _tie_leaves():
+    """Two block-1 leaves whose triangles lie at the same t (z = 5)."""
+    tri = [-1.0, -1.0, 5.0, 0.0, 4.0, 0.0, 4.0, 0.0, 0.0]
+    return torch.tensor([[tri], [tri]])
+
+
+@pytest.mark.parametrize("width", [16, 32])
+@pytest.mark.parametrize("order", [(0, 1), (1, 0)], ids=["0-1", "1-0"])
+def test_frontier_slot_order_decides_ties(host_lib, order, width):
+    """Two leaf slots of one frontier node whose triangles lie at the same
+    t: the closest hit tests a node's leaf slots in slot order, so the
+    lower slot wins the tie under the strict-less update although the
+    other slot's box starts nearer (slots 3 and 9 hold the two leaves, in
+    the order given); the postponed walk keeps it (some lanes miss both
+    boxes and finish at once)."""
+    box = torch.zeros((1, width, 6))
+    link = torch.full((1, width), st.EMPTY, dtype=torch.int32)
+    box[0, 3] = torch.tensor([-2.0, -2.0, 4.0, 4.0, 4.0, 6.0])
+    box[0, 9] = torch.tensor([-2.0, -2.0, 1.0, 4.0, 4.0, 6.0])
+    link[0, 3], link[0, 9] = -(order[0] + 1), -(order[1] + 1)
+    leaves = _tie_leaves()
+    o, d, t_lane = _tie_rays(96, -3.0, 0.5)
+    ref = fr.frontier_closest_hit_plain(box, link, leaves, o, d, t_lane)
+    hit = ref.t < MISS_T
+    assert 0 < int(hit.sum()) < 96 and (ref.t[hit] == 5.0).all()
+    assert (ref.tri[hit] == order[0]).all()
+    _assert_closest(frontier_host(host_lib, False, box, link, leaves, o, d,
+                                  t_lane), ref)
+
+
+@pytest.mark.parametrize("order", [(0, 1), (1, 0)], ids=["0-1", "1-0"])
+def test_wide_slot_order_decides_ties(host_lib, order):
+    """Two leaf slots of one wide tile whose triangles lie at the same t:
+    the lower slot wins the tie (slots 2 and 5 hold the two leaves' first
+    triangles, in the order given; the other slots are empty), in the
+    plain version and in the postponed kernel."""
+    tile = np.zeros((8, 8), np.float32)
+    tile[:, 0:3], tile[:, 3:6], tile[:, 6] = 3e38, -3e38, -2.0
+    tile[2, :7] = [-2.0, -2.0, 4.0, 4.0, 4.0, 6.0, order[0]]
+    tile[5, :7] = [-2.0, -2.0, 1.0, 4.0, 4.0, 6.0, order[1]]
+    tile[0, 7] = 1.0   # the skip pointer: past the last tile
+    tiles = torch.from_numpy(np.tile(tile[None], (8, 1, 1)))
+    leaves = _tie_leaves()
+    o, d, t_lane = _tie_rays(96, -3.0, 0.5)
+    ref = sk.wide_closest_hit_plain(tiles, leaves, o, d, t_lane)
+    hit = ref.t < MISS_T
+    assert 0 < int(hit.sum()) < 96 and (ref.t[hit] == 5.0).all()
+    assert (ref.tri[hit] == order[0]).all()
+    _assert_closest(wide_host(host_lib, tiles, leaves, o, d, t_lane), ref)
 
 
 def test_launch_guard_and_batch_counters(monkeypatch):

@@ -224,6 +224,29 @@ int any_dispatch(int width, int coef, const Tables& tab, const float* origin,
   return run(tab, origin, direction, t_lane, n, hit_out, batches, st, stream);
 }
 
+// The closest hit's first design on the stack walk: one ray per thread
+// over a grid of the rays, each node's leaves tested at once, the
+// network at every visited node.
+using FrontierFirstDesign = Design<true, false, false, 1>;
+
+template <bool STATS>
+int closest_dispatch(int width, int coef, const Tables& tab,
+                     const float* origin, const float* direction,
+                     const float* t_lane, int64_t n, float* t_out,
+                     int* tri_out, float* u_out, float* v_out,
+                     unsigned* batches, unsigned long long* st, void* stream) {
+  if (width != 16 && width != 32) return (int)cudaErrorInvalidValue;
+  using D = FrontierFirstDesign;
+  const auto run =
+      width == 16
+          ? (coef ? launch<16, false, true, false, D, STATS>
+                  : launch<16, false, false, false, D, STATS>)
+          : (coef ? launch<32, false, true, false, D, STATS>
+                  : launch<32, false, false, false, D, STATS>);
+  return run(tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
+             nullptr, batches, st, stream);
+}
+
 }  // namespace
 
 // C launchers: pointers, sizes and the stream in; cudaGetLastError()
@@ -275,9 +298,10 @@ extern "C" int vkpt_frontier_any_hit(const float* box, const int* link,
                              hit_out, batches, nullptr, stream);
 }
 
-// The statistics build of the any hit (the designs above; any must be
-// 1); `st` holds kStCount zeroed counters.  The hit output is that of
-// the production kernel; t_out .. v_out are not written.
+// The statistics build of the frontier kernels (the designs above; any:
+// the any hit, else the closest hit); `st` holds kStCount zeroed
+// counters.  The outputs are those of the production kernels; the any
+// hit writes hit_out, the closest hit t_out .. v_out.
 extern "C" int vkpt_frontier_stats(int any, const float* box,
                                    const int* link, int width,
                                    const float* leaves, int block, int coef,
@@ -288,9 +312,11 @@ extern "C" int vkpt_frontier_stats(int any, const float* box,
                                    float* v_out, uint8_t* hit_out,
                                    unsigned long long* st, unsigned* batches,
                                    void* stream) {
-  if (!any) return (int)cudaErrorInvalidValue;
-  (void)t_out, (void)tri_out, (void)u_out, (void)v_out;
   const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
-  return any_dispatch<true>(width, coef, tab, origin, direction, t_lane, n,
-                            hit_out, batches, st, stream);
+  if (any)
+    return any_dispatch<true>(width, coef, tab, origin, direction, t_lane, n,
+                              hit_out, batches, st, stream);
+  return closest_dispatch<true>(width, coef, tab, origin, direction, t_lane,
+                                n, t_out, tri_out, u_out, v_out, batches, st,
+                                stream);
 }

@@ -207,6 +207,124 @@ int skip_launch(const SkipTables& tab, const float* origin,
 using SkipFlatDesign = Design<true, true, true, 6, false, true>;
 using SkipInstDesign = Design<true, true, false, 6, false, true, 0, 16>;
 
+// The 8-wide tile walk of one ray, with the interface of the stack walk
+// (stack_walk.cuh Walk): the cursor in the ray's octant preorder of
+// tiles, and the hit leaf slots of its last tile (the tile and a slot
+// mask) waiting for the warp's leaf phase.  Every slot of a tile is
+// tested against t_best as it was at the tile's entry; a waiting lane
+// takes no node step, so its leaf slots are tested in slot order, each
+// against the tightening t_best, before its next tile's slabs, as in
+// the plain version (pallas_traverse.py:1346-1427).  The leaf words
+// stay f32 values (exact below 2^24) and are read again from the tile
+// in the leaf phase.
+template <class D, bool STATS>
+struct WideWalk {
+  const float4* __restrict__ tiles;  // all 8 octant blocks
+  int n_wide;
+  LeafTest<false, false, false, D, STATS> lt;
+  const float4* base;  // the ray's octant block
+  int cur, tile, deepest;
+  unsigned mask;  // the hit leaf slots of tile `tile`
+  unsigned long long* st;  // STATS: the launch's counters
+
+  __device__ __forceinline__ void start(const Ray& r, bool active) {
+    cur = active ? 0 : -1;
+    mask = 0;
+    deepest = 0;  // no stack
+    lt.reset();
+    if (active) base = tiles + (size_t)octant_of(r) * n_wide * 16;
+  }
+
+  __device__ __forceinline__ bool pending() const { return mask != 0; }
+
+  __device__ __forceinline__ bool can_step() const {
+    return cur >= 0 && mask == 0;
+  }
+
+  // Tile `cur`: the 8 slabs against min(t_best, t_lane) at entry, the
+  // hit leaf slots held, then cur + 1 when an internal slot was hit,
+  // else slot 0's skip pointer.
+  __device__ __forceinline__ bool node_step(const Ray& r, Best& b) {
+    const float4* t = base + (size_t)cur * 16;
+    const float t_lim = fminf(b.t, r.tl);
+    unsigned leaf_hits = 0;
+    bool descend = false;
+    int skip = 0;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const float4 lo = __ldg(t + 2 * s);
+      const float4 hi = __ldg(t + 2 * s + 1);
+      const float box[6] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y};
+      const bool hit = slab_sub(r, box, t_lim);
+      if (hit && hi.z >= 0.0f) leaf_hits |= 1u << s;
+      if (hit && hi.z == -1.0f) descend = true;
+      if (s == 0) skip = (int)hi.w;
+    }
+    if (leaf_hits != 0) {
+      tile = cur;
+      mask = leaf_hits;
+    }
+    const int next = descend ? cur + 1 : skip;
+    cur = next < n_wide ? next : -1;
+    if (!D::kPostpone && mask != 0) visit_pending(r, b);
+    return false;
+  }
+
+  // The waiting leaf slots in slot order; a leaf word is the block's
+  // first triangle (row = word / block).
+  __device__ __forceinline__ bool visit_pending(const Ray& r, Best& b) {
+    if (STATS) count_active(st, kStLeafWarps);
+    const float* slots =
+        reinterpret_cast<const float*>(base + (size_t)tile * 16);
+    for (unsigned m = mask; m != 0; m &= m - 1) {
+      const int s = __ffs(m) - 1;
+      lt.visit(r, (int)__ldg(slots + 8 * s + 6) / lt.block, b);
+    }
+    mask = 0;
+    return false;
+  }
+};
+
+template <class D, bool STATS>
+__global__ void __launch_bounds__(kThreads, D::kMinBlocks)
+wide_walk_kernel(const float* __restrict__ tiles, int n_wide,
+                 const float* __restrict__ leaves, int block,
+                 const float* __restrict__ origin,
+                 const float* __restrict__ direction,
+                 const float* __restrict__ t_lane, int64_t n,
+                 float* __restrict__ t_out, int* __restrict__ tri_out,
+                 float* __restrict__ u_out, float* __restrict__ v_out,
+                 unsigned* batches, unsigned long long* st) {
+  using Wk = WideWalk<D, STATS>;
+  Wk w;
+  w.tiles = reinterpret_cast<const float4*>(tiles);
+  w.n_wide = n_wide;
+  w.lt.leaves = leaves;
+  w.lt.block = block;
+  w.lt.inst_inv = nullptr;
+  w.lt.inst_feat = nullptr;
+  w.lt.mb_bits = 0;
+  w.lt.st = st;
+  w.st = st;
+  run_rays<Wk, false, D, STATS>(w, origin, direction, t_lane, n, t_out,
+                                tri_out, u_out, v_out, nullptr, batches, st);
+}
+
+template <class D, bool STATS = false>
+int wide_launch(const float* tiles, int n_wide, const float* leaves,
+                int block, const float* origin, const float* direction,
+                const float* t_lane, int64_t n, float* t_out, int* tri_out,
+                float* u_out, float* v_out, unsigned* batches,
+                unsigned long long* st, void* stream) {
+  return launch_kernel<wide_walk_kernel<D, STATS>, D>(
+      n, batches, stream, tiles, n_wide, leaves, block, origin, direction,
+      t_lane, n, t_out, tri_out, u_out, v_out, batches, st);
+}
+
+// The first design of the wide kernel on the walk: one ray per thread
+// over a grid of the rays, each tile's leaves tested at once.
+using WideFirstDesign = Design<true, false, false, 1>;
+
 __global__ void __launch_bounds__(kThreads)
 wide_closest_hit_kernel(const float* __restrict__ tiles, int n_wide,
                         const float* __restrict__ leaves, int block,
@@ -314,4 +432,19 @@ extern "C" int vkpt_wide_closest_hit(const float* tiles, int n_wide,
         tri_out, u_out, v_out);
   }
   return (int)cudaGetLastError();
+}
+
+// The statistics build of the wide kernel's design (the walk's counters
+// of vkpt_skip_stats; no stack).  The hit outputs are those of the
+// production kernel.
+extern "C" int vkpt_wide_stats(const float* tiles, int n_wide,
+                               const float* leaves, int block,
+                               const float* origin, const float* direction,
+                               const float* t_lane, int64_t n, float* t_out,
+                               int* tri_out, float* u_out, float* v_out,
+                               unsigned long long* st, unsigned* batches,
+                               void* stream) {
+  return wide_launch<WideFirstDesign, true>(
+      tiles, n_wide, leaves, block, origin, direction, t_lane, n, t_out,
+      tri_out, u_out, v_out, batches, st, stream);
 }

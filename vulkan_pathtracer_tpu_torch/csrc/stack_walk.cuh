@@ -1,17 +1,18 @@
-// The stack walk of the pair, quad, oct and frontier any-hit kernels
+// The stack walk of the pair, quad, oct and frontier kernels
 // (pair_traverse.cu, stack_traverse.cu, frontier_traverse.cu) as
 // compile-time design choices (Design): the kernel template, the leaf
 // phase with its instance cache, the warp loops (postponed leaves, ray
 // refill, persistent batches), the persistent launcher and the
-// statistics build's counters, which skip_traverse.cu's skip walk
-// shares.  The choices and what each does about this card are
+// statistics build's counters, which skip_traverse.cu's skip and wide
+// walks share.  The choices and what each does about this card are
 // described in stack_traverse.cu (quad, oct), pair_traverse.cu (pair),
-// frontier_traverse.cu (frontier any hit) and skip_traverse.cu.
+// frontier_traverse.cu (frontier) and skip_traverse.cu (skip, wide).
 
 #pragma once
 
 #include <algorithm>
 
+#include "sortnet.cuh"
 #include "traverse.cuh"
 
 namespace {
@@ -35,7 +36,10 @@ constexpr unsigned kFull = 0xffffffffu;
 //             leaf tests (0: one node's);
 //   LEAF_AT   POSTPONE without REFILL: the warp's leaf phase starts once
 //             LEAF_AT lanes wait at leaves (0: once every unfinished
-//             lane does).
+//             lane does);
+//   NETSKIP   widths 16 and 32, closest hit: the Batcher network runs
+//             only at a node where two or more internal children were
+//             hit (with one finite key every network puts it first).
 // On two-level scenes each lane keeps the object-space ray (or the
 // transformed features of coefficient leaves) of its last instance, and
 // recomputes them only when a leaf of another instance comes (the same
@@ -43,7 +47,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // recomputation).
 template <bool SORT, bool POSTPONE, bool PERSIST, int MINB,
           bool REFILL = false, bool EARLY = false, int QUEUE = 0,
-          int LEAF_AT = 0>
+          int LEAF_AT = 0, bool NETSKIP = false>
 struct Design {
   static_assert(!REFILL || POSTPONE, "refill runs the postponed loop");
   static_assert(LEAF_AT == 0 || (POSTPONE && !REFILL),
@@ -56,6 +60,7 @@ struct Design {
   static constexpr bool kEarly = EARLY;    // traverse.cuh mt<..., EARLY>
   static constexpr int kQueue = QUEUE;
   static constexpr int kLeafAt = LEAF_AT;
+  static constexpr bool kNetSkip = NETSKIP;
 };
 
 // Statistics build (STATS): counters of one launch, in this order
@@ -72,7 +77,10 @@ enum : int {
   kStLeafVisits,   // leaf blocks tested
   kStInstChanges,  // two-level: leaf visits whose instance differs from
                    // the lane's previous leaf visit of the same ray
-  kStHist,         // histogram of each ray's deepest stack: 0..63, 64+
+  kStInner,        // widths 16 and 32, closest hit: visited nodes with 0,
+                   // 1, 2 or more hit internal children (3 counters)
+  kStHist = kStInner + 3,  // histogram of each ray's deepest stack:
+                           // 0..63, 64+
   kStCount = kStHist + 65
 };
 
@@ -136,18 +144,22 @@ struct LeafTest {
 // the leaf phase itself (LeafTest).
 // The stack arrays stay outside the struct: an array indexed at run
 // time inside it would put every member in local memory.
-// Widths 16 and 32 (the frontier any hit: slot order, flat tables,
-// postponed with a queue) keep their waiting leaves as (node, slot mask)
-// entries, up to 4 entries and QUEUE leaves, and read each leaf value
-// from the node's link row when its test comes: W leaf values would take
-// 16-32 registers per lane.
+// Widths 16 and 32 (the frontier kernels, flat tables) keep their
+// waiting leaves as (node, slot mask) entries and read each leaf value
+// from the node's link row when its test comes: W leaf values would
+// take 16-32 registers per lane.  The any hit (slot order, postponed
+// with a queue) holds up to 4 entries and QUEUE leaves; the closest hit
+// (near-first, the Batcher network) holds one node's entry and steps
+// only once it is drained, since its leaf tests tighten the limit that
+// the next node's slabs and pop culling read.
 template <int W, bool ANY, bool COEF, bool INST, class D, bool STATS>
 struct Walk {
   static constexpr bool kSort = !ANY || D::kSort;
   static constexpr bool kMask = W >= 16;
-  static_assert(!kMask || (ANY && !kSort && !INST && D::kPostpone &&
-                            D::kQueue > 0),
-                "widths 16 and 32: the flat slot-order any hit, queued");
+  static_assert(!kMask || (!INST && (!ANY || (!kSort && D::kPostpone &&
+                                              D::kQueue > 0))),
+                "widths 16 and 32: flat tables; the any hit in slot order, "
+                "queued");
   // Per-ray stack entries: one push per level in a pair row, at most
   // W - 1 per collapsed level in an n-ary one
   // (ops/stack_traverse.STACK_SLOTS; the bakes refuse deeper trees).
@@ -160,7 +172,7 @@ struct Walk {
   // else pend[s] holds slot s's leaf (W == 2: nearer first).
   static constexpr bool kQueued = !kMask && D::kQueue > W;
   static constexpr int kPend = kQueued ? D::kQueue : W;
-  static constexpr int kEntries = 4;  // kMask
+  static constexpr int kEntries = ANY ? 4 : 1;  // kMask
 
   const float* __restrict__ box;
   const int* __restrict__ link;
@@ -214,7 +226,8 @@ struct Walk {
   // Whether the lane takes part in the warp's next node step: it has a
   // node to visit and room for that node's leaf children.
   __device__ __forceinline__ bool can_step() const {
-    if (kMask) return cur >= 0 && nq < kEntries && npend < D::kQueue;
+    if (kMask)
+      return cur >= 0 && nq < kEntries && (!ANY || npend < D::kQueue);
     return cur >= 0 && (kQueued ? npend <= kPend - W : !pending());
   }
 
@@ -397,73 +410,127 @@ struct Walk {
     return false;
   }
 
-  // Widths 16 and 32: slot order, each hit leaf child as a bit of the
-  // node's queue entry, the hit internal children pushed so that the
-  // lowest slot is descended and the next lowest popped first, as in the
-  // plain version (slot_order).
+  // Widths 16 and 32: each hit leaf child as a bit of the node's queue
+  // entry.  The any hit pushes its hit internal children so that the
+  // lowest slot is descended and the next lowest popped first, as in
+  // its plain version (slot_order).  The closest hit tests every slot
+  // against min(t_best, t_lane) at node entry, culls a popped node by
+  // its entry distance, and orders the hit internal children with the
+  // Batcher network swapping on `<=` (pallas_frontier.py:503-541):
+  // pushed far to near, the nearest descended.  Without POSTPONE the
+  // node's leaves are tested at once.
   __device__ __forceinline__ bool wide_step(const Ray& r, Best& b) {
-    const float4* brow =
-        reinterpret_cast<const float4*>(box) + (size_t)cur * (W * 6 / 4);
-    const int4* lrow =
-        reinterpret_cast<const int4*>(link) + (size_t)cur * (W / 4);
-    int lk[W];
-#pragma unroll
-    for (int q = 0; q < W / 4; ++q) {
-      const int4 l4 = __ldg(lrow + q);
-      lk[4 * q + 0] = l4.x;
-      lk[4 * q + 1] = l4.y;
-      lk[4 * q + 2] = l4.z;
-      lk[4 * q + 3] = l4.w;
-    }
-    unsigned leafm = 0, inner = 0;
-#pragma unroll
-    for (int p = 0; p < W / 2; ++p) {
-      float bx[12];
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        const float4 f = __ldg(brow + 3 * p + q);
-        bx[4 * q + 0] = f.x;
-        bx[4 * q + 1] = f.y;
-        bx[4 * q + 2] = f.z;
-        bx[4 * q + 3] = f.w;
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int s = 2 * p + h;
-        float tn;
-        if (slab(r, bx + 6 * h, r.tl, tn) && lk[s] != kEmpty) {
-          if (lk[s] < 0)
-            leafm |= 1u << s;
-          else
-            inner |= 1u << s;
-        }
-      }
-    }
-    if (leafm != 0) {
-#pragma unroll
-      for (int q = 0; q < kEntries; ++q) {
-        if (q == nq) {
-          qnode[q] = cur;
-          qmask[q] = leafm;
-        }
-      }
-      ++nq;
-      npend += __popc(leafm);
-    }
+    const float t_lim = ANY ? r.tl : fminf(b.t, r.tl);
     int next = -1;
+    float next_tn = 0.0f;
+    if (!kSort || cur_tn <= t_lim) {
+      const float4* brow =
+          reinterpret_cast<const float4*>(box) + (size_t)cur * (W * 6 / 4);
+      const int4* lrow =
+          reinterpret_cast<const int4*>(link) + (size_t)cur * (W / 4);
+      int lk[W];
 #pragma unroll
-    for (int s = W - 1; s >= 0; --s) {
-      if ((inner >> s) & 1u) {
-        if (next >= 0) push(next, 0.0f);
-        next = lk[s];
+      for (int q = 0; q < W / 4; ++q) {
+        const int4 l4 = __ldg(lrow + q);
+        lk[4 * q + 0] = l4.x;
+        lk[4 * q + 1] = l4.y;
+        lk[4 * q + 2] = l4.z;
+        lk[4 * q + 3] = l4.w;
       }
+      unsigned leafm = 0, inner = 0;
+      float key[kSort ? W : 1];  // entry distance of a hit internal slot
+#pragma unroll
+      for (int p = 0; p < W / 2; ++p) {
+        float bx[12];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float4 f = __ldg(brow + 3 * p + q);
+          bx[4 * q + 0] = f.x;
+          bx[4 * q + 1] = f.y;
+          bx[4 * q + 2] = f.z;
+          bx[4 * q + 3] = f.w;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int s = 2 * p + h;
+          float tn;
+          const bool hit = slab(r, bx + 6 * h, t_lim, tn) && lk[s] != kEmpty;
+          if (hit) {
+            if (lk[s] < 0)
+              leafm |= 1u << s;
+            else
+              inner |= 1u << s;
+          }
+          if constexpr (kSort) key[s] = hit && lk[s] >= 0 ? tn : kBig;
+        }
+      }
+      if (leafm != 0) {
+#pragma unroll
+        for (int q = 0; q < kEntries; ++q) {
+          if (q == nq) {
+            qnode[q] = cur;
+            qmask[q] = leafm;
+          }
+        }
+        ++nq;
+        npend += __popc(leafm);
+      }
+      if constexpr (kSort) {
+        if (STATS) atomicAdd(st + kStInner + min(__popc(inner), 2), 1ull);
+        if (!D::kNetSkip || (inner & (inner - 1u)) != 0u) {
+          sort_push(key, lk);
+          if (key[0] < kBig) {
+            next = lk[0];
+            next_tn = key[0];
+          }
+        } else if (inner != 0u) {
+          const int s = __ffs(inner) - 1;
+          next = lk[s];
+          next_tn = key[s];
+        }
+      } else {
+#pragma unroll
+        for (int s = W - 1; s >= 0; --s) {
+          if ((inner >> s) & 1u) {
+            if (next >= 0) push(next, 0.0f);
+            next = lk[s];
+          }
+        }
+      }
+      if (!ANY && !D::kPostpone && nq > 0) wide_pending(r, b);
     }
-    if (next < 0 && sp > 0) {
-      float tn;
-      pop(next, tn);
-    }
+    if (next < 0 && sp > 0) pop(next, next_tn);
     cur = next;
+    cur_tn = next_tn;
     return false;
+  }
+
+  // The Batcher network over a node's keys and children (the
+  // comparator indices are constants, so both stay in registers), then
+  // the hit internal children but the nearest pushed far to near.
+  __device__ __forceinline__ void sort_push(float* key, int* ch) {
+#define VKPT_CSWAP(a, b)                     \
+  {                                          \
+    const bool lt = key[a] <= key[b];        \
+    const float ka = lt ? key[a] : key[b];   \
+    const float kb = lt ? key[b] : key[a];   \
+    const int ca = lt ? ch[a] : ch[b];       \
+    const int cb = lt ? ch[b] : ch[a];       \
+    key[a] = ka;                             \
+    key[b] = kb;                             \
+    ch[a] = ca;                              \
+    ch[b] = cb;                              \
+  }
+    if constexpr (W == 16) {
+      VKPT_BATCHER16(VKPT_CSWAP)
+    } else {
+      VKPT_BATCHER32(VKPT_CSWAP)
+    }
+#undef VKPT_CSWAP
+#pragma unroll
+    for (int s = W - 1; s >= 1; --s) {
+      if (key[s] < kBig) push(ch[s], key[s]);
+    }
   }
 
   // The entries in queue order, one loop over all their leaves, so the

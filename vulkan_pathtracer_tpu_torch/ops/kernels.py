@@ -127,6 +127,8 @@ SIGNATURES = {
                         _P, _P, _P, _P, _P, _P],
     "vkpt_wide_closest_hit": [_P, _I, _P, _I, _P, _P, _P, _I64, _P, _P, _P,
                               _P, _P],
+    "vkpt_wide_stats": [_P, _I, _P, _I, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
+                        _P, _P],
 }
 
 
@@ -318,10 +320,11 @@ def quad_any_hit(box, link, leaves, origin, direction, t_lane):
 
 # Counters of the stack kernels' statistics build (csrc/stack_walk.cuh,
 # the kSt* enum), then a 65-bin histogram of each ray's deepest stack
-# (0..63 entries, 64 or more).
+# (0..63 entries, 64 or more).  inner_0 .. inner_2: the frontier closest
+# hit's visited nodes with 0, 1, 2 or more hit internal children.
 STACK_STATS = ("node_warps", "node_lanes", "leaf_warps", "leaf_lanes",
                "rays", "warps", "batch_rounds", "deepest", "leaf_visits",
-               "instance_changes")
+               "instance_changes", "inner_0", "inner_1", "inner_2")
 
 
 def _stats(name, fn, any_hit, tables, origin, direction, t_lane):
@@ -372,12 +375,15 @@ def summarize_stack_stats(counters) -> dict:
     of the node steps and of the entries into a node's leaves, node
     steps per ray against node-step rounds per warp batch (the tail),
     leaf visits per ray and the share of them whose instance differs
-    from the lane's previous leaf visit, and the stack depth reached by
-    each ray (mean, 99th percentile, deepest, share above 8 and 24
-    entries), from the counters of the statistics build."""
+    from the lane's previous leaf visit, the shares of visited nodes
+    with 0, 1 and 2 or more hit internal children (the frontier closest
+    hit; 0 elsewhere), and the stack depth reached by each ray (mean,
+    99th percentile, deepest, share above 8 and 24 entries), from the
+    counters of the statistics build."""
     c = dict(zip(STACK_STATS, counters))
     hist = list(counters[len(STACK_STATS):])
     rays, total = max(c["rays"], 1), max(sum(hist), 1)
+    inner = c["inner_0"] + c["inner_1"] + c["inner_2"]
     acc, p99 = 0, None
     for k, x in enumerate(hist):
         acc += x
@@ -392,6 +398,8 @@ def summarize_stack_stats(counters) -> dict:
         "leaf_visits_per_ray": c["leaf_visits"] / rays,
         "instance_change_share": (c["instance_changes"]
                                   / max(c["leaf_visits"], 1)),
+        **{f"inner_{k}_share": c[f"inner_{k}"] / max(inner, 1)
+           for k in range(3)},
         "depth_mean": sum(k * x for k, x in enumerate(hist)) / total,
         "depth_p99": p99, "deepest": c["deepest"],
         "depth_over_8": sum(hist[9:]) / total,
@@ -472,14 +480,15 @@ def frontier_any_hit(box, link, leaves, origin, direction, t_lane):
     return hit.bool()
 
 
-def frontier_stats(box, link, leaves, origin, direction, t_lane):
-    """Run the statistics build of the frontier any hit (its own design,
-    exact or coefficient leaves) and return (its hit bit, the list of
-    counters: STACK_STATS, then the depth histogram)."""
+def frontier_stats(any_hit: bool, box, link, leaves, origin, direction,
+                   t_lane):
+    """Run the statistics build of a frontier kernel (its own design,
+    exact or coefficient leaves) and return (its hit outputs, the list
+    of counters: STACK_STATS, then the depth histogram)."""
     width = _frontier_width(box)
     coef = _check_tables(box, link, leaves, width=width)
     _check_rays(origin, direction, t_lane, box.device)
-    return _stats("frontier_stats", lib().vkpt_frontier_stats, True,
+    return _stats("frontier_stats", lib().vkpt_frontier_stats, any_hit,
                   (box.data_ptr(), link.data_ptr(), width, leaves.data_ptr(),
                    leaves.shape[1], coef), origin, direction, t_lane)
 
@@ -526,15 +535,36 @@ def skip_stats(nodes, leaves, origin, direction, t_lane, inst_inv=None,
                    leaves.shape[1], inst, mb_bits), origin, direction, t_lane)
 
 
-def wide_closest_hit(tiles, leaves, origin, direction, t_lane):
-    """Launch the 8-wide tile closest-hit kernel; returns
-    (t, tri, u, v)."""
+def _check_wide(tiles, leaves, origin, direction, t_lane):
     if tiles.shape[0] % 8:
         raise ValueError("wide_nodes: expected 8 octant blocks of tiles")
     _check("wide_nodes", tiles, torch.float32, (None, 8, 8))
     if _check_leaves(leaves, tiles.device):
         raise ValueError("wide kernel: exact leaves only (n_leaves, block, 9)")
     _check_rays(origin, direction, t_lane, tiles.device)
+
+
+def wide_stats(tiles, leaves, origin, direction, t_lane):
+    """Run the statistics build of the wide kernel (its own design) and
+    return (its hit outputs, the list of counters: STACK_STATS, then the
+    depth histogram, all at 0: the walk keeps no stack)."""
+    _check_wide(tiles, leaves, origin, direction, t_lane)
+    n = origin.shape[0]
+    dev = origin.device
+    out = _hit_outputs(n, dev)
+    st = torch.zeros(lib().vkpt_stack_stats_count(), dtype=torch.int64,
+                     device=dev)
+    _launch("wide_stats", dev, lib().vkpt_wide_stats, tiles.data_ptr(),
+            tiles.shape[0] // 8, leaves.data_ptr(), leaves.shape[1],
+            *_ptrs(origin, direction, t_lane), n, *_ptrs(*out), st.data_ptr(),
+            batches=n)
+    return out, st.cpu().tolist()
+
+
+def wide_closest_hit(tiles, leaves, origin, direction, t_lane):
+    """Launch the 8-wide tile closest-hit kernel; returns
+    (t, tri, u, v)."""
+    _check_wide(tiles, leaves, origin, direction, t_lane)
     n = origin.shape[0]
     out = _hit_outputs(n, origin.device)
     _launch("wide_closest_hit", origin.device, lib().vkpt_wide_closest_hit,

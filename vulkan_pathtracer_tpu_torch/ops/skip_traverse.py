@@ -69,8 +69,8 @@ def skip_closest_hit_plain(nodes, leaves, origin, direction, t_lane,
 def wide_closest_hit_plain(tiles, leaves, origin, direction, t_lane,
                            stats=None) -> Hit:
     """Plain version of the wide kernel (any device) over (8*Nw, 8, 8)
-    slot tiles; ``stats`` accumulates tile visits and leaf-block visits
-    (the wide kernel's triangle test has no early exit)."""
+    slot tiles; ``stats``, a dict, accumulates tile visits, leaf-block
+    visits and the early exits of their triangle tests (_leaf_mt)."""
     dev = origin.device
     n = origin.shape[0]
     n_wide = tiles.shape[0] // 8
@@ -82,8 +82,9 @@ def wide_closest_hit_plain(tiles, leaves, origin, direction, t_lane,
             torch.zeros(n, dtype=torch.float32, device=dev)]
     cur = torch.where(t_lane >= 0, 0, n_wide).to(torch.int64)
     if stats is not None:
-        stats.setdefault("node_visits", 0)
-        stats.setdefault("leaf_visits", 0)
+        for key in ("node_visits", "leaf_visits", "tri_back", "tri_u",
+                    "tri_v"):
+            stats.setdefault(key, 0)
     idx = torch.nonzero(cur < n_wide).squeeze(1)
     while idx.numel():
         tile = tiles[base[idx] + cur[idx]]            # (M, 8, 8)
@@ -99,7 +100,8 @@ def wide_closest_hit_plain(tiles, leaves, origin, direction, t_lane,
                 if stats is not None:
                     stats["leaf_visits"] += j.numel()
                 leaf_visit(leaves, origin, direction, idx[j],
-                           word[j, s].to(torch.int64), t_lane, best)
+                           word[j, s].to(torch.int64), t_lane, best,
+                           exits=stats)
         descend = (hit & (word == -1.0)).any(dim=1)
         skip = tile[:, 0, 7].to(torch.int64)
         cur[idx] = torch.where(descend, cur[idx] + 1, skip)

@@ -400,9 +400,11 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
     and culls no popped node (the quad any-hit kernel).  ``leaves``
     with 40 columns is a coefficient table (the coefficient leaf test;
     ``inst_feat`` on two-level scenes).  ``stats``, a dict, accumulates
-    node visits (row loads), leaf-block visits and (exact leaves)
-    _leaf_mt's early exits.  Returns (t, tri, u, v) for closest hit or
-    a bool tensor for any hit."""
+    node visits (row loads), leaf-block visits, (exact leaves)
+    _leaf_mt's early exits and (``sortnet``) the visited nodes with 0,
+    1, 2 or more hit internal children (``inner_0`` .. ``inner_2``; the
+    network has work only at the last).  Returns (t, tri, u, v) for
+    closest hit or a bool tensor for any hit."""
     dev = origin.device
     n = origin.shape[0]
     width = box.shape[1]
@@ -427,7 +429,8 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
     slots = torch.arange(width, dtype=torch.float32, device=dev)
     if stats is not None:
         for key in ("node_visits", "leaf_visits", "tri_back", "tri_u",
-                    "tri_v"):
+                    "tri_v") + (("inner_0", "inner_1", "inner_2")
+                                if sortnet is not None else ()):
             stats.setdefault(key, 0)
 
     while True:
@@ -455,6 +458,10 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
         tf = torch.minimum(torch.minimum(mx[..., 0], mx[..., 1]),
                            torch.minimum(mx[..., 2], t_lim[:, None]))
         slot_hit = (tn <= tf) & (lk != EMPTY) & visit[:, None]
+        if stats is not None and sortnet is not None:
+            inner = (slot_hit & (lk >= 0)).sum(dim=1)[visit].clamp(max=2)
+            for k in range(3):
+                stats[f"inner_{k}"] += int((inner == k).sum())
 
         if near_leaves:
             _, leaf_order = torch.sort(torch.where(slot_hit, tn, big), dim=1,
