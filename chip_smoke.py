@@ -168,9 +168,13 @@ SMALL_W, SMALL_H = 320, 180
 # row adds 4 EMPTY tests and a 4-key insertion sort (6 compares), a
 # pair row 3 selects, a skip record its leaf test, a wide tile 8 slabs
 # and 2 leafword tests per slot, an oct row 8 slabs, 8 EMPTY tests and
-# an 8-key insertion sort (28 compares), a frontier row W slabs, W EMPTY
-# tests and the Batcher network (63 comparators at W = 16, 191 at 32;
-# none in the any hit, which walks in slot order);
+# an 8-key insertion sort (28 compares), a frontier row W slabs and W
+# EMPTY tests;
+# the frontier closest hit's Batcher network (63 comparators at W = 16,
+# 191 at 32) orders a visited node's hit internal children: work only
+# where two or more were hit (with one finite key every network puts it
+# first), which the plain version counts (inner_2); the any hit walks
+# in slot order and runs none;
 # Möller–Trumbore is 54 per triangle (55 with det_sign); the
 # object-space transform of an instanced leaf visit 33; the ray set-up
 # (3 safe reciprocals, 3 products) 18.  Coefficient leaves
@@ -181,16 +185,16 @@ SMALL_W, SMALL_H = 320, 180
 PEAK_F32, HBM_BPS = 67e12, 3.35e12
 VISIT_OPS = {"quad": 4 * 25 + 4 + 6, "pair": 2 * 25 + 3, "skip": 25 + 1,
              "wide": 8 * (25 + 2), "oct": 8 * 25 + 8 + 28,
-             "frontier": 16 * 25 + 16 + 63, "frontier32": 32 * 25 + 32 + 191,
-             "frontier_any": 16 * 25 + 16}
+             "frontier": 16 * 25 + 16, "frontier32": 32 * 25 + 32}
+NET_OPS = {"frontier": 63, "frontier32": 191}
 MT_OPS, XFORM_OPS, RAY_OPS = 54, 33, 18
 # The early-exit triangle test (traverse.cuh mt, EARLY; the quad, oct,
-# exact pair and skip closest hits) stops after 15 operations at a back
-# face, 27 at u and 45 at v (one more each with det_sign); the plain
-# version counts each kind.
+# exact pair, skip, wide and exact frontier closest hits) stops after
+# 15 operations at a back face, 27 at u and 45 at v (one more each with
+# det_sign); the plain version counts each kind.
 MT_EXIT_OPS = (15, 27, 45)
 EARLY_EXIT = ("quad_closest_hit", "oct_closest_hit", "pair_closest_hit",
-              "skip_closest_hit")
+              "skip_closest_hit", "wide_closest_hit", "frontier_closest_hit")
 COEF_OPS, COEF_SIGN_OPS, FEAT_OPS, FEAT_XFORM_OPS = 86, 4, 9, 190
 
 
@@ -437,10 +441,13 @@ def main() -> int:
         return cam
 
     def bound(tables, n_rays, out_bytes, stats, visit_ops, block, instanced,
-              coef=False, early=False):
+              coef=False, early=False, net_ops=0):
         """(bound_ms, bound_by) of one traversal launch; ``early``: the
-        kernel's triangle test stops at its first failed condition."""
-        ops = n_rays * RAY_OPS + stats["node_visits"] * visit_ops
+        kernel's triangle test stops at its first failed condition;
+        ``net_ops``: the comparators of a node's sorting network, at the
+        nodes where it has work."""
+        ops = (n_rays * RAY_OPS + stats["node_visits"] * visit_ops
+               + stats.get("inner_2", 0) * net_ops)
         if coef:
             ops += stats["leaf_visits"] * (
                 block * (COEF_OPS + COEF_SIGN_OPS * instanced) + FEAT_OPS
@@ -490,12 +497,14 @@ def main() -> int:
         p_ms, p_out = cuda_ms(lambda: plain(stats), 1, False)
         plain_outputs[key + tag] = p_out
         err = compare(k_out, p_out)
-        b_ms, b_by = bound(tables, n_rays, out_bytes, stats,
-                           VISIT_OPS["frontier_any" if key.startswith(
-                               "frontier_any") else key.split("_")[0]],
+        kind = key.split("_")[0]
+        if kind == "frontier" and scene.frontier_box.shape[1] == 32:
+            kind = "frontier32"
+        b_ms, b_by = bound(tables, n_rays, out_bytes, stats, VISIT_OPS[kind],
                            scene.max_leaf_size, int(scene.instanced),
                            coef=key.endswith("_coef"),
-                           early=key in EARLY_EXIT)
+                           early=key in EARLY_EXIT,
+                           net_ops=NET_OPS.get(kind, 0))
         results.setdefault(key, {}).update({
             f"ms{tag}": k_ms, f"plain_ms{tag}": p_ms,
             f"max_abs_err{tag}": err, f"bound_ms{tag}": b_ms,

@@ -21,177 +21,52 @@
 // product, only adds visits here; the hits equal the quad kernel's up
 // to ties of equal t.
 //
-// The closest hit, in the order of the Pallas body: hit leaf slots are
-// visited in slot order (pallas_frontier.py:471-499); internal children
-// are sorted by entry distance with the Batcher network swapping on
-// `<=` (:503-518, sortnet.cuh), pushed far to near, and the walk
-// descends to the nearest (:520-541).  The network is not stable, so
-// the plain version runs the same comparator list.  Its design: one
-// ray per thread with its own stack (W - 1 entries per collapsed
-// level, STACK_SLOTS in ops/stack_traverse; the bake refuses deeper
-// trees), float4 loads of two slots at a time, the keys and children
-// of a node in registers (the network's indices are constants), a
-// W-entry leaf queue drained by one loop, and pop culling as in the
-// quad kernel.
+// The closest hit, in the order of the Pallas body: every slot is
+// slab-tested against min(t_best, t_lane) at node entry; hit leaf
+// slots are visited in slot order (pallas_frontier.py:471-499);
+// internal children are sorted by entry distance with the Batcher
+// network swapping on `<=` (:503-518, sortnet.cuh), pushed far to near,
+// and the walk descends to the nearest (:520-541); a popped node is
+// culled by its entry distance.  The network is not stable, so the
+// plain version runs the same comparator list.  The any hit's bit does
+// not depend on the walk's order, so it walks hit children in slot
+// order, with no network and no stack of entry distances, as its plain
+// version does (slot_order).  Both run on the stack walk of the quad
+// and pair kernels (stack_walk.cuh at width 16 or 32, waiting leaves
+// as (node, slot mask) entries, read from the link row when their test
+// comes), with W - 1 stack entries per collapsed level (STACK_SLOTS in
+// ops/stack_traverse; the bake refuses deeper trees).
 //
-// The any hit's bit does not depend on the walk's order, so it walks
-// hit children in slot order, with no network and no stack of entry
-// distances, as its plain version does (slot_order), on the stack walk
-// of the quad and pair any hits (stack_walk.cuh at width 16 or 32,
-// waiting leaves as (node, slot mask) entries).  What bounded the first,
-// near-first design on the bounce-1 launch of paths (b) and (c): idle
-// lanes, as for the quad and pair any hits (slot order without
-// postponing: node / leaf SIMT efficiency 0.46 / 0.26 exact), the
-// 63-comparator network per node, and a 2.9 KB local int + float stack
-// per thread.  The kept designs (PERF.md section 6; 20 candidates
-// timed side by side):
-//   - postponed leaves: a lane queues the leaf children of up to 4
-//     nodes, until 8 leaves wait, before the warp tests leaves together
-//     (leaf SIMT 0.94-0.96);
-//   - exact leaves refill lanes from the batch counter (node SIMT
-//     0.60); coefficient leaves keep persistent warps without refill,
-//     whose leaf phase is bound by the 160 B-per-triangle rows;
-//   - a register cap of 6 blocks per SM (85 registers).
+// What bounded the first designs (one ray per thread, each node's
+// leaves tested at once; PERF.md section 6): idle lanes (leaf SIMT
+// efficiency 0.26-0.35 in the any hit's bounce-1 launch, 0.52-0.64 in
+// the closest hit's primaries), the 63-comparator network at every
+// node of the closest hit although three visited nodes in four hit at
+// most one internal child, and a 2.9 KB local int + float stack per
+// thread.  The kept designs (24 candidates for each leaf kind timed
+// side by side with the first design):
+//   - closest hit: the network only where two or more internal
+//     children were hit (with one finite key every network puts it
+//     first, so the order is the same); a lane holds one node's leaf
+//     entry, since its leaf tests tighten the limit that the next
+//     node's slabs and pop culling read;
+//   - closest hit, exact leaves: the leaves tested at once (postponing
+//     them measured no faster: 14 triangles with the early-exit test
+//     are a short leaf phase), persistent warps, the early-exit
+//     triangle test, a register cap of 5 blocks per SM;
+//   - closest hit, coefficient leaves: postponed leaves (leaf SIMT
+//     0.64 -> 0.85), one ray per thread over the grid, a cap of 6;
+//   - any hit: postponed leaves, a lane queueing the leaf children of
+//     up to 4 nodes, until 8 leaves wait (leaf SIMT 0.94-0.96); exact
+//     leaves refill lanes from the batch counter (node SIMT 0.60),
+//     coefficient leaves keep persistent warps without refill, whose
+//     leaf phase is bound by the 160 B-per-triangle rows; a cap of 6.
 
 #include <type_traits>
 
-#include "sortnet.cuh"
 #include "stack_walk.cuh"
 
 namespace {
-
-#define VKPT_CSWAP(a, b)                              \
-  {                                                   \
-    const bool lt = key[a] <= key[b];                 \
-    const float ka = lt ? key[a] : key[b];            \
-    const float kb = lt ? key[b] : key[a];            \
-    const int ca = lt ? ch[a] : ch[b];                \
-    const int cb = lt ? ch[b] : ch[a];                \
-    key[a] = ka;                                      \
-    key[b] = kb;                                      \
-    ch[a] = ca;                                       \
-    ch[b] = cb;                                       \
-  }
-
-template <int W, bool COEF>
-__device__ void frontier_traverse(const float* __restrict__ box,
-                                  const int* __restrict__ link,
-                                  const float* __restrict__ leaves, int block,
-                                  const Ray& r, Best& b) {
-  constexpr int kStack = W == 16 ? 360 : 589;  // STACK_SLOTS[W]
-  int stack[kStack];
-  float stack_tn[kStack];
-  int sp = 0;
-  int cur = 0;
-  float cur_tn = -INFINITY;
-  while (cur >= 0) {
-    const float t_lim = fminf(b.t, r.tl);
-    int next = -1;
-    float next_tn = 0.0f;
-    if (cur_tn <= t_lim) {
-      const float4* brow =
-          reinterpret_cast<const float4*>(box) + (size_t)cur * (W * 6 / 4);
-      const int4* lrow =
-          reinterpret_cast<const int4*>(link) + (size_t)cur * (W / 4);
-      int ch[W];
-#pragma unroll
-      for (int q = 0; q < W / 4; ++q) {
-        const int4 l4 = __ldg(lrow + q);
-        ch[4 * q + 0] = l4.x;
-        ch[4 * q + 1] = l4.y;
-        ch[4 * q + 2] = l4.z;
-        ch[4 * q + 3] = l4.w;
-      }
-      // Entry distance of each hit slot, kBig for a missed or empty one.
-      float key[W];
-#pragma unroll
-      for (int p = 0; p < W / 2; ++p) {
-        float bx[12];
-#pragma unroll
-        for (int q = 0; q < 3; ++q) {
-          const float4 f = __ldg(brow + 3 * p + q);
-          bx[4 * q + 0] = f.x;
-          bx[4 * q + 1] = f.y;
-          bx[4 * q + 2] = f.z;
-          bx[4 * q + 3] = f.w;
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float tn;
-          const bool hit = slab(r, bx + 6 * h, t_lim, tn);
-          key[2 * p + h] = (hit && ch[2 * p + h] != kEmpty) ? tn : kBig;
-        }
-      }
-      // Hit leaf slots are queued in slot order, then drained by one
-      // (not unrolled) loop, so the leaf test is inlined once.
-      int queue[W];
-      int qn = 0;
-#pragma unroll
-      for (int s = 0; s < W; ++s) {
-        if (key[s] < kBig && ch[s] < 0) {
-          queue[qn++] = -ch[s] - 1;
-          key[s] = kBig;
-        }
-      }
-#pragma unroll 1
-      for (int i = 0; i < qn; ++i)
-        visit_leaf<false, false, COEF>(r, leaves, block, nullptr, 0,
-                                       queue[i], b);
-      // Internal children: the Batcher network, push far to near,
-      // descend to the nearest.
-      if constexpr (W == 16) {
-        VKPT_BATCHER16(VKPT_CSWAP)
-      } else {
-        VKPT_BATCHER32(VKPT_CSWAP)
-      }
-#pragma unroll
-      for (int s = W - 1; s >= 1; --s) {
-        if (key[s] < kBig) {
-          stack[sp] = ch[s];
-          stack_tn[sp] = key[s];
-          ++sp;
-        }
-      }
-      if (key[0] < kBig) {
-        next = ch[0];
-        next_tn = key[0];
-      }
-    }
-    if (next < 0 && sp > 0) {
-      --sp;
-      next = stack[sp];
-      next_tn = stack_tn[sp];
-    }
-    cur = next;
-    cur_tn = next_tn;
-  }
-}
-
-#undef VKPT_CSWAP
-
-template <int W, bool COEF>
-__global__ void __launch_bounds__(kThreads)
-frontier_closest_hit_kernel(const float* __restrict__ box,
-                            const int* __restrict__ link,
-                            const float* __restrict__ leaves, int block,
-                            const float* __restrict__ origin,
-                            const float* __restrict__ direction,
-                            const float* __restrict__ t_lane, int64_t n,
-                            float* __restrict__ t_out,
-                            int* __restrict__ tri_out,
-                            float* __restrict__ u_out,
-                            float* __restrict__ v_out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(origin, direction, t_lane, i);
-  Best b{kMissT, 0.0f, 0.0f, -1, false};
-  if (r.tl >= 0.0f)
-    frontier_traverse<W, COEF>(box, link, leaves, block, r, b);
-  t_out[i] = b.t;
-  tri_out[i] = b.tri;
-  u_out[i] = b.u;
-  v_out[i] = b.v;
-}
 
 // The any hit: the stack walk of stack_walk.cuh at width 16 or 32
 // (slot order, leaves as node entries).
@@ -224,10 +99,12 @@ int any_dispatch(int width, int coef, const Tables& tab, const float* origin,
   return run(tab, origin, direction, t_lane, n, hit_out, batches, st, stream);
 }
 
-// The closest hit's first design on the stack walk: one ray per thread
-// over a grid of the rays, each node's leaves tested at once, the
-// network at every visited node.
-using FrontierFirstDesign = Design<true, false, false, 1>;
+// The closest hit: the stack walk at width 16 or 32 (near-first, the
+// Batcher network where two or more internal children were hit, one
+// leaf entry per lane).  Design<sort, postpone, persistent, min blocks
+// per SM, refill, early-exit triangle test>.
+using FrontierClosestDesign = Design<true, false, true, 5, false, true>;
+using CoefFrontierClosestDesign = Design<true, true, false, 6>;
 
 template <bool STATS>
 int closest_dispatch(int width, int coef, const Tables& tab,
@@ -236,12 +113,13 @@ int closest_dispatch(int width, int coef, const Tables& tab,
                      int* tri_out, float* u_out, float* v_out,
                      unsigned* batches, unsigned long long* st, void* stream) {
   if (width != 16 && width != 32) return (int)cudaErrorInvalidValue;
-  using D = FrontierFirstDesign;
+  using D = FrontierClosestDesign;
+  using C = CoefFrontierClosestDesign;
   const auto run =
       width == 16
-          ? (coef ? launch<16, false, true, false, D, STATS>
+          ? (coef ? launch<16, false, true, false, C, STATS>
                   : launch<16, false, false, false, D, STATS>)
-          : (coef ? launch<32, false, true, false, D, STATS>
+          : (coef ? launch<32, false, true, false, C, STATS>
                   : launch<32, false, false, false, D, STATS>);
   return run(tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
              nullptr, batches, st, stream);
@@ -252,7 +130,8 @@ int closest_dispatch(int width, int coef, const Tables& tab,
 // C launchers: pointers, sizes and the stream in; cudaGetLastError()
 // out (0 = the launch was accepted; cudaErrorInvalidValue for a width
 // other than 16 or 32).  coef != 0: `leaves` is the (n_leaves, block,
-// 40) coefficient table.
+// 40) coefficient table.  `batches`: one unsigned counter for the
+// persistent warps, zeroed by the launcher on `stream`.
 extern "C" int vkpt_frontier_closest_hit(const float* box, const int* link,
                                          int width, const float* leaves,
                                          int block, int coef,
@@ -261,30 +140,13 @@ extern "C" int vkpt_frontier_closest_hit(const float* box, const int* link,
                                          const float* t_lane, int64_t n,
                                          float* t_out, int* tri_out,
                                          float* u_out, float* v_out,
-                                         void* stream) {
-  if (width != 16 && width != 32) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-    const cudaStream_t s = (cudaStream_t)stream;
-#define VKPT_FRONTIER_CH(W, COEF)                                        \
-  frontier_closest_hit_kernel<W, COEF><<<grid, kThreads, 0, s>>>(        \
-      box, link, leaves, block, origin, direction, t_lane, n, t_out,     \
-      tri_out, u_out, v_out)
-    if (width == 16 && coef)
-      VKPT_FRONTIER_CH(16, true);
-    else if (width == 16)
-      VKPT_FRONTIER_CH(16, false);
-    else if (coef)
-      VKPT_FRONTIER_CH(32, true);
-    else
-      VKPT_FRONTIER_CH(32, false);
-#undef VKPT_FRONTIER_CH
-  }
-  return (int)cudaGetLastError();
+                                         unsigned* batches, void* stream) {
+  const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
+  return closest_dispatch<false>(width, coef, tab, origin, direction, t_lane,
+                                 n, t_out, tri_out, u_out, v_out, batches,
+                                 nullptr, stream);
 }
 
-// `batches`: one unsigned counter for the any hit's persistent warps,
-// zeroed by the launcher on `stream`.
 extern "C" int vkpt_frontier_any_hit(const float* box, const int* link,
                                      int width, const float* leaves,
                                      int block, int coef,

@@ -13,7 +13,7 @@
 //     per VMEM row, the VMEM-overflow and instanced fallback).
 // They differ only in TPU staging and scheduling; all use the slab
 // b * inv - o * inv with o * inv hoisted (pallas_traverse.py:158-174).
-// wide_closest_hit_kernel replaces kernel 8, _make_wide_kernel
+// wide_closest_hit_kernel<D, STATS> replaces kernel 8, _make_wide_kernel
 // (pallas_wide_closest_hit): 8-wide slot tiles (ops/bvh_wide.py), slab
 // (b - o) * inv, slot hits against t_best as it was at node entry, leaf
 // slots intersected in slot order, each masked by its own slot hit
@@ -63,9 +63,22 @@
 //   - flat: persistent warps;
 //   - the early-exit triangle test (traverse.cuh mt, EARLY) and a
 //     register cap of 6 blocks per SM (85 registers).
-// The wide kernel keeps the first design: no stack and no shared memory
-// (one cursor register), sixteen 16 B __ldg loads per tile, one ray
-// per thread, rays sorted by the caller (2D tiles, the 6d Morton key).
+//
+// The wide kernel (WideWalk): no stack (one cursor), sixteen 16 B __ldg
+// loads per tile, rays sorted by the caller (2D tiles, the 6d Morton
+// key).  Its first design tested a tile's hit leaf slots as soon as a
+// lane met them, at a leaf SIMT efficiency of 0.69 on the primaries and
+// 0.15 on the incoherent bounce-1 rays, whose launch took 3.1x the
+// primaries' time; a warp also ran 1.44x the tile steps of its average
+// ray there.  The kept design (24 candidates timed side by side on both
+// launches of a pallas8 frame, chosen by their sum, PERF.md section 6):
+// postponed leaf slots with a leaf phase once 16 lanes wait (the lane
+// keeps the tile and a slot mask, and reads the leaf words from the
+// tile again), persistent warps, the early-exit triangle test and a cap
+// of 6 blocks per SM.  Refill and unpostponed walks were slower on the
+// sum.  What holds it now is not measured (no profiler of the card's
+// counters); its reads from L2 are about 256 B per tile step and 1 KB
+// per leaf block, 42 steps and 6.6 blocks per bounce-1 ray.
 
 #include "stack_walk.cuh"
 
@@ -206,6 +219,7 @@ int skip_launch(const SkipTables& tab, const float* origin,
 // refill, early-exit triangle test, queue (unused), leaf phase at>.
 using SkipFlatDesign = Design<true, true, true, 6, false, true>;
 using SkipInstDesign = Design<true, true, false, 6, false, true, 0, 16>;
+using WideDesign = Design<true, true, true, 6, false, true, 0, 16>;
 
 // The 8-wide tile walk of one ray, with the interface of the stack walk
 // (stack_walk.cuh Walk): the cursor in the ray's octant preorder of
@@ -219,6 +233,8 @@ using SkipInstDesign = Design<true, true, false, 6, false, true, 0, 16>;
 // in the leaf phase.
 template <class D, bool STATS>
 struct WideWalk {
+  static_assert(D::kPostpone && !D::kRefill,
+                "the wide walk postpones its leaves, without refill");
   const float4* __restrict__ tiles;  // all 8 octant blocks
   int n_wide;
   LeafTest<false, false, false, D, STATS> lt;
@@ -266,7 +282,6 @@ struct WideWalk {
     }
     const int next = descend ? cur + 1 : skip;
     cur = next < n_wide ? next : -1;
-    if (!D::kPostpone && mask != 0) visit_pending(r, b);
     return false;
   }
 
@@ -287,14 +302,14 @@ struct WideWalk {
 
 template <class D, bool STATS>
 __global__ void __launch_bounds__(kThreads, D::kMinBlocks)
-wide_walk_kernel(const float* __restrict__ tiles, int n_wide,
-                 const float* __restrict__ leaves, int block,
-                 const float* __restrict__ origin,
-                 const float* __restrict__ direction,
-                 const float* __restrict__ t_lane, int64_t n,
-                 float* __restrict__ t_out, int* __restrict__ tri_out,
-                 float* __restrict__ u_out, float* __restrict__ v_out,
-                 unsigned* batches, unsigned long long* st) {
+wide_closest_hit_kernel(const float* __restrict__ tiles, int n_wide,
+                        const float* __restrict__ leaves, int block,
+                        const float* __restrict__ origin,
+                        const float* __restrict__ direction,
+                        const float* __restrict__ t_lane, int64_t n,
+                        float* __restrict__ t_out, int* __restrict__ tri_out,
+                        float* __restrict__ u_out, float* __restrict__ v_out,
+                        unsigned* batches, unsigned long long* st) {
   using Wk = WideWalk<D, STATS>;
   Wk w;
   w.tiles = reinterpret_cast<const float4*>(tiles);
@@ -316,64 +331,9 @@ int wide_launch(const float* tiles, int n_wide, const float* leaves,
                 const float* t_lane, int64_t n, float* t_out, int* tri_out,
                 float* u_out, float* v_out, unsigned* batches,
                 unsigned long long* st, void* stream) {
-  return launch_kernel<wide_walk_kernel<D, STATS>, D>(
+  return launch_kernel<wide_closest_hit_kernel<D, STATS>, D>(
       n, batches, stream, tiles, n_wide, leaves, block, origin, direction,
       t_lane, n, t_out, tri_out, u_out, v_out, batches, st);
-}
-
-// The first design of the wide kernel on the walk: one ray per thread
-// over a grid of the rays, each tile's leaves tested at once.
-using WideFirstDesign = Design<true, false, false, 1>;
-
-__global__ void __launch_bounds__(kThreads)
-wide_closest_hit_kernel(const float* __restrict__ tiles, int n_wide,
-                        const float* __restrict__ leaves, int block,
-                        const float* __restrict__ origin,
-                        const float* __restrict__ direction,
-                        const float* __restrict__ t_lane, int64_t n,
-                        float* __restrict__ t_out, int* __restrict__ tri_out,
-                        float* __restrict__ u_out, float* __restrict__ v_out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(origin, direction, t_lane, i);
-  Best b{kMissT, 0.0f, 0.0f, -1, false};
-  if (r.tl >= 0.0f) {
-    const float4* base = reinterpret_cast<const float4*>(tiles) +
-                         (size_t)octant_of(r) * n_wide * 16;
-    int cur = 0;
-    while (cur < n_wide) {
-      const float4* tile = base + (size_t)cur * 16;
-      // Every slot is tested against t_best as it was at node entry.
-      const float t_lim = fminf(b.t, r.tl);
-      unsigned leaf_hits = 0;
-      bool descend = false;
-      int first[8];
-      int skip = 0;
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const float4 lo = __ldg(tile + 2 * s);
-        const float4 hi = __ldg(tile + 2 * s + 1);
-        const float box[6] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y};
-        const bool hit = slab_sub(r, box, t_lim);
-        const float word = hi.z;
-        if (hit && word >= 0.0f) leaf_hits |= 1u << s;
-        if (hit && word == -1.0f) descend = true;
-        first[s] = (int)word;
-        if (s == 0) skip = (int)hi.w;
-      }
-      // Leaf slots in slot order; each tightens the next one's limit.
-#pragma unroll 1
-      for (unsigned m = leaf_hits; m != 0; m &= m - 1) {
-        const int row = first[__ffs(m) - 1] / block;
-        leaf_block<false, false>(r, leaves, row, row, block, 1.0f, b);
-      }
-      cur = descend ? cur + 1 : skip;
-    }
-  }
-  t_out[i] = b.t;
-  tri_out[i] = b.tri;
-  u_out[i] = b.u;
-  v_out[i] = b.v;
 }
 
 }  // namespace
@@ -424,19 +384,16 @@ extern "C" int vkpt_wide_closest_hit(const float* tiles, int n_wide,
                                      const float* direction,
                                      const float* t_lane, int64_t n,
                                      float* t_out, int* tri_out, float* u_out,
-                                     float* v_out, void* stream) {
-  if (n > 0) {
-    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-    wide_closest_hit_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        tiles, n_wide, leaves, block, origin, direction, t_lane, n, t_out,
-        tri_out, u_out, v_out);
-  }
-  return (int)cudaGetLastError();
+                                     float* v_out, unsigned* batches,
+                                     void* stream) {
+  return wide_launch<WideDesign>(tiles, n_wide, leaves, block, origin,
+                                 direction, t_lane, n, t_out, tri_out, u_out,
+                                 v_out, batches, nullptr, stream);
 }
 
-// The statistics build of the wide kernel's design (the walk's counters
-// of vkpt_skip_stats; no stack).  The hit outputs are those of the
-// production kernel.
+// The statistics build of the wide kernel (the design above; the walk's
+// counters of vkpt_skip_stats, no stack).  The hit outputs are those of
+// the production kernel.
 extern "C" int vkpt_wide_stats(const float* tiles, int n_wide,
                                const float* leaves, int block,
                                const float* origin, const float* direction,
@@ -444,7 +401,7 @@ extern "C" int vkpt_wide_stats(const float* tiles, int n_wide,
                                int* tri_out, float* u_out, float* v_out,
                                unsigned long long* st, unsigned* batches,
                                void* stream) {
-  return wide_launch<WideFirstDesign, true>(
-      tiles, n_wide, leaves, block, origin, direction, t_lane, n, t_out,
-      tri_out, u_out, v_out, batches, st, stream);
+  return wide_launch<WideDesign, true>(tiles, n_wide, leaves, block, origin,
+                                       direction, t_lane, n, t_out, tri_out,
+                                       u_out, v_out, batches, st, stream);
 }

@@ -1,5 +1,5 @@
-// Batcher odd-even mergesort comparator lists for the frontier kernels
-// (csrc/frontier_traverse.cu): the pairs of ops/frontier.batcher_oem(n),
+// Batcher odd-even mergesort comparator lists for the frontier closest
+// hit (csrc/stack_walk.cuh): the pairs of ops/frontier.batcher_oem(n),
 // the JAX package's pallas_frontier._batcher_oem, in the same order.
 // tests/test_torch_frontier.py checks this file against that list, so
 // the kernel and its plain version run the same network (it is not

@@ -36,10 +36,7 @@ constexpr unsigned kFull = 0xffffffffu;
 //             leaf tests (0: one node's);
 //   LEAF_AT   POSTPONE without REFILL: the warp's leaf phase starts once
 //             LEAF_AT lanes wait at leaves (0: once every unfinished
-//             lane does);
-//   NETSKIP   widths 16 and 32, closest hit: the Batcher network runs
-//             only at a node where two or more internal children were
-//             hit (with one finite key every network puts it first).
+//             lane does).
 // On two-level scenes each lane keeps the object-space ray (or the
 // transformed features of coefficient leaves) of its last instance, and
 // recomputes them only when a leaf of another instance comes (the same
@@ -47,7 +44,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // recomputation).
 template <bool SORT, bool POSTPONE, bool PERSIST, int MINB,
           bool REFILL = false, bool EARLY = false, int QUEUE = 0,
-          int LEAF_AT = 0, bool NETSKIP = false>
+          int LEAF_AT = 0>
 struct Design {
   static_assert(!REFILL || POSTPONE, "refill runs the postponed loop");
   static_assert(LEAF_AT == 0 || (POSTPONE && !REFILL),
@@ -60,7 +57,6 @@ struct Design {
   static constexpr bool kEarly = EARLY;    // traverse.cuh mt<..., EARLY>
   static constexpr int kQueue = QUEUE;
   static constexpr int kLeafAt = LEAF_AT;
-  static constexpr bool kNetSkip = NETSKIP;
 };
 
 // Statistics build (STATS): counters of one launch, in this order
@@ -417,8 +413,10 @@ struct Walk {
   // against min(t_best, t_lane) at node entry, culls a popped node by
   // its entry distance, and orders the hit internal children with the
   // Batcher network swapping on `<=` (pallas_frontier.py:503-541):
-  // pushed far to near, the nearest descended.  Without POSTPONE the
-  // node's leaves are tested at once.
+  // pushed far to near, the nearest descended.  The network runs only
+  // where two or more internal children were hit: with one finite key
+  // every network puts it first.  Without POSTPONE the node's leaves are
+  // tested at once.
   __device__ __forceinline__ bool wide_step(const Ray& r, Best& b) {
     const float t_lim = ANY ? r.tl : fminf(b.t, r.tl);
     int next = -1;
@@ -477,7 +475,7 @@ struct Walk {
       }
       if constexpr (kSort) {
         if (STATS) atomicAdd(st + kStInner + min(__popc(inner), 2), 1ull);
-        if (!D::kNetSkip || (inner & (inner - 1u)) != 0u) {
+        if ((inner & (inner - 1u)) != 0u) {
           sort_push(key, lk);
           if (key[0] < kBig) {
             next = lk[0];
@@ -497,7 +495,7 @@ struct Walk {
           }
         }
       }
-      if (!ANY && !D::kPostpone && nq > 0) wide_pending(r, b);
+      if (!D::kPostpone && nq > 0) wide_pending(r, b);
     }
     if (next < 0 && sp > 0) pop(next, next_tn);
     cur = next;

@@ -31,13 +31,16 @@ boundary, ``tables_from_jax``):
 
 Order inside a node: hit leaf slots in slot order, then the internal
 children sorted by entry distance with the Batcher network (swap on
-``<=``), pushed far to near, descent to the nearest.  The any hit
-visits internal children in slot order instead (its bit does not
-depend on the order; csrc/frontier_traverse.cu runs it on the stack
-walk of the quad and pair any hits).  Exact leaves
-need a block of at most 14 triangles, as in the JAX package (the
-Pallas kernel's static lane indices): a larger block raises its
-ValueError, so leaf 28 needs ``mt="mxu"``.
+``<=``), pushed far to near, descent to the nearest; the kernel runs
+the network only where two or more internal children were hit (with
+one finite key every network puts it first).  The any hit visits
+internal children in slot order instead (its bit does not depend on
+the order).  Both kernels are the stack walk of the quad and pair
+kernels at width 16 or 32 (csrc/stack_walk.cuh,
+csrc/frontier_traverse.cu).  Exact leaves need a block of at most 14
+triangles, as in the JAX package (the Pallas kernel's static lane
+indices): a larger block raises its ValueError, so leaf 28 needs
+``mt="mxu"``.
 """
 
 from __future__ import annotations
@@ -133,7 +136,10 @@ def check_exact_block(leaves) -> None:
 
 def frontier_closest_hit_plain(box, link, leaves, origin, direction, t_lane,
                                leaf_visits=None, stats=None) -> Hit:
-    """Plain version of the frontier closest-hit kernel (any device)."""
+    """Plain version of the frontier closest-hit kernel (any device).
+    ``stats``, a dict, accumulates node visits, leaf-block visits, the
+    early exits of exact leaves and the visited nodes by hit internal
+    children (ops/stack_traverse._traverse_plain)."""
     t, tri, u, v = _traverse_plain(box, link, leaves, origin, direction,
                                    t_lane, False, False,
                                    leaf_visits=leaf_visits, stats=stats,

@@ -116,7 +116,7 @@ SIGNATURES = {
     "vkpt_pair_stats": [_I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I64, _P,
                         _P, _P, _P, _P, _P, _P, _P],
     "vkpt_frontier_closest_hit": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _I64,
-                                  _P, _P, _P, _P, _P],
+                                  _P, _P, _P, _P, _P, _P],
     "vkpt_frontier_any_hit": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _I64, _P,
                               _P, _P],
     "vkpt_frontier_stats": [_I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I64, _P,
@@ -126,7 +126,7 @@ SIGNATURES = {
     "vkpt_skip_stats": [_I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _I64, _P, _P,
                         _P, _P, _P, _P, _P, _P],
     "vkpt_wide_closest_hit": [_P, _I, _P, _I, _P, _P, _P, _I64, _P, _P, _P,
-                              _P, _P],
+                              _P, _P, _P],
     "vkpt_wide_stats": [_P, _I, _P, _I, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
                         _P, _P],
 }
@@ -462,7 +462,7 @@ def frontier_closest_hit(box, link, leaves, origin, direction, t_lane):
     _launch("frontier_closest_hit", origin.device,
             lib().vkpt_frontier_closest_hit, box.data_ptr(), link.data_ptr(),
             width, leaves.data_ptr(), leaves.shape[1], coef,
-            *_ptrs(origin, direction, t_lane), n, *_ptrs(*out))
+            *_ptrs(origin, direction, t_lane), n, *_ptrs(*out), batches=n)
     return out
 
 
@@ -570,5 +570,5 @@ def wide_closest_hit(tiles, leaves, origin, direction, t_lane):
     _launch("wide_closest_hit", origin.device, lib().vkpt_wide_closest_hit,
             tiles.data_ptr(), tiles.shape[0] // 8, leaves.data_ptr(),
             leaves.shape[1], *_ptrs(origin, direction, t_lane), n,
-            *_ptrs(*out))
+            *_ptrs(*out), batches=n)
     return out
