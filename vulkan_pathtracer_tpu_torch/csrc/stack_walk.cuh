@@ -232,10 +232,12 @@ struct Walk {
   }
 
   __device__ __forceinline__ bool node_step(const Ray& r, Best& b) {
-    if constexpr (kMask)
+    if constexpr (!kMask)
+      return narrow_step(r, b);
+    else if constexpr (ANY)
       return wide_step(r, b);
     else
-      return narrow_step(r, b);
+      return sorted_step(r, b);
   }
 
   // POSTPONE: the pending leaf children in test order; true when an any
@@ -406,22 +408,88 @@ struct Walk {
     return false;
   }
 
-  // Widths 16 and 32: each hit leaf child as a bit of the node's queue
-  // entry.  The any hit pushes its hit internal children so that the
-  // lowest slot is descended and the next lowest popped first, as in
-  // its plain version (slot_order).  The closest hit tests every slot
-  // against min(t_best, t_lane) at node entry, culls a popped node by
-  // its entry distance, and orders the hit internal children with the
-  // Batcher network swapping on `<=` (pallas_frontier.py:503-541):
-  // pushed far to near, the nearest descended.  The network runs only
-  // where two or more internal children were hit: with one finite key
-  // every network puts it first.  Without POSTPONE the node's leaves are
-  // tested at once.
+  // Widths 16 and 32: slot order, each hit leaf child as a bit of the
+  // node's queue entry, the hit internal children pushed so that the
+  // lowest slot is descended and the next lowest popped first, as in the
+  // plain version (slot_order).
   __device__ __forceinline__ bool wide_step(const Ray& r, Best& b) {
-    const float t_lim = ANY ? r.tl : fminf(b.t, r.tl);
+    const float4* brow =
+        reinterpret_cast<const float4*>(box) + (size_t)cur * (W * 6 / 4);
+    const int4* lrow =
+        reinterpret_cast<const int4*>(link) + (size_t)cur * (W / 4);
+    int lk[W];
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      const int4 l4 = __ldg(lrow + q);
+      lk[4 * q + 0] = l4.x;
+      lk[4 * q + 1] = l4.y;
+      lk[4 * q + 2] = l4.z;
+      lk[4 * q + 3] = l4.w;
+    }
+    unsigned leafm = 0, inner = 0;
+#pragma unroll
+    for (int p = 0; p < W / 2; ++p) {
+      float bx[12];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float4 f = __ldg(brow + 3 * p + q);
+        bx[4 * q + 0] = f.x;
+        bx[4 * q + 1] = f.y;
+        bx[4 * q + 2] = f.z;
+        bx[4 * q + 3] = f.w;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int s = 2 * p + h;
+        float tn;
+        if (slab(r, bx + 6 * h, r.tl, tn) && lk[s] != kEmpty) {
+          if (lk[s] < 0)
+            leafm |= 1u << s;
+          else
+            inner |= 1u << s;
+        }
+      }
+    }
+    if (leafm != 0) {
+#pragma unroll
+      for (int q = 0; q < kEntries; ++q) {
+        if (q == nq) {
+          qnode[q] = cur;
+          qmask[q] = leafm;
+        }
+      }
+      ++nq;
+      npend += __popc(leafm);
+    }
+    int next = -1;
+#pragma unroll
+    for (int s = W - 1; s >= 0; --s) {
+      if ((inner >> s) & 1u) {
+        if (next >= 0) push(next, 0.0f);
+        next = lk[s];
+      }
+    }
+    if (next < 0 && sp > 0) {
+      float tn;
+      pop(next, tn);
+    }
+    cur = next;
+    return false;
+  }
+
+  // Widths 16 and 32, closest hit: every slot tested against
+  // min(t_best, t_lane) at node entry, a popped node culled by its
+  // entry distance, the hit leaf children as the lane's one queue entry
+  // (tested at once without POSTPONE), the hit internal children
+  // ordered by the Batcher network swapping on `<=`
+  // (pallas_frontier.py:503-541), pushed far to near, the nearest
+  // descended.  The network runs only where two or more internal
+  // children were hit: with one finite key every network puts it first.
+  __device__ __forceinline__ bool sorted_step(const Ray& r, Best& b) {
+    const float t_lim = fminf(b.t, r.tl);
     int next = -1;
     float next_tn = 0.0f;
-    if (!kSort || cur_tn <= t_lim) {
+    if (cur_tn <= t_lim) {
       const float4* brow =
           reinterpret_cast<const float4*>(box) + (size_t)cur * (W * 6 / 4);
       const int4* lrow =
@@ -436,7 +504,7 @@ struct Walk {
         lk[4 * q + 3] = l4.w;
       }
       unsigned leafm = 0, inner = 0;
-      float key[kSort ? W : 1];  // entry distance of a hit internal slot
+      float key[W];  // entry distance of a hit internal slot, else kBig
 #pragma unroll
       for (int p = 0; p < W / 2; ++p) {
         float bx[12];
@@ -453,47 +521,27 @@ struct Walk {
           const int s = 2 * p + h;
           float tn;
           const bool hit = slab(r, bx + 6 * h, t_lim, tn) && lk[s] != kEmpty;
-          if (hit) {
-            if (lk[s] < 0)
-              leafm |= 1u << s;
-            else
-              inner |= 1u << s;
-          }
-          if constexpr (kSort) key[s] = hit && lk[s] >= 0 ? tn : kBig;
+          if (hit && lk[s] < 0) leafm |= 1u << s;
+          if (hit && lk[s] >= 0) inner |= 1u << s;
+          key[s] = hit && lk[s] >= 0 ? tn : kBig;
         }
       }
       if (leafm != 0) {
-#pragma unroll
-        for (int q = 0; q < kEntries; ++q) {
-          if (q == nq) {
-            qnode[q] = cur;
-            qmask[q] = leafm;
-          }
-        }
-        ++nq;
-        npend += __popc(leafm);
+        qnode[0] = cur;
+        qmask[0] = leafm;
+        nq = 1;
       }
-      if constexpr (kSort) {
-        if (STATS) atomicAdd(st + kStInner + min(__popc(inner), 2), 1ull);
-        if ((inner & (inner - 1u)) != 0u) {
-          sort_push(key, lk);
-          if (key[0] < kBig) {
-            next = lk[0];
-            next_tn = key[0];
-          }
-        } else if (inner != 0u) {
-          const int s = __ffs(inner) - 1;
-          next = lk[s];
-          next_tn = key[s];
+      if (STATS) atomicAdd(st + kStInner + min(__popc(inner), 2), 1ull);
+      if ((inner & (inner - 1u)) != 0u) {
+        sort_push(key, lk);
+        if (key[0] < kBig) {
+          next = lk[0];
+          next_tn = key[0];
         }
-      } else {
-#pragma unroll
-        for (int s = W - 1; s >= 0; --s) {
-          if ((inner >> s) & 1u) {
-            if (next >= 0) push(next, 0.0f);
-            next = lk[s];
-          }
-        }
+      } else if (inner != 0u) {
+        const int s = __ffs(inner) - 1;
+        next = lk[s];
+        next_tn = key[s];
       }
       if (!D::kPostpone && nq > 0) wide_pending(r, b);
     }
