@@ -76,11 +76,16 @@ before the result line):
    a frame's primary and bounce rays, the atrium with 65,536 primary
    and 65,536 live bounce rays; each timed at the headline's shapes
    (2,073,600 primaries; the sorted bounce-1 launch for any hits); the
-   pair and frontier closest hits bitwise on all primaries; the
-   frontier any hit also against the frontier closest hit's mask on the
-   whole bounce-1 launch; the statistics builds of both frontier
-   kernels on their launches (for the closest hit also the share of
-   visited nodes with 0, 1 and 2 or more hit internal children);
+   pair and frontier closest hits and every coefficient closest hit
+   bitwise on all primaries; the frontier any hit also against the
+   frontier closest hit's mask on the whole bounce-1 launch; the
+   statistics builds of both frontier kernels and of the six kernels
+   with coefficient leaves on their launches (for the frontier closest
+   hit also the share of visited nodes with 0, 1 and 2 or more hit
+   internal children; with coefficient leaves the triangles tested per
+   leaf visit, the shares of them rejected at det <= 0, at u' < 0 and
+   at the v' window, and the shares of leaf visits whose table row 1,
+   2, 3-4, ... 17-32 of the warp's lanes test together);
 10. tier main paths — 1080p, 1 warm-up + 4 timed frames each, the
    counters read around the 4 frames: (a) flat ``oct`` at leaf 28 (oct
    4, quad any hit 4), (b) flat frontier with coefficient leaves at
@@ -100,7 +105,9 @@ before the result line):
 Each kernel's ``bound_ms`` is the larger of its operations over the
 card's f32 peak and its bytes over the HBM rate, counted from this
 run's inputs: node and leaf visits from the plain version (the same
-algorithm) times the per-visit operations of the kernel source.  The
+algorithm) times the per-visit operations of the kernel source;
+coefficient leaves by the essential work of their 19 non-zero
+coefficients, counted to the exits of the plain version's counters.  The
 skip kernel's entry carries its bounce-1 and instanced timings under
 ``*_bounce1``, ``*_instanced`` and ``*_instanced_bounce1`` keys, the
 wide kernel's its bounce-1 timing under ``*_bounce1`` keys.
@@ -177,11 +184,19 @@ SMALL_W, SMALL_H = 320, 180
 # in slot order and runs none;
 # Möller–Trumbore is 54 per triangle (55 with det_sign); the
 # object-space transform of an instanced leaf visit 33; the ray set-up
-# (3 safe reciprocals, 3 products) 18.  Coefficient leaves
-# (traverse.cuh coef_block): 4 dot products of 10 (76) and the
-# det-scaled test (10) per triangle, 4 det_sign products more on a
-# two-level scene; per visit the features (9) and, two-level, their
-# transform A @ f (10 dot products of 10, 190).
+# (3 safe reciprocals, 3 products) 18.  Coefficient leaves: the
+# essential work of the test on a triangle's 19 non-zero coefficients
+# (ops/mxu_mt.py), whatever the kernel runs, counted to the exit that
+# the plain version's counters give it: det (3 products, 2 sums) and
+# det <= 0 cost 6; u' (6 products, 5 sums) and u' < 0 12 more; v' and
+# its window (v' < 0, u' + v' > det) 14 more; a survivor's t' (4
+# products, 3 sums) and the closest hit's division, t and its three
+# compares 12 more (44 in all), the any hit's two det-scaled compares
+# 11 (43); a two-level scene's det_sign product adds one per sum
+# computed.  Per ray the features [d, o x d, o, 1] (9); two-level, per
+# instance change of the ray's leaf visits (the plain version's count),
+# their transform by the 40 non-zero entries of A (70).  Bytes: the 19
+# non-zero coefficients per triangle slot and A's 40 per instance.
 PEAK_F32, HBM_BPS = 67e12, 3.35e12
 VISIT_OPS = {"quad": 4 * 25 + 4 + 6, "pair": 2 * 25 + 3, "skip": 25 + 1,
              "wide": 8 * (25 + 2), "oct": 8 * 25 + 8 + 28,
@@ -195,7 +210,9 @@ MT_OPS, XFORM_OPS, RAY_OPS = 54, 33, 18
 MT_EXIT_OPS = (15, 27, 45)
 EARLY_EXIT = ("quad_closest_hit", "oct_closest_hit", "pair_closest_hit",
               "skip_closest_hit", "wide_closest_hit", "frontier_closest_hit")
-COEF_OPS, COEF_SIGN_OPS, FEAT_OPS, FEAT_XFORM_OPS = 86, 4, 9, 190
+COEF_EXIT_OPS = (6, 18, 32)   # at det, u', the v' window
+COEF_FULL_OPS = {False: 44, True: 43}   # by any hit
+COEF_NONZERO, FEAT_NONZERO, FEAT_OPS, FEAT_XFORM_OPS = 19, 40, 9, 70
 
 
 def fail(msg: str) -> None:
@@ -441,17 +458,33 @@ def main() -> int:
         return cam
 
     def bound(tables, n_rays, out_bytes, stats, visit_ops, block, instanced,
-              coef=False, early=False, net_ops=0):
+              coef=False, early=False, net_ops=0, any_hit=False):
         """(bound_ms, bound_by) of one traversal launch; ``early``: the
         kernel's triangle test stops at its first failed condition;
         ``net_ops``: the comparators of a node's sorting network, at the
-        nodes where it has work."""
+        nodes where it has work; ``coef``: coefficient leaves, counted
+        to the exits of the plain version's counters."""
         ops = (n_rays * RAY_OPS + stats["node_visits"] * visit_ops
                + stats.get("inner_2", 0) * net_ops)
+        nbytes = (sum(t.numel() * t.element_size() for t in tables)
+                  + n_rays * (12 + 12 + 4 + out_bytes))
         if coef:
-            ops += stats["leaf_visits"] * (
-                block * (COEF_OPS + COEF_SIGN_OPS * instanced) + FEAT_OPS
-                + FEAT_XFORM_OPS * instanced)
+            exits = [stats[k] for k in ("tri_back", "tri_u", "tri_v")]
+            full = stats["tri_tested"] - sum(exits)
+            ops += n_rays * FEAT_OPS + full * (
+                COEF_FULL_OPS[any_hit] + 4 * instanced) + sum(
+                    x * (e + (k + 1) * instanced)
+                    for k, (x, e) in enumerate(zip(exits, COEF_EXIT_OPS)))
+            if instanced:
+                ops += stats["instance_changes"] * FEAT_XFORM_OPS
+            # The essential bytes of the coefficient table (and A).
+            leaves = tables[2]
+            nbytes += 4 * leaves.shape[0] * leaves.shape[1] * COEF_NONZERO - (
+                leaves.numel() * leaves.element_size())
+            if instanced:
+                feat = tables[4]
+                nbytes += 4 * feat.shape[0] * FEAT_NONZERO - (
+                    feat.numel() * feat.element_size())
         else:
             ops += stats["leaf_visits"] * block * (MT_OPS + instanced)
             if early:
@@ -460,8 +493,6 @@ def main() -> int:
                                            MT_EXIT_OPS))
             if instanced:
                 ops += stats["leaf_visits"] * XFORM_OPS
-        nbytes = (sum(t.numel() * t.element_size() for t in tables)
-                  + n_rays * (12 + 12 + 4 + out_bytes))
         ops_ms, bytes_ms = 1e3 * ops / PEAK_F32, 1e3 * nbytes / HBM_BPS
         phase("bound", ops=ops, bytes=nbytes, ops_ms=f"{ops_ms:.4f}",
               bytes_ms=f"{bytes_ms:.4f}", **stats)
@@ -504,7 +535,8 @@ def main() -> int:
                            scene.max_leaf_size, int(scene.instanced),
                            coef=key.endswith("_coef"),
                            early=key in EARLY_EXIT,
-                           net_ops=NET_OPS.get(kind, 0))
+                           net_ops=NET_OPS.get(kind, 0),
+                           any_hit="any_hit" in key)
         results.setdefault(key, {}).update({
             f"ms{tag}": k_ms, f"plain_ms{tag}": p_ms,
             f"max_abs_err{tag}": err, f"bound_ms{tag}": b_ms,
@@ -1092,11 +1124,19 @@ def main() -> int:
         cargs = args_fn(scene, *rays, None, coef)
         time_kernel(f"{fam}_closest_hit{suffix}", lambda: ck(*cargs),
                     lambda s=None: cp(*cargs, stats=s), tables, n_prim, 16,
-                    scene, closest_err if fam == "quad" else bitwise_err)
+                    scene, bitwise_err if coef or fam != "quad"
+                    else closest_err)
         aargs = args_fn(scene, *any_rays, coef)
         time_kernel(f"{fam}_any_hit{suffix}", lambda: ak(*aargs),
                     lambda s=None: ap(*aargs, stats=s), tables, n_prim, 1,
                     scene, any_err)
+        if fam != "frontier":
+            # The statistics builds of both kernels on their launches.
+            stats_fn = getattr(kernels, f"{fam}_stats")
+            for any_hit, args in ((False, cargs), (True, aargs)):
+                key = f"{fam}_{'any' if any_hit else 'closest'}_hit{suffix}"
+                stack_stats(key, lambda: stats_fn(any_hit, *args),
+                            plain_outputs.pop(key))
         if fam == "frontier":
             # The closest hit's statistics build on the primaries; the
             # whole bounce-1 launch: the any-hit bit against the frontier

@@ -19,7 +19,8 @@ The persistent quad and oct kernels are also launched on ray counts
 that are no multiple of 32, with inactive lanes, twice in a row (the
 batch counter zeroed before each launch), and the quad kernels'
 statistics build is held to the plain versions with its counters
-checked; so are the pair kernels' (two-level, exact and
+checked (exact and coefficient leaves, with the coefficient test's
+exit counts); so are the pair kernels' (flat and two-level, exact and
 coefficient leaves), the skip kernel's (flat and two-level), the wide
 kernel's and both frontier kernels' (widths 16 and 32, exact and
 coefficient leaves), and walk kernels launched on two side streams at
@@ -300,6 +301,42 @@ def test_quad_statistics_build(cuda, scene_paths, any_hit):
     assert 0 < c["deepest"] <= st.STACK_SLOTS[4]
     summary = kernels.summarize_stack_stats(counters)
     assert 0.0 < summary["simt_node"] <= 1.0
+    assert 0.0 < summary["simt_leaf"] <= 1.0
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("kind", ["quad", "pair", "pair_instanced"])
+def test_coefficient_statistics_build(cuda, scene_paths, kind, any_hit):
+    """The statistics builds of the quad and pair kernels with
+    coefficient leaves (leaf 28 flat, 14 two-level): the plain versions'
+    outputs, leaf visits and counts of the coefficient test's exits and
+    of instance changes, and one shared-row count per leaf visit."""
+    host = gltf.load(scene_paths["columns"])
+    scene = (build_instanced_scene(host, max_leaf_size=14, device=cuda,
+                                   mt="mxu")
+             if kind == "pair_instanced" else
+             build_device_scene(host, max_leaf_size=28, device=cuda,
+                                mt="mxu"))
+    o, d, active = _rays(3000, seed=12, device=cuda)
+    fam = kind.split("_")[0]
+    args = (st.pair_args if fam == "pair" else st.quad_args)(
+        scene, o, d, active, True)
+    out, counters = getattr(kernels, f"{fam}_stats")(any_hit, *args)
+    plain = getattr(st, f"{fam}_{'any' if any_hit else 'closest'}_hit_plain")
+    stats = {}
+    ref = plain(*args, stats=stats)
+    if any_hit:
+        assert torch.equal(out, ref)
+    else:
+        _assert_equal(out, ref)
+    c = dict(zip(kernels.STACK_STATS, counters))
+    assert c["rays"] == int(active.sum())
+    assert c["leaf_visits"] == stats["leaf_visits"] > 0
+    for key in ("tri_tested", "tri_back", "tri_u", "tri_v"):
+        assert c[key] == stats[key], key
+    assert c["instance_changes"] == stats.get("instance_changes", 0)
+    assert sum(c[f"share_{k}"] for k in range(1, 33)) == c["leaf_visits"]
+    summary = kernels.summarize_stack_stats(counters)
     assert 0.0 < summary["simt_leaf"] <= 1.0
 
 

@@ -155,10 +155,11 @@ def wide_host(lib, tiles, leaves, o, d, t_lane):
 
 
 def stats_host(lib, any_hit, kind, box, link, leaves, o, d, t_lane,
-               inst_inv=None, mb_bits=0):
+               inst_inv=None, mb_bits=0, inst_feat=None):
     """The statistics build of kernel ``kind`` (quad, pair, skip or wide
     with ``box`` the skip records or wide tiles and ``link`` None, or
-    frontier)."""
+    frontier; quad, pair and frontier take exact or coefficient
+    leaves)."""
     n = o.shape[0]
     out = _outputs(n)
     hit = torch.full((n,), 7, dtype=torch.uint8)
@@ -175,9 +176,10 @@ def stats_host(lib, any_hit, kind, box, link, leaves, o, d, t_lane,
         lead = (int(any_hit), *_ptrs(box, link), box.shape[1], *_ptrs(leaves),
                 leaves.shape[1], int(leaves.shape[2] == 40))
     else:
-        lead = (int(any_hit), *_ptrs(box, link, leaves), leaves.shape[1])
+        lead = (int(any_hit), *_ptrs(box, link, leaves), leaves.shape[1],
+                int(leaves.shape[2] == 40))
         if kind == "pair":
-            lead = (*lead, *_ptrs(inst_inv), mb_bits)
+            lead = (*lead, *_ptrs(inst_inv, inst_feat), mb_bits)
     fn = getattr(lib, f"vkpt_{kind}_stats")
     _launch(fn, *lead, *_ptrs(o, d, t_lane), n, *_ptrs(*out),
             hit.data_ptr(), counters.data_ptr(), n=n)
@@ -268,8 +270,55 @@ def test_pair_statistics_build(host_lib, scenes, kind, any_hit):
     assert c["leaf_visits"] == plain_stats["leaf_visits"]
     if kind == "instanced":
         assert 0 < c["instance_changes"] <= c["leaf_visits"]
+        assert c["instance_changes"] == plain_stats["instance_changes"]
     else:
         assert c["instance_changes"] == 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("kind", ["quad", "pair", "pair_instanced"])
+def test_coefficient_statistics_build(host_lib, scenes, kind, any_hit):
+    """The statistics builds of the quad and pair kernels with
+    coefficient leaves: the plain versions' outputs and leaf visits, and
+    their counts of the coefficient test's exits (triangles tested, then
+    rejected at det <= 0, at u' < 0, at the v' window; the any hit up to
+    its first accepted triangle), of instance changes (two-level), and
+    one shared-row count per leaf visit (the mock's lanes never match)."""
+    scene = scenes["instanced" if kind == "pair_instanced" else "flat"]
+    o, d, active = _rays(640, seed=19)
+    fam = kind.split("_")[0]
+    args = (st.pair_args if fam == "pair" else st.quad_args)(
+        scene, o, d, active, True)
+    if fam == "pair":
+        out, counters = stats_host(host_lib, any_hit, "pair", *args[:6],
+                                   inst_inv=args[6], mb_bits=args[7],
+                                   inst_feat=args[8])
+    else:
+        out, counters = stats_host(host_lib, any_hit, "quad", *args)
+    plain = getattr(st, f"{fam}_{'any' if any_hit else 'closest'}_hit_plain")
+    stats = {}
+    ref = plain(*args, stats=stats)
+    if any_hit:
+        assert torch.equal(out, ref)
+    else:
+        _assert_closest(out, ref)
+    c = dict(zip(kernels.STACK_STATS, counters))
+    assert c["rays"] == int(active.sum())
+    assert c["leaf_visits"] == stats["leaf_visits"] > 0
+    for key in ("tri_tested", "tri_back", "tri_u", "tri_v"):
+        assert c[key] == stats[key], key
+    assert min(c["tri_back"], c["tri_u"], c["tri_v"]) > 0
+    block = scene.max_leaf_size
+    if any_hit:
+        assert c["tri_tested"] < c["leaf_visits"] * block
+    else:
+        assert c["tri_tested"] == c["leaf_visits"] * block
+    if kind == "pair_instanced":
+        assert 0 < c["instance_changes"] == stats["instance_changes"]
+    else:
+        assert c["instance_changes"] == 0
+    assert c["share_1"] == c["leaf_visits"]
+    assert sum(c[f"share_{k}"] for k in range(2, 33)) == 0
 
 
 def test_pair_leaf_order_decides_ties(host_lib):
@@ -400,6 +449,13 @@ def test_skip_and_frontier_statistics_build(host_lib, scenes, kind):
         assert min(c[f"inner_{k}"] for k in range(3)) > 0
     else:
         assert c["inner_0"] == c["inner_1"] == c["inner_2"] == 0
+    tri = ("tri_tested", "tri_back", "tri_u", "tri_v")
+    if kind.endswith("coef"):
+        assert [c[k] for k in tri] == [stats[k] for k in tri]
+        assert c["tri_tested"] > 0
+    else:
+        assert [c[k] for k in tri] == [0, 0, 0, 0]
+    assert c["share_1"] == c["leaf_visits"]
 
 
 @pytest.mark.parametrize("kind", ["flat", "instanced"])

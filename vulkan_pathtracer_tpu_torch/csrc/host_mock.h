@@ -9,7 +9,8 @@
 // the 32 threads of a warp share a std::barrier, through which the warp
 // votes and shuffles exchange their values.  A thread that returns from
 // the kernel leaves its warp's barrier.  __activemask reports every
-// lane, so the statistics build's SIMT counters mean nothing here.  The
+// lane and __match_any_sync the calling lane alone, so the statistics
+// build's SIMT and shared-leaf counters mean nothing here.  The
 // launch syntax kernel<<<grid, threads, smem, stream>>>(args) is
 // rewritten by the test into vkpt_mock::launch({grid, threads, smem,
 // stream}, kernel, args); the SM count and the blocks per SM both read
@@ -153,6 +154,13 @@ inline bool __all_sync(unsigned, bool p) {
       if (w.live[l] && !w.slot[l]) return false;
     return true;
   });
+}
+
+// The lanes with the same value: each lane alone here (__activemask
+// reports every lane, and a vote of the lanes inside a divergent branch
+// would wait for the others at the barrier).
+inline unsigned __match_any_sync(unsigned, int) {
+  return 1u << vkpt_mock::lane();
 }
 
 inline unsigned __shfl_sync(unsigned, unsigned v, int src) {

@@ -76,7 +76,7 @@ using PairDesign =
                                           PairClosestDesign>>;
 
 // The instantiation for the tables: flat or two-level, exact or
-// coefficient leaves (the statistics build: exact leaves only).
+// coefficient leaves.
 template <bool ANY, bool STATS = false>
 int pair_launch(const Tables& tab, int coef, const float* origin,
                 const float* direction, const float* t_lane, int64_t n,
@@ -86,13 +86,10 @@ int pair_launch(const Tables& tab, int coef, const float* origin,
   using Exact = PairDesign<ANY, false>;
   using Coef = PairDesign<ANY, true>;
   const bool inst = tab.inst_inv != nullptr;
-  auto run = inst ? launch<2, ANY, false, true, Exact, STATS>
-                  : launch<2, ANY, false, false, Exact, STATS>;
-  if constexpr (!STATS) {
-    if (coef)
-      run = inst ? launch<2, ANY, true, true, Coef>
-                 : launch<2, ANY, true, false, Coef>;
-  }
+  const auto run = coef ? (inst ? launch<2, ANY, true, true, Coef, STATS>
+                                : launch<2, ANY, true, false, Coef, STATS>)
+                        : (inst ? launch<2, ANY, false, true, Exact, STATS>
+                                : launch<2, ANY, false, false, Exact, STATS>);
   return run(tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
              hit_out, batches, st, stream);
 }
@@ -136,19 +133,21 @@ extern "C" int vkpt_pair_any_hit(const float* box, const int* link,
 }
 
 // The statistics build of the pair kernels (the designs above, flat or
-// two-level, exact leaves); `st` holds kStCount zeroed counters.  The
-// hit outputs are those of the production kernels.
+// two-level, exact or, coef != 0, coefficient leaves with inst_feat on a
+// two-level scene); `st` holds kStCount zeroed counters.  The hit
+// outputs are those of the production kernels.
 extern "C" int vkpt_pair_stats(int any, const float* box, const int* link,
-                               const float* leaves, int block,
-                               const float* inst_inv, int mb_bits,
+                               const float* leaves, int block, int coef,
+                               const float* inst_inv,
+                               const float* inst_feat, int mb_bits,
                                const float* origin,
                                const float* direction, const float* t_lane,
                                int64_t n, float* t_out, int* tri_out,
                                float* u_out, float* v_out, uint8_t* hit_out,
                                unsigned long long* st, unsigned* batches,
                                void* stream) {
-  const Tables tab{box, link, leaves, block, inst_inv, nullptr, mb_bits};
+  const Tables tab{box, link, leaves, block, inst_inv, inst_feat, mb_bits};
   return (any ? pair_launch<true, true> : pair_launch<false, true>)(
-      tab, 0, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
+      tab, coef, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
       hit_out, batches, st, stream);
 }

@@ -123,21 +123,24 @@ extern "C" int vkpt_quad_any_hit(const float* box, const int* link,
       hit_out, batches, nullptr, stream);
 }
 
-// The statistics build of the quad kernels (exact leaves, the designs
-// above); `st` holds kStCount zeroed counters.  The hit outputs are
-// those of the production kernels.
+// The statistics build of the quad kernels (the designs above, exact
+// or, coef != 0, coefficient leaves); `st` holds kStCount zeroed
+// counters.  The hit outputs are those of the production kernels.
 extern "C" int vkpt_quad_stats(int any, const float* box, const int* link,
-                               const float* leaves, int block,
+                               const float* leaves, int block, int coef,
                                const float* origin, const float* direction,
                                const float* t_lane, int64_t n, float* t_out,
                                int* tri_out, float* u_out, float* v_out,
                                uint8_t* hit_out, unsigned long long* st,
                                unsigned* batches, void* stream) {
   const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
-  return (any ? launch<4, true, false, false, QuadAnyDesign, true>
-              : launch<4, false, false, false, QuadClosestDesign, true>)(
-      tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
-      hit_out, batches, st, stream);
+  const auto run =
+      any ? (coef ? launch<4, true, true, false, CoefAnyDesign, true>
+                  : launch<4, true, false, false, QuadAnyDesign, true>)
+          : (coef ? launch<4, false, true, false, CoefClosestDesign, true>
+                  : launch<4, false, false, false, QuadClosestDesign, true>);
+  return run(tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
+             hit_out, batches, st, stream);
 }
 
 extern "C" int vkpt_stack_stats_count() { return kStCount; }

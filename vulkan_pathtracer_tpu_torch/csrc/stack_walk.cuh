@@ -75,8 +75,14 @@ enum : int {
                    // the lane's previous leaf visit of the same ray
   kStInner,        // widths 16 and 32, closest hit: visited nodes with 0,
                    // 1, 2 or more hit internal children (3 counters)
-  kStHist = kStInner + 3,  // histogram of each ray's deepest stack:
-                           // 0..63, 64+
+  kStTri = kStInner + 3,  // coefficient leaves: triangles tested, and
+                          // those failing at det <= 0, at u' < 0 and at
+                          // the v' window (4 counters)
+  kStShare = kStTri + 4,  // leaf visits by the number of the warp's lanes
+                          // (1..32) that test the same table row with
+                          // them (__match_any_sync; 32 counters)
+  kStHist = kStShare + 32,  // histogram of each ray's deepest stack:
+                            // 0..63, 64+
   kStCount = kStHist + 65
 };
 
@@ -109,10 +115,22 @@ struct LeafTest {
   __device__ __forceinline__ void reset() { last_inst = -1; }
 
   __device__ __forceinline__ void visit(const Ray& r, int leaf, Best& b) {
-    if (STATS) atomicAdd(st + kStLeafVisits, 1ull);
+    if (STATS) {
+      atomicAdd(st + kStLeafVisits, 1ull);
+      const int row = INST ? leaf & ((1 << mb_bits) - 1) : leaf;
+      const unsigned peers = __match_any_sync(__activemask(), row);
+      atomicAdd(st + kStShare + __popc(peers) - 1, 1ull);
+    }
     if (!INST) {
-      visit_leaf<ANY, false, COEF, D::kEarly>(r, leaves, block, nullptr, 0,
-                                              leaf, b);
+      if (COEF) {
+        float f[10];
+        ray_features(r, f);
+        coef_block<ANY, false, STATS>(f, leaves, leaf, leaf, block, 1.0f,
+                                      r.tl, b, st + kStTri);
+      } else {
+        visit_leaf<ANY, false, D::kEarly>(r, leaves, block, nullptr, 0, leaf,
+                                          b);
+      }
       return;
     }
     const int inst = leaf >> mb_bits;
@@ -129,7 +147,8 @@ struct LeafTest {
     }
     const int row = leaf & ((1 << mb_bits) - 1);
     if (COEF)
-      coef_block<ANY, true>(fo, leaves, row, leaf, block, sign, r.tl, b);
+      coef_block<ANY, true, STATS>(fo, leaves, row, leaf, block, sign, r.tl,
+                                   b, st + kStTri);
     else
       leaf_block<ANY, true, D::kEarly>(o, leaves, row, leaf, block, sign, b);
   }

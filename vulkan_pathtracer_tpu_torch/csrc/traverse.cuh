@@ -180,16 +180,21 @@ __device__ __forceinline__ float dot10(const float* c, const float* f) {
 // a tie (mxu_mt.py:285-291); it replaces the best hit, which it beats by
 // construction (pallas_frontier.py:358).  Any hit: det-scaled, no
 // division (mxu_mt.py:318-322).  SIGNED scales all four sums by det_sign.
-template <bool ANY, bool SIGNED>
+// STATS (the statistics build): tri_st[0..3] count the triangles tested
+// and those that fail at det <= 0, at u' < 0 and at the v' window.
+template <bool ANY, bool SIGNED, bool STATS = false>
 __device__ __forceinline__ void coef_block(const float* f,
                                            const float* __restrict__ coefs,
                                            int row, int leaf, int block,
-                                           float det_sign, float tl, Best& b) {
+                                           float det_sign, float tl, Best& b,
+                                           unsigned long long* tri_st =
+                                               nullptr) {
   const float4* p =
       reinterpret_cast<const float4*>(coefs) + (size_t)row * block * 10;
   const float lim = ANY ? tl : fminf(b.t, tl);
   float ct = kBig, cu = 0.0f, cv = 0.0f;
   int ck = -1;
+  unsigned n_tri = 0, n_back = 0, n_u = 0, n_v = 0;
   for (int k = 0; k < block; ++k) {
     float c[40];
 #pragma unroll
@@ -210,11 +215,20 @@ __device__ __forceinline__ void coef_block(const float* f,
       vp = vp * det_sign;
       tp = tp * det_sign;
     }
+    if (STATS) {
+      ++n_tri;
+      if (!(det > 0.0f))
+        ++n_back;
+      else if (!(up >= 0.0f))
+        ++n_u;
+      else if (!(vp >= 0.0f && up + vp <= det))
+        ++n_v;
+    }
     if (ANY) {
       if (det > 0.0f && up >= 0.0f && vp >= 0.0f && up + vp <= det &&
           tp > kTmin * det && tp < tl * det) {
         b.any = true;
-        return;
+        break;
       }
     } else {
       const bool front = det > 0.0f;
@@ -228,6 +242,12 @@ __device__ __forceinline__ void coef_block(const float* f,
         cv = vp * inv;
       }
     }
+  }
+  if (STATS) {
+    atomicAdd(tri_st + 0, (unsigned long long)n_tri);
+    atomicAdd(tri_st + 1, (unsigned long long)n_back);
+    atomicAdd(tri_st + 2, (unsigned long long)n_u);
+    atomicAdd(tri_st + 3, (unsigned long long)n_v);
   }
   if (!ANY && ck >= 0) {
     b.t = ct;
@@ -253,17 +273,6 @@ __device__ __forceinline__ float object_features(
     fo[i] = dot10(a, f);
   }
   return __ldg(inst_inv + (size_t)inst * 16 + 12);
-}
-
-// One coefficient leaf child of a flat table (the two-level decode is
-// the stack walk's: object_features, then coef_block with det_sign).
-template <bool ANY>
-__device__ __forceinline__ void coef_leaf(const Ray& r,
-                                          const float* __restrict__ coefs,
-                                          int block, int leaf, Best& b) {
-  float f[10];
-  ray_features(r, f);
-  coef_block<ANY, false>(f, coefs, leaf, leaf, block, 1.0f, r.tl, b);
 }
 
 // The ray in instance `inst`'s object space (pallas_pair.py:661-673 and
@@ -293,20 +302,14 @@ __device__ __forceinline__ float object_ray(const Ray& r,
 }
 
 // One leaf child: the flat block, or (INST) the instanced decode —
-// block row, object-space ray (object_ray) and det_sign.
-// COEF (flat tables): the coefficient leaf test instead (coef_leaf;
-// `leaves` is then the (n_leaves, block, 40) coefficient table).
-template <bool ANY, bool INST, bool COEF = false, bool EARLY = false>
+// block row, object-space ray (object_ray) and det_sign.  (Coefficient
+// leaves: stack_walk.cuh LeafTest, with coef_block.)
+template <bool ANY, bool INST, bool EARLY = false>
 __device__ __forceinline__ void visit_leaf(const Ray& r,
                                            const float* __restrict__ leaves,
                                            int block,
                                            const float* __restrict__ inst_inv,
                                            int mb_bits, int leaf, Best& b) {
-  static_assert(!(INST && COEF), "two-level coefficient leaves: Walk::visit");
-  if (COEF) {
-    coef_leaf<ANY>(r, leaves, block, leaf, b);
-    return;
-  }
   if (!INST) {
     leaf_block<ANY, false, EARLY>(r, leaves, leaf, leaf, block, 1.0f, b);
     return;

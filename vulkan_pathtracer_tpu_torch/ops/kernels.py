@@ -106,15 +106,15 @@ SIGNATURES = {
     "vkpt_oct_closest_hit": [_P, _P, _P, _I, _P, _P, _P, _I64, _P, _P, _P,
                              _P, _P, _P],
     "vkpt_quad_any_hit": [_P, _P, _P, _I, _I, _P, _P, _P, _I64, _P, _P, _P],
-    "vkpt_quad_stats": [_I, _P, _P, _P, _I, _P, _P, _P, _I64, _P, _P, _P,
-                        _P, _P, _P, _P, _P],
+    "vkpt_quad_stats": [_I, _P, _P, _P, _I, _I, _P, _P, _P, _I64, _P, _P,
+                        _P, _P, _P, _P, _P, _P],
     "vkpt_stack_stats_count": [],
     "vkpt_pair_closest_hit": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
                               _I64, _P, _P, _P, _P, _P, _P],
     "vkpt_pair_any_hit": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _I64,
                           _P, _P, _P],
-    "vkpt_pair_stats": [_I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I64, _P,
-                        _P, _P, _P, _P, _P, _P, _P],
+    "vkpt_pair_stats": [_I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
+                        _I64, _P, _P, _P, _P, _P, _P, _P, _P],
     "vkpt_frontier_closest_hit": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _I64,
                                   _P, _P, _P, _P, _P, _P],
     "vkpt_frontier_any_hit": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _I64, _P,
@@ -321,10 +321,16 @@ def quad_any_hit(box, link, leaves, origin, direction, t_lane):
 # Counters of the stack kernels' statistics build (csrc/stack_walk.cuh,
 # the kSt* enum), then a 65-bin histogram of each ray's deepest stack
 # (0..63 entries, 64 or more).  inner_0 .. inner_2: the frontier closest
-# hit's visited nodes with 0, 1, 2 or more hit internal children.
+# hit's visited nodes with 0, 1, 2 or more hit internal children;
+# tri_tested .. tri_v: coefficient leaves' triangles tested and those
+# failing at det <= 0, at u' < 0 and at the v' window; share_1 ..
+# share_32: leaf visits by the number of the warp's lanes that test the
+# same table row with them.
 STACK_STATS = ("node_warps", "node_lanes", "leaf_warps", "leaf_lanes",
                "rays", "warps", "batch_rounds", "deepest", "leaf_visits",
-               "instance_changes", "inner_0", "inner_1", "inner_2")
+               "instance_changes", "inner_0", "inner_1", "inner_2",
+               "tri_tested", "tri_back", "tri_u", "tri_v",
+               *(f"share_{k}" for k in range(1, 33)))
 
 
 def _stats(name, fn, any_hit, tables, origin, direction, t_lane):
@@ -345,29 +351,32 @@ def _stats(name, fn, any_hit, tables, origin, direction, t_lane):
 
 def quad_stats(any_hit: bool, box, link, leaves, origin, direction, t_lane):
     """Run the statistics build of a quad kernel (the kernels' own
-    designs, exact leaves) and return (its hit outputs, the list of
-    counters: STACK_STATS, then the depth histogram)."""
-    if _check_tables(box, link, leaves, coef_ok=False):
-        raise ValueError("the statistics build takes exact leaves")
+    designs, exact or coefficient leaves) and return (its hit outputs,
+    the list of counters: STACK_STATS, then the depth histogram)."""
+    coef = _check_tables(box, link, leaves)
     _check_rays(origin, direction, t_lane, box.device)
     return _stats("quad_stats", lib().vkpt_quad_stats, any_hit,
                   (box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
-                   leaves.shape[1]), origin, direction, t_lane)
+                   leaves.shape[1], coef), origin, direction, t_lane)
 
 
 def pair_stats(any_hit: bool, box, link, leaves, origin, direction, t_lane,
-               inst_inv=None, mb_bits: int = 0):
+               inst_inv=None, mb_bits: int = 0, inst_feat=None):
     """Run the statistics build of a pair kernel (the kernels' own
-    designs, exact leaves, flat or two-level) and return (its hit
-    outputs, the list of counters: STACK_STATS, then the depth
-    histogram)."""
-    if _check_tables(box, link, leaves, width=2, coef_ok=False):
-        raise ValueError("the statistics build takes exact leaves")
+    designs, exact or coefficient leaves, flat or two-level; the
+    arguments of pair_closest_hit) and return (its hit outputs, the list
+    of counters: STACK_STATS, then the depth histogram)."""
+    coef = _check_tables(box, link, leaves, width=2)
     _check_rays(origin, direction, t_lane, box.device)
     inst = _check_inst(inst_inv, mb_bits, box.device)
+    feat = _check_feat(inst_feat, inst, coef, box.device)
     return _stats("pair_stats", lib().vkpt_pair_stats, any_hit,
                   (box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
-                   leaves.shape[1], inst, mb_bits), origin, direction, t_lane)
+                   leaves.shape[1], coef, inst, feat, mb_bits), origin,
+                  direction, t_lane)
+
+
+SHARE_BINS = ((1, 1), (2, 2), (3, 4), (5, 8), (9, 16), (17, 32))
 
 
 def summarize_stack_stats(counters) -> dict:
@@ -377,12 +386,17 @@ def summarize_stack_stats(counters) -> dict:
     leaf visits per ray and the share of them whose instance differs
     from the lane's previous leaf visit, the shares of visited nodes
     with 0, 1 and 2 or more hit internal children (the frontier closest
-    hit; 0 elsewhere), and the stack depth reached by each ray (mean,
-    99th percentile, deepest, share above 8 and 24 entries), from the
-    counters of the statistics build."""
+    hit; 0 elsewhere), the coefficient leaves' triangles tested per leaf
+    visit and the shares of them that fail at det <= 0, at u' < 0 and at
+    the v' window, the shares of leaf visits whose table row 1, 2, 3-4,
+    5-8, 9-16 and 17-32 of the warp's lanes test together, and the stack
+    depth reached by each ray (mean, 99th percentile, deepest, share
+    above 8 and 24 entries), from the counters of the statistics
+    build."""
     c = dict(zip(STACK_STATS, counters))
     hist = list(counters[len(STACK_STATS):])
     rays, total = max(c["rays"], 1), max(sum(hist), 1)
+    share = max(sum(c[f"share_{k}"] for k in range(1, 33)), 1)
     inner = c["inner_0"] + c["inner_1"] + c["inner_2"]
     acc, p99 = 0, None
     for k, x in enumerate(hist):
@@ -400,6 +414,12 @@ def summarize_stack_stats(counters) -> dict:
                                   / max(c["leaf_visits"], 1)),
         **{f"inner_{k}_share": c[f"inner_{k}"] / max(inner, 1)
            for k in range(3)},
+        "tri_per_visit": c["tri_tested"] / max(c["leaf_visits"], 1),
+        **{f"{k}_share": c[k] / max(c["tri_tested"], 1)
+           for k in ("tri_back", "tri_u", "tri_v")},
+        **{f"row_shared_by_{lo}-{hi}": sum(
+            c[f"share_{k}"] for k in range(lo, hi + 1)) / share
+           for lo, hi in SHARE_BINS},
         "depth_mean": sum(k * x for k, x in enumerate(hist)) / total,
         "depth_p99": p99, "deepest": c["deepest"],
         "depth_over_8": sum(hist[9:]) / total,

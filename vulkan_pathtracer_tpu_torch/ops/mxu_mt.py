@@ -148,12 +148,31 @@ def coef_sums(coefs: torch.Tensor, feats: torch.Tensor, det_sign=None):
     return res[..., 0], res[..., 1], res[..., 2], res[..., 3]
 
 
-def coef_leaf_mt(coefs, feats, det_sign=None):
+def _count_exits(exits, det, up, vp, tested=None):
+    """Add to ``exits`` (a dict) the triangles tested (``tri_tested``) and
+    those the test rejects at det <= 0 (``tri_back``), at u' < 0
+    (``tri_u``) and at the v' window (``tri_v``), in that order; only
+    the ``tested`` triangles count ((M, block) bool, default all)."""
+    if tested is None:
+        tested = torch.ones_like(det, dtype=torch.bool)
+    front = det > 0.0
+    u_ok = front & (up >= 0.0)
+    exits["tri_tested"] += int(tested.sum())
+    exits["tri_back"] += int((tested & ~front).sum())
+    exits["tri_u"] += int((tested & front & ~u_ok).sum())
+    exits["tri_v"] += int((tested & u_ok
+                           & ~((vp >= 0.0) & (up + vp <= det))).sum())
+
+
+def coef_leaf_mt(coefs, feats, det_sign=None, exits=None):
     """Closest-hit leaf test (mxu_mt.mt_coef_visit): per triangle
     (front & det-scaled barycentric window & t > TMIN, t, u, v), each
     (M, block), with t, u, v divided by det.  The caller adds t < lim and
-    picks the smallest t, the first triangle on a tie."""
+    picks the smallest t, the first triangle on a tie.  ``exits``, a
+    dict, counts the test's exits (_count_exits) over every triangle."""
     det, up, vp, tp = coef_sums(coefs, feats, det_sign)
+    if exits is not None:
+        _count_exits(exits, det, up, vp)
     front = det > 0.0
     inv = 1.0 / torch.where(front, det, torch.ones_like(det))
     t = tp * inv
@@ -162,10 +181,15 @@ def coef_leaf_mt(coefs, feats, det_sign=None):
     return ok, t, up * inv, vp * inv
 
 
-def coef_leaf_any(coefs, feats, t_lane, det_sign=None):
+def coef_leaf_any(coefs, feats, t_lane, det_sign=None, exits=None):
     """Any-hit leaf test (mxu_mt.mt_coef_visit_anyhit), det-scaled with
-    no division: (M,) bool, some triangle accepts inside (TMIN, t_lane)."""
+    no division: (M,) bool, some triangle accepts inside (TMIN, t_lane).
+    ``exits``, a dict, counts the test's exits (_count_exits) over the
+    triangles up to the first accepted one, where the kernel stops."""
     det, up, vp, tp = coef_sums(coefs, feats, det_sign)
     acc = ((det > 0.0) & (up >= 0.0) & (vp >= 0.0) & (up + vp <= det)
            & (tp > TMIN * det) & (tp < t_lane[:, None] * det))
+    if exits is not None:
+        before = torch.cumsum(acc.to(torch.int32), dim=1) - acc.to(torch.int32)
+        _count_exits(exits, det, up, vp, tested=before == 0)
     return acc.any(dim=1)

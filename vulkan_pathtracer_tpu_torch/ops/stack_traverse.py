@@ -400,10 +400,14 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
     and culls no popped node (the quad any-hit kernel).  ``leaves``
     with 40 columns is a coefficient table (the coefficient leaf test;
     ``inst_feat`` on two-level scenes).  ``stats``, a dict, accumulates
-    node visits (row loads), leaf-block visits, (exact leaves)
-    _leaf_mt's early exits and (``sortnet``) the visited nodes with 0,
-    1, 2 or more hit internal children (``inner_0`` .. ``inner_2``; the
-    network has work only at the last).  Returns (t, tri, u, v) for
+    node visits (row loads), leaf-block visits, the early exits of the
+    triangle test (exact leaves: _leaf_mt's; coefficient leaves:
+    mxu_mt._count_exits, with the triangles tested), on two-level
+    scenes the leaf visits whose instance differs from the ray's
+    previous leaf visit (``instance_changes``), and (``sortnet``) the
+    visited nodes with 0, 1, 2 or more hit internal children
+    (``inner_0`` .. ``inner_2``; the network has work only at the
+    last).  Returns (t, tri, u, v) for
     closest hit or a bool tensor for any hit."""
     dev = origin.device
     n = origin.shape[0]
@@ -429,9 +433,13 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
     slots = torch.arange(width, dtype=torch.float32, device=dev)
     if stats is not None:
         for key in ("node_visits", "leaf_visits", "tri_back", "tri_u",
-                    "tri_v") + (("inner_0", "inner_1", "inner_2")
-                                if sortnet is not None else ()):
+                    "tri_v") + (("tri_tested",) if coef else ()) + (
+                        ("instance_changes",) if inst_inv is not None
+                        else ()) + (("inner_0", "inner_1", "inner_2")
+                                    if sortnet is not None else ()):
             stats.setdefault(key, 0)
+        # Two-level: each ray's last instance, for instance_changes.
+        last_inst = torch.full((n,), -1, dtype=torch.int64, device=dev)
 
     while True:
         idx = torch.nonzero(cur >= 0).squeeze(1)
@@ -483,6 +491,11 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
             leaf = (-lk_o[j, s] - 1).to(torch.int64)
             if stats is not None:
                 stats["leaf_visits"] += j.numel()
+                if inst_inv is not None:
+                    inst = leaf >> mb_bits
+                    stats["instance_changes"] += int(
+                        (inst != last_inst[rays]).sum())
+                    last_inst[rays] = inst
             o_r, d_r = origin[rays], direction[rays]
             tl_r = t_lane[rays]
             if coef:
@@ -500,11 +513,11 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
                     0, row, torch.ones_like(row, dtype=leaf_visits.dtype))
             if coef and any_hit:
                 done[j] = mxu_mt.coef_leaf_any(leaves[row], feats, tl_r,
-                                               det_sign)
+                                               det_sign, stats)
                 continue
             if coef:
                 ok, t, u, v = mxu_mt.coef_leaf_mt(leaves[row], feats,
-                                                  det_sign)
+                                                  det_sign, stats)
             else:
                 ok, t, u, v = _leaf_mt(leaves[row], o_r[:, None, :],
                                        d_r[:, None, :], det_sign, stats)
