@@ -1,10 +1,17 @@
 """PyTorch port vs JAX: the coefficient leaf test (``VKPT_MT=mxu``).
 
 - The bake, bitwise: ``tri_coefs`` against ``build_mt_coef_rows`` of
-  the JAX package (float64 cross products rounded once, in the port's
-  (n_leaves, block, 40) layout), flat and two-level; ``inst_feat``
-  against ``instance_feature_maps``, also after
-  ``update_instance_transforms`` moved (and mirrored) instances.
+  the JAX package (float64 cross products rounded once): the port's
+  zero-free (n_leaves, block, 20) rows hold JAX's 19 non-zero entries
+  per triangle, and every other entry of JAX's rows is exactly zero,
+  flat and two-level; ``inst_feat`` (I, 40) against the non-zero
+  entries of ``instance_feature_maps`` (the rest exactly zero), also
+  after ``update_instance_transforms`` moved (and mirrored) instances.
+- The zero-free sums against the 40-term sums of JAX's full rows (the
+  same features, every product added in feature order) on seeded rays
+  and through the columns scene's traversals: t, tri and the hit masks
+  bitwise, u and v up to the sign of a zero; the plain versions'
+  counts of the test's exits add up to the triangles tested.
 - The plain versions with coefficient leaves against the Pallas
   kernels under ``VKPT_MT=mxu`` (set only around the JAX calls), in
   interpret mode: quad closest and any hit, pair flat, pair two-level
@@ -122,38 +129,212 @@ def instanced(columns_glb):
             update_instance_transforms(td, xf))
 
 
+def _full_rows(tri_coefs, block):
+    """JAX's (n_leaves, 10, >= 4 * block) rows as (n_leaves, block, 40):
+    sum s, feature j at column 10 * s + j."""
+    n = tri_coefs.shape[0]
+    c = np.asarray(tri_coefs)[:, :, : 4 * block].reshape(n, 10, 4, block)
+    return np.ascontiguousarray(c.transpose(0, 3, 2, 1)).reshape(n, block,
+                                                                 40)
+
+
 def test_coefficient_table_matches_jax(flat, instanced):
+    """The zero-free rows are bitwise JAX's non-zero entries, in the order
+    det, u', v', t', then a zero; every entry JAX has outside them is
+    exactly zero (in JAX's bake and in the scene's table)."""
     for jd, td in (flat, instanced[:2]):
         block = td.max_leaf_size
-        ref = jax_coef_rows(np.asarray(jd.tri_blocks), block)
-        assert td.tri_coefs.shape == (ref.shape[0], block, mxu_mt.COLS)
-        assert np.array_equal(td.tri_coefs.numpy(),
-                              mxu_mt.coef_rows_from_jax(ref, block))
-        assert np.array_equal(td.tri_coefs.numpy(),
-                              mxu_mt.coef_rows_from_jax(
-                                  np.asarray(jd.tri_coefs), block))
+        got = td.tri_coefs.numpy()
+        assert got.shape == (jd.tri_blocks.shape[0], block, mxu_mt.COLS)
+        for src in (jax_coef_rows(np.asarray(jd.tri_blocks), block),
+                    jd.tri_coefs):
+            full = _full_rows(src, block)
+            assert np.array_equal(got[:, :, :19],
+                                  full[:, :, mxu_mt.COEF_INDEX])
+            assert not np.delete(full, mxu_mt.COEF_INDEX, axis=2).any()
+            assert np.array_equal(got, mxu_mt.coef_rows_from_jax(
+                np.asarray(src), block))
+        assert not got[:, :, 19].any()
+        assert got[:, :, :19].any(axis=(0, 1)).all()
+    bad = np.zeros((1, 10, 4), np.float32)
+    bad[0, 6, 0] = 1.0   # det on o: outside the 19
+    with pytest.raises(ValueError, match="outside the 19"):
+        mxu_mt.coef_rows_from_jax(bad, 1)
 
 
 def test_padded_slots_have_zero_coefficients():
+    """A padded (zero-edge) slot's row is all zero: det = 0, never a
+    hit."""
     leaves = np.zeros((2, 3, 9), np.float32)
     leaves[0, 0] = [0, 0, 0, 1, 0, 0, 0, 1, 0]
     c = mxu_mt.build_mt_coef_rows(leaves)
     assert c[0, 0].any() and not c[0, 1:].any() and not c[1].any()
 
 
+def _feature_entries(inst_feat):
+    """(I, 10, 16) JAX transforms -> (their 40 entries of FEAT_TERMS,
+    whether every other entry is exactly zero)."""
+    flat = np.asarray(inst_feat).reshape(-1, 160)
+    return (flat[:, mxu_mt.FEAT_INDEX],
+            not np.delete(flat, mxu_mt.FEAT_INDEX, axis=1).any())
+
+
 def test_instance_feature_maps_match_jax(instanced):
+    """The compact transforms are bitwise the non-zero entries of JAX's
+    (I, 10, 16) maps, and JAX's other entries are exactly zero."""
     jd, td, jd2, td2 = instanced
-    assert np.array_equal(td.inst_feat.numpy(), np.asarray(jd.inst_feat))
-    assert np.array_equal(td.inst_feat.numpy(),
-                          instance_feature_maps(td.inst_inv.numpy()))
+    assert td.inst_feat.shape == (td.inst_inv.shape[0], mxu_mt.FEAT_COLS)
+    for ref in (jd.inst_feat, instance_feature_maps(td.inst_inv.numpy())):
+        entries, rest_zero = _feature_entries(ref)
+        assert rest_zero
+        assert np.array_equal(td.inst_feat.numpy(), entries)
+        assert np.array_equal(td.inst_feat.numpy(),
+                              mxu_mt.feature_maps_from_jax(np.asarray(ref)))
     # After the update: the port's device-side maps against the JAX
     # function on the same rows, and JAX's own update.
-    assert np.array_equal(td2.inst_feat.numpy(),
-                          instance_feature_maps(td2.inst_inv.numpy()))
-    np.testing.assert_allclose(td2.inst_feat.numpy(),
-                               np.asarray(jd2.inst_feat), rtol=1e-6,
+    entries, rest_zero = _feature_entries(
+        instance_feature_maps(td2.inst_inv.numpy()))
+    assert rest_zero and np.array_equal(td2.inst_feat.numpy(), entries)
+    entries, rest_zero = _feature_entries(jd2.inst_feat)
+    assert rest_zero
+    np.testing.assert_allclose(td2.inst_feat.numpy(), entries, rtol=1e-6,
                                atol=1e-6)
     assert float(td2.inst_inv[0, 12]) == -1.0
+
+
+def _sums40(coefs, feats, det_sign=None):
+    """The 40-term sums of the JAX package's full rows: each zero-free
+    row expanded to (4, 10) with its zeros, every product added in
+    feature order 0..9."""
+    m, block = coefs.shape[:2]
+    full = torch.zeros((m, block, 40), dtype=torch.float32)
+    full[..., mxu_mt.COEF_INDEX] = coefs[..., :19]
+    full = full.reshape(m, block, 4, 10)
+    acc = full[..., 0] * feats[:, None, None, 0]
+    for j in range(1, 10):
+        acc = acc + full[..., j] * feats[:, None, None, j]
+    if det_sign is not None:
+        acc = acc * det_sign[:, None, None]
+    return acc[..., 0], acc[..., 1], acc[..., 2], acc[..., 3]
+
+
+def _object_features40(inst_feat, feats):
+    """A @ feats over all of A's (10, 10) features in order, A expanded
+    from its 40 entries with its zeros."""
+    full = torch.zeros((inst_feat.shape[0], 160), dtype=torch.float32)
+    full[:, mxu_mt.FEAT_INDEX] = inst_feat
+    full = full.reshape(-1, 10, 16)
+    acc = full[..., 0] * feats[:, None, 0]
+    for j in range(1, 10):
+        acc = acc + full[..., j] * feats[:, None, j]
+    return acc
+
+
+def _same_up_to_zero_sign(a, b):
+    """Bitwise equal, but where both are zeros of either sign."""
+    return torch.equal(a == 0, b == 0) and torch.equal(
+        torch.where(a == 0, 0.0, a), torch.where(b == 0, 0.0, b))
+
+
+def test_zero_free_sums_match_40_term_sums(flat, instanced):
+    """On seeded random rays against every leaf block of the columns
+    scene (flat, and two-level with a mirrored instance's det_sign and
+    the feature transform): the closest-hit test's mask and t bitwise
+    the 40-term sums', u and v up to the sign of a zero; the any-hit
+    bit bitwise."""
+    cases = (("flat", flat[1], None), ("two-level", instanced[3], True))
+    for name, td, two_level in cases:
+        n_leaves = td.tri_coefs.shape[0]
+        g = np.random.default_rng(17)
+        o, d = map(torch.from_numpy, _rays(16384, seed=11))
+        rows = torch.from_numpy(g.integers(0, n_leaves, 16384))
+        feats = mxu_mt.ray_features(o, d)
+        det_sign = None
+        feats40 = feats
+        if two_level:
+            inst = torch.from_numpy(g.integers(0, td.inst_inv.shape[0],
+                                               16384))
+            feats40 = _object_features40(td.inst_feat[inst], feats)
+            feats = mxu_mt.object_features(td.inst_feat[inst], feats)
+            assert _same_up_to_zero_sign(feats, feats40), name
+            det_sign = td.inst_inv[inst, 12]
+        coefs = td.tri_coefs[rows]
+        zf = mxu_mt.coef_sums(coefs, feats, det_sign)
+        full = _sums40(coefs, feats40, det_sign)
+        for a, b in zip(zf, full):
+            assert _same_up_to_zero_sign(a, b), name
+        t_lane = torch.full((16384,), 1e30)
+        ok, t, u, v = mxu_mt.coef_leaf_mt(coefs, feats, det_sign)
+        acc = ok.any(dim=1)
+        assert 100 < int(acc.sum()) < 16384, name
+        ref_any = mxu_mt.coef_leaf_any(coefs, feats, t_lane, det_sign)
+        orig = mxu_mt.coef_sums
+        mxu_mt.coef_sums = lambda c, f, s=None: _sums40(c, feats40, s)
+        try:
+            ok4, t4, u4, v4 = mxu_mt.coef_leaf_mt(coefs, feats, det_sign)
+            any4 = mxu_mt.coef_leaf_any(coefs, feats, t_lane, det_sign)
+        finally:
+            mxu_mt.coef_sums = orig
+        assert torch.equal(ok, ok4) and torch.equal(ref_any, any4), name
+        assert torch.equal(t[ok], t4[ok4]), name
+        assert _same_up_to_zero_sign(u[ok], u4[ok4]), name
+        assert _same_up_to_zero_sign(v[ok], v4[ok4]), name
+
+
+@pytest.mark.parametrize("kind", ["quad", "pair", "pair_two_level"])
+def test_zero_free_traversal_matches_40_term_sums(flat, instanced,
+                                                  monkeypatch, kind):
+    """The columns scene's coefficient traversals (closest and any hit)
+    with the zero-free sums against the same walks with the 40-term
+    sums and the full feature transform: t, tri, the hit masks and the
+    any-hit bit bitwise, u and v up to the sign of a zero."""
+    td = instanced[3] if kind == "pair_two_level" else flat[1]
+    o, d = map(torch.from_numpy, _rays(1200, seed=21))
+    fam = kind.split("_")[0]
+    args = getattr(st, f"{fam}_args")(td, o, d, None, True)
+    closest = getattr(st, f"{fam}_closest_hit_plain")
+    any_hit = getattr(st, f"{fam}_any_hit_plain")
+    ref, ref_any = closest(*args), any_hit(*args)
+    assert int((ref.t < MISS_T).sum()) > 100
+    monkeypatch.setattr(mxu_mt, "object_features", _object_features40)
+    monkeypatch.setattr(mxu_mt, "coef_sums", _sums40)
+    got, got_any = closest(*args), any_hit(*args)
+    assert torch.equal(got.t, ref.t) and torch.equal(got.tri, ref.tri)
+    assert torch.equal(got_any, ref_any)
+    assert _same_up_to_zero_sign(got.u, ref.u)
+    assert _same_up_to_zero_sign(got.v, ref.v)
+
+
+@pytest.mark.parametrize("kind", ["quad", "pair", "pair_two_level"])
+def test_plain_exit_counts_add_up(flat, instanced, kind):
+    """The plain versions' counts of the coefficient test's exits: every
+    triangle tested exits once at most (det, u', v' window), the closest
+    hit tests every triangle of every leaf visit and the any hit stops
+    at its first accepted one; each hit passed all three tests once at
+    least; two-level instance changes no more than leaf visits; the
+    outputs as without statistics."""
+    td = instanced[3] if kind == "pair_two_level" else flat[1]
+    o, d = map(torch.from_numpy, _rays(900, seed=23))
+    fam = kind.split("_")[0]
+    args = getattr(st, f"{fam}_args")(td, o, d, None, True)
+    block = td.max_leaf_size
+    for which in ("closest", "any"):
+        plain = getattr(st, f"{fam}_{which}_hit_plain")
+        stats = {}
+        out = plain(*args, stats=stats)
+        ref = plain(*args)
+        exits = stats["tri_back"] + stats["tri_u"] + stats["tri_v"]
+        assert min(stats["tri_back"], stats["tri_u"], stats["tri_v"]) > 0
+        if which == "closest":
+            assert all(torch.equal(a, b) for a, b in zip(out, ref))
+            assert stats["tri_tested"] == stats["leaf_visits"] * block
+            assert stats["tri_tested"] - exits >= int((ref.t < MISS_T).sum())
+        else:
+            assert torch.equal(out, ref)
+            assert stats["tri_tested"] < stats["leaf_visits"] * block
+            assert stats["tri_tested"] - exits >= int(ref.sum()) > 0
+        if kind == "pair_two_level":
+            assert 0 < stats["instance_changes"] <= stats["leaf_visits"]
 
 
 def test_feature_transform_is_the_object_space_ray(instanced):

@@ -37,7 +37,7 @@ from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
     build_instanced_scene,
 )
 from vulkan_pathtracer_tpu_torch.ops import frontier as fr
-from vulkan_pathtracer_tpu_torch.ops import kernels
+from vulkan_pathtracer_tpu_torch.ops import kernels, mxu_mt
 from vulkan_pathtracer_tpu_torch.ops import skip_traverse as sk
 from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T
@@ -97,7 +97,7 @@ def _launch(fn, *args, n):
 def pair_host(lib, any_hit, box, link, leaves, o, d, t_lane, inst_inv=None,
               mb_bits=0, inst_feat=None):
     n = o.shape[0]
-    coef = int(leaves.shape[2] == 40)
+    coef = int(leaves.shape[2] == mxu_mt.COLS)
     head = (*_ptrs(box, link, leaves), leaves.shape[1], coef,
             *_ptrs(inst_inv, inst_feat), mb_bits, *_ptrs(o, d, t_lane), n)
     if any_hit:
@@ -111,7 +111,7 @@ def pair_host(lib, any_hit, box, link, leaves, o, d, t_lane, inst_inv=None,
 
 def quad_host(lib, any_hit, box, link, leaves, o, d, t_lane):
     n = o.shape[0]
-    coef = int(leaves.shape[2] == 40)
+    coef = int(leaves.shape[2] == mxu_mt.COLS)
     head = (*_ptrs(box, link, leaves), leaves.shape[1], coef,
             *_ptrs(o, d, t_lane), n)
     if any_hit:
@@ -135,7 +135,7 @@ def skip_host(lib, nodes, leaves, o, d, t_lane, inst_inv=None, mb_bits=0):
 def frontier_host(lib, any_hit, box, link, leaves, o, d, t_lane):
     n = o.shape[0]
     head = (*_ptrs(box, link), box.shape[1], *_ptrs(leaves), leaves.shape[1],
-            int(leaves.shape[2] == 40), *_ptrs(o, d, t_lane), n)
+            int(leaves.shape[2] == mxu_mt.COLS), *_ptrs(o, d, t_lane), n)
     if any_hit:
         hit = torch.full((n,), 7, dtype=torch.uint8)
         _launch(lib.vkpt_frontier_any_hit, *head, hit.data_ptr(), n=n)
@@ -174,10 +174,10 @@ def stats_host(lib, any_hit, kind, box, link, leaves, o, d, t_lane,
                 leaves.shape[1], *_ptrs(inst_inv), mb_bits)
     elif kind == "frontier":
         lead = (int(any_hit), *_ptrs(box, link), box.shape[1], *_ptrs(leaves),
-                leaves.shape[1], int(leaves.shape[2] == 40))
+                leaves.shape[1], int(leaves.shape[2] == mxu_mt.COLS))
     else:
         lead = (int(any_hit), *_ptrs(box, link, leaves), leaves.shape[1],
-                int(leaves.shape[2] == 40))
+                int(leaves.shape[2] == mxu_mt.COLS))
         if kind == "pair":
             lead = (*lead, *_ptrs(inst_inv, inst_feat), mb_bits)
     fn = getattr(lib, f"vkpt_{kind}_stats")

@@ -73,7 +73,7 @@ namespace {
 // Design<sort (no), postpone, persistent, min blocks per SM, refill,
 // early-exit triangle test, leaf queue>.
 using FrontierAnyDesign = Design<false, true, true, 6, true, false, 8>;
-using CoefFrontierAnyDesign = Design<false, true, true, 6, false, false, 8>;
+using CoefFrontierAnyDesign = Design<false, true, true, 6, false, true, 8>;
 
 template <int W, bool COEF, bool STATS = false>
 int any_launch(const Tables& tab, const float* origin,
@@ -104,7 +104,7 @@ int any_dispatch(int width, int coef, const Tables& tab, const float* origin,
 // leaf entry per lane).  Design<sort, postpone, persistent, min blocks
 // per SM, refill, early-exit triangle test>.
 using FrontierClosestDesign = Design<true, false, true, 5, false, true>;
-using CoefFrontierClosestDesign = Design<true, true, false, 6>;
+using CoefFrontierClosestDesign = Design<true, true, false, 6, false, true>;
 
 template <bool STATS>
 int closest_dispatch(int width, int coef, const Tables& tab,
@@ -130,7 +130,7 @@ int closest_dispatch(int width, int coef, const Tables& tab,
 // C launchers: pointers, sizes and the stream in; cudaGetLastError()
 // out (0 = the launch was accepted; cudaErrorInvalidValue for a width
 // other than 16 or 32).  coef != 0: `leaves` is the (n_leaves, block,
-// 40) coefficient table.  `batches`: one unsigned counter for the
+// 20) zero-free coefficient table.  `batches`: one unsigned counter for the
 // persistent warps, zeroed by the launcher on `stream`.
 extern "C" int vkpt_frontier_closest_hit(const float* box, const int* link,
                                          int width, const float* leaves,

@@ -64,8 +64,8 @@ namespace {
 // lane's last instance (stack_walk.cuh).
 using PairClosestDesign = Design<true, true, false, 6, false, true>;
 using PairAnyDesign = Design<false, true, true, 6, true, false, 8>;
-using CoefPairClosestDesign = Design<true, true, true, 7>;
-using CoefPairAnyDesign = Design<false, true, true, 1, true, false, 16>;
+using CoefPairClosestDesign = Design<true, true, true, 7, false, true>;
+using CoefPairAnyDesign = Design<false, true, true, 1, true, true, 16>;
 
 template <bool ANY, bool COEF>
 using PairDesign =
@@ -99,7 +99,8 @@ int pair_launch(const Tables& tab, int coef, const float* origin,
 // C launchers: pointers, sizes and the stream in; cudaGetLastError()
 // out (0 = the launch was accepted).  inst_inv == nullptr selects the
 // flat variant; coef != 0 the coefficient leaves (`leaves` is then the
-// (n_leaves, block, 40) table, and a two-level scene passes inst_feat).
+// (n_leaves, block, 20) zero-free table, and a two-level scene passes
+// inst_feat (I, 40)).
 // `batches`: one unsigned counter for the persistent warps, zeroed by
 // the launcher on `stream`.
 extern "C" int vkpt_pair_closest_hit(const float* box, const int* link,

@@ -72,14 +72,14 @@ namespace {
 using QuadClosestDesign = Design<true, true, true, 6, false, true>;
 using QuadAnyDesign = Design<false, true, true, 8, true, false>;
 using OctDesign = Design<true, false, false, 1, false, true>;
-using CoefClosestDesign = Design<true, true, true, 1>;
-using CoefAnyDesign = Design<false, true, true, 1, true>;
+using CoefClosestDesign = Design<true, true, true, 1, false, true>;
+using CoefAnyDesign = Design<false, true, true, 1, true, true>;
 
 }  // namespace
 
 // C launchers: pointers, sizes and the stream in; cudaGetLastError()
 // out (0 = the launch was accepted).  coef != 0: `leaves` is the
-// (n_leaves, block, 40) coefficient table.  `batches`: one unsigned
+// (n_leaves, block, 20) zero-free coefficient table.  `batches`: one unsigned
 // counter for the persistent warps, zeroed by the launcher on `stream`.
 extern "C" int vkpt_quad_closest_hit(const float* box, const int* link,
                                      const float* leaves, int block, int coef,

@@ -30,7 +30,13 @@ constexpr unsigned kFull = 0xffffffffu;
 //   MINB      __launch_bounds__ minimum blocks per SM (a register cap);
 //   REFILL    a lane whose ray is done takes the next one from the
 //             counter at once;
-//   EARLY     the triangle test returns at its first failed condition;
+//   EARLY     the triangle test returns at its first failed condition
+//             (exact leaves: traverse.cuh mt; coefficient leaves:
+//             coef_block);
+//   AHEAD     coefficient leaves: a triangle's five row loads issued
+//             before its first test (else each before the sum it feeds);
+//   PLANES    coefficient leaves: the table holds each leaf block as 20
+//             planes of `block` floats (else 20-float rows);
 //   QUEUE     any hit with POSTPONE: a lane queues the leaf children of
 //             several nodes, up to QUEUE entries, before the warp's
 //             leaf tests (0: one node's);
@@ -44,7 +50,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // recomputation).
 template <bool SORT, bool POSTPONE, bool PERSIST, int MINB,
           bool REFILL = false, bool EARLY = false, int QUEUE = 0,
-          int LEAF_AT = 0>
+          int LEAF_AT = 0, bool AHEAD = false, bool PLANES = false>
 struct Design {
   static_assert(!REFILL || POSTPONE, "refill runs the postponed loop");
   static_assert(LEAF_AT == 0 || (POSTPONE && !REFILL),
@@ -57,6 +63,8 @@ struct Design {
   static constexpr bool kEarly = EARLY;    // traverse.cuh mt<..., EARLY>
   static constexpr int kQueue = QUEUE;
   static constexpr int kLeafAt = LEAF_AT;
+  static constexpr bool kAhead = AHEAD;    // traverse.cuh coef_block
+  static constexpr bool kPlanes = PLANES;  // the coefficient table's layout
 };
 
 // Statistics build (STATS): counters of one launch, in this order
@@ -102,7 +110,7 @@ template <bool ANY, bool COEF, bool INST, class D, bool STATS>
 struct LeafTest {
   const float* __restrict__ leaves;
   const float* __restrict__ inst_inv;   // INST: (I, 16)
-  const float* __restrict__ inst_feat;  // INST and COEF: (I, 10, 16)
+  const float* __restrict__ inst_feat;  // INST and COEF: (I, 40)
   int block, mb_bits;
   unsigned long long* st;  // STATS: the launch's counters
   // INST: the instance of the lane's last leaf visit, its object-space
@@ -125,8 +133,8 @@ struct LeafTest {
       if (COEF) {
         float f[10];
         ray_features(r, f);
-        coef_block<ANY, false, STATS>(f, leaves, leaf, leaf, block, 1.0f,
-                                      r.tl, b, st + kStTri);
+        coef_block<ANY, false, D::kEarly, D::kAhead, D::kPlanes, STATS>(
+            f, leaves, leaf, leaf, block, 1.0f, r.tl, b, st + kStTri);
       } else {
         visit_leaf<ANY, false, D::kEarly>(r, leaves, block, nullptr, 0, leaf,
                                           b);
@@ -147,8 +155,8 @@ struct LeafTest {
     }
     const int row = leaf & ((1 << mb_bits) - 1);
     if (COEF)
-      coef_block<ANY, true, STATS>(fo, leaves, row, leaf, block, sign, r.tl,
-                                   b, st + kStTri);
+      coef_block<ANY, true, D::kEarly, D::kAhead, D::kPlanes, STATS>(
+          fo, leaves, row, leaf, block, sign, r.tl, b, st + kStTri);
     else
       leaf_block<ANY, true, D::kEarly>(o, leaves, row, leaf, block, sign, b);
   }
@@ -811,7 +819,7 @@ struct Tables {
   const float* leaves;
   int block;
   const float* inst_inv;   // INST: (I, 16)
-  const float* inst_feat;  // INST and COEF: (I, 10, 16)
+  const float* inst_feat;  // INST and COEF: (I, 40)
   int mb_bits;
 };
 

@@ -145,14 +145,20 @@ __device__ __forceinline__ void leaf_block(const Ray& r,
 //
 // Replaces mxu_mt.mt_coef_visit and mt_coef_visit_anyhit
 // (vulkan_pathtracer_tpu/ops/mxu_mt.py:254, :302), which the Pallas quad,
-// pair and frontier kernels inline: Möller–Trumbore as 4 * block dot
-// products of a triangle's coefficients (det, u', v', t'; 40 floats,
-// 160 B) with the ray features [d, m, o, 1], m = o x d.  The sums run in
-// f32 on CUDA cores in one order (feature 0 to 9, each product rounded;
-// -fmad=false), as the plain versions in ops/mxu_mt.py do.  Bound: the
-// 160 B per triangle (4.4x the exact leaf's 36 B) and 76 operations per
-// triangle for the sums; the design loads each triangle's row as ten
-// float4 and divides only for a candidate's t.
+// pair and frontier kernels inline: Möller–Trumbore as dot products of a
+// triangle's coefficients with the ray features [d, m, o, 1], m = o x d.
+// Of JAX's 40 coefficients per triangle (det, u', v', t' on 10 features)
+// 19 can be non-zero, and the zero-free row holds only those, in the
+// order of the test: det on d (3), u' on d and m (6), v' on d and m (6),
+// t' on o and 1 (4), then a zero — 80 B, five float4.  The sums run in
+// f32 on CUDA cores in one order (feature by feature, each product
+// rounded; -fmad=false), as the plain versions in ops/mxu_mt.py do.
+// EARLY: the test stops at the first failed condition — det <= 0 (det
+// scaled by det_sign on two-level scenes), then u' < 0, then the v'
+// window (v' < 0 or u' + v' > det) — reading only the front of the row,
+// and computes t' and divides only for a survivor; the outcome is the
+// conjunction of the full test, so t, tri and the hit masks are the
+// same.
 
 __device__ __forceinline__ void ray_features(const Ray& r, float* f) {
   f[0] = r.dx;
@@ -167,11 +173,27 @@ __device__ __forceinline__ void ray_features(const Ray& r, float* f) {
   f[9] = 1.0f;
 }
 
-__device__ __forceinline__ float dot10(const float* c, const float* f) {
+// sum_j c[j] * f[j], j = 0..N-1 in order, each product rounded.
+template <int N>
+__device__ __forceinline__ float dotn(const float* c, const float* f) {
   float acc = c[0] * f[0];
 #pragma unroll
-  for (int j = 1; j < 10; ++j) acc = acc + c[j] * f[j];
+  for (int j = 1; j < N; ++j) acc = acc + c[j] * f[j];
   return acc;
+}
+
+// Quad q (0..4) of triangle k's zero-free row in a leaf block at `base`:
+// rows of 20 floats, or (PLANES) 20 planes of `block` floats, plane j
+// holding coefficient j of every triangle of the block.
+template <bool PLANES>
+__device__ __forceinline__ float4 coef_quad(const float* __restrict__ base,
+                                            int block, int k, int q) {
+  if (PLANES) {
+    const float* s = base + k + (size_t)(4 * q) * block;
+    return float4{__ldg(s), __ldg(s + block), __ldg(s + 2 * block),
+                  __ldg(s + 3 * block)};
+  }
+  return __ldg(reinterpret_cast<const float4*>(base) + 5 * k + q);
 }
 
 // Leaf block `row` of the coefficient table against features f.
@@ -179,63 +201,85 @@ __device__ __forceinline__ float dot10(const float* c, const float* f) {
 // lim = min(t_best, t_lane) at the visit's start, the first triangle on
 // a tie (mxu_mt.py:285-291); it replaces the best hit, which it beats by
 // construction (pallas_frontier.py:358).  Any hit: det-scaled, no
-// division (mxu_mt.py:318-322).  SIGNED scales all four sums by det_sign.
+// division (mxu_mt.py:318-322).  SIGNED scales all four sums by
+// det_sign.  AHEAD issues a triangle's five loads before its first test.
 // STATS (the statistics build): tri_st[0..3] count the triangles tested
 // and those that fail at det <= 0, at u' < 0 and at the v' window.
-template <bool ANY, bool SIGNED, bool STATS = false>
+template <bool ANY, bool SIGNED, bool EARLY, bool AHEAD, bool PLANES,
+          bool STATS = false>
 __device__ __forceinline__ void coef_block(const float* f,
                                            const float* __restrict__ coefs,
                                            int row, int leaf, int block,
                                            float det_sign, float tl, Best& b,
                                            unsigned long long* tri_st =
                                                nullptr) {
-  const float4* p =
-      reinterpret_cast<const float4*>(coefs) + (size_t)row * block * 10;
+  const float* base = coefs + (size_t)row * block * 20;
   const float lim = ANY ? tl : fminf(b.t, tl);
   float ct = kBig, cu = 0.0f, cv = 0.0f;
   int ck = -1;
   unsigned n_tri = 0, n_back = 0, n_u = 0, n_v = 0;
   for (int k = 0; k < block; ++k) {
-    float c[40];
+    if (STATS) ++n_tri;
+    float c[20];
 #pragma unroll
-    for (int q = 0; q < 10; ++q) {
-      const float4 x = __ldg(p + k * 10 + q);
-      c[4 * q + 0] = x.x;
-      c[4 * q + 1] = x.y;
-      c[4 * q + 2] = x.z;
-      c[4 * q + 3] = x.w;
+    for (int q = 0; q < 5; ++q) {
+      if (AHEAD || q == 0) {
+        const float4 x = coef_quad<PLANES>(base, block, k, q);
+        c[4 * q + 0] = x.x;
+        c[4 * q + 1] = x.y;
+        c[4 * q + 2] = x.z;
+        c[4 * q + 3] = x.w;
+      }
     }
-    float det = dot10(c, f);
-    float up = dot10(c + 10, f);
-    float vp = dot10(c + 20, f);
-    float tp = dot10(c + 30, f);
-    if (SIGNED) {
-      det = det * det_sign;
-      up = up * det_sign;
-      vp = vp * det_sign;
-      tp = tp * det_sign;
+    float det = dotn<3>(c, f);
+    if (SIGNED) det = det * det_sign;
+    const bool front = det > 0.0f;
+    if (STATS && !front) ++n_back;
+    if (EARLY && !front) continue;
+    if (!AHEAD) {
+#pragma unroll
+      for (int q = 1; q < 3; ++q) {
+        const float4 x = coef_quad<PLANES>(base, block, k, q);
+        c[4 * q + 0] = x.x;
+        c[4 * q + 1] = x.y;
+        c[4 * q + 2] = x.z;
+        c[4 * q + 3] = x.w;
+      }
     }
-    if (STATS) {
-      ++n_tri;
-      if (!(det > 0.0f))
-        ++n_back;
-      else if (!(up >= 0.0f))
-        ++n_u;
-      else if (!(vp >= 0.0f && up + vp <= det))
-        ++n_v;
+    float up = dotn<6>(c + 3, f);
+    if (SIGNED) up = up * det_sign;
+    const bool u_ok = up >= 0.0f;
+    if (STATS && front && !u_ok) ++n_u;
+    if (EARLY && !u_ok) continue;
+    if (!AHEAD) {
+      const float4 x = coef_quad<PLANES>(base, block, k, 3);
+      c[12] = x.x;
+      c[13] = x.y;
+      c[14] = x.z;
+      c[15] = x.w;
     }
+    float vp = dotn<6>(c + 9, f);
+    if (SIGNED) vp = vp * det_sign;
+    const bool v_ok = vp >= 0.0f && up + vp <= det;
+    if (STATS && front && u_ok && !v_ok) ++n_v;
+    if (EARLY && !v_ok) continue;
+    if (!AHEAD) {
+      const float4 x = coef_quad<PLANES>(base, block, k, 4);
+      c[16] = x.x;
+      c[17] = x.y;
+      c[18] = x.z;
+    }
+    float tp = dotn<4>(c + 15, f + 6);
+    if (SIGNED) tp = tp * det_sign;
     if (ANY) {
-      if (det > 0.0f && up >= 0.0f && vp >= 0.0f && up + vp <= det &&
-          tp > kTmin * det && tp < tl * det) {
+      if (front && u_ok && v_ok && tp > kTmin * det && tp < tl * det) {
         b.any = true;
         break;
       }
     } else {
-      const bool front = det > 0.0f;
       const float inv = 1.0f / (front ? det : 1.0f);
       const float t = tp * inv;
-      if (front && up >= 0.0f && vp >= 0.0f && up + vp <= det && t > kTmin &&
-          t < lim && t < ct) {
+      if (front && u_ok && v_ok && t > kTmin && t < lim && t < ct) {
         ct = t;
         ck = k;
         cu = up * inv;
@@ -257,21 +301,32 @@ __device__ __forceinline__ void coef_block(const float* f,
   }
 }
 
-// The instance's (10, 16) feature transform A applied to the world
-// features f (feats_obj = A @ pad16(feats), pallas_pair.py:736-747)
-// into fo; returns det_sign (inst_inv[12]), so mirrored instances cull
-// as the exact kernels do.
+// The instance's feature transform A applied to the world features f
+// (feats_obj = A @ pad16(feats), pallas_pair.py:736-747) into fo, over
+// A's 40 entries that can be non-zero (ops/mxu_mt.FEAT_TERMS, ten
+// float4): rows 0-2 on d, 3-5 on d and m, 6-8 on o and 1, row 9 on 1;
+// returns det_sign (inst_inv[12]), so mirrored instances cull as the
+// exact kernels do.
 __device__ __forceinline__ float object_features(
     const float* f, const float* __restrict__ inst_inv,
     const float* __restrict__ inst_feat, int inst, float* fo) {
-  const float* A = inst_feat + (size_t)inst * 160;
+  const float4* A4 = reinterpret_cast<const float4*>(inst_feat) + inst * 10;
+  float a[40];
 #pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    float a[10];
-#pragma unroll
-    for (int j = 0; j < 10; ++j) a[j] = __ldg(A + 16 * i + j);
-    fo[i] = dot10(a, f);
+  for (int q = 0; q < 10; ++q) {
+    const float4 x = __ldg(A4 + q);
+    a[4 * q + 0] = x.x;
+    a[4 * q + 1] = x.y;
+    a[4 * q + 2] = x.z;
+    a[4 * q + 3] = x.w;
   }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    fo[i] = dotn<3>(a + 3 * i, f);
+    fo[3 + i] = dotn<6>(a + 9 + 6 * i, f);
+    fo[6 + i] = dotn<4>(a + 27 + 4 * i, f + 6);
+  }
+  fo[9] = a[39] * f[9];
   return __ldg(inst_inv + (size_t)inst * 16 + 12);
 }
 

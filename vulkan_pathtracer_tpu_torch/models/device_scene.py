@@ -73,6 +73,7 @@ from vulkan_pathtracer_tpu_torch.ops.frontier import (
 from vulkan_pathtracer_tpu_torch.ops.mxu_mt import (
     build_mt_coef_rows,
     coef_rows_from_jax,
+    feature_maps_from_jax,
 )
 from vulkan_pathtracer_tpu_torch.ops.native import (
     bake_triangles_native,
@@ -114,8 +115,8 @@ class DeviceScene:
     oct_link: Optional[torch.Tensor] = None   # (N8, 8) int32
     frontier_box: Optional[torch.Tensor] = None   # (Nw, W, 6) f32, flat
     frontier_link: Optional[torch.Tensor] = None  # (Nw, W) int32
-    # Coefficient leaves (mt="mxu"): (n_leaves, block, 40) f32; two-level
-    # scenes add the (I, 10, 16) feature transforms.
+    # Coefficient leaves (mt="mxu"): (n_leaves, block, 20) f32 zero-free
+    # rows; two-level scenes add the (I, 40) feature transforms.
     tri_coefs: Optional[torch.Tensor] = None
     inst_feat: Optional[torch.Tensor] = None
     # Two-level scenes (models/instanced_scene.py): leaf values pack
@@ -448,9 +449,10 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
     ``bvh_frontier_src``), the pair rows (Ni, 16) into pair_box /
     pair_link (int32 links, leaf values verbatim), the leaf table
     (n_leaves, block*9) into (n_leaves, block, 9) and the coefficient
-    rows (n_leaves, 10, 4*block) into (n_leaves, block, 40).  An
+    rows (n_leaves, 10, 4*block) into (n_leaves, block, 20).  An
     instanced scene brings its pair rows, ``inst_inv``, ``inst_nrm``,
-    ``inst_feat`` and ``mb_bits``; it has no quad, oct or frontier
+    ``inst_feat`` (the (I, 10, 16) transforms as their (I, 40)
+    non-zero entries) and ``mb_bits``; it has no quad, oct or frontier
     rows.  Trees whose root is a leaf have no JAX rows; the
     port's tables for them are built as build_quad_tables and
     build_pair_tables build them.  ``bvh_packed`` is the skip record
@@ -515,7 +517,9 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
         wide_nodes=arrays.get("bvh_wide_nodes"),
         inst_inv=arrays.get("inst_inv") if instanced else None,
         inst_nrm=arrays.get("inst_nrm") if instanced else None,
-        inst_feat=arrays.get("inst_feat") if instanced else None,
+        inst_feat=(feature_maps_from_jax(arrays["inst_feat"])
+                   if instanced and arrays.get("inst_feat") is not None
+                   else None),
     )
     out_meta = dict(
         num_triangles=int(meta["num_triangles"]), max_leaf_size=block,

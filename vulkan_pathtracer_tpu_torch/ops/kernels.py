@@ -22,6 +22,8 @@ import time
 
 import torch
 
+from vulkan_pathtracer_tpu_torch.ops import mxu_mt
+
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -172,7 +174,8 @@ TABLE_NAMES = {2: "pair", 4: "quad", 8: "oct", 16: "frontier",
 
 def _check_tables(box, link, leaves, width: int = 4, coef_ok: bool = True):
     """Node tables of ``width`` slots and the leaf table; returns 1 when
-    the leaf table is a coefficient table (40 columns), else 0."""
+    the leaf table is a coefficient table (mxu_mt.COLS columns), else
+    0."""
     kind = TABLE_NAMES[width]
     _check(f"{kind}_box", box, torch.float32, (None, width, 6))
     _check(f"{kind}_link", link, torch.int32, (box.shape[0], width),
@@ -185,27 +188,27 @@ def _check_tables(box, link, leaves, width: int = 4, coef_ok: bool = True):
 
 
 def _check_leaves(leaves, device) -> int:
-    """Exact leaf blocks (n_leaves, block, 9) -> 0, coefficient rows
-    (n_leaves, block, 40) -> 1 (ops/mxu_mt.py)."""
-    if leaves.dim() != 3 or leaves.shape[2] not in (9, 40):
-        raise ValueError("leaves: expected (n_leaves, block, 9) or "
-                         "coefficients (n_leaves, block, 40)")
+    """Exact leaf blocks (n_leaves, block, 9) -> 0, zero-free coefficient
+    rows (n_leaves, block, 20) -> 1 (ops/mxu_mt.py)."""
+    if leaves.dim() != 3 or leaves.shape[2] not in (9, mxu_mt.COLS):
+        raise ValueError(f"leaves: expected (n_leaves, block, 9) or "
+                         f"coefficients (n_leaves, block, {mxu_mt.COLS})")
     _check("leaves", leaves, torch.float32,
            (None, leaves.shape[1], leaves.shape[2]))
     if leaves.device != device:
         raise ValueError(f"leaves lie on {leaves.device}, tables on {device}")
-    return int(leaves.shape[2] == 40)
+    return int(leaves.shape[2] == mxu_mt.COLS)
 
 
 def _check_feat(inst_feat, inst, coef: int, device):
-    """The (I, 10, 16) feature transforms a two-level scene's coefficient
-    leaves need, or None."""
+    """The (I, 40) feature transforms a two-level scene's coefficient
+    leaves need (ops/mxu_mt.py), or None."""
     if not (coef and inst is not None):
         return None
     if inst_feat is None:
         raise ValueError("coefficient leaves of a two-level scene need "
-                         "inst_feat (I, 10, 16)")
-    _check("inst_feat", inst_feat, torch.float32, (None, 10, 16))
+                         "inst_feat (I, 40)")
+    _check("inst_feat", inst_feat, torch.float32, (None, mxu_mt.FEAT_COLS))
     if inst_feat.device != device:
         raise ValueError(f"inst_feat lies on {inst_feat.device}, tables on "
                          f"{device}")
@@ -278,7 +281,7 @@ def _launch(name: str, device, fn, *args, batches: int = None) -> None:
 
 def quad_closest_hit(box, link, leaves, origin, direction, t_lane):
     """Launch the quad closest-hit kernel (coefficient leaves when
-    ``leaves`` has 40 columns); returns (t, tri, u, v)."""
+    ``leaves`` is a coefficient table); returns (t, tri, u, v)."""
     coef = _check_tables(box, link, leaves)
     _check_rays(origin, direction, t_lane, box.device)
     n = origin.shape[0]
@@ -306,7 +309,7 @@ def oct_closest_hit(box, link, leaves, origin, direction, t_lane):
 
 def quad_any_hit(box, link, leaves, origin, direction, t_lane):
     """Launch the quad any-hit kernel (coefficient leaves when ``leaves``
-    has 40 columns); returns an (N,) bool tensor."""
+    is a coefficient table); returns an (N,) bool tensor."""
     coef = _check_tables(box, link, leaves)
     _check_rays(origin, direction, t_lane, box.device)
     n = origin.shape[0]
@@ -430,7 +433,7 @@ def summarize_stack_stats(counters) -> dict:
 def pair_closest_hit(box, link, leaves, origin, direction, t_lane,
                      inst_inv=None, mb_bits: int = 0, inst_feat=None):
     """Launch the pair closest-hit kernel (instanced when ``inst_inv`` is
-    given; coefficient leaves when ``leaves`` has 40 columns, with
+    given; coefficient leaves when ``leaves`` is a coefficient table, with
     ``inst_feat`` on a two-level scene); returns (t, tri, u, v)."""
     coef = _check_tables(box, link, leaves, width=2)
     _check_rays(origin, direction, t_lane, box.device)
@@ -472,7 +475,7 @@ def _frontier_width(box) -> int:
 
 def frontier_closest_hit(box, link, leaves, origin, direction, t_lane):
     """Launch the frontier closest-hit kernel (width 16 or 32 from the
-    table; coefficient leaves when ``leaves`` has 40 columns); returns
+    table; coefficient leaves when ``leaves`` is a coefficient table); returns
     (t, tri, u, v)."""
     width = _frontier_width(box)
     coef = _check_tables(box, link, leaves, width=width)

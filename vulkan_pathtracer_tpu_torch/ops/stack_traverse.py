@@ -35,7 +35,7 @@ boundary, see models/device_scene.scene_from_jax_arrays):
 - ``leaves (n_blocks, block, 9) f32``: v0, e1, e2 of each triangle,
   indexed by the leaf block (``leaf_value & (2^mb_bits - 1)`` when
   instanced); the returned triangle id is ``leaf_value * block + k``.
-  A ``(n_blocks, block, 40)`` table in its place is the coefficient
+  A ``(n_blocks, block, 20)`` table in its place is the coefficient
   table ``tri_coefs`` (ops/mxu_mt.py), and selects the coefficient
   leaf test; two-level scenes then also pass ``inst_feat``.
 - ``inst_inv (I, 16) f32`` (instanced only): the world-to-object
@@ -398,7 +398,7 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
     orders internal children by that comparator network instead of a
     stable sort; ``slot_order`` (an any hit) visits them in slot order
     and culls no popped node (the quad any-hit kernel).  ``leaves``
-    with 40 columns is a coefficient table (the coefficient leaf test;
+    with mxu_mt.COLS columns is a coefficient table (the coefficient leaf test;
     ``inst_feat`` on two-level scenes).  ``stats``, a dict, accumulates
     node visits (row loads), leaf-block visits, the early exits of the
     triangle test (exact leaves: _leaf_mt's; coefficient leaves:
