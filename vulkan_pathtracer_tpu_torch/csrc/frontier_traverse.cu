@@ -54,13 +54,15 @@
 //     them measured no faster: 14 triangles with the early-exit test
 //     are a short leaf phase), persistent warps, the early-exit
 //     triangle test, a register cap of 5 blocks per SM;
-//   - closest hit, coefficient leaves: postponed leaves (leaf SIMT
-//     0.64 -> 0.85), one ray per thread over the grid, a cap of 6;
+//   - closest hit, coefficient leaves (the zero-free rows and early-exit
+//     test of traverse.cuh coef_block, PR 9): postponed leaves (leaf
+//     SIMT 0.64 -> 0.85), persistent warps, a triangle's five row loads
+//     issued before its first test, a cap of 6;
 //   - any hit: postponed leaves, a lane queueing the leaf children of
-//     up to 4 nodes, until 8 leaves wait (leaf SIMT 0.94-0.96); exact
-//     leaves refill lanes from the batch counter (node SIMT 0.60),
-//     coefficient leaves keep persistent warps without refill, whose
-//     leaf phase is bound by the 160 B-per-triangle rows; a cap of 6.
+//     up to 4 nodes, until 8 leaves wait (leaf SIMT 0.94-0.96; 4 with
+//     coefficient leaves), lanes refilled from the batch counter (node
+//     SIMT 0.60); a cap of 6 (8 with coefficient leaves: 4.47 against
+//     5.06 ms at 6, PR 9).
 
 #include <type_traits>
 
@@ -73,7 +75,7 @@ namespace {
 // Design<sort (no), postpone, persistent, min blocks per SM, refill,
 // early-exit triangle test, leaf queue>.
 using FrontierAnyDesign = Design<false, true, true, 6, true, false, 8>;
-using CoefFrontierAnyDesign = Design<false, true, true, 6, false, true, 8>;
+using CoefFrontierAnyDesign = Design<false, true, true, 8, true, true, 4>;
 
 template <int W, bool COEF, bool STATS = false>
 int any_launch(const Tables& tab, const float* origin,
@@ -102,9 +104,11 @@ int any_dispatch(int width, int coef, const Tables& tab, const float* origin,
 // The closest hit: the stack walk at width 16 or 32 (near-first, the
 // Batcher network where two or more internal children were hit, one
 // leaf entry per lane).  Design<sort, postpone, persistent, min blocks
-// per SM, refill, early-exit triangle test>.
+// per SM, refill, early-exit triangle test, leaf queue, leaf phase at,
+// row loads ahead>.
 using FrontierClosestDesign = Design<true, false, true, 5, false, true>;
-using CoefFrontierClosestDesign = Design<true, true, false, 6, false, true>;
+using CoefFrontierClosestDesign =
+    Design<true, true, true, 6, false, true, 0, 0, true>;
 
 template <bool STATS>
 int closest_dispatch(int width, int coef, const Tables& tab,

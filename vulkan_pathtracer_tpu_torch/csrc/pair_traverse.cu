@@ -10,7 +10,7 @@
 //     _pair_anyhit via pallas_pair_any_hit;
 //   - under VKPT_MT=mxu their inlined coefficient leaf test, flat and
 //     two-level (mxu_mt.mt_coef_visit / mt_coef_visit_anyhit with the
-//     instance feature transform; traverse.cuh coef_leaf).
+//     instance feature transform; traverse.cuh coef_block).
 // The plain PyTorch versions in ops/stack_traverse.py
 // (pair_closest_hit_plain, pair_any_hit_plain) perform the same float
 // operations in the same order (traverse.cuh: -fmad=false).
@@ -27,8 +27,8 @@
 // dependent row loads as in a quad table, and the instanced atrium's
 // per-material meshes overlap (606 pair rows and 51 leaf blocks per
 // primary).  Two-level scenes add, at each leaf visit, a 64 B instance
-// row and 33 operations of object-space ray transform (190 for the
-// coefficient leaves' feature transform).
+// row and 33 operations of object-space ray transform (70 over A's 40
+// non-zero entries for the coefficient leaves' feature transform).
 //
 // What the design does about it (measured on the instanced atrium's
 // 2,073,600 primaries and its sorted bounce-1 launch against the first
@@ -39,16 +39,22 @@
 //     7% (any) SIMT efficiency; postponed, 90%, although node steps fall
 //     to 48% / 24%;
 //   - the any hit refills lanes from the counter and queues the leaf
-//     children of several nodes, up to 8 entries (16 with coefficient
-//     leaves), before the warp's leaf tests: fewer, fuller leaf phases
-//     (node SIMT 0.24 -> 0.46); it walks in slot order, as its plain
-//     version does (the bit does not depend on the order);
+//     children of several nodes, up to 8 entries, before the warp's
+//     leaf tests: fewer, fuller leaf phases (node SIMT 0.24 -> 0.46);
+//     it walks in slot order, as its plain version does (the bit does
+//     not depend on the order);
 //   - every lane keeps its last instance's object-space ray (features),
 //     which half the leaf visits reuse;
-//   - the exact closest hit takes the early-exit triangle test and the
-//     plain grid, the coefficient one persistent warps; register caps
-//     by __launch_bounds__: 6 blocks per SM (at most 85 registers) for
-//     the exact kernels, 7 (73) for the coefficient closest hit.
+//   - both closest hits take the early-exit triangle test and the
+//     plain grid; register caps by __launch_bounds__: 6 blocks per SM
+//     (at most 85 registers) for the exact kernels, 8 (64) for the
+//     coefficient ones;
+//   - coefficient leaves (traverse.cuh coef_block: zero-free 80 B rows,
+//     the early-exit test; PR 9, 20 candidates per kernel timed side by
+//     side): the closest hit's warp starts its leaf phase once 16 lanes
+//     wait and issues a triangle's five row loads before its first
+//     test (20.3 -> 16.5 ms against the parent's walk on the same
+//     rows), the any hit queues 8 leaves (14.1 -> 12.2 ms).
 // Each ray's sequence of leaf tests is that of the plain versions: the
 // closest hit tests a row's leaf children nearer-first (postponed
 // leaves keep that order, so ties at equal t resolve as before).
@@ -60,12 +66,13 @@
 namespace {
 
 // Design<sort (any hit), postpone, persistent, min blocks per SM,
-// refill, early-exit triangle test, leaf queue>; every design keeps the
-// lane's last instance (stack_walk.cuh).
+// refill, early-exit triangle test, leaf queue, leaf phase at, row loads
+// ahead>; every design keeps the lane's last instance (stack_walk.cuh).
 using PairClosestDesign = Design<true, true, false, 6, false, true>;
 using PairAnyDesign = Design<false, true, true, 6, true, false, 8>;
-using CoefPairClosestDesign = Design<true, true, true, 7, false, true>;
-using CoefPairAnyDesign = Design<false, true, true, 1, true, true, 16>;
+using CoefPairClosestDesign =
+    Design<true, true, false, 8, false, true, 0, 16, true>;
+using CoefPairAnyDesign = Design<false, true, true, 8, true, true, 8>;
 
 template <bool ANY, bool COEF>
 using PairDesign =

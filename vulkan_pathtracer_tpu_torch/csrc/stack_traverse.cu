@@ -10,7 +10,7 @@
 //     launched by _nary_anyhit via pallas_quad_any_hit;
 //   - under VKPT_MT=mxu the quad kernels' inlined coefficient leaf test
 //     (mxu_mt.mt_coef_visit / mt_coef_visit_anyhit; traverse.cuh
-//     coef_leaf).
+//     coef_block).
 // The plain PyTorch versions in ops/stack_traverse.py perform the same
 // float operations in the same order (traverse.cuh: -fmad=false).
 //
@@ -56,8 +56,14 @@
 // (2D tiles for primaries, the 6d Morton key for bounce rays).  Measured
 // and not taken: a shared-memory window of the stack, refilling the
 // closest hit (even from warp-owned chunks of consecutive rays), and
-// prefetching the next four triangles (register spills).  The
-// coefficient builds take the same walk without the register caps.
+// prefetching the next four triangles (register spills).
+// The coefficient builds (traverse.cuh coef_block: zero-free 80 B rows,
+// the early-exit test) take the same walk, chosen among 22 candidates
+// per kernel timed side by side (PERF.md section 6, PR 9): the closest
+// hit issues a triangle's five row loads before its first test (1.48 ->
+// 1.38 ms) and keeps persistent warps without a register cap; the any
+// hit refills lanes and queues up to 6 leaves across nodes (2.83 ->
+// 1.87 ms), each load issued before the sum that reads it.
 // The oct kernel (width 8: three binary levels per row) keeps the
 // simple design with the early-exit test: postponing its leaves or
 // making its warps persistent made it slower (5.5-6.2 ms against 3.7 ms
@@ -68,12 +74,13 @@
 namespace {
 
 // Design<sort (any hit), postpone, persistent, min blocks per SM,
-// refill, early-exit triangle test>.
+// refill, early-exit triangle test, leaf queue, leaf phase at, row loads
+// ahead>.
 using QuadClosestDesign = Design<true, true, true, 6, false, true>;
 using QuadAnyDesign = Design<false, true, true, 8, true, false>;
 using OctDesign = Design<true, false, false, 1, false, true>;
-using CoefClosestDesign = Design<true, true, true, 1, false, true>;
-using CoefAnyDesign = Design<false, true, true, 1, true, true>;
+using CoefClosestDesign = Design<true, true, true, 1, false, true, 0, 0, true>;
+using CoefAnyDesign = Design<false, true, true, 1, true, true, 6>;
 
 }  // namespace
 

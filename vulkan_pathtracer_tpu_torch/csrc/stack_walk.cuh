@@ -35,8 +35,6 @@ constexpr unsigned kFull = 0xffffffffu;
 //             coef_block);
 //   AHEAD     coefficient leaves: a triangle's five row loads issued
 //             before its first test (else each before the sum it feeds);
-//   PLANES    coefficient leaves: the table holds each leaf block as 20
-//             planes of `block` floats (else 20-float rows);
 //   QUEUE     any hit with POSTPONE: a lane queues the leaf children of
 //             several nodes, up to QUEUE entries, before the warp's
 //             leaf tests (0: one node's);
@@ -50,7 +48,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // recomputation).
 template <bool SORT, bool POSTPONE, bool PERSIST, int MINB,
           bool REFILL = false, bool EARLY = false, int QUEUE = 0,
-          int LEAF_AT = 0, bool AHEAD = false, bool PLANES = false>
+          int LEAF_AT = 0, bool AHEAD = false>
 struct Design {
   static_assert(!REFILL || POSTPONE, "refill runs the postponed loop");
   static_assert(LEAF_AT == 0 || (POSTPONE && !REFILL),
@@ -63,8 +61,7 @@ struct Design {
   static constexpr bool kEarly = EARLY;    // traverse.cuh mt<..., EARLY>
   static constexpr int kQueue = QUEUE;
   static constexpr int kLeafAt = LEAF_AT;
-  static constexpr bool kAhead = AHEAD;    // traverse.cuh coef_block
-  static constexpr bool kPlanes = PLANES;  // the coefficient table's layout
+  static constexpr bool kAhead = AHEAD;  // traverse.cuh coef_block
 };
 
 // Statistics build (STATS): counters of one launch, in this order
@@ -133,7 +130,7 @@ struct LeafTest {
       if (COEF) {
         float f[10];
         ray_features(r, f);
-        coef_block<ANY, false, D::kEarly, D::kAhead, D::kPlanes, STATS>(
+        coef_block<ANY, false, D::kEarly, D::kAhead, STATS>(
             f, leaves, leaf, leaf, block, 1.0f, r.tl, b, st + kStTri);
       } else {
         visit_leaf<ANY, false, D::kEarly>(r, leaves, block, nullptr, 0, leaf,
@@ -155,7 +152,7 @@ struct LeafTest {
     }
     const int row = leaf & ((1 << mb_bits) - 1);
     if (COEF)
-      coef_block<ANY, true, D::kEarly, D::kAhead, D::kPlanes, STATS>(
+      coef_block<ANY, true, D::kEarly, D::kAhead, STATS>(
           fo, leaves, row, leaf, block, sign, r.tl, b, st + kStTri);
     else
       leaf_block<ANY, true, D::kEarly>(o, leaves, row, leaf, block, sign, b);

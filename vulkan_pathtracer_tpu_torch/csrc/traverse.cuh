@@ -182,38 +182,24 @@ __device__ __forceinline__ float dotn(const float* c, const float* f) {
   return acc;
 }
 
-// Quad q (0..4) of triangle k's zero-free row in a leaf block at `base`:
-// rows of 20 floats, or (PLANES) 20 planes of `block` floats, plane j
-// holding coefficient j of every triangle of the block.
-template <bool PLANES>
-__device__ __forceinline__ float4 coef_quad(const float* __restrict__ base,
-                                            int block, int k, int q) {
-  if (PLANES) {
-    const float* s = base + k + (size_t)(4 * q) * block;
-    return float4{__ldg(s), __ldg(s + block), __ldg(s + 2 * block),
-                  __ldg(s + 3 * block)};
-  }
-  return __ldg(reinterpret_cast<const float4*>(base) + 5 * k + q);
-}
-
 // Leaf block `row` of the coefficient table against features f.
 // Closest hit: the candidate with the smallest t inside (TMIN, lim),
 // lim = min(t_best, t_lane) at the visit's start, the first triangle on
 // a tie (mxu_mt.py:285-291); it replaces the best hit, which it beats by
 // construction (pallas_frontier.py:358).  Any hit: det-scaled, no
 // division (mxu_mt.py:318-322).  SIGNED scales all four sums by
-// det_sign.  AHEAD issues a triangle's five loads before its first test.
-// STATS (the statistics build): tri_st[0..3] count the triangles tested
+// det_sign.  AHEAD issues a triangle's five loads before its first test
+// (else each before the sum that reads it).  STATS (the statistics build): tri_st[0..3] count the triangles tested
 // and those that fail at det <= 0, at u' < 0 and at the v' window.
-template <bool ANY, bool SIGNED, bool EARLY, bool AHEAD, bool PLANES,
-          bool STATS = false>
+template <bool ANY, bool SIGNED, bool EARLY, bool AHEAD, bool STATS = false>
 __device__ __forceinline__ void coef_block(const float* f,
                                            const float* __restrict__ coefs,
                                            int row, int leaf, int block,
                                            float det_sign, float tl, Best& b,
                                            unsigned long long* tri_st =
                                                nullptr) {
-  const float* base = coefs + (size_t)row * block * 20;
+  const float4* p =
+      reinterpret_cast<const float4*>(coefs) + (size_t)row * block * 5;
   const float lim = ANY ? tl : fminf(b.t, tl);
   float ct = kBig, cu = 0.0f, cv = 0.0f;
   int ck = -1;
@@ -224,7 +210,7 @@ __device__ __forceinline__ void coef_block(const float* f,
 #pragma unroll
     for (int q = 0; q < 5; ++q) {
       if (AHEAD || q == 0) {
-        const float4 x = coef_quad<PLANES>(base, block, k, q);
+        const float4 x = __ldg(p + 5 * k + q);
         c[4 * q + 0] = x.x;
         c[4 * q + 1] = x.y;
         c[4 * q + 2] = x.z;
@@ -239,7 +225,7 @@ __device__ __forceinline__ void coef_block(const float* f,
     if (!AHEAD) {
 #pragma unroll
       for (int q = 1; q < 3; ++q) {
-        const float4 x = coef_quad<PLANES>(base, block, k, q);
+        const float4 x = __ldg(p + 5 * k + q);
         c[4 * q + 0] = x.x;
         c[4 * q + 1] = x.y;
         c[4 * q + 2] = x.z;
@@ -252,7 +238,7 @@ __device__ __forceinline__ void coef_block(const float* f,
     if (STATS && front && !u_ok) ++n_u;
     if (EARLY && !u_ok) continue;
     if (!AHEAD) {
-      const float4 x = coef_quad<PLANES>(base, block, k, 3);
+      const float4 x = __ldg(p + 5 * k + 3);
       c[12] = x.x;
       c[13] = x.y;
       c[14] = x.z;
@@ -264,7 +250,7 @@ __device__ __forceinline__ void coef_block(const float* f,
     if (STATS && front && u_ok && !v_ok) ++n_v;
     if (EARLY && !v_ok) continue;
     if (!AHEAD) {
-      const float4 x = coef_quad<PLANES>(base, block, k, 4);
+      const float4 x = __ldg(p + 5 * k + 4);
       c[16] = x.x;
       c[17] = x.y;
       c[18] = x.z;
