@@ -334,7 +334,7 @@ def test_coefficient_statistics_build(cuda, scene_paths, kind, any_hit):
     assert c["leaf_visits"] == stats["leaf_visits"] > 0
     for key in ("tri_tested", "tri_back", "tri_u", "tri_v"):
         assert c[key] == stats[key], key
-    assert c["instance_changes"] == stats.get("instance_changes", 0)
+    assert c["instance_changes"] == stats["instance_changes"]
     assert sum(c[f"share_{k}"] for k in range(1, 33)) == c["leaf_visits"]
     summary = kernels.summarize_stack_stats(counters)
     assert 0.0 < summary["simt_leaf"] <= 1.0

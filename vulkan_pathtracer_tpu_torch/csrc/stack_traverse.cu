@@ -86,8 +86,9 @@ using CoefAnyDesign = Design<false, true, true, 1, true, true, 6>;
 
 // C launchers: pointers, sizes and the stream in; cudaGetLastError()
 // out (0 = the launch was accepted).  coef != 0: `leaves` is the
-// (n_leaves, block, 20) zero-free coefficient table.  `batches`: one unsigned
-// counter for the persistent warps, zeroed by the launcher on `stream`.
+// (n_leaves, block, 20) zero-free coefficient table.  `batches`: one
+// unsigned counter for the persistent warps, zeroed by the launcher on
+// `stream`.
 extern "C" int vkpt_quad_closest_hit(const float* box, const int* link,
                                      const float* leaves, int block, int coef,
                                      const float* origin,

@@ -182,6 +182,16 @@ __device__ __forceinline__ float dotn(const float* c, const float* f) {
   return acc;
 }
 
+// Quad j (0..4) of a zero-free row `q` into c[4j .. 4j + 3].
+__device__ __forceinline__ void coef_quad(const float4* __restrict__ q, int j,
+                                          float* c) {
+  const float4 x = __ldg(q + j);
+  c[4 * j + 0] = x.x;
+  c[4 * j + 1] = x.y;
+  c[4 * j + 2] = x.z;
+  c[4 * j + 3] = x.w;
+}
+
 // Leaf block `row` of the coefficient table against features f.
 // Closest hit: the candidate with the smallest t inside (TMIN, lim),
 // lim = min(t_best, t_lane) at the visit's start, the first triangle on
@@ -189,8 +199,9 @@ __device__ __forceinline__ float dotn(const float* c, const float* f) {
 // construction (pallas_frontier.py:358).  Any hit: det-scaled, no
 // division (mxu_mt.py:318-322).  SIGNED scales all four sums by
 // det_sign.  AHEAD issues a triangle's five loads before its first test
-// (else each before the sum that reads it).  STATS (the statistics build): tri_st[0..3] count the triangles tested
-// and those that fail at det <= 0, at u' < 0 and at the v' window.
+// (else each before the sum that reads it).  STATS (the statistics
+// build): tri_st[0..3] count the triangles tested and those that fail at
+// det <= 0, at u' < 0 and at the v' window.
 template <bool ANY, bool SIGNED, bool EARLY, bool AHEAD, bool STATS = false>
 __device__ __forceinline__ void coef_block(const float* f,
                                            const float* __restrict__ coefs,
@@ -206,55 +217,32 @@ __device__ __forceinline__ void coef_block(const float* f,
   unsigned n_tri = 0, n_back = 0, n_u = 0, n_v = 0;
   for (int k = 0; k < block; ++k) {
     if (STATS) ++n_tri;
+    const float4* q = p + 5 * k;
     float c[20];
 #pragma unroll
-    for (int q = 0; q < 5; ++q) {
-      if (AHEAD || q == 0) {
-        const float4 x = __ldg(p + 5 * k + q);
-        c[4 * q + 0] = x.x;
-        c[4 * q + 1] = x.y;
-        c[4 * q + 2] = x.z;
-        c[4 * q + 3] = x.w;
-      }
-    }
+    for (int j = 0; j < 5; ++j)
+      if (AHEAD || j == 0) coef_quad(q, j, c);
     float det = dotn<3>(c, f);
     if (SIGNED) det = det * det_sign;
     const bool front = det > 0.0f;
     if (STATS && !front) ++n_back;
     if (EARLY && !front) continue;
     if (!AHEAD) {
-#pragma unroll
-      for (int q = 1; q < 3; ++q) {
-        const float4 x = __ldg(p + 5 * k + q);
-        c[4 * q + 0] = x.x;
-        c[4 * q + 1] = x.y;
-        c[4 * q + 2] = x.z;
-        c[4 * q + 3] = x.w;
-      }
+      coef_quad(q, 1, c);
+      coef_quad(q, 2, c);
     }
     float up = dotn<6>(c + 3, f);
     if (SIGNED) up = up * det_sign;
     const bool u_ok = up >= 0.0f;
     if (STATS && front && !u_ok) ++n_u;
     if (EARLY && !u_ok) continue;
-    if (!AHEAD) {
-      const float4 x = __ldg(p + 5 * k + 3);
-      c[12] = x.x;
-      c[13] = x.y;
-      c[14] = x.z;
-      c[15] = x.w;
-    }
+    if (!AHEAD) coef_quad(q, 3, c);
     float vp = dotn<6>(c + 9, f);
     if (SIGNED) vp = vp * det_sign;
     const bool v_ok = vp >= 0.0f && up + vp <= det;
     if (STATS && front && u_ok && !v_ok) ++n_v;
     if (EARLY && !v_ok) continue;
-    if (!AHEAD) {
-      const float4 x = __ldg(p + 5 * k + 4);
-      c[16] = x.x;
-      c[17] = x.y;
-      c[18] = x.z;
-    }
+    if (!AHEAD) coef_quad(q, 4, c);
     float tp = dotn<4>(c + 15, f + 6);
     if (SIGNED) tp = tp * det_sign;
     if (ANY) {

@@ -398,17 +398,17 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
     orders internal children by that comparator network instead of a
     stable sort; ``slot_order`` (an any hit) visits them in slot order
     and culls no popped node (the quad any-hit kernel).  ``leaves``
-    with mxu_mt.COLS columns is a coefficient table (the coefficient leaf test;
-    ``inst_feat`` on two-level scenes).  ``stats``, a dict, accumulates
-    node visits (row loads), leaf-block visits, the early exits of the
-    triangle test (exact leaves: _leaf_mt's; coefficient leaves:
-    mxu_mt._count_exits, with the triangles tested), on two-level
-    scenes the leaf visits whose instance differs from the ray's
-    previous leaf visit (``instance_changes``), and (``sortnet``) the
-    visited nodes with 0, 1, 2 or more hit internal children
+    with mxu_mt.COLS columns is a coefficient table (the coefficient
+    leaf test; ``inst_feat`` on two-level scenes).  ``stats``, a dict,
+    accumulates node visits (row loads), leaf-block visits, the early
+    exits of the triangle test (exact leaves: _leaf_mt's; coefficient
+    leaves: mxu_mt._count_exits, with the triangles tested), on
+    two-level scenes the leaf visits whose instance differs from the
+    ray's previous leaf visit (``instance_changes``), and (``sortnet``)
+    the visited nodes with 0, 1, 2 or more hit internal children
     (``inner_0`` .. ``inner_2``; the network has work only at the
-    last).  Returns (t, tri, u, v) for
-    closest hit or a bool tensor for any hit."""
+    last).  Returns (t, tri, u, v) for closest hit or a bool tensor for
+    any hit."""
     dev = origin.device
     n = origin.shape[0]
     width = box.shape[1]
@@ -432,11 +432,10 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
     big = torch.full((), BIG, dtype=torch.float32, device=dev)
     slots = torch.arange(width, dtype=torch.float32, device=dev)
     if stats is not None:
-        for key in ("node_visits", "leaf_visits", "tri_back", "tri_u",
-                    "tri_v") + (("tri_tested",) if coef else ()) + (
-                        ("instance_changes",) if inst_inv is not None
-                        else ()) + (("inner_0", "inner_1", "inner_2")
-                                    if sortnet is not None else ()):
+        for key in ("node_visits", "leaf_visits", "tri_tested",
+                    "tri_back", "tri_u", "tri_v", "instance_changes") + (
+                        ("inner_0", "inner_1", "inner_2")
+                        if sortnet is not None else ()):
             stats.setdefault(key, 0)
         # Two-level: each ray's last instance, for instance_changes.
         last_inst = torch.full((n,), -1, dtype=torch.int64, device=dev)
