@@ -212,7 +212,7 @@ EARLY_EXIT = ("quad_closest_hit", "oct_closest_hit", "pair_closest_hit",
               "skip_closest_hit", "wide_closest_hit", "frontier_closest_hit")
 COEF_EXIT_OPS = (6, 18, 32)   # at det, u', the v' window
 COEF_FULL_OPS = {False: 44, True: 43}   # by any hit
-COEF_NONZERO, FEAT_NONZERO, FEAT_OPS, FEAT_XFORM_OPS = 19, 40, 9, 70
+COEF_NONZERO, FEAT_OPS, FEAT_XFORM_OPS = 19, 9, 70
 
 
 def fail(msg: str) -> None:
@@ -288,6 +288,7 @@ def main() -> int:
         build_instanced_scene,
     )
     from vulkan_pathtracer_tpu_torch.ops import frontier as fr
+    from vulkan_pathtracer_tpu_torch.ops import mxu_mt
     from vulkan_pathtracer_tpu_torch.ops import skip_traverse as sk
     from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
     from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T
@@ -458,17 +459,18 @@ def main() -> int:
         return cam
 
     def bound(tables, n_rays, out_bytes, stats, visit_ops, block, instanced,
-              coef=False, early=False, net_ops=0, any_hit=False):
+              coefs=None, early=False, net_ops=0, any_hit=False):
         """(bound_ms, bound_by) of one traversal launch; ``early``: the
         kernel's triangle test stops at its first failed condition;
         ``net_ops``: the comparators of a node's sorting network, at the
-        nodes where it has work; ``coef``: coefficient leaves, counted
-        to the exits of the plain version's counters."""
+        nodes where it has work; ``coefs``: the coefficient table of
+        coefficient leaves (one of ``tables``), counted to the exits of
+        the plain version's counters."""
         ops = (n_rays * RAY_OPS + stats["node_visits"] * visit_ops
                + stats.get("inner_2", 0) * net_ops)
         nbytes = (sum(t.numel() * t.element_size() for t in tables)
                   + n_rays * (12 + 12 + 4 + out_bytes))
-        if coef:
+        if coefs is not None:
             exits = [stats[k] for k in ("tri_back", "tri_u", "tri_v")]
             full = stats["tri_tested"] - sum(exits)
             ops += n_rays * FEAT_OPS + full * (
@@ -477,14 +479,10 @@ def main() -> int:
                     for k, (x, e) in enumerate(zip(exits, COEF_EXIT_OPS)))
             if instanced:
                 ops += stats["instance_changes"] * FEAT_XFORM_OPS
-            # The essential bytes of the coefficient table (and A).
-            leaves = tables[2]
-            nbytes += 4 * leaves.shape[0] * leaves.shape[1] * COEF_NONZERO - (
-                leaves.numel() * leaves.element_size())
-            if instanced:
-                feat = tables[4]
-                nbytes += 4 * feat.shape[0] * FEAT_NONZERO - (
-                    feat.numel() * feat.element_size())
+            # The essential bytes of the coefficient table: COEF_NONZERO
+            # of each row's mxu_mt.COLS floats (A's are all essential).
+            nbytes -= coefs.numel() * coefs.element_size() * (
+                mxu_mt.COLS - COEF_NONZERO) // mxu_mt.COLS
         else:
             ops += stats["leaf_visits"] * block * (MT_OPS + instanced)
             if early:
@@ -533,7 +531,8 @@ def main() -> int:
             kind = "frontier32"
         b_ms, b_by = bound(tables, n_rays, out_bytes, stats, VISIT_OPS[kind],
                            scene.max_leaf_size, int(scene.instanced),
-                           coef=key.endswith("_coef"),
+                           coefs=(scene.tri_coefs if key.endswith("_coef")
+                                  else None),
                            early=key in EARLY_EXIT,
                            net_ops=NET_OPS.get(kind, 0),
                            any_hit="any_hit" in key)

@@ -31,8 +31,8 @@ constexpr unsigned kFull = 0xffffffffu;
 //   REFILL    a lane whose ray is done takes the next one from the
 //             counter at once;
 //   EARLY     the triangle test returns at its first failed condition
-//             (exact leaves: traverse.cuh mt; coefficient leaves:
-//             coef_block);
+//             (exact leaves: traverse.cuh mt; the coefficient test,
+//             coef_block, always does, and its designs set EARLY);
 //   AHEAD     coefficient leaves: a triangle's five row loads issued
 //             before its first test (else each before the sum it feeds);
 //   QUEUE     any hit with POSTPONE: a lane queues the leaf children of
@@ -105,6 +105,9 @@ __device__ __forceinline__ void count_active(unsigned long long* st,
 // is kept while the instance stays, reset with every ray.
 template <bool ANY, bool COEF, bool INST, class D, bool STATS>
 struct LeafTest {
+  static_assert(!COEF || D::kEarly,
+                "the coefficient test always exits early (coef_block)");
+  static_assert(COEF || !D::kAhead, "AHEAD is a coefficient-leaf option");
   const float* __restrict__ leaves;
   const float* __restrict__ inst_inv;   // INST: (I, 16)
   const float* __restrict__ inst_feat;  // INST and COEF: (I, 40)
@@ -130,7 +133,7 @@ struct LeafTest {
       if (COEF) {
         float f[10];
         ray_features(r, f);
-        coef_block<ANY, false, D::kEarly, D::kAhead, STATS>(
+        coef_block<ANY, false, D::kAhead, STATS>(
             f, leaves, leaf, leaf, block, 1.0f, r.tl, b, st + kStTri);
       } else {
         visit_leaf<ANY, false, D::kEarly>(r, leaves, block, nullptr, 0, leaf,
@@ -152,7 +155,7 @@ struct LeafTest {
     }
     const int row = leaf & ((1 << mb_bits) - 1);
     if (COEF)
-      coef_block<ANY, true, D::kEarly, D::kAhead, STATS>(
+      coef_block<ANY, true, D::kAhead, STATS>(
           fo, leaves, row, leaf, block, sign, r.tl, b, st + kStTri);
     else
       leaf_block<ANY, true, D::kEarly>(o, leaves, row, leaf, block, sign, b);

@@ -153,12 +153,12 @@ __device__ __forceinline__ void leaf_block(const Ray& r,
 // t' on o and 1 (4), then a zero — 80 B, five float4.  The sums run in
 // f32 on CUDA cores in one order (feature by feature, each product
 // rounded; -fmad=false), as the plain versions in ops/mxu_mt.py do.
-// EARLY: the test stops at the first failed condition — det <= 0 (det
-// scaled by det_sign on two-level scenes), then u' < 0, then the v'
-// window (v' < 0 or u' + v' > det) — reading only the front of the row,
-// and computes t' and divides only for a survivor; the outcome is the
-// conjunction of the full test, so t, tri and the hit masks are the
-// same.
+// The test stops at the first failed condition — det <= 0 (det scaled
+// by det_sign on two-level scenes), then u' < 0, then the v' window
+// (v' < 0 or u' + v' > det) — reading only the front of the row, and
+// computes t' and divides only for a survivor; the outcome is the
+// conjunction of the full test, so t, tri and the hit masks are those
+// of the plain versions, which compute every sum.
 
 __device__ __forceinline__ void ray_features(const Ray& r, float* f) {
   f[0] = r.dx;
@@ -202,7 +202,7 @@ __device__ __forceinline__ void coef_quad(const float4* __restrict__ q, int j,
 // (else each before the sum that reads it).  STATS (the statistics
 // build): tri_st[0..3] count the triangles tested and those that fail at
 // det <= 0, at u' < 0 and at the v' window.
-template <bool ANY, bool SIGNED, bool EARLY, bool AHEAD, bool STATS = false>
+template <bool ANY, bool SIGNED, bool AHEAD, bool STATS = false>
 __device__ __forceinline__ void coef_block(const float* f,
                                            const float* __restrict__ coefs,
                                            int row, int leaf, int block,
@@ -224,36 +224,39 @@ __device__ __forceinline__ void coef_block(const float* f,
       if (AHEAD || j == 0) coef_quad(q, j, c);
     float det = dotn<3>(c, f);
     if (SIGNED) det = det * det_sign;
-    const bool front = det > 0.0f;
-    if (STATS && !front) ++n_back;
-    if (EARLY && !front) continue;
+    if (!(det > 0.0f)) {
+      if (STATS) ++n_back;
+      continue;
+    }
     if (!AHEAD) {
       coef_quad(q, 1, c);
       coef_quad(q, 2, c);
     }
     float up = dotn<6>(c + 3, f);
     if (SIGNED) up = up * det_sign;
-    const bool u_ok = up >= 0.0f;
-    if (STATS && front && !u_ok) ++n_u;
-    if (EARLY && !u_ok) continue;
+    if (!(up >= 0.0f)) {
+      if (STATS) ++n_u;
+      continue;
+    }
     if (!AHEAD) coef_quad(q, 3, c);
     float vp = dotn<6>(c + 9, f);
     if (SIGNED) vp = vp * det_sign;
-    const bool v_ok = vp >= 0.0f && up + vp <= det;
-    if (STATS && front && u_ok && !v_ok) ++n_v;
-    if (EARLY && !v_ok) continue;
+    if (!(vp >= 0.0f && up + vp <= det)) {
+      if (STATS) ++n_v;
+      continue;
+    }
     if (!AHEAD) coef_quad(q, 4, c);
     float tp = dotn<4>(c + 15, f + 6);
     if (SIGNED) tp = tp * det_sign;
     if (ANY) {
-      if (front && u_ok && v_ok && tp > kTmin * det && tp < tl * det) {
+      if (tp > kTmin * det && tp < tl * det) {
         b.any = true;
         break;
       }
     } else {
-      const float inv = 1.0f / (front ? det : 1.0f);
+      const float inv = 1.0f / det;
       const float t = tp * inv;
-      if (front && u_ok && v_ok && t > kTmin && t < lim && t < ct) {
+      if (t > kTmin && t < lim && t < ct) {
         ct = t;
         ck = k;
         cu = up * inv;

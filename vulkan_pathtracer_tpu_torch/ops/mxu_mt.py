@@ -162,7 +162,7 @@ def instance_feature_maps(inst_inv: torch.Tensor) -> torch.Tensor:
                                  device=x.device)], dim=1)
 
 
-# -- plain versions of the leaf visit (csrc/traverse.cuh coef_leaf) -----------
+# -- plain versions of the leaf test (csrc/traverse.cuh coef_block) ----------
 
 def ray_features(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """(M, 10) [d, m, o, 1] with m = o x d (mxu_mt.packet_features)."""

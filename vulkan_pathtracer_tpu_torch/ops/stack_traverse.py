@@ -377,8 +377,8 @@ def _sort_children(keys, lk, sortnet):
 def _coef_rays(inst_inv, inst_feat, mb_bits: int, leaf, o, d):
     """(block row, features (M, 10), det_sign (M,) or None) of a
     coefficient leaf visit: the world features, or on a two-level scene
-    the instance's feature transform of them (csrc/traverse.cuh
-    coef_leaf)."""
+    the instance's feature transform of them (csrc/stack_walk.cuh
+    LeafTest::visit, with traverse.cuh object_features)."""
     feats = mxu_mt.ray_features(o, d)
     if inst_inv is None:
         return leaf, feats, None
