@@ -28,7 +28,24 @@ before the result line):
    the 4 frames and read just after (quad 4 each, pair 0); then a
    320x180 frame through the kernels and through the plain versions,
    compared;
-5. instanced kernels — the pair kernels against their plain versions,
+5. convergence path — the joint progressive batch
+   (``RenderPipeline.render_batch_sum``) on the same atrium at bench.py's
+   camera at t=0: 320x180 batches of 4 frames at 2 and 3 bounces through
+   the kernels and through the plain versions (image difference 0.0),
+   run twice (bitwise equal), against the 4 single frames (rays = their
+   sum - 3 x N exactly, radiance allclose 1e-5), their launches (quad
+   closest hit once per bounce but the last, quad any hit once); the
+   1080p batch of 32 frames against the per-frame path's 32 frames (rays
+   exactly, mean allclose 1e-5, and that path's seconds), then the time
+   to 1024 spp in 32 batches: spp/s, physical and equivalent Mrays/s,
+   peak allocated memory, the launch counters zeroed just before and
+   read just after (per batch: quad closest hit 1, quad any hit one per
+   ``wavefront.JOINT_CHUNK`` live lanes); both quad kernels timed again
+   at this path's shapes (the shared primary; one batch's any-hit
+   launches on the sorted live prefix) with their bounds, under
+   ``*_convergence`` keys; one ``python -m vulkan_pathtracer_tpu_torch
+   --progressive --batch-frames 4 --checkpoint`` run and its resume;
+6. instanced kernels — the pair kernels against their plain versions,
    bitwise: the columns scene as 197 instances of 33 meshes (leaf 14)
    with a frame's primary and bounce rays, the instanced atrium (32
    instances, leaf 14) with 65,536 primary and 65,536 live bounce rays;
@@ -39,11 +56,11 @@ before the result line):
    (as for the quad kernels, plus leaf visits and the share of them
    that change the lane's instance), its outputs bitwise the plain
    versions';
-6. instanced main path — the atrium through ``load_pipeline(...,
+7. instanced main path — the atrium through ``load_pipeline(...,
    instanced=True)`` (``--instanced``): 1 warm-up + 4 timed frames, the
    counters read around them (pair 4 each, quad 0); a 320x180
    instanced frame through the kernels and the plain versions;
-7. skip and wide kernels — each against its plain version on the card,
+8. skip and wide kernels — each against its plain version on the card,
    t, tri, u, v bitwise: the columns scene flat (leaf 28, both kernels)
    and instanced (leaf 14, the skip kernel) with a frame's primary and
    bounce rays; the atrium flat (``load_pipeline`` with ``--traversal
@@ -55,7 +72,7 @@ before the result line):
    ``pallas8`` frame, each held bitwise (t, tri, u, v) to its plain
    version on each launch at full size, with its statistics build (as
    for the pair kernels, no stack);
-8. ``--traversal`` main paths — flat ``pallas_packet``, flat
+9. ``--traversal`` main paths — flat ``pallas_packet``, flat
    ``pallas8`` and instanced ``pallas_packet`` at 1080p: 1 warm-up + 4
    timed frames each, the counters read around them (the path's kernel
    8 = bounce 0 and bounce 1 per frame, every other kernel 0); the rays
@@ -67,7 +84,7 @@ before the result line):
    0.0; a 320x180 ``--traversal bvh`` frame (the per-ray walk in plain
    PyTorch) against the skip kernel's: allclose 1e-5 but on the pixels
    whose paths met a differing hit;
-9. tier kernels — the oct kernel, both frontier kernels (width 16; 32
+10. tier kernels — the oct kernel, both frontier kernels (width 16; 32
    on the columns) and every kernel built with coefficient leaves
    (quad, pair flat and two-level, frontier) against their plain
    versions, t, tri, u, v and the any-hit bit bitwise: the columns
@@ -86,7 +103,7 @@ before the result line):
    leaf visit, the shares of them rejected at det <= 0, at u' < 0 and
    at the v' window, and the shares of leaf visits whose table row 1,
    2, 3-4, ... 17-32 of the warp's lanes test together);
-10. tier main paths — 1080p, 1 warm-up + 4 timed frames each, the
+11. tier main paths — 1080p, 1 warm-up + 4 timed frames each, the
    counters read around the 4 frames: (a) flat ``oct`` at leaf 28 (oct
    4, quad any hit 4), (b) flat frontier with coefficient leaves at
    leaf 28 (frontier 4 + 4, coefficient kernels), (c) flat frontier with
@@ -169,6 +186,9 @@ N_SUB = 65536            # atrium rays per kernel-vs-plain check
 COLS_W, COLS_H = 640, 360
 COLS_INSTANCES = 197     # columns 14x24: 196 columns + the floor
 SMALL_W, SMALL_H = 320, 180
+# The convergence path: frames per 1080p batch, the target, and the
+# frames of the small joint batches held to the plain versions.
+CONV_B, CONV_SPP, CONV_SMALL_B = 32, 1024, 4
 # Bounds: H100 SXM f32 peak outside the tensor cores and HBM rate
 # (NVIDIA data sheet).  Operations per step, read off csrc/: a slab test
 # is 12 mul/sub + 12 min/max + 1 compare (traverse.cuh slab()); a quad
@@ -231,6 +251,7 @@ def phase(tag: str, **fields) -> None:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -623,6 +644,21 @@ def main() -> int:
             return plain(*args_of(scene_, o_, d_, active, coef))
         return run
 
+    def on_plain_versions(fn):
+        """fn() with every kernel wrapper replaced by its plain version
+        on the card (nothing launched, nothing counted)."""
+        kernel_fns = {(mod, n): getattr(mod, n) for mod, names in WRAPPERS
+                      for n in names}
+        for (mod, n) in kernel_fns:
+            setattr(mod, n, plain_wrapper(mod, n))
+        try:
+            out = fn()
+            sync()
+        finally:
+            for (mod, n), fn_ in kernel_fns.items():
+                setattr(mod, n, fn_)
+        return out
+
     def small_frame(scene, label, traversal="auto", exact=False, bounces=2,
                     **tiers):
         """A 320x180 frame through the kernels and through the plain
@@ -638,16 +674,7 @@ def main() -> int:
         sync()
         launched = {k: v - before[k] for k, v in st.LAUNCHES.items()
                     if v != before[k]}
-        kernel_fns = {(mod, n): getattr(mod, n) for mod, names in WRAPPERS
-                      for n in names}
-        for (mod, n) in kernel_fns:
-            setattr(mod, n, plain_wrapper(mod, n))
-        try:
-            img_p, rays_p = small.render(cam, 7)
-            sync()
-        finally:
-            for (mod, n), fn in kernel_fns.items():
-                setattr(mod, n, fn)
+        img_p, rays_p = on_plain_versions(lambda: small.render(cam, 7))
         check(int(rays_k) == int(rays_p),
               f"{label} small frame: rays {int(rays_k)} (kernels) vs "
               f"{int(rays_p)} (plain)")
@@ -783,7 +810,7 @@ def main() -> int:
     for key, args in (("quad_closest_hit", targs), ("quad_any_hit", aargs)):
         stack_stats(key, lambda: kernels.quad_stats(
             key == "quad_any_hit", *args), plain_outputs.pop(key))
-    del o, d, o1, d1, a1, targs, aargs
+    del o1, d1, a1, targs, aargs
     phase("phase", name="atrium flat kernels",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
@@ -796,12 +823,190 @@ def main() -> int:
     flat_launches, flat_rays = main_path(pipe, "headline", only(
         quad_closest_hit=4, quad_any_hit=4))
     small_frame(scene, "flat")
-    del pipe, scene
-    torch.cuda.empty_cache()
     phase("phase", name="flat main path",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 5. instanced kernels vs plain versions ------------------------------
+    # -- 5. convergence path -------------------------------------------------
+    # The joint progressive batch on the flat atrium at bench.py's camera
+    # at t=0: small batches through the kernels and the plain versions,
+    # twice, and against single frames; then the 1080p run to 1024 spp.
+    t0 = time.perf_counter()
+    n_small = SMALL_W * SMALL_H
+    for bounces in (2, 3):
+        spipe = pl.RenderPipeline(scene, RenderConfig(
+            num_samples=1, num_bounces=bounces, resolution_x=SMALL_W,
+            resolution_y=SMALL_H))
+        before = dict(st.LAUNCHES)
+        img_k, rays_k = spipe.render_batch_sum(cam0, 8, CONV_SMALL_B)
+        sync()
+        launched = {k: v - before[k] for k, v in st.LAUNCHES.items()
+                    if v != before[k]}
+        img_k2, rays_k2 = spipe.render_batch_sum(cam0, 8, CONV_SMALL_B)
+        img_p, rays_p = on_plain_versions(
+            lambda: spipe.render_batch_sum(cam0, 8, CONV_SMALL_B))
+        singles = [spipe.render(cam0, 8 + k) for k in range(CONV_SMALL_B)]
+        single_rays = sum(int(r) for _, r in singles)
+        label = f"joint {SMALL_W}x{SMALL_H} B={CONV_SMALL_B} b={bounces}"
+        check(int(rays_k) == int(rays_k2) == int(rays_p),
+              f"{label}: rays {int(rays_k)}, {int(rays_k2)} (kernels), "
+              f"{int(rays_p)} (plain)")
+        diff = (img_k - img_p).abs().max().item()
+        check(diff == 0.0, f"{label}: kernels vs plain differ by {diff}")
+        check(torch.equal(img_k, img_k2), f"{label}: two runs differ")
+        check(int(rays_k) == single_rays - (CONV_SMALL_B - 1) * n_small,
+              f"{label}: rays {int(rays_k)}, single frames {single_rays}")
+        want = sum(img for img, _ in singles)
+        check(torch.allclose(img_k, want, rtol=1e-5, atol=1e-5),
+              f"{label}: differs from the single frames' sum by "
+              f"{(img_k - want).abs().max().item()}")
+        check(launched.get("quad_closest_hit") == bounces - 1
+              and launched.get("quad_any_hit") == 1 and len(launched) == 2,
+              f"{label}: launches {launched}")
+        phase("convergence", check=label, rays=int(rays_k),
+              single_frames_rays=single_rays, max_abs_diff_plain=diff,
+              bitwise_stable=True,
+              max_abs_diff_singles=(img_k - want).abs().max().item(),
+              launches=launched)
+    del spipe, singles, img_k, img_k2, img_p, want
+
+    # 1080p, 32 frames per batch: one warm-up batch (frames 0-31, held to
+    # the 32 single frames of the per-frame path), then the time to 1024
+    # spp, the counters zeroed just before and read just after.
+    cpipe = pl.RenderPipeline(scene, RenderConfig(
+        num_samples=1, num_bounces=2, resolution_x=WIDTH,
+        resolution_y=HEIGHT))
+    warm, warm_rays = cpipe.render_batch_sum(cam0, 0, CONV_B)
+    sync()
+    t1 = time.perf_counter()
+    single_sum = torch.zeros_like(warm)
+    single_rays = []
+    for f in range(CONV_B):
+        img, r = cpipe.render(cam0, f)
+        single_sum += img
+        single_rays.append(r)
+    sync()
+    single_s = time.perf_counter() - t1
+    single_total = sum(int(r) for r in single_rays)
+    check(int(warm_rays) == single_total - (CONV_B - 1) * n_pix,
+          f"1080p joint batch: rays {int(warm_rays)}, single frames "
+          f"{single_total}")
+    check(torch.allclose(warm / CONV_B, single_sum / CONV_B, rtol=1e-5,
+                         atol=1e-5), "1080p joint batch differs from the "
+          "single frames' mean by "
+          f"{((warm - single_sum) / CONV_B).abs().max().item()}")
+    del warm, single_sum
+    torch.cuda.reset_peak_memory_stats(dev)
+    for key in st.LAUNCHES:
+        st.LAUNCHES[key] = 0
+    t1 = time.perf_counter()
+    acc, spp, batch_rays = None, 0, []
+    while spp < CONV_SPP:
+        b = min(CONV_B, CONV_SPP - spp)
+        sum_img, r = cpipe.render_batch_sum(cam0, spp, b)
+        acc = sum_img if acc is None else acc + sum_img
+        batch_rays.append(r)
+        spp += b
+    float(acc.sum())   # waits for the last batch
+    conv_s = time.perf_counter() - t1
+    conv_launches = dict(st.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    batch_rays = [int(r) for r in batch_rays]
+    n_batches = len(batch_rays)
+    any_launches = [-(-(r - n_pix) // wf.JOINT_CHUNK) for r in batch_rays]
+    check(conv_launches == only(quad_closest_hit=n_batches,
+                                quad_any_hit=sum(any_launches)),
+          f"1080p convergence: launches {conv_launches}, expected quad "
+          f"closest hit {n_batches}, any hit {sum(any_launches)}")
+    mean = acc / CONV_SPP
+    check(bool(torch.isfinite(mean).all())
+          and tuple(mean.shape) == (HEIGHT, WIDTH, 3),
+          "1080p convergence: non-finite or misshapen image")
+    spp_s = CONV_SPP / conv_s
+    phase("convergence", path=f"{WIDTH}x{HEIGHT} B={CONV_B} to {CONV_SPP} "
+          "spp", seconds_to_target=f"{conv_s:.3f}", spp_per_s=f"{spp_s:.3f}",
+          physical_mrays_per_s=f"{sum(batch_rays) / conv_s / 1e6:.3f}",
+          equivalent_mrays_per_s=f"{spp_s * n_pix * 2 / 1e6:.3f}",
+          peak_allocated_gb=f"{peak_gb:.3f}", batches=n_batches,
+          rays=sum(batch_rays), launches=conv_launches,
+          launches_per_batch={"quad_closest_hit": 1,
+                              "quad_any_hit": sorted(set(any_launches))},
+          chunk=wf.JOINT_CHUNK, mean=f"{mean.mean().item():.5f}",
+          per_frame_path_frames=CONV_B,
+          per_frame_path_seconds=f"{single_s:.3f}",
+          per_frame_path_spp_per_s=f"{CONV_B / single_s:.3f}",
+          card=repr(card))
+    write_png(os.path.join(WORK, "convergence.png"), mean.cpu().numpy())
+    del acc, mean
+
+    # Rows 1-2 at this path's shapes: the shared primary (the launch
+    # timed in phase 3, again) and one batch's any-hit launches on the
+    # sorted live prefix, captured from a batch outside the counted run.
+    captured = []
+    real_any_hit = wf._any_hit
+
+    def capture(scene_, o_, d_, active, tiers="auto"):
+        captured.append((o_.clone(), d_.clone(), active.clone()))
+        return real_any_hit(scene_, o_, d_, active, tiers)
+
+    wf._any_hit = capture
+    try:
+        cpipe.render_batch_sum(cam0, 0, CONV_B)
+        sync()
+    finally:
+        wf._any_hit = real_any_hit
+    tables = (scene.quad_box, scene.quad_link, scene.leaves)
+    targs = quad_args(scene, o, d, None)
+    time_kernel("quad_closest_hit", lambda: kernels.quad_closest_hit(*targs),
+                lambda s=None: st.quad_closest_hit_plain(*targs, stats=s),
+                tables, n_prim, 16, scene, closest_err, tag="_convergence")
+    chunks = [quad_args(scene, *c) for c in captured]
+    n_any = sum(c[3].shape[0] for c in chunks)
+    time_kernel("quad_any_hit",
+                lambda: [kernels.quad_any_hit(*c) for c in chunks],
+                lambda s=None: [st.quad_any_hit_plain(*c, stats=s)
+                                for c in chunks],
+                tables, n_any, 1, scene,
+                lambda k, p: any_err(torch.cat(k), torch.cat(p)),
+                tag="_convergence")
+    phase("timing", kernel="quad_any_hit_convergence", launches=len(chunks),
+          rays=n_any, live=int(sum(int(c[2].sum()) for c in captured)))
+    for key in ("quad_closest_hit", "quad_any_hit"):
+        plain_outputs.pop(key + "_convergence")
+        results[key]["launches_convergence"] = conv_launches[key]
+        results[key]["launches_convergence_batches"] = n_batches
+    del captured, chunks, targs, cpipe, o, d
+
+    # The CLI: a progressive run in batches of 4 with a checkpoint, then
+    # its resume.
+    ckpt = os.path.join(WORK, "cli_progressive.npz")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    out_png = os.path.join(WORK, "cli_progressive.png")
+    for frames, want in ((8, None), (12, "resumed checkpoint at frame 8 "
+                                        "(8 spp)")):
+        proc = subprocess.run(
+            [sys.executable, "-m", "vulkan_pathtracer_tpu_torch", "-s",
+             cols_path, "-x", str(SMALL_W), "-y", str(SMALL_H), "-o",
+             out_png, "--progressive", "--batch-frames", "4", "--frames",
+             str(frames), "--checkpoint", ckpt, "--checkpoint-interval",
+             "4"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0 and (want is None or want in proc.stderr)
+              and f"({frames} spp)" in proc.stderr,
+              f"progressive CLI to {frames} frames: rc {proc.returncode}\n"
+              f"{proc.stderr}")
+    meta = json.loads(str(np.load(ckpt)["meta"]))
+    check(meta["frame"] == 12 and meta["spp"] == 12,
+          f"checkpoint after the resume: {meta}")
+    phase("convergence", check="CLI --progressive --batch-frames 4 "
+          "--checkpoint, resumed", rc=proc.returncode, checkpoint=meta,
+          timing=repr([ln for ln in proc.stderr.splitlines()
+                       if "frame(s) on" in ln][-1]))
+    torch.cuda.empty_cache()
+    del pipe, scene
+    phase("phase", name="convergence path",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # -- 6. instanced kernels vs plain versions ------------------------------
     # Columns as 197 instances of 33 meshes at leaf 14.
     t0 = time.perf_counter()
     icols = build_instanced_scene(cols_host, max_leaf_size=14, device=dev)
@@ -861,7 +1066,7 @@ def main() -> int:
     phase("phase", name="instanced kernels",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 6. instanced main path ----------------------------------------------
+    # -- 7. instanced main path ----------------------------------------------
     t0 = time.perf_counter()
     _, rays = ipipe.render(cam0, 0, present_order=False)
     check(int(rays) == n_pix + ilive1,
@@ -873,7 +1078,7 @@ def main() -> int:
     phase("phase", name="instanced main path",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 7. skip and wide kernels vs plain versions --------------------------
+    # -- 8. skip and wide kernels vs plain versions --------------------------
     # Columns flat at leaf 28 (both kernels) and instanced at leaf 14
     # (the skip kernel): all rays of a COLS_W x COLS_H frame.
     t0 = time.perf_counter()
@@ -923,7 +1128,7 @@ def main() -> int:
                   (o1, d1, a1))
     del o, d, o1, d1, a1
 
-    # The instanced atrium (phase 5's bake): the skip kernel with the
+    # The instanced atrium (phase 6's bake): the skip kernel with the
     # instanced leaf decode.
     o, d, o1, d1, a1, _ = bounce_rays(iscene, cam0, 0, WIDTH, HEIGHT,
                                       "pallas_packet")
@@ -937,7 +1142,7 @@ def main() -> int:
     phase("phase", name="skip and wide kernels",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 8. --traversal main paths --------------------------------------------
+    # -- 9. --traversal main paths --------------------------------------------
     # Each 1080p path launches its one kernel twice a frame (bounce 0,
     # and bounce 1 as a sorted closest hit) and traces the headline's
     # rays.
@@ -986,7 +1191,7 @@ def main() -> int:
     phase("phase", name="traversal main paths",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 9. tier kernels vs plain versions ----------------------------------
+    # -- 10. tier kernels vs plain versions ----------------------------------
     # Each chosen kernel against its plain version, bitwise; with exact
     # leaves the any-hit bit equals the closest-hit mask (coefficient
     # leaves compare det-scaled in the any hit: the agreement is
@@ -1181,7 +1386,7 @@ def main() -> int:
     phase("phase", name="tier kernels",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 10. tier main paths -------------------------------------------------
+    # -- 11. tier main paths -------------------------------------------------
     t0 = time.perf_counter()
 
     def coef_differences(scene, tier):
@@ -1276,11 +1481,12 @@ def main() -> int:
           and os.path.exists(out_png),
           f"CLI with VKPT_* variables: rc {proc.returncode}\n{proc.stderr}")
     phase("main", check="CLI with VKPT_* tier variables", rc=proc.returncode,
-          tiers=repr(want), timing=repr(proc.stderr.strip().splitlines()[-1]))
+          tiers=repr(want), timing=repr([ln for ln in proc.stderr.splitlines()
+                                         if "frame(s) on" in ln][-1]))
     phase("phase", name="tier main paths",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 11. result ------------------------------------------------------------
+    # -- 12. result ------------------------------------------------------------
     launches = {**{k: flat_launches[k] for k in ("quad_closest_hit",
                                                   "quad_any_hit")},
                 **{k: inst_launches[k] for k in ("pair_closest_hit",

@@ -24,13 +24,18 @@ exit counts); so are the pair kernels' (flat and two-level, exact and
 coefficient leaves), the skip kernel's (flat and two-level), the wide
 kernel's and both frontier kernels' (widths 16 and 32, exact and
 coefficient leaves), and walk kernels launched on two side streams at
-once, each with its own batch counter.
+once, each with its own batch counter.  The joint progressive batch
+(``render_frames_joint``, in small shading chunks) through the kernels
+equals it through the plain versions on the card bitwise, and two runs
+are bitwise equal; the quad kernels index rays in 64 bits (a launch
+whose float offsets pass 2^31).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from vulkan_pathtracer_tpu_torch.app.camera_path import orbit_path
 from vulkan_pathtracer_tpu_torch.models import gltf
 from vulkan_pathtracer_tpu_torch.models.camera import Camera
 from vulkan_pathtracer_tpu_torch.models.device_scene import build_device_scene
@@ -42,6 +47,7 @@ from vulkan_pathtracer_tpu_torch.ops import kernels
 from vulkan_pathtracer_tpu_torch.ops import skip_traverse as sk
 from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T
+from vulkan_pathtracer_tpu_torch.render import pipeline as pl
 from vulkan_pathtracer_tpu_torch.render.pipeline import RenderPipeline
 from vulkan_pathtracer_tpu_torch.utils import RenderConfig
 
@@ -658,3 +664,122 @@ def _render_both(cuda, scene_paths, bounces, traversal, **tiers):
         rays.append(traced)
     assert rays[0] == rays[1]
     np.testing.assert_allclose(images[0], images[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def atrium_path(tmp_path_factory):
+    from assets.procedural import make_atrium
+
+    path = str(tmp_path_factory.mktemp("cuda_atrium") / "atrium.glb")
+    make_atrium(path, detail=0.1)
+    return path
+
+
+JOINT_CASES = ("cornell_rr", "atrium_sorted", "atrium_instanced")
+
+
+def _joint_batch(cuda, scene_paths, atrium_path, case):
+    """A joint batch of 3 frames of ``case`` on the card in shading
+    chunks of 3,000 lanes, and the launches it should make; returns
+    run() -> (sum image, rays, launches made) and the expected launches
+    as a function of the rays."""
+    if case == "cornell_rr":
+        scene = build_device_scene(gltf.load(scene_paths["cornell"]),
+                                   max_leaf_size=14, device=cuda)
+        cam = Camera(aspect_ratio=96 / 72,
+                     position=np.asarray([0.0, 1.0, 0.9], np.float32))
+        cam.set_orientation(yaw=180.0, pitch=0.0)
+    else:
+        host = gltf.load(atrium_path)
+        scene = (build_instanced_scene(host, max_leaf_size=14, device=cuda)
+                 if case == "atrium_instanced" else
+                 build_device_scene(host, max_leaf_size=28, device=cuda))
+        assert scene.emissive_free
+        cam = Camera(aspect_ratio=96 / 72)
+        orbit_path(radius=4.5, height=2.2, duration=4.0,
+                   center=(0.0, 1.2, 0.0)).apply(cam, 0.0)
+    pos, hor, ver, fwd = pl.camera_tensors(cam, cuda)
+    n, chunk = 96 * 72, 3000
+
+    def run():
+        before = dict(st.LAUNCHES)
+        image, rays = pl.render_frames_joint(
+            scene, pos, hor, ver, fwd, 2, batch=3,
+            num_bounces=3 if case == "cornell_rr" else 2, width=96,
+            height=72, sort_secondary=case != "cornell_rr",
+            russian_roulette=case == "cornell_rr", chunk=chunk)
+        return image, int(rays), {k: v - before[k]
+                                  for k, v in st.LAUNCHES.items()
+                                  if v != before[k]}
+
+    def expect(rays):
+        if case == "cornell_rr":    # unsorted: every lane, two bounces
+            return {"pair_closest_hit": 1,
+                    "quad_closest_hit": 2 * -(-3 * n // chunk)}
+        kind = "pair" if case == "atrium_instanced" else "quad"
+        return {f"{kind}_closest_hit": 1,
+                f"{kind}_any_hit": -(-(rays - n) // chunk)}
+    return run, expect
+
+
+@pytest.mark.parametrize("case", JOINT_CASES)
+def test_joint_batch_kernels_match_plain(cuda, scene_paths, atrium_path,
+                                         case, monkeypatch):
+    """The joint batch through the kernels (launched as its chunks say)
+    against the same batch through the plain versions on the card:
+    image and rays equal."""
+    run, expect = _joint_batch(cuda, scene_paths, atrium_path, case)
+    image_k, rays_k, launches = run()
+    assert launches == expect(rays_k)
+
+    def plain_dispatch(name, origin, plain, launch):
+        return plain()
+
+    for mod in (st, sk, fr):
+        monkeypatch.setattr(mod, "_dispatch", plain_dispatch)
+    image_p, rays_p, plain_launches = run()
+    assert plain_launches == {}
+    assert rays_k == rays_p > 96 * 72
+    assert bool(torch.isfinite(image_k).all()) and image_k.mean() > 0
+    assert torch.equal(image_k, image_p)
+
+
+@pytest.mark.parametrize("case", JOINT_CASES)
+def test_joint_batch_deterministic(cuda, scene_paths, atrium_path, case):
+    """Two runs of the joint batch are bitwise equal (each lane's color
+    goes back by its lane id, no atomics)."""
+    run, _ = _joint_batch(cuda, scene_paths, atrium_path, case)
+    first, rays, _ = run()
+    second, rays2, _ = run()
+    assert rays == rays2 and torch.equal(first, second)
+
+
+def test_quad_launch_past_int32_offsets(cuda, scene_paths):
+    """The quad kernels index rays in 64 bits: a launch of 2^31 / 3 +
+    4,096 rays, where ``3 * ray`` passes 2^31, whose last 4,096 rays are
+    live (the others inactive) gives on those the plain versions'
+    results, and misses elsewhere."""
+    scene = build_device_scene(gltf.load(scene_paths["columns"]),
+                               max_leaf_size=28, device=cuda)
+    live = 4096
+    n = 2 ** 31 // 3 + live
+    o = torch.zeros((n, 3), dtype=torch.float32, device=cuda)
+    d = torch.zeros_like(o)
+    d[:, 2] = 1.0
+    o_live, d_live, _ = _rays(live, seed=11, device=cuda)
+    o[n - live:] = o_live
+    d[n - live:] = d_live
+    active = torch.zeros(n, dtype=torch.bool, device=cuda)
+    active[n - live:] = True
+    want = st.quad_closest_hit_plain(
+        *st.quad_args(scene, o_live, d_live, None))
+    assert bool((want.t < MISS_T).any())
+    hit = st.quad_closest_hit(scene, o, d, active)
+    for got, ref in zip(hit, want):
+        assert torch.equal(got[n - live:], ref)
+    assert bool((hit.t[:n - live] == MISS_T).all())
+    assert bool((hit.tri[:n - live] == -1).all())
+    del hit
+    any_hit = st.quad_any_hit(scene, o, d, active)
+    assert torch.equal(any_hit[n - live:], want.t < MISS_T)
+    assert not bool(any_hit[:n - live].any())

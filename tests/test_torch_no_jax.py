@@ -9,7 +9,8 @@
   every module and render ``--instanced``, ``--traversal
   pallas_packet``, ``--traversal pallas8`` and a kernel-tier frame
   (the frontier kernels with coefficient leaves, chosen by the
-  ``VKPT_*`` variables) on ``--device cpu``.
+  ``VKPT_*`` variables) on ``--device cpu``, and run the progressive
+  CLI (a joint batch, a checkpoint and its resume).
 - Without CUDA, the default ``--device cuda`` exits non-zero with a
   clear message instead of switching to the CPU.
 - The traversal wrappers raise for a device that is neither CPU nor
@@ -133,6 +134,29 @@ def test_cli_renders_without_jax(box_glb, tmp_path):
     assert image.shape == (64, 64, 3) and 0 < image.mean() < 255
 
 
+def test_cli_progressive_without_jax_package(box_glb, tmp_path):
+    """The convergence path (a joint batch with Russian roulette, a
+    checkpoint, then its resume) in a process without JAX."""
+    out = tmp_path / "box.png"
+    ckpt = tmp_path / "acc.npz"
+    args = ["-s", box_glb, "-x", "48", "-y", "32", "-o", str(out),
+            "--progressive", "--batch-frames", "2", "--russian-roulette",
+            "--checkpoint", str(ckpt), "--checkpoint-interval", "2",
+            "--device", "cpu"]
+    proc = _run(IMPORT_ALL_AND_RUN_CLI, *args, "--frames", "2",
+                block=BLOCK_JAX_PACKAGE)
+    assert proc.returncode == 0, proc.stderr
+    proc = _run(IMPORT_ALL_AND_RUN_CLI, *args, "--frames", "4",
+                block=BLOCK_JAX_PACKAGE)
+    assert proc.returncode == 0, proc.stderr
+    assert "resumed checkpoint at frame 2 (2 spp)" in proc.stderr
+    assert f"wrote {out} (4 spp)" in proc.stderr
+    from vulkan_pathtracer_tpu_torch.utils import read_png
+
+    image = read_png(str(out))
+    assert image.shape == (32, 48, 3) and 0 < image.mean() < 255
+
+
 def test_cuda_device_without_cuda_fails(box_glb, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks its absence")
@@ -146,10 +170,10 @@ def test_cuda_device_without_cuda_fails(box_glb, tmp_path):
     assert not (tmp_path / "x.png").exists()
 
 
-@pytest.mark.parametrize("flag", [["-v"], ["--progressive"],
-                                  ["--devices", "2"], ["--camera-path",
-                                                       "path.json"],
-                                  ["--russian-roulette"]])
+@pytest.mark.parametrize("flag", [["-v"], ["--interactive"],
+                                  ["--devices", "2"], ["--profile",
+                                                       "trace_dir"],
+                                  ["--pool-frames", "2"]])
 def test_unported_flags_refused(flag, capsys):
     from vulkan_pathtracer_tpu_torch.app.main import parse_args
 

@@ -1,13 +1,33 @@
-"""Headless CLI — port of app/main.py (single camera, single frame path).
+"""Headless CLI — port of app/main.py.
 
 parse CLI -> load scene -> bake device tensors + BVH -> render pipeline
 -> frame loop -> PNG.  The flag surface is the reference's
 (``-s -c -b -x -y -d``) plus ``-o``/``--frames``, ``--instanced`` (the
 two-level BVH: per-mesh BLAS + TLAS, models/instanced_scene.py),
 ``--traversal`` (the closest-hit tier, render/wavefront.py: ``brute``
-bakes no BVH, ``pallas8`` bakes the 8-wide tiles too) and ``--device``
-(default ``cuda``).  Every other flag of the JAX package's CLI is
-recognised but refused when set: it is not yet ported.
+bakes no BVH, ``pallas8`` bakes the 8-wide tiles too), the convergence
+path (``--progressive``, ``--batch-frames``, ``--checkpoint``,
+``--checkpoint-interval``, ``--save-every``, ``--russian-roulette``),
+``--camera-path`` and ``--device`` (default ``cuda``).  Every other
+flag of the JAX package's CLI is recognised but refused when set: it is
+not yet ported.
+
+The frame loop keeps the JAX package's three branches, in its order
+(app/main.py:141-272 there):
+
+1. ``--progressive --batch-frames B`` (B > 1) without a camera path:
+   batches of up to B frames of the static camera per dispatch
+   (``RenderPipeline.render_batch_sum``; the joint wavefront at 1 spp)
+   into the float64 ``Accumulator``;
+2. otherwise one frame after another along the camera path, summed
+   into the accumulator under ``--progressive``;
+3. ``--save-every N`` writes the PNG every N frames (the running mean
+   under ``--progressive``).
+
+Under ``--progressive``, ``--checkpoint f.npz`` resumes from that file
+when it exists (stderr ``resumed checkpoint at frame N (S spp)``) and
+``--checkpoint-interval N`` rewrites it every N frames.  ``Stats``
+lines go to stderr as ``STATS {json}``.
 
 The kernel tiers are chosen, as in the JAX package, by environment
 variables, read here once into RenderConfig's tier fields
@@ -30,12 +50,14 @@ import time
 
 import torch
 
+from vulkan_pathtracer_tpu_torch.app.camera_path import CameraPath
 from vulkan_pathtracer_tpu_torch.models import gltf
 from vulkan_pathtracer_tpu_torch.models.camera import Camera
 from vulkan_pathtracer_tpu_torch.models.device_scene import build_device_scene
 from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
     build_instanced_scene,
 )
+from vulkan_pathtracer_tpu_torch.render.output import Accumulator
 from vulkan_pathtracer_tpu_torch.render.pipeline import RenderPipeline
 from vulkan_pathtracer_tpu_torch.utils import (
     RenderConfig,
@@ -49,10 +71,14 @@ from vulkan_pathtracer_tpu_torch.utils.config import (
     FRONTIER_WIDTHS,
     MT_MODES,
 )
+from vulkan_pathtracer_tpu_torch.utils.stats import Stats
+from vulkan_pathtracer_tpu_torch.utils.timer import Timer
 
 PORTED_FLAGS = ("scene_path", "num_samples", "num_bounces", "resolution_x",
                 "resolution_y", "render_resolution_divider", "output",
-                "frames", "instanced", "traversal", "device")
+                "frames", "instanced", "traversal", "device", "progressive",
+                "batch_frames", "checkpoint", "checkpoint_interval",
+                "save_every", "russian_roulette", "camera_path")
 # Leaf size of the two-level bake (app/main.py:75-77 of the JAX package).
 INSTANCED_LEAF = 14
 
@@ -130,6 +156,8 @@ def parse_args(argv=None):
         resolution_x=args.resolution_x,
         resolution_y=args.resolution_y,
         render_resolution_divider=args.render_resolution_divider,
+        progressive=args.progressive,
+        russian_roulette=args.russian_roulette,
         traversal=args.traversal,
         **tiers,
     )
@@ -191,6 +219,18 @@ def present(image, config: RenderConfig, output: str) -> None:
     write_png(output, image)
 
 
+def load_accumulator(config: RenderConfig, checkpoint: str) -> Accumulator:
+    """The progressive accumulator: resumed from ``checkpoint`` when the
+    file exists, else empty."""
+    if checkpoint and os.path.exists(checkpoint):
+        acc = Accumulator.load(checkpoint)
+        print(f"resumed checkpoint at frame {acc.frame} ({acc.spp} spp)",
+              file=sys.stderr)
+        return acc
+    return Accumulator(config.render_width, config.render_height,
+                       config.num_samples)
+
+
 def main(argv=None) -> int:
     config, args = parse_args(argv)
     try:
@@ -209,21 +249,77 @@ def main(argv=None) -> int:
               f"anyhit={config.anyhit_kernel or 'default'} mt={config.mt} "
               f"leaf={pipeline.scene.max_leaf_size}", file=sys.stderr)
     camera = Camera(aspect_ratio=config.aspect_ratio)
-    image = None
+    path = CameraPath.load(args.camera_path) if args.camera_path else None
+    stats = Stats(rays_per_frame=(config.render_width * config.render_height
+                                  * config.num_samples * config.num_bounces),
+                  spp_per_frame=config.num_samples, device=device)
+    timer = Timer()
+    acc = (load_accumulator(config, args.checkpoint) if config.progressive
+           else None)
+    start_frame = acc.frame if acc is not None else 0
     rays_total = 0
     t0 = time.perf_counter()
-    for frame in range(args.frames):
+
+    if config.progressive and args.batch_frames > 1 and path is None:
+        # Static camera: batches of frames per dispatch (the frame
+        # counter only seeds the RNG).
+        frame = start_frame
+        since_save = 0
+        while frame < args.frames:
+            b = min(args.batch_frames, args.frames - frame)
+            sum_img, rays = pipeline.render_batch_sum(camera, frame, b)
+            acc.add_frames_sum(sum_img.cpu().numpy(), b)
+            frame += b
+            since_save += b
+            rays_total += int(rays)
+            if (args.checkpoint and args.checkpoint_interval
+                    and since_save >= args.checkpoint_interval):
+                acc.save(args.checkpoint)
+                since_save = 0
+            stats.lap(timer.lap(), timer.one_second_elapsed,
+                      rays_this_frame=int(rays))
+            if timer.one_second_elapsed:
+                stats.log()
+        present(acc.mean, config, args.output)
+        print(f"wrote {args.output} ({acc.spp} spp)", file=sys.stderr)
+        report(args.frames - start_frame, rays_total, t0, device)
+        stats.log()
+        return 0
+
+    image = None
+    for frame in range(start_frame, args.frames):
+        if path is not None:
+            path.apply(camera, path.duration * frame / max(args.frames - 1, 1))
         image_dev, rays = pipeline.render(camera, frame, present_order=False)
         image = pipeline.to_present(image_dev.cpu().numpy())
         rays_total += int(rays)
-    seconds = time.perf_counter() - t0
-    if image is not None:
-        present(image, config, args.output)
+        if acc is not None:
+            acc.add_frame(image)
+            if (args.checkpoint and args.checkpoint_interval
+                    and (frame + 1) % args.checkpoint_interval == 0):
+                acc.save(args.checkpoint)
+        stats.lap(timer.lap(), timer.one_second_elapsed,
+                  rays_this_frame=int(rays))
+        if timer.one_second_elapsed:
+            stats.log()
+        if args.save_every and (frame + 1) % args.save_every == 0:
+            present(acc.mean if acc is not None else image, config,
+                    args.output)
+    final = acc.mean if acc is not None else image
+    if final is not None:
+        present(final, config, args.output)
         print(f"wrote {args.output}", file=sys.stderr)
-        print(f"{args.frames} frame(s) on {device}: "
-              f"{1000.0 * seconds / args.frames:.2f} ms/frame, "
-              f"{rays_total / seconds / 1e6:.3f} Mrays/s", file=sys.stderr)
+        report(args.frames - start_frame, rays_total, t0, device)
+    stats.log()
     return 0
+
+
+def report(frames: int, rays: int, t0: float, device) -> None:
+    """The run's frame time and ray rate on stderr."""
+    seconds = time.perf_counter() - t0
+    print(f"{frames} frame(s) on {device}: "
+          f"{1000.0 * seconds / max(frames, 1):.2f} ms/frame, "
+          f"{rays / seconds / 1e6:.3f} Mrays/s", file=sys.stderr)
 
 
 if __name__ == "__main__":

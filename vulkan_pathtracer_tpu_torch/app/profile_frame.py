@@ -1,10 +1,10 @@
 """Where a frame's device time goes: per-step CUDA-event times of the
-headline frame, flat or two-level.
+headline frame, flat or two-level, or of one joint progressive batch.
 
     [VKPT_KERNEL_PRIMARY=... VKPT_MT=mxu ...] \
     python -m vulkan_pathtracer_tpu_torch.app.profile_frame [--instanced]
         [--traversal auto|pallas|pallas_packet|pallas8|bvh|brute]
-        [-s scene.glb] [--frames 5]
+        [-s scene.glb] [--frames 5] [--joint B]
 
 Renders the atrium (``assets/procedural.make_atrium(detail=4.1)``,
 generated into ``build/profile_frame/`` when ``-s`` is not given) at
@@ -20,6 +20,22 @@ that end in a synchronize), per-step device ms per frame (median;
 step), and the profiled kernel time per frame against the unprofiled
 and the profiled wall time (the device busy share).  Needs a CUDA
 device.
+
+With ``--joint B`` each "frame" is one joint batch of B frames of the
+camera at t=0 (``RenderPipeline.render_batch_sum``, the convergence
+path): the steps are the shared primary (``_closest_hit``, with the
+middle bounces' closest hits when there are any), its triangle and
+material fetch, the 6d key (``_bounce_sort_key``), the argsort
+(``state_sort_order``) and the state gathers (``_permute_prefix``),
+bounce 0's shading chunks (``_take``, the gathers of the shared hit
+per lane, and ``extend_paths``; nested in ``_shade_and_extend`` on
+middle bounces), the any hit and the sky on its misses (``_add_sky``),
+and the final per-pixel sum (``_sum_frames``); 1 batch runs under the
+profiler.  The line also holds the batch's rays, its shading chunks,
+the peak device memory, and the state layout's cost: the gathers of the
+state's tensors by the sort's order (``_permute_prefix``) against one
+row gather of a packed (lanes, 16) f32 state by the same order (the
+JAX package's layout), timed on that batch's order.
 """
 
 from __future__ import annotations
@@ -48,6 +64,10 @@ from vulkan_pathtracer_tpu_torch.utils import RenderConfig
 STEPS = ("_closest_hit", "_any_hit", "_closest_hit_sorted", "_any_hit_sorted",
          "_sorted_order", "get_triangle_data", "get_material_data",
          "extend_paths")
+JOINT_STEPS = ("_closest_hit", "_any_hit", "get_triangle_data",
+               "get_material_data", "_take", "_bounce_sort_key",
+               "state_sort_order", "_permute_prefix", "extend_paths",
+               "_shade_and_extend", "_add_sky", "_sum_frames")
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
@@ -64,12 +84,48 @@ def _timed(name, fn, log):
     return run
 
 
+def packed_gather(frame, tensor_gathers, reps: int = 3) -> dict:
+    """The state's tensor gathers of the joint batch (median ms per
+    batch) against one row gather of a packed (lanes, 16) f32 state by
+    the order of a batch's sort (median of ``reps``)."""
+    orders = []
+    sort_order = wavefront.state_sort_order
+
+    def keep(key, c):
+        out = sort_order(key, c)
+        orders.append(out[1])
+        return out
+
+    wavefront.state_sort_order = keep
+    try:
+        frame(1)
+    finally:
+        wavefront.state_sort_order = sort_order
+    order = orders[0]
+    packed = torch.zeros((order.numel(), 16), dtype=torch.float32,
+                         device=order.device)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        packed.index_select(0, order)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"tensors_gather": statistics.median(tensor_gathers),
+            "packed_row_gather": statistics.median(times),
+            "lanes": order.numel()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="profile_frame")
     ap.add_argument("-s", "--scene-path", default="")
     ap.add_argument("--instanced", action="store_true")
     ap.add_argument("--traversal", choices=TRAVERSALS, default="auto")
     ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--joint", type=int, default=0, metavar="B",
+                    help="time joint batches of B frames instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.stderr.write("profile_frame: needs a CUDA device\n")
@@ -93,17 +149,25 @@ def main(argv=None) -> int:
                        center=(0.0, 1.2, 0.0))
     cam = Camera(aspect_ratio=config.aspect_ratio)
 
+    steps_of = JOINT_STEPS if args.joint else STEPS
+
     def frame(f):
-        orbit.apply(cam, 4.0 * f / args.frames)
-        image, rays = pipe.render(cam, f, present_order=False)
+        if args.joint:
+            orbit.apply(cam, 0.0)
+            image, rays = pipe.render_batch_sum(cam, f * args.joint,
+                                                args.joint)
+        else:
+            orbit.apply(cam, 4.0 * f / args.frames)
+            image, rays = pipe.render(cam, f, present_order=False)
         return int(rays)   # syncs: rays is a device scalar
 
     frame(0)   # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
     log = []
-    originals = {n: getattr(wavefront, n) for n in STEPS}
+    originals = {n: getattr(wavefront, n) for n in steps_of}
     for n, fn in originals.items():
         setattr(wavefront, n, _timed(n, fn, log))
-    walls, steps = [], {n: [] for n in STEPS}
+    walls, steps = [], {n: [] for n in steps_of}
     try:
         for f in range(args.frames):
             log.clear()
@@ -112,16 +176,20 @@ def main(argv=None) -> int:
             rays = frame(f + 1)
             torch.cuda.synchronize()
             walls.append(1e3 * (time.perf_counter() - t0))
-            per = {n: 0.0 for n in STEPS}
+            per = {n: 0.0 for n in steps_of}
             for n, start, end in log:
                 per[n] += start.elapsed_time(end)
-            for n in STEPS:
+            for n in steps_of:
                 steps[n].append(per[n])
+            chunks = sum(1 for n, _, _ in log if n == "extend_paths")
     finally:
         for n, fn in originals.items():
             setattr(wavefront, n, fn)
 
-    prof_frames = 3
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    layout = packed_gather(frame, steps["_permute_prefix"]) if args.joint \
+        else None
+    prof_frames = 1 if args.joint else 3
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -143,7 +211,9 @@ def main(argv=None) -> int:
         "traversal": args.traversal, "tiers": tiers,
         "leaf": pipe.scene.max_leaf_size,
         "triangles": pipe.scene.num_triangles, "rays_per_frame": rays,
-        "frames": args.frames,
+        "frames": args.frames, "joint_batch": args.joint or None,
+        "shading_chunks": chunks if args.joint else None,
+        "peak_allocated_gb": peak_gb, "state_layout_ms": layout,
         "ms_per_frame_median": statistics.median(walls),
         "ms_per_frame": walls,
         "step_ms_per_frame_median": {n: statistics.median(v)

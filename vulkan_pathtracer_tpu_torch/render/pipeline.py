@@ -1,16 +1,19 @@
-"""Frame pipeline — port of render/pipeline.py (single-frame path).
+"""Frame pipeline — port of render/pipeline.py.
 
 ``RenderPipeline.render(camera, frame)`` returns linear radiance
 (H, W, 3) f32 on the scene's device and the number of rays traced.
 Primary rays are generated directly in 2D-tile order (32 x 64 pixel
 tiles, when the image is larger than one tile) so that neighbouring
 rays share a frustum; the tile permutation is undone at the end, or
-on the host with ``to_present``.
+on the host with ``to_present``.  A single frame is traced in one
+dispatch: one card holds a 1080p frame's state with room to spare.
 
-The whole frame is traced in one dispatch.  The JAX package splits
-launches above 2^19 rays into ``lax.map`` chunks to bound TPU memory
-and to avoid a TPU worker fault; per-ray results do not depend on it,
-and one card holds a 1080p frame's state with room to spare.
+``RenderPipeline.render_batch_sum(camera, frame0, batch)`` returns the
+radiance SUM of ``batch`` consecutive frames of a static camera (the
+progressive path): at 1 spp the joint wavefront
+(``render_frames_joint``: the shared primary, every frame's bounce
+rays sorted together, shaded in chunks of ``wavefront.JOINT_CHUNK``
+lanes), else one frame after another (``render_frames_batch``).
 """
 
 from __future__ import annotations
@@ -24,7 +27,11 @@ import torch
 from vulkan_pathtracer_tpu_torch.models.camera import Camera
 from vulkan_pathtracer_tpu_torch.ops import rng
 from vulkan_pathtracer_tpu_torch.ops.vecmath import normalize
-from vulkan_pathtracer_tpu_torch.render.wavefront import trace_sample
+from vulkan_pathtracer_tpu_torch.render.wavefront import (
+    JOINT_CHUNK,
+    trace_progressive_batch,
+    trace_sample,
+)
 from vulkan_pathtracer_tpu_torch.utils import RenderConfig
 from vulkan_pathtracer_tpu_torch.utils.config import Tiers
 
@@ -74,15 +81,15 @@ def generate_rays_at(position, horizontal, vertical, forward, width: int,
     return origin, direction
 
 
-def _pixel_seeds(width: int, height: int, frame, y_offset: int = 0,
-                 rows: int = None, device="cpu"):
-    if rows is None:
-        rows = height
+def lane_pixels(width: int, rows: int, y_offset: int, tiles, device):
+    """(x, y) int64 pixel coordinates of each lane of image rows
+    [y_offset, y_offset + rows): tile order when ``tiles``
+    (tile_pixels()) is given, else scanline."""
+    if tiles is not None:
+        return tiles[0], tiles[1]
     xs = torch.arange(width, dtype=torch.int64, device=device)
     ys = torch.arange(rows, dtype=torch.int64, device=device) + y_offset
-    px = xs[None, :].expand(rows, width).reshape(-1)
-    py = ys.repeat_interleave(width)
-    return rng.prng_seed(px, py, frame)
+    return xs.repeat(rows), ys.repeat_interleave(width)
 
 
 @functools.lru_cache(maxsize=8)
@@ -137,28 +144,30 @@ def primary_rays(position, horizontal, vertical, forward, frame: int,
         rows = height
     if tiles is None:
         tiles = tile_pixels(rows, width, y_offset, dev)
+    t_inv = None
     if tiles is not None:
         x_idx, y_idx, t_inv = tiles
         origin, direction = generate_rays_at(
             position, horizontal, vertical, forward, width, height,
             x_idx, y_idx)
-        seed_x, seed_y = rng.prng_seed(x_idx, y_idx, frame)
-        return origin, direction, seed_x, seed_y, t_inv
-    origin, direction = generate_rays(
-        position, horizontal, vertical, forward, width, height,
-        y_offset=y_offset, rows=rows)
-    seed_x, seed_y = _pixel_seeds(width, height, frame, y_offset=y_offset,
-                                  rows=rows, device=dev)
-    return origin, direction, seed_x, seed_y, None
+    else:
+        origin, direction = generate_rays(
+            position, horizontal, vertical, forward, width, height,
+            y_offset=y_offset, rows=rows)
+    seed_x, seed_y = rng.prng_seed(
+        *lane_pixels(width, rows, y_offset, tiles, dev), frame)
+    return origin, direction, seed_x, seed_y, t_inv
 
 
 def render_rows(scene, position, horizontal, vertical, forward, frame: int,
                 *, num_samples: int, num_bounces: int, width: int,
                 height: int, y_offset: int = 0, rows: int = None,
                 sort_secondary: bool = False, present_order: bool = True,
-                tiles=None, tiers="auto"):
+                tiles=None, tiers="auto", russian_roulette: bool = False,
+                rr_start_bounce: int = 2):
     """Render image rows [y_offset, y_offset + rows) through ``tiers``
-    (a utils.config.Tiers or a ``--traversal`` name).  Returns
+    (a utils.config.Tiers or a ``--traversal`` name), with Russian
+    roulette from ``rr_start_bounce`` when ``russian_roulette``.  Returns
     (image (rows, W, 3) f32, rays traced as an int64 0-d tensor).  With
     ``present_order=False`` radiance stays in tile (dispatch) order."""
     dev = position.device
@@ -175,7 +184,8 @@ def render_rows(scene, position, horizontal, vertical, forward, frame: int,
         color, seed_x, seed_y, traced = trace_sample(
             scene, origin, direction, seed_x, seed_y,
             num_bounces=num_bounces, sort_secondary=sort_secondary,
-            tiers=tiers)
+            tiers=tiers, russian_roulette=russian_roulette,
+            rr_start_bounce=rr_start_bounce)
         acc = acc + color
         rays = rays + traced
     if tile_inv is not None and present_order:
@@ -188,13 +198,70 @@ def render_frame(scene, position, horizontal, vertical, forward, frame: int,
                  *, num_samples: int, num_bounces: int, width: int,
                  height: int, sort_secondary: bool = False,
                  present_order: bool = True, tiles=None,
-                 tiers="auto"):
+                 tiers="auto", russian_roulette: bool = False,
+                 rr_start_bounce: int = 2):
     """One full frame: (H, W, 3) f32 linear radiance + rays traced."""
     return render_rows(
         scene, position, horizontal, vertical, forward, frame,
         num_samples=num_samples, num_bounces=num_bounces, width=width,
         height=height, sort_secondary=sort_secondary,
-        present_order=present_order, tiles=tiles, tiers=tiers)
+        present_order=present_order, tiles=tiles, tiers=tiers,
+        russian_roulette=russian_roulette, rr_start_bounce=rr_start_bounce)
+
+
+def render_frames_batch(scene, position, horizontal, vertical, forward,
+                        frame0: int, *, batch: int, num_samples: int,
+                        num_bounces: int, width: int, height: int,
+                        sort_secondary: bool = False, tiles=None,
+                        tiers="auto", russian_roulette: bool = False,
+                        rr_start_bounce: int = 2):
+    """The radiance SUM of frames frame0 .. frame0 + batch - 1 (JAX
+    pipeline.py:359-416, a ``lax.scan`` there), rendered one after
+    another and summed on the device in frame order.  Returns
+    (sum (H, W, 3) f32 in scanline order, rays traced, int64 0-d)."""
+    acc = torch.zeros((height, width, 3), dtype=torch.float32,
+                      device=position.device)
+    rays = torch.zeros((), dtype=torch.int64, device=position.device)
+    for k in range(batch):
+        image, traced = render_frame(
+            scene, position, horizontal, vertical, forward, frame0 + k,
+            num_samples=num_samples, num_bounces=num_bounces, width=width,
+            height=height, sort_secondary=sort_secondary, tiles=tiles,
+            tiers=tiers, russian_roulette=russian_roulette,
+            rr_start_bounce=rr_start_bounce)
+        acc = acc + image
+        rays = rays + traced
+    return acc, rays
+
+
+def render_frames_joint(scene, position, horizontal, vertical, forward,
+                        frame0: int, *, batch: int, num_bounces: int,
+                        width: int, height: int, sort_secondary: bool = True,
+                        tiles=None, tiers="auto",
+                        russian_roulette: bool = False,
+                        rr_start_bounce: int = 2, chunk: int = JOINT_CHUNK):
+    """The radiance SUM of frames frame0 .. frame0 + batch - 1 at 1 spp
+    as one joint wavefront (JAX pipeline.py:418-488;
+    wavefront.trace_progressive_batch): primaries in tile order, each
+    frame's RNG seeded from its frame counter.  Returns (sum (H, W, 3)
+    f32 in scanline order, rays physically traced, int64 0-d)."""
+    dev = position.device
+    if tiles is None:
+        tiles = tile_pixels(height, width, 0, dev)
+    origin, direction, _, _, tile_inv = primary_rays(
+        position, horizontal, vertical, forward, frame0, width, height,
+        tiles=tiles)
+    px, py = lane_pixels(width, height, 0, tiles, dev)
+    frames = frame0 + torch.arange(batch, dtype=torch.int64, device=dev)
+    seed_x, seed_y = rng.prng_seed(px[None, :], py[None, :], frames[:, None])
+    color_sum, rays = trace_progressive_batch(
+        scene, origin, direction, seed_x, seed_y, batch=batch,
+        num_bounces=num_bounces, tiers=tiers,
+        russian_roulette=russian_roulette, rr_start_bounce=rr_start_bounce,
+        sort_secondary=sort_secondary, chunk=chunk)
+    if tile_inv is not None:
+        color_sum = color_sum[tile_inv]
+    return color_sum.reshape(height, width, 3), rays
 
 
 class RenderPipeline:
@@ -202,9 +269,7 @@ class RenderPipeline:
 
     def __init__(self, scene, config: RenderConfig):
         unported = {
-            "russian_roulette": config.russian_roulette,
             "seed_secondary": config.seed_secondary,
-            "progressive": config.progressive,
             "enable_validation": config.enable_validation,
         }
         names = [k for k, v in unported.items() if v]
@@ -231,6 +296,8 @@ class RenderPipeline:
         self.height = config.render_height
         self._sort_secondary = (config.sort_secondary and
                                 scene.num_triangles >= SORT_MIN_TRIANGLES)
+        self._rr = dict(russian_roulette=config.russian_roulette,
+                        rr_start_bounce=config.rr_start_bounce)
         # The tile permutation of this launch, kept on the device: its
         # upload would cost milliseconds per 1080p frame.
         self._tiles = tile_pixels(self.height, self.width, 0, scene.device)
@@ -250,7 +317,32 @@ class RenderPipeline:
             width=self.width, height=self.height,
             sort_secondary=self._sort_secondary,
             present_order=present_order, tiles=self._tiles,
-            tiers=self.tiers)
+            tiers=self.tiers, **self._rr)
+
+    def render_batch_sum(self, camera: Camera, frame0: int, batch: int,
+                         joint: bool = None):
+        """The radiance SUM (H, W, 3, scanline order, on the device) of
+        ``batch`` consecutive frames from ``frame0``, and the rays
+        traced.  At 1 spp the joint wavefront runs when ``batch`` > 1,
+        or when ``joint`` is True and ``batch`` >= 1; otherwise (more
+        spp, or ``joint=False``) the frames run one after another (JAX
+        pipeline.py:628-673)."""
+        position, horizontal, vertical, forward = camera_tensors(
+            camera, self.scene.device)
+        use_joint = (self.config.num_samples == 1
+                     and (batch > 1 if joint is None
+                          else (joint and batch >= 1)))
+        kw = dict(num_bounces=self.config.num_bounces, width=self.width,
+                  height=self.height, sort_secondary=self._sort_secondary,
+                  tiles=self._tiles, tiers=self.tiers, **self._rr)
+        if use_joint:
+            return render_frames_joint(
+                self.scene, position, horizontal, vertical, forward,
+                int(frame0), batch=batch, **kw)
+        return render_frames_batch(
+            self.scene, position, horizontal, vertical, forward,
+            int(frame0), batch=batch, num_samples=self.config.num_samples,
+            **kw)
 
     def to_present(self, image: np.ndarray) -> np.ndarray:
         """Host-side tile-order -> scanline conversion (identity when the

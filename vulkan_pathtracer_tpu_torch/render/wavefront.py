@@ -13,6 +13,15 @@ per-lane random stream stays bit-exact with the reference's early
 breaks (ray_gen.rgen:44-102).  On an emissive-free scene the last
 bounce only decides sky or not, so it runs an ANY-HIT kernel where the
 tier has one, else closest hit and ``t < MISS_T`` (``_anyhit_enabled``).
+With Russian roulette (an extension, off by default) a surviving path
+ends after the segment of bounce ``j`` when ``j + 1 >= rr_start_bounce``
+and one more draw says so (``extend_paths``).
+
+``trace_sample`` traces one sample of a frame; ``trace_progressive_batch``
+traces B frames of a static camera as one wavefront (the convergence
+path): the primary hit once, every frame's bounce rays sorted together,
+shaded in chunks of ``JOINT_CHUNK`` lanes.  Both shade through the same
+``_shade_and_extend`` / ``extend_paths`` body.
 
 The closest-hit tier of ``--traversal`` (the JAX package's
 render/wavefront.py:157-434 and :499-592, without its VMEM gates):
@@ -266,10 +275,21 @@ def sky_color(direction: torch.Tensor) -> torch.Tensor:
     return mix(white[None, :], blue[None, :], t[:, None])
 
 
+
+
+def _add_sky(color, atten, direction, missed):
+    """``color`` plus the sky seen through ``atten`` on the missed lanes."""
+    zero = torch.zeros((), dtype=torch.float32, device=color.device)
+    return color + torch.where(missed[:, None], atten * sky_color(direction),
+                               zero)
+
+
 def extend_paths(scene, hit, origin, direction, atten, seed_x, seed_y,
-                 did_hit, tri_data, mat):
-    """Shade the hit lanes and draw the next segment (ray_gen.rgen:80-101).
-    Returns (origin, direction, atten, seed_x, seed_y, alive)."""
+                 did_hit, tri_data, mat, rr: bool = False):
+    """Shade the hit lanes and draw the next segment (ray_gen.rgen:80-101);
+    with ``rr`` Russian roulette then ends some of the surviving paths
+    (JAX wavefront.py:837-847).  Returns (origin, direction, atten,
+    seed_x, seed_y, alive)."""
     out_dir = -direction
     albedo = mat.albedo[:, :3]
     metallic = mat.metallic[:, None]
@@ -299,23 +319,63 @@ def extend_paths(scene, hit, origin, direction, atten, seed_x, seed_y,
     atten = torch.where(survive[:, None], atten * weight, atten)
     origin = torch.where(hit_col, new_origin, origin)
     direction = torch.where(hit_col, new_direction, direction)
+    if rr:
+        # One more draw, on the surviving lanes only.
+        p_survive = torch.clamp(atten.amax(dim=-1), 0.05, 1.0)
+        nsx, nsy, rrx, _ = rng.pcg2d(seed_x, seed_y)
+        seed_x = torch.where(survive, nsx, seed_x)
+        seed_y = torch.where(survive, nsy, seed_y)
+        keep = survive & ~(rrx >= p_survive)
+        atten = torch.where(keep[:, None], atten / p_survive[:, None], atten)
+        survive = keep
     return origin, direction, atten, seed_x, seed_y, survive
+
+
+def _shade_and_extend(scene, hit, origin, direction, atten, color, seed_x,
+                      seed_y, alive, *, last: bool, rr: bool):
+    """One bounce's shading on a lane set (JAX wavefront.py:909-970):
+    sky on the missed lanes and emissive on the hit lanes added into
+    ``color``, then, unless ``last``, the hit lanes' next segment
+    (``extend_paths``).  The last bounce fetches the emissive factor
+    alone where the scene allows.  Returns (origin, direction, atten,
+    color, seed_x, seed_y, alive)."""
+    missed = alive & (hit.t >= MISS_T)
+    did_hit = alive & ~missed
+    color = _add_sky(color, atten, direction, missed)
+    tri_data = mat = None
+    emissive = get_emissive_lean(scene, hit) if last else None
+    if emissive is None:
+        tri_data = get_triangle_data(scene, hit)
+        mat = get_material_data(scene, tri_data)
+        emissive = mat.emissive
+    zero = torch.zeros((), dtype=torch.float32, device=color.device)
+    color = color + torch.where(did_hit[:, None],
+                                emissive * EMISSIVE_SCALE * atten, zero)
+    if last:
+        return (origin, direction, atten, color, seed_x, seed_y,
+                torch.zeros_like(alive))
+    origin, direction, atten, seed_x, seed_y, alive = extend_paths(
+        scene, hit, origin, direction, atten, seed_x, seed_y, did_hit,
+        tri_data, mat, rr=rr)
+    return origin, direction, atten, color, seed_x, seed_y, alive
 
 
 def trace_sample(scene, origin, direction, seed_x, seed_y, *,
                  num_bounces: int, sort_secondary: bool = False,
-                 tiers="auto"):
+                 tiers="auto", russian_roulette: bool = False,
+                 rr_start_bounce: int = 2):
     """Trace one sample for all rays through ``tiers`` (a Tiers or a
-    ``--traversal`` name).  Returns (color (N, 3), new_seed_x,
-    new_seed_y, rays_traced) with rays_traced an int64 0-d tensor (the
-    live lanes summed over bounces)."""
+    ``--traversal`` name); with ``russian_roulette`` paths may end after
+    the segment of bounce ``rr_start_bounce - 1`` and later ones.
+    Returns (color (N, 3), new_seed_x, new_seed_y, rays_traced) with
+    rays_traced an int64 0-d tensor (the live lanes summed over
+    bounces)."""
     n = origin.shape[0]
     dev = origin.device
     color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     atten = torch.ones((n, 3), dtype=torch.float32, device=dev)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
 
     for j in range(num_bounces):
         rays_traced = rays_traced + alive.sum()
@@ -326,31 +386,160 @@ def trace_sample(scene, origin, direction, seed_x, seed_y, *,
             # feeds radiance, and no RNG draws happen.
             hit_mask = (_any_hit_sorted if sorted_pass else _any_hit)(
                 scene, origin, direction, alive, tiers)
-            missed = alive & ~hit_mask
-            color = color + torch.where(missed[:, None],
-                                        atten * sky_color(direction), zero)
+            color = _add_sky(color, atten, direction, alive & ~hit_mask)
             alive = torch.zeros_like(alive)
             continue
         hit = (_closest_hit_sorted if sorted_pass else _closest_hit)(
             scene, origin, direction, alive, tiers,
             "primary" if j == 0 else "secondary")
-        missed = alive & (hit.t >= MISS_T)
-        did_hit = alive & ~missed
-        color = color + torch.where(missed[:, None],
-                                    atten * sky_color(direction), zero)
-
-        tri_data = mat = None
-        emissive = get_emissive_lean(scene, hit) if last else None
-        if emissive is None:
-            tri_data = get_triangle_data(scene, hit)
-            mat = get_material_data(scene, tri_data)
-            emissive = mat.emissive
-        color = color + torch.where(did_hit[:, None],
-                                    emissive * EMISSIVE_SCALE * atten, zero)
-        if last:
-            alive = torch.zeros_like(alive)
-            continue
-        origin, direction, atten, seed_x, seed_y, alive = extend_paths(
-            scene, hit, origin, direction, atten, seed_x, seed_y, did_hit,
-            tri_data, mat)
+        origin, direction, atten, color, seed_x, seed_y, alive = \
+            _shade_and_extend(
+                scene, hit, origin, direction, atten, color, seed_x, seed_y,
+                alive, last=last,
+                rr=russian_roulette and j + 1 >= rr_start_bounce)
     return color, seed_x, seed_y, rays_traced
+
+
+# Lanes per shading chunk of the joint batch: the shading step makes
+# some twenty (lanes, 3) f32 temporaries, 2 GB at this size, where the
+# whole 1080p batch of 32 frames (66,355,200 lanes) would take 16 GB;
+# that batch peaks at 12.5 GB allocated with it (H100, PERF.md).  Every
+# traversal launch of the batch is at most this size.
+JOINT_CHUNK = 1 << 23
+
+
+def _chunks(stop: int, chunk: int):
+    """[start, end) ranges of at most ``chunk`` lanes covering [0, stop)."""
+    return [(s, min(s + chunk, stop)) for s in range(0, stop, chunk)]
+
+
+def _take(fields, idx):
+    """A NamedTuple of per-lane tensors gathered at ``idx``."""
+    return type(fields)(*(f[idx] for f in fields))
+
+
+def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
+                            batch: int, num_bounces: int, tiers="auto",
+                            russian_roulette: bool = False,
+                            rr_start_bounce: int = 2,
+                            sort_secondary: bool = True,
+                            chunk: int = JOINT_CHUNK):
+    """Trace ``batch`` frames of one camera at 1 spp as one wavefront
+    (JAX wavefront.py:1146-1356, ``trace_progressive_batch``).
+
+    - Bounce 0 is the same in every frame (the frame counter only seeds
+      the RNG): one closest-hit launch on the N primaries, its sky and
+      emissive counted ``batch`` times.
+    - Its shading draws every frame's next segment into the B*N lane
+      state (origin, direction, attenuation, color, the two seeds as
+      int64 holding uint32 values, alive, lane id: tensors gathered by
+      one order), in chunks of ``chunk`` lanes.
+    - Each later bounce sorts the live lanes by the 6d key
+      (``_bounce_sort_key``, dead lanes last) when ``sort_secondary``,
+      then traces and shades them chunk by chunk: middle bounces a
+      closest hit and ``_shade_and_extend``, the last one an any hit on
+      an emissive-free scene, else a closest hit and the emissive fetch.
+    - Each lane's color goes back to its lane id (a permutation, so no
+      atomics), and the (B, N, 3) colors are summed over B in frame
+      order: the result does not depend on the sort, and is bitwise the
+      same from run to run.
+
+    Per-lane results equal the single frames' (``trace_sample`` of
+    frame k): each frame's RNG streams, hits and draws are the same;
+    the sum differs from B single frames only in f32 rounding.  Rays
+    traced (int64 0-d tensor) = N + the live lanes of bounces 1 and on
+    = the sum of the B single frames' counts minus (B - 1) * N.
+
+    ``seed_x``, ``seed_y``: (batch, N).  Returns (color_sum (N, 3),
+    summed over the frames, rays traced).
+    """
+    n = origin.shape[0]
+    m = batch * n
+    dev = origin.device
+    hit0 = _closest_hit(scene, origin, direction, None, tiers, "primary")
+    did0 = hit0.t < MISS_T
+    tri0 = get_triangle_data(scene, hit0)
+    mat0 = get_material_data(scene, tri0)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    base = torch.where(~did0[:, None], sky_color(direction), zero)
+    base = base + torch.where(did0[:, None], mat0.emissive * EMISSIVE_SCALE,
+                              zero)
+    color_sum = float(batch) * base    # atten == 1 at bounce 0
+    rays = torch.full((), n, dtype=torch.int64, device=dev)
+    if num_bounces == 1:
+        return color_sum, rays
+
+    # Bounce 0's shading, lanes k*N + p for frame k and pixel p.
+    seed_x = seed_x.reshape(-1)
+    seed_y = seed_y.reshape(-1)
+    o = torch.empty((m, 3), dtype=torch.float32, device=dev)
+    d = torch.empty_like(o)
+    atten = torch.empty_like(o)
+    sx = torch.empty_like(seed_x)
+    sy = torch.empty_like(seed_y)
+    alive = torch.empty(m, dtype=torch.bool, device=dev)
+    for s, e in _chunks(m, chunk):
+        pix = torch.arange(s, e, device=dev) % n
+        out = extend_paths(
+            scene, _take(hit0, pix), origin[pix], direction[pix],
+            torch.ones((e - s, 3), dtype=torch.float32, device=dev),
+            seed_x[s:e], seed_y[s:e], did0[pix], _take(tri0, pix),
+            _take(mat0, pix), rr=russian_roulette and rr_start_bounce <= 1)
+        for dst, src in zip((o, d, atten, sx, sy, alive), out):
+            dst[s:e] = src
+    color = torch.zeros_like(o)
+    lane = torch.arange(m, dtype=torch.int64, device=dev)
+    state = [o, d, atten, color, sx, sy, alive, lane]
+
+    live = m    # lanes [live, m) are dead
+    for j in range(1, num_bounces):
+        count = state[6][:live].sum()
+        rays = rays + count
+        if sort_secondary:
+            # The live lanes go first: the chunks below trace only
+            # them, at the cost of this host sync per bounce.
+            key = _bounce_sort_key(scene, state[0][:live], state[1][:live],
+                                   state[6][:live])
+            _, order = state_sort_order(key, 1)
+            del key
+            state = [_permute_prefix(t, order, live) for t in state]
+            del order
+            live = int(count)
+        o, d, atten, color, sx, sy, alive, lane = state
+        last = j == num_bounces - 1
+        rr = russian_roulette and j + 1 >= rr_start_bounce
+        for s, e in _chunks(live, chunk):
+            if last and _anyhit_enabled(scene):
+                # Emissive-free last bounce: the sky/miss decision only.
+                hit_mask = _any_hit(scene, o[s:e], d[s:e], alive[s:e], tiers)
+                color[s:e] = _add_sky(color[s:e], atten[s:e], d[s:e],
+                                      alive[s:e] & ~hit_mask)
+                alive[s:e] = False
+                continue
+            hit = _closest_hit(scene, o[s:e], d[s:e], alive[s:e], tiers,
+                               "secondary")
+            out = _shade_and_extend(
+                scene, hit, o[s:e], d[s:e], atten[s:e], color[s:e],
+                sx[s:e], sy[s:e], alive[s:e], last=last, rr=rr)
+            for dst, src in zip((o, d, atten, color, sx, sy, alive), out):
+                dst[s:e] = src
+
+    return _sum_frames(color_sum, color, lane, batch), rays
+
+
+def _sum_frames(color_sum, color, lane, batch: int):
+    """``color_sum`` plus each frame's lane colors, put back by lane id
+    (a permutation: no atomics) and added in frame order."""
+    color_lane = torch.empty_like(color)
+    color_lane[lane] = color
+    for frame_color in color_lane.view(batch, -1, 3):
+        color_sum = color_sum + frame_color
+    return color_sum
+
+
+def _permute_prefix(t: torch.Tensor, order: torch.Tensor, live: int):
+    """``t`` with its first ``live`` rows put in ``order``."""
+    if live == t.shape[0]:
+        return t[order]
+    t[:live] = t[:live][order]
+    return t
