@@ -246,10 +246,14 @@ def test_russian_roulette_frame_matches_jax(cornell_glb, rr_start):
                                rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("chunk_of", [lambda n: 1234, lambda n: 2 * n + 5],
+                         ids=["pixel_ranges", "two_frames"])
 @pytest.mark.parametrize("name", ["cornell_rr", "atrium_anyhit"])
-def test_chunking(name, request, case_scenes, monkeypatch):
+def test_chunking(name, chunk_of, request, case_scenes, monkeypatch):
     """A small shading chunk with a remainder: the same rays, radiance
-    allclose at 1e-6, and no launch larger than the chunk."""
+    allclose at 1e-6, and no launch larger than the chunk.  Bounce 0
+    shades pixel ranges of one frame (1,234 lanes) or two whole frames
+    at a time (2N + 5)."""
     _, td, _, tcfg, cam, batch = _case(name, request, case_scenes)
     pipe = RenderPipeline(td, tcfg)
     pos, hor, ver, fwd = pl.camera_tensors(cam, "cpu")
@@ -273,13 +277,20 @@ def test_chunking(name, request, case_scenes, monkeypatch):
     for name_ in ("_closest_tier", "_any_tier"):
         monkeypatch.setattr(wavefront, name_,
                             spy(getattr(wavefront, name_)))
-    chunk = 1234
+    n = tcfg.render_width * tcfg.render_height
+    chunk = chunk_of(n)
     parts, parts_rays = pl.render_frames_joint(td, pos, hor, ver, fwd, 3,
                                                chunk=chunk, **kw)
-    n = tcfg.render_width * tcfg.render_height
     assert int(parts_rays) == int(rays)
-    assert sizes[0] == n and len(sizes) > 2
-    assert max(sizes[1:]) == chunk and min(sizes[1:]) < chunk
+    # The shared primary, then each later bounce's launches: the
+    # atrium's any hit on its sorted live prefix, the Cornell box's
+    # closest hits on every lane (unsorted), twice.
+    if name == "atrium_anyhit":
+        lanes, bounces = int(rays) - n, 1
+    else:
+        lanes, bounces = batch * n, 2
+    want = [min(chunk, lanes - s) for s in range(0, lanes, chunk)]
+    assert sizes == [n] + want * bounces
     np.testing.assert_allclose(parts.numpy(), whole.numpy(), rtol=1e-6,
                                atol=1e-6)
 

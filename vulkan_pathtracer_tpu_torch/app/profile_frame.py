@@ -27,9 +27,10 @@ path): the steps are the shared primary (``_closest_hit``, with the
 middle bounces' closest hits when there are any), its triangle and
 material fetch, the 6d key (``_bounce_sort_key``), the argsort
 (``state_sort_order``) and the state gathers (``_permute_prefix``),
-bounce 0's shading chunks (``_take``, the gathers of the shared hit
-per lane, and ``extend_paths``; nested in ``_shade_and_extend`` on
-middle bounces), the any hit and the sky on its misses (``_add_sky``),
+bounce 0's shading chunks (``_frame_lanes``, the per-pixel shading
+copied to each frame's lanes, and ``_next_segment``, the draws; nested
+in ``_shade_and_extend`` on middle bounces), the any hit and the sky on
+its misses (``_add_sky``),
 and the final per-pixel sum (``_sum_frames``); 1 batch runs under the
 profiler.  The line also holds the batch's rays, its shading chunks,
 the peak device memory, and the state layout's cost: the gathers of the
@@ -65,8 +66,8 @@ STEPS = ("_closest_hit", "_any_hit", "_closest_hit_sorted", "_any_hit_sorted",
          "_sorted_order", "get_triangle_data", "get_material_data",
          "extend_paths")
 JOINT_STEPS = ("_closest_hit", "_any_hit", "get_triangle_data",
-               "get_material_data", "_take", "_bounce_sort_key",
-               "state_sort_order", "_permute_prefix", "extend_paths",
+               "get_material_data", "_frame_lanes", "_next_segment",
+               "_bounce_sort_key", "state_sort_order", "_permute_prefix",
                "_shade_and_extend", "_add_sky", "_sum_frames")
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -181,7 +182,7 @@ def main(argv=None) -> int:
                 per[n] += start.elapsed_time(end)
             for n in steps_of:
                 steps[n].append(per[n])
-            chunks = sum(1 for n, _, _ in log if n == "extend_paths")
+            chunks = sum(1 for n, _, _ in log if n == "_next_segment")
     finally:
         for n, fn in originals.items():
             setattr(wavefront, n, fn)

@@ -284,16 +284,12 @@ def _add_sky(color, atten, direction, missed):
                                zero)
 
 
-def extend_paths(scene, hit, origin, direction, atten, seed_x, seed_y,
-                 did_hit, tri_data, mat, rr: bool = False):
-    """Shade the hit lanes and draw the next segment (ray_gen.rgen:80-101);
-    with ``rr`` Russian roulette then ends some of the surviving paths
-    (JAX wavefront.py:837-847).  Returns (origin, direction, atten,
-    seed_x, seed_y, alive)."""
+def _shading_info(mat, direction) -> ShadingInfo:
+    """The BRDF inputs of a hit (ray_gen.rgen:80-84)."""
     out_dir = -direction
     albedo = mat.albedo[:, :3]
     metallic = mat.metallic[:, None]
-    shading = ShadingInfo(
+    return ShadingInfo(
         normal=mat.normal,
         out_dir=out_dir,
         lambert_out=dot(mat.normal, out_dir),
@@ -301,13 +297,25 @@ def extend_paths(scene, hit, origin, direction, atten, seed_x, seed_y,
         diffuse_albedo=albedo - metallic * albedo,
         roughness=torch.clamp(mat.roughness, min=ROUGHNESS_FLOOR),
     )
+
+
+def _hit_point(hit, origin, direction, tri_data):
+    """The next segment's origin: the hit point off the surface
+    (ray_gen.rgen:86)."""
+    return (origin + hit.t[:, None] * direction
+            + tri_data.geometry_normal * ORIGIN_OFFSET)
+
+
+def _next_segment(shading, hit_point, origin, direction, atten, seed_x,
+                  seed_y, did_hit, rr: bool):
+    """Draw the hit lanes' next segment (ray_gen.rgen:87-101); with
+    ``rr`` Russian roulette then ends some of the surviving paths (JAX
+    wavefront.py:837-847).  Returns (origin, direction, atten, seed_x,
+    seed_y, alive)."""
     # Draw exactly where the reference draws (hit and not last bounce).
     nsx, nsy, rx, ry = rng.pcg2d(seed_x, seed_y)
     seed_x = torch.where(did_hit, nsx, seed_x)
     seed_y = torch.where(did_hit, nsy, seed_y)
-
-    new_origin = (origin + hit.t[:, None] * direction
-                  + tri_data.geometry_normal * ORIGIN_OFFSET)
     new_direction = sample_brdf(shading, rx, ry)
     density = get_brdf_density(shading, new_direction)
     lambert_in = dot(shading.normal, new_direction)
@@ -317,7 +325,7 @@ def extend_paths(scene, hit, origin, direction, atten, seed_x, seed_y,
     survive = did_hit & ~killed
     hit_col = did_hit[:, None]
     atten = torch.where(survive[:, None], atten * weight, atten)
-    origin = torch.where(hit_col, new_origin, origin)
+    origin = torch.where(hit_col, hit_point, origin)
     direction = torch.where(hit_col, new_direction, direction)
     if rr:
         # One more draw, on the surviving lanes only.
@@ -329,6 +337,17 @@ def extend_paths(scene, hit, origin, direction, atten, seed_x, seed_y,
         atten = torch.where(keep[:, None], atten / p_survive[:, None], atten)
         survive = keep
     return origin, direction, atten, seed_x, seed_y, survive
+
+
+def extend_paths(scene, hit, origin, direction, atten, seed_x, seed_y,
+                 did_hit, tri_data, mat, rr: bool = False):
+    """Shade the hit lanes and draw the next segment (ray_gen.rgen:80-101;
+    ``_next_segment``).  Returns (origin, direction, atten, seed_x,
+    seed_y, alive)."""
+    return _next_segment(_shading_info(mat, direction),
+                         _hit_point(hit, origin, direction, tri_data),
+                         origin, direction, atten, seed_x, seed_y, did_hit,
+                         rr)
 
 
 def _shade_and_extend(scene, hit, origin, direction, atten, color, seed_x,
@@ -403,8 +422,8 @@ def trace_sample(scene, origin, direction, seed_x, seed_y, *,
 # Lanes per shading chunk of the joint batch: the shading step makes
 # some twenty (lanes, 3) f32 temporaries, 2 GB at this size, where the
 # whole 1080p batch of 32 frames (66,355,200 lanes) would take 16 GB;
-# that batch peaks at 12.5 GB allocated with it (H100, PERF.md).  Every
-# traversal launch of the batch is at most this size.
+# that batch peaks at 13.3-13.6 GB allocated with it (H100, PERF.md).
+# Every traversal launch of the batch is at most this size.
 JOINT_CHUNK = 1 << 23
 
 
@@ -413,9 +432,22 @@ def _chunks(stop: int, chunk: int):
     return [(s, min(s + chunk, stop)) for s in range(0, stop, chunk)]
 
 
-def _take(fields, idx):
-    """A NamedTuple of per-lane tensors gathered at ``idx``."""
-    return type(fields)(*(f[idx] for f in fields))
+def _frame_chunks(batch: int, n: int, chunk: int):
+    """(first lane, first pixel, end pixel, frames) of bounce 0's
+    shading chunks: as many whole frames as fit in ``chunk`` lanes, or
+    pixel ranges of one frame where a frame does not fit."""
+    if n <= chunk:
+        g = chunk // n
+        return [(f * n, 0, n, min(g, batch - f)) for f in range(0, batch, g)]
+    return [(f * n + p, p, min(p + chunk, n), 1)
+            for f in range(batch) for p in range(0, n, chunk)]
+
+
+def _frame_lanes(x, p0: int, p1: int, frames: int):
+    """Per-pixel values ``x[p0:p1]`` on the lanes of ``frames``
+    consecutive frames: a view for one frame, else copies."""
+    x = x[p0:p1]
+    return x if frames == 1 else x.repeat(frames, *([1] * (x.dim() - 1)))
 
 
 def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
@@ -430,10 +462,12 @@ def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
     - Bounce 0 is the same in every frame (the frame counter only seeds
       the RNG): one closest-hit launch on the N primaries, its sky and
       emissive counted ``batch`` times.
-    - Its shading draws every frame's next segment into the B*N lane
-      state (origin, direction, attenuation, color, the two seeds as
-      int64 holding uint32 values, alive, lane id: tensors gathered by
-      one order), in chunks of ``chunk`` lanes.
+    - Its shading (``_shading_info``, the hit point) is computed once
+      per pixel; each frame's draws of its next segment
+      (``_next_segment``) fill the B*N lane state (origin, direction,
+      attenuation, color, the two seeds as int64 holding uint32 values,
+      alive, lane id: tensors gathered by one order), in chunks of at
+      most ``chunk`` lanes, whole frames where they fit.
     - Each later bounce sorts the live lanes by the 6d key
       (``_bounce_sort_key``, dead lanes last) when ``sort_secondary``,
       then traces and shades them chunk by chunk: middle bounces a
@@ -469,7 +503,11 @@ def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
     if num_bounces == 1:
         return color_sum, rays
 
-    # Bounce 0's shading, lanes k*N + p for frame k and pixel p.
+    # Bounce 0's next segment of every frame, lanes k*N + p for frame k
+    # and pixel p: the per-pixel shading once, the draws per lane.
+    per_pixel = (*_shading_info(mat0, direction),
+                 _hit_point(hit0, origin, direction, tri0), origin,
+                 direction, did0)
     seed_x = seed_x.reshape(-1)
     seed_y = seed_y.reshape(-1)
     o = torch.empty((m, 3), dtype=torch.float32, device=dev)
@@ -478,13 +516,14 @@ def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
     sx = torch.empty_like(seed_x)
     sy = torch.empty_like(seed_y)
     alive = torch.empty(m, dtype=torch.bool, device=dev)
-    for s, e in _chunks(m, chunk):
-        pix = torch.arange(s, e, device=dev) % n
-        out = extend_paths(
-            scene, _take(hit0, pix), origin[pix], direction[pix],
+    for s, p0, p1, frames in _frame_chunks(batch, n, chunk):
+        e = s + frames * (p1 - p0)
+        lanes = [_frame_lanes(x, p0, p1, frames) for x in per_pixel]
+        out = _next_segment(
+            ShadingInfo(*lanes[:6]), *lanes[6:9],
             torch.ones((e - s, 3), dtype=torch.float32, device=dev),
-            seed_x[s:e], seed_y[s:e], did0[pix], _take(tri0, pix),
-            _take(mat0, pix), rr=russian_roulette and rr_start_bounce <= 1)
+            seed_x[s:e], seed_y[s:e], lanes[9],
+            rr=russian_roulette and rr_start_bounce <= 1)
         for dst, src in zip((o, d, atten, sx, sy, alive), out):
             dst[s:e] = src
     color = torch.zeros_like(o)
