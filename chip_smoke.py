@@ -45,7 +45,26 @@ before the result line):
    launches on the sorted live prefix) with their bounds, under
    ``*_convergence`` keys; one ``python -m vulkan_pathtracer_tpu_torch
    --progressive --batch-frames 4 --checkpoint`` run and its resume;
-6. instanced kernels — the pair kernels against their plain versions,
+6. fly-through path — pooled groups of frames of different cameras
+   (``RenderPipeline.render_pooled``, ``--pool-frames``) on the same
+   atrium: a group of 4 orbit cameras at 320x180 through the kernels
+   and through the plain versions (image difference 0.0, equal rays;
+   the same group on ``--instanced`` at 160x90 in phase 8); the 1080p
+   fly-through of 32 cameras at ``4.0 * f / 32`` on the orbit, frames
+   1..32 (experiments/pooled_frames.py): its rays equal to the sum of
+   the 32 single frames', frames 0, 15 and 31 equal to their single
+   renders bitwise, two runs bitwise equal, the launch counters zeroed
+   just before the group and read just after (quad closest hit
+   ceil(32 N / ``wavefront.JOINT_CHUNK``), quad any hit ceil(live /
+   ``JOINT_CHUNK``)); sequential and pooled timed, 1 warm-up and the
+   best of 3 passes each (ms per frame, Mrays/s, their ratio, the peak
+   allocated memory); both quad kernels timed on the group's first
+   launch of each (bounce 0's first ``JOINT_CHUNK`` primaries; the
+   any hit's first chunk of sorted live lanes) under ``*_pooled`` keys;
+   one ``python -m vulkan_pathtracer_tpu_torch --pool-frames 8 --frames
+   8`` run at 1080p along the orbit and one ``-v`` run on the Cornell
+   box at 64x64;
+7. instanced kernels — the pair kernels against their plain versions,
    bitwise: the columns scene as 197 instances of 33 meshes (leaf 14)
    with a frame's primary and bounce rays, the instanced atrium (32
    instances, leaf 14) with 65,536 primary and 65,536 live bounce rays;
@@ -56,11 +75,12 @@ before the result line):
    (as for the quad kernels, plus leaf visits and the share of them
    that change the lane's instance), its outputs bitwise the plain
    versions';
-7. instanced main path — the atrium through ``load_pipeline(...,
+8. instanced main path — the atrium through ``load_pipeline(...,
    instanced=True)`` (``--instanced``): 1 warm-up + 4 timed frames, the
    counters read around them (pair 4 each, quad 0); a 320x180
-   instanced frame through the kernels and the plain versions;
-8. skip and wide kernels — each against its plain version on the card,
+   instanced frame through the kernels and the plain versions; the
+   fly-through's pooled group of 4 cameras at 160x90 through both;
+9. skip and wide kernels — each against its plain version on the card,
    t, tri, u, v bitwise: the columns scene flat (leaf 28, both kernels)
    and instanced (leaf 14, the skip kernel) with a frame's primary and
    bounce rays; the atrium flat (``load_pipeline`` with ``--traversal
@@ -72,7 +92,7 @@ before the result line):
    ``pallas8`` frame, each held bitwise (t, tri, u, v) to its plain
    version on each launch at full size, with its statistics build (as
    for the pair kernels, no stack);
-9. ``--traversal`` main paths — flat ``pallas_packet``, flat
+10. ``--traversal`` main paths — flat ``pallas_packet``, flat
    ``pallas8`` and instanced ``pallas_packet`` at 1080p: 1 warm-up + 4
    timed frames each, the counters read around them (the path's kernel
    8 = bounce 0 and bounce 1 per frame, every other kernel 0); the rays
@@ -84,7 +104,7 @@ before the result line):
    0.0; a 320x180 ``--traversal bvh`` frame (the per-ray walk in plain
    PyTorch) against the skip kernel's: allclose 1e-5 but on the pixels
    whose paths met a differing hit;
-10. tier kernels — the oct kernel, both frontier kernels (width 16; 32
+11. tier kernels — the oct kernel, both frontier kernels (width 16; 32
    on the columns) and every kernel built with coefficient leaves
    (quad, pair flat and two-level, frontier) against their plain
    versions, t, tri, u, v and the any-hit bit bitwise: the columns
@@ -103,7 +123,7 @@ before the result line):
    leaf visit, the shares of them rejected at det <= 0, at u' < 0 and
    at the v' window, and the shares of leaf visits whose table row 1,
    2, 3-4, ... 17-32 of the warp's lanes test together);
-11. tier main paths — 1080p, 1 warm-up + 4 timed frames each, the
+12. tier main paths — 1080p, 1 warm-up + 4 timed frames each, the
    counters read around the 4 frames: (a) flat ``oct`` at leaf 28 (oct
    4, quad any hit 4), (b) flat frontier with coefficient leaves at
    leaf 28 (frontier 4 + 4, coefficient kernels), (c) flat frontier with
@@ -189,6 +209,12 @@ SMALL_W, SMALL_H = 320, 180
 # The convergence path: frames per 1080p batch, the target, and the
 # frames of the small joint batches held to the plain versions.
 CONV_B, CONV_SPP, CONV_SMALL_B = 32, 1024, 4
+# The fly-through: cameras per 1080p group (experiments/pooled_frames.py),
+# cameras per small group, the instanced small group's size, and the
+# CLI's group.
+POOL_F, POOL_SMALL_F = 32, 4
+POOL_INST_W, POOL_INST_H = 160, 90
+POOL_CLI_F = 8
 # Bounds: H100 SXM f32 peak outside the tensor cores and HBM rate
 # (NVIDIA data sheet).  Operations per step, read off csrc/: a slab test
 # is 12 mul/sub + 12 min/max + 1 compare (traverse.cuh slab()); a quad
@@ -297,7 +323,7 @@ def main() -> int:
         print(f"[build] ptxas: {ln}")
 
     # -- 3. flat kernels vs plain versions -----------------------------------
-    from assets.procedural import make_atrium, make_columns
+    from assets.procedural import make_atrium, make_columns, make_cornell
     from vulkan_pathtracer_tpu_torch.app.camera_path import orbit_path
     from vulkan_pathtracer_tpu_torch.app.main import load_pipeline
     from vulkan_pathtracer_tpu_torch.models import gltf
@@ -930,7 +956,7 @@ def main() -> int:
           rays=sum(batch_rays), launches=conv_launches,
           launches_per_batch={"quad_closest_hit": 1,
                               "quad_any_hit": sorted(set(any_launches))},
-          chunk=wf.JOINT_CHUNK, mean=f"{mean.mean().item():.5f}",
+          chunk=wf.JOINT_CHUNK, mean=f"{mean.mean().item():.10f}",
           per_frame_path_frames=CONV_B,
           per_frame_path_seconds=f"{single_s:.3f}",
           per_frame_path_spp_per_s=f"{CONV_B / single_s:.3f}",
@@ -1002,11 +1028,214 @@ def main() -> int:
           timing=repr([ln for ln in proc.stderr.splitlines()
                        if "frame(s) on" in ln][-1]))
     torch.cuda.empty_cache()
-    del pipe, scene
     phase("phase", name="convergence path",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 6. instanced kernels vs plain versions ------------------------------
+    # -- 6. fly-through path -------------------------------------------------
+    # Pooled groups of frames of different cameras (render_pooled) on the
+    # flat atrium: a small group through the kernels and the plain
+    # versions, then the 1080p group of POOL_F cameras.
+    t0 = time.perf_counter()
+
+    def group_cameras(count, aspect):
+        """``count`` cameras on the interior orbit at 4.0 * f / count."""
+        path = orbit_path(radius=4.5, height=2.2, duration=4.0,
+                          center=(0.0, 1.2, 0.0))
+        cams = []
+        for f in range(count):
+            cams.append(Camera(aspect_ratio=aspect))
+            path.apply(cams[-1], path.duration * f / count)
+        return cams
+
+    def small_group(scene_, label, width, height):
+        """A pooled group of POOL_SMALL_F cameras through the kernels and
+        through the plain versions: rays equal, image difference 0.0."""
+        gpipe = pl.RenderPipeline(scene_, RenderConfig(
+            num_samples=1, num_bounces=2, resolution_x=width,
+            resolution_y=height))
+        cams = group_cameras(POOL_SMALL_F, width / height)
+        frames = list(range(1, POOL_SMALL_F + 1))
+        before = dict(st.LAUNCHES)
+        img_k, rays_k = gpipe.render_pooled(cams, frames)
+        sync()
+        launched = {k: v - before[k] for k, v in st.LAUNCHES.items()
+                    if v != before[k]}
+        img_p, rays_p = on_plain_versions(
+            lambda: gpipe.render_pooled(cams, frames))
+        diff = (img_k - img_p).abs().max().item()
+        check(int(rays_k) == int(rays_p) and diff == 0.0,
+              f"{label} pooled {width}x{height}: rays {int(rays_k)} "
+              f"(kernels) vs {int(rays_p)} (plain), image differs by {diff}")
+        check(bool(torch.isfinite(img_k).all()) and img_k.mean() > 0,
+              f"{label} pooled {width}x{height}: non-finite or black")
+        phase("flythrough", check=f"{label} {POOL_SMALL_F} cameras "
+              f"{width}x{height} kernels vs plain", rays=int(rays_k),
+              max_abs_diff=diff, launches=launched)
+
+    small_group(scene, "flat", SMALL_W, SMALL_H)
+
+    # The 1080p fly-through: the single frames first (the sequential
+    # path's warm-up, which keeps frames 0, 15 and 31), then the pooled
+    # group with the counters zeroed just before and read just after.
+    cams = group_cameras(POOL_F, config.aspect_ratio)
+    frames = list(range(1, POOL_F + 1))
+    kept = (0, POOL_F // 2 - 1, POOL_F - 1)
+    solo, solo_rays = {}, []
+    for k, (cam, frame) in enumerate(zip(cams, frames)):
+        img, r = pipe.render(cam, frame)
+        solo_rays.append(int(r))
+        if k in kept:
+            solo[k] = img
+    sync()
+    for key in st.LAUNCHES:
+        st.LAUNCHES[key] = 0
+    images, pooled_rays = pipe.render_pooled(cams, frames)
+    sync()
+    pooled_launches = dict(st.LAUNCHES)
+    pooled_rays = int(pooled_rays)
+    check(pooled_rays == sum(solo_rays), f"fly-through: pooled rays "
+          f"{pooled_rays}, single frames {sum(solo_rays)}")
+    m_lanes = POOL_F * n_pix
+    want = only(quad_closest_hit=-(-m_lanes // wf.JOINT_CHUNK),
+                quad_any_hit=-(-(pooled_rays - m_lanes) // wf.JOINT_CHUNK))
+    check(pooled_launches == want, f"fly-through: launches "
+          f"{pooled_launches}, expected {want}")
+    check(tuple(images.shape) == (POOL_F, HEIGHT, WIDTH, 3)
+          and bool(torch.isfinite(images).all()),
+          "fly-through: non-finite or misshapen images")
+    solo_diff = {k: (images[k] - solo[k]).abs().max().item() for k in kept}
+    check(all(torch.equal(images[k], solo[k]) for k in kept),
+          f"fly-through: frames {kept} differ from their single renders "
+          f"by {solo_diff}")
+    again, again_rays = pipe.render_pooled(cams, frames)
+    check(int(again_rays) == pooled_rays and torch.equal(images, again),
+          "fly-through: two pooled runs differ")
+    write_png(os.path.join(WORK, "flythrough_31.png"),
+              images[POOL_F - 1].cpu().numpy())
+    del again, images, solo
+
+    def best_of(run):
+        """Seconds of the best of 3 passes after 1 warm-up, the rays of
+        a pass and the peak allocated memory of the passes."""
+        run()
+        torch.cuda.reset_peak_memory_stats(dev)
+        best = float("inf")
+        for _ in range(3):
+            t1 = time.perf_counter()
+            rays_ = run()
+            best = min(best, time.perf_counter() - t1)
+        return best, rays_, torch.cuda.max_memory_allocated(dev) / 1e9
+
+    def sequential():
+        total = 0
+        for cam, frame in zip(cams, frames):
+            img, r = pipe.render(cam, frame)
+            total += int(r)   # syncs: r is a device scalar
+        return total
+
+    def pooled():
+        imgs, r = pipe.render_pooled(cams, frames)
+        return int(r)
+
+    seq_s, seq_rays, seq_gb = best_of(sequential)
+    pool_s, pool_rays, pool_gb = best_of(pooled)
+    check(seq_rays == pool_rays == pooled_rays,
+          f"fly-through timing: rays {seq_rays} / {pool_rays}")
+    phase("flythrough", path=f"{WIDTH}x{HEIGHT} {POOL_F} cameras",
+          rays=pooled_rays, launches=pooled_launches,
+          frames_equal_to_single=list(kept), max_abs_diff_single=solo_diff,
+          bitwise_stable=True,
+          sequential_ms_per_frame=f"{1000.0 * seq_s / POOL_F:.3f}",
+          pooled_ms_per_frame=f"{1000.0 * pool_s / POOL_F:.3f}",
+          sequential_mrays_per_s=f"{seq_rays / seq_s / 1e6:.3f}",
+          pooled_mrays_per_s=f"{pool_rays / pool_s / 1e6:.3f}",
+          pooled_over_sequential=f"{seq_s / pool_s:.4f}",
+          sequential_peak_allocated_gb=f"{seq_gb:.3f}",
+          pooled_peak_allocated_gb=f"{pool_gb:.3f}",
+          chunk=wf.JOINT_CHUNK, card=repr(card))
+
+    # Rows 1-2 at this path's shapes: the group's first closest-hit
+    # launch (bounce 0, the first JOINT_CHUNK primaries) and its first
+    # any-hit launch (the first chunk of the sorted live lanes),
+    # captured from a group outside the counted run.
+    captured = {"closest": [], "any": []}
+    real_closest, real_any = wf._closest_hit, wf._any_hit
+
+    def capture_closest(scene_, o_, d_, active, tiers="auto", ph="primary"):
+        if not captured["closest"]:
+            captured["closest"].append((o_.clone(), d_.clone(),
+                                        active.clone()))
+        return real_closest(scene_, o_, d_, active, tiers, ph)
+
+    def capture_any(scene_, o_, d_, active, tiers="auto"):
+        if not captured["any"]:
+            captured["any"].append((o_.clone(), d_.clone(), active.clone()))
+        return real_any(scene_, o_, d_, active, tiers)
+
+    wf._closest_hit, wf._any_hit = capture_closest, capture_any
+    try:
+        pipe.render_pooled(cams, frames)
+        sync()
+    finally:
+        wf._closest_hit, wf._any_hit = real_closest, real_any
+    tables = (scene.quad_box, scene.quad_link, scene.leaves)
+    cargs = quad_args(scene, *captured["closest"][0])
+    time_kernel("quad_closest_hit", lambda: kernels.quad_closest_hit(*cargs),
+                lambda s=None: st.quad_closest_hit_plain(*cargs, stats=s),
+                tables, cargs[3].shape[0], 16, scene, closest_err,
+                tag="_pooled")
+    pargs_ = quad_args(scene, *captured["any"][0])
+    time_kernel("quad_any_hit", lambda: kernels.quad_any_hit(*pargs_),
+                lambda s=None: st.quad_any_hit_plain(*pargs_, stats=s),
+                tables, pargs_[3].shape[0], 1, scene, any_err, tag="_pooled")
+    phase("timing", kernel="quad_any_hit_pooled", rays=pargs_[3].shape[0],
+          live=int(captured["any"][0][2].sum()))
+    for key in ("quad_closest_hit", "quad_any_hit"):
+        plain_outputs.pop(key + "_pooled")
+        results[key]["launches_pooled"] = pooled_launches[key]
+        results[key]["launches_pooled_groups"] = 1
+    del captured, cargs, pargs_
+
+    # The CLI: a pooled fly-through at 1080p along the orbit, and -v.
+    orbit_json = os.path.join(WORK, "orbit.json")
+    with open(orbit_json, "w") as f:
+        json.dump(orbit_path(radius=4.5, height=2.2, duration=4.0,
+                             center=(0.0, 1.2, 0.0)).keyframes, f)
+    out_png = os.path.join(WORK, "cli_pooled.png")
+    if os.path.exists(out_png):
+        os.remove(out_png)
+    proc = subprocess.run(
+        [sys.executable, "-m", "vulkan_pathtracer_tpu_torch", "-s",
+         atrium_path, "-o", out_png, "--pool-frames", str(POOL_CLI_F),
+         "--frames", str(POOL_CLI_F), "--camera-path", orbit_json],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0 and os.path.exists(out_png)
+          and f"{POOL_CLI_F} frame(s) on cuda" in proc.stderr,
+          f"pooled CLI: rc {proc.returncode}\n{proc.stderr}")
+    phase("flythrough", check=f"CLI --pool-frames {POOL_CLI_F} --frames "
+          f"{POOL_CLI_F} {WIDTH}x{HEIGHT}", rc=proc.returncode,
+          timing=repr([ln for ln in proc.stderr.splitlines()
+                       if "frame(s) on" in ln][-1]))
+    cornell_path = os.path.join(WORK, "cornell.glb")
+    if not os.path.exists(cornell_path):
+        make_cornell(cornell_path)
+    proc = subprocess.run(
+        [sys.executable, "-m", "vulkan_pathtracer_tpu_torch", "-s",
+         cornell_path, "-x", "64", "-y", "64", "-v", "-o",
+         os.path.join(WORK, "cli_validation.png")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0 and "validated" in proc.stderr
+          and "render validation passed" in proc.stderr,
+          f"CLI -v: rc {proc.returncode}\n{proc.stderr}")
+    phase("flythrough", check="CLI -v", rc=proc.returncode,
+          validation=repr([ln for ln in proc.stderr.splitlines()
+                           if "valid" in ln]))
+    del pipe, scene
+    torch.cuda.empty_cache()
+    phase("phase", name="fly-through path",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # -- 7. instanced kernels vs plain versions ------------------------------
     # Columns as 197 instances of 33 meshes at leaf 14.
     t0 = time.perf_counter()
     icols = build_instanced_scene(cols_host, max_leaf_size=14, device=dev)
@@ -1066,7 +1295,7 @@ def main() -> int:
     phase("phase", name="instanced kernels",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 7. instanced main path ----------------------------------------------
+    # -- 8. instanced main path ----------------------------------------------
     t0 = time.perf_counter()
     _, rays = ipipe.render(cam0, 0, present_order=False)
     check(int(rays) == n_pix + ilive1,
@@ -1075,10 +1304,11 @@ def main() -> int:
     inst_launches, inst_rays = main_path(ipipe, "instanced", only(
         pair_closest_hit=4, pair_any_hit=4))
     small_frame(iscene, "instanced")
+    small_group(iscene, "instanced", POOL_INST_W, POOL_INST_H)
     phase("phase", name="instanced main path",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 8. skip and wide kernels vs plain versions --------------------------
+    # -- 9. skip and wide kernels vs plain versions --------------------------
     # Columns flat at leaf 28 (both kernels) and instanced at leaf 14
     # (the skip kernel): all rays of a COLS_W x COLS_H frame.
     t0 = time.perf_counter()
@@ -1128,7 +1358,7 @@ def main() -> int:
                   (o1, d1, a1))
     del o, d, o1, d1, a1
 
-    # The instanced atrium (phase 6's bake): the skip kernel with the
+    # The instanced atrium (phase 7's bake): the skip kernel with the
     # instanced leaf decode.
     o, d, o1, d1, a1, _ = bounce_rays(iscene, cam0, 0, WIDTH, HEIGHT,
                                       "pallas_packet")
@@ -1142,7 +1372,7 @@ def main() -> int:
     phase("phase", name="skip and wide kernels",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 9. --traversal main paths --------------------------------------------
+    # -- 10. --traversal main paths --------------------------------------------
     # Each 1080p path launches its one kernel twice a frame (bounce 0,
     # and bounce 1 as a sorted closest hit) and traces the headline's
     # rays.
@@ -1191,7 +1421,7 @@ def main() -> int:
     phase("phase", name="traversal main paths",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 10. tier kernels vs plain versions ----------------------------------
+    # -- 11. tier kernels vs plain versions ----------------------------------
     # Each chosen kernel against its plain version, bitwise; with exact
     # leaves the any-hit bit equals the closest-hit mask (coefficient
     # leaves compare det-scaled in the any hit: the agreement is
@@ -1386,7 +1616,7 @@ def main() -> int:
     phase("phase", name="tier kernels",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 11. tier main paths -------------------------------------------------
+    # -- 12. tier main paths -------------------------------------------------
     t0 = time.perf_counter()
 
     def coef_differences(scene, tier):
@@ -1486,7 +1716,7 @@ def main() -> int:
     phase("phase", name="tier main paths",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 12. result ------------------------------------------------------------
+    # -- 13. result ------------------------------------------------------------
     launches = {**{k: flat_launches[k] for k in ("quad_closest_hit",
                                                   "quad_any_hit")},
                 **{k: inst_launches[k] for k in ("pair_closest_hit",

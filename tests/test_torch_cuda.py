@@ -27,8 +27,13 @@ coefficient leaves), and walk kernels launched on two side streams at
 once, each with its own batch counter.  The joint progressive batch
 (``render_frames_joint``, in small shading chunks) through the kernels
 equals it through the plain versions on the card bitwise, and two runs
-are bitwise equal; the quad kernels index rays in 64 bits (a launch
-whose float offsets pass 2^31).
+are bitwise equal; so is a pooled group of 3 frames of 3 cameras
+(``render_frames_pooled``, the fly-through) against the same group on
+the CPU (equal rays, radiance allclose 1e-5), from run to run; the
+quad kernels index rays in 64 bits (a launch whose float offsets pass
+2^31).  The textured golden configuration (tests/golden_utils.py:
+the textured sphere at 4 spp, 2 bounces, 64x64) renders on the card as
+on the CPU: textures, normal maps and the multi-sample loop.
 """
 
 import numpy as np
@@ -63,13 +68,19 @@ def cuda():
 
 @pytest.fixture(scope="module")
 def scene_paths(tmp_path_factory):
-    from assets.procedural import make_columns, make_cornell
+    from assets.procedural import (
+        make_columns,
+        make_cornell,
+        make_textured_sphere,
+    )
 
     root = tmp_path_factory.mktemp("cuda_scenes")
     paths = {"columns": str(root / "columns.glb"),
-             "cornell": str(root / "cornell.glb")}
+             "cornell": str(root / "cornell.glb"),
+             "sphere": str(root / "sphere.glb")}
     make_columns(paths["columns"], grid=4, segments=3, n_materials=4)
     make_cornell(paths["cornell"])
+    make_textured_sphere(paths["sphere"], lat=16, lon=32)
     return paths
 
 
@@ -666,6 +677,30 @@ def _render_both(cuda, scene_paths, bounces, traversal, **tiers):
     np.testing.assert_allclose(images[0], images[1], rtol=1e-5, atol=1e-5)
 
 
+def test_textured_golden_cuda_matches_cpu(cuda, scene_paths):
+    """The ``textured`` golden configuration (tests/golden_utils.py:58-65:
+    the textured sphere's close-up at 4 spp, 2 bounces, 64x64, leaf-4
+    bake) on the card against the CPU: equal rays, radiance allclose
+    1e-5, as ``_render_both``.  Textures, normal maps and the sample
+    loop run on the card."""
+    config = RenderConfig(num_samples=4, num_bounces=2, resolution_x=64,
+                          resolution_y=64)
+    cam = Camera(aspect_ratio=config.aspect_ratio,
+                 position=np.asarray([0.55, 0.35, -1.75], np.float32))
+    cam.set_orientation(yaw=-8.0, pitch=-10.0)
+    images, rays = [], []
+    for device in (cuda, torch.device("cpu")):
+        scene = build_device_scene(gltf.load(scene_paths["sphere"]),
+                                   max_leaf_size=4, device=device)
+        assert scene.has_textures
+        image, traced = RenderPipeline(scene, config).render_numpy(cam, 0)
+        images.append(image)
+        rays.append(traced)
+    assert rays[0] == rays[1] > 4 * 64 * 64
+    assert np.isfinite(images[0]).all() and images[0].std() > 0
+    np.testing.assert_allclose(images[0], images[1], rtol=1e-5, atol=1e-5)
+
+
 @pytest.fixture(scope="module")
 def atrium_path(tmp_path_factory):
     from assets.procedural import make_atrium
@@ -783,3 +818,62 @@ def test_quad_launch_past_int32_offsets(cuda, scene_paths):
     any_hit = st.quad_any_hit(scene, o, d, active)
     assert torch.equal(any_hit[n - live:], want.t < MISS_T)
     assert not bool(any_hit[:n - live].any())
+
+
+def _pooled_group(device, scene_paths, atrium_path, case):
+    """run() -> (images, rays) of a pooled group of 3 frames of 3
+    cameras of ``case`` on ``device``, in shading chunks of 3,000 lanes
+    (the scenes and settings of ``_joint_batch``)."""
+    if case == "cornell_rr":
+        scene = build_device_scene(gltf.load(scene_paths["cornell"]),
+                                   max_leaf_size=14, device=device)
+        cams = []
+        for yaw in (180.0, 175.0, 185.0):
+            cams.append(Camera(aspect_ratio=96 / 72, position=np.asarray(
+                [0.0, 1.0, 0.9], np.float32)))
+            cams[-1].set_orientation(yaw=yaw, pitch=0.0)
+    else:
+        host = gltf.load(atrium_path)
+        scene = (build_instanced_scene(host, max_leaf_size=14, device=device)
+                 if case == "atrium_instanced" else
+                 build_device_scene(host, max_leaf_size=28, device=device))
+        cams = []
+        for t in (0.0, 1.3, 2.6):
+            cams.append(Camera(aspect_ratio=96 / 72))
+            orbit_path(radius=4.5, height=2.2, duration=4.0,
+                       center=(0.0, 1.2, 0.0)).apply(cams[-1], t)
+    pos, hor, ver, fwd = (torch.stack(v) for v in zip(
+        *[pl.camera_tensors(cam, device) for cam in cams]))
+
+    def run():
+        images, rays = pl.render_frames_pooled(
+            scene, pos, hor, ver, fwd, [2, 3, 5],
+            num_bounces=3 if case == "cornell_rr" else 2, width=96,
+            height=72, sort_secondary=case != "cornell_rr",
+            russian_roulette=case == "cornell_rr", chunk=3000)
+        return images, int(rays)
+    return run
+
+
+@pytest.mark.parametrize("case", JOINT_CASES)
+def test_pooled_group_cuda_matches_cpu(cuda, scene_paths, atrium_path,
+                                       case):
+    """A pooled group through the kernels against the same group through
+    the plain versions on the CPU: equal rays, radiance allclose 1e-5;
+    two runs on the card are bitwise equal; every launch is at most one
+    chunk (bounce 0's closest hits ceil(3N / 3,000))."""
+    run = _pooled_group(cuda, scene_paths, atrium_path, case)
+    before = dict(st.LAUNCHES)
+    images, rays = run()
+    launches = {k: v - before[k] for k, v in st.LAUNCHES.items()
+                if v != before[k]}
+    first_kind = "quad" if case == "atrium_sorted" else "pair"
+    assert launches[f"{first_kind}_closest_hit"] == -(-3 * 96 * 72 // 3000)
+    again, rays2 = run()
+    assert rays == rays2 and torch.equal(images, again)
+    ref, ref_rays = _pooled_group(torch.device("cpu"), scene_paths,
+                                  atrium_path, case)()
+    assert rays == ref_rays > 3 * 96 * 72
+    assert bool(torch.isfinite(images).all()) and images.mean() > 0
+    np.testing.assert_allclose(images.cpu().numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5)

@@ -10,11 +10,13 @@
   pallas_packet``, ``--traversal pallas8`` and a kernel-tier frame
   (the frontier kernels with coefficient leaves, chosen by the
   ``VKPT_*`` variables) on ``--device cpu``, and run the progressive
-  CLI (a joint batch, a checkpoint and its resume).
+  CLI (a joint batch, a checkpoint and its resume) and the pooled
+  fly-through CLI (``--pool-frames``).
 - Without CUDA, the default ``--device cuda`` exits non-zero with a
   clear message instead of switching to the CPU.
 - The traversal wrappers raise for a device that is neither CPU nor
-  CUDA; the CLI refuses flags that are not yet ported.
+  CUDA; the CLI refuses the flags that are not yet ported
+  (``--devices``, ``--shard-mode``).
 """
 
 import os
@@ -70,6 +72,9 @@ def test_source_never_imports_jax_package():
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith(".py")]
     assert len(paths) > 20
+    for module in ("utils/profiling.py", "utils/validation.py",
+                   "app/viewer.py"):
+        assert os.path.join(PKG, module) in paths, module
     for path in paths:
         with open(path) as f:
             assert not pattern.search(f.read()), path
@@ -157,6 +162,21 @@ def test_cli_progressive_without_jax_package(box_glb, tmp_path):
     assert image.shape == (32, 48, 3) and 0 < image.mean() < 255
 
 
+def test_cli_pooled_without_jax_package(box_glb, tmp_path):
+    """The fly-through path (``--pool-frames``: groups of frames as one
+    pooled wavefront) in a process without JAX."""
+    out = tmp_path / "box.png"
+    proc = _run(IMPORT_ALL_AND_RUN_CLI, "-s", box_glb, "-x", "48", "-y",
+                "32", "-o", str(out), "--frames", "3", "--pool-frames", "2",
+                "--device", "cpu", block=BLOCK_JAX_PACKAGE)
+    assert proc.returncode == 0, proc.stderr
+    assert "3 frame(s) on cpu" in proc.stderr
+    from vulkan_pathtracer_tpu_torch.utils import read_png
+
+    image = read_png(str(out))
+    assert image.shape == (32, 48, 3) and 0 < image.mean() < 255
+
+
 def test_cuda_device_without_cuda_fails(box_glb, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks its absence")
@@ -170,10 +190,8 @@ def test_cuda_device_without_cuda_fails(box_glb, tmp_path):
     assert not (tmp_path / "x.png").exists()
 
 
-@pytest.mark.parametrize("flag", [["-v"], ["--interactive"],
-                                  ["--devices", "2"], ["--profile",
-                                                       "trace_dir"],
-                                  ["--pool-frames", "2"]])
+@pytest.mark.parametrize("flag", [["--devices", "2"],
+                                  ["--shard-mode", "spp"]])
 def test_unported_flags_refused(flag, capsys):
     from vulkan_pathtracer_tpu_torch.app.main import parse_args
 

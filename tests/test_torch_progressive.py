@@ -404,20 +404,22 @@ def test_cli_progressive_frames(cornell_glb, tmp_path, capsys, extra):
 
 
 def test_still_refused(capsys):
-    """``-v`` stays refused with exit 2, and RenderPipeline refuses
-    ``seed_secondary`` and ``enable_validation``."""
+    """``--devices`` stays refused with exit 2, the progressive flags
+    parse, and RenderPipeline refuses ``seed_secondary`` (while it takes
+    ``enable_validation``, which ``-v`` sets)."""
     with pytest.raises(SystemExit) as exc:
-        parse_args(["-s", "scene.glb", "-v"])
+        parse_args(["-s", "scene.glb", "--devices", "2"])
     assert exc.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
     config, args = parse_args(["-s", "scene.glb", "--progressive",
                                "--batch-frames", "4", "--russian-roulette"])
     assert config.progressive and config.russian_roulette
     assert args.batch_frames == 4
-    for field in ("seed_secondary", "enable_validation"):
-        with pytest.raises(NotImplementedError, match=f"{field}: not yet "
-                           "ported in vulkan_pathtracer_tpu_torch"):
-            RenderPipeline(None, RenderConfig(**{field: True}))
+    with pytest.raises(NotImplementedError, match="seed_secondary: not yet "
+                       "ported in vulkan_pathtracer_tpu_torch"):
+        RenderPipeline(None, RenderConfig(seed_secondary=True))
+    config, _ = parse_args(["-s", "scene.glb", "-v"])
+    assert config.enable_validation
 
 
 def test_bench_prints_one_line_per_metric(capsys):

@@ -12,7 +12,7 @@ Cases: cornell (emissive, closest hit on every bounce) at 96x72 with
 2 and 3 bounces — larger than one 32x64 tile, so the 2D tile order is
 on; an emissive-free atrium of 24,456 triangles at leaf 28 — past the
 16,384-triangle sort gate, so the last bounce takes the SORTED ANY-HIT
-path; and three goldens through golden_utils' strict comparison.
+path; and the four goldens through golden_utils' strict comparison.
 """
 
 import numpy as np
@@ -102,12 +102,14 @@ def test_atrium_sorted_anyhit_matches_jax(atrium_glb, monkeypatch):
 
 
 @pytest.mark.parametrize("name,fixture", [("box", "box_glb"),
+                                          ("sphere", "sphere_glb"),
                                           ("textured", "sphere_glb"),
                                           ("cornell", "cornell_glb")])
 def test_golden(name, fixture, request):
-    """The JAX package's goldens (leaf-4 bake, as golden_utils renders
-    them) through golden_utils' strict comparison: textured covers the
-    texture + normal-map path, cornell 4 spp x 4 bounces the sample
+    """The JAX package's four goldens (leaf-4 bake, as golden_utils
+    renders them) through golden_utils' strict comparison: sphere the
+    textured sphere at 2 spp, textured its close-up at 4 spp (the
+    texture + normal-map path), cornell 4 spp x 4 bounces the sample
     loop and middle bounces."""
     spec = GOLDEN_CONFIGS[name]
     config = RenderConfig(**spec["config"])

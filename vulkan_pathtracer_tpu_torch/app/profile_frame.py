@@ -1,10 +1,11 @@
 """Where a frame's device time goes: per-step CUDA-event times of the
-headline frame, flat or two-level, or of one joint progressive batch.
+headline frame, flat or two-level, of one joint progressive batch, or
+of one pooled group of frames.
 
     [VKPT_KERNEL_PRIMARY=... VKPT_MT=mxu ...] \
     python -m vulkan_pathtracer_tpu_torch.app.profile_frame [--instanced]
         [--traversal auto|pallas|pallas_packet|pallas8|bvh|brute]
-        [-s scene.glb] [--frames 5] [--joint B]
+        [-s scene.glb] [--frames 5] [--joint B | --pooled F]
 
 Renders the atrium (``assets/procedural.make_atrium(detail=4.1)``,
 generated into ``build/profile_frame/`` when ``-s`` is not given) at
@@ -37,6 +38,16 @@ the peak device memory, and the state layout's cost: the gathers of the
 state's tensors by the sort's order (``_permute_prefix``) against one
 row gather of a packed (lanes, 16) f32 state by the same order (the
 JAX package's layout), timed on that batch's order.
+
+With ``--pooled F`` each "frame" is one pooled group of F frames of F
+cameras on the orbit at ``4.0 * k / F`` (``RenderPipeline.render_pooled``,
+the fly-through): the steps are the closest hits of bounce 0 (and of
+the middle bounces), their shading (``_shade_and_extend``, with its
+nested fetches, ``extend_paths`` and ``_add_sky``), the 6d key, the
+argsort and the state gathers of each later bounce, the any hit and
+its sky, and the colors put back by lane id (``_by_lane``); 1 group
+runs under the profiler.  ``ms_per_output_frame_median`` divides the
+wall time by the frames a "frame" holds (B, F or 1).
 """
 
 from __future__ import annotations
@@ -69,6 +80,10 @@ JOINT_STEPS = ("_closest_hit", "_any_hit", "get_triangle_data",
                "get_material_data", "_frame_lanes", "_next_segment",
                "_bounce_sort_key", "state_sort_order", "_permute_prefix",
                "_shade_and_extend", "_add_sky", "_sum_frames")
+POOLED_STEPS = ("_closest_hit", "_any_hit", "get_triangle_data",
+                "get_material_data", "extend_paths", "_bounce_sort_key",
+                "state_sort_order", "_permute_prefix", "_shade_and_extend",
+                "_add_sky", "_by_lane")
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
@@ -125,8 +140,11 @@ def main(argv=None) -> int:
     ap.add_argument("--instanced", action="store_true")
     ap.add_argument("--traversal", choices=TRAVERSALS, default="auto")
     ap.add_argument("--frames", type=int, default=5)
-    ap.add_argument("--joint", type=int, default=0, metavar="B",
-                    help="time joint batches of B frames instead")
+    group = ap.add_mutually_exclusive_group()
+    group.add_argument("--joint", type=int, default=0, metavar="B",
+                       help="time joint batches of B frames instead")
+    group.add_argument("--pooled", type=int, default=0, metavar="F",
+                       help="time pooled groups of F frames instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.stderr.write("profile_frame: needs a CUDA device\n")
@@ -150,13 +168,21 @@ def main(argv=None) -> int:
                        center=(0.0, 1.2, 0.0))
     cam = Camera(aspect_ratio=config.aspect_ratio)
 
-    steps_of = JOINT_STEPS if args.joint else STEPS
+    steps_of = (JOINT_STEPS if args.joint else
+                POOLED_STEPS if args.pooled else STEPS)
+    group_cams = []
+    for k in range(args.pooled):
+        group_cams.append(Camera(aspect_ratio=config.aspect_ratio))
+        orbit.apply(group_cams[-1], 4.0 * k / args.pooled)
 
     def frame(f):
         if args.joint:
             orbit.apply(cam, 0.0)
             image, rays = pipe.render_batch_sum(cam, f * args.joint,
                                                 args.joint)
+        elif args.pooled:
+            image, rays = pipe.render_pooled(
+                group_cams, [f * args.pooled + k for k in range(args.pooled)])
         else:
             orbit.apply(cam, 4.0 * f / args.frames)
             image, rays = pipe.render(cam, f, present_order=False)
@@ -190,7 +216,7 @@ def main(argv=None) -> int:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     layout = packed_gather(frame, steps["_permute_prefix"]) if args.joint \
         else None
-    prof_frames = 1 if args.joint else 3
+    prof_frames = 1 if args.joint or args.pooled else 3
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -213,9 +239,12 @@ def main(argv=None) -> int:
         "leaf": pipe.scene.max_leaf_size,
         "triangles": pipe.scene.num_triangles, "rays_per_frame": rays,
         "frames": args.frames, "joint_batch": args.joint or None,
+        "pooled_frames": args.pooled or None,
         "shading_chunks": chunks if args.joint else None,
         "peak_allocated_gb": peak_gb, "state_layout_ms": layout,
         "ms_per_frame_median": statistics.median(walls),
+        "ms_per_output_frame_median": (statistics.median(walls)
+                                       / (args.joint or args.pooled or 1)),
         "ms_per_frame": walls,
         "step_ms_per_frame_median": {n: statistics.median(v)
                                      for n, v in steps.items() if any(v)},

@@ -2,8 +2,8 @@
 
 The port's own copy of the host build of
 ``vulkan_pathtracer_tpu/ops/bvh.py``: ``build_bvh_host``,
-``pad_leaves_to_blocks``, ``octant_orders``, ``tree_depth`` and what
-they call, unchanged.
+``pad_leaves_to_blocks``, ``octant_orders``, ``tree_depth``,
+``validate_bvh`` and what they call, unchanged.
 
 The reference never builds a BVH — the Vulkan driver does it inside
 ``vkCmdBuildAccelerationStructuresKHR`` (RaytracingPass.zig:451-465,
@@ -307,3 +307,36 @@ def tree_depth(bvh: HostBVH) -> int:
             depth[l] = depth[i] + 1
             depth[r] = depth[i] + 1
     return int(depth.max())
+
+
+def validate_bvh(bvh: HostBVH, tri_v0: np.ndarray, tri_e1: np.ndarray,
+                 tri_e2: np.ndarray) -> None:
+    """Invariant checks (test support / --enable-validation):
+
+    - every triangle is covered by exactly one leaf range
+    - each node's AABB contains its triangles (and its children's AABBs)
+    - skip pointers are strictly increasing escape targets
+    """
+    n = bvh.node_count
+    t = tri_v0.shape[0]
+    covered = np.zeros(t, dtype=np.int32)
+    v0 = tri_v0
+    v1 = v0 + tri_e1
+    v2 = v0 + tri_e2
+    tmin = np.minimum(np.minimum(v0, v1), v2)
+    tmax = np.maximum(np.maximum(v0, v1), v2)
+    eps = 1e-4
+    for node in range(n):
+        first = bvh.leaf_first[node]
+        if first >= 0:
+            count = bvh.leaf_count[node]
+            covered[first:first + count] += 1
+            assert (tmin[first:first + count] >= bvh.bmin[node] - eps).all()
+            assert (tmax[first:first + count] <= bvh.bmax[node] + eps).all()
+        else:
+            l, r = bvh.left_child[node], bvh.right_child[node]
+            for c in (l, r):
+                assert (bvh.bmin[c] >= bvh.bmin[node] - eps).all()
+                assert (bvh.bmax[c] <= bvh.bmax[node] + eps).all()
+        assert node < bvh.skip[node] <= n
+    assert (covered == 1).all(), "leaf ranges must cover each triangle once"

@@ -18,6 +18,7 @@ lanes), else one frame after another (``render_frames_batch``).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Tuple
 
@@ -31,6 +32,7 @@ from vulkan_pathtracer_tpu_torch.render.wavefront import (
     JOINT_CHUNK,
     trace_progressive_batch,
     trace_sample,
+    trace_wavefront_pooled,
 )
 from vulkan_pathtracer_tpu_torch.utils import RenderConfig
 from vulkan_pathtracer_tpu_torch.utils.config import Tiers
@@ -264,19 +266,48 @@ def render_frames_joint(scene, position, horizontal, vertical, forward,
     return color_sum.reshape(height, width, 3), rays
 
 
+def render_frames_pooled(scene, positions, horizontals, verticals, forwards,
+                         frames, *, num_bounces: int, width: int,
+                         height: int, sort_secondary: bool = True,
+                         tiles=None, tiers="auto",
+                         russian_roulette: bool = False,
+                         rr_start_bounce: int = 2, chunk: int = JOINT_CHUNK):
+    """F frames of F cameras at 1 spp as one pooled wavefront (JAX
+    pipeline.py:491-560; wavefront.trace_wavefront_pooled).
+    ``positions`` .. ``forwards``: (F, 3) f32 camera vectors on the
+    device; ``frames``: F frame counters.  Each frame's primaries are
+    generated in tile order and seeded from its own frame counter, and
+    the frames' lanes are concatenated frame by frame.  Returns (images
+    (F, H, W, 3) f32 in scanline order, rays traced, int64 0-d)."""
+    dev = positions.device
+    if tiles is None:
+        tiles = tile_pixels(height, width, 0, dev)
+    prims = [primary_rays(positions[k], horizontals[k], verticals[k],
+                          forwards[k], int(frame), width, height, tiles=tiles)
+             for k, frame in enumerate(frames)]
+    tile_inv = prims[0][4]
+    origin, direction, seed_x, seed_y = (torch.cat([p[i] for p in prims])
+                                         for i in range(4))
+    del prims
+    color, traced = trace_wavefront_pooled(
+        scene, origin, direction, seed_x, seed_y, num_bounces=num_bounces,
+        tiers=tiers, russian_roulette=russian_roulette,
+        rr_start_bounce=rr_start_bounce, sort_secondary=sort_secondary,
+        chunk=chunk)
+    color = color.view(len(frames), height * width, 3)
+    if tile_inv is not None:
+        color = color[:, tile_inv]
+    return color.reshape(len(frames), height, width, 3), traced
+
+
 class RenderPipeline:
     """Holds the scene + config and renders frames on the scene's device."""
 
     def __init__(self, scene, config: RenderConfig):
-        unported = {
-            "seed_secondary": config.seed_secondary,
-            "enable_validation": config.enable_validation,
-        }
-        names = [k for k, v in unported.items() if v]
-        if names:
+        if config.seed_secondary:
             raise NotImplementedError(
-                f"{', '.join(names)}: not yet ported in "
-                f"vulkan_pathtracer_tpu_torch")
+                "seed_secondary: not yet ported in "
+                "vulkan_pathtracer_tpu_torch")
         traversal = config.traversal
         if traversal not in TRAVERSALS:
             raise ValueError(f"unknown traversal {traversal!r}")
@@ -343,6 +374,33 @@ class RenderPipeline:
             self.scene, position, horizontal, vertical, forward,
             int(frame0), batch=batch, num_samples=self.config.num_samples,
             **kw)
+
+    def render_pooled(self, cameras, frames):
+        """``len(cameras)`` frames, one camera and frame counter each, as
+        one pooled wavefront at 1 spp (JAX pipeline.py:675-700).  Returns
+        (images (F, H, W, 3) on the device, scanline order; rays traced);
+        each image is ``render(cameras[i], frames[i])``'s."""
+        if self.config.num_samples != 1:
+            raise ValueError(
+                "render_pooled requires 1 spp (cross-sample pooling would "
+                "break the per-pixel RNG stream's draw order)")
+        vectors = [camera_tensors(cam, self.scene.device) for cam in cameras]
+        positions, horizontals, verticals, forwards = (
+            torch.stack([v[i] for v in vectors]) for i in range(4))
+        return render_frames_pooled(
+            self.scene, positions, horizontals, verticals, forwards,
+            [int(f) for f in frames], num_bounces=self.config.num_bounces,
+            width=self.width, height=self.height,
+            sort_secondary=self._sort_secondary, tiles=self._tiles,
+            tiers=self.tiers, **self._rr)
+
+    def resize(self, width: int, height: int) -> "RenderPipeline":
+        """A pipeline at a new resolution (JAX pipeline.py:703-718, the
+        RaytracingPass.resize analog): like the reference, the new
+        render target takes the FULL new extent and drops the divider."""
+        return RenderPipeline(self.scene, dataclasses.replace(
+            self.config, resolution_x=width, resolution_y=height,
+            render_resolution_divider=1))
 
     def to_present(self, image: np.ndarray) -> np.ndarray:
         """Host-side tile-order -> scanline conversion (identity when the

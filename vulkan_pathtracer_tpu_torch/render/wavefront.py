@@ -20,7 +20,10 @@ and one more draw says so (``extend_paths``).
 ``trace_sample`` traces one sample of a frame; ``trace_progressive_batch``
 traces B frames of a static camera as one wavefront (the convergence
 path): the primary hit once, every frame's bounce rays sorted together,
-shaded in chunks of ``JOINT_CHUNK`` lanes.  Both shade through the same
+shaded in chunks of ``JOINT_CHUNK`` lanes; ``trace_wavefront_pooled``
+traces F frames of F cameras the same way (frames in flight), each
+frame's primaries its own.  The two share the lane state and its bounce
+loop (``_trace_lanes``), and all three shade through the same
 ``_shade_and_extend`` / ``extend_paths`` body.
 
 The closest-hit tier of ``--traversal`` (the JAX package's
@@ -528,13 +531,72 @@ def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
             dst[s:e] = src
     color = torch.zeros_like(o)
     lane = torch.arange(m, dtype=torch.int64, device=dev)
-    state = [o, d, atten, color, sx, sy, alive, lane]
+    state, traced = _trace_lanes(
+        scene, [o, d, atten, color, sx, sy, alive, lane], 1,
+        num_bounces=num_bounces, tiers=tiers,
+        russian_roulette=russian_roulette, rr_start_bounce=rr_start_bounce,
+        sort_secondary=sort_secondary, chunk=chunk)
+    return _sum_frames(color_sum, state[3], state[7], batch), rays + traced
 
-    live = m    # lanes [live, m) are dead
-    for j in range(1, num_bounces):
+
+def trace_wavefront_pooled(scene, origin, direction, seed_x, seed_y, *,
+                           num_bounces: int, tiers="auto",
+                           russian_roulette: bool = False,
+                           rr_start_bounce: int = 2,
+                           sort_secondary: bool = True,
+                           chunk: int = JOINT_CHUNK):
+    """Trace M rays of several frames, possibly from different cameras,
+    as one wavefront at 1 spp (JAX wavefront.py:1016-1143,
+    ``trace_wavefront_pooled``: frames in flight).
+
+    The lane state is the joint batch's (``_trace_lanes``), one lane per
+    input ray.  Bounce 0 traces the rays in their input order (each
+    frame's tile-ordered primaries, frame after frame), in launches of
+    at most ``chunk`` lanes; each later bounce sorts the live lanes of
+    every frame together by the 6d key when ``sort_secondary``.  The
+    last bounce of an emissive-free scene is an any hit.
+
+    Each lane runs the per-lane operations of ``trace_sample`` on its
+    own RNG stream, and the traversal kernels' results do not depend on
+    a ray's neighbours, so each frame's colors and rays are those of
+    rendering it alone.  ``origin``, ``direction``: (M, 3); ``seed_x``,
+    ``seed_y``: (M,).  Returns (color (M, 3) in input lane order, rays
+    traced, an int64 0-d tensor)."""
+    m = origin.shape[0]
+    dev = origin.device
+    state = [origin.clone(), direction.clone(),
+             torch.ones((m, 3), dtype=torch.float32, device=dev),
+             torch.zeros((m, 3), dtype=torch.float32, device=dev),
+             seed_x.clone(), seed_y.clone(),
+             torch.ones(m, dtype=torch.bool, device=dev),
+             torch.arange(m, dtype=torch.int64, device=dev)]
+    state, rays = _trace_lanes(
+        scene, state, 0, num_bounces=num_bounces, tiers=tiers,
+        russian_roulette=russian_roulette, rr_start_bounce=rr_start_bounce,
+        sort_secondary=sort_secondary, chunk=chunk)
+    return _by_lane(state[3], state[7]), rays
+
+
+def _trace_lanes(scene, state, first: int, *, num_bounces: int, tiers,
+                 russian_roulette: bool, rr_start_bounce: int,
+                 sort_secondary: bool, chunk: int):
+    """Bounces ``first`` .. ``num_bounces - 1`` of a lane state: the
+    tensors (origin, direction, attenuation, color, seed_x, seed_y,
+    alive, lane id), gathered by one order.
+
+    Each bounce after bounce 0 sorts the live lanes by the 6d key
+    (``_bounce_sort_key``, dead lanes last) when ``sort_secondary``,
+    then traces and shades them in chunks of at most ``chunk`` lanes:
+    bounce 0 and the middle bounces a closest hit and
+    ``_shade_and_extend``, the last one an any hit on an emissive-free
+    scene, else a closest hit and the emissive fetch.  Returns (state,
+    rays traced: the live lanes summed over the bounces, int64 0-d)."""
+    live = state[0].shape[0]    # lanes [live, m) are dead
+    rays = torch.zeros((), dtype=torch.int64, device=state[0].device)
+    for j in range(first, num_bounces):
         count = state[6][:live].sum()
         rays = rays + count
-        if sort_secondary:
+        if sort_secondary and j > 0:
             # The live lanes go first: the chunks below trace only
             # them, at the cost of this host sync per bounce.
             key = _bounce_sort_key(scene, state[0][:live], state[1][:live],
@@ -556,22 +618,27 @@ def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
                 alive[s:e] = False
                 continue
             hit = _closest_hit(scene, o[s:e], d[s:e], alive[s:e], tiers,
-                               "secondary")
+                               "primary" if j == 0 else "secondary")
             out = _shade_and_extend(
                 scene, hit, o[s:e], d[s:e], atten[s:e], color[s:e],
                 sx[s:e], sy[s:e], alive[s:e], last=last, rr=rr)
             for dst, src in zip((o, d, atten, color, sx, sy, alive), out):
                 dst[s:e] = src
+    return state, rays
 
-    return _sum_frames(color_sum, color, lane, batch), rays
+
+def _by_lane(color, lane):
+    """The lanes' colors put back by lane id (a permutation: no
+    atomics)."""
+    color_lane = torch.empty_like(color)
+    color_lane[lane] = color
+    return color_lane
 
 
 def _sum_frames(color_sum, color, lane, batch: int):
     """``color_sum`` plus each frame's lane colors, put back by lane id
-    (a permutation: no atomics) and added in frame order."""
-    color_lane = torch.empty_like(color)
-    color_lane[lane] = color
-    for frame_color in color_lane.view(batch, -1, 3):
+    (``_by_lane``) and added in frame order."""
+    for frame_color in _by_lane(color, lane).view(batch, -1, 3):
         color_sum = color_sum + frame_color
     return color_sum
 
