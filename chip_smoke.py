@@ -137,7 +137,38 @@ before the result line):
    plain versions, image difference 0.0; 320x180 3-bounce frames with
    ``kernel_secondary`` oct and frontier (the middle bounces); and one
    ``python -m vulkan_pathtracer_tpu_torch`` run with the ``VKPT_*``
-   variables set.
+   variables set;
+13. dynamic geometry — the flat atrium at leaf 28: (i) pre-split
+   (``presplit=0.3`` through ``load_pipeline``): the bake's seconds and
+   references, 4 headline frames (quad 4 + 4) whose primaries' t equal
+   the unsplit bake's but for ties (another triangle at the same t, or
+   within ``NEAR_TIE_ULPS``: coplanar surfaces) and box-face misses
+   (one tree's slab test rounds out a hit on a box face; brute force
+   confirms the nearer t; at most ``FACE_MISS_SHARE`` of the rays),
+   and whose rays differ from the headline's by at most those
+   primaries, a 320x180
+   frame through the kernels and the plain versions (0.0); (ii) the
+   AnimatedScene (32 instances, coefficient rows) moved by
+   experiments/animated_bench.py's motion over 8 frames at ``4.0 * f /
+   8`` on the orbit, each frame's rebake, refit and regeneration and
+   its 1080p render timed with CUDA events (quad 8 + 8); on the last
+   pose the quad closest and any hit and the skip kernel bitwise their
+   plain versions on all 2,073,600 primaries, every triangle in its
+   leaf box and every child box in its parent's, the closest t equal to
+   a fresh host SAH bake's of the moved triangles but for ties and
+   box-face misses, ``tri_coefs``
+   bitwise a fresh bake of the moved leaves and unlike the unmoved
+   table, and 320x180 frames of the oct tier, the frontier tier with
+   coefficient leaves, the quad tier with coefficient leaves and
+   ``pallas_packet`` kernels against plain versions (0.0); (iii) the
+   device rebuild of the twisted atrium (app/dynamic.twist) at phases 0
+   and 1, each step (Morton and sort, radix tree, AABB fit, octant
+   preorders, tables) and the 1080p render timed (quad 2 + 2), the tree
+   bitwise the same rebuild on the CPU, the full-size checks of (ii),
+   oct and frontier tables absent and the tier dispatch falling
+   through (``kernel_primary`` oct or frontier -> pair), coefficient
+   leaves through the quad kernels.  Each kernel's entry carries the
+   launches of this phase under ``launches_dynamic``.
 
 Each kernel's ``bound_ms`` is the larger of its operations over the
 card's f32 peak and its bytes over the HBM rate, counted from this
@@ -259,6 +290,17 @@ EARLY_EXIT = ("quad_closest_hit", "oct_closest_hit", "pair_closest_hit",
 COEF_EXIT_OPS = (6, 18, 32)   # at det, u', the v' window
 COEF_FULL_OPS = {False: 44, True: 43}   # by any hit
 COEF_NONZERO, FEAT_OPS, FEAT_XFORM_OPS = 19, 9, 70
+# Two trees over the same triangles (pre-split, refitted or rebuilt
+# against a fresh SAH bake) may find another triangle at the same t, or
+# a coplanar one (the atrium's overlapping surfaces) at most this many
+# ulps away: which one a walk keeps depends on its visit order and on
+# its slab tests' rounding at box faces.  Anything else is a fault.
+NEAR_TIE_ULPS = 2
+# A hit exactly on a box face (an edge at u = 0 on a leaf's face) may be
+# rounded out by one tree's slab test and kept by another's: each such
+# ray is held to brute force; more than this share of a launch's rays
+# is a fault of the tables, not rounding.
+FACE_MISS_SHARE = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -1716,7 +1758,319 @@ def main() -> int:
     phase("phase", name="tier main paths",
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 13. result ------------------------------------------------------------
+    # -- 13. dynamic geometry --------------------------------------------------
+    # Pre-splitting, the animated flat atrium (rebake, refit, every table
+    # regenerated) and the deforming device rebuild, each rendered at
+    # 1080p through the kernels; the kernels on the new tables held to
+    # their plain versions.
+    t0 = time.perf_counter()
+    from vulkan_pathtracer_tpu_torch.app import dynamic
+    from vulkan_pathtracer_tpu_torch.models.animation import (
+        build_animated_scene,
+    )
+    from vulkan_pathtracer_tpu_torch.models.device_scene import (
+        apply_slot_map,
+        bvh_with_leaf_blocks,
+    )
+    from vulkan_pathtracer_tpu_torch.ops.device_build import (
+        device_rebuild_scene,
+    )
+    from vulkan_pathtracer_tpu_torch.ops import intersect
+    from vulkan_pathtracer_tpu_torch.ops.refit import tree_violations
+
+    dyn_launches = {k: 0 for k in st.LAUNCHES}
+
+    def count(launched):
+        for k, v in launched.items():
+            dyn_launches[k] += v
+
+    def physical(scene_, hit):
+        """(N, 2) primitive and local id of each hit's triangle: a
+        pre-split or rebuilt bake numbers its slots otherwise."""
+        ids = scene_.tri_attr[hit.tri.clamp(min=0), 31:33].contiguous()
+        return ids.view(torch.int32)
+
+    def hit_differences(label, scene_, o, d, t_a, ids_a, t_b, ids_b):
+        """Where two walks over the same triangles of ``scene_`` part on
+        rays (o, d): (ties, box-face misses).  A tie is another physical
+        triangle at the same t or at most NEAR_TIE_ULPS away (coplanar
+        surfaces); a box-face miss is a ray where one walk's slab test
+        rounded a hit on a box face out: brute force over every triangle
+        finds the nearer of the two t exactly.  Fails on any other
+        difference and on more than FACE_MISS_SHARE of the rays."""
+        other = (ids_a != ids_b).any(1)
+        both = (t_a < MISS_T) & (t_b < MISS_T)
+        ulps = (t_a.view(torch.int32).to(torch.int64)
+                - t_b.view(torch.int32).to(torch.int64)).abs()
+        tie = both & other & (ulps <= NEAR_TIE_ULPS)
+        rest = torch.nonzero((t_a != t_b) & ~tie).squeeze(1)
+        if rest.numel():
+            brute = intersect.brute_force_closest_hit(
+                scene_, o[rest], d[rest], chunk=1 << 16)
+            near = torch.minimum(t_a[rest], t_b[rest])
+            bad = int((brute.t != near).sum())
+            check(bad == 0, f"{label}: {bad} rays whose nearer hit brute "
+                  f"force does not confirm")
+        check(rest.numel() <= FACE_MISS_SHARE * o.shape[0],
+              f"{label}: {rest.numel()} box-face misses in {o.shape[0]} "
+              f"rays")
+        return int(tie.sum()), int(rest.numel())
+
+    def orbit_rays(f):
+        """Primaries of main_path's camera f (frame f + 1)."""
+        cam = Camera(aspect_ratio=config.aspect_ratio)
+        orbit_path(radius=4.5, height=2.2, duration=4.0,
+                   center=(0.0, 1.2, 0.0)).apply(cam, float(f))
+        pos, hor, ver, fwd = pl.camera_tensors(cam, dev)
+        o, d, _, _, _ = pl.primary_rays(pos, hor, ver, fwd, f + 1, WIDTH,
+                                        HEIGHT)
+        return o, d
+
+    def host_sah_hits(scene_, o, d):
+        """Closest hits (the quad kernel) over a fresh host SAH bake of
+        the scene's triangles (the slots its leaves fill), with the
+        physical ids of their triangles."""
+        block = scene_.max_leaf_size
+        n = scene_.tree.block_count.shape[0] * block
+        real = (torch.arange(block, device=dev)[None, :]
+                < scene_.tree.block_count[:, None]).reshape(-1)
+        slots = torch.nonzero(real).squeeze(1)
+        tri = [a[:n][slots].cpu().numpy() for a in (
+            scene_.tri_v0, scene_.tri_e1, scene_.tri_e2)]
+        bvh, slot_map = bvh_with_leaf_blocks(*tri, block)
+        flat = np.concatenate([apply_slot_map(a, slot_map) for a in tri],
+                              axis=1)
+        n_blocks = int(bvh.leaf_first.max()) // block + 1
+        leaves = flat[:n_blocks * block].reshape(n_blocks, block, 9)
+        box, link = st.build_quad_tables(bvh, block)
+        tabs = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in (box, link, leaves)]
+        hit = st.Hit(*kernels.quad_closest_hit(
+            *tabs, o, d, st.lane_limits(o.shape[0], None, dev)))
+        sm = torch.from_numpy(slot_map).to(dev)
+        src = slots[sm.clamp(min=0)][hit.tri.clamp(min=0)]
+        ids = scene_.tri_attr[src, 31:33].contiguous().view(torch.int32)
+        return hit, ids
+
+    def full_size_checks(label, scene_, skip=False):
+        """The quad closest and any hit on all 2,073,600 primaries of
+        camera 0 bitwise their plain versions (and the skip kernel's);
+        the tables hold their triangles and children; the closest t
+        equal to a fresh host SAH bake's of the same triangles but for
+        ties of equal t.  Launches here are outside the counted main
+        paths."""
+        o, d = orbit_rays(0)
+        args = quad_args(scene_, o, d, None)
+        p = compare_bitwise(f"{label}/quad", kernels.quad_closest_hit,
+                            st.quad_closest_hit_plain, args)
+        k_any = kernels.quad_any_hit(*args)
+        sync()
+        check(torch.equal(k_any, st.quad_any_hit_plain(*args)),
+              f"{label}: quad any hit != plain version")
+        check(torch.equal(k_any, p.t < MISS_T),
+              f"{label}: any hit != closest.t < MISS_T")
+        if skip:
+            compare_bitwise(f"{label}/skip", kernels.skip_closest_hit,
+                            sk.skip_closest_hit_plain,
+                            sk.skip_args(scene_, o, d, None))
+        tri_out, child_out = tree_violations(scene_)
+        check(tri_out == 0 and child_out == 0, f"{label}: {tri_out} "
+              f"triangles outside their leaf box, {child_out} child boxes "
+              f"outside their parent's")
+        fresh, ids = host_sah_hits(scene_, o, d)
+        ties, misses = hit_differences(f"{label} vs a fresh SAH bake",
+                                       scene_, o, d, fresh.t, ids, p.t,
+                                       physical(scene_, p))
+        phase("dynamic", check=f"{label} full-size", rays=o.shape[0],
+              hits=int((p.t < MISS_T).sum()), bit_equal=True,
+              vs_host_bake_ties=ties, vs_host_bake_face_misses=misses,
+              tree_violations=(tri_out, child_out))
+
+    # The animated flat atrium: 32 instances, leaf 28, coefficient rows.
+    host = gltf.load(atrium_path)
+    t1 = time.perf_counter()
+    anim = build_animated_scene(host, max_leaf_size=28, device=dev, mt="mxu")
+    sync()
+    phase("dynamic", check="AnimatedScene bake",
+          seconds=f"{time.perf_counter() - t1:.2f}",
+          instances=anim.num_instances, triangles=anim.base.num_triangles)
+    check(anim.num_instances == 32 and
+          anim.base.num_triangles == ATRIUM_TRIS, "animated atrium size")
+
+    # (i) Pre-splitting: the bake, 4 headline frames, the ties.
+    t1 = time.perf_counter()
+    spipe = load_pipeline(atrium_path, RenderConfig(**frame_kw, presplit=0.3),
+                          dev)
+    split = spipe.scene
+    refs = int(split.tree.block_count.sum())
+    phase("dynamic", check="pre-split bake (budget 0.3)",
+          seconds=f"{time.perf_counter() - t1:.2f}", triangles=ATRIUM_TRIS,
+          references=refs, leaves=split.leaves.shape[0],
+          quad_rows=split.quad_box.shape[0], depth=split.bvh_depth)
+    check(refs > ATRIUM_TRIS and split.max_leaf_size == 28,
+          f"pre-split bake: {refs} references")
+    launched, split_rays = main_path(spipe, "presplit", only(
+        quad_closest_hit=4, quad_any_hit=4))
+    count(launched)
+    ties = misses = 0
+    for f in range(4):
+        o, d = orbit_rays(f)
+        a = wf._closest_hit(anim.base, o, d, None)
+        b = wf._closest_hit(split, o, d, None)
+        dn, dm = hit_differences(f"pre-split frame {f}", anim.base, o, d,
+                                 a.t, physical(anim.base, a), b.t,
+                                 physical(split, b))
+        ties, misses = ties + dn, misses + dm
+    check(abs(split_rays - flat_rays) <= ties + misses,
+          f"pre-split: {split_rays} rays in 4 frames, unsplit {flat_rays}, "
+          f"{ties} primaries tied, {misses} box-face misses")
+    phase("dynamic", check="pre-split rays vs unsplit", rays=split_rays,
+          unsplit_rays=flat_rays, ties=ties, face_misses=misses)
+    _, _, launched = small_frame(split, "presplit", exact=True)
+    count(launched)
+    del spipe, split
+
+    # (ii) The animated refit: 8 frames at t = 4 f / 8 on the orbit, each
+    # rebake + refit + regeneration and a 1080p render, timed per step.
+    base_tf = anim.initial_transforms(host)
+    ext = dynamic.largest_extent(anim.base)
+    timer = dynamic.StepTimer(dev)
+    apipe_ = pl.RenderPipeline(anim.base, RenderConfig(**frame_kw))
+    orbit = orbit_path(radius=4.5, height=2.2, duration=4.0,
+                       center=(0.0, 1.2, 0.0))
+    cam = Camera(aspect_ratio=config.aspect_ratio)
+
+    def dynamic_frame(pipe_, f, t, make):
+        """make(t) gives the frame's scene, timed by ``timer``; then the
+        1080p render between CUDA events.  (steps ms, rays)."""
+        orbit.apply(cam, t)
+        pipe_.scene = make(t)
+        steps = timer.ms()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        image, rays = pipe_.render(cam, f, present_order=False)
+        end.record()
+        rays = int(rays)
+        steps["render"] = start.elapsed_time(end)
+        check(bool(torch.isfinite(image).all()), "dynamic frame: non-finite")
+        return steps, rays
+
+    def moved_at(t):
+        return dynamic.refit_frame(
+            anim, dynamic.bob_transforms(base_tf, ext, t), timer)
+
+    dynamic_frame(apipe_, 0, 0.0, moved_at)   # warm-up
+    for key in st.LAUNCHES:
+        st.LAUNCHES[key] = 0
+    walls, per, anim_rays = [], {}, 0
+    for f in range(8):
+        t = 4.0 * f / 8
+        sync()
+        t1 = time.perf_counter()
+        steps, rays = dynamic_frame(apipe_, f + 1, t, moved_at)
+        walls.append(1e3 * (time.perf_counter() - t1))
+        anim_rays += rays
+        for k, v in steps.items():
+            per.setdefault(k, []).append(v)
+        phase("dynamic", frame=f, t=t, rays=rays,
+              wall_ms=f"{walls[-1]:.3f}",
+              **{f"{k}_ms": f"{v:.3f}" for k, v in steps.items()})
+    launched = dict(st.LAUNCHES)
+    check(launched == only(quad_closest_hit=8, quad_any_hit=8),
+          f"animated frames: launches {launched}")
+    count(launched)
+    phase("dynamic", path="animated refit 8 frames",
+          ms_per_frame=f"{sum(walls) / 8:.3f}",
+          mrays_per_s=f"{anim_rays / sum(walls) / 1e3:.3f}",
+          rays=anim_rays, launches=launched, card=repr(card),
+          **{f"{k}_ms_median": f"{sorted(v)[len(v) // 2]:.3f}"
+             for k, v in per.items()})
+    moved = apipe_.scene   # the pose at t = 3.5
+    full_size_checks("refit", moved, skip=True)
+    fresh_coefs = mxu_mt.build_mt_coef_rows(moved.leaves.cpu().numpy())
+    check(np.array_equal(moved.tri_coefs.cpu().numpy().view(np.uint32),
+                         fresh_coefs.view(np.uint32)),
+          "refit: tri_coefs differ from a fresh bake of the moved leaves")
+    check(not torch.equal(moved.tri_coefs, anim.base.tri_coefs),
+          "refit: tri_coefs equal the unmoved table")
+    phase("dynamic", check="refit tri_coefs bitwise a fresh bake",
+          rows=moved.tri_coefs.shape[0], differ_from_unmoved=True)
+    for label, traversal, kw in (
+            ("refit-a-oct", "auto", dict(kernel_primary="oct")),
+            ("refit-b-frontier-coef", "auto", dict(
+                kernel_primary="frontier", anyhit_kernel="frontier",
+                mt="mxu")),
+            ("refit-d-quad-coef", "auto", dict(mt="mxu")),
+            ("refit-packet", "pallas_packet", {})):
+        _, _, launched = small_frame(moved, label, traversal, exact=True,
+                                     **kw)
+        count(launched)
+    del apipe_, moved, anim
+
+    # (iii) The deforming rebuild at phases 0 and 1: the twisted atrium
+    # rebuilt on the card, each step timed, and a 1080p render.
+    template = build_device_scene(host, max_leaf_size=28, device=dev,
+                                  build_bvh=False)
+    rpipe = pl.RenderPipeline(template, RenderConfig(**frame_kw))
+    for key in st.LAUNCHES:
+        st.LAUNCHES[key] = 0
+    rebuilt = {}
+    for ph in (0.0, 1.0):
+        def rebuild_at(t, ph=ph):
+            return dynamic.rebuild_frame(template, ph, timer, coefs=True)
+        steps, rays = dynamic_frame(rpipe, 1, 0.0, rebuild_at)
+        rebuilt[ph] = rpipe.scene
+        phase("dynamic", path=f"rebuild phase {ph}", rays=rays,
+              depth_bound=rpipe.scene.bvh_depth, card=repr(card),
+              **{f"{k}_ms": f"{v:.3f}" for k, v in steps.items()})
+    launched = dict(st.LAUNCHES)
+    check(launched == only(quad_closest_hit=2, quad_any_hit=2),
+          f"rebuild frames: launches {launched}")
+    count(launched)
+    # The same rebuild on the CPU from the card's twisted triangles.
+    v0, e1, e2, gn = dynamic.twist(template.tri_v0, template.tri_e1,
+                                   template.tri_e2, 1.0)
+    ctemplate = build_device_scene(host, max_leaf_size=28, device="cpu",
+                                   build_bvh=False)
+    cpu = device_rebuild_scene(ctemplate, v0.cpu(), e1.cpu(), e2.cpu(),
+                               gn.cpu(), template.tri_attr.cpu(), coefs=True)
+    card_r = rebuilt[1.0]
+    check(all(
+        torch.equal(getattr(card_r.tree, f).cpu(), getattr(cpu.tree, f))
+        for f in ("left", "right", "leaf_first", "leaf_count", "perm",
+                  "pair_src", "quad_src", "block_count")) and all(
+        torch.equal(getattr(card_r, f).cpu().view(torch.int32),
+                    getattr(cpu, f).view(torch.int32))
+        for f in ("tri_v0", "tri_e1", "tri_e2", "leaves", "pair_box",
+                  "quad_box", "skip_nodes", "tri_coefs", "root_lo"))
+        and torch.equal(card_r.quad_link.cpu(), cpu.quad_link)
+        and torch.equal(card_r.pair_link.cpu(), cpu.pair_link),
+        "rebuild: the card's tree differs from the CPU's")
+    phase("dynamic", check="rebuild on the card == rebuild on the CPU",
+          bitwise=True, nodes=card_r.tree.left.shape[0])
+    check(card_r.oct_box is None and card_r.frontier_box is None
+          and card_r.wide_nodes is None, "rebuild: stale tables kept")
+    full_size_checks("rebuild", card_r)
+    for label, kw, want in (
+            ("rebuild-oct-falls-to-pair", dict(kernel_primary="oct"),
+             dict(pair_closest_hit=1, quad_any_hit=1)),
+            ("rebuild-frontier-falls-through", dict(
+                kernel_primary="frontier", anyhit_kernel="frontier"),
+             dict(pair_closest_hit=1, quad_any_hit=1)),
+            ("rebuild-quad-coef", dict(mt="mxu"),
+             dict(quad_closest_hit_coef=1, quad_any_hit_coef=1))):
+        _, _, launched = small_frame(card_r, label, exact=True, **kw)
+        check(launched == want, f"{label}: launches {launched}")
+        count(launched)
+    del rpipe, rebuilt, card_r, cpu, template, ctemplate
+    torch.cuda.empty_cache()
+    for key, n in dyn_launches.items():
+        results.setdefault(key, {})["launches_dynamic"] = n
+    phase("phase", name="dynamic geometry", launches=dyn_launches,
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # -- 14. result ------------------------------------------------------------
     launches = {**{k: flat_launches[k] for k in ("quad_closest_hit",
                                                   "quad_any_hit")},
                 **{k: inst_launches[k] for k in ("pair_closest_hit",

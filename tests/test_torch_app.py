@@ -17,9 +17,10 @@ The cases mirror the JAX package's own tests of each flag
   ``--profile`` run writes a Chrome trace.
 - ``app/bench.py`` at a tiny size: ``VKPT_MT=mxu`` records ``"mt":
   "mxu"`` and runs the coefficient kernels' plain versions,
-  ``VKPT_PRESPLIT=1`` exits 2, and ``--spp``, ``--leaf`` (with
+  ``VKPT_PRESPLIT=x`` (not a number) exits 2, and ``--spp``, ``--leaf`` (with
   ``VKPT_LEAF``), ``--traversal``, ``--headline joint``, ``--scene``
-  as a path, ``atrium_mixed --detail`` and ``--mode pooled``.
+  as a path, ``atrium_mixed --detail``, ``--mode pooled`` and ``--mode
+  animated`` (two-level and ``--flat``).
 """
 
 import io
@@ -280,7 +281,7 @@ def test_bench_tiers_from_env(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("env,args", [
-    ({"VKPT_PRESPLIT": "1"}, []),
+    ({"VKPT_PRESPLIT": "x"}, []),
     ({"VKPT_MXU_PRECISION": "default"}, []),
     ({}, ["--mode", "spp", "--spp", "2"])])
 def test_bench_refuses(env, args, capsys, monkeypatch):
@@ -288,6 +289,25 @@ def test_bench_refuses(env, args, capsys, monkeypatch):
     rc, lines = _bench(["--scene", "cornell", *args], capsys, monkeypatch,
                        env)
     assert rc == 2 and lines == []
+
+
+@pytest.mark.parametrize("flat", [False, True],
+                         ids=["instanced", "flat"])
+def test_bench_animated(flat, capsys, monkeypatch):
+    """--mode animated (experiments/animated_bench.py): the Cornell box's
+    instance moved every frame, two-level through
+    update_instance_transforms or, with --flat, the AnimatedScene's
+    rebake and refit; one line with ms/frame and Mrays/s."""
+    args = ["--scene", "cornell", "--mode", "animated"]
+    rc, lines = _bench(args + (["--flat"] if flat else []), capsys,
+                       monkeypatch)
+    assert rc == 0 and len(lines) == 1
+    line = lines[0]
+    kind = "flat" if flat else "instanced"
+    assert line["metric"] == f"animated_{kind}_ms_per_frame"
+    assert line["value"] > 0 and line["detail"]["mrays_per_sec"] > 0
+    assert line["detail"]["rays"] > 2 * 40 * 32 and line["device"] == "cpu"
+    assert line["detail"]["leaf"] == 8
 
 
 def test_bench_missing_scene_file(capsys, tmp_path):

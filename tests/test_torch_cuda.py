@@ -877,3 +877,121 @@ def test_pooled_group_cuda_matches_cpu(cuda, scene_paths, atrium_path,
     assert bool(torch.isfinite(images).all()) and images.mean() > 0
     np.testing.assert_allclose(images.cpu().numpy(), ref.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+# -- dynamic geometry: refit, rebuild, mid-row empty slots ---------------------
+
+def _moved_columns(path, device):
+    """The columns' AnimatedScene (leaf 8, coefficient rows) at a pose
+    with every instance lifted and turned, on ``device``."""
+    from vulkan_pathtracer_tpu_torch.models.animation import (
+        build_animated_scene,
+    )
+
+    anim = build_animated_scene(gltf.load(path), max_leaf_size=8,
+                                device=device, mt="mxu")
+    tf = anim.initial_transforms(gltf.load(path)).cpu()
+    n = tf.shape[0]
+    tf[:, 1, 3] += torch.linspace(-1.0, 1.0, n)
+    c, s = float(np.cos(0.3)), float(np.sin(0.3))
+    rot = torch.tensor([[c, 0, s, 0], [0, 1, 0, 0], [-s, 0, c, 0],
+                        [0, 0, 0, 1]], dtype=torch.float32)
+    return anim, anim.with_transforms((rot @ tf).to(device))
+
+
+def test_refit_on_card_kernels_match_plain(cuda, scene_paths):
+    """with_transforms on the card: the refitted boxes hold their
+    triangles and children, the coefficient rows are bitwise a host bake
+    of the moved leaves, and the quad, oct, frontier and skip kernels on
+    the regenerated tables equal their plain versions bitwise (exact and
+    coefficient leaves)."""
+    from vulkan_pathtracer_tpu_torch.ops.mxu_mt import build_mt_coef_rows
+    from vulkan_pathtracer_tpu_torch.ops.refit import tree_violations
+
+    _, moved = _moved_columns(scene_paths["columns"], cuda)
+    assert tree_violations(moved) == (0, 0)
+    fresh = build_mt_coef_rows(moved.leaves.cpu().numpy())
+    assert np.array_equal(moved.tri_coefs.cpu().numpy().view(np.uint32),
+                          fresh.view(np.uint32))
+    assert moved.wide_nodes is None
+    o, d, active = _rays(8192, seed=41, device=cuda)
+    t_lane = st.lane_limits(o.shape[0], active, cuda)
+    runs = [(kernels.quad_closest_hit, st.quad_closest_hit_plain,
+             (moved.quad_box, moved.quad_link, moved.leaves, o, d, t_lane)),
+            (kernels.quad_closest_hit, st.quad_closest_hit_plain,
+             (moved.quad_box, moved.quad_link, moved.tri_coefs, o, d,
+              t_lane)),
+            (kernels.oct_closest_hit, st.oct_closest_hit_plain,
+             (moved.oct_box, moved.oct_link, moved.leaves, o, d, t_lane)),
+            (kernels.skip_closest_hit, sk.skip_closest_hit_plain,
+             sk.skip_args(moved, o, d, active)),
+            (kernels.frontier_closest_hit, fr.frontier_closest_hit_plain,
+             fr.frontier_args(moved, o, d, active, True))]
+    for launch, plain, args in runs:
+        _assert_equal(launch(*args), plain(*args))
+    args = st.quad_args(moved, o, d, active)
+    assert torch.equal(kernels.quad_any_hit(*args),
+                       st.quad_any_hit_plain(*args))
+
+
+def test_rebuild_on_card_equals_cpu(cuda, scene_paths):
+    """device_rebuild_scene on the card: the tree and tables bitwise the
+    same rebuild on the CPU; the quad and pair kernels on the rebuilt
+    rows (empty slots mid-row) bitwise their plain versions."""
+    from vulkan_pathtracer_tpu_torch.ops.device_build import (
+        device_rebuild_scene,
+    )
+
+    host = gltf.load(scene_paths["columns"])
+    scenes = [build_device_scene(host, max_leaf_size=8, device=dev,
+                                 build_bvh=False, mt="exact")
+              for dev in ("cpu", cuda)]
+    out = []
+    for sc in scenes:
+        v0 = sc.tri_v0 + torch.tensor([0.7, -0.3, 0.4], device=sc.device)
+        out.append(device_rebuild_scene(sc, v0, sc.tri_e1, sc.tri_e2,
+                                        sc.tri_gn, sc.tri_attr))
+    cpu, card = out
+    for f in ("tri_v0", "leaves", "pair_box", "pair_link", "quad_box",
+              "quad_link", "root_lo", "root_hi"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    assert torch.equal(card.skip_nodes.cpu().view(torch.int32),
+                       cpu.skip_nodes.view(torch.int32))
+    for f in ("left", "right", "perm", "quad_src"):
+        assert torch.equal(getattr(card.tree, f).cpu(),
+                           getattr(cpu.tree, f)), f
+    empty = card.quad_link == st.EMPTY
+    assert (empty[:, :-1] & ~empty[:, 1:]).any()
+    o, d, active = _rays(8192, seed=43, device=cuda)
+    for fam in ("quad", "pair"):
+        args = getattr(st, f"{fam}_args")(card, o, d, active)
+        _assert_equal(getattr(kernels, f"{fam}_closest_hit")(*args),
+                      getattr(st, f"{fam}_closest_hit_plain")(*args))
+        assert torch.equal(getattr(kernels, f"{fam}_any_hit")(*args),
+                           getattr(st, f"{fam}_any_hit_plain")(*args))
+
+
+@pytest.mark.parametrize("table", ["quad", "frontier"])
+def test_kernels_skip_mid_row_empty_slots(cuda, scene_paths, table):
+    """Each row's slots rotated so empty slots sit before live ones, and
+    a spare leaf block 0 that no live link names: the kernels never
+    reach it (t and the any-hit bit those of the unrotated tables)."""
+    scene = build_device_scene(gltf.load(scene_paths["columns"]),
+                               max_leaf_size=4, device=cuda)
+    box, link = getattr(scene, f"{table}_box"), getattr(scene, f"{table}_link")
+    leaf = (link < 0) & (link != st.EMPTY)
+    rlink = torch.roll(torch.where(leaf, link - 1, link), 1, dims=1)
+    rbox = torch.roll(box, 1, dims=1).contiguous()
+    rleaves = torch.cat([torch.zeros_like(scene.leaves[:1]), scene.leaves])
+    o, d, active = _rays(8192, seed=47, device=cuda)
+    t_lane = st.lane_limits(o.shape[0], active, cuda)
+    closest = {"quad": kernels.quad_closest_hit,
+               "frontier": kernels.frontier_closest_hit}[table]
+    anyhit = {"quad": kernels.quad_any_hit,
+              "frontier": kernels.frontier_any_hit}[table]
+    want = closest(box, link, scene.leaves, o, d, t_lane)
+    got = closest(rbox, rlink.contiguous(), rleaves, o, d, t_lane)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(anyhit(rbox, rlink.contiguous(), rleaves, o, d,
+                              t_lane),
+                       anyhit(box, link, scene.leaves, o, d, t_lane))

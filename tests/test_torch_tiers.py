@@ -332,26 +332,44 @@ def test_refusals(scenes, monkeypatch):
 
 
 @pytest.mark.parametrize("value", ["1.5", "0.0"])
-def test_presplit_refused(monkeypatch, capsys, value):
-    """VKPT_PRESPLIT, which JAX's bake reads (device_scene.py:410), is
-    refused by the CLI (exit 2, "not yet ported") rather than ignored;
-    unset or 0 it passes."""
+def test_presplit_refused(monkeypatch, value, columns_glb):
+    """VKPT_PRESPLIT, which JAX's bake reads as a float
+    (device_scene.py:410), reaches the flat bake through the CLI's
+    RenderConfig: 0.0 bakes as unset, 1.5 pre-splits (a scene of 1024
+    or more triangles; the two-level bake ignores it).  A value that is
+    not a number is still refused (exit 2)."""
+    from vulkan_pathtracer_tpu_torch.app import main as main_mod
     from vulkan_pathtracer_tpu_torch.app.main import (
+        load_pipeline,
         parse_args,
         tier_fields_from_env,
     )
 
     monkeypatch.setenv("VKPT_PRESPLIT", value)
+    config, _ = parse_args(["-s", "scene.glb"])
+    assert config.presplit == float(value)
+    assert tier_fields_from_env({"VKPT_PRESPLIT": value})["presplit"] == \
+        float(value)
+    # The columns fixture has 580 triangles: below the 1024 of
+    # bvh_with_leaf_blocks, so the bake equals the unsplit one; the
+    # budget reaches build_device_scene all the same.
+    seen = []
+    real = main_mod.build_device_scene
+
+    def spy(*args, **kw):
+        seen.append(kw["presplit"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(main_mod, "build_device_scene", spy)
+    pipe = load_pipeline(columns_glb, config, "cpu")
+    assert seen == [float(value)]
+    assert pipe.scene.num_triangles == int(pipe.scene.tree.block_count.sum())
+    monkeypatch.setenv("VKPT_PRESPLIT", "x")
     with pytest.raises(SystemExit) as exc:
         parse_args(["-s", "scene.glb"])
     assert exc.value.code == 2
-    assert "VKPT_PRESPLIT" in capsys.readouterr().err
-    with pytest.raises(ValueError, match="not yet ported"):
-        tier_fields_from_env({"VKPT_PRESPLIT": value})
-    assert tier_fields_from_env({"VKPT_PRESPLIT": "0"})["mt"] == "exact"
-    monkeypatch.setenv("VKPT_PRESPLIT", "0")
-    config, _ = parse_args(["-s", "scene.glb"])
-    assert config.mt == "exact"
+    with pytest.raises(ValueError, match="VKPT_PRESPLIT"):
+        tier_fields_from_env({"VKPT_PRESPLIT": "x"})
 
 
 def test_tier_fields_from_env():

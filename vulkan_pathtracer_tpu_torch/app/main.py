@@ -48,8 +48,10 @@ variables, read here once into RenderConfig's tier fields
 (``tier_fields_from_env``): ``VKPT_KERNEL_PRIMARY`` /
 ``VKPT_KERNEL_SECONDARY`` (quad | pair | oct | frontier | packet and
 JAX's ``*_hbm`` / ``vgate`` names), ``VKPT_ANYHIT_KERNEL=frontier``,
-``VKPT_MT=mxu`` (coefficient leaves), ``VKPT_LEAF`` (the leaf size) and
-``VKPT_FRONTIER_WIDTH`` (16 | 32).  ``VKPT_FRONTIER_LEAF`` (cond | drain)
+``VKPT_MT=mxu`` (coefficient leaves), ``VKPT_LEAF`` (the leaf size),
+``VKPT_FRONTIER_WIDTH`` (16 | 32) and ``VKPT_PRESPLIT`` (the flat
+bake's triangle pre-splitting budget, a float; > 0 splits scenes of
+1024 or more triangles, the two-level bake ignores it).  ``VKPT_FRONTIER_LEAF`` (cond | drain)
 names a TPU staging only and changes nothing here.  No module below
 ``app/`` reads the environment.
 
@@ -112,12 +114,13 @@ INSTANCED_LEAF = 14
 
 def tier_fields_from_env(environ=None) -> dict:
     """RenderConfig's tier fields from the JAX package's ``VKPT_*``
-    variables (unset -> None, JAX's default).  Raises ValueError on a
-    value the port refuses: an unknown ``VKPT_MT`` or frontier width,
+    variables (unset -> None, JAX's default; ``presplit`` only when
+    ``VKPT_PRESPLIT`` is set, as the float JAX's bake reads,
+    device_scene.py:410).  Raises ValueError on a value the port
+    refuses: an unknown ``VKPT_MT`` or frontier width, a
+    ``VKPT_PRESPLIT`` that is not a number, and
     ``VKPT_MXU_PRECISION=default`` (mxu_mt.py:58-80, the one-pass bf16
-    product of the coefficient leaves) and ``VKPT_PRESPLIT`` other than
-    0 (device_scene.py:410, triangle pre-splitting at bake time), which
-    are not yet ported."""
+    product of the coefficient leaves), which is not yet ported."""
     env = os.environ if environ is None else environ
 
     def get(name):
@@ -136,19 +139,24 @@ def tier_fields_from_env(environ=None) -> dict:
     if precision not in ("high", "highest"):
         raise ValueError(f"VKPT_MXU_PRECISION={precision!r}: highest")
     presplit = get("VKPT_PRESPLIT")
-    if presplit is not None and presplit != "0":
-        raise ValueError(f"VKPT_PRESPLIT={presplit} (triangle pre-splitting "
-                         f"in the bake): not yet ported in "
-                         f"vulkan_pathtracer_tpu_torch; unset it or set 0")
+    if presplit is not None:
+        try:
+            presplit = float(presplit)
+        except ValueError:
+            raise ValueError(f"VKPT_PRESPLIT={presplit!r}: a number (the "
+                             f"pre-splitting budget, e.g. 0.3)") from None
     width = int(get("VKPT_FRONTIER_WIDTH") or FRONTIER_WIDTH)
     if width not in FRONTIER_WIDTHS:
         raise ValueError(f"VKPT_FRONTIER_WIDTH={width}: 16 | 32")
     leaf = get("VKPT_LEAF")
-    return dict(kernel_primary=get("VKPT_KERNEL_PRIMARY"),
-                kernel_secondary=get("VKPT_KERNEL_SECONDARY"),
-                anyhit_kernel=get("VKPT_ANYHIT_KERNEL"), mt=mt,
-                max_leaf=None if leaf is None else int(leaf),
-                frontier_width=width)
+    fields = dict(kernel_primary=get("VKPT_KERNEL_PRIMARY"),
+                  kernel_secondary=get("VKPT_KERNEL_SECONDARY"),
+                  anyhit_kernel=get("VKPT_ANYHIT_KERNEL"), mt=mt,
+                  max_leaf=None if leaf is None else int(leaf),
+                  frontier_width=width)
+    if presplit is not None:
+        fields["presplit"] = presplit
+    return fields
 
 
 def parse_args(argv=None):
@@ -214,8 +222,9 @@ def load_pipeline(scene_path: str, config: RenderConfig, device,
     :88) — and build the render pipeline.  ``config.traversal`` picks
     what the flat bake holds, as the JAX app does (app/main.py:86-90):
     no BVH for ``brute``, the 8-wide tiles too for ``pallas8``;
-    ``config.mt == "mxu"`` adds the coefficient leaves and
-    ``config.frontier_width`` sets the frontier tables' width;
+    ``config.mt == "mxu"`` adds the coefficient leaves,
+    ``config.frontier_width`` sets the frontier tables' width and
+    ``config.presplit`` the flat bake's pre-splitting budget;
     ``quirk_mode`` is the loader's node-flattening quirk
     (``--gltf-quirk-mode``)."""
     scene = gltf.load(scene_path, quirk_mode=quirk_mode)
@@ -235,7 +244,11 @@ def load_pipeline(scene_path: str, config: RenderConfig, device,
                                   or default_max_leaf(scene.triangle_count)),
             device=device, build_bvh=config.traversal != "brute",
             wide=config.traversal == "pallas8", mt=config.mt,
-            frontier_width=config.frontier_width)
+            frontier_width=config.frontier_width, presplit=config.presplit)
+        if config.presplit > 0 and dev.tree is not None:
+            print(f"pre-split: {int(dev.tree.block_count.sum())} references "
+                  f"of {dev.num_triangles} triangles (budget "
+                  f"{config.presplit})", file=sys.stderr)
         if dev.wide_nodes is not None:
             print(f"8-wide tiles: {dev.wide_nodes.shape[0] // 8} per octant, "
                   f"baked in {dev.wide_seconds:.2f} s", file=sys.stderr)

@@ -5,7 +5,8 @@ of one pooled group of frames.
     [VKPT_KERNEL_PRIMARY=... VKPT_MT=mxu ...] \
     python -m vulkan_pathtracer_tpu_torch.app.profile_frame [--instanced]
         [--traversal auto|pallas|pallas_packet|pallas8|bvh|brute]
-        [-s scene.glb] [--frames 5] [--joint B | --pooled F]
+        [-s scene.glb] [--frames 5] [--joint B | --pooled F |
+         --animate refit|rebuild]
 
 Renders the atrium (``assets/procedural.make_atrium(detail=4.1)``,
 generated into ``build/profile_frame/`` when ``-s`` is not given) at
@@ -48,6 +49,16 @@ argsort and the state gathers of each later bounce, the any hit and
 its sky, and the colors put back by lane id (``_by_lane``); 1 group
 runs under the profiler.  ``ms_per_output_frame_median`` divides the
 wall time by the frames a "frame" holds (B, F or 1).
+
+With ``--animate refit`` each frame first moves the flat atrium's 32
+instances (app/dynamic.bob_transforms at ``4.0 * f / --frames``, the
+AnimatedScene built with the ``VKPT_*`` tiers) and with ``--animate
+rebuild`` twists its triangles (app/dynamic.twist at phase ``4.0 * f /
+--frames``) and rebuilds the tree on the device; the line holds the
+median device ms of each step (rebake, refit, regenerate; or twist,
+morton, radix_tree, aabb, octants, tables), of the 1080p render that
+follows and of the render's wavefront steps (as without
+``--animate``), per frame, besides the wall time.
 """
 
 from __future__ import annotations
@@ -134,6 +145,99 @@ def packed_gather(frame, tensor_gathers, reps: int = 3) -> dict:
             "lanes": order.numel()}
 
 
+def animate(args, path: str, dev) -> int:
+    """--animate: per-step device ms of the dynamic frames (the module
+    docstring), one JSON line."""
+    from vulkan_pathtracer_tpu_torch.app import dynamic
+    from vulkan_pathtracer_tpu_torch.models import gltf
+    from vulkan_pathtracer_tpu_torch.models.animation import (
+        build_animated_scene,
+    )
+    from vulkan_pathtracer_tpu_torch.models.device_scene import (
+        build_device_scene,
+    )
+    from vulkan_pathtracer_tpu_torch.render.pipeline import RenderPipeline
+    from vulkan_pathtracer_tpu_torch.utils.config import default_max_leaf
+
+    tiers = tier_fields_from_env()
+    config = RenderConfig(num_samples=1, num_bounces=2, **tiers)
+    host = gltf.load(path)
+    leaf = config.max_leaf or default_max_leaf(host.triangle_count)
+    timer = dynamic.StepTimer(dev)
+    if args.animate == "refit":
+        anim = build_animated_scene(host, max_leaf_size=leaf, device=dev,
+                                    mt=config.mt,
+                                    frontier_width=config.frontier_width)
+        base_tf = anim.initial_transforms(host)
+        ext = dynamic.largest_extent(anim.base)
+
+        def scene_at(t):
+            return dynamic.refit_frame(
+                anim, dynamic.bob_transforms(base_tf, ext, t), timer)
+        first = anim.base
+    else:
+        template = build_device_scene(host, max_leaf_size=leaf, device=dev,
+                                      build_bvh=False)
+
+        def scene_at(t):
+            return dynamic.rebuild_frame(template, t, timer,
+                                         coefs=config.mt == "mxu")
+        first = scene_at(0.0)
+    pipe = RenderPipeline(first, config)
+    orbit = orbit_path(radius=4.5, height=2.2, duration=4.0,
+                       center=(0.0, 1.2, 0.0))
+    cam = Camera(aspect_ratio=config.aspect_ratio)
+
+    def frame(f, t):
+        orbit.apply(cam, t)
+        pipe.scene = scene_at(t)
+        steps = timer.ms()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, rays = pipe.render(cam, f, present_order=False)
+        end.record()
+        rays = int(rays)
+        steps["render"] = start.elapsed_time(end)
+        return steps, rays
+
+    frame(0, 0.0)   # warm-up
+    walls, per, log = [], {}, []
+    originals = {n: getattr(wavefront, n) for n in STEPS}
+    for n, fn in originals.items():
+        setattr(wavefront, n, _timed(n, fn, log))
+    try:
+        for f in range(args.frames):
+            log.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps, rays = frame(f + 1, 4.0 * f / args.frames)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            for n in STEPS:
+                steps[n] = sum(start.elapsed_time(end)
+                               for m, start, end in log if m == n)
+            for k, v in steps.items():
+                per.setdefault(k, []).append(v)
+    finally:
+        for n, fn in originals.items():
+            setattr(wavefront, n, fn)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({
+        "card": card, "animate": args.animate, "tiers": tiers, "leaf": leaf,
+        "triangles": first.num_triangles, "rays_per_frame": rays,
+        "frames": args.frames,
+        "ms_per_frame_median": statistics.median(walls),
+        "ms_per_frame": walls,
+        "step_ms_per_frame_median": {k: statistics.median(v)
+                                     for k, v in per.items() if any(v)},
+        "step_ms_per_frame": per}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="profile_frame")
     ap.add_argument("-s", "--scene-path", default="")
@@ -145,6 +249,9 @@ def main(argv=None) -> int:
                        help="time joint batches of B frames instead")
     group.add_argument("--pooled", type=int, default=0, metavar="F",
                        help="time pooled groups of F frames instead")
+    group.add_argument("--animate", choices=["refit", "rebuild"],
+                       help="move the flat scene every frame and time "
+                       "its refit or device rebuild steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.stderr.write("profile_frame: needs a CUDA device\n")
@@ -160,6 +267,8 @@ def main(argv=None) -> int:
         if not os.path.exists(path):
             make_atrium(path, detail=4.1)
     dev = torch.device("cuda")
+    if args.animate:
+        return animate(args, path, dev)
     tiers = tier_fields_from_env()
     config = RenderConfig(num_samples=1, num_bounces=2,
                           traversal=args.traversal, **tiers)

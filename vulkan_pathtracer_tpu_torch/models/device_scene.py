@@ -63,6 +63,7 @@ from vulkan_pathtracer_tpu_torch.ops.bvh import (
     build_bvh_host,
     octant_orders,
     pad_leaves_to_blocks,
+    presplit_triangle_refs,
     tree_depth,
 )
 from vulkan_pathtracer_tpu_torch.ops.bvh_wide import build_wide_bvh
@@ -79,12 +80,15 @@ from vulkan_pathtracer_tpu_torch.ops.native import (
     bake_triangles_native,
     transform_dirs_native,
 )
+from vulkan_pathtracer_tpu_torch.ops.refit import TreeMaps
 from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
     EMPTY,
     build_oct_tables,
     build_pair_tables,
     build_quad_tables,
+    nary_src,
     nary_tables_from_jax,
+    pair_src,
 )
 from vulkan_pathtracer_tpu_torch.utils.config import FRONTIER_WIDTH
 
@@ -125,6 +129,8 @@ class DeviceScene:
     inst_nrm: Optional[torch.Tensor] = None   # (I, 9) normal matrix inv(A)
     # Static maps of update_instance_transforms (InstanceMaps).
     inst_maps: Optional[object] = None
+    # Build-order tree and static maps of a flat scene (TreeMaps).
+    tree: Optional[TreeMaps] = None
     # 8 octant preorders of the binary tree, each Nn records of
     # bmin | bmax | skip | leaf (skip and leaf int32 bits).
     skip_nodes: Optional[torch.Tensor] = None  # (8*Nn, 8) f32
@@ -193,13 +199,27 @@ def _bake_instance(scene: Scene, inst, acc: dict, vert_base: int) -> int:
     return vert_base
 
 
-def bvh_with_leaf_blocks(tri_v0, tri_e1, tri_e2, max_leaf_size: int):
+def bvh_with_leaf_blocks(tri_v0, tri_e1, tri_e2, max_leaf_size: int,
+                         presplit: float = 0.0):
     """Build the BVH and rewrite its leaves to fixed-size blocks.
     Returns (bvh, slot_map): slot_map (T',) maps leaf-block triangle
-    slots to original triangle indices, -1 for padding."""
+    slots to original triangle indices, -1 for padding.
+
+    ``presplit`` > 0 on at least 1024 triangles pre-splits them with
+    that budget factor (ops/bvh.presplit_triangle_refs): the SAH build
+    sees the clipped reference boxes as degenerate box-spanning
+    "triangles" (v0 = lo, e1 = e2 = hi - lo), and slot_map composes
+    reference -> triangle, so a split triangle fills several slots
+    (device_scene.py:304-343 of the JAX package)."""
+    order = None
+    if presplit > 0.0 and tri_v0.shape[0] >= 1024:
+        lo, hi, order = presplit_triangle_refs(tri_v0, tri_e1, tri_e2,
+                                               budget_factor=presplit)
+        tri_v0, tri_e1, tri_e2 = lo, hi - lo, hi - lo
     bvh = build_bvh_host(tri_v0, tri_e1, tri_e2, max_leaf_size=max_leaf_size)
     gmap = pad_leaves_to_blocks(bvh, block=max_leaf_size)
-    slot_map = np.where(gmap >= 0, bvh.tri_order[np.maximum(gmap, 0)], -1)
+    order = bvh.tri_order if order is None else order[bvh.tri_order]
+    slot_map = np.where(gmap >= 0, order[np.maximum(gmap, 0)], -1)
     return bvh, slot_map
 
 
@@ -227,15 +247,43 @@ def skip_records(bmin, bmax, skip_local, leaf) -> np.ndarray:
     return np.concatenate([bmin, bmax, tail], axis=1).astype(np.float32)
 
 
-def flat_skip_nodes(bvh) -> np.ndarray:
-    """The 8 octant preorders of a flat tree as one (8*Nn, 8) record
-    table (device_scene.py:602-646); skips are local to their octant
-    block, leaves hold the block-aligned first triangle or -1."""
+def flat_skip_nodes(bvh):
+    """(records, perm): the 8 octant preorders of a flat tree as one
+    (8*Nn, 8) record table (device_scene.py:602-646; skips local to
+    their octant block, leaves the block-aligned first triangle or -1)
+    and the (8*Nn,) build-order node of each record."""
     skip8, lf8, _, perm8 = octant_orders(bvh)
     perm = perm8.reshape(-1)
     return skip_records(bvh.bmin[perm], bvh.bmax[perm], skip8.reshape(-1),
-                        lf8.reshape(-1))
+                        lf8.reshape(-1)), perm
 
+
+def _block_count(leaf_first, leaf_count, block: int, n_blocks: int):
+    """(n_blocks,) triangles of each leaf block of a build-order tree."""
+    leaf = leaf_first >= 0
+    out = np.zeros(n_blocks, np.int64)
+    out[leaf_first[leaf] // block] = leaf_count[leaf]
+    return out
+
+
+def tree_maps(bvh, block: int, perm, frontier_width: int,
+              device) -> TreeMaps:
+    """The TreeMaps of a host BVH whose leaves are block-aligned: the
+    maps of the pair, quad, oct and frontier (``frontier_width``)
+    tables of the flat bake."""
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)).to(
+            device)
+
+    n_blocks = int(bvh.leaf_first.max()) // block + 1
+    return TreeMaps(
+        left=up(bvh.left_child), right=up(bvh.right_child),
+        leaf_first=up(bvh.leaf_first), leaf_count=up(bvh.leaf_count),
+        block_count=up(_block_count(bvh.leaf_first, bvh.leaf_count, block,
+                                    n_blocks)),
+        perm=up(perm), pair_src=up(pair_src(bvh)),
+        quad_src=up(nary_src(bvh, 4)), oct_src=up(nary_src(bvh, 8)),
+        frontier_src=up(nary_src(bvh, frontier_width)))
 
 
 def _to_device(host: dict, meta: dict, device) -> DeviceScene:
@@ -323,13 +371,25 @@ def attr_rows(tri: dict, vert_normal, vert_tangent, vert_uv) -> np.ndarray:
 def build_device_scene(scene: Scene, max_leaf_size: int = 4,
                        device="cuda", build_bvh: bool = True,
                        wide: bool = False, mt: str = "exact",
-                       frontier_width: int = FRONTIER_WIDTH) -> DeviceScene:
+                       frontier_width: int = FRONTIER_WIDTH,
+                       presplit: float = 0.0) -> DeviceScene:
     """Bake a host Scene into device tensors with a BVH of
     ``max_leaf_size``-triangle leaf blocks (none with ``build_bvh=False``;
     the 8-wide tiles too with ``wide=True``; the coefficient table too
-    with ``mt="mxu"``; the frontier tables at ``frontier_width``).  The
-    wide bake is a Python loop; its seconds are in
-    ``scene.wide_seconds``."""
+    with ``mt="mxu"``; the frontier tables at ``frontier_width``; the
+    triangles pre-split with budget ``presplit`` when > 0, see
+    bvh_with_leaf_blocks).  The wide bake is a Python loop; its seconds
+    are in ``scene.wide_seconds``.  The scene carries the tree's
+    TreeMaps (``scene.tree``), which ops/refit.py regenerates from."""
+    return bake_flat(scene, max_leaf_size, device, build_bvh, wide, mt,
+                     frontier_width, presplit)[0]
+
+
+def bake_flat(scene: Scene, max_leaf_size: int, device, build_bvh: bool,
+              wide: bool, mt: str, frontier_width: int, presplit: float):
+    """(DeviceScene, slot_map) of build_device_scene: slot_map maps
+    each triangle slot before the padding to its triangle in bake order
+    (-1: a padded slot; None without a BVH)."""
     acc = {k: [] for k in (
         "tri_v0", "tri_e1", "tri_e2", "tri_gn", "tri_index", "tri_material",
         "tri_primitive", "tri_local", "vert_normal", "vert_tangent",
@@ -358,10 +418,10 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
     vert_uv = cat("vert_uv", np.float32, 2)
     num_triangles = tri_v0.shape[0]
 
-    bvh = None
+    bvh = slot_map = None
     if num_triangles > 0 and build_bvh:
         bvh, slot_map = bvh_with_leaf_blocks(tri_v0, tri_e1, tri_e2,
-                                             max_leaf_size)
+                                             max_leaf_size, presplit)
         tri_v0, tri_e1, tri_e2, tri_gn, tri_index, tri_material, \
             tri_primitive, tri_local = (
                 apply_slot_map(a, slot_map) for a in (
@@ -391,7 +451,7 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
         oct_box, oct_link = build_oct_tables(bvh, max_leaf_size)
         frontier_box, frontier_link = build_frontier_tables(
             bvh, max_leaf_size, frontier_width)
-        skip_nodes = flat_skip_nodes(bvh)
+        skip_nodes, perm = flat_skip_nodes(bvh)
         if wide:
             t0 = time.perf_counter()
             wide_nodes = build_wide_bvh(bvh, max_leaf_size).nodes
@@ -432,7 +492,11 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
         bvh_depth=depth, has_textures=has_textures,
         emissive_free=emissive_free, wide_seconds=wide_seconds,
     )
-    return _to_device(host, meta, device)
+    dev = _to_device(host, meta, device)
+    if bvh is not None:
+        dev.tree = tree_maps(bvh, max_leaf_size, perm, frontier_width,
+                             dev.device)
+    return dev, slot_map
 
 
 def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
@@ -457,7 +521,9 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
     port's tables for them are built as build_quad_tables and
     build_pair_tables build them.  ``bvh_packed`` is the skip record
     as it is, ``bvh_wide_nodes`` the wide tiles (8 octant orders: a JAX
-    bake with ``octant_order=False`` is refused)."""
+    bake with ``octant_order=False`` is refused).  A flat scene's
+    build-order tree and static maps become its TreeMaps
+    (_tree_from_jax)."""
     block = int(meta["max_leaf_size"])
     instanced = bool(meta.get("instanced", False))
     packed = arrays.get("bvh_packed")
@@ -530,4 +596,51 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
         instanced=instanced,
         mb_bits=int(meta.get("mb_bits", 0)) if instanced else 0,
     )
-    return _to_device(host, out_meta, device)
+    dev = _to_device(host, out_meta, device)
+    if not instanced and arrays.get("bvh_left") is not None:
+        dev.tree = _tree_from_jax(arrays, dev, block)
+    return dev
+
+
+def _tree_from_jax(arrays: dict, dev: DeviceScene, block: int) -> TreeMaps:
+    """The TreeMaps of a flat JAX scene: its build-order arrays and its
+    (src, enc) maps, each enc checked against the converted table's
+    links (EMPTY where src is -1).  A table without JAX maps (a root
+    leaf's one row) gets the map of its one slot; the pair rows'
+    children come from ``bvh_left`` / ``bvh_right``."""
+    left = np.asarray(arrays["bvh_left"], np.int64)
+    right = np.asarray(arrays["bvh_right"], np.int64)
+    lf = np.asarray(arrays["bvh_leaf_first_build"], np.int64)
+    lc = np.asarray(arrays["bvh_leaf_count_build"], np.int64)
+    internal = np.nonzero(left >= 0)[0]
+    pairs = (np.stack([left[internal], right[internal]], axis=1)
+             if left[0] >= 0 else np.zeros((1, 2), np.int64))
+
+    def src_of(name, link):
+        if link is None:
+            return None
+        src = arrays.get(f"bvh_{name}_src")
+        if src is None:
+            src = np.full(link.shape, -1, np.int64)
+            src[0, 0] = 0
+            return src
+        src = np.asarray(src, np.int64)
+        enc = arrays[f"bvh_{name}_enc"]
+        want = np.where(src < 0, EMPTY, enc.astype(np.int64))
+        if src.shape != link.shape or not np.array_equal(
+                want, link.cpu().numpy()):
+            raise ValueError(f"bvh_{name}_enc does not match the "
+                             f"converted {name} table's links")
+        return src
+
+    def up(x):
+        return None if x is None else torch.from_numpy(
+            np.ascontiguousarray(x, dtype=np.int64)).to(dev.device)
+
+    return TreeMaps(
+        left=up(left), right=up(right), leaf_first=up(lf), leaf_count=up(lc),
+        block_count=up(_block_count(lf, lc, block, dev.leaves.shape[0])),
+        perm=up(arrays["bvh_perm"]),
+        pair_src=up(pairs), quad_src=up(src_of("quad", dev.quad_link)),
+        oct_src=up(src_of("oct", dev.oct_link)),
+        frontier_src=up(src_of("frontier", dev.frontier_link)))

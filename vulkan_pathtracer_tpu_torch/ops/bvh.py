@@ -2,6 +2,7 @@
 
 The port's own copy of the host build of
 ``vulkan_pathtracer_tpu/ops/bvh.py``: ``build_bvh_host``,
+``presplit_triangle_refs`` (with ``_clip_poly_halfspace``),
 ``pad_leaves_to_blocks``, ``octant_orders``, ``tree_depth``,
 ``validate_bvh`` and what they call, unchanged.
 
@@ -197,6 +198,136 @@ def build_bvh_host(tri_v0: np.ndarray, tri_e1: np.ndarray, tri_e2: np.ndarray,
         left_child=np.asarray(left_l, dtype=np.int32),
         right_child=np.asarray(right_l, dtype=np.int32),
     )
+
+
+def _clip_poly_halfspace(poly: np.ndarray, axis: int, c: float,
+                         keep_below: bool) -> np.ndarray:
+    """Sutherland-Hodgman clip of a convex polygon against the
+    half-space x[axis] <= c (or >= c).  poly: (k, 3) float64.
+    Returns the clipped polygon ((k', 3), possibly empty)."""
+    out = []
+    k = poly.shape[0]
+    for i in range(k):
+        a = poly[i]
+        b = poly[(i + 1) % k]
+        da = (a[axis] - c) if not keep_below else (c - a[axis])
+        db = (b[axis] - c) if not keep_below else (c - b[axis])
+        if da >= 0.0:
+            out.append(a)
+            if db < 0.0:
+                t = da / (da - db)
+                out.append(a + t * (b - a))
+        elif db >= 0.0:
+            t = da / (da - db)
+            out.append(a + t * (b - a))
+    if not out:
+        return np.zeros((0, 3))
+    return np.asarray(out)
+
+
+def presplit_triangle_refs(tri_v0: np.ndarray, tri_e1: np.ndarray,
+                           tri_e2: np.ndarray,
+                           budget_factor: float = 0.3):
+    """Triangle pre-splitting (Ernst/Greiner, Karras-style): split the
+    largest triangles into several REFERENCES with tight clipped
+    AABBs before the SAH build.  Architectural scenes carry large
+    floor/wall triangles whose loose boxes inflate node overlap — and
+    union-packet traversal pays for overlap in visits per packet.
+
+    Closest-hit semantics are unchanged: every reference's leaf tests
+    the FULL triangle (duplicate tests can only re-find the same hit;
+    the true closest hit lies inside some reference's box, so the
+    standard BVH pruning argument still finds it).
+
+    Returns (ref_lo (R,3) f32, ref_hi (R,3) f32, ref_tri (R,) int64)
+    with R <= ceil((1 + budget_factor) * T).
+    """
+    import heapq
+
+    t = tri_v0.shape[0]
+    v0 = tri_v0.astype(np.float64)
+    v1 = v0 + tri_e1
+    v2 = v0 + tri_e2
+    lo = np.minimum(np.minimum(v0, v1), v2)
+    hi = np.maximum(np.maximum(v0, v1), v2)
+    ext = hi - lo
+    area = (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
+            + ext[:, 2] * ext[:, 0])
+
+    def conservative_f32(lo64, hi64):
+        """float64 -> float32 rounding OUTWARD: a ref box must never
+        shrink below the clipped polygon (round-to-nearest can pull a
+        face inward by half an ulp, pruning a hit exactly on a split
+        seam)."""
+        lo64 = np.asarray(lo64, np.float64)
+        hi64 = np.asarray(hi64, np.float64)
+        lo32 = lo64.astype(np.float32)
+        hi32 = hi64.astype(np.float32)
+        lo32 = np.where(lo32.astype(np.float64) > lo64,
+                        np.nextafter(lo32, np.float32(-np.inf)), lo32)
+        hi32 = np.where(hi32.astype(np.float64) < hi64,
+                        np.nextafter(hi32, np.float32(np.inf)), hi32)
+        return lo32.astype(np.float32), hi32.astype(np.float32)
+
+    budget = int(budget_factor * t)
+    if budget <= 0 or t == 0:
+        lo32, hi32 = conservative_f32(lo, hi)
+        return lo32, hi32, np.arange(t, dtype=np.int64)
+
+    # Only triangles well above the median box area are candidates —
+    # the heap stays small and splits go where the overlap is.
+    med = float(np.median(area)) if t else 0.0
+    thresh = max(4.0 * med, 1e-30)
+
+    polys = {}
+    boxes_lo = [lo[i] for i in range(t)]
+    boxes_hi = [hi[i] for i in range(t)]
+    ref_tri = list(range(t))
+    heap = []
+    for i in np.nonzero(area > thresh)[0]:
+        heapq.heappush(heap, (-float(area[i]), int(i)))
+        polys[int(i)] = np.stack([v0[i], v1[i], v2[i]])
+
+    def box_area(blo, bhi):
+        e = np.maximum(bhi - blo, 0.0)
+        return float(e[0] * e[1] + e[1] * e[2] + e[2] * e[0])
+
+    made = 0
+    while heap and made < budget:
+        neg_a, ref = heapq.heappop(heap)
+        poly = polys.pop(ref)
+        blo, bhi = boxes_lo[ref], boxes_hi[ref]
+        axis = int(np.argmax(bhi - blo))
+        if bhi[axis] - blo[axis] < 1e-9:
+            continue
+        c = 0.5 * (blo[axis] + bhi[axis])
+        left = _clip_poly_halfspace(poly, axis, c, keep_below=True)
+        right = _clip_poly_halfspace(poly, axis, c, keep_below=False)
+        if left.shape[0] < 3 or right.shape[0] < 3:
+            continue
+        llo = np.maximum(left.min(axis=0), blo)
+        lhi = np.minimum(left.max(axis=0), bhi)
+        rlo = np.maximum(right.min(axis=0), blo)
+        rhi = np.minimum(right.max(axis=0), bhi)
+        # Replace ref with the left part; append the right part.
+        boxes_lo[ref], boxes_hi[ref] = llo, lhi
+        new = len(ref_tri)
+        boxes_lo.append(rlo)
+        boxes_hi.append(rhi)
+        ref_tri.append(ref_tri[ref])
+        made += 1
+        la = box_area(llo, lhi)
+        ra = box_area(rlo, rhi)
+        if la > thresh:
+            heapq.heappush(heap, (-la, ref))
+            polys[ref] = left
+        if ra > thresh:
+            heapq.heappush(heap, (-ra, new))
+            polys[new] = right
+
+    lo32, hi32 = conservative_f32(np.asarray(boxes_lo),
+                                  np.asarray(boxes_hi))
+    return lo32, hi32, np.asarray(ref_tri, dtype=np.int64)
 
 
 def pad_leaves_to_blocks(bvh: HostBVH, block: int = 4):

@@ -55,9 +55,11 @@ from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
     _dispatch,
     _launch_name,
     _traverse_plain,
+    boxes_from_src,
     build_nary_tables,
     lane_limits,
     leaf_table,
+    nary_src,
 )
 from vulkan_pathtracer_tpu_torch.utils.config import FRONTIER_WIDTH
 
@@ -89,20 +91,33 @@ def batcher_oem(n: int):
 def build_frontier_tables(bvh, block: int, width: int = FRONTIER_WIDTH,
                           guard: float = GUARD):
     """(frontier_box (Nw, width, 6) f32, frontier_link (Nw, width) int32)
-    of the width-ary collapse (pallas_frontier.build_frontier_rows):
-    each child box dilated by guard * (max(|lo|, |hi|) + |root|) per
-    axis, in float64 and rounded once to f32."""
+    of the width-ary collapse (pallas_pair.build_frontier_rows): each
+    child box dilated by guard * (max(|lo|, |hi|) + |root|) per axis, in
+    float64 and rounded once to f32 (frontier_boxes)."""
     if width not in (16, 32):
         raise ValueError(f"frontier width {width}: 16 or 32")
-    R = np.maximum(np.abs(bvh.bmin[0]), np.abs(bvh.bmax[0]))
+    _, link = build_nary_tables(bvh, block, width)
+    box = frontier_boxes(torch.from_numpy(bvh.bmin),
+                         torch.from_numpy(bvh.bmax),
+                         torch.from_numpy(nary_src(bvh, width)), guard)
+    return box.numpy(), link
 
-    def dilate(lo, hi):
-        lo = lo.astype(np.float64)
-        hi = hi.astype(np.float64)
-        d = guard * (np.maximum(np.abs(lo), np.abs(hi)) + R)
-        return (lo - d).astype(np.float32), (hi + d).astype(np.float32)
 
-    return build_nary_tables(bvh, block, width, box_of=dilate)
+def frontier_boxes(bmin: torch.Tensor, bmax: torch.Tensor,
+                   src: torch.Tensor, guard: float = GUARD) -> torch.Tensor:
+    """(Nw, W, 6) f32 frontier boxes of build-order node boxes (Nn, 3)
+    through the static map ``src`` (-1: empty slot, zero box), on the
+    boxes' device: each child box dilated by guard * (max(|lo|, |hi|) +
+    |root|) in float64 and rounded once, so a table regenerated after a
+    refit is bitwise the host bake's of the same tree
+    (pallas_frontier.build_frontier_rows_device computes it in f32)."""
+    R = torch.maximum(bmin[0].abs(), bmax[0].abs()).double()
+    box = boxes_from_src(bmin, bmax, src).double()
+    lo, hi = box[..., :3], box[..., 3:]
+    d = guard * (torch.maximum(lo.abs(), hi.abs()) + R)
+    box = torch.cat([(lo - d).float(), (hi + d).float()], dim=-1)
+    return torch.where((src >= 0).unsqueeze(-1), box,
+                       torch.zeros_like(box)).contiguous()
 
 
 def tables_from_jax(tiles: np.ndarray, width: int):

@@ -103,6 +103,31 @@ def build_mt_coef_rows(leaves: np.ndarray) -> np.ndarray:
     return C
 
 
+def coef_rows(leaves: torch.Tensor) -> torch.Tensor:
+    """build_mt_coef_rows on the leaves' device: (n_leaves, block, 9) f32
+    -> (n_leaves, block, 20) f32, the same float64 products, differences
+    and sums in NumPy's order (each cross product term a1 * b2 - a2 * b1,
+    the sum ((+0 + p0) + p1) + p2: NumPy's reduction starts from +0, so
+    three -0 products sum to +0), rounded once, so the rows are bitwise the
+    host bake's of the same leaves (the JAX package's device twin,
+    mxu_mt.build_mt_coef_rows_device, computes them in f32)."""
+    t = leaves.double()
+    v0, e1, e2 = t[..., 0:3], t[..., 3:6], t[..., 6:9]
+
+    def cross(a, b):
+        return torch.stack(
+            [a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+             a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+             a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+    nrm = cross(e1, e2)
+    p = v0 * nrm
+    d = -(((p[..., 0] + 0.0) + p[..., 1]) + p[..., 2])
+    return torch.cat([cross(e2, e1), cross(v0, e2), e2, cross(e1, v0), -e1,
+                      nrm, d.unsqueeze(-1), torch.zeros_like(d).unsqueeze(-1)],
+                     dim=-1).float().contiguous()
+
+
 def coef_rows_from_jax(tri_coefs: np.ndarray, block: int) -> np.ndarray:
     """JAX's (n_leaves, 10, >= 4 * block) coefficient rows as the port's
     (n_leaves, block, 20) zero-free rows; raises if an entry outside

@@ -156,12 +156,11 @@ def _nary_collapse(bvh, width: int):
     return super_row, children
 
 
-def build_nary_tables(bvh, block: int, width: int, box_of=None):
+def build_nary_tables(bvh, block: int, width: int):
     """(box (Nw, width, 6) f32, link (Nw, width) int32) of the width-ary
     collapse of a binary host BVH whose leaves are block-aligned
     (ops/bvh.pad_leaves_to_blocks): pallas_pair._build_nary_rows in the
-    port's layout.  ``box_of(lo, hi)`` may replace each child box (the
-    frontier bake's guard dilation).
+    port's layout.
 
     Empty slots hold a zero box and the EMPTY link.  A tree whose root
     is a leaf becomes one row holding that leaf in slot 0.  Raises
@@ -169,13 +168,10 @@ def build_nary_tables(bvh, block: int, width: int, box_of=None):
     overflow on the collapsed tree."""
     what = f"build_nary_tables(width={width})"
     _assert_depth(tree_depth(bvh), what)
-    if box_of is None:
-        def box_of(lo, hi):
-            return lo, hi
     if bvh.left_child[0] < 0:
         box = np.zeros((1, width, 6), np.float32)
         link = np.full((1, width), EMPTY, np.int32)
-        box[0, 0, 0:3], box[0, 0, 3:6] = box_of(bvh.bmin[0], bvh.bmax[0])
+        box[0, 0, 0:3], box[0, 0, 3:6] = bvh.bmin[0], bvh.bmax[0]
         link[0, 0] = -(int(bvh.leaf_first[0]) // block + 1)
         return box, link
     super_row, children = _nary_collapse(bvh, width)
@@ -186,8 +182,7 @@ def build_nary_tables(bvh, block: int, width: int, box_of=None):
     for node, kids in children:
         r = super_row[node]
         for s, (kind, cid) in enumerate(kids):
-            box[r, s, 0:3], box[r, s, 3:6] = box_of(bvh.bmin[cid],
-                                                    bvh.bmax[cid])
+            box[r, s, 0:3], box[r, s, 3:6] = bvh.bmin[cid], bvh.bmax[cid]
             if kind == "super":
                 link[r, s] = super_row[cid]
                 depth[super_row[cid]] = depth[r] + 1
@@ -201,6 +196,36 @@ def build_nary_tables(bvh, block: int, width: int, box_of=None):
     return box, link
 
 
+def nary_src(bvh, width: int) -> np.ndarray:
+    """(Nw, width) int64 build-order node of each slot of the width-ary
+    collapse, -1 in an empty slot: the src half of the static maps of
+    pallas_pair._nary_static_maps / pallas_frontier.frontier_static_maps
+    (their enc half is the table's link, which a refit keeps).  Row
+    numbering and slot order are build_nary_tables'."""
+    if bvh.left_child[0] < 0:
+        src = np.full((1, width), -1, np.int64)
+        src[0, 0] = 0
+        return src
+    super_row, children = _nary_collapse(bvh, width)
+    src = np.full((len(children), width), -1, np.int64)
+    for node, kids in children:
+        src[super_row[node], :len(kids)] = [cid for _, cid in kids]
+    return src
+
+
+def boxes_from_src(bmin: torch.Tensor, bmax: torch.Tensor,
+                   src: torch.Tensor) -> torch.Tensor:
+    """(..., 6) f32 child boxes lo | hi of the build-order node boxes
+    ``bmin``/``bmax`` (Nn, 3) through a static map ``src``, zero where
+    src < 0: a pair, quad or oct table's boxes regenerated on the
+    boxes' device (pallas_pair.build_pair_rows_device,
+    _build_nary_rows_device)."""
+    at = src.clamp(min=0)
+    box = torch.cat([bmin[at], bmax[at]], dim=-1)
+    return torch.where((src >= 0).unsqueeze(-1), box,
+                       torch.zeros_like(box)).contiguous()
+
+
 def build_quad_tables(bvh, block: int):
     """(quad_box (N4, 4, 6) f32, quad_link (N4, 4) int32): the 4-wide
     collapse (pallas_pair.build_quad_rows)."""
@@ -209,8 +234,7 @@ def build_quad_tables(bvh, block: int):
 
 def build_oct_tables(bvh, block: int):
     """(oct_box (N8, 8, 6) f32, oct_link (N8, 8) int32): the 8-wide
-    collapse (pallas_pair.build_oct_rows; oct_static_maps serves the
-    JAX package's refit, which the port does not have)."""
+    collapse (pallas_pair.build_oct_rows)."""
     return build_nary_tables(bvh, block, 8)
 
 
@@ -259,6 +283,14 @@ def build_pair_tables(bvh, block: int):
     box, link, _ = _pair_tables(bvh.bmin, bvh.bmax, bvh.left_child,
                                 bvh.right_child, leaf_value)
     return box, link
+
+
+def pair_src(bvh) -> np.ndarray:
+    """(Ni, 2) int64 build-order children of each pair row of
+    build_pair_tables (a root leaf: its one row holds node 0 twice)."""
+    leaf_value = np.where(bvh.leaf_first >= 0, 0, -1)
+    return _pair_tables(bvh.bmin, bvh.bmax, bvh.left_child, bvh.right_child,
+                        leaf_value)[2]
 
 
 def _preorder_depth(internal, left, right) -> int:

@@ -104,6 +104,7 @@ class RenderConfig:
     mt: str = "exact"                       # VKPT_MT: exact | mxu
     max_leaf: Optional[int] = None          # VKPT_LEAF (None: size policy)
     frontier_width: int = FRONTIER_WIDTH    # VKPT_FRONTIER_WIDTH: 16 | 32
+    presplit: float = 0.0                   # VKPT_PRESPLIT (flat bake)
 
     @property
     def tiers(self) -> "Tiers":
