@@ -126,9 +126,9 @@ def test_guard_dilates_every_box(scenes):
     bvh = build_bvh_host(td.tri_v0[:n].numpy(), td.tri_e1[:n].numpy(),
                          td.tri_e2[:n].numpy(), max_leaf_size=LEAF)
     pad_leaves_to_blocks(bvh, block=LEAF)
-    exact, link0 = fr.build_frontier_tables(bvh, LEAF, 16, guard=0.0)
-    box, link = fr.build_frontier_tables(bvh, LEAF, 16)
-    assert np.array_equal(link, link0)
+    exact, link0, src0 = fr.build_frontier_tables(bvh, LEAF, 16, guard=0.0)
+    box, link, src = fr.build_frontier_tables(bvh, LEAF, 16)
+    assert np.array_equal(link, link0) and np.array_equal(src, src0)
     live = link != fr.EMPTY
     assert (box[..., :3][live] < exact[..., :3][live]).all()
     assert (box[..., 3:][live] > exact[..., 3:][live]).all()

@@ -48,6 +48,7 @@ from vulkan_pathtracer_tpu.render.pipeline import (
     RenderPipeline as JaxPipeline,
 )
 from vulkan_pathtracer_tpu.utils.config import RenderConfig as JaxConfig
+from vulkan_pathtracer_tpu_torch.app.dynamic import REFIT_STEPS
 from vulkan_pathtracer_tpu_torch.models import gltf
 from vulkan_pathtracer_tpu_torch.models.animation import build_animated_scene
 from vulkan_pathtracer_tpu_torch.models.camera import Camera
@@ -277,6 +278,17 @@ def test_with_transforms_matches_jax(animated):
     assert td.wide_nodes is None
     same = refit_scene(ta.rebake(torch.from_numpy(tf)))
     assert_tables_equal(td, same, TABLES + ("tri_coefs",))
+
+
+def test_with_transforms_marks_its_steps(animated):
+    """with_transforms(on_step=) calls the hook after the rebake, the
+    refit and the regeneration, in that order (the steps the card's
+    timers read), and its scene is bitwise the one without the hook."""
+    _, ta, tf, _, td = animated
+    marks = []
+    timed = ta.with_transforms(torch.from_numpy(tf), on_step=marks.append)
+    assert tuple(marks) == REFIT_STEPS == ("rebake", "refit", "regenerate")
+    assert_tables_equal(timed, td, TABLES + ("tri_coefs",))
 
 
 def test_animated_identity_matches_static(animated, columns_glb):

@@ -145,7 +145,7 @@ def test_oct_tables_reject_stack_overflow():
     stack: here the oct capacity is cut to below a chain's need."""
     from tests.test_torch_traverse import _chain_bvh
 
-    box, link = st.build_oct_tables(_chain_bvh(30), 4)
+    box, link, _ = st.build_oct_tables(_chain_bvh(30), 4)
     assert box.shape[1] == 8 and link.dtype == np.int32
     slots = dict(st.STACK_SLOTS)
     try:

@@ -288,6 +288,6 @@ def test_quad_tables_reject_trees_deeper_than_the_stack():
     stack can never overflow; depth 21 builds, with int32 links."""
     with pytest.raises(ValueError, match="exceeds the per-ray stack"):
         st.build_quad_tables(_chain_bvh(100), 4)
-    box, link = st.build_quad_tables(_chain_bvh(20), 4)
+    box, link, _ = st.build_quad_tables(_chain_bvh(20), 4)
     assert link.dtype == np.int32 and box.dtype == np.float32
     assert box.shape == (10, 4, 6)

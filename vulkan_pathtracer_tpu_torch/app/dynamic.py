@@ -7,20 +7,18 @@ and ``chip_smoke.py``.
   the root box's largest extent;
 - ``twist``: the deformation of ``tests/test_device_build.py``
   (:166-176): every vertex turned about y by 0.3 * sin(phase) * y;
-- ``refit_frame`` (rebake, refit, regeneration of an AnimatedScene) and
-  ``rebuild_frame`` (twist, then device_rebuild_scene's steps), each
-  step between two marks of a ``StepTimer``.
+- ``StepTimer``: named steps between CUDA events, marked by
+  AnimatedScene.with_transforms' ``on_step`` (``REFIT_STEPS``) and by
+  ``rebuild_frame`` (twist, then device_rebuild_scene's steps).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import math
 
 import torch
 
 from vulkan_pathtracer_tpu_torch.ops.device_build import device_rebuild_scene
-from vulkan_pathtracer_tpu_torch.ops.refit import refit_boxes, regenerate
 
 REFIT_STEPS = ("rebake", "refit", "regenerate")
 
@@ -86,21 +84,6 @@ def twist(tri_v0, tri_e1, tri_e2, phase: float):
     w1 = warp(tri_v0 + tri_e1) - w0
     w2 = warp(tri_v0 + tri_e2) - w0
     return w0, w1, w2, torch.linalg.cross(w1, w2)
-
-
-def refit_frame(anim, transforms, timer: StepTimer):
-    """The scene of an AnimatedScene at ``transforms``
-    (AnimatedScene.with_transforms), its rebake, refit and regeneration
-    each marked on ``timer``."""
-    timer.start()
-    moved = anim.rebake(transforms)
-    timer.mark("rebake")
-    bmin, bmax = refit_boxes(moved)
-    timer.mark("refit")
-    scene = dataclasses.replace(moved, wide_nodes=None,
-                                **regenerate(moved, bmin, bmax))
-    timer.mark("regenerate")
-    return scene
 
 
 def rebuild_frame(template, phase: float, timer: StepTimer,

@@ -172,8 +172,9 @@ def animate(args, path: str, dev) -> int:
         ext = dynamic.largest_extent(anim.base)
 
         def scene_at(t):
-            return dynamic.refit_frame(
-                anim, dynamic.bob_transforms(base_tf, ext, t), timer)
+            timer.start()
+            return anim.with_transforms(
+                dynamic.bob_transforms(base_tf, ext, t), on_step=timer.mark)
         first = anim.base
     else:
         template = build_device_scene(host, max_leaf_size=leaf, device=dev,

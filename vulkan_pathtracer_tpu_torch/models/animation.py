@@ -100,10 +100,15 @@ class AnimatedScene:
         return dataclasses.replace(self.base, tri_v0=v0, tri_e1=e1,
                                    tri_e2=e2, tri_gn=gn, tri_attr=tri_attr)
 
-    def with_transforms(self, transforms) -> DeviceScene:
+    def with_transforms(self, transforms, on_step=None) -> DeviceScene:
         """The scene at (I, 4, 4) ``transforms``: rebake, then refit
-        (new boxes, every table regenerated, no 8-wide tiles)."""
-        return refit_scene(self.rebake(transforms))
+        (new boxes, every table regenerated, no 8-wide tiles).
+        ``on_step(name)``, when given, is called after the rebake
+        ("rebake") and after each step of refit_scene."""
+        moved = self.rebake(transforms)
+        if on_step is not None:
+            on_step("rebake")
+        return refit_scene(moved, on_step)
 
 
 def build_animated_scene(scene: Scene, max_leaf_size: int = 4,

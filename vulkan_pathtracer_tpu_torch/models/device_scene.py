@@ -86,9 +86,7 @@ from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
     build_oct_tables,
     build_pair_tables,
     build_quad_tables,
-    nary_src,
     nary_tables_from_jax,
-    pair_src,
 )
 from vulkan_pathtracer_tpu_torch.utils.config import FRONTIER_WIDTH
 
@@ -266,11 +264,10 @@ def _block_count(leaf_first, leaf_count, block: int, n_blocks: int):
     return out
 
 
-def tree_maps(bvh, block: int, perm, frontier_width: int,
-              device) -> TreeMaps:
-    """The TreeMaps of a host BVH whose leaves are block-aligned: the
-    maps of the pair, quad, oct and frontier (``frontier_width``)
-    tables of the flat bake."""
+def tree_maps(bvh, block: int, perm, src: dict, device) -> TreeMaps:
+    """The TreeMaps of a host BVH whose leaves are block-aligned, with
+    the src maps of its tables as their builders return them
+    (``pair_src``, ``quad_src``, ``oct_src``, ``frontier_src``)."""
     def up(x):
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)).to(
             device)
@@ -281,9 +278,7 @@ def tree_maps(bvh, block: int, perm, frontier_width: int,
         leaf_first=up(bvh.leaf_first), leaf_count=up(bvh.leaf_count),
         block_count=up(_block_count(bvh.leaf_first, bvh.leaf_count, block,
                                     n_blocks)),
-        perm=up(perm), pair_src=up(pair_src(bvh)),
-        quad_src=up(nary_src(bvh, 4)), oct_src=up(nary_src(bvh, 8)),
-        frontier_src=up(nary_src(bvh, frontier_width)))
+        perm=up(perm), **{k: up(v) for k, v in src.items()})
 
 
 def _to_device(host: dict, meta: dict, device) -> DeviceScene:
@@ -446,10 +441,10 @@ def bake_flat(scene: Scene, max_leaf_size: int, device, build_bvh: bool,
     oct_box = oct_link = frontier_box = frontier_link = None
     wide_seconds = 0.0
     if bvh is not None:
-        quad_box, quad_link = build_quad_tables(bvh, max_leaf_size)
-        pair_box, pair_link = build_pair_tables(bvh, max_leaf_size)
-        oct_box, oct_link = build_oct_tables(bvh, max_leaf_size)
-        frontier_box, frontier_link = build_frontier_tables(
+        quad_box, quad_link, quad_src = build_quad_tables(bvh, max_leaf_size)
+        pair_box, pair_link, pair_src = build_pair_tables(bvh, max_leaf_size)
+        oct_box, oct_link, oct_src = build_oct_tables(bvh, max_leaf_size)
+        frontier_box, frontier_link, frontier_src = build_frontier_tables(
             bvh, max_leaf_size, frontier_width)
         skip_nodes, perm = flat_skip_nodes(bvh)
         if wide:
@@ -494,8 +489,9 @@ def bake_flat(scene: Scene, max_leaf_size: int, device, build_bvh: bool,
     )
     dev = _to_device(host, meta, device)
     if bvh is not None:
-        dev.tree = tree_maps(bvh, max_leaf_size, perm, frontier_width,
-                             dev.device)
+        dev.tree = tree_maps(bvh, max_leaf_size, perm, dict(
+            pair_src=pair_src, quad_src=quad_src, oct_src=oct_src,
+            frontier_src=frontier_src), dev.device)
     return dev, slot_map
 
 

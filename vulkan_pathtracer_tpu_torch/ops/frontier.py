@@ -56,10 +56,10 @@ from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
     _launch_name,
     _traverse_plain,
     boxes_from_src,
-    build_nary_tables,
+    collapse_maps,
+    host_boxes,
     lane_limits,
     leaf_table,
-    nary_src,
 )
 from vulkan_pathtracer_tpu_torch.utils.config import FRONTIER_WIDTH
 
@@ -90,17 +90,16 @@ def batcher_oem(n: int):
 
 def build_frontier_tables(bvh, block: int, width: int = FRONTIER_WIDTH,
                           guard: float = GUARD):
-    """(frontier_box (Nw, width, 6) f32, frontier_link (Nw, width) int32)
-    of the width-ary collapse (pallas_pair.build_frontier_rows): each
-    child box dilated by guard * (max(|lo|, |hi|) + |root|) per axis, in
-    float64 and rounded once to f32 (frontier_boxes)."""
+    """(frontier_box (Nw, width, 6) f32, frontier_link (Nw, width) int32,
+    frontier_src) of the width-ary collapse
+    (pallas_pair.build_frontier_rows; collapse_maps): each child box
+    dilated by guard * (max(|lo|, |hi|) + |root|) per axis, in float64
+    and rounded once to f32 (frontier_boxes)."""
     if width not in (16, 32):
         raise ValueError(f"frontier width {width}: 16 or 32")
-    _, link = build_nary_tables(bvh, block, width)
-    box = frontier_boxes(torch.from_numpy(bvh.bmin),
-                         torch.from_numpy(bvh.bmax),
-                         torch.from_numpy(nary_src(bvh, width)), guard)
-    return box.numpy(), link
+    src, link = collapse_maps(bvh, block, width)
+    box = frontier_boxes(*host_boxes(bvh), torch.from_numpy(src), guard)
+    return box.numpy(), link, src
 
 
 def frontier_boxes(bmin: torch.Tensor, bmax: torch.Tensor,

@@ -126,15 +126,20 @@ def refit_boxes(scene):
                        scene.max_leaf_size, scene.bvh_depth)
 
 
-def refit_scene(scene):
+def refit_scene(scene, on_step=None):
     """A copy of a flat scene after its triangles moved: new boxes, every
-    table regenerated (refit_boxes, regenerate), no 8-wide tiles."""
+    table regenerated (refit_boxes, regenerate), no 8-wide tiles.
+    ``on_step(name)``, when given, is called after each step ("refit",
+    "regenerate")."""
     if scene.tree is None:
         raise ValueError("refit_scene: the scene has no build-order tree "
                          "(a flat bake with a BVH carries one)")
+    step = on_step or (lambda name: None)
     bmin, bmax = refit_boxes(scene)
-    return dataclasses.replace(scene, wide_nodes=None,
-                               **regenerate(scene, bmin, bmax))
+    step("refit")
+    up = regenerate(scene, bmin, bmax)
+    step("regenerate")
+    return dataclasses.replace(scene, wide_nodes=None, **up)
 
 
 def tree_violations(scene) -> tuple:

@@ -156,33 +156,34 @@ def _nary_collapse(bvh, width: int):
     return super_row, children
 
 
-def build_nary_tables(bvh, block: int, width: int):
-    """(box (Nw, width, 6) f32, link (Nw, width) int32) of the width-ary
+def collapse_maps(bvh, block: int, width: int):
+    """(src (Nw, width) int64, link (Nw, width) int32) of the width-ary
     collapse of a binary host BVH whose leaves are block-aligned
-    (ops/bvh.pad_leaves_to_blocks): pallas_pair._build_nary_rows in the
-    port's layout.
-
-    Empty slots hold a zero box and the EMPTY link.  A tree whose root
-    is a leaf becomes one row holding that leaf in slot 0.  Raises
-    ValueError when a kernel's per-ray stack (STACK_SLOTS[width]) could
-    overflow on the collapsed tree."""
-    what = f"build_nary_tables(width={width})"
+    (ops/bvh.pad_leaves_to_blocks), in one walk: ``src`` is the
+    build-order node of each slot, -1 in an empty slot, and ``link`` a
+    child's row, -(leaf block + 1), or EMPTY — the static (src, enc)
+    maps of pallas_pair._nary_static_maps /
+    pallas_frontier.frontier_static_maps in the port's layout.  A tree
+    whose root is a leaf becomes one row holding that leaf in slot 0.
+    Raises ValueError when a kernel's per-ray stack
+    (STACK_SLOTS[width]) could overflow on the collapsed tree."""
+    what = f"collapse_maps(width={width})"
     _assert_depth(tree_depth(bvh), what)
     if bvh.left_child[0] < 0:
-        box = np.zeros((1, width, 6), np.float32)
+        src = np.full((1, width), -1, np.int64)
         link = np.full((1, width), EMPTY, np.int32)
-        box[0, 0, 0:3], box[0, 0, 3:6] = bvh.bmin[0], bvh.bmax[0]
+        src[0, 0] = 0
         link[0, 0] = -(int(bvh.leaf_first[0]) // block + 1)
-        return box, link
+        return src, link
     super_row, children = _nary_collapse(bvh, width)
-    box = np.zeros((len(children), width, 6), np.float32)
+    src = np.full((len(children), width), -1, np.int64)
     link = np.full((len(children), width), EMPTY, np.int32)
     depth = np.zeros(len(children), np.int64)
     depth[0] = 1
     for node, kids in children:
         r = super_row[node]
         for s, (kind, cid) in enumerate(kids):
-            box[r, s, 0:3], box[r, s, 3:6] = bvh.bmin[cid], bvh.bmax[cid]
+            src[r, s] = cid
             if kind == "super":
                 link[r, s] = super_row[cid]
                 depth[super_row[cid]] = depth[r] + 1
@@ -193,24 +194,23 @@ def build_nary_tables(bvh, block: int, width: int):
         raise ValueError(
             f"{what}: collapsed depth {int(depth.max())} needs {need} "
             f"stack entries, more than the kernels' {STACK_SLOTS[width]}")
-    return box, link
+    return src, link
 
 
-def nary_src(bvh, width: int) -> np.ndarray:
-    """(Nw, width) int64 build-order node of each slot of the width-ary
-    collapse, -1 in an empty slot: the src half of the static maps of
-    pallas_pair._nary_static_maps / pallas_frontier.frontier_static_maps
-    (their enc half is the table's link, which a refit keeps).  Row
-    numbering and slot order are build_nary_tables'."""
-    if bvh.left_child[0] < 0:
-        src = np.full((1, width), -1, np.int64)
-        src[0, 0] = 0
-        return src
-    super_row, children = _nary_collapse(bvh, width)
-    src = np.full((len(children), width), -1, np.int64)
-    for node, kids in children:
-        src[super_row[node], :len(kids)] = [cid for _, cid in kids]
-    return src
+def host_boxes(bvh):
+    """(bmin, bmax) (Nn, 3) f32 CPU tensors of a host BVH's node boxes."""
+    return (torch.from_numpy(np.ascontiguousarray(bvh.bmin, np.float32)),
+            torch.from_numpy(np.ascontiguousarray(bvh.bmax, np.float32)))
+
+
+def build_nary_tables(bvh, block: int, width: int):
+    """(box (Nw, width, 6) f32, link (Nw, width) int32, src) of the
+    width-ary collapse (pallas_pair._build_nary_rows in the port's
+    layout): collapse_maps, the boxes boxes_from_src of its src (a zero
+    box in an empty slot)."""
+    src, link = collapse_maps(bvh, block, width)
+    box = boxes_from_src(*host_boxes(bvh), torch.from_numpy(src))
+    return box.numpy(), link, src
 
 
 def boxes_from_src(bmin: torch.Tensor, bmax: torch.Tensor,
@@ -227,14 +227,14 @@ def boxes_from_src(bmin: torch.Tensor, bmax: torch.Tensor,
 
 
 def build_quad_tables(bvh, block: int):
-    """(quad_box (N4, 4, 6) f32, quad_link (N4, 4) int32): the 4-wide
-    collapse (pallas_pair.build_quad_rows)."""
+    """(quad_box (N4, 4, 6) f32, quad_link (N4, 4) int32, quad_src): the
+    4-wide collapse (pallas_pair.build_quad_rows)."""
     return build_nary_tables(bvh, block, 4)
 
 
 def build_oct_tables(bvh, block: int):
-    """(oct_box (N8, 8, 6) f32, oct_link (N8, 8) int32): the 8-wide
-    collapse (pallas_pair.build_oct_rows)."""
+    """(oct_box (N8, 8, 6) f32, oct_link (N8, 8) int32, oct_src): the
+    8-wide collapse (pallas_pair.build_oct_rows)."""
     return build_nary_tables(bvh, block, 8)
 
 
@@ -275,22 +275,15 @@ def _pair_tables(bmin, bmax, left, right, leaf_value):
 
 
 def build_pair_tables(bvh, block: int):
-    """(pair_box, pair_link) of a binary host BVH in build order, whose
-    leaves are block-aligned: the flat bake's pair table
-    (pallas_pair.build_pair_rows, device_scene.py:698)."""
+    """(pair_box, pair_link, pair_src) of a binary host BVH in build
+    order, whose leaves are block-aligned: the flat bake's pair table
+    (pallas_pair.build_pair_rows, device_scene.py:698) and the
+    build-order children of each row (a root leaf: its one row holds
+    node 0 twice)."""
     _assert_depth(tree_depth(bvh), "build_pair_tables")
     leaf_value = np.where(bvh.leaf_first >= 0, bvh.leaf_first // block, -1)
-    box, link, _ = _pair_tables(bvh.bmin, bvh.bmax, bvh.left_child,
-                                bvh.right_child, leaf_value)
-    return box, link
-
-
-def pair_src(bvh) -> np.ndarray:
-    """(Ni, 2) int64 build-order children of each pair row of
-    build_pair_tables (a root leaf: its one row holds node 0 twice)."""
-    leaf_value = np.where(bvh.leaf_first >= 0, 0, -1)
     return _pair_tables(bvh.bmin, bvh.bmax, bvh.left_child, bvh.right_child,
-                        leaf_value)[2]
+                        leaf_value)
 
 
 def _preorder_depth(internal, left, right) -> int:
