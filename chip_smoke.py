@@ -167,7 +167,27 @@ before the result line):
    oct and frontier tables absent and the tier dispatch falling
    through (``kernel_primary`` oct or frontier -> pair), coefficient
    leaves through the quad kernels.  Each kernel's entry carries the
-   launches of this phase under ``launches_dynamic``.
+   launches of this phase under ``launches_dynamic``;
+14. multi-device — (a) a real NCCL group of one rank per card (at most
+   4; one on a one-card machine), started by ``parallel.distributed.
+   spawn``: the 1080p atrium (leaf 28, 1 spp, 2 bounces, the orbit at
+   t=0) through ``ShardedRenderPipeline`` in ``tiles`` (bitwise
+   ``RenderPipeline``'s frame, rays equal) and ``spp`` (bitwise the
+   rank-order mean of ``RenderPipeline`` frames at seeds frame * ranks +
+   r); (b) on rank 0, the 4-way split rank by rank with no group
+   (``render_tile`` / ``render_spp_shard`` at world 4): the 4 tiles
+   concatenated bitwise the full frame, the 4 shards' rank-order mean
+   bitwise that of 4 single frames; (c) the pooled sharded wavefront of
+   4 orbit cameras at 1080p, rebalanced every bounce, bitwise
+   ``trace_wavefront_pooled``, rays exact; each of (a) and (c) run with
+   the launch counters zeroed just before and read just after on every
+   rank (quad closest and any hit, nothing else; under
+   ``launches_multidevice``), then timed against its single-device
+   counterpart on the same card (median of 5 frames, 3 groups); (d) the
+   CLI at 320x180, its four processes started together: ``--devices
+   <ranks>`` in tiles and spp (rc 0, the PNG written; the tiles PNG
+   equal to the single-device CLI's), and ``--devices <cards + 1>``,
+   which must exit non-zero naming the card count.
 
 Each kernel's ``bound_ms`` is the larger of its operations over the
 card's f32 peak and its bytes over the HBM rate, counted from this
@@ -299,6 +319,152 @@ COEF_NONZERO, FEAT_OPS, FEAT_XFORM_OPS = 19, 9, 70
 # to brute force, and more than this share of a launch's rays is a
 # fault of the tables.
 FACE_MISS_SHARE = 1e-5
+
+
+# Phase 14: at most this many ranks (one card each), the frame seed,
+# the frames timed, and the pooled group's cameras and timed runs.
+MD_MAX_RANKS, MD_FRAME, MD_REPS = 4, 3, 5
+MD_POOL_F, MD_POOL_REPS = 4, 3
+
+
+def multidevice_rank(group, atrium_path):
+    """Phase 14 (a)-(c) on one rank of the NCCL group (a
+    mesh.RenderGroup; this process's card current): the 1080p atrium
+    through ``ShardedRenderPipeline`` (tiles, spp) and the rebalanced
+    pooled sharded wavefront of MD_POOL_F cameras, each run with the
+    launch counters zeroed just before and read just after, then timed
+    (host clock around synchronised runs, medians).  Rank 0 also renders
+    the single-device references of the same work on the same card,
+    times them, and (b) renders the 4-way split rank by rank with no
+    group.  Returns a dict of plain values."""
+    import statistics
+
+    import torch
+
+    from vulkan_pathtracer_tpu_torch.app.camera_path import orbit_path
+    from vulkan_pathtracer_tpu_torch.app.main import load_pipeline
+    from vulkan_pathtracer_tpu_torch.models.camera import Camera
+    from vulkan_pathtracer_tpu_torch.ops import kernels
+    from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
+    from vulkan_pathtracer_tpu_torch.parallel.rebalance import (
+        make_pooled_sharded_render,
+    )
+    from vulkan_pathtracer_tpu_torch.parallel.sharding import (
+        ShardedRenderPipeline,
+        render_spp_shard,
+        render_tile,
+        spp_mean,
+    )
+    from vulkan_pathtracer_tpu_torch.render import pipeline as pl
+    from vulkan_pathtracer_tpu_torch.render.wavefront import (
+        trace_wavefront_pooled,
+    )
+    from vulkan_pathtracer_tpu_torch.utils import RenderConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.lib()
+    config = RenderConfig(num_samples=1, num_bounces=2, resolution_x=WIDTH,
+                          resolution_y=HEIGHT)
+    single = load_pipeline(atrium_path, config, group.device)
+    scene = single.scene
+    world = group.world
+
+    def camera(t):
+        cam = Camera(aspect_ratio=config.aspect_ratio)
+        orbit_path(radius=4.5, height=2.2, duration=4.0,
+                   center=(0.0, 1.2, 0.0)).apply(cam, t)
+        return cam
+
+    def sync():
+        torch.cuda.synchronize(group.device)
+
+    def counted(fn):
+        for key in st.LAUNCHES:
+            st.LAUNCHES[key] = 0
+        out = fn()
+        sync()
+        return out, {k: v for k, v in st.LAUNCHES.items() if v}
+
+    def median_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(1000.0 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    def result(image, rays, ref, ref_rays, **more):
+        return dict(bitwise=ref is None or bool(torch.equal(image, ref)),
+                    rays=int(rays), ref_rays=int(rays if ref is None
+                                                 else ref_rays),
+                    mean=image.float().mean().item(), **more)
+
+    cam = camera(0.0)
+    primary = group.primary
+    out = {}
+    # (a) tiles and spp through ShardedRenderPipeline.
+    for mode in ("tiles", "spp"):
+        pipe = ShardedRenderPipeline(scene, config, group, mode)
+        pipe.render(cam, MD_FRAME)   # warm-up
+        (image, rays), launches = counted(lambda: pipe.render(cam, MD_FRAME))
+        ref = ref_rays = None
+        if primary and mode == "tiles":
+            ref, ref_rays = single.render(cam, MD_FRAME)
+        elif primary:
+            frames = [single.render(cam, MD_FRAME * world + r)
+                      for r in range(world)]
+            ref = spp_mean([f[0] for f in frames])
+            ref_rays = sum(int(f[1]) for f in frames)
+        out[mode] = result(image, rays, ref, ref_rays, launches=launches,
+                           ms=median_ms(lambda: pipe.render(cam, MD_FRAME),
+                                        MD_REPS))
+    if primary:
+        out["single_ms"] = median_ms(lambda: single.render(cam, MD_FRAME),
+                                     MD_REPS)
+        # (b) The 4-way split, rank by rank, no group.
+        vectors = pl.camera_tensors(cam, group.device)
+        kw = dict(world=4, num_samples=1, num_bounces=2, width=WIDTH,
+                  height=HEIGHT, tiers=single.tiers,
+                  sort_secondary=single._sort_secondary)
+        tiles = [render_tile(scene, *vectors, MD_FRAME, rank=r, **kw)
+                 for r in range(4)]
+        ref, ref_rays = single.render(cam, MD_FRAME)
+        out["split_tiles"] = result(torch.cat([t[0] for t in tiles]),
+                                    sum(int(t[1]) for t in tiles), ref,
+                                    ref_rays)
+        shards = [render_spp_shard(scene, *vectors, MD_FRAME, rank=r, **kw)
+                  for r in range(4)]
+        frames = [single.render(cam, MD_FRAME * 4 + r) for r in range(4)]
+        out["split_spp"] = result(spp_mean([s[0] for s in shards]),
+                                  sum(int(s[1]) for s in shards),
+                                  spp_mean([f[0] for f in frames]),
+                                  sum(int(f[1]) for f in frames))
+        del tiles, shards, frames
+    # (c) The pooled sharded wavefront, rebalanced, MD_POOL_F cameras.
+    prims = [pl.primary_rays(*pl.camera_tensors(camera(4.0 * k / MD_POOL_F),
+                                                group.device),
+                             1 + k, WIDTH, HEIGHT, tiles=single._tiles)[:4]
+             for k in range(MD_POOL_F)]
+    lanes = [torch.cat([p[i] for p in prims]) for i in range(4)]
+    del prims
+    kw = dict(num_bounces=2, tiers=single.tiers,
+              sort_secondary=single._sort_secondary)
+    fn = make_pooled_sharded_render(group, scene, rebalance=True, **kw)
+    fn(scene, *lanes)   # warm-up
+    (color, rays), launches = counted(lambda: fn(scene, *lanes))
+    ref = ref_rays = None
+    if primary:
+        ref, ref_rays = trace_wavefront_pooled(scene, *lanes, **kw)
+    out["pooled"] = result(color, rays, ref, ref_rays, launches=launches,
+                           ms=median_ms(lambda: fn(scene, *lanes),
+                                        MD_POOL_REPS))
+    if primary:
+        out["pooled_single_ms"] = median_ms(
+            lambda: trace_wavefront_pooled(scene, *lanes, **kw),
+            MD_POOL_REPS)
+    return out
 
 
 def fail(msg: str) -> None:
@@ -2067,7 +2233,79 @@ def main() -> int:
     phase("phase", name="dynamic geometry", launches=dyn_launches,
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 14. result ------------------------------------------------------------
+    # -- 14. multi-device ------------------------------------------------------
+    # (a)-(c) on the ranks of a real NCCL group, one card each (at most
+    # 4); (d) the CLI, its processes started together.
+    t0 = time.perf_counter()
+    from vulkan_pathtracer_tpu_torch.parallel import distributed
+    from vulkan_pathtracer_tpu_torch.utils import read_png
+
+    torch.cuda.empty_cache()
+    world = min(torch.cuda.device_count(), MD_MAX_RANKS)
+    ranks = distributed.spawn(multidevice_rank, world, "cuda", atrium_path)
+    md = ranks[0]
+    phase("multidevice", ranks=world, backend=distributed.backend_for("cuda"),
+          spawn_seconds=f"{time.perf_counter() - t0:.1f}")
+    for key in ("tiles", "spp", "pooled", "split_tiles", "split_spp"):
+        check(md[key]["bitwise"], f"multidevice {key}: image differs from "
+              f"its single-device reference")
+        check(md[key]["rays"] == md[key]["ref_rays"],
+              f"multidevice {key}: rays {md[key]['rays']} vs "
+              f"{md[key]['ref_rays']}")
+    for rank, out in enumerate(ranks):
+        for key in ("tiles", "spp", "pooled"):
+            got = out[key]["launches"]
+            check(set(got) == {"quad_closest_hit", "quad_any_hit"},
+                  f"multidevice {key} rank {rank}: launches {got}")
+    for key in ("tiles", "spp", "pooled", "split_tiles", "split_spp"):
+        phase("multidevice", check=key, bitwise=True, rays=md[key]["rays"],
+              launches=md[key].get("launches"),
+              mean=f"{md[key]['mean']:.7f}")
+    phase("multidevice", timing=f"{WIDTH}x{HEIGHT} frame, median of "
+          f"{MD_REPS}", sharded_tiles_ms=f"{md['tiles']['ms']:.3f}",
+          sharded_spp_ms=f"{md['spp']['ms']:.3f}",
+          single_ms=f"{md['single_ms']:.3f}", ranks=world, card=repr(card))
+    phase("multidevice", timing=f"{MD_POOL_F} cameras pooled, median of "
+          f"{MD_POOL_REPS}", sharded_pooled_ms=f"{md['pooled']['ms']:.3f}",
+          single_pooled_ms=f"{md['pooled_single_ms']:.3f}", ranks=world,
+          card=repr(card))
+    for key in ("quad_closest_hit", "quad_any_hit"):
+        results[key]["launches_multidevice"] = {
+            k: md[k]["launches"].get(key, 0) for k in ("tiles", "spp",
+                                                        "pooled")}
+    # (d) The CLI at 320x180: --devices <ranks> in tiles and spp (the
+    # tiles PNG equals the single-device CLI's), and one rank more than
+    # the host has cards, which must exit non-zero naming the count.
+    cli = {}
+    for label, extra in (
+            ("single", []),
+            ("tiles", ["--devices", str(world), "--shard-mode", "tiles"]),
+            ("spp", ["--devices", str(world), "--shard-mode", "spp"]),
+            ("refused", ["--devices", str(torch.cuda.device_count() + 1)])):
+        png = os.path.join(WORK, f"cli_md_{label}.png")
+        if os.path.exists(png):
+            os.remove(png)
+        cli[label] = (png, subprocess.Popen(
+            [sys.executable, "-m", "vulkan_pathtracer_tpu_torch", "-s",
+             atrium_path, "-x", str(SMALL_W), "-y", str(SMALL_H), "-o", png,
+             *extra], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    for label, (png, proc) in cli.items():
+        _, err = proc.communicate(timeout=300)
+        ok = proc.returncode == 0 and os.path.exists(png)
+        if label == "refused":
+            ok = (proc.returncode != 0 and not os.path.exists(png)
+                  and f"{torch.cuda.device_count()} CUDA device(s)" in err)
+        check(ok, f"CLI {label}: rc {proc.returncode}\n{err}")
+        phase("multidevice", check=f"CLI {label}", rc=proc.returncode,
+              line=repr([ln for ln in err.splitlines()
+                         if "frame(s) on" in ln or "error" in ln][-1:]))
+    check(np.array_equal(read_png(cli["tiles"][0]), read_png(cli["single"][0])),
+          "CLI --devices tiles: PNG differs from the single-device CLI's")
+    phase("phase", name="multi-device", ranks=world,
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # -- 15. result ------------------------------------------------------------
     launches = {**{k: flat_launches[k] for k in ("quad_closest_hit",
                                                   "quad_any_hit")},
                 **{k: inst_launches[k] for k in ("pair_closest_hit",

@@ -995,3 +995,53 @@ def test_kernels_skip_mid_row_empty_slots(cuda, scene_paths, table):
     assert torch.equal(anyhit(rbox, rlink.contiguous(), rleaves, o, d,
                               t_lane),
                        anyhit(box, link, scene.leaves, o, d, t_lane))
+
+
+@pytest.mark.parametrize("mode", ["tiles", "spp"])
+def test_nccl_world_one_matches_render_pipeline(cuda, scene_paths,
+                                                atrium_path, mode):
+    """A real NCCL group of one rank, formed in this process: the
+    sharded frame (the atrium at 128x96, leaf 28, 2 bounces; spp at one
+    rank has frame seed frame * 1 + 0) is bitwise RenderPipeline's, the
+    rays equal; the pooled sharded wavefront of 2 cameras, rebalanced
+    (the exchange's all_to_all on one rank), bitwise
+    ``trace_wavefront_pooled``."""
+    from vulkan_pathtracer_tpu_torch.parallel import distributed
+    from vulkan_pathtracer_tpu_torch.parallel.mesh import make_render_group
+    from vulkan_pathtracer_tpu_torch.parallel.rebalance import (
+        make_pooled_sharded_render,
+    )
+    from vulkan_pathtracer_tpu_torch.parallel.sharding import (
+        ShardedRenderPipeline,
+    )
+    from vulkan_pathtracer_tpu_torch.render.wavefront import (
+        trace_wavefront_pooled,
+    )
+
+    distributed.form_group(f"127.0.0.1:{distributed.free_port()}", 1, 0,
+                           "cuda")
+    try:
+        group = make_render_group("cuda")
+        assert group.world == 1 and group.group is not None
+        scene = build_device_scene(gltf.load(atrium_path), max_leaf_size=28,
+                                   device=group.device)
+        config = RenderConfig(num_samples=1, num_bounces=2,
+                              resolution_x=128, resolution_y=96)
+        cams = []
+        for t in (0.0, 1.3):
+            cams.append(Camera(aspect_ratio=config.aspect_ratio))
+            orbit_path(radius=4.5, height=2.2, duration=4.0,
+                       center=(0.0, 1.2, 0.0)).apply(cams[-1], t)
+        ref, ref_rays = RenderPipeline(scene, config).render(cams[0], 3)
+        got, rays = ShardedRenderPipeline(scene, config, group,
+                                          mode).render(cams[0], 3)
+        assert torch.equal(got, ref) and int(rays) == int(ref_rays)
+        prims = [pl.primary_rays(*pl.camera_tensors(cam, group.device), 4,
+                                 128, 96)[:4] for cam in cams]
+        lanes = [torch.cat([p[i] for p in prims]) for i in range(4)]
+        ref, ref_rays = trace_wavefront_pooled(scene, *lanes, num_bounces=2)
+        got, rays = make_pooled_sharded_render(
+            group, scene, num_bounces=2, rebalance=True)(scene, *lanes)
+        assert torch.equal(got, ref) and int(rays) == int(ref_rays)
+    finally:
+        torch.distributed.destroy_process_group()

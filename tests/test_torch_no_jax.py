@@ -15,8 +15,8 @@
 - Without CUDA, the default ``--device cuda`` exits non-zero with a
   clear message instead of switching to the CPU.
 - The traversal wrappers raise for a device that is neither CPU nor
-  CUDA; the CLI refuses the flags that are not yet ported
-  (``--devices``, ``--shard-mode``).
+  CUDA; the CLI parses ``--devices`` and ``--shard-mode`` and refuses
+  ``--interactive`` with ``--devices`` > 1.
 """
 
 import os
@@ -193,13 +193,20 @@ def test_cuda_device_without_cuda_fails(box_glb, tmp_path):
 @pytest.mark.parametrize("flag", [["--devices", "2"],
                                   ["--shard-mode", "spp"]])
 def test_unported_flags_refused(flag, capsys):
+    """The multi-device flags parse (they run in
+    tests/test_torch_multidevice.py); only ``--interactive`` with
+    ``--devices`` > 1 stays refused, with exit 2."""
     from vulkan_pathtracer_tpu_torch.app.main import parse_args
 
+    _, args = parse_args(["-s", "scene.glb", *flag])
+    assert (args.devices, args.shard_mode) == (
+        (2, "tiles") if flag[0] == "--devices" else (1, "spp"))
     with pytest.raises(SystemExit) as exc:
-        parse_args(["-s", "scene.glb", *flag])
-    assert exc.value.code != 0
-    assert "not yet ported in vulkan_pathtracer_tpu_torch" in \
-        capsys.readouterr().err
+        parse_args(["-s", "scene.glb", "--interactive", "--devices", "2",
+                    *flag])
+    assert exc.value.code == 2
+    assert "--interactive with --devices > 1: not yet ported in " \
+        "vulkan_pathtracer_tpu_torch" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("fn", [st.quad_closest_hit, st.quad_any_hit,

@@ -404,11 +404,15 @@ def test_cli_progressive_frames(cornell_glb, tmp_path, capsys, extra):
 
 
 def test_still_refused(capsys):
-    """``--devices`` stays refused with exit 2, the progressive flags
+    """``--devices`` parses (multi-device, tests/test_torch_multidevice.py)
+    but ``--interactive --devices 2`` exits 2, the progressive flags
     parse, and RenderPipeline refuses ``seed_secondary`` (while it takes
     ``enable_validation``, which ``-v`` sets)."""
+    config, args = parse_args(["-s", "scene.glb", "--devices", "2",
+                               "--progressive"])
+    assert args.devices == 2 and config.progressive
     with pytest.raises(SystemExit) as exc:
-        parse_args(["-s", "scene.glb", "--devices", "2"])
+        parse_args(["-s", "scene.glb", "--interactive", "--devices", "2"])
     assert exc.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
     config, args = parse_args(["-s", "scene.glb", "--progressive",

@@ -11,9 +11,20 @@ render/wavefront.py: ``brute`` bakes no BVH, ``pallas8`` bakes the
 ``--save-every``, ``--russian-roulette``), ``--camera-path``,
 ``--pool-frames``, ``--interactive``, ``--profile``,
 ``--gltf-quirk-mode`` and ``--stats-interval`` (parsed and unused, as
-in the JAX package), and ``--device`` (default ``cuda``).  Only
-``--devices`` and ``--shard-mode`` (multi-device rendering) are
-recognised but refused: they are not yet ported.
+in the JAX package), multi-device rendering (``--devices N``,
+``--shard-mode tiles|spp``), and ``--device`` (default ``cuda``).
+
+``--devices N`` (N > 1) renders each frame on N ranks, one process and
+one device each (parallel/): the CLI starts the N ranks itself, or,
+when torchrun started it (``WORLD_SIZE`` set, which must equal N), is
+one of them.  Every rank loads and bakes the scene, and renders through
+``ShardedRenderPipeline`` (framebuffer tiles, or sample shards under
+``--shard-mode spp``) in the per-frame loop below; rank 0 alone writes
+the PNG, the ``STATS`` lines, the checkpoint and the profile.  CUDA
+ranks take one card each (more ranks than cards exits 1, naming both
+counts); ``--device cpu`` runs gloo ranks on the CPU.
+``--interactive`` with ``--devices`` > 1 exits 2 (the sharded pipeline
+has no ``resize``).
 
 ``-v`` checks the host BVH's invariants and renders a checked 64x64
 frame (utils/validation.py) before the frame loop, and then checks
@@ -21,8 +32,9 @@ every rendered image for NaN and Inf.  ``--interactive`` runs the
 terminal viewer (app/viewer.py) instead of the frame loop.
 
 The frame loop keeps the JAX package's branches, in its order
-(app/main.py:141-272 there), under ``--profile DIR`` inside a
-``torch.profiler`` trace written to DIR (utils/profiling.py):
+(app/main.py:141-272 there; the first two on one device only), under
+``--profile DIR`` inside a ``torch.profiler`` trace written to DIR
+(utils/profiling.py):
 
 1. ``--progressive --batch-frames B`` (B > 1) without a camera path:
    batches of up to B frames of the static camera per dispatch
@@ -60,6 +72,8 @@ Run:  python -m vulkan_pathtracer_tpu_torch -s scene.glb [flags]
 
 from __future__ import annotations
 
+import contextlib
+import io
 import os
 import sys
 import time
@@ -75,6 +89,11 @@ from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
     build_instanced_scene,
 )
 from vulkan_pathtracer_tpu_torch.ops.bvh import build_bvh_host, validate_bvh
+from vulkan_pathtracer_tpu_torch.parallel import distributed
+from vulkan_pathtracer_tpu_torch.parallel.mesh import make_render_group
+from vulkan_pathtracer_tpu_torch.parallel.sharding import (
+    ShardedRenderPipeline,
+)
 from vulkan_pathtracer_tpu_torch.render.output import Accumulator
 from vulkan_pathtracer_tpu_torch.render.pipeline import RenderPipeline
 from vulkan_pathtracer_tpu_torch.utils import (
@@ -98,16 +117,15 @@ from vulkan_pathtracer_tpu_torch.utils.validation import (
     checked_render,
 )
 
-# Every flag of the JAX package's CLI but --devices and --shard-mode
-# (multi-device rendering, not yet ported).
+# Every flag of the JAX package's CLI.
 PORTED_FLAGS = ("scene_path", "num_samples", "num_bounces", "resolution_x",
                 "resolution_y", "render_resolution_divider",
                 "enable_validation", "output", "frames", "camera_path",
                 "progressive", "russian_roulette", "traversal",
-                "interactive", "instanced", "checkpoint",
+                "interactive", "instanced", "devices", "checkpoint",
                 "checkpoint_interval", "stats_interval", "profile",
-                "save_every", "batch_frames", "gltf_quirk_mode",
-                "pool_frames", "device")
+                "shard_mode", "save_every", "batch_frames",
+                "gltf_quirk_mode", "pool_frames", "device")
 # Leaf size of the two-level bake (app/main.py:75-77 of the JAX package).
 INSTANCED_LEAF = 14
 
@@ -161,7 +179,8 @@ def tier_fields_from_env(environ=None) -> dict:
 
 def parse_args(argv=None):
     """(RenderConfig, args); exits 1 on a missing scene path (like the
-    reference) and 2 on a flag that is not yet ported."""
+    reference) and 2 on a flag or a combination that is not yet
+    ported."""
     parser = build_parser()
     parser.prog = "python -m vulkan_pathtracer_tpu_torch"
     parser.add_argument("--device", type=str, default="cuda",
@@ -179,6 +198,11 @@ def parse_args(argv=None):
     if not args.scene_path:
         sys.stderr.write("Missing path to scene from arguments\n")
         raise SystemExit(1)
+    if args.interactive and args.devices > 1:
+        sys.stderr.write("--interactive with --devices > 1: not yet ported "
+                         "in vulkan_pathtracer_tpu_torch (the sharded "
+                         "pipeline has no resize)\n")
+        raise SystemExit(2)
     try:
         tiers = tier_fields_from_env()
         RenderConfig(**tiers).tiers.validate()
@@ -294,12 +318,15 @@ def validate(pipeline, config: RenderConfig) -> None:
 
 class FrameLoop:
     """The CLI's frame loop state: the pipeline, the camera (and its
-    path), ``Stats``, ``Timer``, the accumulator and the run's rays."""
+    path), ``Stats``, ``Timer``, the accumulator and the run's rays.
+    Only the ``primary`` process (rank 0) writes files and logs."""
 
-    def __init__(self, pipeline, config: RenderConfig, args, device):
+    def __init__(self, pipeline, config: RenderConfig, args, device,
+                 primary: bool = True):
         self.pipeline = pipeline
         self.config = config
         self.args = args
+        self.primary = primary
         self.camera = Camera(aspect_ratio=config.aspect_ratio)
         self.path = (CameraPath.load(args.camera_path) if args.camera_path
                      else None)
@@ -327,7 +354,7 @@ class FrameLoop:
         for _ in range(frames):
             self.stats.lap(dt / frames, self.timer.one_second_elapsed,
                            rays_this_frame=rays // frames)
-        if self.timer.one_second_elapsed:
+        if self.timer.one_second_elapsed and self.primary:
             self.stats.log()
 
     def cameras(self, first: int, count: int):
@@ -400,10 +427,12 @@ class FrameLoop:
             if acc is not None:
                 acc.add_frame(image)
                 if (args.checkpoint and args.checkpoint_interval
-                        and (frame + 1) % args.checkpoint_interval == 0):
+                        and (frame + 1) % args.checkpoint_interval == 0
+                        and self.primary):
                     acc.save(args.checkpoint)
             self.lap(int(rays))
-            if args.save_every and (frame + 1) % args.save_every == 0:
+            if (args.save_every and (frame + 1) % args.save_every == 0
+                    and self.primary):
                 present(acc.mean if acc is not None else image, self.config,
                         args.output)
         return acc.mean if acc is not None else image
@@ -416,13 +445,62 @@ def main(argv=None) -> int:
     except RuntimeError as exc:
         sys.stderr.write(f"error: {exc}\n")
         return 1
-    print(f"loading scene: {args.scene_path}", file=sys.stderr)
-    pipeline = load_pipeline(args.scene_path, config, device,
-                             instanced=args.instanced,
-                             quirk_mode=args.gltf_quirk_mode)
-    if config.mt != "exact" or any((
+    if args.devices > 1:
+        return run_ranks(config, args, device)
+    return render_main(config, args, device)
+
+
+def run_ranks(config: RenderConfig, args, device) -> int:
+    """``--devices N``: this process as one of torchrun's N ranks
+    (``WORLD_SIZE`` set), else N ranks started here.  Returns the
+    largest of the ranks' exit codes."""
+    world = os.environ.get("WORLD_SIZE")
+    if world is not None:
+        if int(world) != args.devices:
+            sys.stderr.write(f"error: --devices {args.devices}, but torchrun "
+                             f"started {world} ranks\n")
+            return 2
+        distributed.initialize(device=device)
+        try:
+            return rank_main(make_render_group(device), config, args)
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+    try:
+        return max(distributed.spawn(rank_main, args.devices, device,
+                                     config, args))
+    except RuntimeError as exc:   # more CUDA ranks than cards
+        sys.stderr.write(f"error: --devices {args.devices}: {exc}\n")
+        return 1
+
+
+def rank_main(group, config: RenderConfig, args) -> int:
+    """One rank of ``--devices N`` (``group``: its mesh.RenderGroup)."""
+    return render_main(config, args, group.device, group)
+
+
+def render_main(config: RenderConfig, args, device, group=None) -> int:
+    """Load and bake the scene, then render: on ``device``, or as one
+    rank of ``group`` (a RenderGroup) on the rank's device."""
+    primary = group is None or group.primary
+    if group is not None:
+        device = group.device
+    # The other ranks bake the same scene: their reports would repeat.
+    with (contextlib.nullcontext() if primary
+          else contextlib.redirect_stderr(io.StringIO())):
+        print(f"loading scene: {args.scene_path}", file=sys.stderr)
+        pipeline = load_pipeline(args.scene_path, config, device,
+                                 instanced=args.instanced,
+                                 quirk_mode=args.gltf_quirk_mode)
+    if group is not None:
+        pipeline = ShardedRenderPipeline(pipeline.scene, config, group,
+                                         mode=args.shard_mode)
+        if primary:
+            print(f"sharding framebuffer across {group.world} devices "
+                  f"(mode={args.shard_mode})", file=sys.stderr)
+    if primary and (config.mt != "exact" or any((
             config.kernel_primary, config.kernel_secondary,
-            config.anyhit_kernel, config.max_leaf)):
+            config.anyhit_kernel, config.max_leaf))):
         print(f"kernel tiers: primary={config.kernel_primary or 'default'} "
               f"secondary={config.kernel_secondary or 'default'} "
               f"anyhit={config.anyhit_kernel or 'default'} mt={config.mt} "
@@ -430,37 +508,40 @@ def main(argv=None) -> int:
     try:
         if config.enable_validation:
             validate(pipeline, config)
-        return run(pipeline, config, args, device)
+        return run(pipeline, config, args, device, primary)
     except ValidationError as exc:
         sys.stderr.write(f"validation failed: {exc}\n")
         return 1
 
 
-def run(pipeline, config: RenderConfig, args, device) -> int:
+def run(pipeline, config: RenderConfig, args, device,
+        primary: bool = True) -> int:
     """The viewer under ``--interactive``, else the frame loop of the
     module docstring (under ``--profile DIR``, traced into DIR), then
-    the PNG."""
+    the PNG; the files and logs on the ``primary`` process only."""
     if args.interactive:
         frames = run_viewer(pipeline, Camera(aspect_ratio=config.aspect_ratio),
                             max_frames=args.frames if args.frames > 1 else 0)
         print(f"viewer closed after {frames} frames", file=sys.stderr)
         return 0
-    loop = FrameLoop(pipeline, config, args, device)
+    loop = FrameLoop(pipeline, config, args, device, primary)
     if (config.progressive and args.batch_frames > 1
-            and loop.path is None):
+            and loop.path is None and args.devices <= 1):
         frame_loop = loop.batches
     elif args.pool_frames > 1 and config.num_samples == 1 and \
-            loop.acc is None:
+            args.devices <= 1 and loop.acc is None:
         frame_loop = loop.pooled
     else:
         frame_loop = loop.frames
     t0 = time.perf_counter()
-    if args.profile:
+    if args.profile and primary:
         print(f"profiling to {args.profile}", file=sys.stderr)
         with trace(args.profile, device):
             final = frame_loop()
     else:
         final = frame_loop()
+    if not primary:
+        return 0
     if final is not None:
         present(final, config, args.output)
         spp = f" ({loop.acc.spp} spp)" if frame_loop == loop.batches else ""

@@ -562,29 +562,39 @@ def trace_wavefront_pooled(scene, origin, direction, seed_x, seed_y, *,
     rendering it alone.  ``origin``, ``direction``: (M, 3); ``seed_x``,
     ``seed_y``: (M,).  Returns (color (M, 3) in input lane order, rays
     traced, an int64 0-d tensor)."""
-    m = origin.shape[0]
-    dev = origin.device
-    state = [origin.clone(), direction.clone(),
-             torch.ones((m, 3), dtype=torch.float32, device=dev),
-             torch.zeros((m, 3), dtype=torch.float32, device=dev),
-             seed_x.clone(), seed_y.clone(),
-             torch.ones(m, dtype=torch.bool, device=dev),
-             torch.arange(m, dtype=torch.int64, device=dev)]
     state, rays = _trace_lanes(
-        scene, state, 0, num_bounces=num_bounces, tiers=tiers,
+        scene, pooled_state(origin, direction, seed_x, seed_y), 0,
+        num_bounces=num_bounces, tiers=tiers,
         russian_roulette=russian_roulette, rr_start_bounce=rr_start_bounce,
         sort_secondary=sort_secondary, chunk=chunk)
     return _by_lane(state[3], state[7]), rays
 
 
+def pooled_state(origin, direction, seed_x, seed_y, first_lane: int = 0):
+    """The lane state of primary rays (``_trace_lanes``): attenuation 1,
+    color 0, every lane alive, lane ids from ``first_lane``."""
+    m = origin.shape[0]
+    dev = origin.device
+    return [origin.clone(), direction.clone(),
+            torch.ones((m, 3), dtype=torch.float32, device=dev),
+            torch.zeros((m, 3), dtype=torch.float32, device=dev),
+            seed_x.clone(), seed_y.clone(),
+            torch.ones(m, dtype=torch.bool, device=dev),
+            torch.arange(first_lane, first_lane + m, dtype=torch.int64,
+                         device=dev)]
+
+
 def _trace_lanes(scene, state, first: int, *, num_bounces: int, tiers,
                  russian_roulette: bool, rr_start_bounce: int,
-                 sort_secondary: bool, chunk: int):
+                 sort_secondary: bool, chunk: int, exchange=None):
     """Bounces ``first`` .. ``num_bounces - 1`` of a lane state: the
     tensors (origin, direction, attenuation, color, seed_x, seed_y,
     alive, lane id), gathered by one order.
 
-    Each bounce after bounce 0 sorts the live lanes by the 6d key
+    Each bounce after bounce 0 first runs ``exchange(state) -> state``
+    when given (parallel/rebalance.py: lanes traded between ranks, so
+    the live lanes are no longer a prefix and all lanes are counted and
+    sorted), then sorts the live lanes by the 6d key
     (``_bounce_sort_key``, dead lanes last) when ``sort_secondary``,
     then traces and shades them in chunks of at most ``chunk`` lanes:
     bounce 0 and the middle bounces a closest hit and
@@ -594,6 +604,9 @@ def _trace_lanes(scene, state, first: int, *, num_bounces: int, tiers,
     live = state[0].shape[0]    # lanes [live, m) are dead
     rays = torch.zeros((), dtype=torch.int64, device=state[0].device)
     for j in range(first, num_bounces):
+        if exchange is not None and j > 0:
+            state = exchange(state)
+            live = state[0].shape[0]
         count = state[6][:live].sum()
         rays = rays + count
         if sort_secondary and j > 0:

@@ -26,7 +26,9 @@ FRAME_HISTORY = 100  # Stats.zig:14 — 100-entry ring buffer
 def device_memory_stats(device=None) -> dict:
     """Device memory in use, its peak and the card's budget in MiB,
     mirroring the VK_EXT_memory_budget query (Stats.zig:27-58), from
-    PyTorch's CUDA allocator; {} when the device is not CUDA."""
+    PyTorch's CUDA allocator; {} when the device is not CUDA.  A rank of
+    ``--devices N`` passes its own card (parallel/mesh.RenderGroup's
+    device)."""
     device = torch.device("cuda") if device is None else torch.device(device)
     if device.type != "cuda" or not torch.cuda.is_available():
         return {}
