@@ -188,6 +188,35 @@ before the result line):
    <ranks>`` in tiles and spp (rc 0, the PNG written; the tiles PNG
    equal to the single-device CLI's), and ``--devices <cards + 1>``,
    which must exit non-zero naming the card count.
+15. channels — the closest hits' channel builds (a seeded or windowed
+   launch; stack_walk.cuh Chan) on the atrium (65,536 live seeded
+   bounce rays of the 1080p frame) and the columns (all rays of a
+   COLS_W x COLS_H frame), flat at leaf 28 and 14 and two-level at leaf
+   14: quad, oct, pair flat and two-level, frontier (exact at leaf 14),
+   skip flat and two-level and wide, and the quad, pair and frontier
+   builds with coefficient leaves, each bitwise (t, tri, u, v) its
+   plain version seeded with ``leaf_seed_hit`` of the rays' previous
+   hits, and seeded with its own unseeded result (then bitwise the
+   unseeded launch); on pair, frontier and skip the t-window cascade
+   at the 33rd and 66th percentiles of the unwindowed t (the windows'
+   first hits bitwise its tri and t, each windowed launch bitwise its
+   plain version; two-level on the columns only); the atrium's flat
+   builds timed with their bounds; the
+   seeded path at 1080p (the atrium, leaf 28, 1 spp, 3 bounces, the
+   orbit): 1 warm-up and 4 timed frames with ``seed_secondary`` off,
+   then on (ms/frame, rays equal, the counters read around the 4
+   frames: quad closest hit 8 and any hit 4, then 4 + 4 and the
+   channel build 4), every differing pixel at a bounce-1 hit that
+   differs by a tie or a box-face miss held to brute force, the seeded
+   and unseeded bounce-1 launches and the ``leaf_seed_hit`` pre-pass
+   timed; every other channel build launched on a seeded 320x180 flat
+   frame of its tier (kernels vs plain versions 0.0), and
+   ``seed_secondary`` refused on the two-level bake (ValueError: its
+   seeds are no hits of the scene); the multi-rank viewer
+   on a world-1 NCCL group under scripted look keys, its text byte for
+   byte the single-device viewer's; and the default path unchanged:
+   the headline's rays and the joint batch's rays and mean of phases 4
+   and 5 equal the parent's.
 
 Each kernel's ``bound_ms`` is the larger of its operations over the
 card's f32 peak and its bytes over the HBM rate, counted from this
@@ -244,6 +273,22 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel bodies it replaces)
                                   f"{FRONTIER}:284, {MXU}:254"),
     "frontier_any_hit_coef": (f"{CSRC}/frontier_traverse.cu",
                               f"{FRONTIER}:642, {MXU}:302"),
+    # The channel builds (stack_walk.cuh Chan): the closest hits' seed
+    # channels 7-10 and (pair, frontier, skip) the t-window channel 11,
+    # read where each Pallas body starts its best hit and clamps its slab.
+    "quad_closest_hit_chan": (f"{CSRC}/stack_traverse.cu", f"{PALLAS}:886"),
+    "quad_closest_hit_coef_chan": (f"{CSRC}/stack_traverse.cu",
+                                   f"{PALLAS}:886, {MXU}:254"),
+    "oct_closest_hit_chan": (f"{CSRC}/stack_traverse.cu", f"{PALLAS}:886"),
+    "pair_closest_hit_chan": (f"{CSRC}/pair_traverse.cu", f"{PALLAS}:598"),
+    "pair_closest_hit_coef_chan": (f"{CSRC}/pair_traverse.cu",
+                                   f"{PALLAS}:598, {MXU}:254"),
+    "frontier_closest_hit_chan": (f"{CSRC}/frontier_traverse.cu",
+                                  f"{FRONTIER}:284"),
+    "frontier_closest_hit_coef_chan": (f"{CSRC}/frontier_traverse.cu",
+                                       f"{FRONTIER}:284, {MXU}:254"),
+    "skip_closest_hit_chan": (f"{CSRC}/skip_traverse.cu", f"{PACKET}:87"),
+    "wide_closest_hit_chan": (f"{CSRC}/skip_traverse.cu", f"{PACKET}:1294"),
 }
 # The headline frame and the comparison sizes.
 DEVICE = "cuda:0"
@@ -325,6 +370,72 @@ FACE_MISS_SHARE = 1e-5
 # the frames timed, and the pooled group's cameras and timed runs.
 MD_MAX_RANKS, MD_FRAME, MD_REPS = 4, 3, 5
 MD_POOL_F, MD_POOL_REPS = 4, 3
+
+# Phase 15: the seeded frames' bounces (3: bounce 1 is the seeded
+# closest hit of the emissive-free atrium), the multi-rank viewer's size
+# and scripted keys, and the default path's figures this phase holds
+# unchanged (phases 4 and 5 of the parent tree).
+CH_BOUNCES = 3
+VIEWER_W, VIEWER_H, VIEWER_KEYS = 64, 36, "jlikq"
+HEADLINE_RAYS = 15510222
+JOINT_RAYS, JOINT_MEAN = 1909050493, "0.0575113520"
+# The channel builds checked, by (result key, kernel family, bake,
+# coefficient leaves, t-window): the bakes are the flat one at leaf 28
+# (coefficient rows and wide tiles too), the flat one at leaf 14 (exact
+# frontier leaves) and the two-level one at leaf 14.
+CHAN_BUILDS = (
+    ("quad_closest_hit_chan", "quad", "flat", False, False),
+    ("quad_closest_hit_coef_chan", "quad", "flat", True, False),
+    ("oct_closest_hit_chan", "oct", "flat", False, False),
+    ("pair_closest_hit_chan", "pair", "flat", False, True),
+    ("pair_closest_hit_chan", "pair", "instanced", False, True),
+    ("pair_closest_hit_coef_chan", "pair", "flat", True, True),
+    ("pair_closest_hit_coef_chan", "pair", "instanced", True, True),
+    ("frontier_closest_hit_chan", "frontier", "flat14", False, True),
+    ("frontier_closest_hit_coef_chan", "frontier", "flat", True, True),
+    ("skip_closest_hit_chan", "skip", "flat", False, True),
+    ("skip_closest_hit_chan", "skip", "instanced", False, True),
+    ("wide_closest_hit_chan", "wide", "flat", False, False))
+# The seeded paths that launch each channel build: a 320x180 flat frame at
+# CH_BOUNCES bounces with seed_secondary on the bake, under these
+# RenderConfig fields (the headline's own build runs at 1080p).
+CHAN_PATHS = (
+    ("quad_closest_hit_coef_chan", "flat", dict(mt="mxu")),
+    ("oct_closest_hit_chan", "flat", dict(kernel_secondary="oct")),
+    ("pair_closest_hit_chan", "flat", dict(kernel_secondary="pair")),
+    ("pair_closest_hit_coef_chan", "flat",
+     dict(kernel_secondary="pair", mt="mxu")),
+    ("frontier_closest_hit_chan", "flat14",
+     dict(kernel_secondary="frontier")),
+    ("frontier_closest_hit_coef_chan", "flat",
+     dict(kernel_secondary="frontier", mt="mxu")),
+    ("skip_closest_hit_chan", "flat", dict(traversal="pallas_packet")),
+    ("wide_closest_hit_chan", "flat", dict(traversal="pallas8")))
+
+
+def viewer_rank(group, atrium_path):
+    """Phase 15 (d), on each rank of a group: the viewer on
+    ``ShardedRenderPipeline`` (the atrium at VIEWER_W x VIEWER_H, tiles),
+    rank 0 reading the scripted VIEWER_KEYS.  Returns the frames and
+    (rank 0) the text presented."""
+    import io
+
+    from vulkan_pathtracer_tpu_torch.app.main import load_pipeline
+    from vulkan_pathtracer_tpu_torch.app.viewer import run_viewer
+    from vulkan_pathtracer_tpu_torch.models.camera import Camera
+    from vulkan_pathtracer_tpu_torch.parallel.sharding import (
+        ShardedRenderPipeline,
+    )
+    from vulkan_pathtracer_tpu_torch.utils import RenderConfig
+
+    config = RenderConfig(num_samples=1, num_bounces=2,
+                          resolution_x=VIEWER_W, resolution_y=VIEWER_H)
+    scene = load_pipeline(atrium_path, config, group.device).scene
+    pipe = ShardedRenderPipeline(scene, config, group)
+    out = io.StringIO()
+    frames = run_viewer(pipe, Camera(aspect_ratio=config.aspect_ratio),
+                        out=out, keys=io.StringIO(VIEWER_KEYS), group=group)
+    return {"frames": frames, "text": out.getvalue()}
 
 
 def multidevice_rank(group, atrium_path):
@@ -782,11 +893,12 @@ def main() -> int:
         kind = key.split("_")[0]
         if kind == "frontier" and scene.frontier_box.shape[1] == 32:
             kind = "frontier32"
+        base = key.removesuffix("_chan")   # a channel build: its design's
         b_ms, b_by = bound(tables, n_rays, out_bytes, stats, VISIT_OPS[kind],
                            scene.max_leaf_size, int(scene.instanced),
-                           coefs=(scene.tri_coefs if key.endswith("_coef")
+                           coefs=(scene.tri_coefs if base.endswith("_coef")
                                   else None),
-                           early=key in EARLY_EXIT,
+                           early=base in EARLY_EXIT,
                            net_ops=NET_OPS.get(kind, 0),
                            any_hit="any_hit" in key)
         results.setdefault(key, {}).update({
@@ -872,8 +984,9 @@ def main() -> int:
                        name.split("_")[0]]
         plain = getattr(mod, name + "_plain")
 
-        def run(scene_, o_, d_, active=None, coef=False):
-            return plain(*args_of(scene_, o_, d_, active, coef))
+        def run(scene_, o_, d_, active=None, coef=False, seed=None):
+            return plain(*args_of(scene_, o_, d_, active, coef),
+                         **st.channel_args(o_, seed))
         return run
 
     def on_plain_versions(fn):
@@ -972,6 +1085,371 @@ def main() -> int:
                       kernels.skip_stats, (scene.skip_nodes, scene.leaves) + (
                           (scene.inst_inv,) if scene.instanced else ()),
                       scene, prim, bounce1, tag)
+
+    # -- 15. channels (the phase, run after phase 14) -------------------------
+    def channels_phase(cols_host, atrium_path, figures):
+        """Phase 15: the closest hits' channel builds (seed, t-window).
+        ``figures``: the default path's (headline rays, joint batch rays,
+        joint mean) from phases 4 and 5, held unchanged.  Returns the
+        channel builds' launches on their seeded paths."""
+        from vulkan_pathtracer_tpu_torch.ops.intersect import Hit
+        from vulkan_pathtracer_tpu_torch.ops import intersect
+        from vulkan_pathtracer_tpu_torch.parallel import distributed
+
+        t0 = time.perf_counter()
+        # (e) The default path, unchanged: the headline and the joint
+        # batch of phases 4 and 5 (this run's) against the parent's.
+        parent = (HEADLINE_RAYS, JOINT_RAYS, JOINT_MEAN)
+        check(figures == parent, f"default path moved: (headline rays, "
+              f"joint rays, joint mean) {figures}, parent {parent}")
+        phase("channels", check="default path unchanged",
+              headline_rays=figures[0], joint_rays=figures[1],
+              joint_mean=figures[2])
+
+        family = {"quad": (st, quad_args), "oct": (st, oct_args),
+                  "pair": (st, st.pair_args),
+                  "frontier": (fr, fr.frontier_args),
+                  "skip": (sk, lambda s_, o_, d_, a_, c_:
+                           sk.skip_args(s_, o_, d_, a_)),
+                  "wide": (sk, lambda s_, o_, d_, a_, c_:
+                           sk.wide_args(s_, o_, d_, a_))}
+
+        def chan_fns(kernel, scene_, o_, d_, active_, coef, seed=None,
+                     t_near=None, t_far=None):
+            """(launch, plain(stats)) of closest hit ``kernel``'s build
+            with these channels: its channel build when any is given,
+            else the default build; ``t_far`` folded into t_lane as the
+            wrappers do.  Outside the counted paths."""
+            mod, args_of = family[kernel]
+            args = list(args_of(scene_, o_, d_, active_, coef))
+            if t_far is not None:
+                args[4 if kernel in ("skip", "wide") else 5] = \
+                    st.lane_limits(o_.shape[0], active_, dev, t_far)
+            chan = st.channel_args(o_, seed, t_near)
+            launch = getattr(kernels, f"{kernel}_closest_hit")
+            plain = getattr(mod, f"{kernel}_closest_hit_plain")
+            return ((lambda: Hit(*launch(*args, **chan))),
+                    (lambda s=None: plain(*args, stats=s, **chan)))
+
+        def same(label, a, b):
+            for f, x, y in zip("t tri u v".split(), a, b):
+                check(torch.equal(x, y), f"{label}: {f} differs on "
+                      f"{int((x != y).sum())} rays")
+
+        def seeded_bounce(scene_, cam, width, height, frame, tiers="auto"):
+            """The sorted bounce-1 launch of a frame through ``tiers``
+            (rays, live mask) and the seed the seeded path gives it
+            (wavefront.bounce_seed of the primaries' hits)."""
+            pos, hor, ver, fwd = pl.camera_tensors(cam, dev)
+            o, d, sx, sy, _ = pl.primary_rays(pos, hor, ver, fwd, frame,
+                                              width, height)
+            hit = wf._closest_hit(scene_, o, d, None, tiers)
+            tri_data = get_triangle_data(scene_, hit)
+            mat = get_material_data(scene_, tri_data)
+            o1, d1, _, _, _, alive = wf.extend_paths(
+                scene_, hit, o, d, torch.ones_like(o), sx, sy,
+                hit.t < MISS_T, tri_data, mat)
+            seed = wf.bounce_seed(scene_, hit, o1, d1, alive)
+            order, _ = wf._sorted_order(scene_, o1, d1, alive)
+            return (o1[order].contiguous(), d1[order].contiguous(),
+                    alive[order], Hit(*(x[order] for x in seed)))
+
+        # The bakes: the atrium (every channel build, 65,536 live seeded
+        # bounce rays of the 1080p frame) and the columns (all rays of a
+        # COLS_W x COLS_H frame).
+        t1 = time.perf_counter()
+        atrium_host = gltf.load(atrium_path)
+        bakes = {}
+        for label, host in (("atrium", atrium_host), ("columns", cols_host)):
+            bakes[label] = {
+                "flat": build_device_scene(host, max_leaf_size=28,
+                                           device=dev, mt="mxu", wide=True),
+                "flat14": build_device_scene(host, max_leaf_size=14,
+                                             device=dev),
+                "instanced": build_instanced_scene(host, max_leaf_size=14,
+                                                   device=dev, mt="mxu")}
+        phase("channels", bakes=sorted(bakes["atrium"]),
+              seconds=f"{time.perf_counter() - t1:.1f}")
+
+        # (a) Each channel build bitwise its plain version (t, tri, u,
+        # v): seeded with leaf_seed_hit of the rays' previous hits, and
+        # seeded with its own unseeded result (then bitwise the unseeded
+        # launch too); (b) on pair, frontier and skip the t-window
+        # cascade at the 33rd and 66th percentiles of the unwindowed t:
+        # the three windows' first hits are tri and t bitwise the
+        # unwindowed launch, each windowed launch bitwise its plain
+        # version.  The atrium's flat channel builds timed at these
+        # launches (the headline's own in (c) instead), with their bounds.
+        for label, bake in bakes.items():
+            rays = {}
+            for kind, scene_ in bake.items():
+                if label == "atrium":
+                    o1, d1, a1, seed = seeded_bounce(
+                        scene_, orbit_camera(16 / 9, 0.0), WIDTH, HEIGHT, 0)
+                    live = torch.nonzero(a1).squeeze(1)
+                    sel = live[subset(live.shape[0], N_SUB, 15)]
+                    rays[kind] = (o1[sel].contiguous(), d1[sel].contiguous(),
+                                  a1[sel], Hit(*(x[sel] for x in seed)))
+                else:
+                    rays[kind] = seeded_bounce(scene_, scene_camera(scene_),
+                                               COLS_W, COLS_H, 0)
+            for key, kernel, kind, coef, window in CHAN_BUILDS:
+                scene_ = bake[kind]
+                o1, d1, a1, seed = rays[kind]
+                tag = f"{label}/{key}/{kind}"
+                launch0, _ = chan_fns(kernel, scene_, o1, d1, a1, coef)
+                ref = launch0()
+                launch, plain = chan_fns(kernel, scene_, o1, d1, a1, coef,
+                                         seed=ref)
+                same(tag + " seeded with its own hit", launch(), ref)
+                launch, plain = chan_fns(kernel, scene_, o1, d1, a1, coef,
+                                         seed=seed)
+                got = launch()
+                same(tag + " seeded", got, plain())
+                n_win = 0
+                # The two-level atrium's plain walks take 8-11 s a launch
+                # on the card: its windows are checked on the columns.
+                two_level_atrium = label == "atrium" and kind == "instanced"
+                if window and not two_level_atrium:
+                    hit = ref.t < MISS_T
+                    q1, q2 = torch.quantile(ref.t[hit], torch.tensor(
+                        [0.33, 0.66], device=dev)).tolist()
+                    parts = []
+                    for w in (dict(t_far=q1), dict(t_near=q1, t_far=q2),
+                              dict(t_near=q2)):
+                        wl, wp = chan_fns(kernel, scene_, o1, d1, a1, coef,
+                                          **w)
+                        part = wl()
+                        same(f"{tag} window {w}", part, wp())
+                        parts.append(part)
+                    t_u, tri_u = parts[-1].t, parts[-1].tri
+                    for part in parts[-2::-1]:
+                        m = part.t < MISS_T
+                        t_u = torch.where(m, part.t, t_u)
+                        tri_u = torch.where(m, part.tri, tri_u)
+                    check(torch.equal(t_u, ref.t) and torch.equal(tri_u,
+                                                                  ref.tri),
+                          f"{tag}: the window cascade's union differs from "
+                          f"the unwindowed launch on "
+                          f"{int((tri_u != ref.tri).sum())} rays")
+                    n_win = [int((p_.t < MISS_T).sum()) for p_ in parts]
+                phase("channels", check=tag, rays=o1.shape[0],
+                      hits=int((ref.t < MISS_T).sum()),
+                      seed_hits=int((seed.t < MISS_T).sum()),
+                      seeded_differs=int((got.tri != ref.tri).sum()),
+                      seeded_t_differs=int((got.t != ref.t).sum()),
+                      window_hits=n_win, bitwise=True)
+                if (label == "atrium" and kind != "instanced"
+                        and key != "quad_closest_hit_chan"):
+                    tables = [x for x in (
+                        getattr(scene_, "quad_box" if kernel == "quad"
+                                else f"{kernel}_box", None),
+                        getattr(scene_, f"{kernel}_link", None),
+                        scene_.skip_nodes if kernel == "skip" else None,
+                        scene_.wide_nodes if kernel == "wide" else None,
+                        st.leaf_table(scene_, coef),
+                        scene_.inst_inv if scene_.instanced else None)
+                        if x is not None]
+                    time_kernel(key, launch, plain, tables, o1.shape[0],
+                                32, scene_, bitwise_err)
+            del rays
+        phase("channels", check="channel builds", seconds=(
+            f"{time.perf_counter() - t0:.1f}"))
+
+        # (c) The seeded path at full size: the 1080p atrium (leaf 28, 1
+        # spp, CH_BOUNCES bounces, the orbit), 1 warm-up and 4 timed
+        # frames with seed_secondary off, then on, the launch counters
+        # zeroed just before the 4 frames and read just after.
+        t1 = time.perf_counter()
+        scene_ = bakes["atrium"]["flat"]
+        cfg = dict(num_samples=1, num_bounces=CH_BOUNCES, resolution_x=WIDTH,
+                   resolution_y=HEIGHT)
+        path = orbit_path(radius=4.5, height=2.2, duration=4.0,
+                          center=(0.0, 1.2, 0.0))
+        runs = {}
+        for on in (False, True):
+            pipe_ = pl.RenderPipeline(scene_, RenderConfig(
+                **cfg, seed_secondary=on))
+            cam = Camera(aspect_ratio=16 / 9)
+            path.apply(cam, 0.0)
+            pipe_.render(cam, 0, present_order=False)
+            sync()
+            for k in st.LAUNCHES:
+                st.LAUNCHES[k] = 0
+            rays_, images = 0, []
+            t2 = time.perf_counter()
+            for f in range(4):
+                path.apply(cam, float(f))
+                image, r = pipe_.render(cam, f + 1, present_order=False)
+                rays_ += int(r)
+                images.append(image)
+            sync()
+            runs[on] = (1000.0 * (time.perf_counter() - t2) / 4, rays_,
+                        dict(st.LAUNCHES), images, pipe_)
+        check(runs[False][2] == only(quad_closest_hit=8, quad_any_hit=4),
+              f"unseeded 3-bounce launches {runs[False][2]}")
+        check(runs[True][2] == only(quad_closest_hit=4, quad_any_hit=4,
+                                    quad_closest_hit_chan=4),
+              f"seeded 3-bounce launches {runs[True][2]}")
+        check(runs[True][1] == runs[False][1],
+              f"seeded rays {runs[True][1]} != unseeded {runs[False][1]}")
+
+        # Every pixel that differs must come from a bounce-1 hit that
+        # differs: a tie (another triangle at the same t, which the
+        # seed keeps) or a box-face miss of either walk (the nearer of
+        # the two t held to brute force), at most FACE_MISS_SHARE of the
+        # launch's rays.  The seeded frames are
+        # rendered again with each seeded launch compared to an unseeded
+        # one on the same rays (outside the counted run).
+        real_sorted, real_seed = wf._closest_hit_sorted, wf.bounce_seed
+        flagged, captured, counts = [], {}, {"ties": 0, "face_misses": 0}
+
+        def recording(sc, o_, d_, a_, tiers="auto", phase_="secondary",
+                      seed=None):
+            hit = real_sorted(sc, o_, d_, a_, tiers, phase_, seed)
+            if seed is not None:
+                ref = real_sorted(sc, o_, d_, a_, tiers, phase_)
+                differ = ((hit.t != ref.t) | (hit.tri != ref.tri)
+                          | (hit.u != ref.u) | (hit.v != ref.v))
+                tie = differ & (hit.t == ref.t)
+                miss = torch.nonzero(differ & ~tie).squeeze(1)
+                if miss.numel():
+                    # One walk's slab test rounded the nearer hit's box
+                    # out (its entry 1-2 ulps past the hit): the seeded
+                    # walk's tighter limit, or the unseeded walk's order.
+                    bf = intersect.brute_force_closest_hit(
+                        sc, o_[miss], d_[miss], a_[miss])
+                    check(torch.equal(bf.t, torch.minimum(hit.t[miss],
+                                                          ref.t[miss])),
+                          "seeded bounce 1: a differing hit whose nearer t "
+                          "brute force does not confirm")
+                counts["ties"] += int(tie.sum())
+                counts["face_misses"] += int(miss.numel())
+                flagged.append(differ)
+                if "launch" not in captured:
+                    order, _ = wf._sorted_order(sc, o_, d_, a_)
+                    captured["launch"] = (
+                        o_[order].contiguous(), d_[order].contiguous(),
+                        a_[order], Hit(*(x[order] for x in seed)))
+            return hit
+
+        def capture_seed(sc, prev, o_, d_, alive):
+            captured.setdefault("prepass", (sc, prev, o_, d_, alive))
+            return real_seed(sc, prev, o_, d_, alive)
+
+        wf._closest_hit_sorted, wf.bounce_seed = recording, capture_seed
+        try:
+            cam = Camera(aspect_ratio=16 / 9)
+            differing, lanes = 0, 0
+            for f in range(4):
+                path.apply(cam, float(f))
+                flagged.clear()
+                image, _ = runs[True][4].render(cam, f + 1,
+                                                present_order=False)
+                check(torch.equal(image, runs[True][3][f]),
+                      f"seeded frame {f + 1} differs from run to run")
+                pix = (image != runs[False][3][f]).any(dim=-1).reshape(-1)
+                check(not bool((pix & ~flagged[0]).any()),
+                      f"seeded frame {f + 1}: a pixel differs where "
+                      f"bounce 1's hits are equal")
+                differing += int(pix.sum())
+                lanes += pix.shape[0]
+        finally:
+            wf._closest_hit_sorted, wf.bounce_seed = real_sorted, real_seed
+        check(counts["face_misses"] <= FACE_MISS_SHARE * lanes,
+              f"seeded path: {counts['face_misses']} box-face misses")
+        phase("channels", path=f"{WIDTH}x{HEIGHT} {CH_BOUNCES} bounces, "
+              "seed_secondary off / on",
+              ms_per_frame_off=f"{runs[False][0]:.3f}",
+              ms_per_frame_on=f"{runs[True][0]:.3f}", rays=runs[True][1],
+              launches_on=runs[True][2], pixels_differ=differing,
+              ties=counts["ties"], face_misses=counts["face_misses"],
+              card=repr(card))
+
+        # Bounce 1 of frame 1 (the first seeded launch, sorted): the
+        # seeded and unseeded launches and the pre-pass, timed.
+        o1, d1, a1, seed = captured["launch"]
+        pre = captured["prepass"]
+        n1 = o1.shape[0]
+        un_ms, _ = cuda_ms(lambda: kernels.quad_closest_hit(
+            *quad_args(scene_, o1, d1, a1)), 5)
+        pre_ms, _ = cuda_ms(lambda: wf.bounce_seed(*pre), 5)
+        launch, plain = chan_fns("quad", scene_, o1, d1, a1, False,
+                                 seed=seed)
+        time_kernel("quad_closest_hit_chan", launch, plain,
+                    (scene_.quad_box, scene_.quad_link, scene_.leaves), n1,
+                    32, scene_, bitwise_err)
+        results["quad_closest_hit_chan"].update(
+            unseeded_ms=un_ms, prepass_ms=pre_ms, live=int(a1.sum()),
+            seed_hits=int((seed.t < MISS_T).sum()))
+        phase("channels", timing="seeded bounce-1 launch, frame 1",
+              lanes=n1, live=int(a1.sum()),
+              seed_hits=int((seed.t < MISS_T).sum()),
+              seeded_ms=f"{results['quad_closest_hit_chan']['ms']:.3f}",
+              unseeded_ms=f"{un_ms:.3f}", prepass_ms=f"{pre_ms:.3f}",
+              bound_ms=f"{results['quad_closest_hit_chan']['bound_ms']:.4f}",
+              card=repr(card))
+        launches = {"quad_closest_hit_chan":
+                    runs[True][2]["quad_closest_hit_chan"]}
+        del runs, captured, flagged
+        phase("channels", check="seeded 1080p path",
+              seconds=f"{time.perf_counter() - t1:.1f}")
+
+        # The other channel builds on their seeded paths: a small frame
+        # through the kernels and through the plain versions (0.0), the
+        # build launched (counters read around the frame).
+        for key, kind, fields in CHAN_PATHS:
+            _, _, got = small_frame(
+                bakes["atrium"][kind], f"seeded {key} ({kind})",
+                exact=True, bounces=CH_BOUNCES, seed_secondary=True,
+                **fields)
+            check(got.get(key, 0) >= 1, f"seeded path of {key} ({kind}): "
+                  f"launches {got}")
+            check(not any(k.endswith("_chan") and k != key for k in got),
+                  f"seeded path of {key}: other channel builds {got}")
+            launches[key] = launches.get(key, 0) + got[key]
+        # Two-level scenes refuse seed_secondary (render/wavefront.
+        # check_seed_secondary): (a)'s seeded_differs on them counts the
+        # seeds that are no hits of the scene.
+        try:
+            pl.RenderPipeline(bakes["columns"]["instanced"],
+                              RenderConfig(seed_secondary=True))
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, "seed_secondary on a two-level scene was accepted")
+        phase("channels", check="seed_secondary refused on two-level",
+              refused=True)
+        del bakes
+        torch.cuda.empty_cache()
+
+        # (d) The multi-rank viewer on a world-1 NCCL group: rank 0's
+        # text byte for byte the single-device viewer's under the same
+        # scripted look keys, and the frame counts equal.
+        import io
+
+        from vulkan_pathtracer_tpu_torch.app.viewer import run_viewer
+
+        t1 = time.perf_counter()
+        ranks = distributed.spawn(viewer_rank, 1, "cuda", atrium_path)
+        vconfig = RenderConfig(num_samples=1, num_bounces=2,
+                               resolution_x=VIEWER_W, resolution_y=VIEWER_H)
+        single = load_pipeline(atrium_path, vconfig, dev)
+        text = io.StringIO()
+        frames = run_viewer(single, Camera(aspect_ratio=vconfig.aspect_ratio),
+                            out=text, keys=io.StringIO(VIEWER_KEYS))
+        check(ranks[0]["text"] == text.getvalue(),
+              "multi-rank viewer: rank 0's text differs from the "
+              "single-device viewer's")
+        check([r["frames"] for r in ranks] == [frames] * len(ranks),
+              f"multi-rank viewer: frames {[r['frames'] for r in ranks]} "
+              f"vs {frames}")
+        phase("channels", check="multi-rank viewer", ranks=len(ranks),
+              frames=frames, text_bytes=len(text.getvalue()),
+              byte_equal=True, seconds=f"{time.perf_counter() - t1:.1f}")
+        phase("phase", name="channels",
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        return launches
 
     # Columns (bench.py's 56k sidecar) at leaf 28: all rays of a
     # COLS_W x COLS_H frame, primaries and their bounce rays; the flat
@@ -1170,6 +1648,7 @@ def main() -> int:
           per_frame_path_spp_per_s=f"{CONV_B / single_s:.3f}",
           card=repr(card))
     write_png(os.path.join(WORK, "convergence.png"), mean.cpu().numpy())
+    conv_figures = (sum(batch_rays), f"{mean.mean().item():.10f}")
     del acc, mean
 
     # Rows 1-2 at this path's shapes: the shared primary (the launch
@@ -2305,7 +2784,10 @@ def main() -> int:
     phase("phase", name="multi-device", ranks=world,
           seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # -- 15. result ------------------------------------------------------------
+    chan_launches = channels_phase(cols_host, atrium_path, (
+        flat_rays, *conv_figures))
+
+    # -- 16. result -----------------------------------------------------------
     launches = {**{k: flat_launches[k] for k in ("quad_closest_hit",
                                                   "quad_any_hit")},
                 **{k: inst_launches[k] for k in ("pair_closest_hit",
@@ -2320,7 +2802,8 @@ def main() -> int:
                 **{k: tier_launches["d"][k] for k in (
                     "quad_closest_hit_coef", "quad_any_hit_coef")},
                 **{k: tier_launches["e"][k] for k in (
-                    "pair_closest_hit_coef", "pair_any_hit_coef")}}
+                    "pair_closest_hit_coef", "pair_any_hit_coef")},
+                **chan_launches}
     results["skip_closest_hit"]["launches_instanced"] = \
         ipacket_launches["skip_closest_hit"]
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")

@@ -9,6 +9,7 @@ processes that import only it and the port.
 
 from __future__ import annotations
 
+import io
 import os
 import pickle
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from vulkan_pathtracer_tpu_torch.app.camera_path import orbit_path
+from vulkan_pathtracer_tpu_torch.app.viewer import run_viewer
 from vulkan_pathtracer_tpu_torch.models import gltf
 from vulkan_pathtracer_tpu_torch.models.animation import build_animated_scene
 from vulkan_pathtracer_tpu_torch.models.camera import Camera
@@ -30,10 +32,12 @@ from vulkan_pathtracer_tpu_torch.parallel.rebalance import (
     make_pooled_sharded_render,
 )
 from vulkan_pathtracer_tpu_torch.parallel.sharding import (
+    ShardedRenderPipeline,
     make_sharded_render,
     replicate_scene,
 )
 from vulkan_pathtracer_tpu_torch.render.pipeline import camera_tensors
+from vulkan_pathtracer_tpu_torch.utils import RenderConfig
 from vulkan_pathtracer_tpu_torch.utils.config import Tiers
 
 # tests/test_multichip.py: the box seen from (0, 0, -3), 2 bounces.
@@ -49,6 +53,34 @@ COLUMNS_W, COLUMNS_H = 16, 32
 POOLED_BOUNCES = 3
 EXCHANGE_M_LOCAL = 64
 ANIM_W, ANIM_H, ANIM_FRAMES = 16, 32, 3
+# The multi-rank viewer: the box at VIEWER_SIZE square, and its cases
+# (name -> shard mode, rank 0's scripted keys, max_frames): look keys
+# then quit, keys then EOF, and the frame limit.
+VIEWER_SIZE = 16
+VIEWER_CASES = {"tiles": ("tiles", "jlikq", 0), "spp": ("spp", "jlikq", 0),
+                "eof": ("tiles", "jl", 0), "max_frames": ("spp", "jjjjjj", 3)}
+
+
+def viewer_config():
+    return RenderConfig(num_samples=1, num_bounces=2,
+                        resolution_x=VIEWER_SIZE, resolution_y=VIEWER_SIZE)
+
+
+def viewer_ranks(group, paths):
+    """Every VIEWER_CASES case of the viewer on ``ShardedRenderPipeline``
+    (every rank renders each frame, rank 0 reads the keys and presents):
+    name -> (frames, the text the rank wrote)."""
+    torch.set_num_threads(1)
+    scene = replicate_scene(box_scene(paths["box"]), group)
+    out = {}
+    for name, (mode, keys, max_frames) in VIEWER_CASES.items():
+        pipe = ShardedRenderPipeline(scene, viewer_config(), group, mode)
+        text = io.StringIO()
+        frames = run_viewer(pipe, box_camera(), out=text,
+                            keys=io.StringIO(keys) if group.primary else None,
+                            max_frames=max_frames, group=group)
+        out[name] = (frames, text.getvalue())
+    return out
 
 
 def tier_of(name):
@@ -130,7 +162,10 @@ def four_ranks(group, paths, pooled):
     half = (np.arange(m) % EXCHANGE_M_LOCAL) < EXCHANGE_M_LOCAL // 2
     out["exchange"] = (exchange_counts(group, full),
                        exchange_counts(group, half))
-    return out if group.primary else {"exchange": out["exchange"]}
+    out["viewer"] = viewer_ranks(group, paths)
+    if not group.primary:
+        return {"exchange": out["exchange"], "viewer": out["viewer"]}
+    return out
 
 
 def animated_transforms(t0, frame):

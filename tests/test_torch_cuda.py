@@ -31,7 +31,9 @@ are bitwise equal; so is a pooled group of 3 frames of 3 cameras
 (``render_frames_pooled``, the fly-through) against the same group on
 the CPU (equal rays, radiance allclose 1e-5), from run to run; the
 quad kernels index rays in 64 bits (a launch whose float offsets pass
-2^31).  The textured golden configuration (tests/golden_utils.py:
+2^31).  Every channel build (a seeded or windowed closest hit) through
+its wrapper is bitwise its plain version, and the terminal viewer on a
+world-1 NCCL group prints the single-device viewer's text.  The textured golden configuration (tests/golden_utils.py:
 the textured sphere at 4 spp, 2 bounces, 64x64) renders on the card as
 on the CPU: textures, normal maps and the multi-sample loop.
 """
@@ -1043,5 +1045,130 @@ def test_nccl_world_one_matches_render_pipeline(cuda, scene_paths,
         got, rays = make_pooled_sharded_render(
             group, scene, num_bounces=2, rebalance=True)(scene, *lanes)
         assert torch.equal(got, ref) and int(rays) == int(ref_rays)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+# The channel builds (a seeded or windowed closest hit): (kernel family,
+# scene kind, coefficient leaves, t-window).
+CHANNEL_CASES = [("quad", "flat", False, False), ("quad", "flat", True, False),
+                 ("oct", "flat", False, False), ("pair", "flat", False, True),
+                 ("pair", "flat", True, True),
+                 ("pair", "instanced", False, True),
+                 ("pair", "instanced", True, True),
+                 ("frontier", "flat", False, True),
+                 ("frontier", "flat", True, True),
+                 ("skip", "flat", False, True),
+                 ("skip", "instanced", False, True),
+                 ("wide", "flat", False, False)]
+
+
+@pytest.fixture(scope="module")
+def channel_scenes(cuda, scene_paths):
+    host = gltf.load(scene_paths["columns"])
+    return {"flat": build_device_scene(host, max_leaf_size=14, device=cuda,
+                                       mt="mxu", wide=True),
+            "instanced": build_instanced_scene(host, max_leaf_size=14,
+                                               device=cuda, mt="mxu")}
+
+
+def _channel_plain(kernel, scene, o, d, active, coef, seed=None,
+                   t_near=None, t_far=None):
+    """The plain version of closest hit ``kernel`` on the rays' device,
+    with the arguments its wrapper gives the kernel (``t_far`` folded
+    into t_lane)."""
+    t_lane = st.lane_limits(o.shape[0], active, o.device, t_far)
+    if kernel in ("skip", "wide"):
+        args = list((sk.skip_args if kernel == "skip" else sk.wide_args)(
+            scene, o, d, active))
+        args[4] = t_lane
+    else:
+        args = list({"quad": st.quad_args, "pair": st.pair_args,
+                     "frontier": fr.frontier_args,
+                     "oct": lambda s_, o_, d_, a_, c_: (
+                         s_.oct_box, s_.oct_link, s_.leaves, o_, d_, None)}[
+                             kernel](scene, o, d, active, coef))
+        args[5] = t_lane
+    plain = getattr({"skip": sk, "wide": sk, "frontier": fr}.get(kernel, st),
+                    f"{kernel}_closest_hit_plain")
+    return plain(*args, **st.channel_args(o, seed, t_near))
+
+
+@pytest.mark.parametrize("kernel,kind,coef,window", CHANNEL_CASES)
+def test_channel_builds_match_plain(cuda, channel_scenes, kernel, kind, coef,
+                                    window):
+    """Each channel build through its wrapper, bitwise its plain version
+    on the card: seeded with the unseeded hit (then bitwise the unseeded
+    launch), seeded with ``leaf_seed_hit`` of it, and (pair, frontier,
+    skip) windowed to [median t, 2 x median t); an inactive lane returns
+    its seed."""
+    from vulkan_pathtracer_tpu_torch.ops.intersect import leaf_seed_hit
+
+    scene = channel_scenes[kind]
+    wrapper = getattr({"skip": sk, "wide": sk, "frontier": fr}.get(
+        kernel, st), f"{kernel}_closest_hit")
+    kw = {"coef": True} if coef else {}
+    o, d, active = _rays(8192, seed=77, device=cuda)
+    before = st.LAUNCHES[f"{kernel}_closest_hit{'_coef' if coef else ''}"
+                         "_chan"]
+    ref = wrapper(scene, o, d, active, **kw)
+    _assert_equal(ref, _channel_plain(kernel, scene, o, d, active, coef))
+    _assert_equal(wrapper(scene, o, d, active, seed=ref, **kw), ref)
+    blocks = torch.clamp(ref.tri, min=0) // scene.max_leaf_size
+    seed = leaf_seed_hit(scene, o, d, blocks, active)
+    seed = type(seed)(*(torch.where(active, x, torch.full_like(x, f))
+                        for x, f in zip(seed, (5.0, 123, 0.25, 0.5))))
+    got = wrapper(scene, o, d, active, seed=seed, **kw)
+    _assert_equal(got, _channel_plain(kernel, scene, o, d, active, coef,
+                                      seed=seed))
+    assert torch.equal(got.tri[~active], seed.tri[~active])
+    launched = 2
+    if window:
+        t_near = float(ref.t[ref.t < MISS_T].median())
+        got = wrapper(scene, o, d, active, t_near=t_near, t_far=2 * t_near,
+                      **kw)
+        _assert_equal(got, _channel_plain(kernel, scene, o, d, active, coef,
+                                          t_near=t_near, t_far=2 * t_near))
+        hit = got.t < MISS_T
+        assert int(hit.sum()) > 0
+        assert ((got.t[hit] >= t_near) & (got.t[hit] < 2 * t_near)).all()
+        launched += 1
+    assert st.LAUNCHES[f"{kernel}_closest_hit{'_coef' if coef else ''}"
+                       "_chan"] == before + launched
+
+
+def test_nccl_world_one_viewer(cuda, scene_paths):
+    """The multi-rank viewer on a real NCCL group of one rank: under the
+    scripted look keys its text is byte for byte the single-device
+    viewer's, after the same number of frames."""
+    import io
+
+    from vulkan_pathtracer_tpu_torch.app.viewer import run_viewer
+    from vulkan_pathtracer_tpu_torch.parallel import distributed
+    from vulkan_pathtracer_tpu_torch.parallel.mesh import make_render_group
+    from vulkan_pathtracer_tpu_torch.parallel.sharding import (
+        ShardedRenderPipeline,
+    )
+
+    distributed.form_group(f"127.0.0.1:{distributed.free_port()}", 1, 0,
+                           "cuda")
+    try:
+        group = make_render_group("cuda")
+        scene = build_device_scene(gltf.load(scene_paths["cornell"]),
+                                   max_leaf_size=4, device=group.device)
+        config = RenderConfig(num_samples=1, num_bounces=2,
+                              resolution_x=24, resolution_y=16)
+        texts, counts = [], []
+        for pipe, grp in ((RenderPipeline(scene, config), None),
+                          (ShardedRenderPipeline(scene, config, group),
+                           group)):
+            out = io.StringIO()
+            counts.append(run_viewer(
+                pipe, Camera(aspect_ratio=config.aspect_ratio,
+                             position=np.asarray([0.0, 1.0, 2.5],
+                                                 np.float32)),
+                out=out, keys=io.StringIO("jlikq"), group=grp))
+            texts.append(out.getvalue())
+        assert counts == [5, 5] and texts[0] == texts[1]
     finally:
         torch.distributed.destroy_process_group()

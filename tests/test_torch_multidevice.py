@@ -38,7 +38,20 @@ computed here, in the parent.
 - The CLI: ``--devices 2`` tiles and spp on ``--device cpu`` exit 0,
   and the tiles PNG equals the single-device CLI's; more CUDA ranks than
   cards and a ``WORLD_SIZE`` other than ``--devices`` exit non-zero.
+- The multi-rank viewer on 2 and 4 ranks, tiles and spp: under
+  scripted look keys (``jlik``, then ``q``) rank 0's ANSI text is byte
+  for byte the single-device viewer's (spp: over the rank-order mean of
+  the ranks' frames, the sharded frame); EOF and ``max_frames`` end
+  every rank after the same frame count; the other ranks write nothing;
+  ``--interactive --devices 2 --device cpu`` with piped keys exits 0,
+  prints the single-device viewer's text and "viewer closed after N
+  frames" once.
 """
+
+import io
+import subprocess
+import sys
+
 
 import pickle
 
@@ -124,7 +137,8 @@ def four(paths, pooled_inputs):
     exchange counts."""
     out = distributed.spawn(ranks.four_ranks, WORLD, "cpu", paths,
                             pooled_inputs)
-    return out[0], [r["exchange"] for r in out]
+    return (out[0], [r["exchange"] for r in out],
+            [r["viewer"] for r in out])
 
 
 def _single(scene, camera, size, frame=0, tiers="bvh", width=None):
@@ -414,3 +428,78 @@ def test_cli_devices_must_match_torchrun(box_glb, monkeypatch, capsys):
                       "2"]) == 2
     assert "--devices 2, but torchrun started 3 ranks" in \
         capsys.readouterr().err
+
+
+# -- the multi-rank viewer ------------------------------------------------------
+
+class _SppMean:
+    """The sharded spp frame on one device: the rank-order mean of
+    ``world`` frames at seeds frame * world + r."""
+
+    def __init__(self, scene, world):
+        from vulkan_pathtracer_tpu_torch.parallel.sharding import (
+            render_spp_shard,
+            spp_mean,
+        )
+
+        self.world = world
+        self.frame = lambda camera, frame: spp_mean([render_spp_shard(
+            scene, *camera_tensors(camera, "cpu"), frame, rank=r,
+            world=world, num_samples=1, num_bounces=2,
+            width=ranks.VIEWER_SIZE, height=ranks.VIEWER_SIZE)[0]
+            for r in range(world)])
+
+    def render(self, camera, frame):
+        return self.frame(camera, frame), None
+
+
+def _single_viewer(paths, case, world):
+    """(frames, text) of the single-device viewer on VIEWER_CASES[case]."""
+    from vulkan_pathtracer_tpu_torch.app.viewer import run_viewer
+    from vulkan_pathtracer_tpu_torch.render.pipeline import RenderPipeline
+
+    mode, keys, max_frames = ranks.VIEWER_CASES[case]
+    scene = ranks.box_scene(paths["box"])
+    pipe = (RenderPipeline(scene, ranks.viewer_config()) if mode == "tiles"
+            else _SppMean(scene, world))
+    text = io.StringIO()
+    frames = run_viewer(pipe, ranks.box_camera(), out=text,
+                        keys=io.StringIO(keys), max_frames=max_frames)
+    return frames, text.getvalue()
+
+
+@pytest.fixture(scope="module")
+def two_viewers(paths):
+    """The viewer cases on a 2-rank group, by rank."""
+    return distributed.spawn(ranks.viewer_ranks, 2, "cpu", paths)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", sorted(ranks.VIEWER_CASES))
+def test_viewer_on_ranks(paths, four, two_viewers, world, case):
+    """Rank 0 presents the single-device viewer's text byte for byte;
+    every rank renders the same number of frames (quit, EOF, or
+    max_frames), and the others write nothing."""
+    by_rank = [r[case] for r in (four[2] if world == 4 else two_viewers)]
+    frames, text = _single_viewer(paths, case, world)
+    assert frames == {"eof": 3, "max_frames": 3}.get(case, 5)
+    assert by_rank[0] == (frames, text)
+    assert f"frame {frames - 1}" in text
+    assert [r[0] for r in by_rank] == [frames] * world
+    assert all(r[1] == "" for r in by_rank[1:])
+
+
+def test_cli_interactive_devices_on_cpu(box_glb):
+    """``--interactive --devices 2``: rank 0 reads the CLI's piped
+    stdin; the text equals the single-device viewer's, the run exits 0
+    and says once how many frames it showed."""
+    cmd = [sys.executable, "-m", "vulkan_pathtracer_tpu_torch", "-s", box_glb,
+           "-x", "16", "-y", "16", "--interactive", "--device", "cpu"]
+    runs = [subprocess.run(cmd + extra, input="jlikq", capture_output=True,
+                           text=True, timeout=300)
+            for extra in ([], ["--devices", "2"])]
+    for proc in runs:
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stderr.count("viewer closed after 5 frames") == 1
+    assert runs[1].stdout == runs[0].stdout and "frame 4" in runs[1].stdout
+    assert "sharding framebuffer across 2 devices" in runs[1].stderr

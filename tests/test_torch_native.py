@@ -4,7 +4,8 @@ Four processes that load the library at once from a fresh copy of
 ``native/`` build it once, under the lock, and all get the same SAH
 tree as this process; a failed build raises with the compiler's output;
 a scene bake never falls back to the NumPy LBVH when the library is
-missing.  Tolerance: none (the trees are compared bitwise).
+missing; ``transform_points_native`` is bitwise JAX's.  Tolerance: none
+(the trees and points are compared bitwise).
 """
 
 import glob
@@ -20,6 +21,8 @@ import pytest
 from vulkan_pathtracer_tpu_torch.models import device_scene
 from vulkan_pathtracer_tpu_torch.ops import native
 from vulkan_pathtracer_tpu_torch.ops.bvh import build_bvh_host
+
+from tests.native_guard import native_libraries  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _TREE = """
@@ -119,3 +122,23 @@ def test_bake_without_library_raises(monkeypatch):
     # The NumPy LBVH stays, asked for by name.
     assert build_bvh_host(v0, e1, e2, max_leaf_size=4,
                           use_native=False).node_count > 0
+
+
+def test_transform_points_matches_jax(native_libraries):
+    """``transform_points_native`` bitwise JAX's on the same inputs: a
+    non-orthogonal affine transform of random f32 points (the pattern of
+    tests/test_native.py:113-150), and both the f64 product rounded
+    once to f32."""
+    from vulkan_pathtracer_tpu.ops.native import (
+        transform_points_native as jax_transform_points,
+    )
+
+    rng = np.random.default_rng(7)
+    points = rng.uniform(-5, 5, size=(500, 3)).astype(np.float32)
+    M = rng.normal(size=(3, 3)) + np.eye(3) * 2.0
+    t = rng.normal(size=3) * 3.0
+    got = native.transform_points_native(points, M, t)
+    assert got.dtype == np.float32 and got.shape == (500, 3)
+    np.testing.assert_array_equal(got, jax_transform_points(points, M, t))
+    np.testing.assert_array_equal(
+        got, (points.astype(np.float64) @ M.T + t).astype(np.float32))

@@ -15,8 +15,8 @@
 - Without CUDA, the default ``--device cuda`` exits non-zero with a
   clear message instead of switching to the CPU.
 - The traversal wrappers raise for a device that is neither CPU nor
-  CUDA; the CLI parses ``--devices`` and ``--shard-mode`` and refuses
-  ``--interactive`` with ``--devices`` > 1.
+  CUDA; the CLI parses ``--devices`` and ``--shard-mode``, also with
+  ``--interactive``, and refuses ``VKPT_MXU_PRECISION=default``.
 """
 
 import os
@@ -192,21 +192,26 @@ def test_cuda_device_without_cuda_fails(box_glb, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--devices", "2"],
                                   ["--shard-mode", "spp"]])
-def test_unported_flags_refused(flag, capsys):
+def test_unported_flags_refused(flag, monkeypatch, capsys):
     """The multi-device flags parse (they run in
-    tests/test_torch_multidevice.py); only ``--interactive`` with
-    ``--devices`` > 1 stays refused, with exit 2."""
+    tests/test_torch_multidevice.py), with ``--interactive`` too (the
+    multi-rank viewer); the one setting still refused is
+    ``VKPT_MXU_PRECISION=default``, with exit 2."""
     from vulkan_pathtracer_tpu_torch.app.main import parse_args
 
     _, args = parse_args(["-s", "scene.glb", *flag])
     assert (args.devices, args.shard_mode) == (
         (2, "tiles") if flag[0] == "--devices" else (1, "spp"))
+    _, args = parse_args(["-s", "scene.glb", "--interactive", "--devices",
+                          "2", *flag])
+    assert args.interactive and args.devices == 2
+    monkeypatch.setenv("VKPT_MXU_PRECISION", "default")
     with pytest.raises(SystemExit) as exc:
-        parse_args(["-s", "scene.glb", "--interactive", "--devices", "2",
-                    *flag])
+        parse_args(["-s", "scene.glb", *flag])
     assert exc.value.code == 2
-    assert "--interactive with --devices > 1: not yet ported in " \
-        "vulkan_pathtracer_tpu_torch" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "VKPT_MXU_PRECISION=default" in err
+    assert "not yet ported in vulkan_pathtracer_tpu_torch" in err
 
 
 @pytest.mark.parametrize("fn", [st.quad_closest_hit, st.quad_any_hit,

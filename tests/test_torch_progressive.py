@@ -403,27 +403,38 @@ def test_cli_progressive_frames(cornell_glb, tmp_path, capsys, extra):
     assert image.shape == (16, 24, 3) and 0 < image.mean() < 255
 
 
-def test_still_refused(capsys):
-    """``--devices`` parses (multi-device, tests/test_torch_multidevice.py)
-    but ``--interactive --devices 2`` exits 2, the progressive flags
-    parse, and RenderPipeline refuses ``seed_secondary`` (while it takes
-    ``enable_validation``, which ``-v`` sets)."""
+def test_still_refused(box_glb, monkeypatch, capsys):
+    """What was refused is ported: ``--devices`` parses (multi-device,
+    tests/test_torch_multidevice.py) and so does ``--interactive
+    --devices 2`` (the multi-rank viewer), the progressive flags parse,
+    and RenderPipeline builds and renders with ``seed_secondary`` on a
+    flat bake (tests/test_torch_channels.py holds it to JAX, and the
+    refusal on two-level scenes) as it takes ``enable_validation``, which
+    ``-v`` sets.  The one CLI refusal left is ``VKPT_MXU_PRECISION=default``
+    (the bf16 product), exit 2."""
     config, args = parse_args(["-s", "scene.glb", "--devices", "2",
                                "--progressive"])
     assert args.devices == 2 and config.progressive
-    with pytest.raises(SystemExit) as exc:
-        parse_args(["-s", "scene.glb", "--interactive", "--devices", "2"])
-    assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    config, args = parse_args(["-s", "scene.glb", "--interactive",
+                               "--devices", "2"])
+    assert args.interactive and args.devices == 2
     config, args = parse_args(["-s", "scene.glb", "--progressive",
                                "--batch-frames", "4", "--russian-roulette"])
     assert config.progressive and config.russian_roulette
     assert args.batch_frames == 4
-    with pytest.raises(NotImplementedError, match="seed_secondary: not yet "
-                       "ported in vulkan_pathtracer_tpu_torch"):
-        RenderPipeline(None, RenderConfig(seed_secondary=True))
+    scene = build_device_scene(gltf.load(box_glb), max_leaf_size=4,
+                               device="cpu")
+    pipe = RenderPipeline(scene, RenderConfig(
+        seed_secondary=True, num_bounces=3, resolution_x=8, resolution_y=8))
+    image, rays = pipe.render_numpy(Camera(aspect_ratio=1.0), 1)
+    assert image.shape == (8, 8, 3) and rays >= 64
     config, _ = parse_args(["-s", "scene.glb", "-v"])
     assert config.enable_validation
+    monkeypatch.setenv("VKPT_MXU_PRECISION", "default")
+    with pytest.raises(SystemExit) as exc:
+        parse_args(["-s", "scene.glb"])
+    assert exc.value.code == 2
+    assert "VKPT_MXU_PRECISION=default" in capsys.readouterr().err
 
 
 def test_bench_prints_one_line_per_metric(capsys):

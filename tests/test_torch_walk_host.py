@@ -40,7 +40,7 @@ from vulkan_pathtracer_tpu_torch.ops import frontier as fr
 from vulkan_pathtracer_tpu_torch.ops import kernels, mxu_mt
 from vulkan_pathtracer_tpu_torch.ops import skip_traverse as sk
 from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
-from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T
+from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T, Hit
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "vulkan_pathtracer_tpu_torch", "csrc")
@@ -184,6 +184,18 @@ def stats_host(lib, any_hit, kind, box, link, leaves, o, d, t_lane,
     _launch(fn, *lead, *_ptrs(o, d, t_lane), n, *_ptrs(*out),
             hit.data_ptr(), counters.data_ptr(), n=n)
     return (hit.bool() if any_hit else out), counters.tolist()
+
+
+def chan_host(lib, kind, head, o, d, t_lane, t_near=None, seed=None):
+    """The channel build of closest hit ``kind`` (quad, oct, pair,
+    frontier, skip, wide) on table arguments ``head`` (those of the
+    kind's default launcher before the rays)."""
+    n = o.shape[0]
+    out = _outputs(n)
+    chans = _ptrs(t_near, *(seed if seed is not None else (None,) * 4))
+    _launch(getattr(lib, f"vkpt_{kind}_closest_hit_chan"), *head,
+            *_ptrs(o, d, t_lane), *chans, n, *_ptrs(*out), n=n)
+    return out
 
 
 def _rays(n, seed):
@@ -618,3 +630,101 @@ def test_launch_guard_and_batch_counters(monkeypatch):
         kernels._launch("k", dev, lambda *a: 9)
     with pytest.raises(ValueError, match="2\\^31"):
         kernels._batches(2 ** 31, dev, 77)
+
+
+# The channel builds: (kernel, scene, coefficient leaves, window).
+CHANNEL_CASES = {
+    "quad": ("quad", "flat", False, False),
+    "quad_coef": ("quad", "flat", True, False),
+    "oct": ("oct", "flat", False, False),
+    "pair": ("pair", "flat", False, True),
+    "pair_coef": ("pair", "flat", True, True),
+    "pair_instanced": ("pair", "instanced", False, True),
+    "pair_instanced_coef": ("pair", "instanced", True, True),
+    "frontier16": ("frontier", "flat", False, True),
+    "frontier16_coef": ("frontier", "flat", True, True),
+    "frontier32": ("frontier", "flat32", False, True),
+    "frontier32_coef": ("frontier", "flat32", True, True),
+    "skip": ("skip", "flat", False, True),
+    "skip_instanced": ("skip", "instanced", False, True),
+    "wide": ("wide", "flat", False, False),
+}
+
+
+def _channel_setup(scene, kernel, coef, o, d, active):
+    """(plain version taking the channels, the launcher's table
+    arguments, the rays' t_lane) of closest hit ``kernel``."""
+    if kernel in ("quad", "oct"):
+        args = (st.quad_args(scene, o, d, active, coef) if kernel == "quad"
+                else (scene.oct_box, scene.oct_link, scene.leaves, o, d,
+                      st.lane_limits(o.shape[0], active, "cpu")))
+        plain = (st.quad_closest_hit_plain if kernel == "quad"
+                 else st.oct_closest_hit_plain)
+        box, link, leaves = args[:3]
+        head = (*_ptrs(box, link, leaves), leaves.shape[1]) + (
+            (int(coef),) if kernel == "quad" else ())
+    elif kernel == "pair":
+        args = st.pair_args(scene, o, d, active, coef)
+        plain = st.pair_closest_hit_plain
+        box, link, leaves, _, _, _, inst_inv, mb_bits, inst_feat = args
+        head = (*_ptrs(box, link, leaves), leaves.shape[1], int(coef),
+                *_ptrs(inst_inv, inst_feat), mb_bits)
+    elif kernel == "frontier":
+        args = fr.frontier_args(scene, o, d, active, coef)
+        plain = fr.frontier_closest_hit_plain
+        box, link, leaves = args[:3]
+        head = (*_ptrs(box, link), box.shape[1], *_ptrs(leaves),
+                leaves.shape[1], int(coef))
+    elif kernel == "skip":
+        args = sk.skip_args(scene, o, d, active)
+        plain = sk.skip_closest_hit_plain
+        nodes, leaves, _, _, _, inst_inv, mb_bits = args
+        head = (*_ptrs(nodes), nodes.shape[0] // 8, *_ptrs(leaves),
+                leaves.shape[1], *_ptrs(inst_inv), mb_bits)
+    else:
+        args = sk.wide_args(scene, o, d, active)
+        plain = sk.wide_closest_hit_plain
+        head = (*_ptrs(args[0]), args[0].shape[0] // 8, *_ptrs(args[1]),
+                args[1].shape[1])
+    t_lane = args[4] if kernel in ("skip", "wide") else args[5]
+    return (lambda **kw: plain(*args, **kw)), head, t_lane
+
+
+@pytest.mark.parametrize("case", sorted(CHANNEL_CASES))
+def test_channel_builds_match_plain(host_lib, scenes, case):
+    """Each channel build, bitwise its plain version: seeded with the
+    unseeded hit (then also bitwise the unseeded result), seeded with
+    ``leaf_seed_hit`` of it, and (pair, frontier, skip) windowed at the
+    median t with that seed; an inactive lane returns its seed."""
+    from vulkan_pathtracer_tpu_torch.ops.intersect import leaf_seed_hit
+
+    kernel, name, coef, window = CHANNEL_CASES[case]
+    scene = scenes[name]
+    o, d, active = _rays(999, seed=61 + len(case))
+    plain, head, t_lane = _channel_setup(scene, kernel, coef, o, d, active)
+    ref = plain()
+    assert 100 < int((ref.t < MISS_T).sum()) < int(active.sum())
+    got = chan_host(host_lib, kernel, head, o, d, t_lane, seed=ref)
+    _assert_closest(got, ref)
+    blocks = torch.clamp(ref.tri, min=0) // scene.max_leaf_size
+    seed = leaf_seed_hit(scene, o, d, blocks, active)
+    # Inactive lanes carry a seed of their own, which they return.
+    fake = (5.0, 123, 0.25, 0.5)
+    seed = Hit(*(torch.where(active, x, torch.full_like(x, f))
+                 for x, f in zip(seed, fake)))
+    ref_s = plain(seed=seed)
+    _assert_closest(chan_host(host_lib, kernel, head, o, d, t_lane,
+                              seed=seed), ref_s)
+    for got_x, seed_x in zip(ref_s, seed):
+        assert torch.equal(got_x[~active], seed_x[~active])
+    if window:
+        t_near = torch.full_like(ref.t, float(ref.t[ref.t < MISS_T].median()))
+        ref_w = plain(seed=seed, t_near=t_near)
+        _assert_closest(chan_host(host_lib, kernel, head, o, d, t_lane,
+                                  t_near, seed), ref_w)
+        ref_n = plain(t_near=t_near)
+        _assert_closest(chan_host(host_lib, kernel, head, o, d, t_lane,
+                                  t_near), ref_n)
+        hit = ref_n.t < MISS_T
+        assert (ref_n.t[hit] >= t_near[hit]).all()
+        assert 0 < int(hit.sum()) < int((ref.t < MISS_T).sum())

@@ -23,8 +23,9 @@ one of them.  Every rank loads and bakes the scene, and renders through
 the PNG, the ``STATS`` lines, the checkpoint and the profile.  CUDA
 ranks take one card each (more ranks than cards exits 1, naming both
 counts); ``--device cpu`` runs gloo ranks on the CPU.
-``--interactive`` with ``--devices`` > 1 exits 2 (the sharded pipeline
-has no ``resize``).
+``--interactive`` with ``--devices`` > 1 runs the viewer on every rank
+(app/viewer.py): rank 0 reads its own stdin and presents, the others
+follow its camera.
 
 ``-v`` checks the host BVH's invariants and renders a checked 64x64
 frame (utils/validation.py) before the frame loop, and then checks
@@ -179,7 +180,7 @@ def tier_fields_from_env(environ=None) -> dict:
 
 def parse_args(argv=None):
     """(RenderConfig, args); exits 1 on a missing scene path (like the
-    reference) and 2 on a flag or a combination that is not yet
+    reference) and 2 on a flag or a kernel tier that is not yet
     ported."""
     parser = build_parser()
     parser.prog = "python -m vulkan_pathtracer_tpu_torch"
@@ -198,11 +199,6 @@ def parse_args(argv=None):
     if not args.scene_path:
         sys.stderr.write("Missing path to scene from arguments\n")
         raise SystemExit(1)
-    if args.interactive and args.devices > 1:
-        sys.stderr.write("--interactive with --devices > 1: not yet ported "
-                         "in vulkan_pathtracer_tpu_torch (the sharded "
-                         "pipeline has no resize)\n")
-        raise SystemExit(2)
     try:
         tiers = tier_fields_from_env()
         RenderConfig(**tiers).tiers.validate()
@@ -508,21 +504,27 @@ def render_main(config: RenderConfig, args, device, group=None) -> int:
     try:
         if config.enable_validation:
             validate(pipeline, config)
-        return run(pipeline, config, args, device, primary)
+        return run(pipeline, config, args, device, primary, group)
     except ValidationError as exc:
         sys.stderr.write(f"validation failed: {exc}\n")
         return 1
 
 
 def run(pipeline, config: RenderConfig, args, device,
-        primary: bool = True) -> int:
-    """The viewer under ``--interactive``, else the frame loop of the
-    module docstring (under ``--profile DIR``, traced into DIR), then
-    the PNG; the files and logs on the ``primary`` process only."""
+        primary: bool = True, group=None) -> int:
+    """The viewer under ``--interactive`` (on every rank of ``group``,
+    rank 0 presenting), else the frame loop of the module docstring
+    (under ``--profile DIR``, traced into DIR), then the PNG; the files
+    and logs on the ``primary`` process only."""
     if args.interactive:
+        several = group is not None and group.world > 1
         frames = run_viewer(pipeline, Camera(aspect_ratio=config.aspect_ratio),
-                            max_frames=args.frames if args.frames > 1 else 0)
-        print(f"viewer closed after {frames} frames", file=sys.stderr)
+                            keys=rank_stdin() if several and primary
+                            else None,
+                            max_frames=args.frames if args.frames > 1 else 0,
+                            group=group)
+        if primary:
+            print(f"viewer closed after {frames} frames", file=sys.stderr)
         return 0
     loop = FrameLoop(pipeline, config, args, device, primary)
     if (config.progressive and args.batch_frames > 1
@@ -549,6 +551,17 @@ def run(pipeline, config: RenderConfig, args, device,
         report(args.frames - loop.start_frame, loop.rays, t0, device)
     loop.stats.log()
     return 0
+
+
+def rank_stdin():
+    """Rank 0's keys: the process's standard input descriptor, which a
+    rank started by ``distributed.spawn`` inherits from the CLI's process
+    while its ``sys.stdin`` reads nothing; ``sys.stdin`` where there is
+    no such descriptor."""
+    try:
+        return open(0, closefd=False)
+    except OSError:
+        return sys.stdin
 
 
 def report(frames: int, rays: int, t0: float, device) -> None:

@@ -6,10 +6,15 @@ their SASS compared function by function.
 Each argument is a ``build/torch_kernels/<hash>/libvkpt_torch_kernels.so``
 (``ops/kernels.build()`` of a checkout).  Disassembles both with the
 toolkit's ``cuobjdump -sass`` and prints one line per entry function,
-``same`` or ``DIFF`` with its instruction counts in OLD and NEW, then
-``ALL_IDENTICAL`` or ``DIFFERENT n``.  The per-file hash in the names of
+``same`` or ``DIFF`` with its instruction counts in OLD and NEW (``new``
+for a function only NEW has, ``gone`` for one only OLD has), then, over
+OLD's functions, ``ALL_IDENTICAL`` or ``DIFFERENT n`` (a gone function
+counts as different; a build that only adds functions is identical).  The per-file hash in the names of
 anonymous namespaces is normalised, so two checkouts at different paths
-compare.  A function whose SASS is identical runs the same instructions,
+compare, and so are runs of blanks: cuobjdump pads every line of a file
+to the width of its longest instruction, so a new kernel with a longer
+operand re-pads the others.  The header of the next object file
+belongs to no function.  A function whose SASS is identical runs the same instructions,
 so a change that leaves a kernel's SASS alone cannot move its time.
 Needs the CUDA toolkit.
 """
@@ -46,8 +51,10 @@ def functions(lib: str) -> dict[str, list[str]]:
         if m:
             name = m.group(1)
             funcs[name] = []
+        elif line.startswith("Fatbin"):
+            name = None   # the next object's header, no function's code
         elif name is not None and line.strip():
-            funcs[name].append(line.strip())
+            funcs[name].append(" ".join(line.split()))
     return funcs
 
 
@@ -60,10 +67,14 @@ def main(argv=None) -> int:
     print(f"functions: {len(a)} / {len(b)}")
     diff = 0
     for name in sorted(set(a) | set(b)):
-        same = a.get(name) == b.get(name)
-        diff += not same
-        print(f"{'same' if same else 'DIFF'} {len(a.get(name, []))} "
-              f"{len(b.get(name, []))} {name}")
+        if name not in a:
+            word = "new"
+        elif name not in b:
+            word = "gone"
+        else:
+            word = "same" if a[name] == b[name] else "DIFF"
+        diff += word in ("DIFF", "gone")
+        print(f"{word} {len(a.get(name, []))} {len(b.get(name, []))} {name}")
     print("ALL_IDENTICAL" if diff == 0 else f"DIFFERENT {diff}")
     return 0
 

@@ -20,6 +20,15 @@ Input handling degrades gracefully without a TTY (piped/scripted
 input reads characters from stdin until EOF), which is also how the
 tests drive it.  Rendering per keyframe is synchronous: frame ->
 present -> poll, like the reference's single-queue loop.
+
+On several ranks (``--devices N``, a ``ShardedRenderPipeline``) every
+rank runs ``run_viewer`` and renders every frame collectively: rank 0
+reads the keys (its own stdin) and presents, and before each frame
+broadcasts the camera's exact state (position, yaw, pitch) with a
+go/stop flag (``CameraSync``); the other ranks follow, set their camera
+to it and write nothing.  A movement key depends on rank 0's clock, so
+only rank 0 applies keys.  Quit, EOF and ``max_frames`` stop every rank
+after the same frame count.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 
 def _ansi_frame(img: np.ndarray) -> str:
@@ -103,21 +113,79 @@ class _KeySource:
 LOOK_STEP_PX = 40.0  # one keypress = a 40 px mouse drag (0.25 deg/px)
 
 
+class CameraSync:
+    """Rank 0's camera, broadcast to the ranks of ``group`` (a
+    mesh.RenderGroup) before each frame: float64 [go, x, y, z, yaw,
+    pitch], exact for the f32 position and the float angles, so every
+    rank derives the same push constants."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def _broadcast(self, state) -> torch.Tensor:
+        return self.group.broadcast(torch.tensor(
+            state, dtype=torch.float64, device=self.group.device)).cpu()
+
+    def send(self, camera, go: bool) -> None:
+        """Rank 0: the next frame's camera, or (``go`` False) stop."""
+        self._broadcast([float(go), *(float(x) for x in camera.position),
+                         camera.yaw, camera.pitch])
+
+    def receive(self, camera) -> bool:
+        """Another rank: set ``camera`` to rank 0's; False on stop."""
+        state = self._broadcast([0.0] * 6).tolist()
+        if state[0] == 0.0:
+            return False
+        camera.position = np.asarray(state[1:4], dtype=np.float32)
+        camera.set_orientation(state[4], state[5])
+        return True
+
+
+def follow_viewer(pipeline, camera, group) -> int:
+    """A rank other than 0 of a multi-rank viewer: render every frame of
+    rank 0's with its camera, present nothing.  Returns the number of
+    frames rendered."""
+    sync = CameraSync(group)
+    frame = 0
+    while sync.receive(camera):
+        pipeline.render(camera, frame)
+        frame += 1
+    return frame
+
+
 def run_viewer(pipeline, camera, *, out=None, keys=None,
-               max_frames: int = 0) -> int:
+               max_frames: int = 0, group=None) -> int:
     """Interactive loop: render -> ANSI present -> handle input.
 
     pipeline: RenderPipeline-compatible (render(camera, frame));
     out: text stream (default stdout); keys: input stream override;
-    max_frames: stop after N frames (0 = until quit/EOF).
-    Returns the number of frames presented.
+    max_frames: stop after N frames (0 = until quit/EOF); group: the
+    mesh.RenderGroup of a multi-rank pipeline (every rank calls this;
+    rank 0 leads, the others run ``follow_viewer``).
+    Returns the number of frames presented (rendered, on a follower).
     """
-    out = out or sys.stdout
+    if group is not None and group.world > 1 and not group.primary:
+        return follow_viewer(pipeline, camera, group)
+    sync = CameraSync(group) if group is not None and group.world > 1 \
+        else None
+    try:
+        return _lead_viewer(pipeline, camera, out or sys.stdout, keys,
+                            max_frames, sync)
+    finally:
+        if sync is not None:
+            sync.send(camera, go=False)
+
+
+def _lead_viewer(pipeline, camera, out, keys, max_frames: int, sync) -> int:
+    """run_viewer's loop on the presenting rank; ``sync`` (a CameraSync
+    or None) broadcasts each frame's camera before it is rendered."""
     frame = 0
     fast = False
     last = time.perf_counter()
     with _KeySource(keys) as ks:
         while True:
+            if sync is not None:
+                sync.send(camera, go=True)
             image, _ = pipeline.render(camera, frame)
             img = image.cpu().numpy()
             out.write("\x1b[H\x1b[2J" if frame == 0 else "\x1b[H")

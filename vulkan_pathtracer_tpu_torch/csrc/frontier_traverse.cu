@@ -186,3 +186,24 @@ extern "C" int vkpt_frontier_stats(int any, const float* box,
                                 n, t_out, tri_out, u_out, v_out, batches, st,
                                 stream);
 }
+
+// The channel build of the closest hit (stack_walk.cuh Chan), widths 16
+// and 32, exact or coefficient leaves: t_near and the seed (t, tri, u,
+// v) per ray, each pointer may be null (t_near 0, no seed).
+extern "C" int vkpt_frontier_closest_hit_chan(
+    const float* box, const int* link, int width, const float* leaves,
+    int block, int coef, const float* origin, const float* direction,
+    const float* t_lane, VKPT_CHANNEL_PARAMS, int64_t n, float* t_out,
+    int* tri_out, float* u_out, float* v_out, unsigned* batches,
+    void* stream) {
+  if (width != 16 && width != 32) return (int)cudaErrorInvalidValue;
+  const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
+  using D = FrontierClosestDesign;
+  using C = CoefFrontierClosestDesign;
+  const auto run = width == 16 ? (coef ? launch_chan<16, true, false, C>
+                                       : launch_chan<16, false, false, D>)
+                               : (coef ? launch_chan<32, true, false, C>
+                                       : launch_chan<32, false, false, D>);
+  return run(tab, VKPT_CHANNELS, origin, direction, t_lane, n, t_out,
+             tri_out, u_out, v_out, batches, stream);
+}

@@ -159,3 +159,24 @@ extern "C" int vkpt_pair_stats(int any, const float* box, const int* link,
       tab, coef, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
       hit_out, batches, st, stream);
 }
+
+// The channel build of the closest hit (stack_walk.cuh Chan), flat or
+// two-level, exact or coefficient leaves: t_near and the seed (t, tri,
+// u, v) per ray, each pointer may be null (t_near 0, no seed).
+extern "C" int vkpt_pair_closest_hit_chan(
+    const float* box, const int* link, const float* leaves, int block,
+    int coef, const float* inst_inv, const float* inst_feat, int mb_bits,
+    const float* origin, const float* direction, const float* t_lane,
+    VKPT_CHANNEL_PARAMS, int64_t n, float* t_out, int* tri_out,
+    float* u_out, float* v_out, unsigned* batches, void* stream) {
+  const Tables tab{box, link, leaves, block, inst_inv, inst_feat, mb_bits};
+  using Exact = PairDesign<false, false>;
+  using Coef = PairDesign<false, true>;
+  const bool inst = inst_inv != nullptr;
+  const auto run = coef ? (inst ? launch_chan<2, true, true, Coef>
+                                : launch_chan<2, true, false, Coef>)
+                        : (inst ? launch_chan<2, false, true, Exact>
+                                : launch_chan<2, false, false, Exact>);
+  return run(tab, VKPT_CHANNELS, origin, direction, t_lane, n, t_out,
+             tri_out, u_out, v_out, batches, stream);
+}

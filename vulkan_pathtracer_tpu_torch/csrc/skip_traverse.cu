@@ -90,21 +90,26 @@ __device__ __forceinline__ int octant_of(const Ray& r) {
 }
 
 // Slab test with the XLA / wide-kernel arithmetic (b - o) * inv
-// (pallas_traverse.py:1347-1362).
-__device__ __forceinline__ bool slab_sub(const Ray& r, const float* c,
-                                         float t_lim) {
-  const float t0x = (c[0] - r.ox) * r.ix;
-  const float t1x = (c[3] - r.ox) * r.ix;
-  const float t0y = (c[1] - r.oy) * r.iy;
-  const float t1y = (c[4] - r.oy) * r.iy;
-  const float t0z = (c[2] - r.oz) * r.iz;
-  const float t1z = (c[5] - r.oz) * r.iz;
-  const float n = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                        fmaxf(fminf(t0z, t1z), kTmin));
-  const float f = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                        fminf(fmaxf(t0z, t1z), t_lim));
-  return n <= f;
-}
+// (pallas_traverse.py:1347-1362), the entry clamped to LO (kTmin, or a
+// ChanRay's r.tn), defined for both ray types as traverse.cuh's slab.
+#define VKPT_DEFINE_SLAB_SUB(R, LO)                                     \
+  __device__ __forceinline__ bool slab_sub(const R& r, const float* c,  \
+                                           float t_lim) {               \
+    const float t0x = (c[0] - r.ox) * r.ix;                             \
+    const float t1x = (c[3] - r.ox) * r.ix;                             \
+    const float t0y = (c[1] - r.oy) * r.iy;                             \
+    const float t1y = (c[4] - r.oy) * r.iy;                             \
+    const float t0z = (c[2] - r.oz) * r.iz;                             \
+    const float t1z = (c[5] - r.oz) * r.iz;                             \
+    const float n = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),      \
+                          fmaxf(fminf(t0z, t1z), LO));                  \
+    const float f = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),      \
+                          fminf(fmaxf(t0z, t1z), t_lim));               \
+    return n <= f;                                                      \
+  }
+VKPT_DEFINE_SLAB_SUB(Ray, kTmin)
+VKPT_DEFINE_SLAB_SUB(ChanRay, r.tn)
+#undef VKPT_DEFINE_SLAB_SUB
 
 // The skip walk of one ray, with the interface of the stack walk
 // (stack_walk.cuh Walk), so that the warp loops, the launcher and the
@@ -115,6 +120,7 @@ __device__ __forceinline__ bool slab_sub(const Ray& r, const float* c,
 // against the t_best its plain version sees.
 template <bool INST, class D, bool STATS>
 struct SkipWalk {
+  using RayT = typename D::RayT;
   static_assert(D::kPostpone && !D::kRefill,
                 "the skip walk postpones its leaves, without refill");
   const float4* __restrict__ nodes;  // all 8 octant blocks
@@ -124,7 +130,7 @@ struct SkipWalk {
   int cur, pend, deepest;
   unsigned long long* st;  // STATS: the launch's counters
 
-  __device__ __forceinline__ void start(const Ray& r, bool active) {
+  __device__ __forceinline__ void start(const RayT& r, bool active) {
     cur = active ? 0 : -1;
     pend = -1;
     deepest = 0;  // no stack
@@ -140,13 +146,13 @@ struct SkipWalk {
 
   // A flat leaf value is its block's first triangle (row = leaf /
   // block), a two-level one the packed instance and block.
-  __device__ __forceinline__ void visit(const Ray& r, int leaf, Best& b) {
+  __device__ __forceinline__ void visit(const RayT& r, int leaf, Best& b) {
     lt.visit(r, INST ? leaf : leaf / lt.block, b);
   }
 
   // Record `cur`: box hit -> cur + 1 (internal) or its leaf (held for
   // the leaf phase) and the skip pointer; missed -> skip.
-  __device__ __forceinline__ bool node_step(const Ray& r, Best& b) {
+  __device__ __forceinline__ bool node_step(const RayT& r, Best& b) {
     const float4 a = __ldg(rec + 2 * cur);
     const float4 c = __ldg(rec + 2 * cur + 1);
     const float box[6] = {a.x, a.y, a.z, a.w, c.x, c.y};
@@ -164,7 +170,7 @@ struct SkipWalk {
     return false;
   }
 
-  __device__ __forceinline__ bool visit_pending(const Ray& r, Best& b) {
+  __device__ __forceinline__ bool visit_pending(const RayT& r, Best& b) {
     if (STATS) count_active(st, kStLeafWarps);
     visit(r, pend, b);
     pend = -1;
@@ -181,6 +187,21 @@ struct SkipTables {
   int mb_bits;
 };
 
+// The skip walk of a launch over `tab`, its counters `ST` (the two
+// entry points below; a macro, as a shared function moved the default
+// kernels' SASS).
+#define VKPT_SKIP_WALK(ST)                                 \
+  Wk w;                                                    \
+  w.nodes = reinterpret_cast<const float4*>(tab.nodes);    \
+  w.n_nodes = tab.n_nodes;                                 \
+  w.lt.leaves = tab.leaves;                                \
+  w.lt.block = tab.block;                                  \
+  w.lt.inst_inv = tab.inst_inv;                            \
+  w.lt.inst_feat = nullptr;                                \
+  w.lt.mb_bits = tab.mb_bits;                              \
+  w.lt.st = ST;                                            \
+  w.st = ST
+
 template <bool INST, class D, bool STATS>
 __global__ void __launch_bounds__(kThreads, D::kMinBlocks)
 skip_closest_hit_kernel(const SkipTables tab,
@@ -191,18 +212,40 @@ skip_closest_hit_kernel(const SkipTables tab,
                         float* __restrict__ u_out, float* __restrict__ v_out,
                         unsigned* batches, unsigned long long* st) {
   using Wk = SkipWalk<INST, D, STATS>;
-  Wk w;
-  w.nodes = reinterpret_cast<const float4*>(tab.nodes);
-  w.n_nodes = tab.n_nodes;
-  w.lt.leaves = tab.leaves;
-  w.lt.block = tab.block;
-  w.lt.inst_inv = tab.inst_inv;
-  w.lt.inst_feat = nullptr;
-  w.lt.mb_bits = tab.mb_bits;
-  w.lt.st = st;
-  w.st = st;
+  VKPT_SKIP_WALK(st);
   run_rays<Wk, false, D, STATS>(w, origin, direction, t_lane, n, t_out,
                                 tri_out, u_out, v_out, nullptr, batches, st);
+}
+
+// The skip walk's channel build (D = Chan<design>): each ray's window
+// and seed from `ch`.
+template <bool INST, class D>
+__global__ void __launch_bounds__(kThreads, D::kMinBlocks)
+skip_chan_kernel(const SkipTables tab, const Channels ch,
+                 const float* __restrict__ origin,
+                 const float* __restrict__ direction,
+                 const float* __restrict__ t_lane, int64_t n,
+                 float* __restrict__ t_out, int* __restrict__ tri_out,
+                 float* __restrict__ u_out, float* __restrict__ v_out,
+                 unsigned* batches) {
+  using Wk = SkipWalk<INST, D, false>;
+  VKPT_SKIP_WALK(nullptr);
+  run_rays<Wk, false, D, false>(w, origin, direction, t_lane, n, t_out,
+                                tri_out, u_out, v_out, nullptr, batches,
+                                nullptr, ch);
+}
+#undef VKPT_SKIP_WALK
+
+template <bool INST, class D>
+int skip_chan_launch(const SkipTables& tab, const Channels& ch,
+                     const float* origin, const float* direction,
+                     const float* t_lane, int64_t n, float* t_out,
+                     int* tri_out, float* u_out, float* v_out,
+                     unsigned* batches, void* stream) {
+  using C = Chan<D>;
+  return launch_kernel<skip_chan_kernel<INST, C>, C>(
+      n, batches, stream, tab, ch, origin, direction, t_lane, n, t_out,
+      tri_out, u_out, v_out, batches);
 }
 
 template <bool INST, class D, bool STATS = false>
@@ -233,6 +276,7 @@ using WideDesign = Design<true, true, true, 6, false, true, 0, 16>;
 // in the leaf phase.
 template <class D, bool STATS>
 struct WideWalk {
+  using RayT = typename D::RayT;
   static_assert(D::kPostpone && !D::kRefill,
                 "the wide walk postpones its leaves, without refill");
   const float4* __restrict__ tiles;  // all 8 octant blocks
@@ -243,7 +287,7 @@ struct WideWalk {
   unsigned mask;  // the hit leaf slots of tile `tile`
   unsigned long long* st;  // STATS: the launch's counters
 
-  __device__ __forceinline__ void start(const Ray& r, bool active) {
+  __device__ __forceinline__ void start(const RayT& r, bool active) {
     cur = active ? 0 : -1;
     mask = 0;
     deepest = 0;  // no stack
@@ -260,7 +304,7 @@ struct WideWalk {
   // Tile `cur`: the 8 slabs against min(t_best, t_lane) at entry, the
   // hit leaf slots held, then cur + 1 when an internal slot was hit,
   // else slot 0's skip pointer.
-  __device__ __forceinline__ bool node_step(const Ray& r, Best& b) {
+  __device__ __forceinline__ bool node_step(const RayT& r, Best& b) {
     const float4* t = base + (size_t)cur * 16;
     const float t_lim = fminf(b.t, r.tl);
     unsigned leaf_hits = 0;
@@ -287,7 +331,7 @@ struct WideWalk {
 
   // The waiting leaf slots in slot order; a leaf word is the block's
   // first triangle (row = word / block).
-  __device__ __forceinline__ bool visit_pending(const Ray& r, Best& b) {
+  __device__ __forceinline__ bool visit_pending(const RayT& r, Best& b) {
     if (STATS) count_active(st, kStLeafWarps);
     const float* slots =
         reinterpret_cast<const float*>(base + (size_t)tile * 16);
@@ -300,6 +344,19 @@ struct WideWalk {
   }
 };
 
+// The wide walk of a launch, its counters `ST` (as VKPT_SKIP_WALK).
+#define VKPT_WIDE_WALK(ST)                           \
+  Wk w;                                              \
+  w.tiles = reinterpret_cast<const float4*>(tiles);  \
+  w.n_wide = n_wide;                                 \
+  w.lt.leaves = leaves;                              \
+  w.lt.block = block;                                \
+  w.lt.inst_inv = nullptr;                           \
+  w.lt.inst_feat = nullptr;                          \
+  w.lt.mb_bits = 0;                                  \
+  w.lt.st = ST;                                      \
+  w.st = ST
+
 template <class D, bool STATS>
 __global__ void __launch_bounds__(kThreads, D::kMinBlocks)
 wide_closest_hit_kernel(const float* __restrict__ tiles, int n_wide,
@@ -311,19 +368,29 @@ wide_closest_hit_kernel(const float* __restrict__ tiles, int n_wide,
                         float* __restrict__ u_out, float* __restrict__ v_out,
                         unsigned* batches, unsigned long long* st) {
   using Wk = WideWalk<D, STATS>;
-  Wk w;
-  w.tiles = reinterpret_cast<const float4*>(tiles);
-  w.n_wide = n_wide;
-  w.lt.leaves = leaves;
-  w.lt.block = block;
-  w.lt.inst_inv = nullptr;
-  w.lt.inst_feat = nullptr;
-  w.lt.mb_bits = 0;
-  w.lt.st = st;
-  w.st = st;
+  VKPT_WIDE_WALK(st);
   run_rays<Wk, false, D, STATS>(w, origin, direction, t_lane, n, t_out,
                                 tri_out, u_out, v_out, nullptr, batches, st);
 }
+
+// The wide walk's channel build (D = Chan<design>).
+template <class D>
+__global__ void __launch_bounds__(kThreads, D::kMinBlocks)
+wide_chan_kernel(const float* __restrict__ tiles, int n_wide,
+                 const float* __restrict__ leaves, int block,
+                 const Channels ch, const float* __restrict__ origin,
+                 const float* __restrict__ direction,
+                 const float* __restrict__ t_lane, int64_t n,
+                 float* __restrict__ t_out, int* __restrict__ tri_out,
+                 float* __restrict__ u_out, float* __restrict__ v_out,
+                 unsigned* batches) {
+  using Wk = WideWalk<D, false>;
+  VKPT_WIDE_WALK(nullptr);
+  run_rays<Wk, false, D, false>(w, origin, direction, t_lane, n, t_out,
+                                tri_out, u_out, v_out, nullptr, batches,
+                                nullptr, ch);
+}
+#undef VKPT_WIDE_WALK
 
 template <class D, bool STATS = false>
 int wide_launch(const float* tiles, int n_wide, const float* leaves,
@@ -404,4 +471,33 @@ extern "C" int vkpt_wide_stats(const float* tiles, int n_wide,
   return wide_launch<WideDesign, true>(tiles, n_wide, leaves, block, origin,
                                        direction, t_lane, n, t_out, tri_out,
                                        u_out, v_out, batches, st, stream);
+}
+
+// The channel build of the wide kernel: the seed (t, tri, u, v) per ray
+// (and t_near, which the wrappers leave null); each pointer may be null.
+extern "C" int vkpt_wide_closest_hit_chan(
+    const float* tiles, int n_wide, const float* leaves, int block,
+    const float* origin, const float* direction, const float* t_lane,
+    VKPT_CHANNEL_PARAMS, int64_t n, float* t_out, int* tri_out,
+    float* u_out, float* v_out, unsigned* batches, void* stream) {
+  using C = Chan<WideDesign>;
+  return launch_kernel<wide_chan_kernel<C>, C>(
+      n, batches, stream, tiles, n_wide, leaves, block, VKPT_CHANNELS,
+      origin, direction, t_lane, n, t_out, tri_out, u_out, v_out, batches);
+}
+
+// The channel build of the skip kernel (stack_walk.cuh Chan), flat or
+// two-level: t_near and the seed (t, tri, u, v) per ray, each pointer
+// may be null (t_near 0, no seed).
+extern "C" int vkpt_skip_closest_hit_chan(
+    const float* nodes, int n_nodes, const float* leaves, int block,
+    const float* inst_inv, int mb_bits, const float* origin,
+    const float* direction, const float* t_lane, VKPT_CHANNEL_PARAMS,
+    int64_t n, float* t_out, int* tri_out, float* u_out, float* v_out,
+    unsigned* batches, void* stream) {
+  const SkipTables tab{nodes, n_nodes, leaves, block, inst_inv, mb_bits};
+  return (inst_inv != nullptr ? skip_chan_launch<true, SkipInstDesign>
+                              : skip_chan_launch<false, SkipFlatDesign>)(
+      tab, VKPT_CHANNELS, origin, direction, t_lane, n, t_out, tri_out,
+      u_out, v_out, batches, stream);
 }

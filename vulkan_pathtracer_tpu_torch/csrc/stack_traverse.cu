@@ -152,3 +152,30 @@ extern "C" int vkpt_quad_stats(int any, const float* box, const int* link,
 }
 
 extern "C" int vkpt_stack_stats_count() { return kStCount; }
+
+// The channel builds of the two closest hits (stack_walk.cuh Chan):
+// t_near and the seed (t, tri, u, v) per ray, each pointer may be null
+// (t_near 0, no seed).
+extern "C" int vkpt_quad_closest_hit_chan(
+    const float* box, const int* link, const float* leaves, int block,
+    int coef, const float* origin, const float* direction,
+    const float* t_lane, VKPT_CHANNEL_PARAMS, int64_t n, float* t_out,
+    int* tri_out, float* u_out, float* v_out, unsigned* batches,
+    void* stream) {
+  const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
+  return (coef ? launch_chan<4, true, false, CoefClosestDesign>
+               : launch_chan<4, false, false, QuadClosestDesign>)(
+      tab, VKPT_CHANNELS, origin, direction, t_lane, n, t_out, tri_out,
+      u_out, v_out, batches, stream);
+}
+
+extern "C" int vkpt_oct_closest_hit_chan(
+    const float* box, const int* link, const float* leaves, int block,
+    const float* origin, const float* direction, const float* t_lane,
+    VKPT_CHANNEL_PARAMS, int64_t n, float* t_out, int* tri_out,
+    float* u_out, float* v_out, unsigned* batches, void* stream) {
+  const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
+  return launch_chan<8, false, false, OctDesign>(
+      tab, VKPT_CHANNELS, origin, direction, t_lane, n, t_out, tri_out,
+      u_out, v_out, batches, stream);
+}

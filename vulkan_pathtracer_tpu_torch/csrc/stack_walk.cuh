@@ -4,8 +4,10 @@
 // phase with its instance cache, the warp loops (postponed leaves, ray
 // refill, persistent batches), the persistent launcher and the
 // statistics build's counters, which skip_traverse.cu's skip and wide
-// walks share.  The choices and what each does about this card are
-// described in stack_traverse.cu (quad, oct), pair_traverse.cu (pair),
+// walks share; and the closest hits' channel builds (Chan<D>: a seeded
+// or windowed launch, with its own ray type and entry points).  The
+// choices and what each does about this card are described in
+// stack_traverse.cu (quad, oct), pair_traverse.cu (pair),
 // frontier_traverse.cu (frontier) and skip_traverse.cu (skip, wide).
 
 #pragma once
@@ -46,6 +48,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // recomputes them only when a leaf of another instance comes (the same
 // operations on the same inputs: bitwise the values of a
 // recomputation).
+// Every design's ray is a Ray; Chan<D> is design D's channel build.
 template <bool SORT, bool POSTPONE, bool PERSIST, int MINB,
           bool REFILL = false, bool EARLY = false, int QUEUE = 0,
           int LEAF_AT = 0, bool AHEAD = false>
@@ -62,6 +65,20 @@ struct Design {
   static constexpr int kQueue = QUEUE;
   static constexpr int kLeafAt = LEAF_AT;
   static constexpr bool kAhead = AHEAD;  // traverse.cuh coef_block
+  static constexpr bool kChan = false;
+  using RayT = Ray;
+};
+
+// The channel build of closest-hit design D: each ray is a ChanRay,
+// whose window bound the slab and triangle tests read (traverse.cuh
+// overloads), starting from its seed hit (run_rays).  Its kernels
+// are entry points of their own (stack_chan_kernel, skip_traverse.cu's
+// *_chan_kernel), so the default kernels compile as before.
+template <class D>
+struct Chan : D {
+  static_assert(!D::kRefill, "a channel build is a closest hit");
+  static constexpr bool kChan = true;
+  using RayT = ChanRay;
 };
 
 // Statistics build (STATS): counters of one launch, in this order
@@ -116,13 +133,14 @@ struct LeafTest {
   // INST: the instance of the lane's last leaf visit, its object-space
   // ray (exact leaves) or transformed features (COEF) and det_sign.
   int last_inst;
-  Ray o;
+  typename D::RayT o;
   float fo[COEF ? 10 : 1];
   float sign;
 
   __device__ __forceinline__ void reset() { last_inst = -1; }
 
-  __device__ __forceinline__ void visit(const Ray& r, int leaf, Best& b) {
+  __device__ __forceinline__ void visit(const typename D::RayT& r, int leaf,
+                                        Best& b) {
     if (STATS) {
       atomicAdd(st + kStLeafVisits, 1ull);
       const int row = INST ? leaf & ((1 << mb_bits) - 1) : leaf;
@@ -133,8 +151,8 @@ struct LeafTest {
       if (COEF) {
         float f[10];
         ray_features(r, f);
-        coef_block<ANY, false, D::kAhead, STATS>(
-            f, leaves, leaf, leaf, block, 1.0f, r.tl, b, st + kStTri);
+        coef_block<ANY, false, D::kAhead, STATS, D::kChan>(
+            f, leaves, leaf, leaf, block, 1.0f, r.tl, b, st + kStTri, lo(r));
       } else {
         visit_leaf<ANY, false, D::kEarly>(r, leaves, block, nullptr, 0, leaf,
                                           b);
@@ -155,8 +173,8 @@ struct LeafTest {
     }
     const int row = leaf & ((1 << mb_bits) - 1);
     if (COEF)
-      coef_block<ANY, true, D::kAhead, STATS>(
-          fo, leaves, row, leaf, block, sign, r.tl, b, st + kStTri);
+      coef_block<ANY, true, D::kAhead, STATS, D::kChan>(
+          fo, leaves, row, leaf, block, sign, r.tl, b, st + kStTri, lo(r));
     else
       leaf_block<ANY, true, D::kEarly>(o, leaves, row, leaf, block, sign, b);
   }
@@ -177,6 +195,7 @@ struct LeafTest {
 // the next node's slabs and pop culling read.
 template <int W, bool ANY, bool COEF, bool INST, class D, bool STATS>
 struct Walk {
+  using RayT = typename D::RayT;
   static constexpr bool kSort = !ANY || D::kSort;
   static constexpr bool kMask = W >= 16;
   static_assert(!kMask || (!INST && (!ANY || (!kSort && D::kPostpone &&
@@ -223,7 +242,7 @@ struct Walk {
     tn = kSort ? stack_tn[sp] : 0.0f;
   }
 
-  __device__ __forceinline__ void start(const Ray&, bool active) {
+  __device__ __forceinline__ void start(const RayT&, bool active) {
     sp = 0;
     deepest = 0;
     npend = 0;
@@ -254,11 +273,11 @@ struct Walk {
     return cur >= 0 && (kQueued ? npend <= kPend - W : !pending());
   }
 
-  __device__ __forceinline__ void visit(const Ray& r, int leaf, Best& b) {
+  __device__ __forceinline__ void visit(const RayT& r, int leaf, Best& b) {
     lt.visit(r, leaf, b);
   }
 
-  __device__ __forceinline__ bool node_step(const Ray& r, Best& b) {
+  __device__ __forceinline__ bool node_step(const RayT& r, Best& b) {
     if constexpr (!kMask)
       return narrow_step(r, b);
     else if constexpr (ANY)
@@ -269,7 +288,7 @@ struct Walk {
 
   // POSTPONE: the pending leaf children in test order; true when an any
   // hit is resolved.
-  __device__ __forceinline__ bool visit_pending(const Ray& r, Best& b) {
+  __device__ __forceinline__ bool visit_pending(const RayT& r, Best& b) {
     if constexpr (kMask)
       return wide_pending(r, b);
     else
@@ -286,7 +305,7 @@ struct Walk {
   // (pallas_pair.py:807: near = e0 <= e1, a missed child counting as
   // kBig), so each ray's sequence of leaf tests is the kernel's plain
   // version's.
-  __device__ __forceinline__ bool narrow_step(const Ray& r, Best& b) {
+  __device__ __forceinline__ bool narrow_step(const RayT& r, Best& b) {
     const float t_lim = ANY ? r.tl : fminf(b.t, r.tl);
     int next = -1;
     float next_tn = 0.0f;
@@ -418,7 +437,7 @@ struct Walk {
     return false;
   }
 
-  __device__ __forceinline__ bool narrow_pending(const Ray& r, Best& b) {
+  __device__ __forceinline__ bool narrow_pending(const RayT& r, Best& b) {
     if (STATS) count_active(st, kStLeafWarps);
 #pragma unroll
     for (int s = 0; s < kPend; ++s) {
@@ -439,7 +458,7 @@ struct Walk {
   // node's queue entry, the hit internal children pushed so that the
   // lowest slot is descended and the next lowest popped first, as in the
   // plain version (slot_order).
-  __device__ __forceinline__ bool wide_step(const Ray& r, Best& b) {
+  __device__ __forceinline__ bool wide_step(const RayT& r, Best& b) {
     const float4* brow =
         reinterpret_cast<const float4*>(box) + (size_t)cur * (W * 6 / 4);
     const int4* lrow =
@@ -512,7 +531,7 @@ struct Walk {
   // (pallas_frontier.py:503-541), pushed far to near, the nearest
   // descended.  The network runs only where two or more internal
   // children were hit: with one finite key every network puts it first.
-  __device__ __forceinline__ bool sorted_step(const Ray& r, Best& b) {
+  __device__ __forceinline__ bool sorted_step(const RayT& r, Best& b) {
     const float t_lim = fminf(b.t, r.tl);
     int next = -1;
     float next_tn = 0.0f;
@@ -608,7 +627,7 @@ struct Walk {
 
   // The entries in queue order, one loop over all their leaves, so the
   // warp's lanes test their i-th leaves together.
-  __device__ __forceinline__ bool wide_pending(const Ray& r, Best& b) {
+  __device__ __forceinline__ bool wide_pending(const RayT& r, Best& b) {
     if (STATS) count_active(st, kStLeafWarps);
     int e = 0, node = qnode[0];
     unsigned m = qmask[0];
@@ -643,8 +662,9 @@ struct Walk {
 // with active = false), as the postponed loop votes across the warp.
 // Returns the node-step rounds the warp ran.
 template <class Wk, class D, bool STATS>
-__device__ __forceinline__ int trace(Wk& w, const Ray& r, Best& b,
-                                     bool active, unsigned long long* st) {
+__device__ __forceinline__ int trace(Wk& w, const typename D::RayT& r,
+                                     Best& b, bool active,
+                                     unsigned long long* st) {
   w.start(r, active);
   int rounds = 0;
   if (!D::kPostpone) {
@@ -768,15 +788,17 @@ __device__ __forceinline__ void refill_loop(
 // (start, can_step, node_step, pending, visit_pending, cur, deepest):
 // REFILL's loop, or warps taking the 32 rays at their own position in
 // the grid (without PERSIST) or batches of 32 from `batches` until none
-// is left.
-template <class Wk, bool ANY, class D, bool STATS>
+// is left.  A channel build (D = Chan<design>) passes its Channels as
+// `ch` and reads each ray's window bound and seed hit from it
+// (traverse.cuh); the default builds pass none.
+template <class Wk, bool ANY, class D, bool STATS, class... Ch>
 __device__ __forceinline__ void run_rays(
     Wk& w, const float* __restrict__ origin,
     const float* __restrict__ direction, const float* __restrict__ t_lane,
     int64_t n, float* __restrict__ t_out, int* __restrict__ tri_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     uint8_t* __restrict__ hit_out, unsigned* batches,
-    unsigned long long* st) {
+    unsigned long long* st, const Ch&... ch) {
   if constexpr (D::kRefill) {
     refill_loop<Wk, D, ANY, STATS>(w, origin, direction, t_lane, n, t_out,
                                 tri_out, u_out, v_out, hit_out, batches, st);
@@ -787,10 +809,16 @@ __device__ __forceinline__ void run_rays(
                      : (int64_t)blockIdx.x * kThreads + (threadIdx.x & ~31u);
   while (base < n) {
     const int64_t i = base + (threadIdx.x & 31);
-    Ray r;
+    typename D::RayT r;
     r.tl = -1.0f;
     if (i < n) r = load_ray(origin, direction, t_lane, i);
     Best b{kMissT, 0.0f, 0.0f, -1, false};
+    if constexpr (D::kChan) {
+      static_assert(sizeof...(Ch) == 1, "a channel build reads its channels");
+      const Channels& c = (ch, ...);
+      r.tn = i < n ? lane_tnear(c, i) : kTmin;
+      if (i < n) b = lane_seed(c, i);
+    }
     const bool active = r.tl >= 0.0f;
     const int rounds = trace<Wk, D, STATS>(w, r, b, active, st);
     if (STATS) {
@@ -823,6 +851,25 @@ struct Tables {
   int mb_bits;
 };
 
+// The stack walk of a launch over `tab` (its stack in the kernel's
+// local arrays), its counters `ST` (the two entry points below; a
+// macro, as a shared function moved the default kernels' SASS).
+#define VKPT_STACK_WALK(ST)                              \
+  Wk w;                                                  \
+  int stack[Wk::kStack];                                 \
+  float stack_tn[Wk::kSort ? Wk::kStack : 1];            \
+  w.stack = stack;                                       \
+  w.stack_tn = stack_tn;                                 \
+  w.box = tab.box;                                       \
+  w.link = tab.link;                                     \
+  w.lt.leaves = tab.leaves;                              \
+  w.lt.block = tab.block;                                \
+  w.lt.inst_inv = tab.inst_inv;                          \
+  w.lt.inst_feat = tab.inst_feat;                        \
+  w.lt.mb_bits = tab.mb_bits;                            \
+  w.lt.st = ST;                                          \
+  w.st = ST
+
 // Closest hit (t, tri, u, v out) or any hit (hit out) of n rays.
 template <int W, bool ANY, bool COEF, bool INST, class D, bool STATS>
 __global__ void __launch_bounds__(kThreads, D::kMinBlocks)
@@ -834,23 +881,29 @@ stack_kernel(const Tables tab, const float* __restrict__ origin,
              uint8_t* __restrict__ hit_out, unsigned* batches,
              unsigned long long* st) {
   using Wk = Walk<W, ANY, COEF, INST, D, STATS>;
-  Wk w;
-  int stack[Wk::kStack];
-  float stack_tn[Wk::kSort ? Wk::kStack : 1];
-  w.stack = stack;
-  w.stack_tn = stack_tn;
-  w.box = tab.box;
-  w.link = tab.link;
-  w.lt.leaves = tab.leaves;
-  w.lt.block = tab.block;
-  w.lt.inst_inv = tab.inst_inv;
-  w.lt.inst_feat = tab.inst_feat;
-  w.lt.mb_bits = tab.mb_bits;
-  w.lt.st = st;
-  w.st = st;
+  VKPT_STACK_WALK(st);
   run_rays<Wk, ANY, D, STATS>(w, origin, direction, t_lane, n, t_out,
                               tri_out, u_out, v_out, hit_out, batches, st);
 }
+
+// The closest hit of a channel build (D = Chan<design>) of n rays, each
+// ray's window and seed from `ch`.
+template <int W, bool COEF, bool INST, class D>
+__global__ void __launch_bounds__(kThreads, D::kMinBlocks)
+stack_chan_kernel(const Tables tab, const Channels ch,
+                  const float* __restrict__ origin,
+                  const float* __restrict__ direction,
+                  const float* __restrict__ t_lane, int64_t n,
+                  float* __restrict__ t_out, int* __restrict__ tri_out,
+                  float* __restrict__ u_out, float* __restrict__ v_out,
+                  unsigned* batches) {
+  using Wk = Walk<W, false, COEF, INST, D, false>;
+  VKPT_STACK_WALK(nullptr);
+  run_rays<Wk, false, D, false>(w, origin, direction, t_lane, n, t_out,
+                                tri_out, u_out, v_out, nullptr, batches,
+                                nullptr, ch);
+}
+#undef VKPT_STACK_WALK
 
 // Blocks of kernel K that the device's SMs hold at once (a persistent
 // grid): read once per device and kernel, as the occupancy does not
@@ -897,5 +950,24 @@ int launch(const Tables& tab, const float* origin, const float* direction,
       n, batches, stream, tab, origin, direction, t_lane, n, t_out, tri_out,
       u_out, v_out, hit_out, batches, st);
 }
+
+// The channel build of closest-hit design D.
+template <int W, bool COEF, bool INST, class D>
+int launch_chan(const Tables& tab, const Channels& ch, const float* origin,
+                const float* direction, const float* t_lane, int64_t n,
+                float* t_out, int* tri_out, float* u_out, float* v_out,
+                unsigned* batches, void* stream) {
+  using C = Chan<D>;
+  return launch_kernel<stack_chan_kernel<W, COEF, INST, C>, C>(
+      n, batches, stream, tab, ch, origin, direction, t_lane, n, t_out,
+      tri_out, u_out, v_out, batches);
+}
+
+// The C launchers' channel arguments (t_near, seed t, tri, u, v; each
+// may be null), and them as a Channels.
+#define VKPT_CHANNEL_PARAMS                                          \
+  const float *t_near, const float *seed_t, const int *seed_tri,    \
+      const float *seed_u, const float *seed_v
+#define VKPT_CHANNELS Channels{t_near, seed_t, seed_tri, seed_u, seed_v}
 
 }  // namespace

@@ -1,8 +1,9 @@
 // Shared pieces of the traversal kernels (stack_walk.cuh for
 // stack_traverse.cu and pair_traverse.cu, skip_traverse.cu,
 // frontier_traverse.cu): constants,
-// the ray record, Möller–Trumbore, the leaf-block loop, the coefficient
-// leaf test, the instanced leaf decode and the slab test.  The plain
+// the ray record (and a channel build's, ChanRay), Möller–Trumbore, the
+// leaf-block loop, the coefficient leaf test, the instanced leaf decode,
+// the slab test and a channel build's channels.  The plain
 // PyTorch versions in ops/stack_traverse.py, ops/frontier.py,
 // ops/mxu_mt.py, ops/traverse.py and ops/skip_traverse.py perform the
 // same float operations in the same order; the sources are built with
@@ -34,6 +35,25 @@ struct Ray {
   float ix, iy, iz, oxi, oyi, ozi;
   float tl;
 };
+
+// The ray of a channel build (stack_walk.cuh Chan): a Ray and the closed
+// lower bound tn = max(t_near, kTmin) of its t-window (channel 11).  The
+// functions below take it through overloads and deduced ray types, so
+// the default builds compile from Ray alone.
+struct ChanRay : Ray {
+  float tn;
+  // run_rays loads a lane's Ray into it and sets tn after.
+  __device__ __forceinline__ ChanRay& operator=(const Ray& x) {
+    static_cast<Ray&>(*this) = x;
+    return *this;
+  }
+};
+
+// The closed lower bound of a ray's t-window: kTmin, or a channel
+// build's r.tn.  The coefficient test reads it, so one body serves both
+// rays and the default builds fold it to the constant.
+__device__ __forceinline__ float lo(const Ray&) { return kTmin; }
+__device__ __forceinline__ float lo(const ChanRay& r) { return r.tn; }
 
 // Möller–Trumbore with backface culling, term for term as
 // ops/intersect.py and pallas_pair.py:970-992.  Returns true when the
@@ -75,6 +95,17 @@ __device__ __forceinline__ bool mt(const Ray& r, const float* tri, float lim,
          t < lim;
 }
 
+// mt of a channel build: the window's lower bound t >= r.tn too
+// (pallas_pair.py:713).
+template <bool SIGNED, bool EARLY = false>
+__device__ __forceinline__ bool mt(const ChanRay& r, const float* tri,
+                                   float lim, float det_sign, float& t,
+                                   float& u, float& v) {
+  return mt<SIGNED, EARLY>(static_cast<const Ray&>(r), tri, lim, det_sign, t,
+                           u, v) &&
+         t >= r.tn;
+}
+
 // Closest-hit state; ANY stops at the first accepted triangle.
 struct Best {
   float t, u, v;
@@ -86,8 +117,9 @@ struct Best {
 // id leaf * block + k (leaf = row for flat tables, the packed
 // instance | block value for instanced ones).  The limit tightens as
 // hits are accepted (strict <: the first of equal-t triangles wins).
-template <bool ANY, bool SIGNED, bool EARLY = false>
-__device__ __forceinline__ void leaf_block(const Ray& r,
+// R: Ray, or a channel build's ChanRay.
+template <bool ANY, bool SIGNED, bool EARLY = false, class R = Ray>
+__device__ __forceinline__ void leaf_block(const R& r,
                                            const float* __restrict__ leaves,
                                            int row, int leaf, int block,
                                            float det_sign, Best& b) {
@@ -201,14 +233,18 @@ __device__ __forceinline__ void coef_quad(const float4* __restrict__ q, int j,
 // det_sign.  AHEAD issues a triangle's five loads before its first test
 // (else each before the sum that reads it).  STATS (the statistics
 // build): tri_st[0..3] count the triangles tested and those that fail at
-// det <= 0, at u' < 0 and at the v' window.
-template <bool ANY, bool SIGNED, bool AHEAD, bool STATS = false>
+// det <= 0, at u' < 0 and at the v' window.  CHAN (a channel build's
+// closest hit): a candidate also needs t >= tn, the window's lower bound
+// on the divided t, as mt_coef_visit's tnear_f (mxu_mt.py:288).
+template <bool ANY, bool SIGNED, bool AHEAD, bool STATS = false,
+          bool CHAN = false>
 __device__ __forceinline__ void coef_block(const float* f,
                                            const float* __restrict__ coefs,
                                            int row, int leaf, int block,
                                            float det_sign, float tl, Best& b,
                                            unsigned long long* tri_st =
-                                               nullptr) {
+                                               nullptr,
+                                           float tn = kTmin) {
   const float4* p =
       reinterpret_cast<const float4*>(coefs) + (size_t)row * block * 5;
   const float lim = ANY ? tl : fminf(b.t, tl);
@@ -256,7 +292,7 @@ __device__ __forceinline__ void coef_block(const float* f,
     } else {
       const float inv = 1.0f / det;
       const float t = tp * inv;
-      if (t > kTmin && t < lim && t < ct) {
+      if (t > kTmin && (!CHAN || t >= tn) && t < lim && t < ct) {
         ct = t;
         ck = k;
         cu = up * inv;
@@ -309,10 +345,11 @@ __device__ __forceinline__ float object_features(
 
 // The ray in instance `inst`'s object space (pallas_pair.py:661-673 and
 // pallas_traverse.py:219-227, the same order of operations) into o;
-// returns the instance's det_sign.
-__device__ __forceinline__ float object_ray(const Ray& r,
+// returns the instance's det_sign.  R: Ray or ChanRay (its window kept).
+template <class R>
+__device__ __forceinline__ float object_ray(const R& r,
                                             const float* __restrict__ inst_inv,
-                                            int inst, Ray& o) {
+                                            int inst, R& o) {
   const float4* mp = reinterpret_cast<const float4*>(inst_inv) + inst * 4;
   float m[16];
 #pragma unroll
@@ -336,8 +373,8 @@ __device__ __forceinline__ float object_ray(const Ray& r,
 // One leaf child: the flat block, or (INST) the instanced decode —
 // block row, object-space ray (object_ray) and det_sign.  (Coefficient
 // leaves: stack_walk.cuh LeafTest, with coef_block.)
-template <bool ANY, bool INST, bool EARLY = false>
-__device__ __forceinline__ void visit_leaf(const Ray& r,
+template <bool ANY, bool INST, bool EARLY = false, class R = Ray>
+__device__ __forceinline__ void visit_leaf(const R& r,
                                            const float* __restrict__ leaves,
                                            int block,
                                            const float* __restrict__ inst_inv,
@@ -348,29 +385,36 @@ __device__ __forceinline__ void visit_leaf(const Ray& r,
   }
   const int inst = leaf >> mb_bits;
   const int row = leaf & ((1 << mb_bits) - 1);
-  Ray o;
+  R o;
   const float det_sign = object_ray(r, inst_inv, inst, o);
   leaf_block<ANY, true, EARLY>(o, leaves, row, leaf, block, det_sign, b);
 }
 
 // Slab test of one child box (lo.xyz, hi.xyz) against t_lim
-// (pallas_pair.py:644-651, :779-790).  Returns the entry distance and
-// whether the box is hit.
-__device__ __forceinline__ bool slab(const Ray& r, const float* c,
-                                     float t_lim, float& tn) {
-  const float t0x = c[0] * r.ix - r.oxi;
-  const float t1x = c[3] * r.ix - r.oxi;
-  const float t0y = c[1] * r.iy - r.oyi;
-  const float t1y = c[4] * r.iy - r.oyi;
-  const float t0z = c[2] * r.iz - r.ozi;
-  const float t1z = c[5] * r.iz - r.ozi;
-  const float n = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                        fmaxf(fminf(t0z, t1z), kTmin));
-  const float f = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                        fminf(fmaxf(t0z, t1z), t_lim));
-  tn = n;
-  return n <= f;
-}
+// (pallas_pair.py:644-651, :779-790), the entry clamped to LO: kTmin
+// for a Ray, the window bound r.tn for a channel build's ChanRay
+// (pallas_pair.py:783).  Returns the entry distance and whether the box
+// is hit.  One body defines both overloads; each is a plain function, as
+// a template of the ray type moved the default kernels' SASS.
+#define VKPT_DEFINE_SLAB(R, LO)                                         \
+  __device__ __forceinline__ bool slab(const R& r, const float* c,      \
+                                       float t_lim, float& tn) {        \
+    const float t0x = c[0] * r.ix - r.oxi;                              \
+    const float t1x = c[3] * r.ix - r.oxi;                              \
+    const float t0y = c[1] * r.iy - r.oyi;                              \
+    const float t1y = c[4] * r.iy - r.oyi;                              \
+    const float t0z = c[2] * r.iz - r.ozi;                              \
+    const float t1z = c[5] * r.iz - r.ozi;                              \
+    const float n = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),      \
+                          fmaxf(fminf(t0z, t1z), LO));                  \
+    const float f = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),      \
+                          fminf(fmaxf(t0z, t1z), t_lim));               \
+    tn = n;                                                             \
+    return n <= f;                                                      \
+  }
+VKPT_DEFINE_SLAB(Ray, kTmin)
+VKPT_DEFINE_SLAB(ChanRay, r.tn)
+#undef VKPT_DEFINE_SLAB
 
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ origin,
                                         const float* __restrict__ direction,
@@ -391,6 +435,30 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ origin,
   r.ozi = r.oz * r.iz;
   r.tl = t_lane[i];
   return r;
+}
+
+// The channels of a channel build's launch (the Pallas kernels' channels
+// 7-11, pallas_traverse.py:118-130): a closed per-lane lower bound t_near
+// of the t-window (nullptr: 0), and a seed hit (t, tri, u, v; nullptr:
+// none) that the lane's best hit starts from.
+struct Channels {
+  const float* t_near;
+  const float* seed_t;
+  const int* seed_tri;
+  const float* seed_u;
+  const float* seed_v;
+};
+
+// Ray i's window bound (ChanRay::tn) and its starting best hit: the seed,
+// else a miss.  An inactive lane (t_lane < 0) returns it unchanged.
+__device__ __forceinline__ float lane_tnear(const Channels& ch, int64_t i) {
+  return ch.t_near == nullptr ? kTmin : fmaxf(ch.t_near[i], kTmin);
+}
+
+__device__ __forceinline__ Best lane_seed(const Channels& ch, int64_t i) {
+  if (ch.seed_t == nullptr) return Best{kMissT, 0.0f, 0.0f, -1, false};
+  return Best{ch.seed_t[i], ch.seed_u[i], ch.seed_v[i], ch.seed_tri[i],
+              false};
 }
 
 }  // namespace

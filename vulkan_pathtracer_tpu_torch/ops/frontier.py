@@ -56,6 +56,7 @@ from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
     _launch_name,
     _traverse_plain,
     boxes_from_src,
+    channel_args,
     collapse_maps,
     host_boxes,
     lane_limits,
@@ -149,15 +150,18 @@ def check_exact_block(leaves) -> None:
 # -- plain versions --------------------------------------------------------
 
 def frontier_closest_hit_plain(box, link, leaves, origin, direction, t_lane,
-                               leaf_visits=None, stats=None) -> Hit:
-    """Plain version of the frontier closest-hit kernel (any device).
+                               leaf_visits=None, stats=None, t_near=None,
+                               seed=None) -> Hit:
+    """Plain version of the frontier closest-hit kernel (any device);
+    ``t_near`` (n,) and ``seed`` (t, tri, u, v), its channel build.
     ``stats``, a dict, accumulates node visits, leaf-block visits, the
     early exits of exact leaves and the visited nodes by hit internal
     children (ops/stack_traverse._traverse_plain)."""
     t, tri, u, v = _traverse_plain(box, link, leaves, origin, direction,
                                    t_lane, False, False,
                                    leaf_visits=leaf_visits, stats=stats,
-                                   sortnet=batcher_oem(box.shape[1]))
+                                   sortnet=batcher_oem(box.shape[1]),
+                                   seed=seed, t_near=t_near)
     return Hit(t=t, tri=tri, u=u, v=v)
 
 
@@ -175,28 +179,33 @@ def frontier_any_hit_plain(box, link, leaves, origin, direction, t_lane,
 
 # -- wrappers -------------------------------------------------------------
 
-def frontier_args(scene, origin, direction, active, coef: bool = False):
-    """The frontier kernels' arguments: tables, rays and t_lane."""
+def frontier_args(scene, origin, direction, active, coef: bool = False,
+                  t_far=None):
+    """The frontier kernels' arguments: tables, rays and t_lane
+    (``t_far`` folded in)."""
     if scene.frontier_box is None:
         raise ValueError("the scene has no frontier tables (flat bakes "
                          "only)")
     return (scene.frontier_box, scene.frontier_link, leaf_table(scene, coef),
             origin, direction,
-            lane_limits(origin.shape[0], active, origin.device))
+            lane_limits(origin.shape[0], active, origin.device, t_far))
 
 
 def frontier_closest_hit(scene, origin, direction, active=None,
-                         coef: bool = False) -> Hit:
+                         coef: bool = False, seed=None, t_near=None,
+                         t_far=None) -> Hit:
     """Closest hit over the scene's frontier tables
-    (pallas_frontier_closest_hit).  Inactive lanes return t = MISS_T,
-    tri = -1, u = v = 0."""
+    (pallas_frontier_closest_hit): from ``seed`` (a Hit), and only hits
+    in [t_near, t_far) when those are given.  Inactive lanes return t =
+    MISS_T, tri = -1, u = v = 0, or their seed."""
     from vulkan_pathtracer_tpu_torch.ops import kernels
 
-    args = frontier_args(scene, origin, direction, active, coef)
+    args = frontier_args(scene, origin, direction, active, coef, t_far)
     check_exact_block(args[2])
-    return _dispatch(_launch_name("frontier_closest_hit", coef), origin,
-                     lambda: frontier_closest_hit_plain(*args),
-                     lambda: Hit(*kernels.frontier_closest_hit(*args)))
+    kw = channel_args(origin, seed, t_near)
+    return _dispatch(_launch_name("frontier_closest_hit", coef, kw), origin,
+                     lambda: frontier_closest_hit_plain(*args, **kw),
+                     lambda: Hit(*kernels.frontier_closest_hit(*args, **kw)))
 
 
 def frontier_any_hit(scene, origin, direction, active=None,

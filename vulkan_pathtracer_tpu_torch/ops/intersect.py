@@ -1,4 +1,5 @@
-"""Ray-triangle intersection (Möller–Trumbore) + brute-force closest hit.
+"""Ray-triangle intersection (Möller–Trumbore), the leaf-block seed
+pre-pass and the brute-force closest hit.
 
 Port of ``vulkan_pathtracer_tpu/ops/intersect.py``.  Same semantics:
 tmin = 0.001, tmax = 10000 (ray_gen.rgen:38-39), miss sentinel
@@ -50,6 +51,43 @@ def moller_trumbore(origin, direction, v0, e1, e2, tmin, t_limit):
     hit = (front & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
            & (t > tmin) & (t < t_limit))
     return hit, t, u, v
+
+
+def leaf_seed_hit(scene, origin, direction, block_idx, active=None,
+                  tmin=TMIN, tmax=TMAX) -> Hit:
+    """A local pre-pass (JAX intersect.py:89-126): each ray against ONE
+    leaf block of ``scene.leaves`` (n_leaves, block, 9), ``block_idx``
+    (N,) clipped to the table; the nearest accepted triangle, in slot
+    order with a strict ``t < t_best`` update (the first of equal t),
+    with id ``block * max_leaf_size + k``.  Lanes where ``active`` is
+    False return a miss.  The result seeds a closest hit's best hit
+    (``seed=``).  On a flat bake it is a hit of the scene, so the
+    traversal's result does not change beyond ties at the seed's t; a
+    two-level scene's blocks are in object space, so there it is not
+    (render/wavefront.check_seed_secondary)."""
+    n = origin.shape[0]
+    block = scene.max_leaf_size
+    rows = torch.clamp(block_idx.to(torch.int64), 0,
+                       scene.leaves.shape[0] - 1)
+    t_best = torch.full((n,), MISS_T, dtype=torch.float32,
+                        device=origin.device)
+    tri_best = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
+    u_best = torch.zeros(n, dtype=torch.float32, device=origin.device)
+    v_best = torch.zeros_like(u_best)
+    base = rows * block
+    for k in range(block):
+        tri9 = scene.leaves[rows, k]
+        t_lim = torch.clamp(t_best, max=tmax)
+        hit, t, u, v = moller_trumbore(origin, direction, tri9[:, 0:3],
+                                       tri9[:, 3:6], tri9[:, 6:9], tmin,
+                                       t_lim)
+        if active is not None:
+            hit = hit & active
+        t_best = torch.where(hit, t, t_best)
+        tri_best = torch.where(hit, (base + k).to(torch.int32), tri_best)
+        u_best = torch.where(hit, u, u_best)
+        v_best = torch.where(hit, v, v_best)
+    return Hit(t=t_best, tri=tri_best, u=u_best, v=v_best)
 
 
 def brute_force_closest_hit(scene, origin, direction, active=None,

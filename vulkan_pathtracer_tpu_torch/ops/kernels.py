@@ -132,6 +132,14 @@ SIGNATURES = {
     "vkpt_wide_stats": [_P, _I, _P, _I, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
                         _P, _P],
 }
+# The channel builds' launchers: a closest hit's arguments with the five
+# channel pointers (t_near, seed t, tri, u, v) after t_lane.
+_CHAN = [_P] * 5
+for _name in ("quad", "oct", "pair", "frontier", "skip", "wide"):
+    _args = SIGNATURES[f"vkpt_{_name}_closest_hit"]
+    _at = len(_args) - 7     # after t_lane: n, 4 outputs, batches, stream
+    SIGNATURES[f"vkpt_{_name}_closest_hit_chan"] = (
+        _args[:_at] + _CHAN + _args[_at:])
 
 
 def bind(handle: ctypes.CDLL) -> ctypes.CDLL:
@@ -238,6 +246,45 @@ def _check_rays(origin, direction, t_lane, device):
             raise ValueError(f"{name} lies on {x.device}, tables on {device}")
 
 
+def _channels(n: int, device, t_near, seed):
+    """The channel builds' pointers (t_near, seed t, tri, u, v), None
+    (null) where the channel is not given: ``t_near`` (n,) f32, ``seed``
+    a (t, tri, u, v) of (n,) f32, int32, f32, f32, on ``device``."""
+    given = [("t_near", t_near, torch.float32)]
+    if seed is not None:
+        given += zip(("seed_t", "seed_tri", "seed_u", "seed_v"), seed,
+                     (torch.float32, torch.int32, torch.float32,
+                      torch.float32))
+    ptrs = {}
+    for name, x, dtype in given:
+        if x is None:
+            continue
+        _check(name, x, dtype, (n,), align=4)
+        if x.device != device:
+            raise ValueError(f"{name} lies on {x.device}, rays on {device}")
+        ptrs[name] = x.data_ptr()
+    return [ptrs.get(k) for k in ("t_near", "seed_t", "seed_tri", "seed_u",
+                                  "seed_v")]
+
+
+def _closest(name: str, fn, head, origin, direction, t_lane, t_near=None,
+             seed=None):
+    """Launch closest-hit launcher ``fn`` (``head``: its table
+    arguments), or its channel build ``fn + "_chan"`` when ``t_near`` or
+    ``seed`` is given; returns (t, tri, u, v)."""
+    n = origin.shape[0]
+    out = _hit_outputs(n, origin.device)
+    rays = _ptrs(origin, direction, t_lane)
+    if t_near is None and seed is None:
+        _launch(name, origin.device, getattr(lib(), fn), *head, *rays, n,
+                *_ptrs(*out), batches=n)
+    else:
+        _launch(name + "_chan", origin.device, getattr(lib(), fn + "_chan"),
+                *head, *rays, *_channels(n, origin.device, t_near, seed), n,
+                *_ptrs(*out), batches=n)
+    return out
+
+
 def _hit_outputs(n: int, device):
     t = torch.empty(n, dtype=torch.float32, device=device)
     tri = torch.empty(n, dtype=torch.int32, device=device)
@@ -279,32 +326,28 @@ def _launch(name: str, device, fn, *args, batches: int = None) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def quad_closest_hit(box, link, leaves, origin, direction, t_lane):
+def quad_closest_hit(box, link, leaves, origin, direction, t_lane,
+                     seed=None):
     """Launch the quad closest-hit kernel (coefficient leaves when
-    ``leaves`` is a coefficient table); returns (t, tri, u, v)."""
+    ``leaves`` is a coefficient table), or its channel build from
+    ``seed`` (t, tri, u, v); returns (t, tri, u, v)."""
     coef = _check_tables(box, link, leaves)
     _check_rays(origin, direction, t_lane, box.device)
-    n = origin.shape[0]
-    out = _hit_outputs(n, origin.device)
-    _launch("quad_closest_hit", origin.device, lib().vkpt_quad_closest_hit,
-            box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
-            leaves.shape[1], coef, *_ptrs(origin, direction, t_lane), n,
-            *_ptrs(*out), batches=n)
-    return out
+    return _closest("quad_closest_hit", "vkpt_quad_closest_hit",
+                    (box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
+                     leaves.shape[1], coef), origin, direction, t_lane,
+                    seed=seed)
 
 
-def oct_closest_hit(box, link, leaves, origin, direction, t_lane):
-    """Launch the oct closest-hit kernel (exact leaves); returns
-    (t, tri, u, v)."""
+def oct_closest_hit(box, link, leaves, origin, direction, t_lane,
+                    seed=None):
+    """Launch the oct closest-hit kernel (exact leaves), or its channel
+    build from ``seed``; returns (t, tri, u, v)."""
     _check_tables(box, link, leaves, width=8, coef_ok=False)
     _check_rays(origin, direction, t_lane, box.device)
-    n = origin.shape[0]
-    out = _hit_outputs(n, origin.device)
-    _launch("oct_closest_hit", origin.device, lib().vkpt_oct_closest_hit,
-            box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
-            leaves.shape[1], *_ptrs(origin, direction, t_lane), n,
-            *_ptrs(*out), batches=n)
-    return out
+    return _closest("oct_closest_hit", "vkpt_oct_closest_hit",
+                    (box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
+                     leaves.shape[1]), origin, direction, t_lane, seed=seed)
 
 
 def quad_any_hit(box, link, leaves, origin, direction, t_lane):
@@ -431,21 +474,21 @@ def summarize_stack_stats(counters) -> dict:
 
 
 def pair_closest_hit(box, link, leaves, origin, direction, t_lane,
-                     inst_inv=None, mb_bits: int = 0, inst_feat=None):
+                     inst_inv=None, mb_bits: int = 0, inst_feat=None,
+                     t_near=None, seed=None):
     """Launch the pair closest-hit kernel (instanced when ``inst_inv`` is
     given; coefficient leaves when ``leaves`` is a coefficient table, with
-    ``inst_feat`` on a two-level scene); returns (t, tri, u, v)."""
+    ``inst_feat`` on a two-level scene), or its channel build from
+    ``t_near`` (n,) and ``seed`` (t, tri, u, v); returns (t, tri, u,
+    v)."""
     coef = _check_tables(box, link, leaves, width=2)
     _check_rays(origin, direction, t_lane, box.device)
     inst = _check_inst(inst_inv, mb_bits, box.device)
     feat = _check_feat(inst_feat, inst, coef, box.device)
-    n = origin.shape[0]
-    out = _hit_outputs(n, origin.device)
-    _launch("pair_closest_hit", origin.device, lib().vkpt_pair_closest_hit,
-            box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
-            leaves.shape[1], coef, inst, feat, mb_bits,
-            *_ptrs(origin, direction, t_lane), n, *_ptrs(*out), batches=n)
-    return out
+    return _closest("pair_closest_hit", "vkpt_pair_closest_hit",
+                    (box.data_ptr(), link.data_ptr(), leaves.data_ptr(),
+                     leaves.shape[1], coef, inst, feat, mb_bits), origin,
+                    direction, t_lane, t_near, seed)
 
 
 def pair_any_hit(box, link, leaves, origin, direction, t_lane,
@@ -473,20 +516,19 @@ def _frontier_width(box) -> int:
     return width
 
 
-def frontier_closest_hit(box, link, leaves, origin, direction, t_lane):
+def frontier_closest_hit(box, link, leaves, origin, direction, t_lane,
+                         t_near=None, seed=None):
     """Launch the frontier closest-hit kernel (width 16 or 32 from the
-    table; coefficient leaves when ``leaves`` is a coefficient table); returns
-    (t, tri, u, v)."""
+    table; coefficient leaves when ``leaves`` is a coefficient table), or
+    its channel build from ``t_near`` and ``seed``; returns (t, tri, u,
+    v)."""
     width = _frontier_width(box)
     coef = _check_tables(box, link, leaves, width=width)
     _check_rays(origin, direction, t_lane, box.device)
-    n = origin.shape[0]
-    out = _hit_outputs(n, origin.device)
-    _launch("frontier_closest_hit", origin.device,
-            lib().vkpt_frontier_closest_hit, box.data_ptr(), link.data_ptr(),
-            width, leaves.data_ptr(), leaves.shape[1], coef,
-            *_ptrs(origin, direction, t_lane), n, *_ptrs(*out), batches=n)
-    return out
+    return _closest("frontier_closest_hit", "vkpt_frontier_closest_hit",
+                    (box.data_ptr(), link.data_ptr(), width,
+                     leaves.data_ptr(), leaves.shape[1], coef), origin,
+                    direction, t_lane, t_near, seed)
 
 
 def frontier_any_hit(box, link, leaves, origin, direction, t_lane):
@@ -530,19 +572,17 @@ def _check_skip(nodes, leaves, origin, direction, t_lane, inst_inv,
 
 
 def skip_closest_hit(nodes, leaves, origin, direction, t_lane,
-                     inst_inv=None, mb_bits: int = 0):
+                     inst_inv=None, mb_bits: int = 0, t_near=None,
+                     seed=None):
     """Launch the skip-record closest-hit kernel over the 8 octant
-    preorders (instanced when ``inst_inv`` is given); returns
-    (t, tri, u, v)."""
+    preorders (instanced when ``inst_inv`` is given), or its channel
+    build from ``t_near`` and ``seed``; returns (t, tri, u, v)."""
     inst = _check_skip(nodes, leaves, origin, direction, t_lane, inst_inv,
                        mb_bits)
-    n = origin.shape[0]
-    out = _hit_outputs(n, origin.device)
-    _launch("skip_closest_hit", origin.device, lib().vkpt_skip_closest_hit,
-            nodes.data_ptr(), nodes.shape[0] // 8, leaves.data_ptr(),
-            leaves.shape[1], inst, mb_bits,
-            *_ptrs(origin, direction, t_lane), n, *_ptrs(*out), batches=n)
-    return out
+    return _closest("skip_closest_hit", "vkpt_skip_closest_hit",
+                    (nodes.data_ptr(), nodes.shape[0] // 8,
+                     leaves.data_ptr(), leaves.shape[1], inst, mb_bits),
+                    origin, direction, t_lane, t_near, seed)
 
 
 def skip_stats(nodes, leaves, origin, direction, t_lane, inst_inv=None,
@@ -584,14 +624,11 @@ def wide_stats(tiles, leaves, origin, direction, t_lane):
     return out, st.cpu().tolist()
 
 
-def wide_closest_hit(tiles, leaves, origin, direction, t_lane):
-    """Launch the 8-wide tile closest-hit kernel; returns
-    (t, tri, u, v)."""
+def wide_closest_hit(tiles, leaves, origin, direction, t_lane, seed=None):
+    """Launch the 8-wide tile closest-hit kernel, or its channel build
+    from ``seed``; returns (t, tri, u, v)."""
     _check_wide(tiles, leaves, origin, direction, t_lane)
-    n = origin.shape[0]
-    out = _hit_outputs(n, origin.device)
-    _launch("wide_closest_hit", origin.device, lib().vkpt_wide_closest_hit,
-            tiles.data_ptr(), tiles.shape[0] // 8, leaves.data_ptr(),
-            leaves.shape[1], *_ptrs(origin, direction, t_lane), n,
-            *_ptrs(*out), batches=n)
-    return out
+    return _closest("wide_closest_hit", "vkpt_wide_closest_hit",
+                    (tiles.data_ptr(), tiles.shape[0] // 8,
+                     leaves.data_ptr(), leaves.shape[1]), origin, direction,
+                    t_lane, seed=seed)

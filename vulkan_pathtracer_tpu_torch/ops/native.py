@@ -187,6 +187,22 @@ def bake_triangles_native(positions: np.ndarray, indices: np.ndarray,
     return v0, e1, e2, gn
 
 
+def transform_points_native(points: np.ndarray, A: np.ndarray,
+                            t: np.ndarray):
+    """Point transform by a 3x3 ``A`` and a translation ``t`` (f32 in
+    and out, the products in float64): world-space positions."""
+    lib = get_lib()
+    out = np.empty((points.shape[0], 3), np.float32)
+    lib.transform_points(
+        np.ascontiguousarray(points, np.float32).reshape(-1),
+        points.shape[0],
+        np.ascontiguousarray(A, np.float64).reshape(-1),
+        np.ascontiguousarray(t, np.float64).reshape(-1),
+        out.reshape(-1),
+    )
+    return out
+
+
 def transform_dirs_native(dirs: np.ndarray, N: np.ndarray):
     """Direction transform by a 3x3 (normals/tangents)."""
     lib = get_lib()

@@ -30,8 +30,11 @@ lane of a visited leaf, each ray descends on its own box test and runs
 a leaf only when its own box is hit: the hits are the same up to ties
 of equal t and slab-versus-MT rounding.
 
-The kernel-5 seed channels (7-10) and ``t_near`` window (channel 11)
-are set on no default path and are not ported.
+The seed channels (7-10) of kernels 5-9 start each ray's best hit
+from a given hit (both wrappers, ``seed``), and the ``t_near`` window
+(channel 11) of ``pallas_closest_hit`` bounds its hits below
+(``skip_closest_hit``, with ``t_far`` folded into t_lane); a seeded or
+windowed launch runs the kernel's channel build.
 
 The wrappers dispatch on the device of the rays: CPU tensors run the
 plain version, CUDA tensors launch the kernel, anything else raises.
@@ -41,11 +44,14 @@ from __future__ import annotations
 
 import torch
 
-from vulkan_pathtracer_tpu_torch.ops.intersect import Hit, MISS_T
+from vulkan_pathtracer_tpu_torch.ops.intersect import Hit
 from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
     _dispatch,
+    _launch_name,
     _safe_inv,
+    channel_args,
     lane_limits,
+    start_hits,
 )
 from vulkan_pathtracer_tpu_torch.ops.traverse import (
     leaf_visit,
@@ -57,29 +63,28 @@ from vulkan_pathtracer_tpu_torch.ops.traverse import (
 
 def skip_closest_hit_plain(nodes, leaves, origin, direction, t_lane,
                            inst_inv=None, mb_bits: int = 0,
-                           stats=None) -> Hit:
+                           stats=None, t_near=None, seed=None) -> Hit:
     """Plain version of the skip kernel (any device); ``inst_inv`` set
-    = the instanced leaf decode.  ``stats``, a dict, accumulates node
+    = the instanced leaf decode; ``t_near`` (n,) and ``seed`` (t, tri,
+    u, v), its channel build.  ``stats``, a dict, accumulates node
     visits, leaf-block visits and the early exits of the kernel's
     triangle test (ops/traverse.skip_walk)."""
     return skip_walk(nodes, leaves, origin, direction, t_lane, "hoisted",
-                     inst_inv, mb_bits, stats)
+                     inst_inv, mb_bits, stats, seed, t_near)
 
 
 def wide_closest_hit_plain(tiles, leaves, origin, direction, t_lane,
-                           stats=None) -> Hit:
+                           stats=None, seed=None) -> Hit:
     """Plain version of the wide kernel (any device) over (8*Nw, 8, 8)
-    slot tiles; ``stats``, a dict, accumulates tile visits, leaf-block
-    visits and the early exits of their triangle tests (_leaf_mt)."""
+    slot tiles, from ``seed`` (t, tri, u, v; its channel build) when
+    given; ``stats``, a dict, accumulates tile visits, leaf-block visits
+    and the early exits of their triangle tests (_leaf_mt)."""
     dev = origin.device
     n = origin.shape[0]
     n_wide = tiles.shape[0] // 8
     inv = _safe_inv(direction)
     base = octant_of(direction) * n_wide
-    best = [torch.full((n,), MISS_T, dtype=torch.float32, device=dev),
-            torch.full((n,), -1, dtype=torch.int32, device=dev),
-            torch.zeros(n, dtype=torch.float32, device=dev),
-            torch.zeros(n, dtype=torch.float32, device=dev)]
+    best = start_hits(n, dev, seed)
     cur = torch.where(t_lane >= 0, 0, n_wide).to(torch.int64)
     if stats is not None:
         for key in ("node_visits", "leaf_visits", "tri_back", "tri_u",
@@ -111,10 +116,11 @@ def wide_closest_hit_plain(tiles, leaves, origin, direction, t_lane,
 
 # -- wrappers ---------------------------------------------------------------
 
-def skip_args(scene, origin, direction, active):
-    """The skip kernel's arguments: records, leaves, rays, t_lane and
-    the instance table (None for a flat scene) with its mb_bits."""
-    t_lane = lane_limits(origin.shape[0], active, origin.device)
+def skip_args(scene, origin, direction, active, t_far=None):
+    """The skip kernel's arguments: records, leaves, rays, t_lane
+    (``t_far`` folded in) and the instance table (None for a flat scene)
+    with its mb_bits."""
+    t_lane = lane_limits(origin.shape[0], active, origin.device, t_far)
     inst_inv, mb_bits = ((scene.inst_inv, scene.mb_bits) if scene.instanced
                          else (None, 0))
     return (scene.skip_nodes, scene.leaves, origin, direction, t_lane,
@@ -130,25 +136,31 @@ def wide_args(scene, origin, direction, active):
             lane_limits(origin.shape[0], active, origin.device))
 
 
-def skip_closest_hit(scene, origin, direction, active=None) -> Hit:
+def skip_closest_hit(scene, origin, direction, active=None, seed=None,
+                     t_near=None, t_far=None) -> Hit:
     """Closest hit of the skip walk over the scene's 8 octant preorders
-    (pallas_closest_hit and its variants), flat or instanced.  Inactive
-    lanes return t = MISS_T, tri = -1, u = v = 0."""
+    (pallas_closest_hit and its variants), flat or instanced: from
+    ``seed`` (a Hit), and only hits in [t_near, t_far) when those are
+    given (scalars or (n,)).  Inactive lanes return t = MISS_T, tri =
+    -1, u = v = 0, or their seed."""
     from vulkan_pathtracer_tpu_torch.ops import kernels
 
-    args = skip_args(scene, origin, direction, active)
-    return _dispatch("skip_closest_hit", origin,
-                     lambda: skip_closest_hit_plain(*args),
-                     lambda: Hit(*kernels.skip_closest_hit(*args)))
+    args = skip_args(scene, origin, direction, active, t_far)
+    kw = channel_args(origin, seed, t_near)
+    return _dispatch(_launch_name("skip_closest_hit", chan=kw), origin,
+                     lambda: skip_closest_hit_plain(*args, **kw),
+                     lambda: Hit(*kernels.skip_closest_hit(*args, **kw)))
 
 
-def wide_closest_hit(scene, origin, direction, active=None) -> Hit:
+def wide_closest_hit(scene, origin, direction, active=None,
+                     seed=None) -> Hit:
     """Closest hit of the 8-wide tile walk (pallas_wide_closest_hit),
-    flat scenes.  Inactive lanes return t = MISS_T, tri = -1,
-    u = v = 0."""
+    flat scenes, from ``seed`` (a Hit) when given.  Inactive lanes
+    return t = MISS_T, tri = -1, u = v = 0, or their seed."""
     from vulkan_pathtracer_tpu_torch.ops import kernels
 
     args = wide_args(scene, origin, direction, active)
-    return _dispatch("wide_closest_hit", origin,
-                     lambda: wide_closest_hit_plain(*args),
-                     lambda: Hit(*kernels.wide_closest_hit(*args)))
+    kw = channel_args(origin, seed)
+    return _dispatch(_launch_name("wide_closest_hit", chan=kw), origin,
+                     lambda: wide_closest_hit_plain(*args, **kw),
+                     lambda: Hit(*kernels.wide_closest_hit(*args, **kw)))

@@ -65,7 +65,19 @@ the same order):
 - a popped node whose stored entry distance exceeds the current
   min(t_best, t_lane) is skipped: its children's boxes lie inside its
   box, so none of them could pass the slab test (exact);
-- an inactive lane (t_lane < 0) returns a miss without traversing;
+- an inactive lane (t_lane < 0) returns a miss without traversing (its
+  seed, when seeded);
+- the closest hits' channels (the Pallas kernels' channels 7-11,
+  pallas_traverse.py:118-130; the kernels' channel builds): a ``seed``
+  hit (t, tri, u, v) that each ray's best hit starts from, so a node
+  or triangle must beat it, strictly (the seed wins ties); and, on the
+  pair kernels, a closed lower bound ``t_near`` of the lane's t-window:
+  the slab's entry is clamped to max(t_near, TMIN) instead of TMIN,
+  and a triangle is accepted only at t >= t_near (pallas_pair.py:713,
+  :783; coefficient leaves test the divided t, as mt_coef_visit's
+  ``tnear_f``).  The wrappers fold ``t_far`` into t_lane
+  (pallas_pair.py:2333-2338), so [t_near, t_far) windows tile [TMIN,
+  inf) exactly;
 - any hit uses t_lim = t_lane throughout and stops at the first
   accepted triangle, so its bit equals ``closest.t < MISS_T``; the quad
   and pair any hits visit hit children, leaves and internal nodes, in
@@ -99,7 +111,8 @@ INV_EPS = 1e-20
 
 # Kernel launches per wrapper (CUDA path only), this module's,
 # ops/skip_traverse.py's and ops/frontier.py's; a ``_coef`` key counts
-# the kernel built with coefficient leaves.  chip_smoke.py zeroes these
+# the kernel built with coefficient leaves, a ``_chan`` key its channel
+# build (a seeded or windowed launch).  chip_smoke.py zeroes these
 # before a main path and reads them after it.
 LAUNCHES = {"quad_closest_hit": 0, "quad_any_hit": 0,
             "pair_closest_hit": 0, "pair_any_hit": 0,
@@ -109,6 +122,10 @@ LAUNCHES = {"quad_closest_hit": 0, "quad_any_hit": 0,
             "quad_any_hit_coef": 0, "pair_closest_hit_coef": 0,
             "pair_any_hit_coef": 0, "frontier_closest_hit_coef": 0,
             "frontier_any_hit_coef": 0}
+LAUNCHES.update({k + "_chan": 0 for k in (
+    "quad_closest_hit", "quad_closest_hit_coef", "oct_closest_hit",
+    "pair_closest_hit", "pair_closest_hit_coef", "frontier_closest_hit",
+    "frontier_closest_hit_coef", "skip_closest_hit", "wide_closest_hit")})
 
 
 def _assert_depth(depth: int, what: str) -> None:
@@ -412,10 +429,28 @@ def _coef_rays(inst_inv, inst_feat, mb_bits: int, leaf, o, d):
     return leaf & ((1 << mb_bits) - 1), feats, inst_inv[inst, 12]
 
 
+def start_hits(n: int, device, seed=None):
+    """[t, tri, u, v] of n lanes' starting best hits: copies of the
+    ``seed`` (t, tri, u, v), else misses (t = MISS_T, tri = -1)."""
+    if seed is not None:
+        return [x.clone() for x in seed]
+    return [torch.full((n,), MISS_T, dtype=torch.float32, device=device),
+            torch.full((n,), -1, dtype=torch.int32, device=device),
+            torch.zeros(n, dtype=torch.float32, device=device),
+            torch.zeros(n, dtype=torch.float32, device=device)]
+
+
+def window_floor(t_near):
+    """The lanes' closed lower bounds max(t_near, TMIN) (Ray::tn of the
+    channel builds), or None without a window."""
+    return None if t_near is None else torch.clamp(t_near, min=TMIN)
+
+
 def _traverse_plain(box, link, leaves, origin, direction, t_lane,
                     any_hit: bool, near_leaves: bool, inst_inv=None,
                     mb_bits: int = 0, leaf_visits=None, stats=None,
-                    inst_feat=None, sortnet=None, slot_order: bool = False):
+                    inst_feat=None, sortnet=None, slot_order: bool = False,
+                    seed=None, t_near=None):
     """Per-ray stack traversal with tensor ops over a width-W table
     (W = box.shape[1]): every live ray advances one node per iteration.
     ``near_leaves`` orders a row's leaf children by entry distance (the
@@ -432,8 +467,10 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
     ray's previous leaf visit (``instance_changes``), and (``sortnet``)
     the visited nodes with 0, 1, 2 or more hit internal children
     (``inner_0`` .. ``inner_2``; the network has work only at the
-    last).  Returns (t, tri, u, v) for closest hit or a bool tensor for
-    any hit."""
+    last).  A closest hit's ``seed`` (t, tri, u, v) starts each ray's
+    best hit, and ``t_near`` (n,) bounds its window below
+    (window_floor).  Returns (t, tri, u, v) for closest hit or a bool
+    tensor for any hit."""
     dev = origin.device
     n = origin.shape[0]
     width = box.shape[1]
@@ -442,10 +479,8 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
     inv = _safe_inv(direction)
     oxi = origin * inv
 
-    t_best = torch.full((n,), MISS_T, dtype=torch.float32, device=dev)
-    tri_best = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    u_best = torch.zeros(n, dtype=torch.float32, device=dev)
-    v_best = torch.zeros(n, dtype=torch.float32, device=dev)
+    t_best, tri_best, u_best, v_best = start_hits(n, dev, seed)
+    floor = window_floor(t_near)
     resolved = torch.zeros(n, dtype=torch.bool, device=dev)
 
     stack_size = STACK_SLOTS[width]
@@ -485,8 +520,9 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
         t1 = b[..., 3:6] * inv_i - oxi_i
         mn = torch.minimum(t0, t1)
         mx = torch.maximum(t0, t1)
-        tn = torch.maximum(torch.maximum(mn[..., 0], mn[..., 1]),
-                           torch.clamp(mn[..., 2], min=TMIN))
+        lo_z = (torch.clamp(mn[..., 2], min=TMIN) if floor is None
+                else torch.maximum(mn[..., 2], floor[idx][:, None]))
+        tn = torch.maximum(torch.maximum(mn[..., 0], mn[..., 1]), lo_z)
         tf = torch.minimum(torch.minimum(mx[..., 0], mx[..., 1]),
                            torch.minimum(mx[..., 2], t_lim[:, None]))
         slot_hit = (tn <= tf) & (lk != EMPTY) & visit[:, None]
@@ -547,6 +583,8 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
                                        d_r[:, None, :], det_sign, stats)
             lim = tl_r if any_hit else torch.minimum(t_best[rays], tl_r)
             acc = ok & (t < lim[:, None])
+            if floor is not None:
+                acc = acc & (t >= floor[rays][:, None])
             found = acc.any(dim=1)
             if any_hit:
                 done[j] = found
@@ -592,12 +630,15 @@ def _traverse_plain(box, link, leaves, origin, direction, t_lane,
 
 
 def quad_closest_hit_plain(quad_box, quad_link, leaves, origin, direction,
-                           t_lane, leaf_visits=None, stats=None) -> Hit:
+                           t_lane, leaf_visits=None, stats=None,
+                           seed=None) -> Hit:
     """Plain version of the quad closest-hit kernel (any device); a
-    coefficient table in ``leaves`` selects its coefficient leaves."""
+    coefficient table in ``leaves`` selects its coefficient leaves; a
+    ``seed`` (t, tri, u, v), its channel build."""
     t, tri, u, v = _traverse_plain(quad_box, quad_link, leaves, origin,
                                    direction, t_lane, False, False,
-                                   leaf_visits=leaf_visits, stats=stats)
+                                   leaf_visits=leaf_visits, stats=stats,
+                                   seed=seed)
     return Hit(t=t, tri=tri, u=u, v=v)
 
 
@@ -612,25 +653,30 @@ def quad_any_hit_plain(quad_box, quad_link, leaves, origin, direction,
 
 
 def oct_closest_hit_plain(oct_box, oct_link, leaves, origin, direction,
-                          t_lane, leaf_visits=None, stats=None) -> Hit:
+                          t_lane, leaf_visits=None, stats=None,
+                          seed=None) -> Hit:
     """Plain version of the oct closest-hit kernel (any device): the
-    quad walk over the 8-wide table, exact leaves."""
+    quad walk over the 8-wide table, exact leaves; a ``seed``, its
+    channel build."""
     t, tri, u, v = _traverse_plain(oct_box, oct_link, leaves, origin,
                                    direction, t_lane, False, False,
-                                   leaf_visits=leaf_visits, stats=stats)
+                                   leaf_visits=leaf_visits, stats=stats,
+                                   seed=seed)
     return Hit(t=t, tri=tri, u=u, v=v)
 
 
 def pair_closest_hit_plain(pair_box, pair_link, leaves, origin, direction,
                            t_lane, inst_inv=None, mb_bits: int = 0,
                            inst_feat=None, leaf_visits=None,
-                           stats=None) -> Hit:
+                           stats=None, t_near=None, seed=None) -> Hit:
     """Plain version of the pair closest-hit kernel (any device);
     ``inst_inv`` set = the instanced leaf decode (with ``inst_feat``
-    under coefficient leaves)."""
+    under coefficient leaves); ``t_near`` (n,) and ``seed`` (t, tri, u,
+    v), its channel build."""
     t, tri, u, v = _traverse_plain(pair_box, pair_link, leaves, origin,
                                    direction, t_lane, False, True, inst_inv,
-                                   mb_bits, leaf_visits, stats, inst_feat)
+                                   mb_bits, leaf_visits, stats, inst_feat,
+                                   seed=seed, t_near=t_near)
     return Hit(t=t, tri=tri, u=u, v=v)
 
 
@@ -648,13 +694,35 @@ def pair_any_hit_plain(pair_box, pair_link, leaves, origin, direction,
 
 # -- wrappers ---------------------------------------------------------------
 
-def lane_limits(n: int, active, device) -> torch.Tensor:
-    """Per-ray t limit: TMAX, or -1 (inactive) where ``active`` is False."""
+def lane_limits(n: int, active, device, t_far=None) -> torch.Tensor:
+    """Per-ray t limit: TMAX, or min(t_far, TMAX) for a ``t_far`` (a
+    scalar or (n,)), and -1 (inactive) where ``active`` is False
+    (pallas_pair.py:2333-2338)."""
     t_lane = torch.full((n,), TMAX, dtype=torch.float32, device=device)
+    if t_far is not None:
+        t_lane = torch.minimum(lane_values(t_far, n, device), t_lane)
     if active is not None:
         t_lane = torch.where(active, t_lane,
                              torch.full_like(t_lane, -1.0))
     return t_lane
+
+
+def lane_values(x, n: int, device) -> torch.Tensor:
+    """A scalar or (n,) per-lane value as a contiguous (n,) f32 tensor."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    return x.expand(n).contiguous()
+
+
+def channel_args(origin, seed=None, t_near=None) -> dict:
+    """The plain versions' and kernels' channel keywords: ``seed`` (a
+    Hit or (t, tri, u, v)) as contiguous tensors, ``t_near`` (a scalar or
+    (n,)) as (n,) f32; only the channels given."""
+    out = {}
+    if seed is not None:
+        out["seed"] = tuple(x.contiguous() for x in seed)
+    if t_near is not None:
+        out["t_near"] = lane_values(t_near, origin.shape[0], origin.device)
+    return out
 
 
 def _dispatch(name: str, origin, plain, launch):
@@ -683,8 +751,11 @@ def leaf_table(scene, coef: bool):
     return scene.tri_coefs
 
 
-def _launch_name(name: str, coef: bool) -> str:
-    return name + "_coef" if coef else name
+def _launch_name(name: str, coef: bool = False, chan=None) -> str:
+    """The LAUNCHES key of kernel ``name``: ``_coef`` for coefficient
+    leaves, ``_chan`` for its channel build (``chan``: channel_args
+    that are not empty)."""
+    return name + ("_coef" if coef else "") + ("_chan" if chan else "")
 
 
 def quad_args(scene, origin, direction, active, coef: bool = False):
@@ -694,11 +765,13 @@ def quad_args(scene, origin, direction, active, coef: bool = False):
             lane_limits(origin.shape[0], active, origin.device))
 
 
-def pair_args(scene, origin, direction, active, coef: bool = False):
-    """The pair kernels' arguments: tables, rays, t_lane, the instance
-    table (None for a flat scene) with its mb_bits, and the instance
-    feature transforms (two-level scenes with coefficient leaves)."""
-    t_lane = lane_limits(origin.shape[0], active, origin.device)
+def pair_args(scene, origin, direction, active, coef: bool = False,
+              t_far=None):
+    """The pair kernels' arguments: tables, rays, t_lane (``t_far``
+    folded in), the instance table (None for a flat scene) with its
+    mb_bits, and the instance feature transforms (two-level scenes with
+    coefficient leaves)."""
+    t_lane = lane_limits(origin.shape[0], active, origin.device, t_far)
     inst_inv, mb_bits = ((scene.inst_inv, scene.mb_bits) if scene.instanced
                          else (None, 0))
     inst_feat = None
@@ -712,16 +785,18 @@ def pair_args(scene, origin, direction, active, coef: bool = False):
 
 
 def quad_closest_hit(scene, origin, direction, active=None,
-                     coef: bool = False) -> Hit:
+                     coef: bool = False, seed=None) -> Hit:
     """Closest hit over the scene's quad tables (pallas_quad_closest_hit;
-    ``coef``: the coefficient leaves of VKPT_MT=mxu).  Inactive lanes
-    return t = MISS_T, tri = -1, u = v = 0."""
+    ``coef``: the coefficient leaves of VKPT_MT=mxu; ``seed``, a Hit:
+    each ray's starting best hit, the channel build).  Inactive lanes
+    return t = MISS_T, tri = -1, u = v = 0, or their seed."""
     from vulkan_pathtracer_tpu_torch.ops import kernels
 
     args = quad_args(scene, origin, direction, active, coef)
-    return _dispatch(_launch_name("quad_closest_hit", coef), origin,
-                     lambda: quad_closest_hit_plain(*args),
-                     lambda: Hit(*kernels.quad_closest_hit(*args)))
+    kw = channel_args(origin, seed)
+    return _dispatch(_launch_name("quad_closest_hit", coef, kw), origin,
+                     lambda: quad_closest_hit_plain(*args, **kw),
+                     lambda: Hit(*kernels.quad_closest_hit(*args, **kw)))
 
 
 def quad_any_hit(scene, origin, direction, active=None,
@@ -737,29 +812,35 @@ def quad_any_hit(scene, origin, direction, active=None,
                      lambda: kernels.quad_any_hit(*args))
 
 
-def oct_closest_hit(scene, origin, direction, active=None) -> Hit:
+def oct_closest_hit(scene, origin, direction, active=None,
+                    seed=None) -> Hit:
     """Closest hit over the scene's oct tables (pallas_oct_closest_hit),
-    exact leaves.  Inactive lanes return t = MISS_T, tri = -1."""
+    exact leaves, from ``seed`` when given.  Inactive lanes return t =
+    MISS_T, tri = -1, or their seed."""
     from vulkan_pathtracer_tpu_torch.ops import kernels
 
     args = (scene.oct_box, scene.oct_link, scene.leaves, origin, direction,
             lane_limits(origin.shape[0], active, origin.device))
-    return _dispatch("oct_closest_hit", origin,
-                     lambda: oct_closest_hit_plain(*args),
-                     lambda: Hit(*kernels.oct_closest_hit(*args)))
+    kw = channel_args(origin, seed)
+    return _dispatch(_launch_name("oct_closest_hit", chan=kw), origin,
+                     lambda: oct_closest_hit_plain(*args, **kw),
+                     lambda: Hit(*kernels.oct_closest_hit(*args, **kw)))
 
 
 def pair_closest_hit(scene, origin, direction, active=None,
-                     coef: bool = False) -> Hit:
+                     coef: bool = False, seed=None, t_near=None,
+                     t_far=None) -> Hit:
     """Closest hit over the scene's pair tables (pallas_pair_closest_hit),
-    flat or instanced.  Inactive lanes return t = MISS_T, tri = -1,
-    u = v = 0."""
+    flat or instanced: from ``seed`` (a Hit), and only hits in [t_near,
+    t_far) when those are given (scalars or (n,)).  Inactive lanes return
+    t = MISS_T, tri = -1, u = v = 0, or their seed."""
     from vulkan_pathtracer_tpu_torch.ops import kernels
 
-    args = pair_args(scene, origin, direction, active, coef)
-    return _dispatch(_launch_name("pair_closest_hit", coef), origin,
-                     lambda: pair_closest_hit_plain(*args),
-                     lambda: Hit(*kernels.pair_closest_hit(*args)))
+    args = pair_args(scene, origin, direction, active, coef, t_far)
+    kw = channel_args(origin, seed, t_near)
+    return _dispatch(_launch_name("pair_closest_hit", coef, kw), origin,
+                     lambda: pair_closest_hit_plain(*args, **kw),
+                     lambda: Hit(*kernels.pair_closest_hit(*args, **kw)))
 
 
 def pair_any_hit(scene, origin, direction, active=None,

@@ -36,13 +36,16 @@ from __future__ import annotations
 
 import torch
 
-from vulkan_pathtracer_tpu_torch.ops.intersect import Hit, MISS_T, TMIN
+from vulkan_pathtracer_tpu_torch.ops.intersect import Hit, TMIN
 from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
     BIG,
     _leaf_mt,
     _object_rays,
     _safe_inv,
+    channel_args,
     lane_limits,
+    start_hits,
+    window_floor,
 )
 
 
@@ -52,11 +55,12 @@ def octant_of(direction: torch.Tensor) -> torch.Tensor:
     return neg[:, 0] + 2 * neg[:, 1] + 4 * neg[:, 2]
 
 
-def slab_hit(lo, hi, origin, inv, oxi, t_lim, form: str):
+def slab_hit(lo, hi, origin, inv, oxi, t_lim, form: str, floor=None):
     """Slab test of boxes (M, ..., 3) against rays (M, 3) broadcast over
     the middle axes: the hit mask.  tn = max(max(min x, min y),
     max(min z, TMIN)), tf = min(min(max x, max y), min(max z, t_lim)),
-    in the kernels' order (csrc/traverse.cuh)."""
+    in the kernels' order (csrc/traverse.cuh); the rays' window floors
+    (M,) (stack_traverse.window_floor) in place of TMIN when given."""
     shape = (lo.shape[0],) + (1,) * (lo.dim() - 2) + (3,)
     if form == "hoisted":
         t0 = lo * inv.view(shape) - oxi.view(shape)
@@ -66,8 +70,9 @@ def slab_hit(lo, hi, origin, inv, oxi, t_lim, form: str):
         t1 = (hi - origin.view(shape)) * inv.view(shape)
     mn = torch.minimum(t0, t1)
     mx = torch.maximum(t0, t1)
-    tn = torch.maximum(torch.maximum(mn[..., 0], mn[..., 1]),
-                       torch.clamp(mn[..., 2], min=TMIN))
+    lo_z = (torch.clamp(mn[..., 2], min=TMIN) if floor is None
+            else torch.maximum(mn[..., 2], floor.view(shape[:-1])))
+    tn = torch.maximum(torch.maximum(mn[..., 0], mn[..., 1]), lo_z)
     t_lim = t_lim.view(shape[:-1])
     tf = torch.minimum(torch.minimum(mx[..., 0], mx[..., 1]),
                        torch.minimum(mx[..., 2], t_lim))
@@ -75,14 +80,15 @@ def slab_hit(lo, hi, origin, inv, oxi, t_lim, form: str):
 
 
 def leaf_visit(leaves, origin, direction, rays, leaf, t_lane, best,
-               inst_inv=None, mb_bits: int = 0, exits=None):
+               inst_inv=None, mb_bits: int = 0, exits=None, floor=None):
     """Möller–Trumbore of rays ``rays`` (M,) against the blocks of leaf
     values ``leaf`` (M,) int64, updating ``best`` = [t, tri, u, v] in
-    place: the nearest accepted triangle below min(t_best, t_lane), the
-    first of equal t (a kernel's in-order strict-< accept).  A flat leaf
-    value is its block's first triangle, a two-level one the packed
-    ``inst << mb_bits | block`` (triangle ids value * block + k).
-    ``exits``, a dict, counts the early-exit test's exits (_leaf_mt)."""
+    place: the nearest accepted triangle below min(t_best, t_lane) (and
+    at or above the ray's ``floor``, (n,), when given), the first of
+    equal t (a kernel's in-order strict-< accept).  A flat leaf value is
+    its block's first triangle, a two-level one the packed ``inst <<
+    mb_bits | block`` (triangle ids value * block + k).  ``exits``, a
+    dict, counts the early-exit test's exits (_leaf_mt)."""
     t_best, tri_best, u_best, v_best = best
     block = leaves.shape[1]
     o_r, d_r = origin[rays], direction[rays]
@@ -99,6 +105,8 @@ def leaf_visit(leaves, origin, direction, rays, leaf, t_lane, best,
                            det_sign, exits)
     lim = torch.minimum(t_best[rays], t_lane[rays])
     acc = ok & (t < lim[:, None])
+    if floor is not None:
+        acc = acc & (t >= floor[rays][:, None])
     found = acc.any(dim=1)
     k = torch.argmin(torch.where(acc, t, torch.full_like(t, BIG)), dim=1)
     sel = torch.nonzero(found).squeeze(1)
@@ -111,10 +119,13 @@ def leaf_visit(leaves, origin, direction, rays, leaf, t_lane, best,
 
 
 def skip_walk(nodes, leaves, origin, direction, t_lane, form: str,
-              inst_inv=None, mb_bits: int = 0, stats=None) -> Hit:
+              inst_inv=None, mb_bits: int = 0, stats=None, seed=None,
+              t_near=None) -> Hit:
     """Closest hit of a per-ray walk over the 8 octant preorders of a
     skip record table ``nodes`` (8*Nn, 8) f32 (bmin | bmax | skip bits
-    | leaf bits).  Lanes with t_lane < 0 return a miss without walking.
+    | leaf bits), each ray from its ``seed`` (t, tri, u, v) when given,
+    and in its window [t_near, t_lane) when ``t_near`` (n,) is.  Lanes
+    with t_lane < 0 return a miss (their seed) without walking.
     ``stats``, a dict, accumulates node visits, leaf-block visits and
     the early exits of their triangle tests (_leaf_mt)."""
     dev = origin.device
@@ -124,10 +135,8 @@ def skip_walk(nodes, leaves, origin, direction, t_lane, form: str,
     inv = _safe_inv(direction)
     oxi = origin * inv
     base = octant_of(direction) * n_nodes
-    best = [torch.full((n,), MISS_T, dtype=torch.float32, device=dev),
-            torch.full((n,), -1, dtype=torch.int32, device=dev),
-            torch.zeros(n, dtype=torch.float32, device=dev),
-            torch.zeros(n, dtype=torch.float32, device=dev)]
+    best = start_hits(n, dev, seed)
+    floor = window_floor(t_near)
     cur = torch.where(t_lane >= 0, 0, n_nodes).to(torch.int64)
     if stats is not None:
         for key in ("node_visits", "leaf_visits", "tri_back", "tri_u",
@@ -140,7 +149,8 @@ def skip_walk(nodes, leaves, origin, direction, t_lane, form: str,
         skip, leaf = meta[rec, 0], meta[rec, 1]
         t_lim = torch.minimum(best[0][idx], t_lane[idx])
         hit = slab_hit(box[:, 0:3], box[:, 3:6], origin[idx], inv[idx],
-                          oxi[idx], t_lim, form)
+                       oxi[idx], t_lim, form,
+                       None if floor is None else floor[idx])
         is_leaf = leaf >= 0
         j = torch.nonzero(hit & is_leaf).squeeze(1)
         if stats is not None:
@@ -148,18 +158,22 @@ def skip_walk(nodes, leaves, origin, direction, t_lane, form: str,
             stats["leaf_visits"] += j.numel()
         if j.numel():
             leaf_visit(leaves, origin, direction, idx[j], leaf[j], t_lane,
-                       best, inst_inv, mb_bits, stats)
+                       best, inst_inv, mb_bits, stats, floor)
         cur[idx] = torch.where(hit & ~is_leaf, cur[idx] + 1, skip)
         idx = idx[cur[idx] < n_nodes]
     return Hit(*best)
 
 
-def bvh_closest_hit(scene, origin, direction, active=None) -> Hit:
+def bvh_closest_hit(scene, origin, direction, active=None,
+                    seed=None) -> Hit:
     """Closest hit of the XLA-traversal port (``--traversal bvh``) over
-    the scene's skip record, flat or two-level, on any device.
-    Inactive lanes return t = MISS_T, tri = -1, u = v = 0."""
+    the scene's skip record, flat or two-level, on any device, each ray
+    from its ``seed`` (a Hit) when given (JAX traverse.py:156-160).
+    Inactive lanes return t = MISS_T, tri = -1, u = v = 0, or their
+    seed."""
     t_lane = lane_limits(origin.shape[0], active, origin.device)
     inst_inv, mb_bits = ((scene.inst_inv, scene.mb_bits) if scene.instanced
                          else (None, 0))
     return skip_walk(scene.skip_nodes, scene.leaves, origin, direction,
-                     t_lane, "sub", inst_inv, mb_bits)
+                     t_lane, "sub", inst_inv, mb_bits,
+                     **channel_args(origin, seed))

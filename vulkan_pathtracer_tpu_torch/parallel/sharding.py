@@ -178,7 +178,10 @@ class ShardedRenderPipeline:
     """RenderPipeline's ``render`` over the ranks of a RenderGroup (the
     ``--devices N`` path of the CLI): the config's tiers (every
     ``--traversal`` and kernel tier, instanced scenes too) and sort
-    policy, the scene checked replicated."""
+    policy, the scene checked replicated.  ``seed_secondary`` is not
+    passed on: JAX's sharded renders call ``render_rows`` without it
+    (the JAX package's parallel/sharding.py:54, :79); RenderPipeline's
+    checks still refuse it on a two-level scene."""
 
     def __init__(self, scene, config, group: RenderGroup,
                  mode: str = "tiles"):

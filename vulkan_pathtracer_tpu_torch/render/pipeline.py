@@ -30,6 +30,7 @@ from vulkan_pathtracer_tpu_torch.ops import rng
 from vulkan_pathtracer_tpu_torch.ops.vecmath import normalize
 from vulkan_pathtracer_tpu_torch.render.wavefront import (
     JOINT_CHUNK,
+    check_seed_secondary,
     trace_progressive_batch,
     trace_sample,
     trace_wavefront_pooled,
@@ -166,10 +167,12 @@ def render_rows(scene, position, horizontal, vertical, forward, frame: int,
                 height: int, y_offset: int = 0, rows: int = None,
                 sort_secondary: bool = False, present_order: bool = True,
                 tiles=None, tiers="auto", russian_roulette: bool = False,
-                rr_start_bounce: int = 2):
+                rr_start_bounce: int = 2, seed_secondary: bool = False):
     """Render image rows [y_offset, y_offset + rows) through ``tiers``
     (a utils.config.Tiers or a ``--traversal`` name), with Russian
-    roulette from ``rr_start_bounce`` when ``russian_roulette``.  Returns
+    roulette from ``rr_start_bounce`` when ``russian_roulette``, and
+    seeded bounces (wavefront.trace_sample) under ``seed_secondary``.
+    Returns
     (image (rows, W, 3) f32, rays traced as an int64 0-d tensor).  With
     ``present_order=False`` radiance stays in tile (dispatch) order."""
     dev = position.device
@@ -187,7 +190,7 @@ def render_rows(scene, position, horizontal, vertical, forward, frame: int,
             scene, origin, direction, seed_x, seed_y,
             num_bounces=num_bounces, sort_secondary=sort_secondary,
             tiers=tiers, russian_roulette=russian_roulette,
-            rr_start_bounce=rr_start_bounce)
+            rr_start_bounce=rr_start_bounce, seed_secondary=seed_secondary)
         acc = acc + color
         rays = rays + traced
     if tile_inv is not None and present_order:
@@ -201,14 +204,15 @@ def render_frame(scene, position, horizontal, vertical, forward, frame: int,
                  height: int, sort_secondary: bool = False,
                  present_order: bool = True, tiles=None,
                  tiers="auto", russian_roulette: bool = False,
-                 rr_start_bounce: int = 2):
+                 rr_start_bounce: int = 2, seed_secondary: bool = False):
     """One full frame: (H, W, 3) f32 linear radiance + rays traced."""
     return render_rows(
         scene, position, horizontal, vertical, forward, frame,
         num_samples=num_samples, num_bounces=num_bounces, width=width,
         height=height, sort_secondary=sort_secondary,
         present_order=present_order, tiles=tiles, tiers=tiers,
-        russian_roulette=russian_roulette, rr_start_bounce=rr_start_bounce)
+        russian_roulette=russian_roulette, rr_start_bounce=rr_start_bounce,
+        seed_secondary=seed_secondary)
 
 
 def render_frames_batch(scene, position, horizontal, vertical, forward,
@@ -216,7 +220,8 @@ def render_frames_batch(scene, position, horizontal, vertical, forward,
                         num_bounces: int, width: int, height: int,
                         sort_secondary: bool = False, tiles=None,
                         tiers="auto", russian_roulette: bool = False,
-                        rr_start_bounce: int = 2):
+                        rr_start_bounce: int = 2,
+                        seed_secondary: bool = False):
     """The radiance SUM of frames frame0 .. frame0 + batch - 1 (JAX
     pipeline.py:359-416, a ``lax.scan`` there), rendered one after
     another and summed on the device in frame order.  Returns
@@ -230,7 +235,7 @@ def render_frames_batch(scene, position, horizontal, vertical, forward,
             num_samples=num_samples, num_bounces=num_bounces, width=width,
             height=height, sort_secondary=sort_secondary, tiles=tiles,
             tiers=tiers, russian_roulette=russian_roulette,
-            rr_start_bounce=rr_start_bounce)
+            rr_start_bounce=rr_start_bounce, seed_secondary=seed_secondary)
         acc = acc + image
         rays = rays + traced
     return acc, rays
@@ -304,10 +309,6 @@ class RenderPipeline:
     """Holds the scene + config and renders frames on the scene's device."""
 
     def __init__(self, scene, config: RenderConfig):
-        if config.seed_secondary:
-            raise NotImplementedError(
-                "seed_secondary: not yet ported in "
-                "vulkan_pathtracer_tpu_torch")
         traversal = config.traversal
         if traversal not in TRAVERSALS:
             raise ValueError(f"unknown traversal {traversal!r}")
@@ -318,6 +319,8 @@ class RenderPipeline:
                 and scene.wide_nodes is None):
             raise ValueError("traversal 'pallas8' needs the wide tiles: "
                              "bake with build_device_scene(..., wide=True)")
+        if config.seed_secondary:
+            check_seed_secondary(scene)
         tiers = Tiers.of(config)
         tiers.validate()
         self.scene = scene
@@ -348,7 +351,8 @@ class RenderPipeline:
             width=self.width, height=self.height,
             sort_secondary=self._sort_secondary,
             present_order=present_order, tiles=self._tiles,
-            tiers=self.tiers, **self._rr)
+            tiers=self.tiers, seed_secondary=self.config.seed_secondary,
+            **self._rr)
 
     def render_batch_sum(self, camera: Camera, frame0: int, batch: int,
                          joint: bool = None):
@@ -373,7 +377,7 @@ class RenderPipeline:
         return render_frames_batch(
             self.scene, position, horizontal, vertical, forward,
             int(frame0), batch=batch, num_samples=self.config.num_samples,
-            **kw)
+            seed_secondary=self.config.seed_secondary, **kw)
 
     def render_pooled(self, cameras, frames):
         """``len(cameras)`` frames, one camera and frame counter each, as

@@ -61,6 +61,16 @@ With ``sort_secondary`` the bounce rays are sorted by the 6d endpoint
 Morton key before traversal and the results scattered back; per-ray
 results do not depend on the order.
 
+With ``seed_secondary`` (``trace_sample`` only, as in JAX; the joint
+batch and the pooled wavefront ignore it) every closest-hit bounce
+after the first starts from a seed: the ``leaf_seed_hit`` pre-pass of
+each live ray against the leaf block of its previous hit (JAX
+wavefront.py:729-742).  Every tier but brute force takes the seed (its
+channel build on the card); brute force drops it, as JAX's does.  On a
+flat bake the seed is a hit of the scene, so the frame changes only
+where another triangle lies at the seed's exact t.  Two-level scenes
+refuse it (``check_seed_secondary``).
+
 Deviation kept from the JAX package: the pdf divide is clamped with
 ``max(density, 1e-30)``; lanes where that matters are already dead.
 """
@@ -187,11 +197,15 @@ def _any_tier(scene, tiers):
 
 
 def _closest_hit(scene, origin, direction, active, tiers="auto",
-                 phase: str = "primary") -> Hit:
+                 phase: str = "primary", seed=None) -> Hit:
     """Closest hit through the tier of ``tiers`` (a Tiers or a
-    ``--traversal`` name) for a bounce of ``phase``."""
+    ``--traversal`` name) for a bounce of ``phase``, from ``seed`` (a
+    Hit) when given; brute force drops the seed (JAX wavefront.py:215)."""
     fn = _closest_tier(scene, tiers, phase)
-    return fn(scene, origin.contiguous(), direction.contiguous(), active)
+    if seed is None or fn is intersect.brute_force_closest_hit:
+        return fn(scene, origin.contiguous(), direction.contiguous(), active)
+    return fn(scene, origin.contiguous(), direction.contiguous(), active,
+              seed=seed)
 
 
 def _any_hit(scene, origin, direction, active, tiers="auto") -> torch.Tensor:
@@ -249,13 +263,15 @@ def _sorted_order(scene, origin, direction, active):
 
 
 def _closest_hit_sorted(scene, origin, direction, active, tiers="auto",
-                        phase: str = "secondary") -> Hit:
-    """Closest hit with rays sorted by the bounce key, results
-    scattered back to lane order (identical per-ray results)."""
+                        phase: str = "secondary", seed=None) -> Hit:
+    """Closest hit with rays sorted by the bounce key (the ``seed`` with
+    them), results scattered back to lane order (identical per-ray
+    results)."""
     order, inv = _sorted_order(scene, origin, direction, active)
     act_s = None if active is None else active[order]
+    seed_s = None if seed is None else Hit(*(x[order] for x in seed))
     hit = _closest_hit(scene, origin[order], direction[order], act_s,
-                       tiers, phase)
+                       tiers, phase, seed_s)
     return Hit(t=hit.t[inv], tri=hit.tri[inv], u=hit.u[inv], v=hit.v[inv])
 
 
@@ -382,16 +398,50 @@ def _shade_and_extend(scene, hit, origin, direction, atten, color, seed_x,
     return origin, direction, atten, color, seed_x, seed_y, alive
 
 
+def check_seed_secondary(scene) -> None:
+    """Raise ValueError for ``seed_secondary`` on a two-level scene.  JAX
+    seeds one (wavefront.py:731-732), but there ``bounce_seed`` tests
+    world-space rays against object-space leaf blocks, and the block of a
+    hit is the packed (instance, block) value, the raw row for instance 0
+    and clipped to the last row for every other: the seed is no hit of
+    the scene, and its id is not in the kernels' instanced encoding.  On
+    the columns with every instance moved down by 0.25, JAX's seeded
+    frame differs from its unseeded one in pixels and in rays traced
+    (tests/test_torch_channels.py)."""
+    if scene.instanced:
+        raise ValueError(
+            "seed_secondary is not supported on a two-level (instanced) "
+            "scene: its leaf blocks are in object space, so the seed is "
+            "no hit of the scene")
+
+
+def bounce_seed(scene, prev_hit, origin, direction, alive) -> Hit:
+    """The seed of a bounce after the first (JAX wavefront.py:729-742):
+    ``leaf_seed_hit`` of the live rays against the leaf block of their
+    previous hit, ``max(tri, 0) // max_leaf_size`` (clipped to the
+    table).  A hit of the scene on a flat bake only; ``trace_sample``
+    refuses two-level scenes (``check_seed_secondary``)."""
+    block = torch.clamp(prev_hit.tri, min=0) // scene.max_leaf_size
+    return intersect.leaf_seed_hit(scene, origin, direction, block,
+                                   active=alive)
+
+
 def trace_sample(scene, origin, direction, seed_x, seed_y, *,
                  num_bounces: int, sort_secondary: bool = False,
                  tiers="auto", russian_roulette: bool = False,
-                 rr_start_bounce: int = 2):
+                 rr_start_bounce: int = 2, seed_secondary: bool = False):
     """Trace one sample for all rays through ``tiers`` (a Tiers or a
     ``--traversal`` name); with ``russian_roulette`` paths may end after
-    the segment of bounce ``rr_start_bounce - 1`` and later ones.
+    the segment of bounce ``rr_start_bounce - 1`` and later ones; with
+    ``seed_secondary`` each closest-hit bounce after the first starts
+    from ``bounce_seed`` (not an any-hit last bounce, and not on a scene
+    baked without a BVH, whose brute force would drop the seed; a
+    two-level scene raises ValueError, ``check_seed_secondary``).
     Returns (color (N, 3), new_seed_x, new_seed_y, rays_traced) with
     rays_traced an int64 0-d tensor (the live lanes summed over
     bounces)."""
+    if seed_secondary:
+        check_seed_secondary(scene)
     n = origin.shape[0]
     dev = origin.device
     color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -399,6 +449,7 @@ def trace_sample(scene, origin, direction, seed_x, seed_y, *,
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
 
+    hit = None
     for j in range(num_bounces):
         rays_traced = rays_traced + alive.sum()
         last = j == num_bounces - 1
@@ -411,9 +462,11 @@ def trace_sample(scene, origin, direction, seed_x, seed_y, *,
             color = _add_sky(color, atten, direction, alive & ~hit_mask)
             alive = torch.zeros_like(alive)
             continue
+        seed = (bounce_seed(scene, hit, origin, direction, alive)
+                if seed_secondary and j > 0 and scene.has_bvh else None)
         hit = (_closest_hit_sorted if sorted_pass else _closest_hit)(
             scene, origin, direction, alive, tiers,
-            "primary" if j == 0 else "secondary")
+            "primary" if j == 0 else "secondary", seed)
         origin, direction, atten, color, seed_x, seed_y, alive = \
             _shade_and_extend(
                 scene, hit, origin, direction, atten, color, seed_x, seed_y,
