@@ -331,6 +331,49 @@ def test_refusals(scenes, monkeypatch):
     assert exc.value.code == 2
 
 
+@pytest.mark.parametrize("env,guard", [
+    ({}, 2.0 ** -7),
+    ({"VKPT_FRONTIER_PRECISION": "default"}, 2.0 ** -7),
+    ({"VKPT_FRONTIER_PRECISION": "high"}, 2.0 ** -12),
+    ({"VKPT_FRONTIER_PRECISION": "HIGHEST"}, 2.0 ** -12),
+    ({"VKPT_FRONTIER_GUARD": "0.001"}, 0.001),
+    ({"VKPT_FRONTIER_PRECISION": "highest", "VKPT_FRONTIER_GUARD": "0"},
+     0.0),
+    ({"VKPT_FRONTIER_GUARD": "x"}, None),
+    ({"VKPT_FRONTIER_GUARD": "-0.5"}, None),
+    ({"VKPT_FRONTIER_GUARD": "nan"}, None),
+    ({"VKPT_FRONTIER_PRECISION": "fast"}, None)])
+def test_frontier_guard_from_env(env, guard, monkeypatch, capsys):
+    """The frontier bake's guard band as pallas_frontier._guard reads
+    it: VKPT_FRONTIER_GUARD when set, else 2^-7 under
+    VKPT_FRONTIER_PRECISION=default (or unset) and 2^-12 under high or
+    highest, into RenderConfig.frontier_guard; a guard that is not a
+    number or below 0 (it would drop geometry) and an unknown precision
+    exit 2 (``guard`` None)."""
+    from vulkan_pathtracer_tpu_torch.app.main import (
+        parse_args,
+        tier_fields_from_env,
+    )
+
+    for k in ("VKPT_FRONTIER_PRECISION", "VKPT_FRONTIER_GUARD"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    if guard is None:
+        with pytest.raises(ValueError, match="VKPT_FRONTIER_"):
+            tier_fields_from_env()
+        with pytest.raises(SystemExit) as exc:
+            parse_args(["-s", "scene.glb"])
+        assert exc.value.code == 2
+        assert "VKPT_FRONTIER_" in capsys.readouterr().err
+        return
+    assert tier_fields_from_env()["frontier_guard"] == guard
+    config, _ = parse_args(["-s", "scene.glb"])
+    assert config.frontier_guard == guard
+    if "VKPT_FRONTIER_GUARD" not in env:
+        assert guard == pf._guard()
+
+
 @pytest.mark.parametrize("value", ["1.5", "0.0"])
 def test_presplit_refused(monkeypatch, value, columns_glb):
     """VKPT_PRESPLIT, which JAX's bake reads as a float

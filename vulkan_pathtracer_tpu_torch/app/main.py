@@ -62,7 +62,10 @@ variables, read here once into RenderConfig's tier fields
 ``VKPT_KERNEL_SECONDARY`` (quad | pair | oct | frontier | packet and
 JAX's ``*_hbm`` / ``vgate`` names), ``VKPT_ANYHIT_KERNEL=frontier``,
 ``VKPT_MT=mxu`` (coefficient leaves), ``VKPT_LEAF`` (the leaf size),
-``VKPT_FRONTIER_WIDTH`` (16 | 32) and ``VKPT_PRESPLIT`` (the flat
+``VKPT_FRONTIER_WIDTH`` (16 | 32), ``VKPT_FRONTIER_PRECISION`` (default
+| high | highest) and ``VKPT_FRONTIER_GUARD`` (the frontier boxes'
+guard band: 2^-7 under ``default``, 2^-12 under ``high`` or
+``highest``, or the given number) and ``VKPT_PRESPLIT`` (the flat
 bake's triangle pre-splitting budget, a float; > 0 splits scenes of
 1024 or more triangles, the two-level bake ignores it).  ``VKPT_FRONTIER_LEAF`` (cond | drain)
 names a TPU staging only and changes nothing here.  No module below
@@ -105,6 +108,7 @@ from vulkan_pathtracer_tpu_torch.utils import (
     write_png,
 )
 from vulkan_pathtracer_tpu_torch.utils.config import (
+    FRONTIER_GUARDS,
     FRONTIER_WIDTH,
     FRONTIER_WIDTHS,
     MT_MODES,
@@ -135,9 +139,13 @@ def tier_fields_from_env(environ=None) -> dict:
     """RenderConfig's tier fields from the JAX package's ``VKPT_*``
     variables (unset -> None, JAX's default; ``presplit`` only when
     ``VKPT_PRESPLIT`` is set, as the float JAX's bake reads,
-    device_scene.py:410).  Raises ValueError on a value the port
-    refuses: an unknown ``VKPT_MT`` or frontier width, a
-    ``VKPT_PRESPLIT`` that is not a number, and
+    device_scene.py:410; ``frontier_guard`` as pallas_frontier._guard
+    reads it: ``VKPT_FRONTIER_GUARD``, else 2^-7 for
+    ``VKPT_FRONTIER_PRECISION=default`` or unset and 2^-12 for ``high``
+    or ``highest``).  Raises ValueError on a value the port refuses: an
+    unknown ``VKPT_MT``, frontier width or frontier precision, a
+    ``VKPT_PRESPLIT`` or ``VKPT_FRONTIER_GUARD`` that is not a number, a
+    negative guard (it would shrink the boxes and drop geometry), and
     ``VKPT_MXU_PRECISION=default`` (mxu_mt.py:58-80, the one-pass bf16
     product of the coefficient leaves), which is not yet ported."""
     env = os.environ if environ is None else environ
@@ -172,10 +180,33 @@ def tier_fields_from_env(environ=None) -> dict:
                   kernel_secondary=get("VKPT_KERNEL_SECONDARY"),
                   anyhit_kernel=get("VKPT_ANYHIT_KERNEL"), mt=mt,
                   max_leaf=None if leaf is None else int(leaf),
-                  frontier_width=width)
+                  frontier_width=width, frontier_guard=frontier_guard(get))
     if presplit is not None:
         fields["presplit"] = presplit
     return fields
+
+
+def frontier_guard(get) -> float:
+    """The frontier bake's guard band from ``get(name)`` (the variable's
+    value or None), as pallas_frontier._guard reads it."""
+    name = (get("VKPT_FRONTIER_PRECISION") or "default").lower()
+    if name not in FRONTIER_GUARDS:
+        raise ValueError(f"VKPT_FRONTIER_PRECISION={name!r}: default | high "
+                         f"| highest")
+    guard = get("VKPT_FRONTIER_GUARD")
+    if guard is None:
+        return FRONTIER_GUARDS[name]
+    try:
+        value = float(guard)
+    except ValueError:
+        raise ValueError(f"VKPT_FRONTIER_GUARD={guard!r}: a number (the "
+                         f"frontier boxes' guard band, e.g. 0.0078125)"
+                         ) from None
+    if not value >= 0.0:
+        raise ValueError(f"VKPT_FRONTIER_GUARD={guard!r}: at least 0 (a "
+                         f"negative band shrinks the boxes and drops "
+                         f"geometry)")
+    return value
 
 
 def parse_args(argv=None):
@@ -243,8 +274,9 @@ def load_pipeline(scene_path: str, config: RenderConfig, device,
     what the flat bake holds, as the JAX app does (app/main.py:86-90):
     no BVH for ``brute``, the 8-wide tiles too for ``pallas8``;
     ``config.mt == "mxu"`` adds the coefficient leaves,
-    ``config.frontier_width`` sets the frontier tables' width and
-    ``config.presplit`` the flat bake's pre-splitting budget;
+    ``config.frontier_width`` and ``config.frontier_guard`` set the
+    frontier tables' width and guard band and ``config.presplit`` the
+    flat bake's pre-splitting budget;
     ``quirk_mode`` is the loader's node-flattening quirk
     (``--gltf-quirk-mode``)."""
     scene = gltf.load(scene_path, quirk_mode=quirk_mode)
@@ -264,7 +296,8 @@ def load_pipeline(scene_path: str, config: RenderConfig, device,
                                   or default_max_leaf(scene.triangle_count)),
             device=device, build_bvh=config.traversal != "brute",
             wide=config.traversal == "pallas8", mt=config.mt,
-            frontier_width=config.frontier_width, presplit=config.presplit)
+            frontier_width=config.frontier_width, presplit=config.presplit,
+            frontier_guard=config.frontier_guard)
         if config.presplit > 0 and dev.tree is not None:
             print(f"pre-split: {int(dev.tree.block_count.sum())} references "
                   f"of {dev.num_triangles} triangles (budget "

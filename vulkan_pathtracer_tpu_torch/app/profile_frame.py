@@ -167,7 +167,8 @@ def animate(args, path: str, dev) -> int:
     if args.animate == "refit":
         anim = build_animated_scene(host, max_leaf_size=leaf, device=dev,
                                     mt=config.mt,
-                                    frontier_width=config.frontier_width)
+                                    frontier_width=config.frontier_width,
+                                    frontier_guard=config.frontier_guard)
         base_tf = anim.initial_transforms(host)
         ext = dynamic.largest_extent(anim.base)
 

@@ -34,7 +34,10 @@ from vulkan_pathtracer_tpu_torch.models.device_scene import (
 )
 from vulkan_pathtracer_tpu_torch.models.gltf import Scene
 from vulkan_pathtracer_tpu_torch.ops.refit import refit_scene
-from vulkan_pathtracer_tpu_torch.utils.config import FRONTIER_WIDTH
+from vulkan_pathtracer_tpu_torch.utils.config import (
+    FRONTIER_GUARD,
+    FRONTIER_WIDTH,
+)
 
 
 def _apply(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -114,12 +117,14 @@ class AnimatedScene:
 def build_animated_scene(scene: Scene, max_leaf_size: int = 4,
                          device="cuda", mt: str = "exact",
                          frontier_width: int = FRONTIER_WIDTH,
-                         presplit: float = 0.0) -> AnimatedScene:
+                         presplit: float = 0.0,
+                         frontier_guard: float = FRONTIER_GUARD
+                         ) -> AnimatedScene:
     """Bake the flat scene (build_device_scene's arguments), then its
     object-space sources in the bake's slot order, through the bake's
     own slot map."""
     base, slot_map = bake_flat(scene, max_leaf_size, device, True, False, mt,
-                               frontier_width, presplit)
+                               frontier_width, presplit, frontier_guard)
     if slot_map is None:
         raise ValueError("build_animated_scene: the scene has no triangles")
     tri = {k: [] for k in ("inst", "v0", "e1", "e2", "gn", "index")}

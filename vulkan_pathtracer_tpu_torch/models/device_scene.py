@@ -68,6 +68,7 @@ from vulkan_pathtracer_tpu_torch.ops.bvh import (
 )
 from vulkan_pathtracer_tpu_torch.ops.bvh_wide import build_wide_bvh
 from vulkan_pathtracer_tpu_torch.ops.frontier import (
+    GUARD,
     build_frontier_tables,
     tables_from_jax,
 )
@@ -117,6 +118,7 @@ class DeviceScene:
     oct_link: Optional[torch.Tensor] = None   # (N8, 8) int32
     frontier_box: Optional[torch.Tensor] = None   # (Nw, W, 6) f32, flat
     frontier_link: Optional[torch.Tensor] = None  # (Nw, W) int32
+    frontier_guard: float = GUARD   # the guard band frontier_box was baked at
     # Coefficient leaves (mt="mxu"): (n_leaves, block, 20) f32 zero-free
     # rows; two-level scenes add the (I, 40) feature transforms.
     tri_coefs: Optional[torch.Tensor] = None
@@ -367,21 +369,24 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
                        device="cuda", build_bvh: bool = True,
                        wide: bool = False, mt: str = "exact",
                        frontier_width: int = FRONTIER_WIDTH,
-                       presplit: float = 0.0) -> DeviceScene:
+                       presplit: float = 0.0,
+                       frontier_guard: float = GUARD) -> DeviceScene:
     """Bake a host Scene into device tensors with a BVH of
     ``max_leaf_size``-triangle leaf blocks (none with ``build_bvh=False``;
     the 8-wide tiles too with ``wide=True``; the coefficient table too
-    with ``mt="mxu"``; the frontier tables at ``frontier_width``; the
+    with ``mt="mxu"``; the frontier tables at ``frontier_width`` with
+    their boxes dilated by ``frontier_guard``; the
     triangles pre-split with budget ``presplit`` when > 0, see
     bvh_with_leaf_blocks).  The wide bake is a Python loop; its seconds
     are in ``scene.wide_seconds``.  The scene carries the tree's
     TreeMaps (``scene.tree``), which ops/refit.py regenerates from."""
     return bake_flat(scene, max_leaf_size, device, build_bvh, wide, mt,
-                     frontier_width, presplit)[0]
+                     frontier_width, presplit, frontier_guard)[0]
 
 
 def bake_flat(scene: Scene, max_leaf_size: int, device, build_bvh: bool,
-              wide: bool, mt: str, frontier_width: int, presplit: float):
+              wide: bool, mt: str, frontier_width: int, presplit: float,
+              frontier_guard: float = GUARD):
     """(DeviceScene, slot_map) of build_device_scene: slot_map maps
     each triangle slot before the padding to its triangle in bake order
     (-1: a padded slot; None without a BVH)."""
@@ -445,7 +450,7 @@ def bake_flat(scene: Scene, max_leaf_size: int, device, build_bvh: bool,
         pair_box, pair_link, pair_src = build_pair_tables(bvh, max_leaf_size)
         oct_box, oct_link, oct_src = build_oct_tables(bvh, max_leaf_size)
         frontier_box, frontier_link, frontier_src = build_frontier_tables(
-            bvh, max_leaf_size, frontier_width)
+            bvh, max_leaf_size, frontier_width, frontier_guard)
         skip_nodes, perm = flat_skip_nodes(bvh)
         if wide:
             t0 = time.perf_counter()
@@ -486,6 +491,7 @@ def bake_flat(scene: Scene, max_leaf_size: int, device, build_bvh: bool,
         num_triangles=num_triangles, max_leaf_size=max_leaf_size,
         bvh_depth=depth, has_textures=has_textures,
         emissive_free=emissive_free, wide_seconds=wide_seconds,
+        frontier_guard=frontier_guard,
     )
     dev = _to_device(host, meta, device)
     if bvh is not None:
@@ -495,7 +501,8 @@ def bake_flat(scene: Scene, max_leaf_size: int, device, build_bvh: bool,
     return dev, slot_map
 
 
-def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
+def scene_from_jax_arrays(arrays: dict, meta: dict, device,
+                          frontier_guard: float = GUARD) -> DeviceScene:
     """The port's scene from a JAX ``DeviceScene``'s arrays as NumPy
     (its ``_ARRAY_FIELDS``; absent fields None) and its static fields
     ``num_triangles``, ``max_leaf_size``, ``bvh_depth``,
@@ -519,7 +526,9 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
     as it is, ``bvh_wide_nodes`` the wide tiles (8 octant orders: a JAX
     bake with ``octant_order=False`` is refused).  A flat scene's
     build-order tree and static maps become its TreeMaps
-    (_tree_from_jax)."""
+    (_tree_from_jax).  ``frontier_guard``: the band JAX baked the
+    frontier tiles at (its ``_guard()`` of that bake), which the port's
+    refit regenerates them with."""
     block = int(meta["max_leaf_size"])
     instanced = bool(meta.get("instanced", False))
     packed = arrays.get("bvh_packed")
@@ -591,6 +600,7 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
         emissive_free=bool(meta["emissive_free"]),
         instanced=instanced,
         mb_bits=int(meta.get("mb_bits", 0)) if instanced else 0,
+        frontier_guard=frontier_guard,
     )
     dev = _to_device(host, out_meta, device)
     if not instanced and arrays.get("bvh_left") is not None:

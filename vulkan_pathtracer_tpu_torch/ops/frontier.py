@@ -62,13 +62,19 @@ from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
     lane_limits,
     leaf_table,
 )
-from vulkan_pathtracer_tpu_torch.utils.config import FRONTIER_WIDTH
+from vulkan_pathtracer_tpu_torch.utils.config import (
+    FRONTIER_GUARD,
+    FRONTIER_WIDTH,
+)
 
 EXACT_MAX_BLOCK = 14   # block * 9 <= 128 lanes (pallas_frontier.py:1018)
-# The guard band of the bake (pallas_frontier._guard): 2^-7, about twice
-# the error bound of the one-pass bf16 product the JAX package runs by
-# default.  The port's f32 slab needs none; it keeps JAX's boxes.
-GUARD = 2.0 ** -7
+# The default guard band of the bake (pallas_frontier._guard): 2^-7,
+# about twice the error bound of the one-pass bf16 node product the JAX
+# package runs by default; 2^-12 under VKPT_FRONTIER_PRECISION=high or
+# highest (RenderConfig.frontier_guard).  The port's f32 slab needs no
+# band; it keeps JAX's boxes, and a scene keeps the band it was baked
+# with (DeviceScene.frontier_guard), which its refit regenerates.
+GUARD = FRONTIER_GUARD
 
 
 def batcher_oem(n: int):

@@ -16,7 +16,10 @@ Counterpart of ``vulkan_pathtracer_tpu/ops/refit.py`` (``refit_aabbs``,
    one gather per child, a minimum and a select;
 3. every table the scene has, through the static maps (regenerate):
    the pair, quad and oct boxes, the frontier's guard-dilated boxes (in
-   float64 from the new root box, as the host bake computes them), the
+   float64 from the new root box, as the host bake computes them, at
+   the guard band the scene was baked with: JAX's refit reads
+   ``VKPT_FRONTIER_GUARD`` again, and asks for it to be set once per
+   run, pallas_frontier.py:151-154), the
    skip records through the octant permutation, the leaf blocks, and
    the coefficient rows when the scene carries them (float64 as the
    host bake; JAX's refit leaves ``tri_coefs`` stale).  The links are
@@ -36,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from vulkan_pathtracer_tpu_torch.ops.frontier import GUARD, frontier_boxes
+from vulkan_pathtracer_tpu_torch.ops.frontier import frontier_boxes
 from vulkan_pathtracer_tpu_torch.ops.mxu_mt import coef_rows
 from vulkan_pathtracer_tpu_torch.ops.stack_traverse import boxes_from_src
 
@@ -109,7 +112,7 @@ def regenerate(scene, bmin, bmax) -> dict:
             up[f"{name}_box"] = boxes_from_src(bmin, bmax, src)
     if scene.frontier_box is not None and tree.frontier_src is not None:
         up["frontier_box"] = frontier_boxes(bmin, bmax, tree.frontier_src,
-                                            GUARD)
+                                            scene.frontier_guard)
     n_blocks, block = scene.leaves.shape[0], scene.leaves.shape[1]
     n = n_blocks * block
     up["leaves"] = torch.cat(

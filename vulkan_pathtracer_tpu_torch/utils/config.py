@@ -29,6 +29,12 @@ KERNEL_ALIASES = {"quad": "quad", "pair": "pair", "oct": "oct",
 ANYHIT_KERNELS = ("frontier",)   # None: quad (pair on two-level scenes)
 MT_MODES = ("exact", "mxu")
 FRONTIER_WIDTHS = (16, 32)
+# The frontier bake's guard band by VKPT_FRONTIER_PRECISION
+# (pallas_frontier._guard): 2^-7 for the one-pass bf16 node product,
+# 2^-12 for the f32-exact ones; VKPT_FRONTIER_GUARD overrides it.
+FRONTIER_GUARDS = {"default": 2.0 ** -7, "high": 2.0 ** -12,
+                   "highest": 2.0 ** -12}
+FRONTIER_GUARD = FRONTIER_GUARDS["default"]
 
 
 @dataclass(frozen=True)
@@ -104,6 +110,9 @@ class RenderConfig:
     mt: str = "exact"                       # VKPT_MT: exact | mxu
     max_leaf: Optional[int] = None          # VKPT_LEAF (None: size policy)
     frontier_width: int = FRONTIER_WIDTH    # VKPT_FRONTIER_WIDTH: 16 | 32
+    # The frontier bake's guard band (VKPT_FRONTIER_GUARD, else by
+    # VKPT_FRONTIER_PRECISION); the scene keeps the one it was baked with.
+    frontier_guard: float = FRONTIER_GUARD
     presplit: float = 0.0                   # VKPT_PRESPLIT (flat bake)
 
     @property
