@@ -217,13 +217,39 @@ before the result line):
    byte the single-device viewer's; and the default path unchanged:
    the headline's rays and the joint batch's rays and mean of phases 4
    and 5 equal the parent's.
+16. the bf16 product and the frontier guard — the coefficient leaves'
+   one-pass bf16 product (``VKPT_MXU_PRECISION=default``; stack_walk.cuh
+   Bf16): the flat atrium at leaf 28 (frontier width 16 and 32) and the
+   two-level atrium at leaf 14 baked with bf16 tables through
+   ``load_pipeline`` (each the f32 rows rounded, bitwise); the quad,
+   frontier and two-level pair builds, closest and any hit, bitwise
+   their plain versions on their full 1080p launches and timed there
+   beside the f32 builds on the same launches (``ms_f32``), with the
+   statistics builds; the flat pair and width-32 frontier builds
+   bitwise on 65,536 primaries and 65,536 live bounce rays; the quad,
+   pair and frontier channel builds seeded (pair and frontier also
+   windowed) on 65,536 live seeded bounce rays, timed, and the
+   two-level pair channel build on 16,384 rays of the two-level
+   columns; paths (b), (d) and (e) with bf16 tables at 1080p (1
+   warm-up + 4 timed frames, the bf16 builds' launches) beside the
+   same paths on the f32 table: rays, primaries whose hit, miss or
+   triangle differs, mean radiance (records, not gates); the channel
+   builds on seeded 320x180 frames; the CLI under ``VKPT_MT=mxu
+   VKPT_MXU_PRECISION=default`` (JAX's warning once); and the exact
+   frontier bake of path (c) at the guard bands 2^-7 and 2^-12, each
+   timed: both frontier kernels bitwise their plain versions on the
+   2^-12 tables, their hits on the full launches equal the 2^-7 bake's
+   but for ties and brute-force-confirmed box-face misses, their times
+   on both bakes (in turns) and the statistics builds' node steps and
+   leaf visits.
 
 Each kernel's ``bound_ms`` is the larger of its operations over the
 card's f32 peak and its bytes over the HBM rate, counted from this
 run's inputs: node and leaf visits from the plain version (the same
 algorithm) times the per-visit operations of the kernel source;
 coefficient leaves by the essential work of their 19 non-zero
-coefficients, counted to the exits of the plain version's counters.  The
+coefficients, counted to the exits of the plain version's counters, and
+their bytes at the table's element size (4, or 2 for a bf16 table).  The
 skip kernel's entry carries its bounce-1 and instanced timings under
 ``*_bounce1``, ``*_instanced`` and ``*_instanced_bounce1`` keys, the
 wide kernel's its bounce-1 timing under ``*_bounce1`` keys.
@@ -289,6 +315,23 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel bodies it replaces)
                                        f"{FRONTIER}:284, {MXU}:254"),
     "skip_closest_hit_chan": (f"{CSRC}/skip_traverse.cu", f"{PACKET}:87"),
     "wide_closest_hit_chan": (f"{CSRC}/skip_traverse.cu", f"{PACKET}:1294"),
+    # The builds of the one-pass bf16 product (stack_walk.cuh Bf16;
+    # VKPT_MXU_PRECISION=default): mt_coef_visit and mt_coef_visit_anyhit
+    # at Precision.DEFAULT (mxu_mt.py:58-80), inlined as above.
+    **{f"{fam}_{kind}_hit_bf16": (
+        f"{CSRC}/{src}", f"{body}:{line}, {MXU}:{visit}")
+       for fam, src, body, closest, anyl in (
+           ("quad", "stack_traverse.cu", PALLAS, 886, 1207),
+           ("pair", "pair_traverse.cu", PALLAS, 598, 1507),
+           ("frontier", "frontier_traverse.cu", FRONTIER, 284, 642))
+       for kind, line, visit in (("closest", closest, 254),
+                                 ("any", anyl, 302))},
+    **{f"{fam}_closest_hit_bf16_chan": (
+        f"{CSRC}/{src}", f"{body}:{line}, {MXU}:254")
+       for fam, src, body, line in (
+           ("quad", "stack_traverse.cu", PALLAS, 886),
+           ("pair", "pair_traverse.cu", PALLAS, 598),
+           ("frontier", "frontier_traverse.cu", FRONTIER, 284))},
 }
 # The headline frame and the comparison sizes.
 DEVICE = "cuda:0"
@@ -896,8 +939,8 @@ def main() -> int:
         base = key.removesuffix("_chan")   # a channel build: its design's
         b_ms, b_by = bound(tables, n_rays, out_bytes, stats, VISIT_OPS[kind],
                            scene.max_leaf_size, int(scene.instanced),
-                           coefs=(scene.tri_coefs if base.endswith("_coef")
-                                  else None),
+                           coefs=(scene.tri_coefs if base.endswith(
+                               ("_coef", "_bf16")) else None),
                            early=base in EARLY_EXIT,
                            net_ops=NET_OPS.get(kind, 0),
                            any_hit="any_hit" in key)
@@ -1086,13 +1129,63 @@ def main() -> int:
                           (scene.inst_inv,) if scene.instanced else ()),
                       scene, prim, bounce1, tag)
 
+    # The closest hits' channel builds, for phases 15 and 16.
+    from vulkan_pathtracer_tpu_torch.ops.intersect import Hit
+
+    family = {"quad": (st, quad_args), "oct": (st, oct_args),
+              "pair": (st, st.pair_args),
+              "frontier": (fr, fr.frontier_args),
+              "skip": (sk, lambda s_, o_, d_, a_, c_:
+                       sk.skip_args(s_, o_, d_, a_)),
+              "wide": (sk, lambda s_, o_, d_, a_, c_:
+                       sk.wide_args(s_, o_, d_, a_))}
+
+    def chan_fns(kernel, scene_, o_, d_, active_, coef, seed=None,
+                 t_near=None, t_far=None):
+        """(launch, plain(stats)) of closest hit ``kernel``'s build
+        with these channels: its channel build when any is given,
+        else the default build; ``t_far`` folded into t_lane as the
+        wrappers do.  Outside the counted paths."""
+        mod, args_of = family[kernel]
+        args = list(args_of(scene_, o_, d_, active_, coef))
+        if t_far is not None:
+            args[4 if kernel in ("skip", "wide") else 5] = \
+                st.lane_limits(o_.shape[0], active_, dev, t_far)
+        chan = st.channel_args(o_, seed, t_near)
+        launch = getattr(kernels, f"{kernel}_closest_hit")
+        plain = getattr(mod, f"{kernel}_closest_hit_plain")
+        return ((lambda: Hit(*launch(*args, **chan))),
+                (lambda s=None: plain(*args, stats=s, **chan)))
+
+    def same(label, a, b):
+        for f, x, y in zip("t tri u v".split(), a, b):
+            check(torch.equal(x, y), f"{label}: {f} differs on "
+                  f"{int((x != y).sum())} rays")
+
+    def seeded_bounce(scene_, cam, width, height, frame, tiers="auto"):
+        """The sorted bounce-1 launch of a frame through ``tiers``
+        (rays, live mask) and the seed the seeded path gives it
+        (wavefront.bounce_seed of the primaries' hits)."""
+        pos, hor, ver, fwd = pl.camera_tensors(cam, dev)
+        o, d, sx, sy, _ = pl.primary_rays(pos, hor, ver, fwd, frame,
+                                          width, height)
+        hit = wf._closest_hit(scene_, o, d, None, tiers)
+        tri_data = get_triangle_data(scene_, hit)
+        mat = get_material_data(scene_, tri_data)
+        o1, d1, _, _, _, alive = wf.extend_paths(
+            scene_, hit, o, d, torch.ones_like(o), sx, sy,
+            hit.t < MISS_T, tri_data, mat)
+        seed = wf.bounce_seed(scene_, hit, o1, d1, alive)
+        order, _ = wf._sorted_order(scene_, o1, d1, alive)
+        return (o1[order].contiguous(), d1[order].contiguous(),
+                alive[order], Hit(*(x[order] for x in seed)))
+
     # -- 15. channels (the phase, run after phase 14) -------------------------
     def channels_phase(cols_host, atrium_path, figures):
         """Phase 15: the closest hits' channel builds (seed, t-window).
         ``figures``: the default path's (headline rays, joint batch rays,
         joint mean) from phases 4 and 5, held unchanged.  Returns the
         channel builds' launches on their seeded paths."""
-        from vulkan_pathtracer_tpu_torch.ops.intersect import Hit
         from vulkan_pathtracer_tpu_torch.ops import intersect
         from vulkan_pathtracer_tpu_torch.parallel import distributed
 
@@ -1105,54 +1198,6 @@ def main() -> int:
         phase("channels", check="default path unchanged",
               headline_rays=figures[0], joint_rays=figures[1],
               joint_mean=figures[2])
-
-        family = {"quad": (st, quad_args), "oct": (st, oct_args),
-                  "pair": (st, st.pair_args),
-                  "frontier": (fr, fr.frontier_args),
-                  "skip": (sk, lambda s_, o_, d_, a_, c_:
-                           sk.skip_args(s_, o_, d_, a_)),
-                  "wide": (sk, lambda s_, o_, d_, a_, c_:
-                           sk.wide_args(s_, o_, d_, a_))}
-
-        def chan_fns(kernel, scene_, o_, d_, active_, coef, seed=None,
-                     t_near=None, t_far=None):
-            """(launch, plain(stats)) of closest hit ``kernel``'s build
-            with these channels: its channel build when any is given,
-            else the default build; ``t_far`` folded into t_lane as the
-            wrappers do.  Outside the counted paths."""
-            mod, args_of = family[kernel]
-            args = list(args_of(scene_, o_, d_, active_, coef))
-            if t_far is not None:
-                args[4 if kernel in ("skip", "wide") else 5] = \
-                    st.lane_limits(o_.shape[0], active_, dev, t_far)
-            chan = st.channel_args(o_, seed, t_near)
-            launch = getattr(kernels, f"{kernel}_closest_hit")
-            plain = getattr(mod, f"{kernel}_closest_hit_plain")
-            return ((lambda: Hit(*launch(*args, **chan))),
-                    (lambda s=None: plain(*args, stats=s, **chan)))
-
-        def same(label, a, b):
-            for f, x, y in zip("t tri u v".split(), a, b):
-                check(torch.equal(x, y), f"{label}: {f} differs on "
-                      f"{int((x != y).sum())} rays")
-
-        def seeded_bounce(scene_, cam, width, height, frame, tiers="auto"):
-            """The sorted bounce-1 launch of a frame through ``tiers``
-            (rays, live mask) and the seed the seeded path gives it
-            (wavefront.bounce_seed of the primaries' hits)."""
-            pos, hor, ver, fwd = pl.camera_tensors(cam, dev)
-            o, d, sx, sy, _ = pl.primary_rays(pos, hor, ver, fwd, frame,
-                                              width, height)
-            hit = wf._closest_hit(scene_, o, d, None, tiers)
-            tri_data = get_triangle_data(scene_, hit)
-            mat = get_material_data(scene_, tri_data)
-            o1, d1, _, _, _, alive = wf.extend_paths(
-                scene_, hit, o, d, torch.ones_like(o), sx, sy,
-                hit.t < MISS_T, tri_data, mat)
-            seed = wf.bounce_seed(scene_, hit, o1, d1, alive)
-            order, _ = wf._sorted_order(scene_, o1, d1, alive)
-            return (o1[order].contiguous(), d1[order].contiguous(),
-                    alive[order], Hit(*(x[order] for x in seed)))
 
         # The bakes: the atrium (every channel build, 65,536 live seeded
         # bounce rays of the 1080p frame) and the columns (all rays of a
@@ -1448,6 +1493,290 @@ def main() -> int:
               frames=frames, text_bytes=len(text.getvalue()),
               byte_equal=True, seconds=f"{time.perf_counter() - t1:.1f}")
         phase("phase", name="channels",
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        return launches
+
+    # -- 16. the bf16 product and the frontier guard (run after phase 15) ----
+    def bf16_phase(atrium_path, cols_path, cols_host):
+        """Phase 16: the bf16 builds of the coefficient leaves
+        (VKPT_MXU_PRECISION=default) and the frontier guard band.
+        Returns the bf16 builds' launches on their main paths."""
+        import dataclasses
+
+        t0 = time.perf_counter()
+        frame_kw = dict(num_samples=1, num_bounces=2, resolution_x=WIDTH,
+                        resolution_y=HEIGHT)
+        bf = dict(mt="mxu", mxu_precision="default")
+        front = dict(kernel_primary="frontier", anyhit_kernel="frontier")
+
+        def f32_twin(sc):
+            """The scene with the f32 table of the same leaves (bitwise
+            its f32 bake, ops/mxu_mt.coef_rows)."""
+            return dataclasses.replace(sc, tri_coefs=mxu_mt.coef_rows(
+                sc.leaves))
+
+        # (a) The bf16 bakes through load_pipeline, as the CLI makes them
+        # from VKPT_MT=mxu VKPT_MXU_PRECISION=default: the flat atrium at
+        # leaf 28 (frontier width 16, and 32) and the two-level atrium at
+        # leaf 14; each table the f32 rows rounded once, bitwise.
+        t1 = time.perf_counter()
+        bpipe = load_pipeline(atrium_path, RenderConfig(
+            **frame_kw, **front, **bf), dev)
+        flat_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        epipe = load_pipeline(atrium_path, RenderConfig(**frame_kw, **bf),
+                              dev, instanced=True)
+        inst_s = time.perf_counter() - t1
+        bscene, escene = bpipe.scene, epipe.scene
+        w32 = build_device_scene(gltf.load(atrium_path), max_leaf_size=28,
+                                 device=dev, frontier_width=32, **bf)
+        twins = {id(sc): f32_twin(sc) for sc in (bscene, escene, w32)}
+        for sc in (bscene, escene, w32):
+            check(sc.tri_coefs.dtype == torch.bfloat16
+                  and torch.equal(sc.tri_coefs, mxu_mt.coef_table(
+                      twins[id(sc)].tri_coefs, "default")),
+                  "bf16 bake: not the f32 rows rounded")
+        check(bscene.max_leaf_size == 28 and escene.max_leaf_size == 14
+              and w32.frontier_box.shape[1] == 32, "bf16 bakes: shapes")
+        phase("bf16", bakes="flat leaf 28 (w16, w32), two-level leaf 14",
+              flat_seconds=f"{flat_s:.2f}", instanced_seconds=f"{inst_s:.2f}",
+              table_bytes=bscene.tri_coefs.numel() * 2,
+              f32_table_bytes=bscene.tri_coefs.numel() * 4)
+
+        # (b) Every bf16 build bitwise its plain version: the quad,
+        # frontier (width 16) and two-level pair kernels on their full
+        # 1080p launches (timed, beside their f32 builds on the same
+        # launches), the flat pair and the width-32 frontier kernels on
+        # 65,536 primaries and 65,536 live bounce rays.
+        o, d, o1, d1, a1, _ = bounce_rays(bscene, cam0, 0, WIDTH, HEIGHT)
+        sel = subset(n_prim, N_SUB, 41)
+        live_idx = torch.nonzero(a1).squeeze(1)
+        sel1 = live_idx[subset(live_idx.shape[0], N_SUB, 42)]
+        for lbl, sc, fam in (("bf16-flat", bscene, "pair"),
+                             ("bf16-w32", w32, "frontier")):
+            compare_tier(f"{lbl}/primary", sc, o[sel], d[sel],
+                         families=(fam,), coef=True)
+            compare_tier(f"{lbl}/bounce", sc, o1[sel1], d1[sel1],
+                         families=(fam,), coef=True)
+        eo, ed, eo1, ed1, ea1, _ = bounce_rays(escene, cam0, 0, WIDTH,
+                                               HEIGHT)
+        for fam, sc, rays, any_rays in (
+                ("quad", bscene, (o, d), (o1, d1, a1)),
+                ("frontier", bscene, (o, d), (o1, d1, a1)),
+                ("pair", escene, (eo, ed), (eo1, ed1, ea1))):
+            time_family(fam, sc, rays, any_rays, True)
+            args_fn, ck, _, ak, _ = FAMILIES[fam]
+            twin = twins[id(sc)]
+            for key, fn, args in (
+                    (f"{fam}_closest_hit_bf16", ck,
+                     args_fn(twin, *rays, None, True)),
+                    (f"{fam}_any_hit_bf16", ak,
+                     args_fn(twin, *any_rays, True))):
+                f32_ms, _ = cuda_ms(lambda: fn(*args), 5)
+                results[key]["ms_f32"] = f32_ms
+                phase("timing", kernel=key, f32_build_ms=f"{f32_ms:.3f}",
+                      bf16_ms=f"{results[key]['ms']:.3f}", card=repr(card))
+        del eo, ed, eo1, ed1, ea1
+        phase("bf16", check="bf16 builds", seconds=(
+            f"{time.perf_counter() - t0:.1f}"))
+
+        # (c) The channel builds: the quad build seeded, the pair and
+        # frontier builds seeded and windowed (t_near at the 33rd
+        # percentile of the seeds' t), on 65,536 live seeded bounce rays
+        # of the flat atrium, timed and bitwise their plain versions; the
+        # two-level pair build on 16,384 rays of the two-level columns.
+        so1, sd1, sa1, seed = seeded_bounce(bscene, cam0, WIDTH, HEIGHT, 0)
+        live_idx = torch.nonzero(sa1).squeeze(1)
+        sel = live_idx[subset(live_idx.shape[0], N_SUB, 43)]
+        so1, sd1, sa1 = so1[sel].contiguous(), sd1[sel].contiguous(), sa1[sel]
+        seed = Hit(*(x[sel] for x in seed))
+        q1 = float(torch.quantile(seed.t[seed.t < MISS_T], 0.33))
+        for kernel in ("quad", "pair", "frontier"):
+            window = {} if kernel == "quad" else dict(t_near=q1)
+            launch, plain = chan_fns(kernel, bscene, so1, sd1, sa1, True,
+                                     seed=seed, **window)
+            tables = (getattr(bscene, f"{kernel}_box"),
+                      getattr(bscene, f"{kernel}_link"), bscene.tri_coefs)
+            time_kernel(f"{kernel}_closest_hit_bf16_chan", launch, plain,
+                        tables, so1.shape[0], 32, bscene, bitwise_err)
+        icols = build_instanced_scene(cols_host, max_leaf_size=14, device=dev,
+                                      **bf)
+        co1, cd1, ca1, cseed = seeded_bounce(icols, scene_camera(icols),
+                                             COLS_W, COLS_H, 0)
+        sel = torch.nonzero(ca1).squeeze(1)[:16384]
+        launch, plain = chan_fns("pair", icols, co1[sel], cd1[sel], ca1[sel],
+                                 True, seed=Hit(*(x[sel] for x in cseed)),
+                                 t_near=0.5)
+        same("bf16 two-level columns pair channel build", launch(), plain())
+        phase("bf16", check="channel builds bitwise", two_level_rays=int(
+            sel.shape[0]), seconds=f"{time.perf_counter() - t0:.1f}")
+        del so1, sd1, sa1, seed, co1, cd1, ca1, cseed, icols
+
+        # (d) Paths (b), (d), (e) with bf16 tables at 1080p (1 warm-up +
+        # 4 timed frames, the counters read around the 4 frames), each
+        # beside the same path on the f32 table in this call: rays, the
+        # primaries whose hit, miss or triangle differs (4 cameras), and
+        # the mean radiance of frame 1.  Records, not gates.
+        t1 = time.perf_counter()
+        launches = {}
+        paths = (
+            ("b", bpipe, bscene, front,
+             ("frontier_closest_hit", "frontier_any_hit")),
+            ("d", pl.RenderPipeline(bscene, RenderConfig(**frame_kw, **bf)),
+             bscene, {}, ("quad_closest_hit", "quad_any_hit")),
+            ("e", epipe, escene, {}, ("pair_closest_hit", "pair_any_hit")))
+        for lbl, pipe_, sc, tiers_, names in paths:
+            ref_pipe = pl.RenderPipeline(twins[id(sc)], RenderConfig(
+                **frame_kw, mt="mxu", **tiers_))
+            got, rays_bf = main_path(pipe_, f"bf16-{lbl}", only(
+                **{f"{n}_bf16": 4 for n in names}))
+            _, rays_32 = main_path(ref_pipe, f"bf16-{lbl}-f32-reference",
+                                   only(**{f"{n}_coef": 4 for n in names}))
+            for n in names:
+                launches[f"{n}_bf16"] = got[f"{n}_bf16"]
+            t_bf = Tiers(mt="mxu", mxu_precision="default", **tiers_)
+            t_32 = Tiers(mt="mxu", **tiers_)
+            differ = 0
+            for f in range(4):
+                po, pd = orbit_rays(f)
+                a = wf._closest_hit(sc, po, pd, None, t_bf)
+                b = wf._closest_hit(twins[id(sc)], po, pd, None, t_32)
+                differ += int(((a.t < MISS_T) != (b.t < MISS_T))
+                              .logical_or(a.tri != b.tri).sum())
+            cam = orbit_camera(config.aspect_ratio, 0.0)
+            m_bf = float(pipe_.render(cam, 1)[0].mean())
+            m_32 = float(ref_pipe.render(cam, 1)[0].mean())
+            phase("bf16", path=f"({lbl}) bf16 vs f32 table", rays=rays_bf,
+                  f32_rays=rays_32,
+                  rays_change=f"{(rays_bf - rays_32) / rays_32:+.6f}",
+                  primaries_differ=differ,
+                  share=f"{differ / (4 * n_pix):.6f}",
+                  mean=f"{m_bf:.7f}", f32_mean=f"{m_32:.7f}",
+                  mean_change=f"{(m_bf - m_32) / m_32:+.6f}")
+        del paths, bpipe, epipe
+
+        # The bf16 channel builds on their seeded paths: a 320x180
+        # 3-bounce flat frame through the kernels and through the plain
+        # versions (0.0), the build launched.
+        for key, fields in (("quad_closest_hit_bf16_chan", {}),
+                            ("pair_closest_hit_bf16_chan",
+                             dict(kernel_secondary="pair")),
+                            ("frontier_closest_hit_bf16_chan",
+                             dict(kernel_secondary="frontier"))):
+            _, _, got = small_frame(bscene, f"seeded {key}", exact=True,
+                                    bounces=CH_BOUNCES, seed_secondary=True,
+                                    **bf, **fields)
+            check(got.get(key, 0) >= 1, f"seeded path of {key}: {got}")
+            launches[key] = got[key]
+
+        # The CLI under the JAX package's variables, on the card.
+        out_png = os.path.join(WORK, "cli_bf16.png")
+        env = {**os.environ, "VKPT_MT": "mxu", "VKPT_LEAF": "28",
+               "VKPT_MXU_PRECISION": "default"}
+        proc = subprocess.run(
+            [sys.executable, "-m", "vulkan_pathtracer_tpu_torch", "-s",
+             cols_path, "-x", str(SMALL_W), "-y", str(SMALL_H), "-o",
+             out_png], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=300)
+        warned = proc.stderr.count("VKPT_MXU_PRECISION=default is "
+                                   "quality-broken")
+        check(proc.returncode == 0 and warned == 1
+              and "mt=mxu leaf=28 mxu_precision=default" in proc.stderr
+              and os.path.exists(out_png),
+              f"CLI with VKPT_MXU_PRECISION=default: rc {proc.returncode}\n"
+              f"{proc.stderr}")
+        phase("bf16", check="CLI VKPT_MT=mxu VKPT_MXU_PRECISION=default",
+              rc=proc.returncode, warnings=warned,
+              timing=repr([ln for ln in proc.stderr.splitlines()
+                           if "frame(s) on" in ln][-1]))
+        phase("bf16", check="paths", seconds=f"{time.perf_counter() - t1:.1f}")
+        del bscene, escene, w32, twins
+        torch.cuda.empty_cache()
+
+        # (e) The frontier guard: the exact frontier bake of path (c) (leaf
+        # 14) at 2^-7 and at 2^-12, each bake timed; both frontier kernels
+        # bitwise their plain versions on the 2^-12 tables (65,536 rays
+        # each); on the full launches their hits against the 2^-7 bake's
+        # (ties and brute-force-confirmed box-face misses, capped at
+        # FACE_MISS_SHARE; the any-hit bit), their times on both bakes
+        # in turns, and the statistics builds' node steps and leaf visits.
+        t1 = time.perf_counter()
+        host = gltf.load(atrium_path)
+        guards, bake_s = {}, {}
+        for g in (2.0 ** -7, 2.0 ** -12):
+            t2 = time.perf_counter()
+            guards[g] = build_device_scene(host, max_leaf_size=14, device=dev,
+                                           frontier_guard=g)
+            sync()
+            bake_s[g] = time.perf_counter() - t2
+        wide, tight = guards[2.0 ** -7], guards[2.0 ** -12]
+        check(torch.equal(wide.frontier_link, tight.frontier_link)
+              and tight.frontier_guard == 2.0 ** -12,
+              "guard bakes: links differ")
+        o, d, o1, d1, a1, _ = bounce_rays(wide, cam0, 0, WIDTH, HEIGHT)
+        sel = subset(n_prim, N_SUB, 44)
+        live_idx = torch.nonzero(a1).squeeze(1)
+        sel1 = live_idx[subset(live_idx.shape[0], N_SUB, 45)]
+        compare_tier("guard-2^-12/primary", tight, o[sel], d[sel],
+                     families=("frontier",))
+        compare_tier("guard-2^-12/bounce", tight, o1[sel1], d1[sel1],
+                     families=("frontier",))
+        cargs = {g: fr.frontier_args(sc, o, d, None)
+                 for g, sc in guards.items()}
+        aargs = {g: fr.frontier_args(sc, o1, d1, a1)
+                 for g, sc in guards.items()}
+        a = Hit(*kernels.frontier_closest_hit(*cargs[2.0 ** -7]))
+        b = Hit(*kernels.frontier_closest_hit(*cargs[2.0 ** -12]))
+        ties, misses = hit_differences("guard 2^-12 vs 2^-7 primaries", wide,
+                                       o, d, a.t, physical(wide, a), b.t,
+                                       physical(tight, b))
+        ka = kernels.frontier_any_hit(*aargs[2.0 ** -7])
+        kb = kernels.frontier_any_hit(*aargs[2.0 ** -12])
+        flip = torch.nonzero(ka != kb).squeeze(1)
+        if flip.numel():
+            brute = intersect.brute_force_closest_hit(
+                wide, o1[flip], d1[flip], chunk=1 << 16)
+            check(torch.equal(brute.t < MISS_T, ka[flip] | kb[flip]),
+                  "guard: an any-hit bit brute force does not confirm")
+        check(flip.numel() <= FACE_MISS_SHARE * n_prim,
+              f"guard: {flip.numel()} any-hit bits differ")
+        times = {}
+        for g in (2.0 ** -7, 2.0 ** -12, 2.0 ** -12, 2.0 ** -7):
+            for key, fn, args in (
+                    ("frontier_closest_hit", kernels.frontier_closest_hit,
+                     cargs[g]),
+                    ("frontier_any_hit", kernels.frontier_any_hit,
+                     aargs[g])):
+                times.setdefault((key, g), []).append(
+                    cuda_ms(lambda: fn(*args), 5)[0])
+        visits = {}
+        for g in guards:
+            for any_hit, args in ((False, cargs[g]), (True, aargs[g])):
+                _, counters = kernels.frontier_stats(any_hit, *args)
+                c = dict(zip(kernels.STACK_STATS, counters))
+                visits[(any_hit, g)] = (c["node_lanes"], c["leaf_visits"])
+        for key, any_hit in (("frontier_closest_hit", False),
+                             ("frontier_any_hit", True)):
+            ms7 = sum(times[(key, 2.0 ** -7)]) / 2
+            ms12 = sum(times[(key, 2.0 ** -12)]) / 2
+            results.setdefault(key, {}).update(
+                ms_guard_2e7=ms7, ms_guard_2e12=ms12,
+                leaf_visits_guard_2e7=visits[(any_hit, 2.0 ** -7)][1],
+                leaf_visits_guard_2e12=visits[(any_hit, 2.0 ** -12)][1])
+            phase("guard", kernel=key, ms_2e7=f"{ms7:.3f}",
+                  ms_2e12=f"{ms12:.3f}",
+                  node_steps_2e7=visits[(any_hit, 2.0 ** -7)][0],
+                  node_steps_2e12=visits[(any_hit, 2.0 ** -12)][0],
+                  leaf_visits_2e7=visits[(any_hit, 2.0 ** -7)][1],
+                  leaf_visits_2e12=visits[(any_hit, 2.0 ** -12)][1],
+                  card=repr(card))
+        phase("guard", bake_seconds_2e7=f"{bake_s[2.0 ** -7]:.2f}",
+              bake_seconds_2e12=f"{bake_s[2.0 ** -12]:.2f}", ties=ties,
+              face_misses=misses, any_hit_flips=int(flip.numel()),
+              seconds=f"{time.perf_counter() - t1:.1f}")
+        del guards, wide, tight, cargs, aargs, o, d, o1, d1, a1
+        torch.cuda.empty_cache()
+        phase("phase", name="bf16 product and frontier guard",
               seconds=f"{time.perf_counter() - t0:.1f}")
         return launches
 
@@ -2241,7 +2570,7 @@ def main() -> int:
                  "frontier": (scene.frontier_box, scene.frontier_link)}[fam]
         tables = (*table, st.leaf_table(scene, coef)) + (
             (scene.inst_inv, scene.inst_feat) if scene.instanced else ())
-        suffix = "_coef" if coef else ""
+        suffix = st._launch_name("", st.leaf_table(scene, coef))
         cargs = args_fn(scene, *rays, None, coef)
         time_kernel(f"{fam}_closest_hit{suffix}", lambda: ck(*cargs),
                     lambda s=None: cp(*cargs, stats=s), tables, n_prim, 16,
@@ -2786,6 +3115,7 @@ def main() -> int:
 
     chan_launches = channels_phase(cols_host, atrium_path, (
         flat_rays, *conv_figures))
+    bf16_launches = bf16_phase(atrium_path, cols_path, cols_host)
 
     # -- 16. result -----------------------------------------------------------
     launches = {**{k: flat_launches[k] for k in ("quad_closest_hit",
@@ -2803,7 +3133,7 @@ def main() -> int:
                     "quad_closest_hit_coef", "quad_any_hit_coef")},
                 **{k: tier_launches["e"][k] for k in (
                     "pair_closest_hit_coef", "pair_any_hit_coef")},
-                **chan_launches}
+                **chan_launches, **bf16_launches}
     results["skip_closest_hit"]["launches_instanced"] = \
         ipacket_launches["skip_closest_hit"]
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")

@@ -42,6 +42,7 @@ from vulkan_pathtracer_tpu.utils.validation import (
     checked_render as jax_checked_render,
 )
 from vulkan_pathtracer_tpu_torch.app import bench
+from vulkan_pathtracer_tpu_torch.app.main import MXU_DEFAULT_WARNING
 from vulkan_pathtracer_tpu_torch.app.main import main as port_main
 from vulkan_pathtracer_tpu_torch.app.viewer import run_viewer
 from vulkan_pathtracer_tpu_torch.models import gltf
@@ -280,9 +281,37 @@ def test_bench_tiers_from_env(capsys, monkeypatch):
                                     "quad_closest_hit_coef"}
 
 
+def test_bench_bf16_product(capsys, monkeypatch):
+    """VKPT_MT=mxu VKPT_MXU_PRECISION=default: JAX's warning once, the
+    bf16 table baked, every launch a bf16 build's, and each line records
+    ``mxu_precision`` and the frontier guard band beside ``mt``."""
+    names = []
+    real_dispatch = st._dispatch
+
+    def spy(name, origin, plain, launch):
+        names.append(name)
+        return real_dispatch(name, origin, plain, launch)
+
+    monkeypatch.setattr(st, "_dispatch", spy)
+    with pytest.warns(UserWarning) as warned:
+        rc, lines = _bench(["--scene", "cornell", "--mode", "headline"],
+                           capsys, monkeypatch,
+                           {"VKPT_MT": "mxu", "VKPT_MXU_PRECISION": "default",
+                            "VKPT_FRONTIER_PRECISION": "highest"})
+    assert [str(w.message) for w in warned
+            if "VKPT_MXU_PRECISION" in str(w.message)] == [
+                MXU_DEFAULT_WARNING]
+    detail = lines[0]["detail"]
+    assert rc == 0 and detail["mt"] == "mxu"
+    assert detail["mxu_precision"] == "default"
+    assert detail["frontier_guard"] == 2.0 ** -12
+    assert names and set(names) == {"pair_closest_hit_bf16",
+                                    "quad_closest_hit_bf16"}
+
+
 @pytest.mark.parametrize("env,args", [
     ({"VKPT_PRESPLIT": "x"}, []),
-    ({"VKPT_MXU_PRECISION": "default"}, []),
+    ({"VKPT_FRONTIER_GUARD": "x"}, []),
     ({}, ["--mode", "spp", "--spp", "2"])])
 def test_bench_refuses(env, args, capsys, monkeypatch):
     """What the port refuses exits 2 before anything renders."""

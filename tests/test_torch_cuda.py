@@ -14,7 +14,9 @@ t, tri, u, v and the any-hit bit are bitwise equal.  Leaf sizes 4 and
 instanced) and the wide kernel are held to their plain versions the
 same way, as are the oct kernel, the frontier kernels (width 16 and
 32) and every kernel built with coefficient leaves (``mt="mxu"``: quad,
-pair flat and two-level, with a mirrored instance, and frontier).
+pair flat and two-level, with a mirrored instance, and frontier), f32
+or their bf16 product's builds (a bf16 table, with their statistics
+and channel builds).
 The persistent quad and oct kernels are also launched on ray counts
 that are no multiple of 32, with inactive lanes, twice in a row (the
 batch counter zeroed before each launch), and the quad kernels'
@@ -271,6 +273,52 @@ def test_pair_coef_kernels_match_plain(cuda, scene_paths, instanced):
     assert 500 < int((ref.t < MISS_T).sum()) < 8192
     assert torch.equal(kernels.pair_any_hit(*args),
                        st.pair_any_hit_plain(*args))
+
+
+@pytest.mark.parametrize("kind", ["quad", "pair", "pair_two_level",
+                                  "frontier", "frontier32"])
+def test_bf16_kernels_match_plain(cuda, scene_paths, kind):
+    """The bf16 builds (the one-pass product, a bf16 coefficient table)
+    of both kernels of each family, their statistics builds and their
+    closest hit's channel build (seeded; windowed but on quad), bitwise
+    their plain versions; each wrapper counts its ``_bf16`` launch."""
+    from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
+        update_instance_transforms,
+    )
+
+    host = gltf.load(scene_paths["columns"])
+    fam = kind.removesuffix("_two_level").removesuffix("32")
+    if kind == "pair_two_level":
+        scene = build_instanced_scene(host, max_leaf_size=14, device=cuda,
+                                      mt="mxu", mxu_precision="default")
+        xf = np.stack([inst.transform for inst in host.instances])
+        xf[0, :3, 0] *= -1.0
+        scene = update_instance_transforms(scene, xf)
+    else:
+        scene = build_device_scene(
+            host, max_leaf_size=14 if kind == "pair" else 28, device=cuda,
+            mt="mxu", mxu_precision="default",
+            frontier_width=32 if kind == "frontier32" else 16)
+    assert scene.tri_coefs.dtype == torch.bfloat16
+    mod = fr if fam == "frontier" else st
+    o, d, active = _rays(8192, seed=29, device=cuda)
+    args = getattr(mod, f"{fam}_args")(scene, o, d, active, True)
+    ref = getattr(mod, f"{fam}_closest_hit_plain")(*args)
+    _assert_equal(getattr(kernels, f"{fam}_closest_hit")(*args), ref)
+    assert 500 < int((ref.t < MISS_T).sum()) < 8192
+    ref_any = getattr(mod, f"{fam}_any_hit_plain")(*args)
+    assert torch.equal(getattr(kernels, f"{fam}_any_hit")(*args), ref_any)
+    stats = getattr(kernels, f"{fam}_stats")
+    _assert_equal(stats(False, *args)[0], ref)
+    assert torch.equal(stats(True, *args)[0], ref_any)
+    chan = st.channel_args(o, seed=ref, t_near=None if fam == "quad"
+                           else ref.t * 0.5)
+    _assert_equal(getattr(kernels, f"{fam}_closest_hit")(*args, **chan),
+                  getattr(mod, f"{fam}_closest_hit_plain")(*args, **chan))
+    for name in (f"{fam}_closest_hit", f"{fam}_any_hit"):
+        before = st.LAUNCHES[name + "_bf16"]
+        getattr(mod, name)(scene, o, d, active, coef=True)
+        assert st.LAUNCHES[name + "_bf16"] == before + 1
 
 
 @pytest.mark.parametrize("n", [1, 33, 1000, 4099])

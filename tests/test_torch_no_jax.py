@@ -16,7 +16,8 @@
   clear message instead of switching to the CPU.
 - The traversal wrappers raise for a device that is neither CPU nor
   CUDA; the CLI parses ``--devices`` and ``--shard-mode``, also with
-  ``--interactive``, and refuses ``VKPT_MXU_PRECISION=default``.
+  ``--interactive``, and ``VKPT_MXU_PRECISION=default`` (with JAX's
+  warning; the tier frame renders under it too).
 """
 
 import os
@@ -121,7 +122,29 @@ def test_cli_renders_tier_frame_without_jax_package(columns_glb, tmp_path):
                 block=BLOCK_JAX_PACKAGE, env=env)
     assert proc.returncode == 0, proc.stderr
     assert ("kernel tiers: primary=frontier secondary=frontier "
-            "anyhit=frontier mt=mxu leaf=28") in proc.stderr
+            "anyhit=frontier mt=mxu leaf=28 mxu_precision=highest"
+            ) in proc.stderr
+    assert "quality-broken" not in proc.stderr
+    from vulkan_pathtracer_tpu_torch.utils import read_png
+
+    image = read_png(str(out))
+    assert image.shape == (32, 48, 3) and 0 < image.mean() < 255
+
+
+def test_cli_renders_bf16_tier_frame_without_jax_package(columns_glb,
+                                                         tmp_path):
+    """``VKPT_MT=mxu VKPT_MXU_PRECISION=default``: the two-level frame
+    with the bf16 product of the coefficient leaves, in a process
+    without JAX, with JAX's warning once on stderr."""
+    out = tmp_path / "columns.png"
+    env = {"VKPT_MT": "mxu", "VKPT_MXU_PRECISION": "default"}
+    proc = _run(IMPORT_ALL_AND_RUN_CLI, "-s", columns_glb, "-x", "48", "-y",
+                "32", "--instanced", "-o", str(out), "--device", "cpu",
+                block=BLOCK_JAX_PACKAGE, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert "mt=mxu leaf=14 mxu_precision=default" in proc.stderr
+    assert proc.stderr.count("VKPT_MXU_PRECISION=default is "
+                             "quality-broken") == 1
     from vulkan_pathtracer_tpu_torch.utils import read_png
 
     image = read_png(str(out))
@@ -192,11 +215,12 @@ def test_cuda_device_without_cuda_fails(box_glb, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--devices", "2"],
                                   ["--shard-mode", "spp"]])
-def test_unported_flags_refused(flag, monkeypatch, capsys):
+def test_unported_flags_refused(flag, monkeypatch):
     """The multi-device flags parse (they run in
     tests/test_torch_multidevice.py), with ``--interactive`` too (the
-    multi-rank viewer); the one setting still refused is
-    ``VKPT_MXU_PRECISION=default``, with exit 2."""
+    multi-rank viewer), and so does ``VKPT_MXU_PRECISION=default`` (the
+    one-pass bf16 product, with JAX's warning): the CLI refuses nothing
+    that the JAX package accepts."""
     from vulkan_pathtracer_tpu_torch.app.main import parse_args
 
     _, args = parse_args(["-s", "scene.glb", *flag])
@@ -205,13 +229,14 @@ def test_unported_flags_refused(flag, monkeypatch, capsys):
     _, args = parse_args(["-s", "scene.glb", "--interactive", "--devices",
                           "2", *flag])
     assert args.interactive and args.devices == 2
+    monkeypatch.setenv("VKPT_MT", "mxu")
     monkeypatch.setenv("VKPT_MXU_PRECISION", "default")
-    with pytest.raises(SystemExit) as exc:
-        parse_args(["-s", "scene.glb", *flag])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "VKPT_MXU_PRECISION=default" in err
-    assert "not yet ported in vulkan_pathtracer_tpu_torch" in err
+    with pytest.warns(UserWarning, match="VKPT_MXU_PRECISION=default is "
+                      "quality-broken"):
+        config, args = parse_args(["-s", "scene.glb", *flag])
+    assert config.mt == "mxu" and config.mxu_precision == "default"
+    assert (args.devices, args.shard_mode) == (
+        (2, "tiles") if flag[0] == "--devices" else (1, "spp"))
 
 
 @pytest.mark.parametrize("fn", [st.quad_closest_hit, st.quad_any_hit,

@@ -410,8 +410,10 @@ def test_still_refused(box_glb, monkeypatch, capsys):
     and RenderPipeline builds and renders with ``seed_secondary`` on a
     flat bake (tests/test_torch_channels.py holds it to JAX, and the
     refusal on two-level scenes) as it takes ``enable_validation``, which
-    ``-v`` sets.  The one CLI refusal left is ``VKPT_MXU_PRECISION=default``
-    (the bf16 product), exit 2."""
+    ``-v`` sets.  The last CLI refusal, ``VKPT_MXU_PRECISION=default``
+    (the bf16 product), is ported too: it parses with JAX's warning, and
+    a bf16 bake renders through the joint batch (tests/test_torch_bf16.py
+    holds the product to JAX)."""
     config, args = parse_args(["-s", "scene.glb", "--devices", "2",
                                "--progressive"])
     assert args.devices == 2 and config.progressive
@@ -430,11 +432,22 @@ def test_still_refused(box_glb, monkeypatch, capsys):
     assert image.shape == (8, 8, 3) and rays >= 64
     config, _ = parse_args(["-s", "scene.glb", "-v"])
     assert config.enable_validation
+    monkeypatch.setenv("VKPT_MT", "mxu")
     monkeypatch.setenv("VKPT_MXU_PRECISION", "default")
-    with pytest.raises(SystemExit) as exc:
-        parse_args(["-s", "scene.glb"])
-    assert exc.value.code == 2
-    assert "VKPT_MXU_PRECISION=default" in capsys.readouterr().err
+    with pytest.warns(UserWarning, match="VKPT_MXU_PRECISION=default"):
+        config, _ = parse_args(["-s", "scene.glb", "--progressive"])
+    assert config.mxu_precision == "default" and config.progressive
+    scene = build_device_scene(gltf.load(box_glb), max_leaf_size=4,
+                               device="cpu", mt="mxu",
+                               mxu_precision="default")
+    assert scene.tri_coefs.dtype == torch.bfloat16
+    pipe = RenderPipeline(scene, RenderConfig(
+        mt="mxu", mxu_precision="default", progressive=True,
+        resolution_x=8, resolution_y=8))
+    image, rays = pipe.render_batch_sum(Camera(aspect_ratio=1.0), 0, 2,
+                                        joint=True)
+    assert image.shape == (8, 8, 3) and bool(torch.isfinite(image).all())
+    assert int(rays) >= 64
 
 
 def test_bench_prints_one_line_per_metric(capsys):

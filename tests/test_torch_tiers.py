@@ -12,8 +12,10 @@
   recorded by stand-ins for the Pallas launchers: the leaf-keyed
   default primary, the named kernels and their TPU-placement aliases,
   the fall-through where a table is missing and on two-level scenes;
-  and the refusals (exact frontier leaves above 14, unknown names,
-  ``VKPT_MXU_PRECISION=default``).
+  and the refusals (exact frontier leaves above 14, unknown names and
+  precisions; ``VKPT_MXU_PRECISION=default`` parses, with JAX's
+  warning); the frontier guard band read from
+  ``VKPT_FRONTIER_PRECISION`` and ``VKPT_FRONTIER_GUARD``.
 - Frames: 64x48 frames under tier settings against the JAX
   ``RenderPipeline(traversal="pallas")`` with the same variables (its
   Pallas kernels in interpret mode): ray counts equal, radiance
@@ -322,9 +324,14 @@ def test_refusals(scenes, monkeypatch):
         RenderPipeline(td28, RenderConfig(kernel_primary="bvh8"))
     with pytest.raises(ValueError, match="exact | mxu"):
         RenderPipeline(td28, RenderConfig(mt="bf16"))
-    with pytest.raises(ValueError, match="not yet ported"):
-        tier_fields_from_env({"VKPT_MXU_PRECISION": "default",
-                              "VKPT_MT": "mxu"})
+    with pytest.warns(UserWarning, match="VKPT_MXU_PRECISION=default"):
+        fields = tier_fields_from_env({"VKPT_MXU_PRECISION": "default",
+                                       "VKPT_MT": "mxu"})
+    assert fields["mxu_precision"] == "default"
+    assert tier_fields_from_env({"VKPT_MXU_PRECISION": "high"})[
+        "mxu_precision"] == "highest"
+    with pytest.raises(ValueError, match="highest | high | default"):
+        tier_fields_from_env({"VKPT_MXU_PRECISION": "bf16"})
     monkeypatch.setenv("VKPT_KERNEL_PRIMARY", "nine")
     with pytest.raises(SystemExit) as exc:
         parse_args(["-s", "scene.glb"])
@@ -420,7 +427,8 @@ def test_tier_fields_from_env():
 
     assert tier_fields_from_env({}) == dict(
         kernel_primary=None, kernel_secondary=None, anyhit_kernel=None,
-        mt="exact", max_leaf=None, frontier_width=16)
+        mt="exact", max_leaf=None, frontier_width=16,
+        frontier_guard=2.0 ** -7, mxu_precision="highest")
     got = tier_fields_from_env({
         "VKPT_KERNEL_PRIMARY": "oct", "VKPT_KERNEL_SECONDARY": "frontier",
         "VKPT_ANYHIT_KERNEL": "frontier", "VKPT_MT": "MXU",
@@ -428,7 +436,8 @@ def test_tier_fields_from_env():
         "VKPT_FRONTIER_LEAF": "cond", "VKPT_MXU_PRECISION": "high"})
     assert got == dict(kernel_primary="oct", kernel_secondary="frontier",
                        anyhit_kernel="frontier", mt="mxu", max_leaf=28,
-                       frontier_width=32)
+                       frontier_width=32, frontier_guard=2.0 ** -7,
+                       mxu_precision="highest")
 
 
 # -- frames -------------------------------------------------------------------

@@ -22,6 +22,7 @@ the same order.  What the card's compiler accepts is not checked here.
 """
 
 import ctypes
+import dataclasses
 import os
 import re
 import shutil
@@ -66,6 +67,7 @@ def host_lib(tmp_path_factory):
                 text = LAUNCH.sub(MOCK_LAUNCH, f.read())
             (out / name).write_text(text)
     (out / "cuda_runtime.h").write_text('#include "host_mock.h"\n')
+    (out / "cuda_bf16.h").write_text('#include "host_mock.h"\n')
     procs = [subprocess.Popen(
         ["g++", *FLAGS, "-I", str(out), "-c", "-o", str(out / (u + ".o")),
          str(out / u)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -77,6 +79,52 @@ def host_lib(tmp_path_factory):
     subprocess.run(["g++", "-shared", "-pthread", "-o", str(lib_path),
                     *(str(out / (u + ".o")) for u in UNITS)], check=True)
     return kernels.bind(ctypes.CDLL(str(lib_path)))
+
+
+def _coef(leaves):
+    """The launchers' ``coef`` of a leaf table (ops/kernels.py): 0 exact,
+    1 f32 coefficient rows, 2 bf16 ones."""
+    if leaves.shape[2] != mxu_mt.COLS:
+        return 0
+    return 2 if leaves.dtype == torch.bfloat16 else 1
+
+
+def test_mock_bf16_rounding_is_torchs(tmp_path):
+    """The mock's __float2bfloat16_rn / __bfloat162float, which the bf16
+    builds round their features with, bitwise PyTorch's float ->
+    bfloat16 -> float: ties to even, subnormals, signed zeros,
+    infinities, the largest finite values (rounding up to inf), and
+    random values over the whole range."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    src = tmp_path / "round.cc"
+    src.write_text(f'#include "{CSRC}/host_mock.h"\n' + """
+extern "C" void round_bf16(const float* x, float* out, int n) {
+  for (int i = 0; i < n; ++i) out[i] = __bfloat162float(__float2bfloat16_rn(x[i]));
+}
+""")
+    lib_path = tmp_path / "libround.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-o",
+                    str(lib_path), str(src)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    bits = np.array([0x3f808000, 0x3f818000, 0x3f80ffff, 0x3f817fff,
+                     0x00000001, 0x00008000, 0x00018000, 0x007fffff,
+                     0x00800000, 0x80000000, 0x00000000, 0x7f800000,
+                     0xff800000, 0x7f7fffff, 0xff7fffff, 0x7f7f7fff,
+                     0x7f7f8000, 0x80008000, 0x807fffff], np.uint32)
+    rng = np.random.default_rng(7)
+    bits = np.concatenate([bits, rng.integers(0, 2 ** 32, 4096,
+                                              dtype=np.uint64).astype(
+                                                  np.uint32)])
+    x = torch.from_numpy(bits.view(np.float32).copy())
+    x = x[~torch.isnan(x)].contiguous()
+    out = torch.empty_like(x)
+    lib.round_bf16(ctypes.c_void_p(x.data_ptr()),
+                   ctypes.c_void_p(out.data_ptr()), ctypes.c_int(x.numel()))
+    want = x.to(torch.bfloat16).float()
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(mxu_mt.round_bf16(x).view(torch.int32),
+                       want.view(torch.int32))
 
 
 def _ptrs(*tensors):
@@ -97,7 +145,7 @@ def _launch(fn, *args, n):
 def pair_host(lib, any_hit, box, link, leaves, o, d, t_lane, inst_inv=None,
               mb_bits=0, inst_feat=None):
     n = o.shape[0]
-    coef = int(leaves.shape[2] == mxu_mt.COLS)
+    coef = _coef(leaves)
     head = (*_ptrs(box, link, leaves), leaves.shape[1], coef,
             *_ptrs(inst_inv, inst_feat), mb_bits, *_ptrs(o, d, t_lane), n)
     if any_hit:
@@ -111,7 +159,7 @@ def pair_host(lib, any_hit, box, link, leaves, o, d, t_lane, inst_inv=None,
 
 def quad_host(lib, any_hit, box, link, leaves, o, d, t_lane):
     n = o.shape[0]
-    coef = int(leaves.shape[2] == mxu_mt.COLS)
+    coef = _coef(leaves)
     head = (*_ptrs(box, link, leaves), leaves.shape[1], coef,
             *_ptrs(o, d, t_lane), n)
     if any_hit:
@@ -135,7 +183,7 @@ def skip_host(lib, nodes, leaves, o, d, t_lane, inst_inv=None, mb_bits=0):
 def frontier_host(lib, any_hit, box, link, leaves, o, d, t_lane):
     n = o.shape[0]
     head = (*_ptrs(box, link), box.shape[1], *_ptrs(leaves), leaves.shape[1],
-            int(leaves.shape[2] == mxu_mt.COLS), *_ptrs(o, d, t_lane), n)
+            _coef(leaves), *_ptrs(o, d, t_lane), n)
     if any_hit:
         hit = torch.full((n,), 7, dtype=torch.uint8)
         _launch(lib.vkpt_frontier_any_hit, *head, hit.data_ptr(), n=n)
@@ -174,10 +222,10 @@ def stats_host(lib, any_hit, kind, box, link, leaves, o, d, t_lane,
                 leaves.shape[1], *_ptrs(inst_inv), mb_bits)
     elif kind == "frontier":
         lead = (int(any_hit), *_ptrs(box, link), box.shape[1], *_ptrs(leaves),
-                leaves.shape[1], int(leaves.shape[2] == mxu_mt.COLS))
+                leaves.shape[1], _coef(leaves))
     else:
         lead = (int(any_hit), *_ptrs(box, link, leaves), leaves.shape[1],
-                int(leaves.shape[2] == mxu_mt.COLS))
+                _coef(leaves))
         if kind == "pair":
             lead = (*lead, *_ptrs(inst_inv, inst_feat), mb_bits)
     fn = getattr(lib, f"vkpt_{kind}_stats")
@@ -216,22 +264,39 @@ def _assert_closest(got, ref):
 
 @pytest.fixture(scope="module")
 def scenes(columns_glb):
+    """The columns' bakes with f32 coefficient tables, and each as
+    ``<name>_bf16`` with the bf16 table of the one-pass product."""
     host = gltf.load(columns_glb)
-    return {
+    out = {
         "flat": build_device_scene(host, max_leaf_size=8, device="cpu",
                                    mt="mxu", wide=True),
         "flat32": build_device_scene(host, max_leaf_size=8, device="cpu",
                                      mt="mxu", frontier_width=32),
         "instanced": build_instanced_scene(host, max_leaf_size=14,
                                            device="cpu", mt="mxu")}
+    for name in list(out):
+        out[name + "_bf16"] = dataclasses.replace(
+            out[name], tri_coefs=mxu_mt.coef_table(out[name].tri_coefs,
+                                                   "default"))
+    return out
 
 
-@pytest.mark.parametrize("coef", [False, True], ids=["exact", "coef"])
+COEF_MODES = pytest.mark.parametrize("coef", [False, True, "bf16"],
+                                     ids=["exact", "coef", "bf16"])
+
+
+def _leaf_mode(scenes, name, coef):
+    """(scene, the wrappers' ``coef``) of leaf mode ``coef``: exact, f32
+    coefficient leaves, or ("bf16") the bf16 table's."""
+    return scenes[name + ("_bf16" if coef == "bf16" else "")], bool(coef)
+
+
+@COEF_MODES
 @pytest.mark.parametrize("kind", ["flat", "instanced"])
 def test_pair_kernels_match_plain(host_lib, scenes, kind, coef):
     """Both pair kernels of the kept designs, bitwise their plain
     versions; with exact leaves the any hit equals the closest-hit mask."""
-    scene = scenes[kind]
+    scene, coef = _leaf_mode(scenes, kind, coef)
     o, d, active = _rays(999, seed=5 + coef)
     args = st.pair_args(scene, o, d, active, coef)
     ref = st.pair_closest_hit_plain(*args)
@@ -244,12 +309,13 @@ def test_pair_kernels_match_plain(host_lib, scenes, kind, coef):
     assert not occ[~active].any()
 
 
-@pytest.mark.parametrize("coef", [False, True], ids=["exact", "coef"])
+@COEF_MODES
 def test_quad_kernels_match_plain(host_lib, scenes, coef):
     """The quad kernels, which share the walk, bitwise their plain
     versions."""
+    scene, coef = _leaf_mode(scenes, "flat", coef)
     o, d, active = _rays(777, seed=9 + coef)
-    args = st.quad_args(scenes["flat"], o, d, active, coef)
+    args = st.quad_args(scene, o, d, active, coef)
     _assert_closest(quad_host(host_lib, False, *args),
                     st.quad_closest_hit_plain(*args))
     assert torch.equal(quad_host(host_lib, True, *args),
@@ -367,13 +433,14 @@ def test_skip_kernel_matches_plain(host_lib, scenes, kind):
     _assert_closest(skip_host(host_lib, *args), ref)
 
 
-@pytest.mark.parametrize("coef", [False, True], ids=["exact", "coef"])
+@COEF_MODES
 @pytest.mark.parametrize("width", [16, 32])
 def test_frontier_any_hit_matches_plain(host_lib, scenes, width, coef):
     """The frontier any hit on the shared walk (slot order, leaf entries,
     refill), bitwise its plain version; with exact leaves the closest
     hit's mask too."""
-    scene = scenes["flat" if width == 16 else "flat32"]
+    scene, coef = _leaf_mode(scenes, "flat" if width == 16 else "flat32",
+                             coef)
     assert scene.frontier_box.shape[1] == width
     o, d, active = _rays(999, seed=31 + coef)
     args = fr.frontier_args(scene, o, d, active, coef)
@@ -387,12 +454,13 @@ def test_frontier_any_hit_matches_plain(host_lib, scenes, width, coef):
     assert not occ[~active].any()
 
 
-@pytest.mark.parametrize("coef", [False, True], ids=["exact", "coef"])
+@COEF_MODES
 @pytest.mark.parametrize("width", [16, 32])
 def test_frontier_closest_hit_matches_plain(host_lib, scenes, width, coef):
     """The frontier closest hit (near-first, the Batcher network, leaf
     slots in slot order), bitwise its plain version."""
-    scene = scenes["flat" if width == 16 else "flat32"]
+    scene, coef = _leaf_mode(scenes, "flat" if width == 16 else "flat32",
+                             coef)
     o, d, active = _rays(999, seed=41 + coef)
     args = fr.frontier_args(scene, o, d, active, coef)
     ref = fr.frontier_closest_hit_plain(*args)

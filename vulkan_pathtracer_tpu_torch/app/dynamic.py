@@ -87,13 +87,15 @@ def twist(tri_v0, tri_e1, tri_e2, phase: float):
 
 
 def rebuild_frame(template, phase: float, timer: StepTimer,
-                  coefs: bool = None):
+                  coefs: bool = None, mxu_precision: str = None):
     """The template's canonical triangles twisted at ``phase`` and
-    rebuilt on the device (device_rebuild_scene), the twist and each
-    build step marked on ``timer``."""
+    rebuilt on the device (device_rebuild_scene, with its ``coefs`` and
+    ``mxu_precision``), the twist and each build step marked on
+    ``timer``."""
     timer.start()
     v0, e1, e2, gn = twist(template.tri_v0, template.tri_e1,
                            template.tri_e2, phase)
     timer.mark("twist")
     return device_rebuild_scene(template, v0, e1, e2, gn, template.tri_attr,
-                                on_step=timer.mark, coefs=coefs)
+                                on_step=timer.mark, coefs=coefs,
+                                mxu_precision=mxu_precision)

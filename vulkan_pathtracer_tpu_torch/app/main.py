@@ -61,7 +61,9 @@ variables, read here once into RenderConfig's tier fields
 (``tier_fields_from_env``): ``VKPT_KERNEL_PRIMARY`` /
 ``VKPT_KERNEL_SECONDARY`` (quad | pair | oct | frontier | packet and
 JAX's ``*_hbm`` / ``vgate`` names), ``VKPT_ANYHIT_KERNEL=frontier``,
-``VKPT_MT=mxu`` (coefficient leaves), ``VKPT_LEAF`` (the leaf size),
+``VKPT_MT=mxu`` (coefficient leaves), ``VKPT_MXU_PRECISION`` (highest
+| high | default: the one-pass bf16 product of the coefficient leaves,
+with JAX's warning), ``VKPT_LEAF`` (the leaf size),
 ``VKPT_FRONTIER_WIDTH`` (16 | 32), ``VKPT_FRONTIER_PRECISION`` (default
 | high | highest) and ``VKPT_FRONTIER_GUARD`` (the frontier boxes'
 guard band: 2^-7 under ``default``, 2^-12 under ``high`` or
@@ -81,6 +83,7 @@ import io
 import os
 import sys
 import time
+import warnings
 
 import torch
 
@@ -133,6 +136,11 @@ PORTED_FLAGS = ("scene_path", "num_samples", "num_bounces", "resolution_x",
                 "gltf_quirk_mode", "pool_frames", "device")
 # Leaf size of the two-level bake (app/main.py:75-77 of the JAX package).
 INSTANCED_LEAF = 14
+# mxu_mt.mxu_precision's warning for VKPT_MXU_PRECISION=default (a TPU
+# v5e figure of the JAX package).
+MXU_DEFAULT_WARNING = ("VKPT_MXU_PRECISION=default is quality-broken "
+                       "(measured -3.8% hit checksum on the atrium A/B); use "
+                       "'highest'.")
 
 
 def tier_fields_from_env(environ=None) -> dict:
@@ -145,9 +153,11 @@ def tier_fields_from_env(environ=None) -> dict:
     or ``highest``).  Raises ValueError on a value the port refuses: an
     unknown ``VKPT_MT``, frontier width or frontier precision, a
     ``VKPT_PRESPLIT`` or ``VKPT_FRONTIER_GUARD`` that is not a number, a
-    negative guard (it would shrink the boxes and drop geometry), and
-    ``VKPT_MXU_PRECISION=default`` (mxu_mt.py:58-80, the one-pass bf16
-    product of the coefficient leaves), which is not yet ported."""
+    negative guard (it would shrink the boxes and drop geometry), and an
+    unknown ``VKPT_MXU_PRECISION``.  ``mxu_precision``: "default" (the
+    one-pass bf16 product of the coefficient leaves, mxu_mt.py:58-80),
+    else "highest" (``high`` is its alias, as in JAX); under
+    ``VKPT_MT=mxu`` "default" warns as JAX does (MXU_DEFAULT_WARNING)."""
     env = os.environ if environ is None else environ
 
     def get(name):
@@ -158,13 +168,11 @@ def tier_fields_from_env(environ=None) -> dict:
     if mt not in MT_MODES:
         raise ValueError(f"VKPT_MT={mt!r}: exact | mxu")
     precision = (get("VKPT_MXU_PRECISION") or "highest").lower()
-    if precision == "default":
-        raise ValueError("VKPT_MXU_PRECISION=default (one bf16 pass for "
-                         "the coefficient leaves): not yet ported in "
-                         "vulkan_pathtracer_tpu_torch; the port computes "
-                         "them in f32 (highest)")
-    if precision not in ("high", "highest"):
-        raise ValueError(f"VKPT_MXU_PRECISION={precision!r}: highest")
+    if precision not in ("default", "high", "highest"):
+        raise ValueError(f"VKPT_MXU_PRECISION={precision!r}: highest | high "
+                         f"| default")
+    if precision == "default" and mt == "mxu":
+        warnings.warn(MXU_DEFAULT_WARNING, stacklevel=2)
     presplit = get("VKPT_PRESPLIT")
     if presplit is not None:
         try:
@@ -180,7 +188,9 @@ def tier_fields_from_env(environ=None) -> dict:
                   kernel_secondary=get("VKPT_KERNEL_SECONDARY"),
                   anyhit_kernel=get("VKPT_ANYHIT_KERNEL"), mt=mt,
                   max_leaf=None if leaf is None else int(leaf),
-                  frontier_width=width, frontier_guard=frontier_guard(get))
+                  frontier_width=width, frontier_guard=frontier_guard(get),
+                  mxu_precision="default" if precision == "default"
+                  else "highest")
     if presplit is not None:
         fields["presplit"] = presplit
     return fields
@@ -273,7 +283,8 @@ def load_pipeline(scene_path: str, config: RenderConfig, device,
     :88) — and build the render pipeline.  ``config.traversal`` picks
     what the flat bake holds, as the JAX app does (app/main.py:86-90):
     no BVH for ``brute``, the 8-wide tiles too for ``pallas8``;
-    ``config.mt == "mxu"`` adds the coefficient leaves,
+    ``config.mt == "mxu"`` adds the coefficient leaves (bf16 under
+    ``config.mxu_precision == "default"``),
     ``config.frontier_width`` and ``config.frontier_guard`` set the
     frontier tables' width and guard band and ``config.presplit`` the
     flat bake's pre-splitting budget;
@@ -287,7 +298,8 @@ def load_pipeline(scene_path: str, config: RenderConfig, device,
     if instanced:
         dev = build_instanced_scene(
             scene, max_leaf_size=config.max_leaf or INSTANCED_LEAF,
-            device=device, mt=config.mt)
+            device=device, mt=config.mt,
+            mxu_precision=config.mxu_precision)
         print(f"two-level BVH: {dev.num_triangles} shared triangles, "
               f"{dev.inst_inv.shape[0]} instances", file=sys.stderr)
     else:
@@ -297,7 +309,8 @@ def load_pipeline(scene_path: str, config: RenderConfig, device,
             device=device, build_bvh=config.traversal != "brute",
             wide=config.traversal == "pallas8", mt=config.mt,
             frontier_width=config.frontier_width, presplit=config.presplit,
-            frontier_guard=config.frontier_guard)
+            frontier_guard=config.frontier_guard,
+            mxu_precision=config.mxu_precision)
         if config.presplit > 0 and dev.tree is not None:
             print(f"pre-split: {int(dev.tree.block_count.sum())} references "
                   f"of {dev.num_triangles} triangles (budget "
@@ -530,10 +543,13 @@ def render_main(config: RenderConfig, args, device, group=None) -> int:
     if primary and (config.mt != "exact" or any((
             config.kernel_primary, config.kernel_secondary,
             config.anyhit_kernel, config.max_leaf))):
+        product = (f" mxu_precision={config.mxu_precision}"
+                   if config.mt == "mxu" else "")
         print(f"kernel tiers: primary={config.kernel_primary or 'default'} "
               f"secondary={config.kernel_secondary or 'default'} "
               f"anyhit={config.anyhit_kernel or 'default'} mt={config.mt} "
-              f"leaf={pipeline.scene.max_leaf_size}", file=sys.stderr)
+              f"leaf={pipeline.scene.max_leaf_size}{product}",
+              file=sys.stderr)
     try:
         if config.enable_validation:
             validate(pipeline, config)

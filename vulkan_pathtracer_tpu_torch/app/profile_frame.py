@@ -168,7 +168,8 @@ def animate(args, path: str, dev) -> int:
         anim = build_animated_scene(host, max_leaf_size=leaf, device=dev,
                                     mt=config.mt,
                                     frontier_width=config.frontier_width,
-                                    frontier_guard=config.frontier_guard)
+                                    frontier_guard=config.frontier_guard,
+                                    mxu_precision=config.mxu_precision)
         base_tf = anim.initial_transforms(host)
         ext = dynamic.largest_extent(anim.base)
 
@@ -183,7 +184,8 @@ def animate(args, path: str, dev) -> int:
 
         def scene_at(t):
             return dynamic.rebuild_frame(template, t, timer,
-                                         coefs=config.mt == "mxu")
+                                         coefs=config.mt == "mxu",
+                                         mxu_precision=config.mxu_precision)
         first = scene_at(0.0)
     pipe = RenderPipeline(first, config)
     orbit = orbit_path(radius=4.5, height=2.2, duration=4.0,

@@ -8,7 +8,8 @@
 //   - any hit: pallas_frontier.py _make_frontier_anyhit_kernel, launched
 //     by _frontier_anyhit via pallas_frontier_any_hit
 //     (VKPT_ANYHIT_KERNEL=frontier);
-//   - their exact or coefficient leaf test (VKPT_MT=mxu; traverse.cuh).
+//   - their exact or coefficient leaf test (VKPT_MT=mxu; traverse.cuh),
+//     f32 or the one-pass bf16 product (VKPT_MXU_PRECISION=default).
 // The plain PyTorch versions in ops/frontier.py perform the same float
 // operations in the same order (traverse.cuh: -fmad=false).
 //
@@ -17,9 +18,10 @@
 // gives each plane as lo * ix + 1 * (-(ox * ix)): in f32 that is the
 // stack kernels' slab() with o * inv hoisted, which these kernels run,
 // per ray, on CUDA cores.  The boxes are the bake's guard-dilated
-// ones (ops/frontier.py): the dilation, sized for a one-pass bf16
-// product, only adds visits here; the hits equal the quad kernel's up
-// to ties of equal t.
+// ones (ops/frontier.py, 2^-7 or, under VKPT_FRONTIER_PRECISION=high or
+// highest, 2^-12): the dilation, sized for a one-pass bf16 node
+// product, only adds visits to this f32 node test; the hits equal the
+// quad kernel's up to ties of equal t.
 //
 // The closest hit, in the order of the Pallas body: every slot is
 // slab-tested against min(t_best, t_lane) at node entry; hit leaf
@@ -77,12 +79,13 @@ namespace {
 using FrontierAnyDesign = Design<false, true, true, 6, true, false, 8>;
 using CoefFrontierAnyDesign = Design<false, true, true, 8, true, true, 4>;
 
-template <int W, bool COEF, bool STATS = false>
+template <int W, bool COEF, bool STATS = false, bool BF16 = false>
 int any_launch(const Tables& tab, const float* origin,
                const float* direction, const float* t_lane, int64_t n,
                uint8_t* hit_out, unsigned* batches, unsigned long long* st,
                void* stream) {
-  using D = std::conditional_t<COEF, CoefFrontierAnyDesign, FrontierAnyDesign>;
+  using C = std::conditional_t<COEF, CoefFrontierAnyDesign, FrontierAnyDesign>;
+  using D = std::conditional_t<BF16, Bf16<C>, C>;
   return launch<W, true, COEF, false, D, STATS>(
       tab, origin, direction, t_lane, n, nullptr, nullptr, nullptr, nullptr,
       hit_out, batches, st, stream);
@@ -94,10 +97,13 @@ int any_dispatch(int width, int coef, const Tables& tab, const float* origin,
                  uint8_t* hit_out, unsigned* batches, unsigned long long* st,
                  void* stream) {
   if (width != 16 && width != 32) return (int)cudaErrorInvalidValue;
-  const auto run = width == 16 ? (coef ? any_launch<16, true, STATS>
-                                       : any_launch<16, false, STATS>)
-                               : (coef ? any_launch<32, true, STATS>
-                                       : any_launch<32, false, STATS>);
+  const auto run =
+      width == 16 ? (coef == 2 ? any_launch<16, true, STATS, true>
+                     : coef    ? any_launch<16, true, STATS>
+                               : any_launch<16, false, STATS>)
+                  : (coef == 2 ? any_launch<32, true, STATS, true>
+                     : coef    ? any_launch<32, true, STATS>
+                               : any_launch<32, false, STATS>);
   return run(tab, origin, direction, t_lane, n, hit_out, batches, st, stream);
 }
 
@@ -119,12 +125,15 @@ int closest_dispatch(int width, int coef, const Tables& tab,
   if (width != 16 && width != 32) return (int)cudaErrorInvalidValue;
   using D = FrontierClosestDesign;
   using C = CoefFrontierClosestDesign;
+  using B = Bf16<C>;
   const auto run =
       width == 16
-          ? (coef ? launch<16, false, true, false, C, STATS>
-                  : launch<16, false, false, false, D, STATS>)
-          : (coef ? launch<32, false, true, false, C, STATS>
-                  : launch<32, false, false, false, D, STATS>);
+          ? (coef == 2 ? launch<16, false, true, false, B, STATS>
+             : coef    ? launch<16, false, true, false, C, STATS>
+                       : launch<16, false, false, false, D, STATS>)
+          : (coef == 2 ? launch<32, false, true, false, B, STATS>
+             : coef    ? launch<32, false, true, false, C, STATS>
+                       : launch<32, false, false, false, D, STATS>);
   return run(tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
              nullptr, batches, st, stream);
 }
@@ -133,9 +142,10 @@ int closest_dispatch(int width, int coef, const Tables& tab,
 
 // C launchers: pointers, sizes and the stream in; cudaGetLastError()
 // out (0 = the launch was accepted; cudaErrorInvalidValue for a width
-// other than 16 or 32).  coef != 0: `leaves` is the (n_leaves, block,
-// 20) zero-free coefficient table.  `batches`: one unsigned counter for the
-// persistent warps, zeroed by the launcher on `stream`.
+// other than 16 or 32).  coef 1: `leaves` is the (n_leaves, block, 20)
+// zero-free f32 coefficient table; coef 2: the same rows in bf16 (the
+// one-pass product, stack_walk.cuh Bf16).  `batches`: one unsigned
+// counter for the persistent warps, zeroed by the launcher on `stream`.
 extern "C" int vkpt_frontier_closest_hit(const float* box, const int* link,
                                          int width, const float* leaves,
                                          int block, int coef,
@@ -200,10 +210,14 @@ extern "C" int vkpt_frontier_closest_hit_chan(
   const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
   using D = FrontierClosestDesign;
   using C = CoefFrontierClosestDesign;
-  const auto run = width == 16 ? (coef ? launch_chan<16, true, false, C>
-                                       : launch_chan<16, false, false, D>)
-                               : (coef ? launch_chan<32, true, false, C>
-                                       : launch_chan<32, false, false, D>);
+  using B = Bf16<C>;
+  const auto run =
+      width == 16 ? (coef == 2 ? launch_chan<16, true, false, B>
+                     : coef    ? launch_chan<16, true, false, C>
+                               : launch_chan<16, false, false, D>)
+                  : (coef == 2 ? launch_chan<32, true, false, B>
+                     : coef    ? launch_chan<32, true, false, C>
+                               : launch_chan<32, false, false, D>);
   return run(tab, VKPT_CHANNELS, origin, direction, t_lane, n, t_out,
              tri_out, u_out, v_out, batches, stream);
 }

@@ -44,6 +44,9 @@ struct int4 {
 struct int2 {
   int x, y;
 };
+struct uint2 {
+  unsigned x, y;
+};
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
@@ -129,6 +132,32 @@ inline int __float_as_int(float f) {
   int i;
   std::memcpy(&i, &f, sizeof i);
   return i;
+}
+
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+
+// cuda_bf16.h's conversions (tests/test_torch_walk_host.py adds a
+// cuda_bf16.h that includes this file): round to nearest even, as
+// PyTorch's float -> bfloat16 (c10::BFloat16, a NaN to 0x7fc0), and the
+// exact widening back.
+struct __nv_bfloat16 {
+  uint16_t bits;
+};
+
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, sizeof u);
+  if (std::isnan(f)) return __nv_bfloat16{0x7fc0};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return __nv_bfloat16{(uint16_t)(u >> 16)};
+}
+
+inline float __bfloat162float(__nv_bfloat16 b) {
+  return __uint_as_float((uint32_t)b.bits << 16);
 }
 
 inline unsigned __activemask() { return 0xffffffffu; }

@@ -92,11 +92,15 @@ int pair_launch(const Tables& tab, int coef, const float* origin,
                 void* stream) {
   using Exact = PairDesign<ANY, false>;
   using Coef = PairDesign<ANY, true>;
+  using Bf = Bf16<Coef>;
   const bool inst = tab.inst_inv != nullptr;
-  const auto run = coef ? (inst ? launch<2, ANY, true, true, Coef, STATS>
-                                : launch<2, ANY, true, false, Coef, STATS>)
-                        : (inst ? launch<2, ANY, false, true, Exact, STATS>
-                                : launch<2, ANY, false, false, Exact, STATS>);
+  const auto run =
+      coef == 2 ? (inst ? launch<2, ANY, true, true, Bf, STATS>
+                        : launch<2, ANY, true, false, Bf, STATS>)
+      : coef    ? (inst ? launch<2, ANY, true, true, Coef, STATS>
+                        : launch<2, ANY, true, false, Coef, STATS>)
+                : (inst ? launch<2, ANY, false, true, Exact, STATS>
+                        : launch<2, ANY, false, false, Exact, STATS>);
   return run(tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
              hit_out, batches, st, stream);
 }
@@ -105,9 +109,10 @@ int pair_launch(const Tables& tab, int coef, const float* origin,
 
 // C launchers: pointers, sizes and the stream in; cudaGetLastError()
 // out (0 = the launch was accepted).  inst_inv == nullptr selects the
-// flat variant; coef != 0 the coefficient leaves (`leaves` is then the
-// (n_leaves, block, 20) zero-free table, and a two-level scene passes
-// inst_feat (I, 40)).
+// flat variant; coef 1 the coefficient leaves (`leaves` is then the
+// (n_leaves, block, 20) zero-free f32 table, and a two-level scene
+// passes inst_feat (I, 40)), coef 2 their bf16 product (the same rows
+// in bf16; stack_walk.cuh Bf16).
 // `batches`: one unsigned counter for the persistent warps, zeroed by
 // the launcher on `stream`.
 extern "C" int vkpt_pair_closest_hit(const float* box, const int* link,
@@ -172,11 +177,14 @@ extern "C" int vkpt_pair_closest_hit_chan(
   const Tables tab{box, link, leaves, block, inst_inv, inst_feat, mb_bits};
   using Exact = PairDesign<false, false>;
   using Coef = PairDesign<false, true>;
+  using Bf = Bf16<Coef>;
   const bool inst = inst_inv != nullptr;
-  const auto run = coef ? (inst ? launch_chan<2, true, true, Coef>
-                                : launch_chan<2, true, false, Coef>)
-                        : (inst ? launch_chan<2, false, true, Exact>
-                                : launch_chan<2, false, false, Exact>);
+  const auto run = coef == 2 ? (inst ? launch_chan<2, true, true, Bf>
+                                     : launch_chan<2, true, false, Bf>)
+                   : coef    ? (inst ? launch_chan<2, true, true, Coef>
+                                     : launch_chan<2, true, false, Coef>)
+                             : (inst ? launch_chan<2, false, true, Exact>
+                                     : launch_chan<2, false, false, Exact>);
   return run(tab, VKPT_CHANNELS, origin, direction, t_lane, n, t_out,
              tri_out, u_out, v_out, batches, stream);
 }

@@ -10,7 +10,8 @@
 //     launched by _nary_anyhit via pallas_quad_any_hit;
 //   - under VKPT_MT=mxu the quad kernels' inlined coefficient leaf test
 //     (mxu_mt.mt_coef_visit / mt_coef_visit_anyhit; traverse.cuh
-//     coef_block).
+//     coef_block), f32 or the one-pass bf16 product
+//     (VKPT_MXU_PRECISION=default; stack_walk.cuh Bf16).
 // The plain PyTorch versions in ops/stack_traverse.py perform the same
 // float operations in the same order (traverse.cuh: -fmad=false).
 //
@@ -81,13 +82,18 @@ using QuadAnyDesign = Design<false, true, true, 8, true, false>;
 using OctDesign = Design<true, false, false, 1, false, true>;
 using CoefClosestDesign = Design<true, true, true, 1, false, true, 0, 0, true>;
 using CoefAnyDesign = Design<false, true, true, 1, true, true, 6>;
+// The bf16 product's builds (stack_walk.cuh Bf16) take the f32 builds'
+// walks unchanged.
+using BfClosestDesign = Bf16<CoefClosestDesign>;
+using BfAnyDesign = Bf16<CoefAnyDesign>;
 
 }  // namespace
 
 // C launchers: pointers, sizes and the stream in; cudaGetLastError()
-// out (0 = the launch was accepted).  coef != 0: `leaves` is the
-// (n_leaves, block, 20) zero-free coefficient table.  `batches`: one
-// unsigned counter for the persistent warps, zeroed by the launcher on
+// out (0 = the launch was accepted).  coef 1: `leaves` is the
+// (n_leaves, block, 20) zero-free f32 coefficient table; coef 2: the
+// same rows in bf16 (the one-pass product).  `batches`: one unsigned
+// counter for the persistent warps, zeroed by the launcher on
 // `stream`.
 extern "C" int vkpt_quad_closest_hit(const float* box, const int* link,
                                      const float* leaves, int block, int coef,
@@ -98,8 +104,9 @@ extern "C" int vkpt_quad_closest_hit(const float* box, const int* link,
                                      float* v_out, unsigned* batches,
                                      void* stream) {
   const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
-  return (coef ? launch<4, false, true, false, CoefClosestDesign>
-               : launch<4, false, false, false, QuadClosestDesign>)(
+  return (coef == 2 ? launch<4, false, true, false, BfClosestDesign>
+          : coef    ? launch<4, false, true, false, CoefClosestDesign>
+                    : launch<4, false, false, false, QuadClosestDesign>)(
       tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
       nullptr, batches, nullptr, stream);
 }
@@ -125,14 +132,15 @@ extern "C" int vkpt_quad_any_hit(const float* box, const int* link,
                                  uint8_t* hit_out, unsigned* batches,
                                  void* stream) {
   const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
-  return (coef ? launch<4, true, true, false, CoefAnyDesign>
-               : launch<4, true, false, false, QuadAnyDesign>)(
+  return (coef == 2 ? launch<4, true, true, false, BfAnyDesign>
+          : coef    ? launch<4, true, true, false, CoefAnyDesign>
+                    : launch<4, true, false, false, QuadAnyDesign>)(
       tab, origin, direction, t_lane, n, nullptr, nullptr, nullptr, nullptr,
       hit_out, batches, nullptr, stream);
 }
 
 // The statistics build of the quad kernels (the designs above, exact
-// or, coef != 0, coefficient leaves); `st` holds kStCount zeroed
+// or, coef 1 and 2, coefficient leaves); `st` holds kStCount zeroed
 // counters.  The hit outputs are those of the production kernels.
 extern "C" int vkpt_quad_stats(int any, const float* box, const int* link,
                                const float* leaves, int block, int coef,
@@ -143,10 +151,14 @@ extern "C" int vkpt_quad_stats(int any, const float* box, const int* link,
                                unsigned* batches, void* stream) {
   const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
   const auto run =
-      any ? (coef ? launch<4, true, true, false, CoefAnyDesign, true>
-                  : launch<4, true, false, false, QuadAnyDesign, true>)
-          : (coef ? launch<4, false, true, false, CoefClosestDesign, true>
-                  : launch<4, false, false, false, QuadClosestDesign, true>);
+      any ? (coef == 2 ? launch<4, true, true, false, BfAnyDesign, true>
+             : coef    ? launch<4, true, true, false, CoefAnyDesign, true>
+                       : launch<4, true, false, false, QuadAnyDesign, true>)
+          : (coef == 2
+                 ? launch<4, false, true, false, BfClosestDesign, true>
+             : coef ? launch<4, false, true, false, CoefClosestDesign, true>
+                    : launch<4, false, false, false, QuadClosestDesign,
+                             true>);
   return run(tab, origin, direction, t_lane, n, t_out, tri_out, u_out, v_out,
              hit_out, batches, st, stream);
 }
@@ -163,8 +175,9 @@ extern "C" int vkpt_quad_closest_hit_chan(
     int* tri_out, float* u_out, float* v_out, unsigned* batches,
     void* stream) {
   const Tables tab{box, link, leaves, block, nullptr, nullptr, 0};
-  return (coef ? launch_chan<4, true, false, CoefClosestDesign>
-               : launch_chan<4, false, false, QuadClosestDesign>)(
+  return (coef == 2 ? launch_chan<4, true, false, BfClosestDesign>
+          : coef    ? launch_chan<4, true, false, CoefClosestDesign>
+                    : launch_chan<4, false, false, QuadClosestDesign>)(
       tab, VKPT_CHANNELS, origin, direction, t_lane, n, t_out, tri_out,
       u_out, v_out, batches, stream);
 }

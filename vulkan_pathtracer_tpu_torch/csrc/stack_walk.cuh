@@ -66,7 +66,19 @@ struct Design {
   static constexpr int kLeafAt = LEAF_AT;
   static constexpr bool kAhead = AHEAD;  // traverse.cuh coef_block
   static constexpr bool kChan = false;
+  static constexpr bool kBf16 = false;
   using RayT = Ray;
+};
+
+// Design D built for the bf16 table of the one-pass product
+// (VKPT_MXU_PRECISION=default): coef_block reads 40 B rows and the
+// leaf test rounds the features (traverse.cuh round_features), after
+// the object transform on two-level scenes.  Its kernels are entry
+// points of their own, so the f32 builds compile as before.
+template <class D>
+struct Bf16 : D {
+  static_assert(D::kEarly, "a coefficient design");
+  static constexpr bool kBf16 = true;
 };
 
 // The channel build of closest-hit design D: each ray is a ChanRay,
@@ -151,7 +163,8 @@ struct LeafTest {
       if (COEF) {
         float f[10];
         ray_features(r, f);
-        coef_block<ANY, false, D::kAhead, STATS, D::kChan>(
+        if (D::kBf16) round_features(f);
+        coef_block<ANY, false, D::kAhead, STATS, D::kChan, D::kBf16>(
             f, leaves, leaf, leaf, block, 1.0f, r.tl, b, st + kStTri, lo(r));
       } else {
         visit_leaf<ANY, false, D::kEarly>(r, leaves, block, nullptr, 0, leaf,
@@ -167,13 +180,14 @@ struct LeafTest {
         float f[10];
         ray_features(r, f);
         sign = object_features(f, inst_inv, inst_feat, inst, fo);
+        if (D::kBf16) round_features(fo);
       } else {
         sign = object_ray(r, inst_inv, inst, o);
       }
     }
     const int row = leaf & ((1 << mb_bits) - 1);
     if (COEF)
-      coef_block<ANY, true, D::kAhead, STATS, D::kChan>(
+      coef_block<ANY, true, D::kAhead, STATS, D::kChan, D::kBf16>(
           fo, leaves, row, leaf, block, sign, r.tl, b, st + kStTri, lo(r));
     else
       leaf_block<ANY, true, D::kEarly>(o, leaves, row, leaf, block, sign, b);

@@ -12,9 +12,12 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -224,6 +227,31 @@ __device__ __forceinline__ void coef_quad(const float4* __restrict__ q, int j,
   c[4 * j + 3] = x.w;
 }
 
+// The one-pass bf16 product (VKPT_MXU_PRECISION=default, mxu_mt.py:58-80;
+// ops/mxu_mt.py): a bf16 table of the same zero-free rows, 40 B, whose
+// quad j is one 8-byte load of four bf16, widened exactly to f32; the
+// features rounded to bf16 (round to nearest even) before the sums.  A
+// product of two bf16 values is exact in f32, so the sums below are the
+// one pass's f32 accumulation, in the f32 tier's order.  The builds run
+// on CUDA cores, like the f32 ones; bound: the 40 B rows where the leaf
+// loads dominate, else the same operations as the f32 test.  A
+// tensor-core design (mma.sync bf16) would not round each add and is a
+// candidate for a later redesign.
+__device__ __forceinline__ void coef_quad(const uint2* __restrict__ q, int j,
+                                          float* c) {
+  const uint2 x = __ldg(q + j);
+  c[4 * j + 0] = __uint_as_float(x.x << 16);
+  c[4 * j + 1] = __uint_as_float(x.x & 0xffff0000u);
+  c[4 * j + 2] = __uint_as_float(x.y << 16);
+  c[4 * j + 3] = __uint_as_float(x.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void round_features(float* f) {
+#pragma unroll
+  for (int j = 0; j < 10; ++j)
+    f[j] = __bfloat162float(__float2bfloat16_rn(f[j]));
+}
+
 // Leaf block `row` of the coefficient table against features f.
 // Closest hit: the candidate with the smallest t inside (TMIN, lim),
 // lim = min(t_best, t_lane) at the visit's start, the first triangle on
@@ -235,9 +263,11 @@ __device__ __forceinline__ void coef_quad(const float4* __restrict__ q, int j,
 // build): tri_st[0..3] count the triangles tested and those that fail at
 // det <= 0, at u' < 0 and at the v' window.  CHAN (a channel build's
 // closest hit): a candidate also needs t >= tn, the window's lower bound
-// on the divided t, as mt_coef_visit's tnear_f (mxu_mt.py:288).
+// on the divided t, as mt_coef_visit's tnear_f (mxu_mt.py:288).  BF16:
+// `coefs` is the bf16 table (rows of five 8-byte quads) and f the
+// rounded features (round_features).
 template <bool ANY, bool SIGNED, bool AHEAD, bool STATS = false,
-          bool CHAN = false>
+          bool CHAN = false, bool BF16 = false>
 __device__ __forceinline__ void coef_block(const float* f,
                                            const float* __restrict__ coefs,
                                            int row, int leaf, int block,
@@ -245,15 +275,16 @@ __device__ __forceinline__ void coef_block(const float* f,
                                            unsigned long long* tri_st =
                                                nullptr,
                                            float tn = kTmin) {
-  const float4* p =
-      reinterpret_cast<const float4*>(coefs) + (size_t)row * block * 5;
+  using Quad = std::conditional_t<BF16, uint2, float4>;
+  const Quad* p =
+      reinterpret_cast<const Quad*>(coefs) + (size_t)row * block * 5;
   const float lim = ANY ? tl : fminf(b.t, tl);
   float ct = kBig, cu = 0.0f, cv = 0.0f;
   int ck = -1;
   unsigned n_tri = 0, n_back = 0, n_u = 0, n_v = 0;
   for (int k = 0; k < block; ++k) {
     if (STATS) ++n_tri;
-    const float4* q = p + 5 * k;
+    const Quad* q = p + 5 * k;
     float c[20];
 #pragma unroll
     for (int j = 0; j < 5; ++j)

@@ -118,13 +118,14 @@ def build_animated_scene(scene: Scene, max_leaf_size: int = 4,
                          device="cuda", mt: str = "exact",
                          frontier_width: int = FRONTIER_WIDTH,
                          presplit: float = 0.0,
-                         frontier_guard: float = FRONTIER_GUARD
-                         ) -> AnimatedScene:
+                         frontier_guard: float = FRONTIER_GUARD,
+                         mxu_precision: str = "highest") -> AnimatedScene:
     """Bake the flat scene (build_device_scene's arguments), then its
     object-space sources in the bake's slot order, through the bake's
     own slot map."""
     base, slot_map = bake_flat(scene, max_leaf_size, device, True, False, mt,
-                               frontier_width, presplit, frontier_guard)
+                               frontier_width, presplit, frontier_guard,
+                               mxu_precision)
     if slot_map is None:
         raise ValueError("build_animated_scene: the scene has no triangles")
     tri = {k: [] for k in ("inst", "v0", "e1", "e2", "gn", "index")}

@@ -75,6 +75,7 @@ from vulkan_pathtracer_tpu_torch.ops.frontier import (
 from vulkan_pathtracer_tpu_torch.ops.mxu_mt import (
     build_mt_coef_rows,
     coef_rows_from_jax,
+    coef_table,
     feature_maps_from_jax,
 )
 from vulkan_pathtracer_tpu_torch.ops.native import (
@@ -119,8 +120,9 @@ class DeviceScene:
     frontier_box: Optional[torch.Tensor] = None   # (Nw, W, 6) f32, flat
     frontier_link: Optional[torch.Tensor] = None  # (Nw, W) int32
     frontier_guard: float = GUARD   # the guard band frontier_box was baked at
-    # Coefficient leaves (mt="mxu"): (n_leaves, block, 20) f32 zero-free
-    # rows; two-level scenes add the (I, 40) feature transforms.
+    # Coefficient leaves (mt="mxu"): (n_leaves, block, 20) zero-free
+    # rows, f32 or (the one-pass bf16 product) bfloat16; two-level
+    # scenes add the (I, 40) f32 feature transforms.
     tri_coefs: Optional[torch.Tensor] = None
     inst_feat: Optional[torch.Tensor] = None
     # Two-level scenes (models/instanced_scene.py): leaf values pack
@@ -370,23 +372,26 @@ def build_device_scene(scene: Scene, max_leaf_size: int = 4,
                        wide: bool = False, mt: str = "exact",
                        frontier_width: int = FRONTIER_WIDTH,
                        presplit: float = 0.0,
-                       frontier_guard: float = GUARD) -> DeviceScene:
+                       frontier_guard: float = GUARD,
+                       mxu_precision: str = "highest") -> DeviceScene:
     """Bake a host Scene into device tensors with a BVH of
     ``max_leaf_size``-triangle leaf blocks (none with ``build_bvh=False``;
     the 8-wide tiles too with ``wide=True``; the coefficient table too
-    with ``mt="mxu"``; the frontier tables at ``frontier_width`` with
+    with ``mt="mxu"``, f32 or, ``mxu_precision="default"``, bf16
+    (mxu_mt.coef_table); the frontier tables at ``frontier_width`` with
     their boxes dilated by ``frontier_guard``; the
     triangles pre-split with budget ``presplit`` when > 0, see
     bvh_with_leaf_blocks).  The wide bake is a Python loop; its seconds
     are in ``scene.wide_seconds``.  The scene carries the tree's
     TreeMaps (``scene.tree``), which ops/refit.py regenerates from."""
     return bake_flat(scene, max_leaf_size, device, build_bvh, wide, mt,
-                     frontier_width, presplit, frontier_guard)[0]
+                     frontier_width, presplit, frontier_guard,
+                     mxu_precision)[0]
 
 
 def bake_flat(scene: Scene, max_leaf_size: int, device, build_bvh: bool,
               wide: bool, mt: str, frontier_width: int, presplit: float,
-              frontier_guard: float = GUARD):
+              frontier_guard: float = GUARD, mxu_precision: str = "highest"):
     """(DeviceScene, slot_map) of build_device_scene: slot_map maps
     each triangle slot before the padding to its triangle in bake order
     (-1: a padded slot; None without a BVH)."""
@@ -494,6 +499,8 @@ def bake_flat(scene: Scene, max_leaf_size: int, device, build_bvh: bool,
         frontier_guard=frontier_guard,
     )
     dev = _to_device(host, meta, device)
+    if dev.tri_coefs is not None:
+        dev.tri_coefs = coef_table(dev.tri_coefs, mxu_precision)
     if bvh is not None:
         dev.tree = tree_maps(bvh, max_leaf_size, perm, dict(
             pair_src=pair_src, quad_src=quad_src, oct_src=oct_src,
@@ -501,8 +508,7 @@ def bake_flat(scene: Scene, max_leaf_size: int, device, build_bvh: bool,
     return dev, slot_map
 
 
-def scene_from_jax_arrays(arrays: dict, meta: dict, device,
-                          frontier_guard: float = GUARD) -> DeviceScene:
+def scene_from_jax_arrays(arrays: dict, meta: dict, device) -> DeviceScene:
     """The port's scene from a JAX ``DeviceScene``'s arrays as NumPy
     (its ``_ARRAY_FIELDS``; absent fields None) and its static fields
     ``num_triangles``, ``max_leaf_size``, ``bvh_depth``,
@@ -526,9 +532,7 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device,
     as it is, ``bvh_wide_nodes`` the wide tiles (8 octant orders: a JAX
     bake with ``octant_order=False`` is refused).  A flat scene's
     build-order tree and static maps become its TreeMaps
-    (_tree_from_jax).  ``frontier_guard``: the band JAX baked the
-    frontier tiles at (its ``_guard()`` of that bake), which the port's
-    refit regenerates them with."""
+    (_tree_from_jax)."""
     block = int(meta["max_leaf_size"])
     instanced = bool(meta.get("instanced", False))
     packed = arrays.get("bvh_packed")
@@ -600,7 +604,6 @@ def scene_from_jax_arrays(arrays: dict, meta: dict, device,
         emissive_free=bool(meta["emissive_free"]),
         instanced=instanced,
         mb_bits=int(meta.get("mb_bits", 0)) if instanced else 0,
-        frontier_guard=frontier_guard,
     )
     dev = _to_device(host, out_meta, device)
     if not instanced and arrays.get("bvh_left") is not None:

@@ -63,6 +63,7 @@ from vulkan_pathtracer_tpu_torch.ops.bvh import (
 )
 from vulkan_pathtracer_tpu_torch.ops.mxu_mt import (
     build_mt_coef_rows,
+    coef_table,
     instance_feature_maps,
 )
 from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
@@ -197,10 +198,12 @@ def _splice(o, top, top_orders, meshes, inst_mesh, mb_base, mb_bits, block,
 
 
 def build_instanced_scene(scene: Scene, max_leaf_size: int = 14,
-                          device="cuda", mt: str = "exact") -> DeviceScene:
+                          device="cuda", mt: str = "exact",
+                          mxu_precision: str = "highest") -> DeviceScene:
     """Bake a host Scene into a two-level DeviceScene (geometry once,
     per-instance node copies; see the module docstring); ``mt="mxu"``
-    adds the coefficient leaves."""
+    adds the coefficient leaves, their table in bf16 under
+    ``mxu_precision="default"`` (the feature transforms stay f32)."""
     block = max_leaf_size
     n_inst = len(scene.instances)
     if n_inst == 0:
@@ -314,6 +317,8 @@ def build_instanced_scene(scene: Scene, max_leaf_size: int = 14,
         instanced=True, mb_bits=mb_bits,
     )
     dev = _to_device(host, meta, device)
+    if dev.tri_coefs is not None:
+        dev.tri_coefs = coef_table(dev.tri_coefs, mxu_precision)
     top_leaf_inst = np.where(top.leaf_first >= 0,
                              top.tri_order[np.maximum(top.leaf_first, 0)],
                              -1)

@@ -45,7 +45,11 @@ import dataclasses
 
 import torch
 
-from vulkan_pathtracer_tpu_torch.ops.mxu_mt import coef_rows
+from vulkan_pathtracer_tpu_torch.ops.mxu_mt import (
+    coef_rows,
+    coef_table,
+    table_precision,
+)
 from vulkan_pathtracer_tpu_torch.ops.refit import TreeMaps
 from vulkan_pathtracer_tpu_torch.ops.stack_traverse import (
     EMPTY,
@@ -331,19 +335,24 @@ def skip_records(bmin, bmax, skip_local, leaf_first) -> torch.Tensor:
 
 
 def device_rebuild_scene(template, tri_v0, tri_e1, tri_e2, tri_gn, tri_attr,
-                         on_step=None, coefs: bool = None):
+                         on_step=None, coefs: bool = None,
+                         mxu_precision: str = None):
     """A copy of a flat scene with a tree rebuilt on the device from
     canonical-order triangles (the first ``template.num_triangles``
     rows of ``tri_*``) and their shading rows (device_rebuild_scene):
     slot-ordered triangles, ``tri_material`` from the template's
     canonical rows, new TreeMaps, pair and quad tables, skip records,
     leaf blocks and coefficient rows (``coefs``; default: iff the
-    template has them, as JAX); no oct, frontier or 8-wide tables.
+    template has them, as JAX) in ``mxu_precision``'s dtype (default:
+    the template table's, else f32); no oct, frontier or 8-wide tables.
     Every per-triangle table keeps at least the template's rows.
     ``on_step`` as device_build_bvh's, and called once more after the
     tables ("tables")."""
     if coefs is None:
         coefs = template.tri_coefs is not None
+    if mxu_precision is None:
+        mxu_precision = ("highest" if template.tri_coefs is None
+                         else table_precision(template.tri_coefs))
     t = template.num_triangles
     block = template.max_leaf_size
     L = max((t + block - 1) // block, 1)
@@ -405,7 +414,8 @@ def device_rebuild_scene(template, tri_v0, tri_e1, tri_e2, tri_gn, tri_attr,
         skip_nodes=skip_records(built["bmin"], built["bmax"],
                                 built["skip_local"], built["leaf_first"]),
         wide_nodes=None,
-        tri_coefs=coef_rows(leaves) if coefs else None,
+        tri_coefs=(coef_table(coef_rows(leaves), mxu_precision) if coefs
+                   else None),
         tree=tree, bvh_depth=built["depth"])
     if on_step is not None:
         on_step("tables")

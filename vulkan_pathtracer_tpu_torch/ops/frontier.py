@@ -209,7 +209,8 @@ def frontier_closest_hit(scene, origin, direction, active=None,
     args = frontier_args(scene, origin, direction, active, coef, t_far)
     check_exact_block(args[2])
     kw = channel_args(origin, seed, t_near)
-    return _dispatch(_launch_name("frontier_closest_hit", coef, kw), origin,
+    return _dispatch(_launch_name("frontier_closest_hit", args[2], kw),
+                     origin,
                      lambda: frontier_closest_hit_plain(*args, **kw),
                      lambda: Hit(*kernels.frontier_closest_hit(*args, **kw)))
 
@@ -223,6 +224,6 @@ def frontier_any_hit(scene, origin, direction, active=None,
 
     args = frontier_args(scene, origin, direction, active, coef)
     check_exact_block(args[2])
-    return _dispatch(_launch_name("frontier_any_hit", coef), origin,
+    return _dispatch(_launch_name("frontier_any_hit", args[2]), origin,
                      lambda: frontier_any_hit_plain(*args),
                      lambda: kernels.frontier_any_hit(*args))

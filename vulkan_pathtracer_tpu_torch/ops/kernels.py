@@ -181,9 +181,10 @@ TABLE_NAMES = {2: "pair", 4: "quad", 8: "oct", 16: "frontier",
 
 
 def _check_tables(box, link, leaves, width: int = 4, coef_ok: bool = True):
-    """Node tables of ``width`` slots and the leaf table; returns 1 when
-    the leaf table is a coefficient table (mxu_mt.COLS columns), else
-    0."""
+    """Node tables of ``width`` slots and the leaf table; returns the
+    launchers' ``coef``: 0 exact leaves, 1 an f32 coefficient table
+    (mxu_mt.COLS columns), 2 a bf16 one (the one-pass product's
+    builds)."""
     kind = TABLE_NAMES[width]
     _check(f"{kind}_box", box, torch.float32, (None, width, 6))
     _check(f"{kind}_link", link, torch.int32, (box.shape[0], width),
@@ -196,16 +197,18 @@ def _check_tables(box, link, leaves, width: int = 4, coef_ok: bool = True):
 
 
 def _check_leaves(leaves, device) -> int:
-    """Exact leaf blocks (n_leaves, block, 9) -> 0, zero-free coefficient
-    rows (n_leaves, block, 20) -> 1 (ops/mxu_mt.py)."""
+    """Exact leaf blocks (n_leaves, block, 9) f32 -> 0, zero-free
+    coefficient rows (n_leaves, block, 20) f32 -> 1, the same rows in
+    bf16 -> 2 (ops/mxu_mt.py)."""
     if leaves.dim() != 3 or leaves.shape[2] not in (9, mxu_mt.COLS):
         raise ValueError(f"leaves: expected (n_leaves, block, 9) or "
                          f"coefficients (n_leaves, block, {mxu_mt.COLS})")
-    _check("leaves", leaves, torch.float32,
+    bf16 = leaves.shape[2] == mxu_mt.COLS and leaves.dtype == torch.bfloat16
+    _check("leaves", leaves, torch.bfloat16 if bf16 else torch.float32,
            (None, leaves.shape[1], leaves.shape[2]))
     if leaves.device != device:
         raise ValueError(f"leaves lie on {leaves.device}, tables on {device}")
-    return int(leaves.shape[2] == mxu_mt.COLS)
+    return 2 if bf16 else int(leaves.shape[2] == mxu_mt.COLS)
 
 
 def _check_feat(inst_feat, inst, coef: int, device):
@@ -329,8 +332,9 @@ def _launch(name: str, device, fn, *args, batches: int = None) -> None:
 def quad_closest_hit(box, link, leaves, origin, direction, t_lane,
                      seed=None):
     """Launch the quad closest-hit kernel (coefficient leaves when
-    ``leaves`` is a coefficient table), or its channel build from
-    ``seed`` (t, tri, u, v); returns (t, tri, u, v)."""
+    ``leaves`` is a coefficient table, their bf16 product's build for a
+    bf16 one), or its channel build from ``seed`` (t, tri, u, v);
+    returns (t, tri, u, v)."""
     coef = _check_tables(box, link, leaves)
     _check_rays(origin, direction, t_lane, box.device)
     return _closest("quad_closest_hit", "vkpt_quad_closest_hit",

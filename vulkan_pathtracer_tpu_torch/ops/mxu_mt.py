@@ -14,11 +14,23 @@ so a leaf visit is a dot product per sum, a det-scaled hit test, and
 one division per candidate.  On the TPU the products ran on the MXU
 over JAX's full (10, 4 * block) rows; here they are f32 sums in one
 fixed order (feature by feature, each product rounded, then added) on
-CUDA cores — TF32 would keep 10 mantissa bits, about the one-pass bf16
-product the JAX package measured as changing the hit set.  The tier is
-RELAXED parity: rounding differs from the exact kernels, so hits
-within about an ulp of an edge or of the t window may flip
-(tests/test_mxu_mt.py budgets 0.2% of rays).
+CUDA cores.  The tier is RELAXED parity: rounding differs from the
+exact kernels, so hits within about an ulp of an edge or of the t
+window may flip (tests/test_mxu_mt.py budgets 0.2% of rays).
+
+The one-pass bf16 product (``VKPT_MXU_PRECISION=default``,
+mxu_mt.mxu_precision): the MXU rounds both operands to bf16 (round to
+nearest even) and sums their products in f32.  The port bakes that
+table once (``coef_table``: the f32 rows rounded, the value the MXU
+reads from JAX's f32 table), a ``(n_leaves, block, 20) bfloat16``
+table of 40 B rows, and rounds the features once per visit (on
+two-level scenes after the f32 object transform, as pallas_pair.py:
+738-744 makes them at HIGHEST).  A product of two bf16 values is exact
+in f32, so the sums are those of the f32 tier's order over the rounded
+operands, bitwise in the kernels and the plain versions; det_sign, the
+division and the compares stay f32.  JAX warns that the mode changes
+the hit set (-3.8% hit checksum on a TPU v5e, mxu_mt.py:64-74); the
+CLI prints that warning.
 
 Zero-free rows.  Of JAX's 40 coefficients per triangle (4 sums x 10
 features) only 19 can be non-zero: det on d (3), u' and v' on d and m
@@ -38,7 +50,8 @@ Tables (port-native layout):
 - ``tri_coefs (n_leaves, block, 20) f32``: per triangle the 19
   non-zero coefficients of ``ROW_TERMS`` and a zero, 80 bytes (five
   float4); bitwise JAX's non-zero entries of ``(n_leaves, 10, 4 *
-  block)``.  Padded (zero-edge) triangle slots have all-zero
+  block)``.  Under the bf16 product the same rows as ``bfloat16``, 40
+  bytes (five 8-byte quads).  Padded (zero-edge) triangle slots have all-zero
   coefficients: det = 0, never a hit.
 - ``inst_feat (I, 40) f32`` (two-level scenes): the 40 entries of the
   world->object feature transform A (10, 16) of each instance that can
@@ -73,6 +86,8 @@ FEAT_TERMS = tuple((i, (0, 1, 2)) for i in range(3)) + tuple(
     (i, (0, 1, 2, 3, 4, 5)) for i in range(3, 6)) + tuple(
     (i, (6, 7, 8, 9)) for i in range(6, 9)) + ((9, (9,)),)
 FEAT_COLS = 40
+# The coefficient table's dtype by its product (RenderConfig.mxu_precision).
+TABLE_DTYPES = {"highest": torch.float32, "default": torch.bfloat16}
 
 
 def _flat_index(terms, width):
@@ -126,6 +141,25 @@ def coef_rows(leaves: torch.Tensor) -> torch.Tensor:
     return torch.cat([cross(e2, e1), cross(v0, e2), e2, cross(e1, v0), -e1,
                       nrm, d.unsqueeze(-1), torch.zeros_like(d).unsqueeze(-1)],
                      dim=-1).float().contiguous()
+
+
+def coef_table(rows: torch.Tensor, precision: str = "highest"):
+    """The f32 zero-free rows as the table of ``precision``: as they are
+    ("highest"), or rounded once to bf16, round to nearest even
+    ("default", the one-pass product's operand)."""
+    return rows.to(TABLE_DTYPES[precision]).contiguous()
+
+
+def table_precision(table: torch.Tensor) -> str:
+    """The product a coefficient table is baked for: "default" (bf16) or
+    "highest" (f32)."""
+    return "default" if table.dtype == torch.bfloat16 else "highest"
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to bf16 (round to nearest even) and widened
+    back to f32 exactly (csrc/traverse.cuh round_features)."""
+    return x.to(torch.bfloat16).float()
 
 
 def coef_rows_from_jax(tri_coefs: np.ndarray, block: int) -> np.ndarray:
@@ -224,7 +258,11 @@ def object_features(inst_feat: torch.Tensor, feats: torch.Tensor):
 def coef_sums(coefs: torch.Tensor, feats: torch.Tensor, det_sign=None):
     """(det, u', v', t') each (M, block): zero-free rows coefs (M, block,
     20) against feats (M, 10); ``det_sign`` (M,) scales all four
-    (two-level)."""
+    (two-level).  A bf16 table is the one-pass product: its rows widened
+    to f32 and the features rounded to bf16, then the same f32 sums
+    (each product exact)."""
+    if coefs.dtype == torch.bfloat16:
+        coefs, feats = coefs.float(), round_bf16(feats)
     res = _sums(coefs, feats[:, None, :], ROW_TERMS)
     if det_sign is not None:
         res = [x * det_sign[:, None] for x in res]

@@ -40,7 +40,11 @@ from typing import Optional
 import torch
 
 from vulkan_pathtracer_tpu_torch.ops.frontier import frontier_boxes
-from vulkan_pathtracer_tpu_torch.ops.mxu_mt import coef_rows
+from vulkan_pathtracer_tpu_torch.ops.mxu_mt import (
+    coef_rows,
+    coef_table,
+    table_precision,
+)
 from vulkan_pathtracer_tpu_torch.ops.stack_traverse import boxes_from_src
 
 BIG = 3e38
@@ -119,7 +123,8 @@ def regenerate(scene, bmin, bmax) -> dict:
         [scene.tri_v0[:n], scene.tri_e1[:n], scene.tri_e2[:n]],
         dim=1).view(n_blocks, block, 9)
     if scene.tri_coefs is not None:
-        up["tri_coefs"] = coef_rows(up["leaves"])
+        up["tri_coefs"] = coef_table(coef_rows(up["leaves"]),
+                                     table_precision(scene.tri_coefs))
     return up
 
 

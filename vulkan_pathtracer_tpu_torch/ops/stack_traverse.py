@@ -111,21 +111,24 @@ INV_EPS = 1e-20
 
 # Kernel launches per wrapper (CUDA path only), this module's,
 # ops/skip_traverse.py's and ops/frontier.py's; a ``_coef`` key counts
-# the kernel built with coefficient leaves, a ``_chan`` key its channel
-# build (a seeded or windowed launch).  chip_smoke.py zeroes these
-# before a main path and reads them after it.
-LAUNCHES = {"quad_closest_hit": 0, "quad_any_hit": 0,
-            "pair_closest_hit": 0, "pair_any_hit": 0,
-            "skip_closest_hit": 0, "wide_closest_hit": 0,
-            "oct_closest_hit": 0, "frontier_closest_hit": 0,
-            "frontier_any_hit": 0, "quad_closest_hit_coef": 0,
-            "quad_any_hit_coef": 0, "pair_closest_hit_coef": 0,
-            "pair_any_hit_coef": 0, "frontier_closest_hit_coef": 0,
-            "frontier_any_hit_coef": 0}
+# the kernel built with coefficient leaves, a ``_bf16`` key the one
+# built with their bf16 product (a bf16 table), a ``_chan`` key its
+# channel build (a seeded or windowed launch).  chip_smoke.py zeroes
+# these before a main path and reads them after it.
+COEF_KERNELS = ("quad_closest_hit", "quad_any_hit", "pair_closest_hit",
+                "pair_any_hit", "frontier_closest_hit", "frontier_any_hit")
+LAUNCHES = {k: 0 for k in (
+    "quad_closest_hit", "quad_any_hit", "pair_closest_hit", "pair_any_hit",
+    "skip_closest_hit", "wide_closest_hit", "oct_closest_hit",
+    "frontier_closest_hit", "frontier_any_hit",
+    *(k + "_coef" for k in COEF_KERNELS),
+    *(k + "_bf16" for k in COEF_KERNELS))}
 LAUNCHES.update({k + "_chan": 0 for k in (
     "quad_closest_hit", "quad_closest_hit_coef", "oct_closest_hit",
     "pair_closest_hit", "pair_closest_hit_coef", "frontier_closest_hit",
-    "frontier_closest_hit_coef", "skip_closest_hit", "wide_closest_hit")})
+    "frontier_closest_hit_coef", "skip_closest_hit", "wide_closest_hit",
+    "quad_closest_hit_bf16", "pair_closest_hit_bf16",
+    "frontier_closest_hit_bf16")})
 
 
 def _assert_depth(depth: int, what: str) -> None:
@@ -751,11 +754,15 @@ def leaf_table(scene, coef: bool):
     return scene.tri_coefs
 
 
-def _launch_name(name: str, coef: bool = False, chan=None) -> str:
-    """The LAUNCHES key of kernel ``name``: ``_coef`` for coefficient
-    leaves, ``_chan`` for its channel build (``chan``: channel_args
-    that are not empty)."""
-    return name + ("_coef" if coef else "") + ("_chan" if chan else "")
+def _launch_name(name: str, leaves=None, chan=None) -> str:
+    """The LAUNCHES key of kernel ``name`` on leaf table ``leaves``:
+    ``_coef`` for f32 coefficient leaves, ``_bf16`` for bf16 ones,
+    ``_chan`` for its channel build (``chan``: channel_args that are not
+    empty)."""
+    coef = leaves is not None and leaves.shape[2] == mxu_mt.COLS
+    suffix = ("_bf16" if leaves.dtype == torch.bfloat16 else "_coef") \
+        if coef else ""
+    return name + suffix + ("_chan" if chan else "")
 
 
 def quad_args(scene, origin, direction, active, coef: bool = False):
@@ -794,7 +801,7 @@ def quad_closest_hit(scene, origin, direction, active=None,
 
     args = quad_args(scene, origin, direction, active, coef)
     kw = channel_args(origin, seed)
-    return _dispatch(_launch_name("quad_closest_hit", coef, kw), origin,
+    return _dispatch(_launch_name("quad_closest_hit", args[2], kw), origin,
                      lambda: quad_closest_hit_plain(*args, **kw),
                      lambda: Hit(*kernels.quad_closest_hit(*args, **kw)))
 
@@ -807,7 +814,7 @@ def quad_any_hit(scene, origin, direction, active=None,
     from vulkan_pathtracer_tpu_torch.ops import kernels
 
     args = quad_args(scene, origin, direction, active, coef)
-    return _dispatch(_launch_name("quad_any_hit", coef), origin,
+    return _dispatch(_launch_name("quad_any_hit", args[2]), origin,
                      lambda: quad_any_hit_plain(*args),
                      lambda: kernels.quad_any_hit(*args))
 
@@ -838,7 +845,7 @@ def pair_closest_hit(scene, origin, direction, active=None,
 
     args = pair_args(scene, origin, direction, active, coef, t_far)
     kw = channel_args(origin, seed, t_near)
-    return _dispatch(_launch_name("pair_closest_hit", coef, kw), origin,
+    return _dispatch(_launch_name("pair_closest_hit", args[2], kw), origin,
                      lambda: pair_closest_hit_plain(*args, **kw),
                      lambda: Hit(*kernels.pair_closest_hit(*args, **kw)))
 
@@ -851,6 +858,6 @@ def pair_any_hit(scene, origin, direction, active=None,
     from vulkan_pathtracer_tpu_torch.ops import kernels
 
     args = pair_args(scene, origin, direction, active, coef)
-    return _dispatch(_launch_name("pair_any_hit", coef), origin,
+    return _dispatch(_launch_name("pair_any_hit", args[2]), origin,
                      lambda: pair_any_hit_plain(*args),
                      lambda: kernels.pair_any_hit(*args))

@@ -27,6 +27,7 @@ import torch
 
 from vulkan_pathtracer_tpu_torch.models.camera import Camera
 from vulkan_pathtracer_tpu_torch.ops import rng
+from vulkan_pathtracer_tpu_torch.ops.mxu_mt import table_precision
 from vulkan_pathtracer_tpu_torch.ops.vecmath import normalize
 from vulkan_pathtracer_tpu_torch.render.wavefront import (
     JOINT_CHUNK,
@@ -323,6 +324,12 @@ class RenderPipeline:
             check_seed_secondary(scene)
         tiers = Tiers.of(config)
         tiers.validate()
+        if (tiers.mt == "mxu" and scene.tri_coefs is not None
+                and table_precision(scene.tri_coefs) != tiers.mxu_precision):
+            raise ValueError(
+                f"mxu_precision {tiers.mxu_precision!r}, but the scene's "
+                f"coefficient table is {scene.tri_coefs.dtype}: bake it with "
+                f"the same mxu_precision")
         self.scene = scene
         self.config = config
         self.tiers = tiers

@@ -28,6 +28,10 @@ KERNEL_ALIASES = {"quad": "quad", "pair": "pair", "oct": "oct",
                   "vgate_hbm": "quad"}
 ANYHIT_KERNELS = ("frontier",)   # None: quad (pair on two-level scenes)
 MT_MODES = ("exact", "mxu")
+# The coefficient product of VKPT_MXU_PRECISION (mxu_mt.mxu_precision):
+# "highest" sums f32 products; "default" is the one bf16 pass, both
+# operands rounded to bf16 (JAX's "high" aliases "highest").
+MXU_PRECISIONS = ("highest", "default")
 FRONTIER_WIDTHS = (16, 32)
 # The frontier bake's guard band by VKPT_FRONTIER_PRECISION
 # (pallas_frontier._guard): 2^-7 for the one-pass bf16 node product,
@@ -45,6 +49,7 @@ class Tiers:
     kernel_secondary: Optional[str] = None
     anyhit_kernel: Optional[str] = None
     mt: str = "exact"
+    mxu_precision: str = "highest"
 
     @classmethod
     def of(cls, config) -> "Tiers":
@@ -52,7 +57,8 @@ class Tiers:
         (the JAX package's RenderConfig) has the defaults."""
         return cls(**{f: getattr(config, f, getattr(cls, f))
                       for f in ("traversal", "kernel_primary",
-                                "kernel_secondary", "anyhit_kernel", "mt")})
+                                "kernel_secondary", "anyhit_kernel", "mt",
+                                "mxu_precision")})
 
     def validate(self) -> None:
         """Raise ValueError on a name the dispatch does not know."""
@@ -67,6 +73,9 @@ class Tiers:
                              f"{self.anyhit_kernel!r} (frontier, or unset)")
         if self.mt not in MT_MODES:
             raise ValueError(f"mt: {self.mt!r} is not exact | mxu")
+        if self.mxu_precision not in MXU_PRECISIONS:
+            raise ValueError(f"mxu_precision: {self.mxu_precision!r} is not "
+                             f"highest | default")
 
 
 @dataclass(frozen=True)
@@ -108,6 +117,10 @@ class RenderConfig:
     kernel_secondary: Optional[str] = None  # VKPT_KERNEL_SECONDARY
     anyhit_kernel: Optional[str] = None     # VKPT_ANYHIT_KERNEL (frontier)
     mt: str = "exact"                       # VKPT_MT: exact | mxu
+    # VKPT_MXU_PRECISION: the coefficient table's product, f32
+    # ("highest") or one bf16 pass ("default"); the bake makes the table
+    # in it, and the kernels follow the table's dtype.
+    mxu_precision: str = "highest"
     max_leaf: Optional[int] = None          # VKPT_LEAF (None: size policy)
     frontier_width: int = FRONTIER_WIDTH    # VKPT_FRONTIER_WIDTH: 16 | 32
     # The frontier bake's guard band (VKPT_FRONTIER_GUARD, else by
