@@ -219,8 +219,7 @@ def test_unported_flags_refused(flag, monkeypatch):
     """The multi-device flags parse (they run in
     tests/test_torch_multidevice.py), with ``--interactive`` too (the
     multi-rank viewer), and so does ``VKPT_MXU_PRECISION=default`` (the
-    one-pass bf16 product, with JAX's warning): the CLI refuses nothing
-    that the JAX package accepts."""
+    one-pass bf16 product, with JAX's warning)."""
     from vulkan_pathtracer_tpu_torch.app.main import parse_args
 
     _, args = parse_args(["-s", "scene.glb", *flag])
