@@ -13,8 +13,8 @@ The cases mirror the JAX package's own tests of each flag
   accepts a sound tree and rejects a broken one, as JAX's does; the CLI
   under ``-v`` validates, and stops (exit 1) at a non-finite frame.
 - The terminal viewer with scripted keys and at EOF; quirk mode moves a
-  nested mesh; ``resize`` drops the divider; ``FrameProfiler``; a
-  ``--profile`` run writes a Chrome trace.
+  nested mesh; ``resize`` drops the divider; a ``--profile`` run writes
+  a Chrome trace with the program's spans on its clock.
 - ``app/bench.py`` at a tiny size: ``VKPT_MT=mxu`` records ``"mt":
   "mxu"`` and runs the coefficient kernels' plain versions,
   ``VKPT_PRESPLIT=x`` (not a number) exits 2, and ``--spp``, ``--leaf`` (with
@@ -52,7 +52,6 @@ from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 from vulkan_pathtracer_tpu_torch.ops.bvh import build_bvh_host, validate_bvh
 from vulkan_pathtracer_tpu_torch.render.pipeline import RenderPipeline
 from vulkan_pathtracer_tpu_torch.utils import RenderConfig, read_png
-from vulkan_pathtracer_tpu_torch.utils.profiling import FrameProfiler
 from vulkan_pathtracer_tpu_torch.utils.validation import (
     ValidationError,
     check_finite,
@@ -227,21 +226,11 @@ def test_resize_drops_divider_like_reference(box_scene):
     assert image.shape == (40, 48, 3)
 
 
-def test_frame_profiler():
-    import time
-
-    prof = FrameProfiler()
-    for _ in range(3):
-        with prof.phase("render"):
-            time.sleep(0.001)
-    summary = prof.summary()
-    assert summary["render"]["count"] == 3
-    assert summary["render"]["mean_ms"] >= 1.0
-
-
 def test_cli_profile_writes_trace(box_glb, tmp_path, capsys):
     """``--profile DIR``: the frame loop runs inside a torch.profiler
-    trace, written to DIR/trace.json with the frames' operators."""
+    trace, written to DIR/trace.json with the frames' operators, and the
+    tracer's spans in it: one ``frame`` root a frame, each inside its
+    own ``record_function`` range on the trace's clock."""
     trace_dir = tmp_path / "trace"
     assert port_main(["-s", box_glb, "-x", "24", "-y", "16", "--frames",
                       "2", "--profile", str(trace_dir), "-o",
@@ -250,6 +239,17 @@ def test_cli_profile_writes_trace(box_glb, tmp_path, capsys):
     events = json.loads((trace_dir / "trace.json").read_text())[
         "traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    frames = [e for e in events if e.get("cat") == "program_span"
+              and e["name"] == "frame"]
+    marks = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == "frame"]
+    assert len(frames) == len(marks) == 2
+    for span, mark in zip(frames, marks):
+        assert mark["ts"] - 1e3 < span["ts"] < mark["ts"] + mark["dur"]
+        assert span["args"]["parent"] == -1
+    children = {e["name"] for e in events if e.get("cat") == "program_span"
+                and e["args"].get("root") == frames[0]["args"]["id"]}
+    assert {"primaries", "bounce", "traverse", "shade", "finish"} <= children
 
 
 def _bench(args, capsys, monkeypatch=None, env=None):

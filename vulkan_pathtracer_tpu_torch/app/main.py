@@ -34,8 +34,8 @@ terminal viewer (app/viewer.py) instead of the frame loop.
 
 The frame loop keeps the JAX package's branches, in its order
 (app/main.py:141-272 there; the first two on one device only), under
-``--profile DIR`` inside a ``torch.profiler`` trace written to DIR
-(utils/profiling.py):
+``--profile DIR`` inside a ``torch.profiler`` trace written to DIR, with
+the program's spans added to it on its clock (utils/profiling.py):
 
 1. ``--progressive --batch-frames B`` (B > 1) without a camera path:
    batches of up to B frames of the static camera per dispatch

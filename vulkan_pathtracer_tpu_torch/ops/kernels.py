@@ -23,6 +23,7 @@ import time
 import torch
 
 from vulkan_pathtracer_tpu_torch.ops import mxu_mt
+from vulkan_pathtracer_tpu_torch.utils import profiling
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -325,6 +326,7 @@ def _launch(name: str, device, fn, *args, batches: int = None) -> None:
         extra = (() if batches is None else
                  (_batches(batches, device, stream).data_ptr(),))
         rc = fn(*args, *extra, stream)
+    profiling.launch_returned()
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 

@@ -96,6 +96,7 @@ import torch
 from vulkan_pathtracer_tpu_torch.ops import mxu_mt
 from vulkan_pathtracer_tpu_torch.ops.bvh import tree_depth
 from vulkan_pathtracer_tpu_torch.ops.intersect import Hit, MISS_T, TMAX, TMIN
+from vulkan_pathtracer_tpu_torch.utils import profiling
 
 STACK_CAP = 96   # >= binary tree depth; the table builders assert it
 # Per-ray stack entries of the kernels by table width: one push per
@@ -730,16 +731,19 @@ def channel_args(origin, seed=None, t_near=None) -> dict:
 
 def _dispatch(name: str, origin, plain, launch):
     """CPU tensors run ``plain()``; CUDA tensors run ``launch()`` and
-    count the launch; any other device raises."""
+    count the launch; any other device raises.  Either is reported to
+    the tracer (``utils.profiling.launched``) when it is on."""
     kind = origin.device.type
     if kind == "cpu":
-        return plain()
-    if kind == "cuda":
+        out = plain()
+    elif kind == "cuda":
         out = launch()
         LAUNCHES[name] += 1
-        return out
-    raise ValueError(f"{name}: no traversal for device type {kind!r} (cpu "
-                     f"runs the plain version, cuda the kernel)")
+    else:
+        raise ValueError(f"{name}: no traversal for device type {kind!r} "
+                         f"(cpu runs the plain version, cuda the kernel)")
+    profiling.launched(name, origin)
+    return out
 
 
 def leaf_table(scene, coef: bool):

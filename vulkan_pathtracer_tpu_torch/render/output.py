@@ -20,6 +20,8 @@ import os
 
 import numpy as np
 
+from vulkan_pathtracer_tpu_torch.utils.profiling import span
+
 
 def upsample_nearest(image: np.ndarray, out_width: int, out_height: int) -> np.ndarray:
     """Nearest-neighbor blit (H, W, C) -> (out_height, out_width, C)."""
@@ -43,15 +45,21 @@ class Accumulator:
         self.frame = 0
 
     def add_frame(self, image: np.ndarray) -> None:
-        """Add one frame: ``image`` is its mean over spp_per_frame."""
-        self.sum += np.asarray(image, dtype=np.float64) * self.spp_per_frame
+        """Add one frame: ``image`` is its mean over spp_per_frame.
+        Traced as the root span ``accumulate``."""
+        with span("accumulate"):
+            self.sum += (np.asarray(image, dtype=np.float64)
+                         * self.spp_per_frame)
         self.spp += self.spp_per_frame
         self.frame += 1
 
     def add_frames_sum(self, sum_image: np.ndarray, n_frames: int) -> None:
         """Add a device-side batch: the SUM of n_frames per-frame means
-        (``RenderPipeline.render_batch_sum``)."""
-        self.sum += np.asarray(sum_image, dtype=np.float64) * self.spp_per_frame
+        (``RenderPipeline.render_batch_sum``).  Traced as the root span
+        ``accumulate``."""
+        with span("accumulate"):
+            self.sum += (np.asarray(sum_image, dtype=np.float64)
+                         * self.spp_per_frame)
         self.spp += self.spp_per_frame * n_frames
         self.frame += n_frames
 

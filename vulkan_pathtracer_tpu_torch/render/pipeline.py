@@ -38,6 +38,7 @@ from vulkan_pathtracer_tpu_torch.render.wavefront import (
 )
 from vulkan_pathtracer_tpu_torch.utils import RenderConfig
 from vulkan_pathtracer_tpu_torch.utils.config import Tiers
+from vulkan_pathtracer_tpu_torch.utils.profiling import span
 
 TILE_H = 32
 TILE_W = 64
@@ -180,9 +181,10 @@ def render_rows(scene, position, horizontal, vertical, forward, frame: int,
     if rows is None:
         rows = height
     n = rows * width
-    origin, direction, seed_x, seed_y, tile_inv = primary_rays(
-        position, horizontal, vertical, forward, frame, width, height,
-        y_offset=y_offset, rows=rows, tiles=tiles)
+    with span("primaries"):
+        origin, direction, seed_x, seed_y, tile_inv = primary_rays(
+            position, horizontal, vertical, forward, frame, width, height,
+            y_offset=y_offset, rows=rows, tiles=tiles)
 
     acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
@@ -194,9 +196,10 @@ def render_rows(scene, position, horizontal, vertical, forward, frame: int,
             rr_start_bounce=rr_start_bounce, seed_secondary=seed_secondary)
         acc = acc + color
         rays = rays + traced
-    if tile_inv is not None and present_order:
-        acc = acc[tile_inv]
-    image = (acc / _scalar(num_samples, dev)).reshape(rows, width, 3)
+    with span("finish"):
+        if tile_inv is not None and present_order:
+            acc = acc[tile_inv]
+        image = (acc / _scalar(num_samples, dev)).reshape(rows, width, 3)
     return image, rays
 
 
@@ -254,22 +257,25 @@ def render_frames_joint(scene, position, horizontal, vertical, forward,
     frame's RNG seeded from its frame counter.  Returns (sum (H, W, 3)
     f32 in scanline order, rays physically traced, int64 0-d)."""
     dev = position.device
-    if tiles is None:
-        tiles = tile_pixels(height, width, 0, dev)
-    origin, direction, _, _, tile_inv = primary_rays(
-        position, horizontal, vertical, forward, frame0, width, height,
-        tiles=tiles)
-    px, py = lane_pixels(width, height, 0, tiles, dev)
-    frames = frame0 + torch.arange(batch, dtype=torch.int64, device=dev)
-    seed_x, seed_y = rng.prng_seed(px[None, :], py[None, :], frames[:, None])
+    with span("primaries"):
+        if tiles is None:
+            tiles = tile_pixels(height, width, 0, dev)
+        origin, direction, _, _, tile_inv = primary_rays(
+            position, horizontal, vertical, forward, frame0, width, height,
+            tiles=tiles)
+        px, py = lane_pixels(width, height, 0, tiles, dev)
+        frames = frame0 + torch.arange(batch, dtype=torch.int64, device=dev)
+        seed_x, seed_y = rng.prng_seed(px[None, :], py[None, :],
+                                       frames[:, None])
     color_sum, rays = trace_progressive_batch(
         scene, origin, direction, seed_x, seed_y, batch=batch,
         num_bounces=num_bounces, tiers=tiers,
         russian_roulette=russian_roulette, rr_start_bounce=rr_start_bounce,
         sort_secondary=sort_secondary, chunk=chunk)
-    if tile_inv is not None:
-        color_sum = color_sum[tile_inv]
-    return color_sum.reshape(height, width, 3), rays
+    with span("finish"):
+        if tile_inv is not None:
+            color_sum = color_sum[tile_inv]
+        return color_sum.reshape(height, width, 3), rays
 
 
 def render_frames_pooled(scene, positions, horizontals, verticals, forwards,
@@ -286,24 +292,27 @@ def render_frames_pooled(scene, positions, horizontals, verticals, forwards,
     the frames' lanes are concatenated frame by frame.  Returns (images
     (F, H, W, 3) f32 in scanline order, rays traced, int64 0-d)."""
     dev = positions.device
-    if tiles is None:
-        tiles = tile_pixels(height, width, 0, dev)
-    prims = [primary_rays(positions[k], horizontals[k], verticals[k],
-                          forwards[k], int(frame), width, height, tiles=tiles)
-             for k, frame in enumerate(frames)]
-    tile_inv = prims[0][4]
-    origin, direction, seed_x, seed_y = (torch.cat([p[i] for p in prims])
-                                         for i in range(4))
-    del prims
+    with span("primaries"):
+        if tiles is None:
+            tiles = tile_pixels(height, width, 0, dev)
+        prims = [primary_rays(positions[k], horizontals[k], verticals[k],
+                              forwards[k], int(frame), width, height,
+                              tiles=tiles)
+                 for k, frame in enumerate(frames)]
+        tile_inv = prims[0][4]
+        origin, direction, seed_x, seed_y = (
+            torch.cat([p[i] for p in prims]) for i in range(4))
+        del prims
     color, traced = trace_wavefront_pooled(
         scene, origin, direction, seed_x, seed_y, num_bounces=num_bounces,
         tiers=tiers, russian_roulette=russian_roulette,
         rr_start_bounce=rr_start_bounce, sort_secondary=sort_secondary,
         chunk=chunk)
-    color = color.view(len(frames), height * width, 3)
-    if tile_inv is not None:
-        color = color[:, tile_inv]
-    return color.reshape(len(frames), height, width, 3), traced
+    with span("finish"):
+        color = color.view(len(frames), height * width, 3)
+        if tile_inv is not None:
+            color = color[:, tile_inv]
+        return color.reshape(len(frames), height, width, 3), traced
 
 
 class RenderPipeline:
@@ -348,18 +357,20 @@ class RenderPipeline:
                                                     torch.Tensor]:
         """Returns (radiance (H, W, 3) on the device, rays traced).  With
         ``present_order=False`` radiance is in tile order; convert on the
-        host with ``to_present``."""
-        position, horizontal, vertical, forward = camera_tensors(
-            camera, self.scene.device)
-        return render_frame(
-            self.scene, position, horizontal, vertical, forward, int(frame),
-            num_samples=self.config.num_samples,
-            num_bounces=self.config.num_bounces,
-            width=self.width, height=self.height,
-            sort_secondary=self._sort_secondary,
-            present_order=present_order, tiles=self._tiles,
-            tiers=self.tiers, seed_secondary=self.config.seed_secondary,
-            **self._rr)
+        host with ``to_present``.  Traced as the root span ``frame``."""
+        with span("frame"):
+            with span("primaries"):
+                position, horizontal, vertical, forward = camera_tensors(
+                    camera, self.scene.device)
+            return render_frame(
+                self.scene, position, horizontal, vertical, forward,
+                int(frame), num_samples=self.config.num_samples,
+                num_bounces=self.config.num_bounces,
+                width=self.width, height=self.height,
+                sort_secondary=self._sort_secondary,
+                present_order=present_order, tiles=self._tiles,
+                tiers=self.tiers, seed_secondary=self.config.seed_secondary,
+                **self._rr)
 
     def render_batch_sum(self, camera: Camera, frame0: int, batch: int,
                          joint: bool = None):
@@ -368,42 +379,49 @@ class RenderPipeline:
         traced.  At 1 spp the joint wavefront runs when ``batch`` > 1,
         or when ``joint`` is True and ``batch`` >= 1; otherwise (more
         spp, or ``joint=False``) the frames run one after another (JAX
-        pipeline.py:628-673)."""
-        position, horizontal, vertical, forward = camera_tensors(
-            camera, self.scene.device)
-        use_joint = (self.config.num_samples == 1
-                     and (batch > 1 if joint is None
-                          else (joint and batch >= 1)))
-        kw = dict(num_bounces=self.config.num_bounces, width=self.width,
-                  height=self.height, sort_secondary=self._sort_secondary,
-                  tiles=self._tiles, tiers=self.tiers, **self._rr)
-        if use_joint:
-            return render_frames_joint(
+        pipeline.py:628-673).  Traced as the root span ``batch``."""
+        with span("batch"):
+            with span("primaries"):
+                position, horizontal, vertical, forward = camera_tensors(
+                    camera, self.scene.device)
+            use_joint = (self.config.num_samples == 1
+                         and (batch > 1 if joint is None
+                              else (joint and batch >= 1)))
+            kw = dict(num_bounces=self.config.num_bounces, width=self.width,
+                      height=self.height, sort_secondary=self._sort_secondary,
+                      tiles=self._tiles, tiers=self.tiers, **self._rr)
+            if use_joint:
+                return render_frames_joint(
+                    self.scene, position, horizontal, vertical, forward,
+                    int(frame0), batch=batch, **kw)
+            return render_frames_batch(
                 self.scene, position, horizontal, vertical, forward,
-                int(frame0), batch=batch, **kw)
-        return render_frames_batch(
-            self.scene, position, horizontal, vertical, forward,
-            int(frame0), batch=batch, num_samples=self.config.num_samples,
-            seed_secondary=self.config.seed_secondary, **kw)
+                int(frame0), batch=batch,
+                num_samples=self.config.num_samples,
+                seed_secondary=self.config.seed_secondary, **kw)
 
     def render_pooled(self, cameras, frames):
         """``len(cameras)`` frames, one camera and frame counter each, as
         one pooled wavefront at 1 spp (JAX pipeline.py:675-700).  Returns
         (images (F, H, W, 3) on the device, scanline order; rays traced);
-        each image is ``render(cameras[i], frames[i])``'s."""
+        each image is ``render(cameras[i], frames[i])``'s.  Traced as the
+        root span ``group``."""
         if self.config.num_samples != 1:
             raise ValueError(
                 "render_pooled requires 1 spp (cross-sample pooling would "
                 "break the per-pixel RNG stream's draw order)")
-        vectors = [camera_tensors(cam, self.scene.device) for cam in cameras]
-        positions, horizontals, verticals, forwards = (
-            torch.stack([v[i] for v in vectors]) for i in range(4))
-        return render_frames_pooled(
-            self.scene, positions, horizontals, verticals, forwards,
-            [int(f) for f in frames], num_bounces=self.config.num_bounces,
-            width=self.width, height=self.height,
-            sort_secondary=self._sort_secondary, tiles=self._tiles,
-            tiers=self.tiers, **self._rr)
+        with span("group"):
+            with span("primaries"):
+                vectors = [camera_tensors(cam, self.scene.device)
+                           for cam in cameras]
+                positions, horizontals, verticals, forwards = (
+                    torch.stack([v[i] for v in vectors]) for i in range(4))
+            return render_frames_pooled(
+                self.scene, positions, horizontals, verticals, forwards,
+                [int(f) for f in frames], num_bounces=self.config.num_bounces,
+                width=self.width, height=self.height,
+                sort_secondary=self._sort_secondary, tiles=self._tiles,
+                tiers=self.tiers, **self._rr)
 
     def resize(self, width: int, height: int) -> "RenderPipeline":
         """A pipeline at a new resolution (JAX pipeline.py:703-718, the

@@ -104,6 +104,7 @@ from vulkan_pathtracer_tpu_torch.render.shading import (
     get_triangle_data,
 )
 from vulkan_pathtracer_tpu_torch.utils.config import KERNEL_ALIASES, Tiers
+from vulkan_pathtracer_tpu_torch.utils.profiling import count_live, span
 
 SKY_WHITE = (1.0, 1.0, 1.0)
 SKY_BLUE = (0.5, 0.7, 1.0)
@@ -201,11 +202,13 @@ def _closest_hit(scene, origin, direction, active, tiers="auto",
     """Closest hit through the tier of ``tiers`` (a Tiers or a
     ``--traversal`` name) for a bounce of ``phase``, from ``seed`` (a
     Hit) when given; brute force drops the seed (JAX wavefront.py:215)."""
-    fn = _closest_tier(scene, tiers, phase)
-    if seed is None or fn is intersect.brute_force_closest_hit:
-        return fn(scene, origin.contiguous(), direction.contiguous(), active)
-    return fn(scene, origin.contiguous(), direction.contiguous(), active,
-              seed=seed)
+    with span("traverse"):
+        fn = _closest_tier(scene, tiers, phase)
+        if seed is None or fn is intersect.brute_force_closest_hit:
+            return fn(scene, origin.contiguous(), direction.contiguous(),
+                      active)
+        return fn(scene, origin.contiguous(), direction.contiguous(), active,
+                  seed=seed)
 
 
 def _any_hit(scene, origin, direction, active, tiers="auto") -> torch.Tensor:
@@ -213,11 +216,14 @@ def _any_hit(scene, origin, direction, active, tiers="auto") -> torch.Tensor:
     with exact leaves); inactive lanes False.  auto and pallas take the
     any-hit kernels (_any_tier); every other tier tests its secondary
     closest hit (JAX wavefront.py:587-592)."""
-    fn = _any_tier(scene, tiers)
-    if fn is not None:
-        return fn(scene, origin.contiguous(), direction.contiguous(), active)
-    hit = _closest_hit(scene, origin, direction, active, tiers, "secondary")
-    return hit.t < MISS_T
+    with span("traverse"):
+        fn = _any_tier(scene, tiers)
+        if fn is not None:
+            return fn(scene, origin.contiguous(), direction.contiguous(),
+                      active)
+        hit = _closest_hit(scene, origin, direction, active, tiers,
+                           "secondary")
+        return hit.t < MISS_T
 
 
 def _anyhit_enabled(scene) -> bool:
@@ -267,21 +273,30 @@ def _closest_hit_sorted(scene, origin, direction, active, tiers="auto",
     """Closest hit with rays sorted by the bounce key (the ``seed`` with
     them), results scattered back to lane order (identical per-ray
     results)."""
-    order, inv = _sorted_order(scene, origin, direction, active)
-    act_s = None if active is None else active[order]
-    seed_s = None if seed is None else Hit(*(x[order] for x in seed))
-    hit = _closest_hit(scene, origin[order], direction[order], act_s,
-                       tiers, phase, seed_s)
-    return Hit(t=hit.t[inv], tri=hit.tri[inv], u=hit.u[inv], v=hit.v[inv])
+    with span("sort"):
+        order, inv = _sorted_order(scene, origin, direction, active)
+        act_s = None if active is None else active[order]
+        seed_s = None if seed is None else Hit(*(x[order] for x in seed))
+        origin_s, direction_s = origin[order], direction[order]
+    hit = _closest_hit(scene, origin_s, direction_s, act_s, tiers, phase,
+                       seed_s)
+    del origin_s, direction_s    # freed before the scatter, as unsorted
+    with span("sort"):
+        return Hit(t=hit.t[inv], tri=hit.tri[inv], u=hit.u[inv],
+                   v=hit.v[inv])
 
 
 def _any_hit_sorted(scene, origin, direction, active,
                     tiers="auto") -> torch.Tensor:
     """Sorted-dispatch any hit (sorted rays resolve together)."""
-    order, inv = _sorted_order(scene, origin, direction, active)
-    act_s = None if active is None else active[order]
-    return _any_hit(scene, origin[order], direction[order], act_s,
-                    tiers)[inv]
+    with span("sort"):
+        order, inv = _sorted_order(scene, origin, direction, active)
+        act_s = None if active is None else active[order]
+        origin_s, direction_s = origin[order], direction[order]
+    hit = _any_hit(scene, origin_s, direction_s, act_s, tiers)
+    del origin_s, direction_s
+    with span("sort"):
+        return hit[inv]
 
 
 def sky_color(direction: torch.Tensor) -> torch.Tensor:
@@ -451,27 +466,33 @@ def trace_sample(scene, origin, direction, seed_x, seed_y, *,
 
     hit = None
     for j in range(num_bounces):
-        rays_traced = rays_traced + alive.sum()
-        last = j == num_bounces - 1
-        sorted_pass = sort_secondary and j > 0
-        if last and _anyhit_enabled(scene):
-            # Emissive-free last bounce: only the sky/miss decision
-            # feeds radiance, and no RNG draws happen.
-            hit_mask = (_any_hit_sorted if sorted_pass else _any_hit)(
-                scene, origin, direction, alive, tiers)
-            color = _add_sky(color, atten, direction, alive & ~hit_mask)
-            alive = torch.zeros_like(alive)
-            continue
-        seed = (bounce_seed(scene, hit, origin, direction, alive)
-                if seed_secondary and j > 0 and scene.has_bvh else None)
-        hit = (_closest_hit_sorted if sorted_pass else _closest_hit)(
-            scene, origin, direction, alive, tiers,
-            "primary" if j == 0 else "secondary", seed)
-        origin, direction, atten, color, seed_x, seed_y, alive = \
-            _shade_and_extend(
-                scene, hit, origin, direction, atten, color, seed_x, seed_y,
-                alive, last=last,
-                rr=russian_roulette and j + 1 >= rr_start_bounce)
+        with span("bounce", j):
+            count = alive.sum()
+            rays_traced = rays_traced + count
+            count_live(count)
+            last = j == num_bounces - 1
+            sorted_pass = sort_secondary and j > 0
+            if last and _anyhit_enabled(scene):
+                # Emissive-free last bounce: only the sky/miss decision
+                # feeds radiance, and no RNG draws happen.
+                hit_mask = (_any_hit_sorted if sorted_pass else _any_hit)(
+                    scene, origin, direction, alive, tiers)
+                with span("shade"):
+                    color = _add_sky(color, atten, direction,
+                                     alive & ~hit_mask)
+                    alive = torch.zeros_like(alive)
+                continue
+            seed = (bounce_seed(scene, hit, origin, direction, alive)
+                    if seed_secondary and j > 0 and scene.has_bvh else None)
+            hit = (_closest_hit_sorted if sorted_pass else _closest_hit)(
+                scene, origin, direction, alive, tiers,
+                "primary" if j == 0 else "secondary", seed)
+            with span("shade"):
+                origin, direction, atten, color, seed_x, seed_y, alive = \
+                    _shade_and_extend(
+                        scene, hit, origin, direction, atten, color, seed_x,
+                        seed_y, alive, last=last,
+                        rr=russian_roulette and j + 1 >= rr_start_bounce)
     return color, seed_x, seed_y, rays_traced
 
 
@@ -546,50 +567,56 @@ def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
     n = origin.shape[0]
     m = batch * n
     dev = origin.device
-    hit0 = _closest_hit(scene, origin, direction, None, tiers, "primary")
-    did0 = hit0.t < MISS_T
-    tri0 = get_triangle_data(scene, hit0)
-    mat0 = get_material_data(scene, tri0)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    base = torch.where(~did0[:, None], sky_color(direction), zero)
-    base = base + torch.where(did0[:, None], mat0.emissive * EMISSIVE_SCALE,
-                              zero)
-    color_sum = float(batch) * base    # atten == 1 at bounce 0
-    rays = torch.full((), n, dtype=torch.int64, device=dev)
-    if num_bounces == 1:
-        return color_sum, rays
+    with span("bounce", 0):
+        count_live(n)
+        hit0 = _closest_hit(scene, origin, direction, None, tiers, "primary")
+        with span("shade"):
+            did0 = hit0.t < MISS_T
+            tri0 = get_triangle_data(scene, hit0)
+            mat0 = get_material_data(scene, tri0)
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            base = torch.where(~did0[:, None], sky_color(direction), zero)
+            base = base + torch.where(did0[:, None],
+                                      mat0.emissive * EMISSIVE_SCALE, zero)
+            color_sum = float(batch) * base    # atten == 1 at bounce 0
+            rays = torch.full((), n, dtype=torch.int64, device=dev)
+            if num_bounces == 1:
+                return color_sum, rays
 
-    # Bounce 0's next segment of every frame, lanes k*N + p for frame k
-    # and pixel p: the per-pixel shading once, the draws per lane.
-    per_pixel = (*_shading_info(mat0, direction),
-                 _hit_point(hit0, origin, direction, tri0), origin,
-                 direction, did0)
-    seed_x = seed_x.reshape(-1)
-    seed_y = seed_y.reshape(-1)
-    o = torch.empty((m, 3), dtype=torch.float32, device=dev)
-    d = torch.empty_like(o)
-    atten = torch.empty_like(o)
-    sx = torch.empty_like(seed_x)
-    sy = torch.empty_like(seed_y)
-    alive = torch.empty(m, dtype=torch.bool, device=dev)
-    for s, p0, p1, frames in _frame_chunks(batch, n, chunk):
-        e = s + frames * (p1 - p0)
-        lanes = [_frame_lanes(x, p0, p1, frames) for x in per_pixel]
-        out = _next_segment(
-            ShadingInfo(*lanes[:6]), *lanes[6:9],
-            torch.ones((e - s, 3), dtype=torch.float32, device=dev),
-            seed_x[s:e], seed_y[s:e], lanes[9],
-            rr=russian_roulette and rr_start_bounce <= 1)
-        for dst, src in zip((o, d, atten, sx, sy, alive), out):
-            dst[s:e] = src
-    color = torch.zeros_like(o)
-    lane = torch.arange(m, dtype=torch.int64, device=dev)
+            # Bounce 0's next segment of every frame, lanes k*N + p for
+            # frame k and pixel p: the per-pixel shading once, the draws
+            # per lane.
+            per_pixel = (*_shading_info(mat0, direction),
+                         _hit_point(hit0, origin, direction, tri0), origin,
+                         direction, did0)
+            seed_x = seed_x.reshape(-1)
+            seed_y = seed_y.reshape(-1)
+            o = torch.empty((m, 3), dtype=torch.float32, device=dev)
+            d = torch.empty_like(o)
+            atten = torch.empty_like(o)
+            sx = torch.empty_like(seed_x)
+            sy = torch.empty_like(seed_y)
+            alive = torch.empty(m, dtype=torch.bool, device=dev)
+            for s, p0, p1, frames in _frame_chunks(batch, n, chunk):
+                e = s + frames * (p1 - p0)
+                lanes = [_frame_lanes(x, p0, p1, frames) for x in per_pixel]
+                out = _next_segment(
+                    ShadingInfo(*lanes[:6]), *lanes[6:9],
+                    torch.ones((e - s, 3), dtype=torch.float32, device=dev),
+                    seed_x[s:e], seed_y[s:e], lanes[9],
+                    rr=russian_roulette and rr_start_bounce <= 1)
+                for dst, src in zip((o, d, atten, sx, sy, alive), out):
+                    dst[s:e] = src
+            color = torch.zeros_like(o)
+            lane = torch.arange(m, dtype=torch.int64, device=dev)
     state, traced = _trace_lanes(
         scene, [o, d, atten, color, sx, sy, alive, lane], 1,
         num_bounces=num_bounces, tiers=tiers,
         russian_roulette=russian_roulette, rr_start_bounce=rr_start_bounce,
         sort_secondary=sort_secondary, chunk=chunk)
-    return _sum_frames(color_sum, state[3], state[7], batch), rays + traced
+    with span("finish"):
+        return (_sum_frames(color_sum, state[3], state[7], batch),
+                rays + traced)
 
 
 def trace_wavefront_pooled(scene, origin, direction, seed_x, seed_y, *,
@@ -620,7 +647,8 @@ def trace_wavefront_pooled(scene, origin, direction, seed_x, seed_y, *,
         num_bounces=num_bounces, tiers=tiers,
         russian_roulette=russian_roulette, rr_start_bounce=rr_start_bounce,
         sort_secondary=sort_secondary, chunk=chunk)
-    return _by_lane(state[3], state[7]), rays
+    with span("finish"):
+        return _by_lane(state[3], state[7]), rays
 
 
 def pooled_state(origin, direction, seed_x, seed_y, first_lane: int = 0):
@@ -657,39 +685,46 @@ def _trace_lanes(scene, state, first: int, *, num_bounces: int, tiers,
     live = state[0].shape[0]    # lanes [live, m) are dead
     rays = torch.zeros((), dtype=torch.int64, device=state[0].device)
     for j in range(first, num_bounces):
-        if exchange is not None and j > 0:
-            state = exchange(state)
-            live = state[0].shape[0]
-        count = state[6][:live].sum()
-        rays = rays + count
-        if sort_secondary and j > 0:
-            # The live lanes go first: the chunks below trace only
-            # them, at the cost of this host sync per bounce.
-            key = _bounce_sort_key(scene, state[0][:live], state[1][:live],
-                                   state[6][:live])
-            _, order = state_sort_order(key, 1)
-            del key
-            state = [_permute_prefix(t, order, live) for t in state]
-            del order
-            live = int(count)
-        o, d, atten, color, sx, sy, alive, lane = state
-        last = j == num_bounces - 1
-        rr = russian_roulette and j + 1 >= rr_start_bounce
-        for s, e in _chunks(live, chunk):
-            if last and _anyhit_enabled(scene):
-                # Emissive-free last bounce: the sky/miss decision only.
-                hit_mask = _any_hit(scene, o[s:e], d[s:e], alive[s:e], tiers)
-                color[s:e] = _add_sky(color[s:e], atten[s:e], d[s:e],
-                                      alive[s:e] & ~hit_mask)
-                alive[s:e] = False
-                continue
-            hit = _closest_hit(scene, o[s:e], d[s:e], alive[s:e], tiers,
-                               "primary" if j == 0 else "secondary")
-            out = _shade_and_extend(
-                scene, hit, o[s:e], d[s:e], atten[s:e], color[s:e],
-                sx[s:e], sy[s:e], alive[s:e], last=last, rr=rr)
-            for dst, src in zip((o, d, atten, color, sx, sy, alive), out):
-                dst[s:e] = src
+        with span("bounce", j):
+            if exchange is not None and j > 0:
+                state = exchange(state)
+                live = state[0].shape[0]
+            count = state[6][:live].sum()
+            rays = rays + count
+            count_live(count)
+            if sort_secondary and j > 0:
+                # The live lanes go first: the chunks below trace only
+                # them, at the cost of this host sync per bounce.
+                with span("sort"):
+                    key = _bounce_sort_key(scene, state[0][:live],
+                                           state[1][:live], state[6][:live])
+                    _, order = state_sort_order(key, 1)
+                    del key
+                    state = [_permute_prefix(t, order, live) for t in state]
+                    del order
+                    live = int(count)
+            o, d, atten, color, sx, sy, alive, lane = state
+            last = j == num_bounces - 1
+            rr = russian_roulette and j + 1 >= rr_start_bounce
+            for s, e in _chunks(live, chunk):
+                if last and _anyhit_enabled(scene):
+                    # Emissive-free last bounce: the sky/miss decision.
+                    hit_mask = _any_hit(scene, o[s:e], d[s:e], alive[s:e],
+                                        tiers)
+                    with span("shade"):
+                        color[s:e] = _add_sky(color[s:e], atten[s:e],
+                                              d[s:e], alive[s:e] & ~hit_mask)
+                        alive[s:e] = False
+                    continue
+                hit = _closest_hit(scene, o[s:e], d[s:e], alive[s:e], tiers,
+                                   "primary" if j == 0 else "secondary")
+                with span("shade"):
+                    out = _shade_and_extend(
+                        scene, hit, o[s:e], d[s:e], atten[s:e], color[s:e],
+                        sx[s:e], sy[s:e], alive[s:e], last=last, rr=rr)
+                    for dst, src in zip((o, d, atten, color, sx, sy, alive),
+                                        out):
+                        dst[s:e] = src
     return state, rays
 
 
