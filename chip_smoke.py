@@ -242,6 +242,30 @@ before the result line):
    but for ties and brute-force-confirmed box-face misses, their times
    on both bakes (in turns) and the statistics builds' node steps and
    leaf visits.
+17. shading kernels — the wavefront's shading chain as hand-written
+   kernels (``ops/shade.py``, ``csrc/shade.cu``) against the plain chain
+   run on the card (``shade.fused`` off), on the 1080p atrium flat (leaf
+   28) and two-level (leaf 14) at the orbit's t=0: bounce 0's 2,073,600
+   lanes shaded and extended (without and with Russian roulette) and as
+   a last bounce, fresh and written in place; the any-hit bounce's sky on
+   the bounce-1 lanes; a joint batch's (B=32) per-pixel bounce 0 and the
+   draws of its first chunk (``JOINT_CHUNK`` lanes reading the pixel rows
+   at lane mod N), without and with Russian roulette, against the plain
+   chain's ``_frame_lanes`` copies; a pooled group's first chunk
+   (``JOINT_CHUNK`` lanes of 4 orbit cameras) shaded in place; every
+   output bitwise each time; each kernel timed (mean of 20 launches)
+   against the plain chain (mean of 3) and its bound (the bytes it must
+   move, each table row a lane set reads counted once, over 3.35 TB/s);
+   the shading counter around the cells' own calls (4 headline frames:
+   one ``shade_extend`` and one ``anyhit_sky`` launch a frame; a 1080p
+   joint batch of 32: one ``pixel_shade``, a ``joint_draw`` a chunk and
+   an ``anyhit_sky`` a chunk of bounce-1 lanes; a 1080p pooled group of
+   32 cameras: a ``shade_extend`` and an ``anyhit_sky`` a chunk, no other
+   key); 320x180 frames, joint batches of 4 and pooled groups of 4
+   cameras through the kernels and through the plain chain, images
+   bitwise, on the atrium and on the textured sphere (the textured
+   builds; emissive last bounce, Russian roulette from bounce 1).  Its
+   figures are printed as the JSON line ``{"shade": ...}``.
 
 Each kernel's ``bound_ms`` is the larger of its operations over the
 card's f32 peak and its bytes over the HBM rate, counted from this
@@ -618,6 +642,314 @@ def multidevice_rank(group, atrium_path):
         out["pooled_single_ms"] = median_ms(
             lambda: trace_wavefront_pooled(scene, *lanes, **kw),
             MD_POOL_REPS)
+    return out
+
+
+HBM_BYTES_PER_S = 3.35e12    # one H100 SXM's HBM3 rate (data sheet)
+
+
+def shade_phase(dev, card, atrium_path: str, sphere_path: str) -> dict:
+    """Phase 17 (the module docstring): the shading kernels against the
+    plain chain on the card.  Returns the figures of the result line."""
+    import math
+
+    import torch
+
+    from vulkan_pathtracer_tpu_torch.app.camera_path import orbit_path
+    from vulkan_pathtracer_tpu_torch.app.main import load_pipeline
+    from vulkan_pathtracer_tpu_torch.models.camera import Camera
+    from vulkan_pathtracer_tpu_torch.ops import shade
+    from vulkan_pathtracer_tpu_torch.ops.brdf import ShadingInfo
+    from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T
+    from vulkan_pathtracer_tpu_torch.ops.rng import prng_seed
+    from vulkan_pathtracer_tpu_torch.render import pipeline as pl
+    from vulkan_pathtracer_tpu_torch.render import wavefront as wf
+    from vulkan_pathtracer_tpu_torch.utils import RenderConfig
+
+    state_names = ("origin", "direction", "atten", "color", "seed_x",
+                   "seed_y", "alive")
+    draw_names = state_names[:3] + state_names[4:]
+    pixel_names = ("color_sum", "normal", "out_dir", "lambert_out",
+                   "diffuse_albedo", "fresnel_0", "roughness", "hit_point",
+                   "origin", "direction", "did_hit")
+    out = {}
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def plain(fn):
+        """fn() with the plain chain on the card."""
+        fused = shade.fused
+        shade.fused = lambda x: False
+        try:
+            result = fn()
+            sync()
+        finally:
+            shade.fused = fused
+        return result
+
+    def bitwise(label, got, want, names):
+        sync()
+        diffs = {}
+        for g, w, name in zip(got, want, names):
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  f"{label}: {name} {g.dtype} {tuple(g.shape)} vs "
+                  f"{w.dtype} {tuple(w.shape)}")
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            diffs[name] = int((g != w).sum())
+        check(not any(diffs.values()),
+              f"{label}: kernels differ from the plain chain: {diffs}")
+        phase("shade", check=label, lanes=got[0].shape[0], bitwise=True)
+
+    def device_ms(fn, reps):
+        fn()
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        sync()
+        return start.elapsed_time(end) / reps
+
+    def timing(key, label, fn, nbytes, lanes):
+        """``fn`` through the kernels (mean of 20) and through the plain
+        chain (mean of 3)."""
+        k_ms = device_ms(fn, 20)
+        p_ms = plain(lambda: device_ms(fn, 3))
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        out[key] = {"kernel_ms": round(k_ms, 4), "plain_ms": round(p_ms, 4),
+                    "bound_ms": round(bound_ms, 4), "bytes": int(nbytes),
+                    "lanes": int(lanes), "roofline": round(bound_ms / k_ms, 4)}
+        phase("timing", kernel=key, inputs=label, kernel_ms=f"{k_ms:.4f}",
+              plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+              bytes=int(nbytes), lanes=int(lanes), card=repr(card))
+
+    def counted(label, fn, expect):
+        """The shading launches of one call of ``fn``, held to
+        ``expect``."""
+        sync()
+        for key in shade.LAUNCHES:
+            shade.LAUNCHES[key] = 0
+        result = fn()
+        sync()
+        launched = {k: v for k, v in shade.LAUNCHES.items() if v}
+        want = expect(result)
+        check(launched == want, f"{label}: shading launches {launched}, "
+              f"expected {want}")
+        phase("shade", path=label, launches=launched)
+        return launched
+
+    def unique_rows(index, mask):
+        return int(torch.unique(index[mask]).numel()) if bool(
+            mask.any()) else 0
+
+    def shade_bytes(scene, hit, alive, last):
+        """The bytes a shading call must move: each lane's hit (16 B) and
+        state (65 B) in, its state out (65 B), and each row its hit lanes
+        read, once: 52 B of an attribute row, 36 B of an instance's normal
+        matrix, 24 B of a material row.  A last bounce reads t, tri,
+        direction, atten, color and alive (45 B) and writes color and
+        alive (13 B); of the rows it reads the material id (4 B of
+        tri_material, or of the attribute row) and the emissive word (8
+        B)."""
+        n = hit.t.shape[0]
+        did = alive & (hit.t < MISS_T)
+        tri = torch.clamp(hit.tri, min=0).long()
+        if scene.instanced:
+            vblock = tri // scene.max_leaf_size
+            rows = ((vblock & ((1 << scene.mb_bits) - 1))
+                    * scene.max_leaf_size + tri % scene.max_leaf_size)
+            inst_bytes = 36 * unique_rows(vblock >> scene.mb_bits, did)
+        else:
+            rows, inst_bytes = tri, 0
+        ids = scene.tri_attr[rows, 30].contiguous().view(torch.int32).long()
+        if last:
+            return (n * (45 + 13) + 4 * unique_rows(rows, did)
+                    + 8 * unique_rows(ids, did))
+        return (n * (81 + 65) + 52 * unique_rows(rows, did) + inst_bytes
+                + 24 * unique_rows(ids, did))
+
+    config = RenderConfig(num_samples=1, num_bounces=2, resolution_x=WIDTH,
+                          resolution_y=HEIGHT)
+    orbit = orbit_path(radius=4.5, height=2.2, duration=4.0,
+                       center=(0.0, 1.2, 0.0))
+
+    def camera(t):
+        cam = Camera(aspect_ratio=config.aspect_ratio)
+        orbit.apply(cam, t)
+        return cam
+
+    def small_paths(kind, scene, cams, emissive):
+        """320x180 frames, a joint batch of 4 and a pooled group of 4
+        cameras through the kernels and through the plain chain."""
+        small = pl.RenderPipeline(scene, RenderConfig(
+            num_samples=1, num_bounces=3 if emissive else 2,
+            resolution_x=SMALL_W, resolution_y=SMALL_H,
+            russian_roulette=emissive, rr_start_bounce=1))
+        for label, run in (
+                ("frame", lambda: small.render(cams[1], 7)),
+                ("joint batch of 4", lambda: small.render_batch_sum(
+                    cams[1], 7, 4)),
+                ("pooled group of 4", lambda: small.render_pooled(
+                    cams, [7, 8, 9, 10]))):
+            img_k, rays_k = run()
+            img_p, rays_p = plain(run)
+            check(int(rays_k) == int(rays_p), f"{kind} {label}: rays "
+                  f"{int(rays_k)} vs {int(rays_p)}")
+            bitwise(f"{kind} {SMALL_W}x{SMALL_H} {label}",
+                    [img_k.reshape(-1, 3)], [img_p.reshape(-1, 3)],
+                    ["image"])
+
+    chunks = wf.JOINT_CHUNK
+    for instanced in (False, True):
+        kind = "two-level" if instanced else "flat"
+        suffix = "_instanced" if instanced else ""
+        t0 = time.perf_counter()
+        pipe = load_pipeline(atrium_path, config, dev, instanced=instanced)
+        scene = pipe.scene
+        vectors = pl.camera_tensors(camera(0.0), dev)
+        o, d, sx, sy, _ = pl.primary_rays(*vectors, 0, WIDTH, HEIGHT,
+                                          tiles=pipe._tiles)
+        n = o.shape[0]
+        hit = wf._closest_hit(scene, o, d, None, pipe.tiers, "primary")
+        state = [o, d, torch.ones_like(o), torch.zeros_like(o), sx, sy,
+                 torch.ones(n, dtype=torch.bool, device=dev)]
+        outs = {}
+        for last, rr in ((False, False), (False, True), (True, False)):
+            tag = "last" if last else "extend_rr" if rr else "extend"
+            got = wf._shade_and_extend(scene, hit, *state, last=last, rr=rr)
+            want = plain(lambda: wf._shade_and_extend(
+                scene, hit, *state, last=last, rr=rr))
+            bitwise(f"{kind} bounce 0 {tag}", got, want, state_names)
+            lanes = [x.clone() for x in state]
+            wf._shade_and_extend(scene, hit, *lanes, last=last, rr=rr,
+                                 out=lanes)
+            bitwise(f"{kind} bounce 0 {tag} in place", lanes, want,
+                    state_names)
+            outs[tag] = want
+        for last in (False, True):
+            timing(f"shade_extend{suffix}" + ("_last" if last else ""),
+                   f"{kind} bounce 0",
+                   lambda: wf._shade_and_extend(scene, hit, *state,
+                                                last=last, rr=False),
+                   shade_bytes(scene, hit, state[6], last), n)
+        # The any-hit bounce's sky on the bounce-1 lanes.
+        o1, d1, a1, c1, _, _, alive1 = outs["extend"]
+        mask = wf._any_hit(scene, o1, d1, alive1, pipe.tiers)
+        got = wf._anyhit_sky(c1, a1, d1, alive1, mask)
+        want = plain(lambda: wf._anyhit_sky(c1, a1, d1, alive1, mask))
+        bitwise(f"{kind} any-hit sky", got, want, ("color", "alive"))
+        if not instanced:
+            timing("anyhit_sky", "flat bounce 1",
+                   lambda: wf._anyhit_sky(c1, a1, d1, alive1, mask),
+                   n * (12 * 3 + 2 + 13), n)
+        del outs, o1, d1, a1, c1, alive1, mask
+        # A joint batch's bounce 0 (B=32): the per-pixel shading, and
+        # the draws of its first chunk with and without Russian
+        # roulette, each frame's lanes reading the pixel rows.
+        batch = 32
+        got = wf._pixel_shading(scene, hit, o, d, batch)
+        want = plain(lambda: wf._pixel_shading(scene, hit, o, d, batch))
+        bitwise(f"{kind} joint B={batch} per-pixel bounce 0",
+                [got[0], *got[1]], [want[0], *want[1]], pixel_names)
+        per_pixel = got[1]
+        del got, want
+        if not instanced:
+            did0 = hit.t < MISS_T
+            # Its lanes read the hit and the ray (40 B) where a shading
+            # call reads 81 B, and write 81 B of pixel rows for 65.
+            timing("pixel_shade", f"flat joint B={batch} bounce 0",
+                   lambda: wf._pixel_shading(scene, hit, o, d, batch),
+                   shade_bytes(scene, hit, did0, False) - 25 * n, n)
+        px, py = pl.lane_pixels(WIDTH, HEIGHT, 0, pipe._tiles, dev)
+        frames = torch.arange(batch, dtype=torch.int64, device=dev)
+        seed_x, seed_y = (x.reshape(-1) for x in prng_seed(
+            px[None, :], py[None, :], frames[:, None]))
+        s0, p0, p1, fr = wf._frame_chunks(batch, n, chunks)[0]
+        e0 = s0 + fr * (p1 - p0)
+        pix = [x[p0:p1] for x in per_pixel]
+        for rr in (False, True):
+            def draws():
+                return wf._next_segment(
+                    ShadingInfo(*pix[:6]), *pix[6:9], None, seed_x[s0:e0],
+                    seed_y[s0:e0], pix[9], rr=rr)
+
+            bitwise(f"{kind} joint B={batch} chunk draws ({fr} frames"
+                    + (", roulette)" if rr else ")"), draws(), plain(draws),
+                    draw_names)
+            if not (instanced or rr):
+                timing("joint_draw", f"joint B={batch} first chunk "
+                       f"({fr} frames)", draws,
+                       (p1 - p0) * (23 * 4 + 1) + (e0 - s0) * (16 + 53),
+                       e0 - s0)
+        del per_pixel, pix, seed_x, seed_y
+        # A pooled group's first chunk, shaded in place.
+        group = [pl.primary_rays(*pl.camera_tensors(camera(float(k)), dev),
+                                 k + 1, WIDTH, HEIGHT, tiles=pipe._tiles)
+                 for k in range(4)]
+        pstate = wf.pooled_state(*(torch.cat([g[i] for g in group])
+                                   for i in range(4)))
+        del group
+        lanes = [x[:chunks] for x in pstate[:7]]
+        phit = wf._closest_hit(scene, lanes[0], lanes[1], lanes[6],
+                               pipe.tiers, "primary")
+        want = plain(lambda: wf._shade_and_extend(scene, phit, *lanes,
+                                                  last=False, rr=False))
+        wf._shade_and_extend(scene, phit, *lanes, last=False, rr=False,
+                             out=lanes)
+        bitwise(f"{kind} pooled group of 4 first chunk in place", lanes,
+                want, state_names)
+        del pstate, lanes, want, phit, state, hit, o, d, sx, sy
+        # Launches on the cells' own calls: 4 headline frames, a 1080p
+        # joint batch of 32 and a pooled group of 32 orbit cameras.
+        pipe.render(camera(0.0), 0, present_order=False)
+
+        def frames4():
+            for f in range(4):
+                pipe.render(camera(4.0 * f / 4), f + 1, present_order=False)
+
+        launches = {"4 frames": counted(
+            f"{kind} 4 headline frames", frames4,
+            lambda _: {f"shade_extend{suffix}": 4, "anyhit_sky": 4})}
+        n_chunks = len(wf._frame_chunks(batch, n, chunks))
+        launches[f"joint B={batch}"] = counted(
+            f"{kind} 1080p joint batch of {batch}",
+            lambda: pipe.render_batch_sum(camera(0.0), 1, batch),
+            lambda r: {f"pixel_shade{suffix}": 1, "joint_draw": n_chunks,
+                       "anyhit_sky": math.ceil(
+                           ((int(r[1]) - n) if pipe._sort_secondary
+                            else batch * n) / chunks)})
+        cams = [camera(4.0 * k / batch) for k in range(batch)]
+        launches[f"pooled {batch}"] = counted(
+            f"{kind} 1080p pooled group of {batch}",
+            lambda: pipe.render_pooled(cams, list(range(1, batch + 1))),
+            lambda r: {f"shade_extend{suffix}": math.ceil(batch * n / chunks),
+                       "anyhit_sky": math.ceil(
+                           ((int(r[1]) - batch * n) if pipe._sort_secondary
+                            else batch * n) / chunks)})
+        out[f"launches{suffix}"] = launches
+        del cams
+        small_paths(kind, scene, [camera(0.25 * k) for k in range(4)], False)
+        # The textured sphere (albedo, metal-roughness, emissive and
+        # normal-map textures): the textured builds, emissive last bounce
+        # and Russian roulette from bounce 1.
+        tex = load_pipeline(sphere_path, config, dev,
+                            instanced=instanced).scene
+        check(tex.has_textures, "the sphere scene has no textures")
+        sphere_orbit = orbit_path(radius=3.0, height=1.5, duration=4.0,
+                                  center=(0.0, 0.0, 0.0))
+        tex_cams = []
+        for k in range(4):
+            cam = Camera(aspect_ratio=config.aspect_ratio)
+            sphere_orbit.apply(cam, float(k))
+            tex_cams.append(cam)
+        small_paths(f"{kind} textured sphere", tex, tex_cams, True)
+        del tex
+        phase("phase", name=f"shading kernels {kind}",
+              seconds=f"{time.perf_counter() - t0:.1f}")
     return out
 
 
@@ -3116,6 +3448,11 @@ def main() -> int:
     chan_launches = channels_phase(cols_host, atrium_path, (
         flat_rays, *conv_figures))
     bf16_launches = bf16_phase(atrium_path, cols_path, cols_host)
+    from assets.procedural import make_textured_sphere
+
+    sphere_path = os.path.join(WORK, "sphere.glb")
+    make_textured_sphere(sphere_path)
+    shade_figures = shade_phase(dev, card, atrium_path, sphere_path)
 
     # -- 16. result -----------------------------------------------------------
     launches = {**{k: flat_launches[k] for k in ("quad_closest_hit",
@@ -3141,6 +3478,7 @@ def main() -> int:
         {"name": key, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[key], "library_ms": None, **results[key]}
         for key, (src, rep) in KERNELS.items()]}))
+    print(json.dumps({"shade": shade_figures}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

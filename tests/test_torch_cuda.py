@@ -37,8 +37,12 @@ quad kernels index rays in 64 bits (a launch whose float offsets pass
 its wrapper is bitwise its plain version, and the terminal viewer on a
 world-1 NCCL group prints the single-device viewer's text.  The textured golden configuration (tests/golden_utils.py:
 the textured sphere at 4 spp, 2 bounces, 64x64) renders on the card as
-on the CPU: textures, normal maps and the multi-sample loop.
+on the CPU: textures, normal maps and the multi-sample loop.  Frames,
+joint batches and pooled groups through the shading kernels
+(``ops/shade.py``) are bitwise the plain shading chain on the card.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -52,7 +56,7 @@ from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
     build_instanced_scene,
 )
 from vulkan_pathtracer_tpu_torch.ops import frontier as fr
-from vulkan_pathtracer_tpu_torch.ops import kernels
+from vulkan_pathtracer_tpu_torch.ops import kernels, shade
 from vulkan_pathtracer_tpu_torch.ops import skip_traverse as sk
 from vulkan_pathtracer_tpu_torch.ops import stack_traverse as st
 from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T
@@ -1220,3 +1224,64 @@ def test_nccl_world_one_viewer(cuda, scene_paths):
         assert counts == [5, 5] and texts[0] == texts[1]
     finally:
         torch.distributed.destroy_process_group()
+
+
+def _scene_camera(scene, aspect):
+    lo, hi = scene.root_lo.cpu().numpy(), scene.root_hi.cpu().numpy()
+    extent = float((hi - lo).max())
+    cam = Camera(aspect_ratio=aspect)
+    orbit_path(radius=0.75 * extent, height=0.35 * extent, duration=4.0,
+               center=tuple((lo + hi) * 0.5)).apply(cam, 0.5)
+    return cam
+
+
+@pytest.mark.parametrize("path", ["frame", "joint", "pooled"])
+@pytest.mark.parametrize("scene_name,instanced", [
+    ("columns", False), ("columns", True), ("cornell", False),
+    ("cornell", True), ("sphere", False), ("sphere", True)])
+def test_shading_kernels_match_plain_chain(cuda, scene_paths, monkeypatch,
+                                           scene_name, instanced, path):
+    """Frames, joint batches and pooled groups through the shading
+    kernels (``ops/shade.py``) bitwise the plain chain run on the card
+    (``shade.fused`` off), with the scene's own builds counted: the
+    columns, taken as emissive-free, the any-hit sky; the Cornell box
+    and the textured sphere (its textures and normal map, through the
+    textured builds) Russian roulette from bounce 1 and the emissive
+    last bounce."""
+
+    host = gltf.load(scene_paths[scene_name])
+    scene = (build_instanced_scene(host, max_leaf_size=14, device=cuda)
+             if instanced else
+             build_device_scene(host, max_leaf_size=14, device=cuda))
+    emissive = scene_name != "columns"
+    if not emissive:
+        scene = dataclasses.replace(scene, emissive_free=True)
+    config = RenderConfig(num_samples=1, num_bounces=3 if emissive else 2,
+                          resolution_x=96, resolution_y=72,
+                          russian_roulette=emissive, rr_start_bounce=1)
+    pipe = RenderPipeline(scene, config)
+    cams = [_scene_camera(scene, config.aspect_ratio) for _ in range(2)]
+    cams[1].position = cams[1].position * np.float32(0.9)
+    run = {"frame": lambda: pipe.render(cams[0], 5),
+           "joint": lambda: pipe.render_batch_sum(cams[0], 5, 3),
+           "pooled": lambda: pipe.render_pooled(cams, [5, 6])}[path]
+    before = dict(shade.LAUNCHES)
+    image, rays = run()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in shade.LAUNCHES.items()
+                if v != before[k]}
+    monkeypatch.setattr(shade, "fused", lambda x: False)
+    plain_image, plain_rays = run()
+    assert shade.LAUNCHES == {k: before[k] + launched.get(k, 0)
+                              for k in before}
+    assert int(rays) == int(plain_rays) > image.shape[0] * image.shape[1]
+    assert torch.equal(image.view(torch.int32),
+                       plain_image.view(torch.int32))
+    suffix = ("_instanced" if instanced else "") + (
+        "_textured" if scene_name == "sphere" else "")
+    builds = {k.removesuffix("_rr").removesuffix("_last") for k in launched
+              if k.startswith(("shade_extend", "pixel_shade"))}
+    assert f"shade_extend{suffix}" in builds or path == "joint"
+    assert builds <= {f"shade_extend{suffix}", f"pixel_shade{suffix}"}
+    assert ("pixel_shade" + suffix in launched) == (path == "joint")
+    assert ("anyhit_sky" in launched) != emissive

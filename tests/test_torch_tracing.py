@@ -20,6 +20,7 @@ test.
   one ``.item()`` added inside a span reads as one more sync.
 """
 
+import os
 import warnings
 
 import numpy as np
@@ -128,6 +129,62 @@ def test_live_lanes_equal_rays(box_scene, call):
         s["lanes"] for s in record.named("traverse"))
     assert all(by_id[s["parent"]]["name"] == "bounce"
                for s in record.named("traverse"))
+
+
+def test_shading_launches_counted_apart(box_scene, monkeypatch):
+    """On the CPU the shading chain is plain: no shading kernel key
+    counts it.  A shading launch reported inside
+    each ``shade`` span (as ``ops.shade`` reports its kernels on a card)
+    gives those spans its lanes and leaves ``traverse_live_share``, which
+    reads the traversal spans alone, unchanged."""
+    from ptbench import program_spans
+    from vulkan_pathtracer_tpu_torch.ops import shade
+    from vulkan_pathtracer_tpu_torch.render import wavefront
+
+    pipe = _pipe(box_scene)
+    before = dict(shade.LAUNCHES)
+    (_, rays), plain = _traced(pipe, CALLS["render"][1])
+    assert shade.LAUNCHES == before
+    shade_and_extend = wavefront._shade_and_extend
+
+    def reporting(scene, hit, origin, *args, **kwargs):
+        out = shade_and_extend(scene, hit, origin, *args, **kwargs)
+        profiling.launched("shade_extend", origin)
+        return out
+
+    monkeypatch.setattr(wavefront, "_shade_and_extend", reporting)
+    (_, rays_on), reported = _traced(pipe, CALLS["render"][1])
+    assert int(rays_on) == int(rays)
+    shades = reported.named("shade")
+    assert all(s["key"] == "shade_extend" and s["lanes"] == SIZE * SIZE
+               for s in shades if s["lanes"])
+    assert sum(s["lanes"] for s in shades) > 0
+    assert sum(s["lanes"] for s in plain.named("shade")) == 0
+    share = [program_spans.readings(r, None, 1)["traverse_live_share"]
+             for r in (plain, reported)]
+    assert share[0] == share[1] is not None
+
+
+def test_every_reported_kernel_pairs_the_clock():
+    """Each kernel of ``csrc/shade.cu``, all of whose launches
+    ``ops.shade`` reports to ``launched``, is one the clock pairs by name
+    (``LAUNCHED_KERNELS``), and so is the kernel of each ``LAUNCHES``
+    key: a reported launch whose kernel the clock does not pair leaves
+    the host's and the trace's counts unequal, and the window with no
+    clock."""
+    import re
+
+    from vulkan_pathtracer_tpu_torch.ops import shade
+
+    with open(os.path.join(profiling.PACKAGE, "csrc", "shade.cu")) as f:
+        kernels = set(re.findall(
+            r"__global__ void __launch_bounds__\(\w+\)\s+(\w+_kernel)\(",
+            f.read()))
+    assert len(kernels) == 4
+    assert kernels <= set(profiling.LAUNCHED_KERNELS)
+    for key in shade.LAUNCHES:
+        assert any(key.startswith(k.removesuffix("_kernel"))
+                   for k in kernels), key
 
 
 def _span(i, name, start_us, end_us, parent, root, lanes=0):

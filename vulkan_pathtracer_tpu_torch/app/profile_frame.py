@@ -26,13 +26,16 @@ device.
 With ``--joint B`` each "frame" is one joint batch of B frames of the
 camera at t=0 (``RenderPipeline.render_batch_sum``, the convergence
 path): the steps are the shared primary (``_closest_hit``, with the
-middle bounces' closest hits when there are any), its triangle and
-material fetch, the 6d key (``_bounce_sort_key``), the argsort
+middle bounces' closest hits when there are any), its per-pixel
+shading (``_pixel_shading``: on the card one kernel, on the CPU the
+triangle and material fetch), the 6d key (``_bounce_sort_key``), the argsort
 (``state_sort_order``) and the state gathers (``_permute_prefix``),
 bounce 0's shading chunks (``_frame_lanes``, the per-pixel shading
 copied to each frame's lanes, and ``_next_segment``, the draws; nested
-in ``_shade_and_extend`` on middle bounces), the any hit and the sky on
-its misses (``_add_sky``),
+in ``_shade_and_extend`` on middle bounces; on the card
+``_shade_and_extend`` and ``_next_segment`` are one kernel each), the
+any hit and the sky on its misses (``_anyhit_sky``, which runs
+``_add_sky`` on the CPU),
 and the final per-pixel sum (``_sum_frames``); 1 batch runs under the
 profiler.  The line also holds the batch's rays, its shading chunks,
 the peak device memory, and the state layout's cost: the gathers of the
@@ -44,9 +47,9 @@ With ``--pooled F`` each "frame" is one pooled group of F frames of F
 cameras on the orbit at ``4.0 * k / F`` (``RenderPipeline.render_pooled``,
 the fly-through): the steps are the closest hits of bounce 0 (and of
 the middle bounces), their shading (``_shade_and_extend``, with its
-nested fetches, ``extend_paths`` and ``_add_sky``), the 6d key, the
-argsort and the state gathers of each later bounce, the any hit and
-its sky, and the colors put back by lane id (``_by_lane``); 1 group
+nested fetches, ``extend_paths`` and ``_add_sky`` on the CPU), the 6d
+key, the argsort and the state gathers of each later bounce, the any
+hit and its sky (``_anyhit_sky``), and the colors put back by lane id (``_by_lane``); 1 group
 runs under the profiler.  ``ms_per_output_frame_median`` divides the
 wall time by the frames a "frame" holds (B, F or 1).
 
@@ -87,14 +90,15 @@ from vulkan_pathtracer_tpu_torch.utils import RenderConfig
 STEPS = ("_closest_hit", "_any_hit", "_closest_hit_sorted", "_any_hit_sorted",
          "_sorted_order", "get_triangle_data", "get_material_data",
          "extend_paths")
-JOINT_STEPS = ("_closest_hit", "_any_hit", "get_triangle_data",
-               "get_material_data", "_frame_lanes", "_next_segment",
-               "_bounce_sort_key", "state_sort_order", "_permute_prefix",
-               "_shade_and_extend", "_add_sky", "_sum_frames")
+JOINT_STEPS = ("_closest_hit", "_any_hit", "_pixel_shading",
+               "get_triangle_data", "get_material_data", "_frame_lanes",
+               "_next_segment", "_bounce_sort_key", "state_sort_order",
+               "_permute_prefix", "_shade_and_extend", "_anyhit_sky",
+               "_add_sky", "_sum_frames")
 POOLED_STEPS = ("_closest_hit", "_any_hit", "get_triangle_data",
                 "get_material_data", "extend_paths", "_bounce_sort_key",
                 "state_sort_order", "_permute_prefix", "_shade_and_extend",
-                "_add_sky", "_by_lane")
+                "_anyhit_sky", "_add_sky", "_by_lane")
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 

@@ -133,6 +133,19 @@ SIGNATURES = {
     "vkpt_wide_stats": [_P, _I, _P, _I, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
                         _P, _P],
 }
+# The shading chain's launchers (csrc/shade.cu): the scene's tables
+# (tri_attr, mat_packed[, tri_material], inst_nrm, block, mb_bits, the
+# texel pool and its three tables), the sky's two colors as a host array
+# of 6 floats.
+SIGNATURES.update({
+    "vkpt_shade_extend": [_I, _P, _P, _P, _P, _I, _I, *[_P] * 4,
+                          *[_P] * 12, _I64, *[_P] * 8],
+    "vkpt_pixel_shade": [_P, _P, _P, _I, _I, *[_P] * 4, *[_P] * 7, _I64,
+                         _I64, *[_P] * 10],
+    "vkpt_joint_draw": [_I, *[_P] * 10, _I64, _P, _P, _P, _I64,
+                        *[_P] * 7],
+    "vkpt_anyhit_sky": [*[_P] * 6, _I64, _P, _P, _P],
+})
 # The channel builds' launchers: a closest hit's arguments with the five
 # channel pointers (t_near, seed t, tri, u, v) after t_lane.
 _CHAN = [_P] * 5

@@ -71,6 +71,16 @@ flat bake the seed is a hit of the scene, so the frame changes only
 where another triangle lies at the seed's exact t.  Two-level scenes
 refuse it (``check_seed_secondary``).
 
+On a card the shading chain runs as hand-written kernels
+(``ops/shade.py``, ``csrc/shade.cu``): ``_shade_and_extend`` in one
+launch, ``_next_segment`` in one (the joint batch's draws reading the
+per-pixel shading at lane mod N), the any-hit bounce's sky
+(``_anyhit_sky``) in one and the joint batch's per-pixel bounce 0
+(``_pixel_shading``) in one, each bitwise the plain chain on the card,
+textured scenes included.  CPU tensors take the plain chain below,
+which honours the same ``out``; only the joint batch's draws ask which
+runs, as the plain step takes whole lanes.
+
 Deviation kept from the JAX package: the pdf divide is clamped with
 ``max(density, 1e-30)``; lanes where that matters are already dead.
 """
@@ -85,6 +95,7 @@ from vulkan_pathtracer_tpu_torch.ops import (
     frontier,
     intersect,
     rng,
+    shade,
     skip_traverse,
     stack_traverse,
     traverse,
@@ -96,6 +107,7 @@ from vulkan_pathtracer_tpu_torch.ops.brdf import (
     sample_brdf,
 )
 from vulkan_pathtracer_tpu_torch.ops.intersect import MISS_T, Hit
+from vulkan_pathtracer_tpu_torch.ops.shade import SKY_BLUE, SKY_WHITE
 from vulkan_pathtracer_tpu_torch.ops.sort import state_sort_order
 from vulkan_pathtracer_tpu_torch.ops.vecmath import dot, mix
 from vulkan_pathtracer_tpu_torch.render.shading import (
@@ -106,8 +118,6 @@ from vulkan_pathtracer_tpu_torch.render.shading import (
 from vulkan_pathtracer_tpu_torch.utils.config import KERNEL_ALIASES, Tiers
 from vulkan_pathtracer_tpu_torch.utils.profiling import count_live, span
 
-SKY_WHITE = (1.0, 1.0, 1.0)
-SKY_BLUE = (0.5, 0.7, 1.0)
 EMISSIVE_SCALE = 10.0       # ray_gen.rgen:75
 ORIGIN_OFFSET = 1e-5        # ray_gen.rgen:86
 ROUGHNESS_FLOOR = 0.006     # ray_gen.rgen:84
@@ -318,6 +328,29 @@ def _add_sky(color, atten, direction, missed):
                                zero)
 
 
+def _into(out, result):
+    """``result``, copied into ``out`` when given (a tensor that is its
+    own destination is left alone), as the kernels write it."""
+    if out is None:
+        return result
+    for dst, src in zip(out, result):
+        if dst is not src:
+            dst.copy_(src)
+    return out
+
+
+def _anyhit_sky(color, atten, direction, alive, hit_mask, out=None):
+    """The emissive-free last bounce's shading: ``color`` plus the sky
+    through ``atten`` where a live lane's any hit missed, and every lane
+    ended.  Returns (color, alive), written into ``out`` when given.
+    CUDA tensors take one kernel launch (``shade.anyhit_sky``)."""
+    if shade.fused(color):
+        return shade.anyhit_sky(color, atten, direction, alive, hit_mask,
+                                out)
+    return _into(out, (_add_sky(color, atten, direction, alive & ~hit_mask),
+                       torch.zeros_like(alive)))
+
+
 def _shading_info(mat, direction) -> ShadingInfo:
     """The BRDF inputs of a hit (ray_gen.rgen:80-84)."""
     out_dir = -direction
@@ -341,11 +374,17 @@ def _hit_point(hit, origin, direction, tri_data):
 
 
 def _next_segment(shading, hit_point, origin, direction, atten, seed_x,
-                  seed_y, did_hit, rr: bool):
+                  seed_y, did_hit, rr: bool, out=None):
     """Draw the hit lanes' next segment (ray_gen.rgen:87-101); with
     ``rr`` Russian roulette then ends some of the surviving paths (JAX
     wavefront.py:837-847).  Returns (origin, direction, atten, seed_x,
-    seed_y, alive)."""
+    seed_y, alive), written into ``out`` when given.  CUDA tensors take
+    one kernel launch (``shade.next_segment``), which also takes a joint
+    batch's per-pixel rows, each frame's lanes reading them in turn
+    (lane mod P), and ``atten`` None (1 on every lane)."""
+    if shade.fused(seed_x):
+        return shade.next_segment(shading, hit_point, origin, direction,
+                                  atten, seed_x, seed_y, did_hit, rr, out)
     # Draw exactly where the reference draws (hit and not last bounce).
     nsx, nsy, rx, ry = rng.pcg2d(seed_x, seed_y)
     seed_x = torch.where(did_hit, nsx, seed_x)
@@ -370,7 +409,7 @@ def _next_segment(shading, hit_point, origin, direction, atten, seed_x,
         keep = survive & ~(rrx >= p_survive)
         atten = torch.where(keep[:, None], atten / p_survive[:, None], atten)
         survive = keep
-    return origin, direction, atten, seed_x, seed_y, survive
+    return _into(out, (origin, direction, atten, seed_x, seed_y, survive))
 
 
 def extend_paths(scene, hit, origin, direction, atten, seed_x, seed_y,
@@ -385,13 +424,18 @@ def extend_paths(scene, hit, origin, direction, atten, seed_x, seed_y,
 
 
 def _shade_and_extend(scene, hit, origin, direction, atten, color, seed_x,
-                      seed_y, alive, *, last: bool, rr: bool):
+                      seed_y, alive, *, last: bool, rr: bool, out=None):
     """One bounce's shading on a lane set (JAX wavefront.py:909-970):
     sky on the missed lanes and emissive on the hit lanes added into
     ``color``, then, unless ``last``, the hit lanes' next segment
     (``extend_paths``).  The last bounce fetches the emissive factor
     alone where the scene allows.  Returns (origin, direction, atten,
-    color, seed_x, seed_y, alive)."""
+    color, seed_x, seed_y, alive), written into ``out`` when given.  CUDA
+    tensors take one kernel launch (``shade.shade_extend``)."""
+    if shade.fused(origin):
+        return shade.shade_extend(scene, hit, origin, direction, atten,
+                                  color, seed_x, seed_y, alive, last=last,
+                                  rr=rr, out=out)
     missed = alive & (hit.t >= MISS_T)
     did_hit = alive & ~missed
     color = _add_sky(color, atten, direction, missed)
@@ -405,12 +449,13 @@ def _shade_and_extend(scene, hit, origin, direction, atten, color, seed_x,
     color = color + torch.where(did_hit[:, None],
                                 emissive * EMISSIVE_SCALE * atten, zero)
     if last:
-        return (origin, direction, atten, color, seed_x, seed_y,
-                torch.zeros_like(alive))
+        return _into(out, (origin, direction, atten, color, seed_x, seed_y,
+                           torch.zeros_like(alive)))
     origin, direction, atten, seed_x, seed_y, alive = extend_paths(
         scene, hit, origin, direction, atten, seed_x, seed_y, did_hit,
         tri_data, mat, rr=rr)
-    return origin, direction, atten, color, seed_x, seed_y, alive
+    return _into(out, (origin, direction, atten, color, seed_x, seed_y,
+                       alive))
 
 
 def check_seed_secondary(scene) -> None:
@@ -478,9 +523,8 @@ def trace_sample(scene, origin, direction, seed_x, seed_y, *,
                 hit_mask = (_any_hit_sorted if sorted_pass else _any_hit)(
                     scene, origin, direction, alive, tiers)
                 with span("shade"):
-                    color = _add_sky(color, atten, direction,
-                                     alive & ~hit_mask)
-                    alive = torch.zeros_like(alive)
+                    color, alive = _anyhit_sky(color, atten, direction,
+                                               alive, hit_mask)
                 continue
             seed = (bounce_seed(scene, hit, origin, direction, alive)
                     if seed_secondary and j > 0 and scene.has_bvh else None)
@@ -527,6 +571,27 @@ def _frame_lanes(x, p0: int, p1: int, frames: int):
     return x if frames == 1 else x.repeat(frames, *([1] * (x.dim() - 1)))
 
 
+def _pixel_shading(scene, hit, origin, direction, frames: int):
+    """A joint batch's bounce 0 on its N pixels: ``frames`` times the
+    bounce's color (the sky, or the emissive term; attenuation 1), and
+    the per-pixel inputs of its frames' draws (``ShadingInfo``, the hit
+    point, the ray, the hit flag).  CUDA tensors take one kernel launch
+    (``shade.pixel_shading``)."""
+    if shade.fused(origin):
+        return shade.pixel_shading(scene, hit, origin, direction, frames)
+    did = hit.t < MISS_T
+    tri_data = get_triangle_data(scene, hit)
+    mat = get_material_data(scene, tri_data)
+    zero = torch.zeros((), dtype=torch.float32, device=origin.device)
+    base = torch.where(~did[:, None], sky_color(direction), zero)
+    base = base + torch.where(did[:, None], mat.emissive * EMISSIVE_SCALE,
+                              zero)
+    return float(frames) * base, (
+        *_shading_info(mat, direction),
+        _hit_point(hit, origin, direction, tri_data), origin, direction,
+        did)
+
+
 def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
                             batch: int, num_bounces: int, tiers="auto",
                             russian_roulette: bool = False,
@@ -571,14 +636,8 @@ def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
         count_live(n)
         hit0 = _closest_hit(scene, origin, direction, None, tiers, "primary")
         with span("shade"):
-            did0 = hit0.t < MISS_T
-            tri0 = get_triangle_data(scene, hit0)
-            mat0 = get_material_data(scene, tri0)
-            zero = torch.zeros((), dtype=torch.float32, device=dev)
-            base = torch.where(~did0[:, None], sky_color(direction), zero)
-            base = base + torch.where(did0[:, None],
-                                      mat0.emissive * EMISSIVE_SCALE, zero)
-            color_sum = float(batch) * base    # atten == 1 at bounce 0
+            color_sum, per_pixel = _pixel_shading(scene, hit0, origin,
+                                                  direction, batch)
             rays = torch.full((), n, dtype=torch.int64, device=dev)
             if num_bounces == 1:
                 return color_sum, rays
@@ -586,9 +645,6 @@ def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
             # Bounce 0's next segment of every frame, lanes k*N + p for
             # frame k and pixel p: the per-pixel shading once, the draws
             # per lane.
-            per_pixel = (*_shading_info(mat0, direction),
-                         _hit_point(hit0, origin, direction, tri0), origin,
-                         direction, did0)
             seed_x = seed_x.reshape(-1)
             seed_y = seed_y.reshape(-1)
             o = torch.empty((m, 3), dtype=torch.float32, device=dev)
@@ -597,16 +653,25 @@ def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
             sx = torch.empty_like(seed_x)
             sy = torch.empty_like(seed_y)
             alive = torch.empty(m, dtype=torch.bool, device=dev)
+            rr0 = russian_roulette and rr_start_bounce <= 1
             for s, p0, p1, frames in _frame_chunks(batch, n, chunk):
                 e = s + frames * (p1 - p0)
+                out = [x[s:e] for x in (o, d, atten, sx, sy, alive)]
+                if shade.fused(seed_x):
+                    # One launch: each frame's lanes read the chunk's
+                    # pixel rows at lane mod (p1 - p0), attenuation 1.
+                    px = [x[p0:p1] for x in per_pixel]
+                    _next_segment(
+                        ShadingInfo(*px[:6]), *px[6:9], None, seed_x[s:e],
+                        seed_y[s:e], px[9], rr=rr0, out=out)
+                    continue
+                # The plain step takes whole lanes, as ``extend_paths``
+                # calls it: the pixel rows copied to each frame's lanes.
                 lanes = [_frame_lanes(x, p0, p1, frames) for x in per_pixel]
-                out = _next_segment(
+                _into(out, _next_segment(
                     ShadingInfo(*lanes[:6]), *lanes[6:9],
                     torch.ones((e - s, 3), dtype=torch.float32, device=dev),
-                    seed_x[s:e], seed_y[s:e], lanes[9],
-                    rr=russian_roulette and rr_start_bounce <= 1)
-                for dst, src in zip((o, d, atten, sx, sy, alive), out):
-                    dst[s:e] = src
+                    seed_x[s:e], seed_y[s:e], lanes[9], rr=rr0))
             color = torch.zeros_like(o)
             lane = torch.arange(m, dtype=torch.int64, device=dev)
     state, traced = _trace_lanes(
@@ -712,19 +777,17 @@ def _trace_lanes(scene, state, first: int, *, num_bounces: int, tiers,
                     hit_mask = _any_hit(scene, o[s:e], d[s:e], alive[s:e],
                                         tiers)
                     with span("shade"):
-                        color[s:e] = _add_sky(color[s:e], atten[s:e],
-                                              d[s:e], alive[s:e] & ~hit_mask)
-                        alive[s:e] = False
+                        _anyhit_sky(color[s:e], atten[s:e], d[s:e],
+                                    alive[s:e], hit_mask,
+                                    out=(color[s:e], alive[s:e]))
                     continue
                 hit = _closest_hit(scene, o[s:e], d[s:e], alive[s:e], tiers,
                                    "primary" if j == 0 else "secondary")
                 with span("shade"):
-                    out = _shade_and_extend(
-                        scene, hit, o[s:e], d[s:e], atten[s:e], color[s:e],
-                        sx[s:e], sy[s:e], alive[s:e], last=last, rr=rr)
-                    for dst, src in zip((o, d, atten, color, sx, sy, alive),
-                                        out):
-                        dst[s:e] = src
+                    lanes = [x[s:e] for x in (o, d, atten, color, sx, sy,
+                                              alive)]
+                    _shade_and_extend(scene, hit, *lanes, last=last, rr=rr,
+                                      out=lanes)
     return state, rays
 
 

@@ -11,11 +11,13 @@ on the host clock (``time.perf_counter_ns``), off by default.
   one test of the module's tracer and returns a shared no-op context:
   no allocation, no CUDA event, no device read, no synchronise.
 - ``launched(key, origin)``: called by ``ops.stack_traverse._dispatch``
-  after each traversal launch (the same place that counts ``LAUNCHES``):
-  the launch's key and lanes go to the innermost span, and its host time
-  to the list that places the spans on a device trace's clock: the time
-  at which the C launcher returned (``launch_returned``, called by
-  ``ops.kernels._launch``), else the time of the call.
+  after each traversal launch (the same place that counts ``LAUNCHES``),
+  and by ``ops.shade`` after each shading kernel's launch (inside a
+  ``shade`` span): the launch's key and lanes go to the innermost span,
+  and its host time to the list that places the spans on a device
+  trace's clock: the time at which the C launcher returned
+  (``launch_returned``, called by ``ops.kernels._launch``), else the time
+  of the call.
 - ``count_live(count)``: the live lanes of a bounce, a device tensor the
   program computes anyway, kept while on and read once by ``collect``.
 - Synchronising calls: while on, PyTorch's sync debug mode warns at each
@@ -26,10 +28,10 @@ on the host clock (``time.perf_counter_ns``), off by default.
 On a device trace (the Chrome trace of ``torch.profiler``):
 
 - ``clock_offset``: the trace's clock against the host's, the median of
-  (runtime launch call of a walk kernel, ``launched`` host time) pairs,
-  with its spread; where no walk kernel ran (a CPU run), the ends of the
-  ``record_function`` range that each root span opens (their starts
-  carry the profiler's first-call cost).
+  (runtime launch call of a reported kernel, ``launched`` host time)
+  pairs, with its spread; where no such kernel ran (a CPU run), the ends
+  of the ``record_function`` range that each root span opens (their
+  starts carry the profiler's first-call cost).
 - ``attribute``: each device operation to the innermost span open when
   its launch call was made, each idle gap to the innermost span open at
   its start (or ``OUTSIDE``), the host's time in root spans against its
@@ -58,10 +60,13 @@ import torch
 TRACE_FILE = "trace.json"
 SYNC_WARNING = "called a synchronizing CUDA operation"
 OUTSIDE = "outside the program"
-# The walk kernels' entry points (csrc/): the launches of ``_dispatch``.
-WALK_KERNELS = ("stack_kernel", "stack_chan_kernel",
-                "skip_closest_hit_kernel", "skip_chan_kernel",
-                "wide_closest_hit_kernel", "wide_chan_kernel")
+# The entry points (csrc/) of the kernels whose launches are reported to
+# ``launched``: the walks of ``_dispatch`` and the shading kernels.
+LAUNCHED_KERNELS = ("stack_kernel", "stack_chan_kernel",
+                    "skip_closest_hit_kernel", "skip_chan_kernel",
+                    "wide_closest_hit_kernel", "wide_chan_kernel",
+                    "shade_extend_kernel", "pixel_shade_kernel",
+                    "joint_draw_kernel", "anyhit_sky_kernel")
 PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _tracer = None   # the Tracer of the enclosing tracing(), or None
@@ -71,8 +76,8 @@ _OFF = contextlib.nullcontext()   # every site's span while it is off
 class Span:
     """One span: ``start`` and ``end`` in host ns, the ``parent`` span's
     id and the ``root``'s (-1 and its own id for a root), the bounce
-    ``j``, and the traversal launches made inside it (``lanes``, the
-    last launch's ``key``).  A root span also opens a ``record_function``
+    ``j``, and the launches reported inside it (``lanes``, the last
+    launch's ``key``).  A root span also opens a ``record_function``
     range, which places it on a profiler's clock where nothing else
     can."""
 
@@ -119,7 +124,7 @@ class Record:
     - ``syncs``: (span id or -1, the program's line, host ns) of each
       synchronising call, -1 outside every span;
     - ``launches``: (host ns at which it returned, key, lanes) of each
-      traversal launch."""
+      reported launch (traversal and shading kernels)."""
 
     spans: list = field(default_factory=list)
     syncs: list = field(default_factory=list)
@@ -217,8 +222,9 @@ def span(name: str, j=None):
 
 
 def launched(key: str, origin) -> None:
-    """A traversal launch of ``origin.shape[0]`` lanes under ``key``
-    (``LAUNCHES``'s key), just made."""
+    """A kernel launch of ``origin.shape[0]`` lanes under ``key`` (a
+    ``LAUNCHES`` key of ``ops.stack_traverse`` or ``ops.shade``), just
+    made."""
     tracer = _tracer
     if tracer is not None:
         tracer.launched(key, origin.shape[0])
@@ -313,10 +319,11 @@ class Timeline:
             xs.sort()
         return cls(ops, runtime, annotations)
 
-    def walk_launches(self) -> list:
-        """The runtime launch calls of walk kernels, by start."""
+    def kernel_launches(self) -> list:
+        """The runtime launch calls of the kernels of LAUNCHED_KERNELS,
+        by start."""
         walks = {c for _, _, name, c in self.ops
-                 if any(k in name for k in WALK_KERNELS)}
+                 if any(k in name for k in LAUNCHED_KERNELS)}
         return [r for r in self.runtime if r[3] in walks]
 
 
@@ -335,10 +342,10 @@ class Clock:
 
 def clock_offset(record: Record, timeline: Timeline) -> Clock | None:
     """The trace's clock against the host's (the module docstring): the
-    k-th launch (or root span) paired with the k-th walk kernel's launch
-    call (or root range) in the trace; None where there is nothing to
+    k-th launch (or root span) paired with the k-th reported kernel's
+    launch call (or root range) in the trace; None where there is nothing to
     pair, or the two counts differ (a trace that lost events)."""
-    walks = timeline.walk_launches()
+    walks = timeline.kernel_launches()
     if walks:
         host = [t / 1e3 for t, _, lanes in record.launches if lanes > 0]
         trace = [end for _, end, _, _ in walks]
