@@ -31,7 +31,8 @@ def _reader(package: str, name: str):
 
 class Cell:
     def __init__(self, workload: str, bench_path: str = None):
-        bench = _load_json(bench_path or os.path.join(ROOT, "BENCHMARK.json"))
+        self.bench_path = bench_path or os.path.join(ROOT, "BENCHMARK.json")
+        bench = _load_json(self.bench_path)
         cells = {w["name"]: w for w in bench["workloads"]}
         if workload not in cells:
             raise KeyError(f"no workload {workload!r} in BENCHMARK.json: "

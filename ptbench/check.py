@@ -2,9 +2,12 @@
 
 After the window, the outputs the run kept (``traffic.Window.kept``: a
 seeded sample of the frames it delivered, or its longest still, each
-at a seeded sample of pixels) are worked out again by
-the plain reference (``ptbench/reference``) from the scene's glTF, the
-camera's pose and the frame counters, and compared pixel by pixel.
+at a seeded sample of pixels) are worked out again by the plain
+reference that the configuration's ``reference`` names (a package
+under the benchmark's path, ``ptbench/reference`` for both
+configurations today, whose ``render`` module the check calls) from
+the scene's glTF, the camera's pose and the frame counters, and
+compared pixel by pixel.
 
 One number is compared, ``pixels_off``: the share, in percent, of the
 compared pixels whose radiance differs from the reference's in some
@@ -22,13 +25,20 @@ precision below the configuration's float32, in the program's place.
 
 from __future__ import annotations
 
+import importlib
+
 import torch
 
 from ptbench.orbit import camera_vectors
-from ptbench.reference import render as reference
 
 
-def _reference_values(scene, traffic, kept: list, config: dict):
+def reference_of(config: dict):
+    """The ``render`` module of the configuration's reference package."""
+    package = config["reference"].strip("/").replace("/", ".")
+    return importlib.import_module(f"{package}.render")
+
+
+def _reference_values(reference, scene, traffic, kept: list, config: dict):
     """The reference's values of every kept output, (K, P, 3) f32."""
     width, height, bounces = (config["width"], config["height"],
                               config["bounces"])
@@ -37,7 +47,7 @@ def _reference_values(scene, traffic, kept: list, config: dict):
     def vectors(item):
         return camera_vectors(*traffic.pose(item["index"]), aspect=aspect)
 
-    if traffic.kind == "joint":
+    if "spp" in kept[0]:     # stills
         return torch.stack([
             (reference.accumulate_pixels(
                 scene, vectors(item), item["frame0"], item["spp"],
@@ -66,8 +76,9 @@ def compare(kept: list, traffic, config: dict, scene_path: str, device,
         return {"numbers": {"pixels_off": {"value": 100.0,
                                            "limit": check["limit"]}},
                 "failed": 0, "compared": 0, "control": None}
+    reference = reference_of(config)
     scene = reference.load_scene(scene_path, device, torch.float32)
-    ref = _reference_values(scene, traffic, kept, config)
+    ref = _reference_values(reference, scene, traffic, kept, config)
     masks = [off_mask(item["values"], r, check) for item, r in zip(kept, ref)]
     off = sum(int(m.sum()) for m in masks)
     total = sum(m.numel() for m in masks)
@@ -76,7 +87,8 @@ def compare(kept: list, traffic, config: dict, scene_path: str, device,
     low = None
     if control:
         low_scene = reference.load_scene(scene_path, device, torch.bfloat16)
-        low_ref = _reference_values(low_scene, traffic, kept, config)
+        low_ref = _reference_values(reference, low_scene, traffic, kept,
+                                    config)
         low = 100.0 * sum(int(off_mask(v, r, check).sum())
                           for v, r in zip(low_ref, ref)) / total
     return {"numbers": {"pixels_off": {"value": 100.0 * off / total,

@@ -21,14 +21,20 @@ span, and the live lanes against the rays the window's calls returned.
 
 On the CPU there is no device trace: the metrics that read it are None,
 and ``host_syncs`` and ``traverse_live_share`` read the program alone.
-The benchmark's own runs do not run this.
+A cell on several cards runs on its ranks as in a benchmark run
+(``ranks.py``: the windows in lockstep after one calibration), each rank
+under the tracer and the profiler, and the parent prints every rank's
+lines, each with its ``rank``.  The benchmark's own runs do not run
+this.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
+import math
 import os
 import sys
 import time
@@ -75,7 +81,8 @@ class Rays:
     def __init__(self, pipe):
         self.kept = []
         for name in self.CALLS:
-            setattr(pipe, name, self._wrap(getattr(pipe, name)))
+            if hasattr(pipe, name):   # a split pipeline renders frames only
+                setattr(pipe, name, self._wrap(getattr(pipe, name)))
 
     def _wrap(self, fn):
         def call(*args, **kwargs):
@@ -92,22 +99,23 @@ class Rays:
         return n
 
 
-def traced_window(client, seconds: float, device, scratch: str):
-    """One window of ``client``'s traffic with the tracer on, under the
-    profiler on a card; returns (window, record, attribution or None)."""
+def traced_window(run_window, seconds: float, device, scratch: str):
+    """One window (``run_window(seconds)``: a client's ``run``) with the
+    tracer on, under the profiler on a card; returns (window, record,
+    attribution or None)."""
     import torch
 
     from vulkan_pathtracer_tpu_torch.utils import profiling
 
     if device.type != "cuda":
         with profiling.tracing() as tracer:
-            window = client.run(seconds)
+            window = run_window(seconds)
         return window, tracer.collect(), None
     activities = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         with profiling.tracing() as tracer:
             t0 = time.perf_counter_ns()
-            window = client.run(seconds)
+            window = run_window(seconds)
             t1 = time.perf_counter_ns()
     record = tracer.collect()
     os.makedirs(scratch, exist_ok=True)
@@ -175,7 +183,7 @@ def card(device) -> str:
             else "cpu")
 
 
-def cost_windows(client, seconds: float, unit: str) -> dict:
+def cost_windows(run_window, seconds: float, unit: str) -> dict:
     """Rates of windows with the tracer off, on, on, off (no profiler)."""
     from vulkan_pathtracer_tpu_torch.utils import profiling
 
@@ -183,20 +191,22 @@ def cost_windows(client, seconds: float, unit: str) -> dict:
     for on in (False, True, True, False):
         if on:
             with profiling.tracing() as tracer:
-                window = client.run(seconds)
+                window = run_window(seconds)
             tracer.collect()
         else:
-            window = client.run(seconds)
+            window = run_window(seconds)
         done = window.spp if unit == "spp" else window.frames
         rates.append({"tracer": on, "rate": done / window.seconds})
     return {"cost": rates, "unit": f"{unit}/s"}
 
 
 def run(workload: str, seeds, seconds: float, device, cost: float = 0.0,
-        sizes: dict = None, mix: dict = None, out=sys.stdout) -> list:
+        sizes: dict = None, mix: dict = None, out=sys.stdout,
+        rank=None) -> list:
     """The lines of ``seeds`` (and of ``cost``) for one cell on
-    ``device``; ``sizes`` and ``mix`` override the configuration's and
-    the traffic's entries (the CPU tests' small runs)."""
+    ``device``, or as ``rank`` (``ranks.Rank``); ``sizes`` and ``mix``
+    override the configuration's and the traffic's entries (the CPU
+    tests' small runs)."""
     from ptbench import run as bench
     from ptbench.cell import Cell
     from ptbench.traffic import Traffic
@@ -204,29 +214,50 @@ def run(workload: str, seeds, seconds: float, device, cost: float = 0.0,
     cell = Cell(workload)
     config = {**cell.config, **(sizes or {})}
     mix = {**cell.mix, **(mix or {})}
-    program = bench.Program(config, device)
+    program = bench.Program(config, device, rank)
     rays = Rays(program.pipe)
     lines = []
+
+    def emit(line: dict) -> None:
+        line["card"] = card(device)
+        if rank is not None:
+            line["rank"] = rank.group.rank
+        print(json.dumps(line), file=out, flush=True)
+        lines.append(line)
+
     for k, seed in enumerate(seeds):
         traffic = Traffic(mix, seed, config["width"], config["height"],
                           device)
         client = program.client(traffic)
         if k == 0:
             client.warm_up()
-            if cost:
-                line = {"workload": workload, "card": card(device),
-                        **cost_windows(client, cost, mix["unit"])}
-                print(json.dumps(line), file=out, flush=True)
-                lines.append(line)
+            if rank is not None:
+                rank.lockstep(client, int(mix["calibration"]))
+        run_window = (client.run if rank is None
+                      else functools.partial(rank.window, client))
+        if k == 0 and cost:
+            emit({"workload": workload,
+                  **cost_windows(run_window, cost, mix["unit"])})
         rays.total()
         window, record, attribution = traced_window(
-            client, seconds, device, os.path.join(bench.BUILD, "spans"))
-        line = seed_line(cell, mix, seed, window, record, attribution,
-                         rays.total())
-        line["card"] = card(device)
-        print(json.dumps(line), file=out, flush=True)
-        lines.append(line)
+            run_window, seconds, device, os.path.join(bench.BUILD, "spans"))
+        emit(seed_line(cell, mix, seed, window, record, attribution,
+                       rays.total()))
     return lines
+
+
+def _rank_run(group, workload: str, seeds, seconds: float, cost: float):
+    """One rank's lines (``spawn``'s ``fn``), printed by the parent."""
+    import io
+
+    from ptbench import ranks
+    from ptbench.cell import Cell
+
+    windows = len(seeds) * seconds + (4 * cost if cost else 0)
+    rank = ranks.Rank(group, time.monotonic(), Cell(workload).mix["split"],
+                      ranks.WINDOWS_LIMIT_S + 3 * math.ceil(windows))
+    return run(workload, seeds, seconds, group.device, cost,
+               out=io.StringIO(), rank=rank)
 
 
 def main(argv=None) -> int:
@@ -242,11 +273,26 @@ def main(argv=None) -> int:
     bench.cache_environment()
     import torch
 
+    from ptbench.cell import Cell
+
     if not torch.cuda.is_available():
         sys.stderr.write("ptbench.program_spans: needs a CUDA device\n")
         return 3
-    run(args.workload, [int(s) for s in args.seeds.split(",")],
-        args.seconds, torch.device("cuda"), args.cost)
+    seeds = [int(s) for s in args.seeds.split(",")]
+    cell = Cell(args.workload)
+    ranks = int(cell.mix.get("ranks", 1))
+    if ranks > 1:
+        from vulkan_pathtracer_tpu_torch.parallel import distributed
+
+        bench.scene_file(cell.config["scene"])
+        for lines in distributed.spawn(_rank_run, ranks, "cuda",
+                                       args.workload, seeds, args.seconds,
+                                       args.cost):
+            for line in lines:
+                print(json.dumps(line), flush=True)
+    else:
+        run(args.workload, seeds, args.seconds, torch.device("cuda"),
+            args.cost)
     return 0
 
 

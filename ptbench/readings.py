@@ -11,15 +11,63 @@ outputs are compared with the float32 reference (the program's
 reading) and, for the first ``--control`` seeds, the bfloat16
 reference is compared on the same pixels in the program's place (the
 control's reading).  One JSON line per seed.  The benchmark's own runs
-do not run this.
+do not run this.  A cell on several cards runs on its ranks as in a
+benchmark run (``ranks.py``: the windows in lockstep, after one
+calibration), and rank 0 checks its gathered frames and prints.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 import time
+
+
+def read_seeds(cell, seeds: list, seconds: float, control: int, device,
+               rank=None) -> None:
+    """One JSON line a seed, on ``device`` or as ``rank`` (``ranks.Rank``,
+    which prints on rank 0 alone)."""
+    from ptbench import check, run
+    from ptbench.traffic import Traffic
+
+    config, mix = cell.config, cell.mix
+    program = run.Program(config, device, rank)
+    for k, seed in enumerate(seeds):
+        traffic = Traffic(mix, seed, config["width"], config["height"],
+                          device)
+        client = program.client(traffic)
+        if k == 0:
+            client.warm_up()
+            if rank is not None:
+                rank.lockstep(client, int(mix["calibration"]))
+        window = (client.run(seconds) if rank is None
+                  else rank.window(client, seconds))
+        if rank is not None and not rank.primary:
+            continue
+        t0 = time.perf_counter()
+        out = check.compare(window.kept, traffic, config,
+                            program.scene_path, device,
+                            control=k < control)
+        print(json.dumps({
+            "workload": cell.name, "seed": seed,
+            "units": window.units, "kept": len(window.kept),
+            "compared": out["compared"],
+            "pixels_off": out["numbers"]["pixels_off"]["value"],
+            "control_pixels_off": out["control"],
+            "check_s": time.perf_counter() - t0}), flush=True)
+
+
+def _rank_seeds(group, workload: str, seeds: list, seconds: float,
+                control: int) -> None:
+    from ptbench import ranks
+    from ptbench.cell import Cell
+
+    cell = Cell(workload)
+    limit = ranks.WINDOWS_LIMIT_S + len(seeds) * 3 * math.ceil(seconds)
+    rank = ranks.Rank(group, time.monotonic(), cell.mix["split"], limit)
+    read_seeds(cell, seeds, seconds, control, group.device, rank)
 
 
 def main(argv=None) -> int:
@@ -34,36 +82,23 @@ def main(argv=None) -> int:
     run.cache_environment()
     import torch
 
-    from ptbench import check
     from ptbench.cell import Cell
-    from ptbench.traffic import Traffic
 
     if not torch.cuda.is_available():
         sys.stderr.write("ptbench.readings: needs a CUDA device\n")
         return 3
-    device = torch.device("cuda")
     cell = Cell(args.workload)
-    config, mix = cell.config, cell.mix
-    program = run.Program(config, device)
     seeds = [int(s) for s in args.seeds.split(",")]
-    for k, seed in enumerate(seeds):
-        traffic = Traffic(mix, seed, config["width"], config["height"],
-                          device)
-        client = program.client(traffic)
-        if k == 0:
-            client.warm_up()
-        window = client.run(args.seconds)
-        t0 = time.perf_counter()
-        out = check.compare(window.kept, traffic, config,
-                            program.scene_path, device,
-                            control=k < args.control)
-        print(json.dumps({
-            "workload": args.workload, "seed": seed,
-            "units": window.units, "kept": len(window.kept),
-            "compared": out["compared"],
-            "pixels_off": out["numbers"]["pixels_off"]["value"],
-            "control_pixels_off": out["control"],
-            "check_s": time.perf_counter() - t0}), flush=True)
+    ranks = int(cell.mix.get("ranks", 1))
+    if ranks > 1:
+        from vulkan_pathtracer_tpu_torch.parallel import distributed
+
+        run.scene_file(cell.config["scene"])
+        distributed.spawn(_rank_seeds, ranks, "cuda", args.workload, seeds,
+                          args.seconds, args.control)
+    else:
+        read_seeds(cell, seeds, args.seconds, args.control,
+                   torch.device("cuda"))
     return 0
 
 

@@ -26,16 +26,22 @@ the root of a checkout:
    ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1``
    ``breakdown``, and ``checks`` last.
 
+A mix with ``"ranks": N`` (N > 1) runs on N cards, one rank each, through
+the program's own multi-device path (``ranks.py``); the parent process
+prints rank 0's line.
+
 It exits 3 and prints no result where no CUDA device is available or
-fewer than the cell asks for, and 4 where ``jax``, ``jaxlib``, ``flax``
-or the JAX package ``vulkan_pathtracer_tpu`` is loaded after the window
-(top-level module names compared whole).  Build and kernel caches are
-kept under ``build/ptbench/`` of the checkout.
+fewer than the cell asks for, 4 where ``jax``, ``jaxlib``, ``flax`` or
+the JAX package ``vulkan_pathtracer_tpu`` is loaded after the window
+(top-level module names compared whole; in every rank), and 5 where a
+rank raised or died.  Build and kernel caches are kept under
+``build/ptbench/`` of the checkout.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib
 import json
 import os
@@ -100,10 +106,11 @@ class Reading:
     """What the per-layer readers read (metrics/*.py)."""
 
     def __init__(self, span_units, trace_units, recorder, trace, card,
-                 bake_s, scene_path, device):
+                 bake_s, scene_path, device, rank_spans=None):
         self.span_units = span_units    # output units of the spans' window
         self.trace_units = trace_units  # ... and of the profiled window
         self.recorder = recorder
+        self.rank_spans = rank_spans or {}  # metric -> each rank's total
         self.trace = trace
         self.card = card
         self.bake_s = bake_s
@@ -113,6 +120,11 @@ class Reading:
 
     def span_ms(self, metric: str):
         return self.recorder.span_ms(metric)
+
+    def rank_span_ms(self, metric: str):
+        """Each rank's total of the metric's spans, by rank, where the
+        cell runs on several ranks and every rank has one; else None."""
+        return self.rank_spans.get(metric)
 
     def kernel_seconds(self, patterns):
         return None if self.trace is None else self.trace.seconds_of(patterns)
@@ -135,10 +147,11 @@ class Reading:
 
 class Program:
     """The program as the benchmark drives it: the configuration's scene
-    loaded and baked (``app.main.load_pipeline``), and the program's
-    ``Camera`` and ``Accumulator`` types."""
+    loaded and baked (``app.main.load_pipeline``), on one rank of several
+    split by ``rank.shard``, and the program's ``Camera`` and
+    ``Accumulator`` types."""
 
-    def __init__(self, config: dict, device):
+    def __init__(self, config: dict, device, rank=None):
         from vulkan_pathtracer_tpu_torch.app.main import load_pipeline
         from vulkan_pathtracer_tpu_torch.models.camera import Camera
         from vulkan_pathtracer_tpu_torch.render.output import Accumulator
@@ -154,6 +167,8 @@ class Program:
         self.pipe = load_pipeline(self.scene_path, render_config, device,
                                   instanced=config["bake"] == "two-level")
         self.bake_s = time.perf_counter() - t0
+        if rank is not None:
+            self.pipe = rank.shard(self.pipe, render_config)
 
     def client(self, traffic):
         from ptbench.traffic import Client
@@ -175,10 +190,13 @@ def _install(recorder, per_layer, what: str) -> None:
 
 
 def run_cell(cell, seed: int, seconds: float, trace: bool, device,
-             sizes: dict = None, mix: dict = None) -> dict:
+             sizes: dict = None, mix: dict = None, rank=None) -> dict:
     """One run of ``cell`` on ``device``; returns the result line.
     ``sizes`` and ``mix`` override the configuration's and the traffic's
-    entries (the CPU tests' small runs)."""
+    entries (the CPU tests' small runs).  ``rank`` (``ranks.Rank``):
+    this process as one rank of several, which runs the windows in
+    lockstep with the others; rank 0 returns the line, the others
+    None."""
     import torch
 
     from ptbench import check, spans
@@ -188,12 +206,17 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     config = {**cell.config, **(sizes or {})}
     mix = {**cell.mix, **(mix or {})}
     cuda = device.type == "cuda"
-    program = Program(config, device)
+    program = Program(config, device, rank)
     path, bake_s = program.scene_path, program.bake_s
     traffic = Traffic(mix, seed, config["width"], config["height"], device)
     client = program.client(traffic)
     client.warm_up()
-    setup_s = since_start()
+    if rank is None:
+        run, setup_s = client.run, since_start()
+    else:
+        rank.lockstep(client, int(mix["calibration"]))
+        run = functools.partial(rank.window, client)
+        setup_s = rank.since_start()
 
     recorder = spans.Recorder(device, seed, client.steps)
     dtrace = profiled = None
@@ -205,7 +228,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         trace_s = min(seconds, mix["trace_seconds"])
         _install(recorder, cell.per_layer, "WRAP")
         try:
-            window = client.run(trace_s)
+            window = run(trace_s)
         finally:
             recorder.restore()
         _install(recorder, cell.per_layer, "SAMPLE")
@@ -222,7 +245,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
                 marker_ns = time.perf_counter_ns()
                 if cuda:
                     torch.cuda.synchronize()
-                profiled = client.run(trace_s)
+                profiled = run(trace_s)
         finally:
             client.steps.on = False
             recorder.restore()
@@ -230,13 +253,19 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
             dtrace = DeviceTrace.read(prof, profiled.seconds,
                                       client.steps.log, marker_ns)
     else:
-        window = client.run(seconds)
+        window = run(seconds)
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    busy = None if dtrace is None else dtrace.busy_s
+    rank_spans = None
+    if rank is not None:
+        peak, busy, rank_spans = rank.gather(peak, busy, recorder)
     del client, program
     if cuda:
         torch.cuda.empty_cache()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    if rank is not None and not rank.primary:
+        return None
 
     t0 = time.perf_counter()
     result = check.compare(window.kept, traffic, config, path, device)
@@ -253,7 +282,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     metrics = {}
     if trace:
         ctx = Reading(units(window), units(profiled), recorder, dtrace, card,
-                      bake_s, path, device)
+                      bake_s, path, device, rank_spans)
         readers = cell.per_layer
     else:
         readers = cell.end_to_end
@@ -263,18 +292,32 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         if value is not None:
             metrics[metric["name"]] = {"value": value, "unit": metric["unit"]}
     dev = {"platform": "gpu" if cuda else device.type, "kind": card,
-           "count": 1, "memory_peak_bytes": peak}
+           "count": 1 if rank is None else rank.world,
+           "memory_peak_bytes": peak}
     line = {"correct": correct, "attempted": window.units,
             "failed": result["failed"] if window.kept else window.units,
             "metrics": metrics, "device": dev}
     if dtrace is not None:
-        dev["busy_s"] = dtrace.busy_s
+        dev["busy_s"] = busy
         dev["window_s"] = dtrace.window_s
         line["breakdown"] = {"device_ops": [list(o) for o in
                                             dtrace.top_ops()],
                              "idle_gaps": dtrace.idle_gaps()}
     line["checks"] = numbers
     return line
+
+
+def report(line: dict, found: list) -> int:
+    """The numbers compared on standard error and the line on standard
+    output; exit 4 instead where JAX was loaded (``found``)."""
+    found = sorted(set(found) | set(forbidden_modules()))
+    if found:
+        sys.stderr.write(f"ptbench: JAX was loaded: {', '.join(found)}\n")
+        return 4
+    for name, n in line["checks"].items():
+        sys.stderr.write(f"check {name} {n['value']!r} limit {n['limit']!r}\n")
+    print(json.dumps(line), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -296,16 +339,14 @@ def main(argv=None) -> int:
                          f"device(s); this machine has "
                          f"{torch.cuda.device_count()}\n")
         return 3
+    if int(cell.mix.get("ranks", 1)) > 1:
+        from ptbench import ranks
+
+        return ranks.run_ranks(cell, args.seed, args.seconds,
+                               bool(args.trace), "cuda")
     line = run_cell(cell, args.seed, args.seconds, bool(args.trace),
                     torch.device("cuda"))
-    found = forbidden_modules()
-    if found:
-        sys.stderr.write(f"ptbench: JAX was loaded: {', '.join(found)}\n")
-        return 4
-    for name, n in line["checks"].items():
-        sys.stderr.write(f"check {name} {n['value']!r} limit {n['limit']!r}\n")
-    print(json.dumps(line), flush=True)
-    return 0
+    return report(line, [])
 
 
 if __name__ == "__main__":

@@ -5,6 +5,8 @@ a card and drives the rest of a run."""
 
 from __future__ import annotations
 
+import importlib
+
 import pytest
 import torch
 
@@ -13,13 +15,19 @@ from ptbench.run import run_cell
 
 SIZES = {"width": 64, "height": 36,
          "scene": {"generator": "atrium", "detail": 0.02, "n_materials": 32}}
-MIXES = {"frames": {}, "joint": {"batch": 4, "target_spp": 8},
+MIXES = {"frames": {"calibration": 2},
+         "joint": {"batch": 4, "target_spp": 8},
          "pooled": {"group": 3}}
 SEED = 2**31 + 12345
 
 
 def small_mix(cell: Cell) -> dict:
-    return {**MIXES[cell.mix["kind"]], "trace_seconds": 0.5,
+    """The small run's mix entries: a built-in kind's from ``MIXES``, a
+    kind module's from its ``SMALL`` (``ptbench/kinds``)."""
+    kind = cell.mix["kind"]
+    small = (MIXES[kind] if kind in MIXES else
+             importlib.import_module(f"ptbench.kinds.{kind}").SMALL)
+    return {**small, "trace_seconds": 0.5,
             "check": {**cell.mix["check"], "pixels": 768}}
 
 

@@ -1,6 +1,7 @@
 """A run with the timed path broken underneath comes out not correct:
-once for each fault a cell can have.  (No cell spans cards, so no
-exchange between cards can be left out.)"""
+once for each fault a one-card cell can have.  (The cell on four cards,
+where the exchange between cards can be left out too, has its faults in
+test_ptbench_ranks.py.)"""
 
 from __future__ import annotations
 

@@ -3,6 +3,7 @@ format, and a run's last line has the result's keys."""
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import re
@@ -12,6 +13,7 @@ import sys
 import pytest
 
 from ptbench.cell import ROOT, Cell
+from ptbench.traffic import KINDS
 
 BENCH = os.path.join(ROOT, "BENCHMARK.json")
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -44,7 +46,10 @@ def test_entries_have_only_the_known_keys():
         assert os.path.exists(os.path.join(ROOT, c["file"]))
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    # At most a quarter of the cells (rounded down) on four cards, or one.
+    fours = [w for w in b["workloads"] if w["chips"] == 4]
+    assert len(fours) <= max(1, len(b["workloads"]) // 4)
     for m in b["end_to_end"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
                                           "source"}
@@ -64,7 +69,15 @@ def test_entries_have_only_the_known_keys():
 @pytest.mark.parametrize("workload", workloads())
 def test_every_file_is_found_by_name(workload):
     cell = Cell(workload)
-    assert cell.mix["kind"] in ("frames", "joint", "pooled")
+    kind = cell.mix["kind"]
+    assert kind in KINDS or importlib.util.find_spec(f"ptbench.kinds.{kind}")
+    # A cell's cards are its mix's ranks, one each.
+    ranks = int(cell.mix.get("ranks", 1))
+    assert ranks == cell.chips
+    if ranks > 1:
+        assert cell.mix["split"] in ("tiles", "spp")
+        assert cell.config["height"] % ranks == 0
+        assert cell.mix["calibration"] >= 1
     assert cell.config["width"] == 1920 and cell.config["height"] == 1080
     assert any(m["name"] == "setup_s" for m, _ in cell.end_to_end)
     assert len(cell.end_to_end) >= 2 and cell.per_layer

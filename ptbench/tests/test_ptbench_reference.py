@@ -104,7 +104,8 @@ def test_control_fails_the_check(scene_path, mix_name):
         values = render.render_views(scene, [(vectors, 5)], traffic.px,
                                      traffic.py, w, h, 2)[0]
         item = {"index": 0, "frame": 5, "values": values}
-    config = {"width": w, "height": h, "bounces": 2}
+    config = {"width": w, "height": h, "bounces": 2,
+              "reference": "ptbench/reference"}
     out = check.compare([item], traffic, config, scene_path,
                         torch.device("cpu"), control=True)
     assert out["numbers"]["pixels_off"]["value"] == 0.0

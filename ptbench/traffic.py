@@ -22,11 +22,21 @@ The seed picks the orbit phase ``t0``, the frame counters' base (which
 seeds the program's RNG), the pixels that the check compares and which
 outputs it keeps; every seed sends the same amount of work of the same
 shapes.  A run warms up with the mix's own shapes, then measures until
-``seconds`` have passed and the unit in flight has finished.
+``seconds`` have passed and the unit in flight has finished, or, where
+the ranks of a cell on several cards agree on a count (``ranks.py``),
+for that many units.
+
+A ``kind`` other than these three is a module of its own,
+``ptbench/kinds/<kind>.py``, found by name: its ``warm_up(client)``
+runs the mix's shapes once, and its ``loop(client, win, more)`` drives
+the program while ``more(win)`` holds, filling ``win`` as the loops
+here do (``kinds/__init__.py``).
 """
 
 from __future__ import annotations
 
+import functools
+import importlib
 import time
 from dataclasses import dataclass, field
 
@@ -37,8 +47,6 @@ from ptbench.orbit import Orbit
 from ptbench.spans import HostSteps
 
 KINDS = ("frames", "joint", "pooled")
-
-
 
 
 @dataclass
@@ -72,10 +80,11 @@ class Traffic:
 
     def __init__(self, mix: dict, seed: int, width: int, height: int,
                  device):
-        if mix["kind"] not in KINDS:
-            raise ValueError(f"traffic kind {mix['kind']!r}: {KINDS}")
         self.mix = mix
         self.kind = mix["kind"]
+        # A kind beyond the three built in: its module, found by name.
+        self.module = (None if self.kind in KINDS else
+                       importlib.import_module(f"ptbench.kinds.{self.kind}"))
         self.device = device
         self.width, self.height = width, height
         self.orbit = Orbit(**mix["orbit"])
@@ -140,6 +149,10 @@ class Client:
     def warm_up(self) -> None:
         """The mix's own shapes, once each, before the window."""
         tr, mix = self.tr, self.tr.mix
+        if tr.module is not None:
+            tr.module.warm_up(self)
+            self._sync()
+            return
         cam = tr.camera(0, self.cam_type, self.aspect)
         for k in range(int(mix.get("warmup", 1))):
             if tr.kind == "frames":
@@ -156,22 +169,33 @@ class Client:
                                                range(mix["group"])])
         self._sync()
 
-    def run(self, seconds: float) -> Window:
-        """The measured window."""
-        run = {"frames": self._frames, "joint": self._joint,
-               "pooled": self._pooled}[self.tr.kind]
+    def run(self, seconds: float, units: int = None) -> Window:
+        """The measured window: ``seconds`` of the mix, or with
+        ``units`` that many units."""
+        if self.tr.module is not None:
+            run = functools.partial(self.tr.module.loop, self)
+        else:
+            run = {"frames": self._frames, "joint": self._joint,
+                   "pooled": self._pooled}[self.tr.kind]
         win = Window()
         self._sync()
         start = time.perf_counter()
-        run(win, start + seconds)
+        deadline = start + seconds
+        if units is None:
+            def more(win):
+                return time.perf_counter() < deadline
+        else:
+            def more(win):
+                return win.units < units
+        run(win, more)
         self._sync()
         win.seconds = time.perf_counter() - start
         return win
 
-    def _frames(self, win: Window, deadline: float) -> None:
+    def _frames(self, win: Window, more) -> None:
         tr = self.tr
         events = []
-        while time.perf_counter() < deadline:
+        while more(win):
             i = win.units
             with self.steps("camera"):
                 cam = tr.camera(i, self.cam_type, self.aspect)
@@ -190,14 +214,14 @@ class Client:
                     "values": image.reshape(-1, 3)[tr.pix]})
         win.frame_ms = [b.elapsed_time(e) for b, e in events]
 
-    def _joint(self, win: Window, deadline: float) -> None:
+    def _joint(self, win: Window, more) -> None:
         tr, mix = self.tr, self.tr.mix
         batch, target = int(mix["batch"]), int(mix["target_spp"])
         still, frame = 0, tr.base
         cam = tr.camera(still, self.cam_type, self.aspect)
         acc = self.acc_type(tr.width, tr.height, 1)
         stills = [{"index": still, "frame0": frame, "acc": acc}]
-        while time.perf_counter() < deadline:
+        while more(win):
             if acc.spp >= target:
                 still += 1
                 cam = tr.camera(still, self.cam_type, self.aspect)
@@ -219,10 +243,10 @@ class Client:
             still["values"] = torch.as_tensor(acc.mean[py, px])
             win.kept.append(still)
 
-    def _pooled(self, win: Window, deadline: float) -> None:
+    def _pooled(self, win: Window, more) -> None:
         tr, mix = self.tr, self.tr.mix
         group = int(mix["group"])
-        while time.perf_counter() < deadline:
+        while more(win):
             first = win.frames
             with self.steps("camera"):
                 cams = [tr.camera(first + k, self.cam_type, self.aspect)
