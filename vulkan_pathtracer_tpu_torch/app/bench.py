@@ -59,7 +59,9 @@ size-keyed leaf policy (leaf 28).
   * f / --frames`` (8 frames): two-level at leaf 8 (the script's ``LEAF``;
   ``--leaf`` sets it) through ``update_instance_transforms``, or with
   ``--flat`` the flat bake's AnimatedScene through ``with_transforms``
-  (rebake, refit, every table regenerated).  One warm-up frame, then
+  (rebake, refit, every table regenerated), each frame one
+  ``RenderPipeline.render(camera, f, time=t)`` of a pipeline given the
+  motion as its SceneAnimation (app/dynamic.Bob).  One warm-up frame, then
   the best of 2 passes (the script's ``REPS``); prints
   ``animated_<instanced|flat>_ms_per_frame`` with Mrays/s and the
   per-step device ms of the flat path's rebake, refit and
@@ -342,17 +344,17 @@ def animated(args, config, card) -> dict:
     the frame rendered; the line of the best pass."""
     from vulkan_pathtracer_tpu_torch.app.dynamic import (
         REFIT_STEPS,
+        Bob,
         StepTimer,
-        bob_transforms,
         largest_extent,
     )
     from vulkan_pathtracer_tpu_torch.models import gltf
     from vulkan_pathtracer_tpu_torch.models.animation import (
+        SceneAnimation,
         build_animated_scene,
     )
     from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
         build_instanced_scene,
-        update_instance_transforms,
     )
     from vulkan_pathtracer_tpu_torch.render.pipeline import RenderPipeline
 
@@ -362,32 +364,26 @@ def animated(args, config, card) -> dict:
                            dtype=torch.float32, device=args.dev)
     timer = StepTimer(args.dev)
     if args.flat:
-        anim = build_animated_scene(host, max_leaf_size=leaf,
+        rest = build_animated_scene(host, max_leaf_size=leaf,
                                     device=args.dev, mt=config.mt,
                                     frontier_width=config.frontier_width,
                                     frontier_guard=config.frontier_guard,
                                     mxu_precision=config.mxu_precision)
-        scene = anim.base
-
-        def scene_at(tf):
-            timer.start()
-            return anim.with_transforms(tf, on_step=timer.mark)
+        scene = rest.base
     else:
-        scene = build_instanced_scene(host, max_leaf_size=leaf,
-                                      device=args.dev, mt=config.mt,
-                                      mxu_precision=config.mxu_precision)
-
-        def scene_at(tf):
-            return update_instance_transforms(scene, tf)
+        rest = scene = build_instanced_scene(
+            host, max_leaf_size=leaf, device=args.dev, mt=config.mt,
+            mxu_precision=config.mxu_precision)
     ext = largest_extent(scene)
     path = scene_orbit("columns", scene)
-    pipe = RenderPipeline(scene, config)
+    pipe = RenderPipeline(scene, config, SceneAnimation(
+        Bob(base, ext), rest, on_step=timer.mark if args.flat else None))
     cam = Camera(aspect_ratio=config.aspect_ratio)
 
     def frame(f, t):
         path.apply(cam, t)
-        pipe.scene = scene_at(bob_transforms(base, ext, t))
-        return _finish(*pipe.render(cam, f, present_order=False))
+        timer.start()
+        return _finish(*pipe.render(cam, f, present_order=False, time=t))
 
     frame(0, 0.0)   # warm-up
     best, steps = float("inf"), {}

@@ -4,7 +4,8 @@ and ``chip_smoke.py``.
 
 - ``bob_transforms``: the motion of ``experiments/animated_bench.py``
   (:56-62): instance i moves up by 0.15 * ext * sin(2 t + 0.7 i), ext
-  the root box's largest extent;
+  the root box's largest extent; ``Bob`` hands it to a
+  ``RenderPipeline`` as a SceneAnimation's motion;
 - ``twist``: the deformation of ``tests/test_device_build.py``
   (:166-176): every vertex turned about y by 0.3 * sin(phase) * y;
 - ``StepTimer``: named steps between CUDA events, marked by
@@ -63,6 +64,17 @@ def bob_transforms(base: torch.Tensor, ext: float, t: float) -> torch.Tensor:
     tf = base.clone()
     tf[:, 1, 3] += 0.15 * ext * torch.sin(t * 2.0 + phase)
     return tf
+
+
+class Bob:
+    """``bob_transforms`` as the motion of a models/animation
+    SceneAnimation: ``transforms(t)``."""
+
+    def __init__(self, base: torch.Tensor, ext: float):
+        self.base, self.ext = base, ext
+
+    def transforms(self, t: float) -> torch.Tensor:
+        return bob_transforms(self.base, self.ext, t)
 
 
 def largest_extent(scene) -> float:

@@ -12,7 +12,19 @@ render/wavefront.py: ``brute`` bakes no BVH, ``pallas8`` bakes the
 ``--pool-frames``, ``--interactive``, ``--profile``,
 ``--gltf-quirk-mode`` and ``--stats-interval`` (parsed and unused, as
 in the JAX package), multi-device rendering (``--devices N``,
-``--shard-mode tiles|spp``), and ``--device`` (default ``cuda``).
+``--shard-mode tiles|spp``), and the port's own ``--device`` (default
+``cuda``) and ``--animation-step``.
+
+A glTF with animations (node channels, models/gltf.py) is baked with
+what poses it each frame (``load_pipeline``: the two-level bake moved by
+``update_instance_transforms``, the flat bake as an AnimatedScene
+refitted by ``with_transforms``; models/node_animation.py evaluates the
+channels on the device): the per-frame loop shows frame ``f`` at ``f *
+--animation-step`` seconds (default 1/60).  Batches, pooled groups and
+several devices refuse to animate such a scene (exit 2), as does a file
+whose animations the loader does not play (models/gltf.py);
+``--animation-step 0`` bakes and renders any of them at rest, as the
+viewer shows it.
 
 ``--devices N`` (N > 1) renders each frame on N ranks, one process and
 one device each (parallel/): the CLI starts the N ranks itself, or,
@@ -79,6 +91,7 @@ Run:  python -m vulkan_pathtracer_tpu_torch -s scene.glb [flags]
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import os
 import sys
@@ -90,11 +103,16 @@ import torch
 from vulkan_pathtracer_tpu_torch.app.camera_path import CameraPath
 from vulkan_pathtracer_tpu_torch.app.viewer import run_viewer
 from vulkan_pathtracer_tpu_torch.models import gltf
+from vulkan_pathtracer_tpu_torch.models.animation import (
+    SceneAnimation,
+    build_animated_scene,
+)
 from vulkan_pathtracer_tpu_torch.models.camera import Camera
 from vulkan_pathtracer_tpu_torch.models.device_scene import build_device_scene
 from vulkan_pathtracer_tpu_torch.models.instanced_scene import (
     build_instanced_scene,
 )
+from vulkan_pathtracer_tpu_torch.models.node_animation import NodeAnimator
 from vulkan_pathtracer_tpu_torch.ops.bvh import build_bvh_host, validate_bvh
 from vulkan_pathtracer_tpu_torch.parallel import distributed
 from vulkan_pathtracer_tpu_torch.parallel.mesh import make_render_group
@@ -125,7 +143,7 @@ from vulkan_pathtracer_tpu_torch.utils.validation import (
     checked_render,
 )
 
-# Every flag of the JAX package's CLI.
+# Every flag of the JAX package's CLI, and the port's own.
 PORTED_FLAGS = ("scene_path", "num_samples", "num_bounces", "resolution_x",
                 "resolution_y", "render_resolution_divider",
                 "enable_validation", "output", "frames", "camera_path",
@@ -133,7 +151,9 @@ PORTED_FLAGS = ("scene_path", "num_samples", "num_bounces", "resolution_x",
                 "interactive", "instanced", "devices", "checkpoint",
                 "checkpoint_interval", "stats_interval", "profile",
                 "shard_mode", "save_every", "batch_frames",
-                "gltf_quirk_mode", "pool_frames", "device")
+                "gltf_quirk_mode", "pool_frames", "device", "animation_step")
+# Seconds between two frames of an animated scene (--animation-step).
+ANIMATION_STEP = 1.0 / 60.0
 # Leaf size of the two-level bake (app/main.py:75-77 of the JAX package).
 INSTANCED_LEAF = 14
 # mxu_mt.mxu_precision's warning for VKPT_MXU_PRECISION=default (a TPU
@@ -227,6 +247,11 @@ def parse_args(argv=None):
     parser.prog = "python -m vulkan_pathtracer_tpu_torch"
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to render on (cuda | cpu)")
+    parser.add_argument("--animation-step", type=float,
+                        default=ANIMATION_STEP,
+                        help="seconds of a glTF's animation between two "
+                             "frames: frame f is shown at f * step; 0 "
+                             "renders the scene at rest")
     args = parser.parse_args(argv)
     for action in parser._actions:
         dest = action.dest
@@ -275,8 +300,8 @@ def resolve_device(name: str) -> torch.device:
 
 
 def load_pipeline(scene_path: str, config: RenderConfig, device,
-                  instanced: bool = False,
-                  quirk_mode: bool = False) -> RenderPipeline:
+                  instanced: bool = False, quirk_mode: bool = False,
+                  animate: bool = True) -> RenderPipeline:
     """Load a glTF scene, bake it — flat with the size-keyed leaf policy
     (utils/config.default_max_leaf), or two-level at leaf 14, unless
     ``config.max_leaf`` says otherwise (VKPT_LEAF, JAX app/main.py:76,
@@ -289,12 +314,23 @@ def load_pipeline(scene_path: str, config: RenderConfig, device,
     frontier tables' width and guard band and ``config.presplit`` the
     flat bake's pre-splitting budget;
     ``quirk_mode`` is the loader's node-flattening quirk
-    (``--gltf-quirk-mode``)."""
+    (``--gltf-quirk-mode``).  With ``animate``, a scene with animations
+    comes with its SceneAnimation (the module docstring), and one whose
+    animations the loader does not play (``animation_refused``) raises
+    its reason (ValueError); the flat bake's pre-split and 8-wide tiles
+    do not survive its refit, so ``presplit`` and ``pallas8`` refuse it
+    too.  Without ``animate`` the scene is baked at rest."""
     scene = gltf.load(scene_path, quirk_mode=quirk_mode)
+    if not animate:
+        scene = dataclasses.replace(scene, animation=None)
+    elif scene.animation_refused:
+        raise ValueError(f"{scene.animation_refused} (the file renders at "
+                         f"rest without a pose)")
     print(f"scene: {len(scene.instances)} instances, "
           f"{len(scene.primitives)} primitives, {scene.triangle_count} "
           f"triangles, {len(scene.materials)} materials, "
           f"{len(scene.textures)} textures", file=sys.stderr)
+    animation = None
     if instanced:
         dev = build_instanced_scene(
             scene, max_leaf_size=config.max_leaf or INSTANCED_LEAF,
@@ -302,6 +338,24 @@ def load_pipeline(scene_path: str, config: RenderConfig, device,
             mxu_precision=config.mxu_precision)
         print(f"two-level BVH: {dev.num_triangles} shared triangles, "
               f"{dev.inst_inv.shape[0]} instances", file=sys.stderr)
+        if scene.animation is not None:
+            animation = SceneAnimation(NodeAnimator(scene.animation, device),
+                                       dev)
+    elif scene.animation is not None:
+        if config.traversal == "pallas8" or config.presplit > 0:
+            raise ValueError("an animated flat scene is refitted each "
+                             "frame: --traversal pallas8 and VKPT_PRESPLIT "
+                             "do not run on it")
+        rest = build_animated_scene(
+            scene, max_leaf_size=(config.max_leaf
+                                  or default_max_leaf(scene.triangle_count)),
+            device=device, mt=config.mt,
+            frontier_width=config.frontier_width,
+            frontier_guard=config.frontier_guard,
+            mxu_precision=config.mxu_precision)
+        animation = SceneAnimation(NodeAnimator(scene.animation, device),
+                                   rest)
+        dev = rest.base
     else:
         dev = build_device_scene(
             scene, max_leaf_size=(config.max_leaf
@@ -311,6 +365,7 @@ def load_pipeline(scene_path: str, config: RenderConfig, device,
             frontier_width=config.frontier_width, presplit=config.presplit,
             frontier_guard=config.frontier_guard,
             mxu_precision=config.mxu_precision)
+    if not instanced:
         if config.presplit > 0 and dev.tree is not None:
             print(f"pre-split: {int(dev.tree.block_count.sum())} references "
                   f"of {dev.num_triangles} triangles (budget "
@@ -318,7 +373,11 @@ def load_pipeline(scene_path: str, config: RenderConfig, device,
         if dev.wide_nodes is not None:
             print(f"8-wide tiles: {dev.wide_nodes.shape[0] // 8} per octant, "
                   f"baked in {dev.wide_seconds:.2f} s", file=sys.stderr)
-    return RenderPipeline(dev, config)
+    if animation is not None:
+        print(f"animation: {len(scene.animation.channels)} channels move "
+              f"{animation.moved} of {len(scene.instances)} instances",
+              file=sys.stderr)
+    return RenderPipeline(dev, config, animation)
 
 
 def present(image, config: RenderConfig, output: str) -> None:
@@ -381,6 +440,7 @@ class FrameLoop:
                     if config.progressive else None)
         self.start_frame = self.acc.frame if self.acc is not None else 0
         self.rays = 0
+        self.animated = getattr(pipeline, "animation", None) is not None
 
     def checked(self, image, what: str):
         """``image``; under ``-v`` first checked for NaN and Inf."""
@@ -462,8 +522,10 @@ class FrameLoop:
             if self.path is not None:
                 self.path.apply(self.camera, self.path.duration * frame
                                 / max(args.frames - 1, 1))
+            pose = ({"time": frame * args.animation_step} if self.animated
+                    else {})
             image_dev, rays = pipeline.render(self.camera, frame,
-                                              present_order=False)
+                                              present_order=False, **pose)
             image = pipeline.to_present(
                 self.checked(image_dev, f"frame {frame}").cpu().numpy())
             if acc is not None:
@@ -531,9 +593,23 @@ def render_main(config: RenderConfig, args, device, group=None) -> int:
     with (contextlib.nullcontext() if primary
           else contextlib.redirect_stderr(io.StringIO())):
         print(f"loading scene: {args.scene_path}", file=sys.stderr)
-        pipeline = load_pipeline(args.scene_path, config, device,
-                                 instanced=args.instanced,
-                                 quirk_mode=args.gltf_quirk_mode)
+        try:
+            pipeline = load_pipeline(
+                args.scene_path, config, device, instanced=args.instanced,
+                quirk_mode=args.gltf_quirk_mode,
+                animate=args.animation_step != 0 and not args.interactive)
+        except ValueError as exc:
+            sys.stderr.write(f"error: {exc}\n")
+            return 2
+    if pipeline.animation is not None:
+        refused = animated_refusal(config, args, group)
+        if refused:
+            if primary:
+                sys.stderr.write(f"error: {refused}: the scene has "
+                                 f"animations, and each frame takes a pose "
+                                 f"of its own (--animation-step 0 renders "
+                                 f"it at rest)\n")
+            return 2
     if group is not None:
         pipeline = ShardedRenderPipeline(pipeline.scene, config, group,
                                          mode=args.shard_mode)
@@ -557,6 +633,19 @@ def render_main(config: RenderConfig, args, device, group=None) -> int:
     except ValidationError as exc:
         sys.stderr.write(f"validation failed: {exc}\n")
         return 1
+
+
+def animated_refusal(config: RenderConfig, args, group) -> str:
+    """The flag whose frame loop cannot render an animated scene (the
+    branches ``run`` would take), or ""."""
+    if group is not None or args.devices > 1:
+        return f"--devices {args.devices}"
+    if config.progressive and args.batch_frames > 1 and not args.camera_path:
+        return f"--batch-frames {args.batch_frames}"
+    if (args.pool_frames > 1 and config.num_samples == 1
+            and not config.progressive):
+        return f"--pool-frames {args.pool_frames}"
+    return ""
 
 
 def run(pipeline, config: RenderConfig, args, device,

@@ -21,7 +21,9 @@ that end in a synchronize), per-step device ms per frame (median;
 ``*_sorted`` steps include their nested ``_sorted_order`` and kernel
 step), and the profiled kernel time per frame against the unprofiled
 and the profiled wall time (the device busy share).  Needs a CUDA
-device.
+device.  A two-level scene too small for the sort is a frame graph on
+the card (render/pipeline.py): its steps run at the capture alone, and
+only the profiled kernel time reads its frames.
 
 With ``--joint B`` each "frame" is one joint batch of B frames of the
 camera at t=0 (``RenderPipeline.render_batch_sum``, the convergence
@@ -55,7 +57,8 @@ wall time by the frames a "frame" holds (B, F or 1).
 
 With ``--animate refit`` each frame first moves the flat atrium's 32
 instances (app/dynamic.bob_transforms at ``4.0 * f / --frames``, the
-AnimatedScene built with the ``VKPT_*`` tiers) and with ``--animate
+AnimatedScene built with the ``VKPT_*`` tiers, posed by
+``RenderPipeline.pose``) and with ``--animate
 rebuild`` twists its triangles (app/dynamic.twist at phase ``4.0 * f /
 --frames``) and rebuilds the tree on the device; the line holds the
 median device ms of each step (rebake, refit, regenerate; or twist,
@@ -155,6 +158,7 @@ def animate(args, path: str, dev) -> int:
     from vulkan_pathtracer_tpu_torch.app import dynamic
     from vulkan_pathtracer_tpu_torch.models import gltf
     from vulkan_pathtracer_tpu_torch.models.animation import (
+        SceneAnimation,
         build_animated_scene,
     )
     from vulkan_pathtracer_tpu_torch.models.device_scene import (
@@ -175,13 +179,13 @@ def animate(args, path: str, dev) -> int:
                                     frontier_guard=config.frontier_guard,
                                     mxu_precision=config.mxu_precision)
         base_tf = anim.initial_transforms(host)
-        ext = dynamic.largest_extent(anim.base)
+        pipe = RenderPipeline(anim.base, config, SceneAnimation(
+            dynamic.Bob(base_tf, dynamic.largest_extent(anim.base)), anim,
+            on_step=timer.mark))
 
-        def scene_at(t):
+        def pose(t):
             timer.start()
-            return anim.with_transforms(
-                dynamic.bob_transforms(base_tf, ext, t), on_step=timer.mark)
-        first = anim.base
+            pipe.pose(t)
     else:
         template = build_device_scene(host, max_leaf_size=leaf, device=dev,
                                       build_bvh=False)
@@ -190,15 +194,18 @@ def animate(args, path: str, dev) -> int:
             return dynamic.rebuild_frame(template, t, timer,
                                          coefs=config.mt == "mxu",
                                          mxu_precision=config.mxu_precision)
-        first = scene_at(0.0)
-    pipe = RenderPipeline(first, config)
+        pipe = RenderPipeline(scene_at(0.0), config)
+
+        def pose(t):
+            pipe.scene = scene_at(t)
+    first = pipe.scene
     orbit = orbit_path(radius=4.5, height=2.2, duration=4.0,
                        center=(0.0, 1.2, 0.0))
     cam = Camera(aspect_ratio=config.aspect_ratio)
 
     def frame(f, t):
         orbit.apply(cam, t)
-        pipe.scene = scene_at(t)
+        pose(t)
         steps = timer.ms()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)

@@ -17,16 +17,34 @@ in f32 with each 3-term product written as a sum in a fixed order
 ((a0 x + a1 y) + a2 z), so it does not depend on how a matmul reduces;
 it differs from JAX's einsum and from the host bake's float64 products
 by rounding (tests/test_torch_presplit_refit.py states the tolerance).
+The inverse takes no singularity check (``inv_ex``): a rebake and
+its refit read nothing back from the device.
+
+``SceneAnimation`` is what ``render/pipeline.RenderPipeline`` poses a
+scene with each frame: a motion (``transforms(t)``: (I, 4, 4) f32 on
+the device, such as models/node_animation.NodeAnimator for a glTF's own
+channels) and the baked scene it moves, a two-level DeviceScene
+(``instanced_scene.update_instance_transforms``) or a flat
+AnimatedScene (``with_transforms``).  On a CUDA device the two-level
+pose is two CUDA graphs, captured at the first pose (the evaluation at
+a time held in a device scalar, then the update), and each later pose
+refills the time and replays them: the TLAS, the instance tables, the
+skip records and the pair rows are rewritten in place, in two launches
+in place of a few hundred (the enqueue of which would leave the card
+idle for milliseconds a frame).  The flat refit allocates tables of its
+own each frame and runs eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from vulkan_pathtracer_tpu_torch.models import instanced_scene
 from vulkan_pathtracer_tpu_torch.models.device_scene import (
     DeviceScene,
     apply_slot_map,
@@ -81,7 +99,7 @@ class AnimatedScene:
         M = torch.as_tensor(transforms, dtype=torch.float32,
                             device=self.base.device)
         A = M[:, :3, :3]
-        N = torch.linalg.inv(A)   # triangle.glsl:79 normal quirk
+        N = torch.linalg.inv_ex(A).inverse   # triangle.glsl:79 quirk
         inst = self.tri_instance
         A_t, N_t = A[inst], N[inst]
         v0 = _apply(A_t, self.obj_v0) + M[inst, :3, 3]
@@ -168,3 +186,91 @@ def build_animated_scene(scene: Scene, max_leaf_size: int = 4,
         obj_normal=verts("normal", np.float32),
         obj_tangent=verts("tangent", np.float32),
         vert_instance=verts("inst", np.int64))
+
+
+def update_records(scene: DeviceScene) -> int:
+    """The table rows a pose rewrites: the skip records (each node of
+    the 8 octant orders with its box), the pair, quad, oct and frontier
+    rows the scene has, and its instance rows."""
+    tables = (scene.skip_nodes, scene.pair_box, scene.quad_box,
+              scene.oct_box, scene.frontier_box, scene.inst_inv)
+    return sum(int(t.shape[0]) for t in tables if t is not None)
+
+
+@dataclass
+class SceneAnimation:
+    """A baked scene and the motion that poses it (module docstring).
+    ``on_step(name)``, when given, is passed to a flat scene's
+    ``with_transforms``."""
+
+    motion: object     # .transforms(t) -> (I, 4, 4) f32; .moved, optional
+    rest: object       # a two-level DeviceScene or an AnimatedScene
+    on_step: Optional[Callable] = None
+
+    @property
+    def flat(self) -> bool:
+        return isinstance(self.rest, AnimatedScene)
+
+    @property
+    def scene(self) -> DeviceScene:
+        """The scene as baked, before any pose."""
+        return self.rest.base if self.flat else self.rest
+
+    @property
+    def graphed(self) -> bool:
+        """Whether a pose replays CUDA graphs (the module docstring)."""
+        return not self.flat and self.scene.device.type == "cuda"
+
+    def __post_init__(self):
+        # Instances a pose moves: the motion's count, else every one.
+        moved = getattr(self.motion, "moved", None)
+        if moved is None:
+            moved = (self.rest.num_instances if self.flat
+                     else int(self.rest.inst_inv.shape[0]))
+        self.moved = int(moved)
+        self._graphs = None
+
+    def _capture(self) -> None:
+        """Capture the evaluation (at the device scalar ``_time``) and
+        the update as two graphs, after one eager run on a side stream
+        (cuBLAS's handle and workspace are made outside the capture)."""
+        dev = self.scene.device
+        self._time = torch.zeros((), dtype=torch.float64, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            instanced_scene.update_instance_transforms(
+                self.rest, self.motion.transforms(self._time))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        evaluate, update = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(evaluate):
+            self._transforms = self.motion.transforms(self._time)
+        with torch.cuda.graph(update):
+            self._posed = instanced_scene.update_instance_transforms(
+                self.rest, self._transforms)
+        self._graphs = (evaluate, update)
+
+    def transforms(self, time: float) -> torch.Tensor:
+        """The motion's (I, 4, 4) transforms at ``time`` seconds."""
+        if not self.graphed:
+            return self.motion.transforms(time)
+        if self._graphs is None:
+            self._capture()
+        self._time.fill_(float(time))
+        self._graphs[0].replay()
+        return self._transforms
+
+    def update(self, transforms) -> DeviceScene:
+        """The scene at (I, 4, 4) ``transforms``; graphed, the one posed
+        scene, rewritten in place."""
+        if self.flat:
+            return self.rest.with_transforms(transforms, self.on_step)
+        if not self.graphed:
+            return instanced_scene.update_instance_transforms(self.rest,
+                                                              transforms)
+        if self._graphs is None:
+            self._capture()
+        if transforms is not self._transforms:
+            self._transforms.copy_(transforms)
+        self._graphs[1].replay()
+        return self._posed

@@ -27,6 +27,16 @@ Reproduces the reference's load-time contract (Scene.zig:79-546):
   this loader uses the correct glTF composition
   ``world = inherited · T · R · S`` (with ``matrix`` support); pass
   ``quirk_mode=True`` for bit-parity with the reference's flattening.
+- Animations (glTF 2.0, section "Animations"; the reference has none):
+  the channels of every animation, played together, ``LINEAR`` or
+  ``STEP`` keyframes of nodes' ``translation``, ``rotation`` and
+  ``scale``, kept with the node graph and each instance's node
+  (``Scene.animation``, a NodeGraph) for the device evaluator
+  (models/node_animation.py).  ``CUBICSPLINE``, morph ``weights``, skins
+  and animation under ``quirk_mode`` are not played: such a file loads
+  at rest, with the reason in ``Scene.animation_refused``, which
+  app/main.load_pipeline raises as a ValueError where a pose is asked
+  for.
 
 The hot byte-shuffling (accessor extraction) is NumPy views over the
 raw buffers — zero-copy where stride allows — with an optional C++
@@ -170,6 +180,7 @@ class Instance:
     transform: np.ndarray  # (4, 4) f32 world transform (math convention;
     # the reference stores it transposed as Vulkan row-major 3x4,
     # Scene.zig:529 — same matrix)
+    node: int = -1         # the glTF node it was flattened from
 
 
 @dataclass
@@ -194,12 +205,43 @@ MATERIAL_DTYPE = np.dtype(
 
 
 @dataclass
+class Channel:
+    """One glTF animation channel with its sampler: the keyframes of one
+    node's ``translation``, ``rotation`` (xyzw) or ``scale``."""
+
+    node: int
+    path: str             # translation | rotation | scale
+    times: np.ndarray     # (K,) f32 key times in seconds, increasing
+    values: np.ndarray    # (K, 3) or (K, 4) f32
+    interpolation: str    # LINEAR | STEP
+
+
+@dataclass
+class NodeGraph:
+    """What posing the instances at a time needs: every node's parent
+    and rest TRS (or its static ``matrix``), the node of each instance,
+    and the file's animation channels (all animations played together)."""
+
+    parents: np.ndarray      # (N,) int64, -1 for a root
+    translation: np.ndarray  # (N, 3) f64 rest values
+    rotation: np.ndarray     # (N, 4) f64 xyzw
+    scale: np.ndarray        # (N, 3) f64
+    matrix: np.ndarray       # (N, 4, 4) f64 local matrix of a matrix node
+    has_matrix: np.ndarray   # (N,) bool
+    instance_node: np.ndarray  # (I,) int64
+    channels: List[Channel]
+
+
+@dataclass
 class Scene:
     instances: List[Instance]
     meshes: List[Mesh]
     primitives: List[Primitive]
     materials: np.ndarray  # structured MATERIAL_DTYPE
     textures: List[Texture]
+    animation: Optional[NodeGraph] = None  # set when the file animates
+    # Why the file's animations are not played (it loads at rest), or "".
+    animation_refused: str = ""
 
     @property
     def triangle_count(self) -> int:
@@ -446,6 +488,7 @@ def _flatten_scene(gltf: dict, quirk_mode: bool) -> List[Instance]:
                     Instance(
                         mesh_index=node["mesh"],
                         transform=matrix.astype(np.float32),
+                        node=index,
                     )
                 )
             else:
@@ -455,6 +498,123 @@ def _flatten_scene(gltf: dict, quirk_mode: bool) -> List[Instance]:
             for child in node.get("children", []):
                 stack.append((child, matrix))
     return instances
+
+
+# --------------------------------------------------------------------------
+# Animations (glTF 2.0 section "Animations")
+# --------------------------------------------------------------------------
+ANIMATED_PATHS = {"translation": 3, "rotation": 4, "scale": 3}
+INTERPOLATIONS = ("LINEAR", "STEP")
+# Normalized integer outputs (rotation only): value / max, at least -1.
+_NORMALIZED = {5120: 127.0, 5121: 255.0, 5122: 32767.0, 5123: 65535.0}
+
+
+def _animation_output(gltf: dict, buffers: List[bytes], index: int,
+                      width: int) -> np.ndarray:
+    acc = gltf["accessors"][index]
+    raw = _read_accessor(gltf, buffers, index)
+    if raw.shape[1] != width:
+        raise UnsupportedFile(f"animation output accessor {index}: "
+                              f"{acc['type']}, wanted {width} components")
+    if raw.dtype == np.float32:
+        return raw.astype(np.float32)
+    if acc.get("normalized") and acc["componentType"] in _NORMALIZED:
+        return np.maximum(raw.astype(np.float64)
+                          / _NORMALIZED[acc["componentType"]],
+                          -1.0).astype(np.float32)
+    raise UnsupportedFile(f"animation output accessor {index}: component "
+                          f"type {acc['componentType']}")
+
+
+def _load_animation(gltf: dict, buffers: List[bytes],
+                    instances: List[Instance],
+                    quirk_mode: bool) -> Optional[NodeGraph]:
+    """The node graph and the animation channels of a file that has
+    ``animations``, else None.  Not played, each by a ValueError that
+    names it (``load`` keeps its text): ``CUBICSPLINE`` interpolation, morph target ``weights``, skins,
+    animation under the reference's flattening quirk, a channel on a node
+    with a ``matrix``, and two channels on one node's same path."""
+    animations = gltf.get("animations", [])
+    if not animations:
+        return None
+    if quirk_mode:
+        raise ValueError("animated glTF: animations are not supported "
+                         "under --gltf-quirk-mode (the reference's "
+                         "flattening ignores non-mesh nodes' TRS)")
+    nodes = gltf.get("nodes", [])
+    if gltf.get("skins") or any("skin" in n for n in nodes):
+        raise ValueError("animated glTF: skins are not supported")
+    channels: List[Channel] = []
+    targeted = set()
+    for a, anim in enumerate(animations):
+        samplers = anim.get("samplers", [])
+        for ch in anim.get("channels", []):
+            target = ch.get("target", {})
+            path = target.get("path")
+            if path == "weights":
+                raise ValueError(f"animation {a}: morph target weights are "
+                                 f"not supported")
+            if path not in ANIMATED_PATHS:
+                raise ValueError(f"animation {a}: target path {path!r} is "
+                                 f"not supported")
+            if "node" not in target:
+                continue    # the specification: such a channel is ignored
+            node = int(target["node"])
+            if "matrix" in nodes[node]:
+                raise ValueError(f"animation {a}: node {node} has a matrix; "
+                                 f"an animated node takes TRS only")
+            if (node, path) in targeted:
+                raise ValueError(f"animation {a}: a second channel on node "
+                                 f"{node}'s {path}")
+            targeted.add((node, path))
+            sampler = samplers[ch["sampler"]]
+            interpolation = sampler.get("interpolation", "LINEAR")
+            if interpolation == "CUBICSPLINE":
+                raise ValueError(f"animation {a}: CUBICSPLINE interpolation "
+                                 f"is not supported")
+            if interpolation not in INTERPOLATIONS:
+                raise ValueError(f"animation {a}: interpolation "
+                                 f"{interpolation!r} is not supported")
+            times = _read_accessor(gltf, buffers, sampler["input"])
+            if times.dtype != np.float32 or times.shape[1] != 1:
+                raise UnsupportedFile(f"animation {a}: input accessor "
+                                      f"{sampler['input']} is not f32 "
+                                      f"SCALAR")
+            times = times.reshape(-1).astype(np.float32)
+            values = _animation_output(gltf, buffers, sampler["output"],
+                                       ANIMATED_PATHS[path])
+            if len(times) == 0 or len(values) != len(times):
+                raise UnsupportedFile(f"animation {a}: {len(times)} key "
+                                      f"times, {len(values)} values")
+            if np.any(np.diff(times) <= 0):
+                raise UnsupportedFile(f"animation {a}: key times are not "
+                                      f"increasing")
+            channels.append(Channel(node, path, times, values,
+                                    interpolation))
+    n = len(nodes)
+    parents = np.full(n, -1, np.int64)
+    for i, node in enumerate(nodes):
+        for child in node.get("children", []):
+            parents[child] = i
+    translation = np.zeros((n, 3))
+    rotation = np.zeros((n, 4))
+    rotation[:, 3] = 1.0
+    scale = np.ones((n, 3))
+    matrix = np.tile(np.eye(4), (n, 1, 1))
+    has_matrix = np.zeros(n, bool)
+    for i, node in enumerate(nodes):
+        if "matrix" in node:
+            matrix[i] = _trs_matrix(node)
+            has_matrix[i] = True
+        translation[i] = node.get("translation", translation[i])
+        rotation[i] = node.get("rotation", rotation[i])
+        scale[i] = node.get("scale", scale[i])
+    return NodeGraph(parents=parents, translation=translation,
+                     rotation=rotation, scale=scale, matrix=matrix,
+                     has_matrix=has_matrix,
+                     instance_node=np.array([inst.node for inst in instances],
+                                            np.int64),
+                     channels=channels)
 
 
 # --------------------------------------------------------------------------
@@ -525,10 +685,17 @@ def load(path: str, quirk_mode: bool = False, load_textures: bool = True) -> Sce
     textures = _load_textures(gltf, buffers, base_dir) if load_textures else []
     materials = _load_materials(gltf)
     instances = _flatten_scene(gltf, quirk_mode)
+    try:
+        animation, refused = _load_animation(gltf, buffers, instances,
+                                             quirk_mode), ""
+    except (ValueError, GltfError) as exc:
+        animation, refused = None, f"{os.path.basename(path)}: {exc}"
     return Scene(
         instances=instances,
         meshes=meshes,
         primitives=primitives,
         materials=materials,
         textures=textures,
+        animation=animation,
+        animation_refused=refused,
     )

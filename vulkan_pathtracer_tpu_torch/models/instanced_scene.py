@@ -83,11 +83,13 @@ class InstanceMaps:
     node_obj_lo: torch.Tensor  # (8*Nn, 3) f32 object box of instance nodes
     node_obj_hi: torch.Tensor  # (8*Nn, 3) f32
     inst_root_obj: torch.Tensor  # (I, 6) f32 mesh root object box
-    top_left: torch.Tensor     # (Ntop,) int64 TLAS children (build order)
-    top_right: torch.Tensor    # (Ntop,) int64
+    top_kids: torch.Tensor     # (2*Ntop,) int64 TLAS left children, then
+    # right children (build order); a leaf is its own two children
     top_leaf_inst: torch.Tensor  # (Ntop,) int64 instance of a TLAS leaf | -1
     top_node: torch.Tensor     # (8, Ntop) int64 record of each TLAS node
     top_depth: int
+    top_inner: torch.Tensor    # (Ninner,) int64 TLAS internal nodes
+    inner_records: torch.Tensor  # (8*Ninner,) their records, octant-major
 
 
 def _transform_aabb(bmin, bmax, A, t):
@@ -322,6 +324,11 @@ def build_instanced_scene(scene: Scene, max_leaf_size: int = 14,
     top_leaf_inst = np.where(top.leaf_first >= 0,
                              top.tri_order[np.maximum(top.leaf_first, 0)],
                              -1)
+    top_inner = np.flatnonzero(top_leaf_inst < 0)
+    own = np.arange(len(top_leaf_inst))
+    top_kids = np.concatenate([
+        np.where(top_leaf_inst < 0, top.left_child, own),
+        np.where(top_leaf_inst < 0, top.right_child, own)])
 
     def up(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev.device)
@@ -330,10 +337,11 @@ def build_instanced_scene(scene: Scene, max_leaf_size: int = 14,
         pair_src=up(pair_src), node_inst=up(cat["inst"]),
         node_obj_lo=up(cat["obj_lo"]), node_obj_hi=up(cat["obj_hi"]),
         inst_root_obj=up(inst_root_obj),
-        top_left=up(top.left_child.astype(np.int64)),
-        top_right=up(top.right_child.astype(np.int64)),
+        top_kids=up(top_kids.astype(np.int64)),
         top_leaf_inst=up(top_leaf_inst.astype(np.int64)),
-        top_node=up(top_node), top_depth=tree_depth(top))
+        top_node=up(top_node), top_depth=tree_depth(top),
+        top_inner=up(top_inner.astype(np.int64)),
+        inner_records=up(top_node[:, top_inner].reshape(-1)))
     return dev
 
 
@@ -347,6 +355,13 @@ def _transform_boxes(lo, hi, A, t):
     return (wc - we).float(), (wc + we).float()
 
 
+def _det3(A: torch.Tensor) -> torch.Tensor:
+    """(N,) determinants of (N, 3, 3) matrices: the triple product of
+    their columns (no factorisation, no read of the device)."""
+    c0, c1, c2 = A[:, :, 0], A[:, :, 1], A[:, :, 2]
+    return (c0 * torch.linalg.cross(c1, c2)).sum(dim=1)
+
+
 def update_instance_transforms(scene: DeviceScene, transforms) -> DeviceScene:
     """A copy of an instanced scene with new (I, 4, 4) instance
     transforms, all on the scene's device: the instance tables, the
@@ -355,16 +370,19 @@ def update_instance_transforms(scene: DeviceScene, transforms) -> DeviceScene:
     the top tree, the skip record (boxes new, skips and leaves kept) and
     the pair table regenerated through its static map, and the feature
     transforms of coefficient leaves (``inst_feat``) when the scene has
-    them.  No triangle is touched."""
+    them.  No triangle is touched.  A fixed sequence of launches: the
+    inverse takes no singularity check (``inv_ex``), the TLAS's internal
+    nodes come from the bake's index tensors, so nothing reads the
+    device back."""
     maps = scene.inst_maps
     dev = scene.device
     M = torch.as_tensor(transforms, dtype=torch.float64, device=dev)
     A = M[:, :3, :3]
     t = M[:, :3, 3]
     n_inst = A.shape[0]
-    Ainv = torch.linalg.inv(A)
+    Ainv = torch.linalg.inv_ex(A).inverse
     inv_t = -(Ainv @ t[:, :, None])[:, :, 0]
-    det_sign = torch.where(torch.linalg.det(A) < 0, -1.0, 1.0).double()
+    det_sign = torch.where(_det3(A) < 0, -1.0, 1.0).double()
     inst_inv = torch.cat([Ainv.reshape(n_inst, 9), inv_t, det_sign[:, None],
                           torch.zeros((n_inst, 3), dtype=torch.float64,
                                       device=dev)], dim=1).float()
@@ -374,26 +392,23 @@ def update_instance_transforms(scene: DeviceScene, transforms) -> DeviceScene:
     lo, hi = _transform_boxes(maps.node_obj_lo, maps.node_obj_hi, A[ii],
                               t[ii])
     # TLAS: leaves hold their instance's world root box; internal nodes
-    # take the union of their children, top_depth - 1 sweeps.
+    # take the union of their children, top_depth - 1 sweeps of three
+    # launches (a node at height h is right after h sweeps, whatever it
+    # held before; a leaf, its own two children, keeps its box).
     root = maps.inst_root_obj
     ilo, ihi = _transform_boxes(root[:, :3], root[:, 3:], A, t)
-    leaf = maps.top_leaf_inst >= 0
-    li = maps.top_leaf_inst.clamp(min=0)
-    big = torch.full_like(ilo[li], 3e38)
-    tb_lo = torch.where(leaf[:, None], ilo[li], big)
-    tb_hi = torch.where(leaf[:, None], ihi[li], -big)
-    lc = maps.top_left.clamp(min=0)
-    rc = maps.top_right.clamp(min=0)
+    box = torch.cat([ilo, ihi], dim=1)[maps.top_leaf_inst.clamp(min=0)]
+    n_top = box.shape[0]
     for _ in range(max(maps.top_depth - 1, 0)):
-        tb_lo = torch.where(leaf[:, None], tb_lo,
-                            torch.minimum(tb_lo[lc], tb_lo[rc]))
-        tb_hi = torch.where(leaf[:, None], tb_hi,
-                            torch.maximum(tb_hi[lc], tb_hi[rc]))
+        kids = box[maps.top_kids].view(2, n_top, 6)
+        box = torch.empty_like(box)
+        torch.minimum(kids[0, :, :3], kids[1, :, :3], out=box[:, :3])
+        torch.maximum(kids[0, :, 3:], kids[1, :, 3:], out=box[:, 3:])
     # TLAS internal nodes into their spliced positions in every octant
     # (a TLAS leaf's position is its instance subtree's root, set above).
-    inner = maps.top_node[:, ~leaf].reshape(-1)
-    lo[inner] = tb_lo[~leaf].repeat(8, 1)
-    hi[inner] = tb_hi[~leaf].repeat(8, 1)
+    inner = box[maps.top_inner].repeat(8, 1)
+    lo[maps.inner_records] = inner[:, :3]
+    hi[maps.inner_records] = inner[:, 3:]
     src = maps.pair_src   # octant 0: records 0 .. Nn-1
     pair_box = torch.cat([lo[src], hi[src]], dim=2)
     skip_nodes = torch.cat([lo, hi, scene.skip_nodes[:, 6:8]], dim=1)

@@ -14,6 +14,31 @@ progressive path): at 1 spp the joint wavefront
 (``render_frames_joint``: the shared primary, every frame's bounce
 rays sorted together, shaded in chunks of ``wavefront.JOINT_CHUNK``
 lanes), else one frame after another (``render_frames_batch``).
+
+An animated scene (``RenderPipeline(scene, config, animation)``, a
+models/animation.SceneAnimation, which app/main.load_pipeline builds
+for a glTF with animations) is posed by ``render(camera, frame,
+time=t)`` before the frame's primaries: ``pose_scene`` evaluates the
+motion at ``t`` seconds (span ``animate``) and moves the baked scene
+(span ``update``): the two-level bake through
+``instanced_scene.update_instance_transforms``, the flat bake through
+``AnimatedScene.with_transforms``; all on the device, no host read.
+Without ``time``, or without an animation, a frame adds nothing.  The
+pooled wavefront refuses an animated scene (its frames would each need
+a pose of their own).
+
+On a CUDA device, where the shading is ops/shade.py's kernels, a frame
+of the two-level bake's default tier (the unsorted pair path, no
+roulette, seeding or kernel choice of its own; ``graphs_frames``) is a
+``FrameGraph``, static or posed alike: the frame's launches captured
+once and replayed, its camera and counter copied from pinned memory.
+The host then enqueues a handful of launches and no synchronising call
+in place of a few hundred, and a light scene's frame is the card's
+time, not the host's.  Every other tier runs eagerly.  A graph holds
+the kernels and the scene of its capture, and is captured again when
+the scene changes.  A graphed frame's spans are ``frame`` and the
+pose's: the spans inside the frame are entered once, at the capture,
+and ``utils/profiling.Attribution`` reads them as absent.
 """
 
 from __future__ import annotations
@@ -25,8 +50,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from vulkan_pathtracer_tpu_torch.models.animation import update_records
 from vulkan_pathtracer_tpu_torch.models.camera import Camera
-from vulkan_pathtracer_tpu_torch.ops import rng
+from vulkan_pathtracer_tpu_torch.ops import rng, shade
 from vulkan_pathtracer_tpu_torch.ops.mxu_mt import table_precision
 from vulkan_pathtracer_tpu_torch.ops.vecmath import normalize
 from vulkan_pathtracer_tpu_torch.render.wavefront import (
@@ -38,7 +64,8 @@ from vulkan_pathtracer_tpu_torch.render.wavefront import (
 )
 from vulkan_pathtracer_tpu_torch.utils import RenderConfig
 from vulkan_pathtracer_tpu_torch.utils.config import Tiers
-from vulkan_pathtracer_tpu_torch.utils.profiling import span
+from vulkan_pathtracer_tpu_torch.utils import profiling
+from vulkan_pathtracer_tpu_torch.utils.profiling import count, span
 
 TILE_H = 32
 TILE_W = 64
@@ -49,7 +76,12 @@ TRAVERSALS = ("auto", "pallas", "pallas_packet", "pallas8", "bvh", "brute")
 def _scalar(x: float, device) -> torch.Tensor:
     """An f32 0-d tensor on ``device``: dividing by it is an exact IEEE
     division on every device (a Python scalar divisor may become a
-    reciprocal multiply on CUDA)."""
+    reciprocal multiply on CUDA).  Inside a CUDA graph's capture, where
+    no copy from host memory may run, the same value filled on the
+    device."""
+    if torch.device(device).type == "cuda" and \
+            torch.cuda.is_current_stream_capturing():
+        return torch.full((), float(x), dtype=torch.float32, device=device)
     return torch.tensor(float(x), dtype=torch.float32, device=device)
 
 
@@ -315,10 +347,75 @@ def render_frames_pooled(scene, positions, horizontals, verticals, forwards,
         return color.reshape(len(frames), height, width, 3), traced
 
 
-class RenderPipeline:
-    """Holds the scene + config and renders frames on the scene's device."""
+def pose_scene(animation, time: float):
+    """The scene of ``animation`` (a SceneAnimation) posed at ``time``
+    seconds: the motion's transforms (span ``animate``), then the baked
+    scene moved to them (span ``update``, with the counters
+    ``instances_moved`` and ``update_records``)."""
+    with span("animate"):
+        transforms = animation.transforms(time)
+    with span("update"):
+        scene = animation.update(transforms)
+        count("instances_moved", animation.moved)
+        count("update_records", update_records(scene))
+    return scene
 
-    def __init__(self, scene, config: RenderConfig):
+
+class FrameGraph:
+    """One frame of ``scene`` as a CUDA graph: ``run(vectors, frame)``
+    (the camera's four (3,) f32 device vectors and the frame counter, a
+    0-d int64 device tensor) captured once, after one eager run on a
+    side stream (kernel builds and loads, cuBLAS's workspace).  Its
+    inputs come from a pinned host buffer (the camera's 12 floats and
+    the counter, in float64, which holds both exactly), copied without a
+    wait; before the buffer is written again, the copy that read it has
+    run (an event).  Returns copies of the frame's outputs, which the next
+    replay overwrites; the replay is reported to the tracer as a launch
+    of the frame's pixels, which places a traced window's spans on the
+    device trace's clock."""
+
+    def __init__(self, run, scene):
+        self.run, self.scene, self.device = run, scene, scene.device
+        self.host = torch.zeros(13, dtype=torch.float64).pin_memory()
+        self.staged = torch.zeros(13, dtype=torch.float64,
+                                  device=self.device)
+        self.copied = torch.cuda.Event()
+        self.graph = None
+
+    def _inputs(self):
+        return (tuple(self.staged[:12].float().view(4, 3).unbind(0)),
+                self.staged[12].to(torch.int64))
+
+    def _capture(self) -> None:
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.run(*self._inputs())
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = self.run(*self._inputs())
+
+    def __call__(self, camera: Camera, frame: int):
+        if not self.copied.query():
+            self.copied.synchronize()
+        host = self.host.numpy()
+        host[:12] = np.concatenate(camera.push_constants())
+        host[12] = int(frame) & 0xFFFFFFFF   # the bits prng_seed reads
+        self.staged.copy_(self.host, non_blocking=True)
+        self.copied.record()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        profiling.launched(profiling.GRAPH_KEY, self.out[0].reshape(-1, 3))
+        return tuple(t.clone() for t in self.out)
+
+
+class RenderPipeline:
+    """Holds the scene + config and renders frames on the scene's device;
+    ``animation`` (a SceneAnimation) poses it (the module docstring)."""
+
+    def __init__(self, scene, config: RenderConfig, animation=None):
         traversal = config.traversal
         if traversal not in TRAVERSALS:
             raise ValueError(f"unknown traversal {traversal!r}")
@@ -341,6 +438,7 @@ class RenderPipeline:
                 f"the same mxu_precision")
         self.scene = scene
         self.config = config
+        self.animation = animation
         self.tiers = tiers
         self.width = config.render_width
         self.height = config.render_height
@@ -351,26 +449,60 @@ class RenderPipeline:
         # The tile permutation of this launch, kept on the device: its
         # upload would cost milliseconds per 1080p frame.
         self._tiles = tile_pixels(self.height, self.width, 0, scene.device)
+        # The tier whose launches read nothing back (graphs_frames).
+        self._graph_tier = (
+            scene.instanced and tiers == Tiers(traversal=tiers.traversal)
+            and tiers.traversal in ("auto", "pallas")
+            and not self._sort_secondary
+            and not config.russian_roulette
+            and not config.seed_secondary)
+        self._graphs = {}    # present_order -> FrameGraph
+
+    @property
+    def graphs_frames(self) -> bool:
+        """Whether a frame replays a FrameGraph (the module docstring):
+        the graph's tier, its shading the kernels of ops/shade.py (on
+        the card; the plain chain copies constants from the host)."""
+        return self._graph_tier and shade.fused(self.scene.root_lo)
+
+    def _frame(self, vectors, frame, present_order: bool):
+        """render_frame of the current scene."""
+        return render_frame(
+            self.scene, *vectors, frame,
+            num_samples=self.config.num_samples,
+            num_bounces=self.config.num_bounces,
+            width=self.width, height=self.height,
+            sort_secondary=self._sort_secondary,
+            present_order=present_order, tiles=self._tiles,
+            tiers=self.tiers, seed_secondary=self.config.seed_secondary,
+            **self._rr)
+
+    def pose(self, time: float) -> None:
+        """Pose an animated scene at ``time`` seconds (``pose_scene``);
+        nothing for a static one."""
+        if self.animation is not None:
+            self.scene = pose_scene(self.animation, time)
 
     def render(self, camera: Camera, frame: int,
-               present_order: bool = True) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
+               present_order: bool = True,
+               time: float = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (radiance (H, W, 3) on the device, rays traced).  With
         ``present_order=False`` radiance is in tile order; convert on the
-        host with ``to_present``.  Traced as the root span ``frame``."""
+        host with ``to_present``.  ``time``: the scene posed at ``time``
+        seconds first (``pose``).  Traced as the root span ``frame``."""
         with span("frame"):
+            if time is not None:
+                self.pose(time)
+            if self.graphs_frames:
+                graph = self._graphs.get(present_order)
+                if graph is None or graph.scene is not self.scene:
+                    graph = self._graphs[present_order] = FrameGraph(
+                        lambda v, f: self._frame(v, f, present_order),
+                        self.scene)
+                return graph(camera, frame)
             with span("primaries"):
-                position, horizontal, vertical, forward = camera_tensors(
-                    camera, self.scene.device)
-            return render_frame(
-                self.scene, position, horizontal, vertical, forward,
-                int(frame), num_samples=self.config.num_samples,
-                num_bounces=self.config.num_bounces,
-                width=self.width, height=self.height,
-                sort_secondary=self._sort_secondary,
-                present_order=present_order, tiles=self._tiles,
-                tiers=self.tiers, seed_secondary=self.config.seed_secondary,
-                **self._rr)
+                vectors = camera_tensors(camera, self.scene.device)
+            return self._frame(vectors, int(frame), present_order)
 
     def render_batch_sum(self, camera: Camera, frame0: int, batch: int,
                          joint: bool = None):
@@ -410,6 +542,10 @@ class RenderPipeline:
             raise ValueError(
                 "render_pooled requires 1 spp (cross-sample pooling would "
                 "break the per-pixel RNG stream's draw order)")
+        if self.animation is not None:
+            raise ValueError(
+                "render_pooled: the scene has animations (glTF node "
+                "channels), and a pooled group shares one pose")
         with span("group"):
             with span("primaries"):
                 vectors = [camera_tensors(cam, self.scene.device)
@@ -429,7 +565,7 @@ class RenderPipeline:
         render target takes the FULL new extent and drops the divider."""
         return RenderPipeline(self.scene, dataclasses.replace(
             self.config, resolution_x=width, resolution_y=height,
-            render_resolution_divider=1))
+            render_resolution_divider=1), self.animation)
 
     def to_present(self, image: np.ndarray) -> np.ndarray:
         """Host-side tile-order -> scanline conversion (identity when the

@@ -17,9 +17,15 @@ on the host clock (``time.perf_counter_ns``), off by default.
   and its host time to the list that places the spans on a device
   trace's clock: the time at which the C launcher returned
   (``launch_returned``, called by ``ops.kernels._launch``), else the time
-  of the call.
+  of the call.  A frame graph's replay (render/pipeline.FrameGraph) is
+  one such launch (``GRAPH_KEY``) in its ``frame`` span; the spans inside
+  the frame are entered only at the capture.
 - ``count_live(count)``: the live lanes of a bounce, a device tensor the
   program computes anyway, kept while on and read once by ``collect``.
+- ``count(name, value)``: a counter of the innermost span, a host int
+  (the scene update's ``instances_moved`` and ``update_records``, once
+  a posed frame, in its ``update`` span under the frame's root; the
+  pose's evaluation is the ``animate`` span beside it).
 - Synchronising calls: while on, PyTorch's sync debug mode warns at each
   call that waits for the card (``.item()``, ``int()``, ``.cpu()``, a
   copy from pageable host memory); each is counted against the innermost
@@ -48,6 +54,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import json
+import math
 import os
 import statistics
 import sys
@@ -67,6 +74,9 @@ LAUNCHED_KERNELS = ("stack_kernel", "stack_chan_kernel",
                     "wide_closest_hit_kernel", "wide_chan_kernel",
                     "shade_extend_kernel", "pixel_shade_kernel",
                     "joint_draw_kernel", "anyhit_sky_kernel")
+# The key of a frame graph's replay (render/pipeline.FrameGraph), reported
+# as one launch of the frame's pixels.
+GRAPH_KEY = "frame_graph"
 PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _tracer = None   # the Tracer of the enclosing tracing(), or None
@@ -124,14 +134,20 @@ class Record:
     - ``syncs``: (span id or -1, the program's line, host ns) of each
       synchronising call, -1 outside every span;
     - ``launches``: (host ns at which it returned, key, lanes) of each
-      reported launch (traversal and shading kernels)."""
+      reported launch (traversal and shading kernels);
+    - ``counters``: (span id or -1, name, value) of each ``count``."""
 
     spans: list = field(default_factory=list)
     syncs: list = field(default_factory=list)
     launches: list = field(default_factory=list)
+    counters: list = field(default_factory=list)
 
     def named(self, name: str) -> list:
         return [s for s in self.spans if s["name"] == name]
+
+    def counted(self, name: str) -> int:
+        """The sum of the counter ``name`` over the window."""
+        return sum(v for _, n, v in self.counters if n == name)
 
     def roots(self) -> list:
         return [s for s in self.spans if s["parent"] == -1]
@@ -150,6 +166,7 @@ class Tracer:
         self.launches = []
         self.syncs = []
         self.live = []       # (span id, int or 0-d tensor)
+        self.counters = []   # (span id, name, int)
         self.returned = None  # host ns at which the last C launcher returned
         self._prior = warnings.showwarning   # other warnings go on to it
 
@@ -169,6 +186,10 @@ class Tracer:
 
     def count_live(self, count) -> None:
         self.live.append((self.stack[-1].id if self.stack else -1, count))
+
+    def count(self, name: str, value: int) -> None:
+        self.counters.append((self.stack[-1].id if self.stack else -1, name,
+                              int(value)))
 
     def _warning(self, message, category, filename, lineno, file=None,
                  line=None):
@@ -194,8 +215,10 @@ class Tracer:
                   "root": s.root, "start_ns": s.start, "end_ns": s.end,
                   "j": s.j, "lanes": s.lanes, "key": s.key,
                   "live": live.get(s.id)} for s in self.spans]
-        record = Record(spans, list(self.syncs), list(self.launches))
+        record = Record(spans, list(self.syncs), list(self.launches),
+                        list(self.counters))
         self.spans, self.launches, self.syncs, self.live = [], [], [], []
+        self.counters = []
         return record
 
 
@@ -242,6 +265,13 @@ def count_live(count) -> None:
     tracer = _tracer
     if tracer is not None:
         tracer.count_live(count)
+
+
+def count(name: str, value: int) -> None:
+    """A host counter of the innermost span (module docstring)."""
+    tracer = _tracer
+    if tracer is not None:
+        tracer.count(name, value)
 
 
 @contextlib.contextmanager
@@ -448,7 +478,13 @@ class Attribution:
     spans: list              # the record's spans
 
     def device_us_under(self, name: str) -> float:
-        """Device time launched in spans named ``name`` or inside one."""
+        """Device time launched in spans named ``name`` or inside one;
+        NaN where no such span was entered and a frame of the window
+        replayed a graph (``GRAPH_KEY``), whose device time is not split
+        by the spans inside it: absent, not 0."""
+        if (all(s["name"] != name for s in self.spans)
+                and any(s["key"] == GRAPH_KEY for s in self.spans)):
+            return math.nan
         by_id = {s["id"]: s for s in self.spans}
         total = 0.0
         for span_id, us in self.device_us.items():
